@@ -1,0 +1,253 @@
+"""Paged multi-query attention partials, and the plain helpers around them.
+
+The port of ``repro.kernels.flash_decode``'s serving read. One wrapper,
+:func:`paged_flash_prefix_partial`, serves every window width T: fused
+decode (:func:`paged_flash_decode_partial`, T=1) and chunked prefill
+(T=chunk) both go through it, so the T=1 read is the decode read bit for
+bit by construction.
+
+On CUDA tensors the wrapper launches the hand-written kernel
+``csrc/paged_attention.cu`` (it replaces the TPU kernel
+``flash_decode.py::_paged_mq_pallas``) or raises; it never falls back.
+On CPU tensors it runs the plain version :func:`_paged_prefix_torch`,
+which mirrors the reference's ``_paged_prefix_xla`` column loop and is
+the oracle the kernel is held against on the card.
+
+Every launch adds one to ``LAUNCHES["paged_attention"]``; nothing else
+does, so a run can show that its main path went through the kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from collections import Counter
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import _build
+
+NEG_INF = -1e30
+
+#: launches of each CUDA kernel of this module, by kernel name
+LAUNCHES: Counter = Counter()
+
+_KV_KIND = {torch.bfloat16: 0, torch.int8: 1}
+_MAX_HEAD_DIM = 128
+_MAX_SMEM = 227 * 1024
+_ROWS_PER_BLOCK = 16       # kRowsPerBlock in the kernel
+_WARPS = 4
+
+
+def _scale(d: int, sm_scale: Optional[float]) -> float:
+    return sm_scale or 1.0 / float(np.sqrt(d))
+
+
+# ==========================================================================
+# Plain version (CPU path, and the kernel's oracle on the card)
+# ==========================================================================
+
+
+def _live_cols(lengths: torch.Tensor, bs: int, mb: int) -> int:
+    """Leading table columns any row can still touch: ceil(max(len)/bs).
+    Every later column is fully masked for every row, a bitwise no-op in
+    the online-softmax recurrence, so the loop stops there."""
+    if lengths.shape[0] == 0:
+        return 0
+    # repro: allow[JIT-03] plain path: the wrapper routes only host tensors here, so the max is read from host memory
+    mx = int(lengths.max())
+    return min(mb, (mx + bs - 1) // bs)
+
+
+def _paged_prefix_torch(q, k_pages, v_pages, table, lengths, k_scale,
+                        v_scale, *, sm_scale=None):
+    """Column loop over the block table: one (B, bs, K, hd) page tile is
+    gathered per step and reused by all T rows; f32 online softmax."""
+    b, tq, h, d = q.shape
+    _, bs, n_kv, _ = k_pages.shape
+    g = h // n_kv
+    mb = table.shape[1]
+    dev = q.device
+    qg = q.reshape(b, tq, n_kv, g, d).float() * _scale(d, sm_scale)
+    m = torch.full((b, tq, n_kv, g), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, tq, n_kv, g), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, tq, n_kv, g, d), dtype=torch.float32, device=dev)
+    neg = torch.full((), NEG_INF, dtype=torch.float32, device=dev)
+    for j in range(_live_cols(lengths, bs, mb)):
+        blk = table[:, j].long()
+        k = k_pages[blk].float()                           # (B, bs, K, hd)
+        v = v_pages[blk].float()
+        if k_scale is not None:
+            k = k * k_scale[blk]
+            v = v * v_scale[blk]
+        s = torch.einsum("btkgd,bskd->btkgs", qg, k)        # (B,T,K,G,bs)
+        kpos = j * bs + torch.arange(bs, device=dev)
+        valid = (kpos[None, :] < lengths[:, None])[:, None, None, None, :]
+        s = torch.where(valid, s, neg)
+        m_new = torch.maximum(m, s.amax(-1))
+        # mask p explicitly: a row with no valid position yet would give
+        # exp(NEG_INF - NEG_INF) = 1 weight to garbage
+        p = torch.where(valid, torch.exp(s - m_new[..., None]),
+                        torch.zeros((), device=dev))
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum("btkgs,bskd->btkgd", p, v)
+        m = m_new
+    return (acc.reshape(b, tq, h, d), m.reshape(b, tq, h, 1),
+            l.reshape(b, tq, h, 1))
+
+
+# ==========================================================================
+# The CUDA kernel's wrapper
+# ==========================================================================
+
+
+def _check(cond: bool, msg: str) -> None:
+    # repro: allow[JIT-04] the wrapper's checks read tensor metadata (device, dtype, shape, strides), never device values
+    if not cond:
+        raise ValueError(f"paged_attention: {msg}")
+
+
+@functools.lru_cache(maxsize=None)
+def _entry():
+    """The kernel's C entry point, built and loaded on first use, with its
+    ctypes signature set once."""
+    fn = _build.load("paged_attention").paged_attention_partial
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp, vp, vp, ci, vp, vp, vp, vp, vp, vp, vp,
+                   ci, ci, ci, ci, ci, ci, ci, ctypes.c_float, vp]
+    fn.restype = ci
+    return fn
+
+
+def _paged_mq_cuda(q, k_pages, v_pages, table, lengths, k_scale, v_scale,
+                   *, sm_scale=None):
+    b, tq, h, d = q.shape
+    nb, bs, n_kv, dk = k_pages.shape
+    mb = table.shape[1]
+    dev = q.device
+    tensors = [q, k_pages, v_pages, table, lengths]
+    quant = k_scale is not None
+    if quant:
+        tensors += [k_scale, v_scale]
+    for t in tensors:
+        _check(t.device == dev, f"all tensors must be on {dev}, got "
+               f"{t.device}")
+        _check(t.is_contiguous(), "tensors must be contiguous")
+    _check(q.dtype == torch.bfloat16, f"q dtype {q.dtype} is not bf16")
+    _check(k_pages.dtype in _KV_KIND and v_pages.dtype == k_pages.dtype,
+           f"page dtypes {k_pages.dtype}/{v_pages.dtype} not one of "
+           f"bf16/int8")
+    _check(v_pages.shape == k_pages.shape, "k/v page shapes differ")
+    _check(dk == d and 0 < d <= _MAX_HEAD_DIM,
+           f"head_dim {dk} vs q {d}, must match and be <= {_MAX_HEAD_DIM}")
+    _check(n_kv > 0 and h % n_kv == 0, f"{h} heads over {n_kv} kv heads")
+    _check(quant == (k_pages.dtype == torch.int8) and
+           (v_scale is not None) == quant,
+           "int8 pages need k_scale and v_scale, other pages none")
+    if quant:
+        for sc in (k_scale, v_scale):
+            _check(sc.dtype == torch.float32 and
+                   tuple(sc.shape) == (nb, bs, n_kv, 1),
+                   f"scales must be f32 {(nb, bs, n_kv, 1)}, got "
+                   f"{sc.dtype} {tuple(sc.shape)}")
+    _check(table.dtype == torch.int32 and table.shape[0] == b and mb > 0,
+           f"table must be int32 ({b}, max_blocks)")
+    _check(lengths.dtype == torch.int32 and tuple(lengths.shape) == (b,),
+           f"lengths must be int32 ({b},)")
+    smem = 4 * (bs * (d + 1) + bs * d + _ROWS_PER_BLOCK * d + _WARPS * bs)
+    _check(smem <= _MAX_SMEM, f"block_size {bs} x head_dim {d} needs "
+           f"{smem} bytes of shared memory")
+    o = torch.empty((b, tq, h, d), dtype=torch.float32, device=dev)
+    m = torch.empty((b, tq, h, 1), dtype=torch.float32, device=dev)
+    l = torch.empty((b, tq, h, 1), dtype=torch.float32, device=dev)
+    if b * tq * h * d == 0:
+        return o, m, l
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _entry()(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                      _KV_KIND[k_pages.dtype],
+                      k_scale.data_ptr() if quant else None,
+                      v_scale.data_ptr() if quant else None,
+                      table.data_ptr(), lengths.data_ptr(),
+                      o.data_ptr(), m.data_ptr(), l.data_ptr(),
+                      b, tq, h, n_kv, d, bs, mb, _scale(d, sm_scale), stream)
+    # repro: allow[JIT-04] rc is the C int cudaGetLastError() returned to the host, not a device value
+    if rc != 0:
+        raise RuntimeError(f"paged_attention launch failed: CUDA error {rc}")
+    LAUNCHES["paged_attention"] += 1
+    return o, m, l
+
+
+# ==========================================================================
+# Public entry points
+# ==========================================================================
+
+
+def paged_flash_prefix_partial(q, k_pages, v_pages, table, lengths, *,
+                               k_scale=None, v_scale=None,
+                               sm_scale: Optional[float] = None):
+    """Attention partials of a T-token window against ONE layer's paged KV.
+
+    q: (B, T, H, D); k_pages/v_pages: (n_blocks, block, K, hd) storage
+    (bf16, or int8 with (n_blocks, block, K, 1) f32 scales); table:
+    (B, max_blocks) int32; lengths: (B,) int32 valid prefix lengths. Every
+    row of the window attends the same [0, lengths[b]) prefix; the
+    window's own tokens are merged in by :func:`causal_self_partial` and
+    :func:`merge_partials`. Returns unnormalized (o (B,T,H,D) f32,
+    m (B,T,H,1), l (B,T,H,1)).
+
+    CUDA tensors launch the kernel; CPU tensors run the plain version."""
+    # repro: allow[JIT-04] dispatch on where the tensor lives (host metadata): the card launches the kernel, host memory runs the plain version
+    if q.is_cuda:
+        return _paged_mq_cuda(q, k_pages, v_pages, table, lengths, k_scale,
+                              v_scale, sm_scale=sm_scale)
+    return _paged_prefix_torch(q, k_pages, v_pages, table, lengths, k_scale,
+                               v_scale, sm_scale=sm_scale)
+
+
+def paged_flash_decode_partial(q, k_pages, v_pages, table, lengths, *,
+                               k_scale=None, v_scale=None,
+                               sm_scale: Optional[float] = None):
+    """Single-token read: q (B, H, D) -> (o (B,H,D), m (B,H,1), l (B,H,1)).
+    The T=1 case of :func:`paged_flash_prefix_partial`, same kernel."""
+    o, m, l = paged_flash_prefix_partial(
+        q[:, None].contiguous(), k_pages, v_pages, table, lengths,
+        k_scale=k_scale, v_scale=v_scale, sm_scale=sm_scale)
+    return o[:, 0], m[:, 0], l[:, 0]
+
+
+def merge_partials(parts):
+    """LSE-merge a list of (o, m, l) partials (cache + fresh window) and
+    normalize."""
+    os_, ms, ls = zip(*parts)
+    m_glob = ms[0]
+    for m_ in ms[1:]:
+        m_glob = torch.maximum(m_glob, m_)
+    o = sum(o_ * torch.exp(m_ - m_glob) for o_, m_ in zip(os_, ms))
+    l = sum(l_ * torch.exp(m_ - m_glob) for l_, m_ in zip(ls, ms))
+    return o / torch.clamp_min(l, 1e-30)
+
+
+def causal_self_partial(q, k, v, *, sm_scale: Optional[float] = None):
+    """Unnormalized causal self-attention partials of a fresh T-token
+    window: row i attends columns j <= i. q (B,T,H,D), k/v (B,T,K,hd)
+    already storage-roundtripped; returns (o f32, m, l) shaped like
+    :func:`paged_flash_prefix_partial`. For T=1: m = q.k*scale, l = 1,
+    o = v."""
+    b, t, h, d = q.shape
+    n_kv = k.shape[2]
+    g = h // n_kv
+    dev = q.device
+    qg = q.reshape(b, t, n_kv, g, d).float()
+    s = torch.einsum("bikgd,bjkd->bikgj", qg, k.float()) * _scale(d, sm_scale)
+    idx = torch.arange(t, device=dev)
+    mask = (idx[:, None] >= idx[None, :])[None, :, None, None, :]
+    s = torch.where(mask, s, torch.full((), NEG_INF, device=dev))
+    m = s.amax(-1, keepdim=True)                    # the diagonal is live
+    p = torch.where(mask, torch.exp(s - m), torch.zeros((), device=dev))
+    l = p.sum(-1, keepdim=True)
+    o = torch.einsum("bikgj,bjkd->bikgd", p, v.float())
+    return (o.reshape(b, t, h, d), m.reshape(b, t, h, 1),
+            l.reshape(b, t, h, 1))

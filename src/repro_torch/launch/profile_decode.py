@@ -1,0 +1,98 @@
+"""Where a fused decode step's time goes on the card.
+
+    PYTHONPATH=src python -m repro_torch.launch.profile_decode [--steps 10]
+
+Serves full-width qwen1.5-0.5b (seeded random weights) with eight running
+requests (prompts of 64/256/1000 tokens, cycled), warms up, then times
+``--steps`` decode steps twice: on the host clock without a profiler
+(wall per step), and under ``torch.profiler`` (device busy time per step,
+the device's idle share, kernels per step, and device time by kernel).
+Prints the card's name and power limit first; needs a CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import subprocess
+import time
+from collections import defaultdict
+from typing import List, Optional
+
+
+def main(argv: Optional[List[str]] = None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--steps", type=int, default=10)
+    args = ap.parse_args(argv)
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.device import resolve_device
+    from repro_torch.data.pipeline import serving_requests
+    from repro_torch.models.lm import LM
+    from repro_torch.serving.engine import Engine, Request
+
+    dev = resolve_device("cuda")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    cfg = get_config("qwen1.5-0.5b")
+    params = LM(cfg, device=dev).init(0)
+    eng = Engine(cfg, params, max_batch=8, n_blocks=1024, block_size=16,
+                 device=dev)
+    warm = 3
+    for i, p in enumerate(serving_requests(8, cfg.vocab_size,
+                                           prompt_lens=[64, 256, 1000])):
+        eng.submit(Request(rid=i, tokens=p,
+                           max_new_tokens=4 + warm + 2 * args.steps))
+    for _ in range(1 + warm):          # whole-prompt prefill, then decode
+        eng.step()
+    if sum(r is not None for r in eng.sched.running) != 8:
+        raise RuntimeError("expected eight running requests")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(args.steps):
+        eng.step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / args.steps
+
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(args.steps):
+            eng.step()
+        torch.cuda.synchronize()
+    wall_prof = (time.perf_counter() - t0) / args.steps
+
+    by_name = defaultdict(lambda: [0.0, 0])
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name][0] += e.time_range.elapsed_us()
+            by_name[e.name][1] += 1
+    busy = sum(v[0] for v in by_name.values()) / 1e3 / args.steps
+    n_kernels = sum(v[1] for v in by_name.values()) / args.steps
+    paged = sum(v[0] for k, v in by_name.items()
+                if "paged_mq_kernel" in k) / 1e3 / args.steps
+    print(f"[profile] {card} | qwen1.5-0.5b full width, 8 rows, "
+          f"bf16 KV, {args.steps} steps")
+    if not by_name:
+        print("[profile] device time: not measured (the profiler recorded "
+              f"no device events); wall per step {wall * 1e3:.2f} ms")
+        return
+    # the profiler slows the host, not the device: the idle share is the
+    # busy time against the unprofiled wall time
+    print(f"[profile] wall per decode step {wall * 1e3:.2f} ms "
+          f"({wall_prof * 1e3:.2f} ms under the profiler); device busy "
+          f"{busy:.2f} ms per step, idle share "
+          f"{max(0.0, 1 - busy / (wall * 1e3)) * 100:.1f}%; "
+          f"{n_kernels:.0f} kernels per step; paged_attention "
+          f"{paged:.2f} ms per step ({paged / busy * 100:.1f}% of busy)")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    for name, (us, n) in top:
+        print(f"[profile]   {us / 1e3 / args.steps:8.3f} ms/step "
+              f"{n / args.steps:6.1f}/step  {name[:110]}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,103 @@
+"""Serving launcher CLI of the port: the continuous-batching engine over a
+synthetic burst, on the card by default.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
+        --requests 16 --int8-kv                # fused paged decode
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --prefill-chunk 16                     # paged chunked prefill
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+
+Fused decode and chunked prefill read the KV cache through one paged
+multi-query attention kernel (kernels/flash_decode), at T=1 and T=chunk.
+As the reference CLI does, it serves the arch's reduced (smoke) config
+with random weights from seed 0; ``chip_smoke.py`` drives the full width.
+"""
+from __future__ import annotations
+
+import argparse
+from typing import List, Optional
+
+
+def parse_mixed_lens(text: Optional[str]) -> Optional[List[int]]:
+    """Parse ``--mixed-lens`` ("16,64,24") into positive prompt lengths,
+    rejecting malformed input at the CLI boundary."""
+    if text is None:
+        return None
+    lens: List[int] = []
+    for tok in text.split(","):
+        tok = tok.strip()
+        if not tok:
+            raise ValueError(
+                f"--mixed-lens {text!r}: empty entry (double or trailing "
+                f"comma?) — expected comma-separated positive ints")
+        try:
+            val = int(tok)
+        except ValueError:
+            raise ValueError(
+                f"--mixed-lens {text!r}: {tok!r} is not an integer") \
+                from None
+        if val < 1:
+            raise ValueError(
+                f"--mixed-lens {text!r}: prompt length {val} must be >= 1")
+        lens.append(val)
+    return lens
+
+
+def main(argv: Optional[List[str]] = None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen1.5-0.5b")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=24)
+    ap.add_argument("--max-new", type=int, default=8)
+    ap.add_argument("--max-batch", type=int, default=4)
+    ap.add_argument("--n-blocks", type=int, default=128)
+    ap.add_argument("--block-size", type=int, default=8)
+    ap.add_argument("--int8-kv", action="store_true")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="page prompts out N tokens per step, interleaved "
+                         "with decode (0 = whole-prompt prefill)")
+    ap.add_argument("--mixed-lens", default=None,
+                    help="comma-separated prompt lengths cycled over the "
+                         "burst, e.g. 16,64,24 (overrides --prompt-len)")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda; cpu runs the plain "
+                         "PyTorch path)")
+    args = ap.parse_args(argv)
+
+    from repro_torch.configs import get_config, list_archs
+    from repro_torch.data.pipeline import serving_requests
+    from repro_torch.models.lm import LM
+    from repro_torch.serving.engine import Engine, Rejected, Request
+
+    if args.arch not in list_archs():
+        ap.error(f"unknown --arch {args.arch!r} (choose from "
+                 f"{', '.join(list_archs())})")
+    try:
+        lens = parse_mixed_lens(args.mixed_lens)
+    except ValueError as e:
+        ap.error(str(e))
+    cfg = get_config(args.arch, reduced=True)
+    model = LM(cfg, device=args.device)
+    params = model.init(0)
+    eng = Engine(cfg, params, max_batch=args.max_batch,
+                 n_blocks=args.n_blocks, block_size=args.block_size,
+                 kv_quant="int8" if args.int8_kv else "none",
+                 prefill_chunk=args.prefill_chunk or None,
+                 device=model.device)
+    for i, p in enumerate(serving_requests(args.requests, cfg.vocab_size,
+                                           prompt_len=args.prompt_len,
+                                           prompt_lens=lens)):
+        try:
+            eng.submit(Request(rid=i, tokens=p,
+                               max_new_tokens=args.max_new))
+        except Rejected as e:
+            print(f"{'rejected':>20s}: rid={i} ({e.reason})")
+    eng.run()
+    print(f"{'device':>20s}: {model.device}")
+    for k, v in eng.stats().items():
+        print(f"{k:>20s}: {v:.4f}" if isinstance(v, float) else
+              f"{k:>20s}: {v}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,125 @@
+"""Core layers: dense projection, RMSNorm, RoPE, SwiGLU, naive attention.
+
+Plain functions on tensors with the JAX package's layouts and rounding
+discipline (``repro.models.layers``): every product accumulates in f32
+and rounds ONCE to its output type, and chains that feed more f32 math
+(swiglu's gate, the q/k/v projection) stay real f32 until one final
+rounding.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Optional
+
+import numpy as np
+import torch
+
+NEG_INF = -1e30
+
+
+def dense(x: torch.Tensor, w: torch.Tensor, n_in: int = 1, bias=None,
+          out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Contract the last ``n_in`` dims of ``x`` with the first ``n_in``
+    dims of ``w``; the output gets ``w``'s remaining dims.
+
+    The product runs on f32 operands (bf16 widens exactly) and is rounded
+    once to ``out_dtype`` (default: the promoted input type).
+    ``out_dtype=torch.float32`` keeps the f32 accumulator as the output.
+    ``bias`` is added after the rounding, in the output type, as the
+    reference does."""
+    in_shape = x.shape[:-n_in]
+    k = int(np.prod(x.shape[-n_in:]))
+    out_dims = tuple(w.shape[n_in:])
+    x2 = x.reshape(*in_shape, k)
+    w2 = w.reshape(k, int(np.prod(out_dims)))
+    out_dt = out_dtype or torch.promote_types(x2.dtype, w2.dtype)
+    acc = (torch.promote_types(torch.float32, out_dt)
+           if out_dt.is_floating_point else out_dt)
+    y = torch.matmul(x2.to(acc), w2.to(acc)).to(out_dt)
+    y = y.reshape(*in_shape, *out_dims)
+    if bias is not None:
+        y = y + bias
+    return y
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor,
+            eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * w.float()).to(x.dtype)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(x)
+
+
+def swiglu(x, w_gate, w_up, w_down) -> torch.Tensor:
+    """The gate chain is real f32 with one rounding at the end."""
+    g = dense(x, w_gate, out_dtype=torch.float32)
+    u = dense(x, w_up, out_dtype=torch.float32)
+    h = silu(g) * u
+    return dense(h, w_down).to(x.dtype)
+
+
+def rope_frequencies(head_dim: int, fraction: float, theta: float):
+    """Inverse frequencies (numpy f32, computed as the reference does)
+    and the rotated width."""
+    rot = int(head_dim * fraction)
+    rot -= rot % 2
+    inv = 1.0 / (theta ** (np.arange(0, rot, 2, dtype=np.float32) / rot))
+    return inv.astype(np.float32), rot
+
+
+@functools.lru_cache(maxsize=None)
+def _rope_table(head_dim: int, fraction: float, theta: float,
+                device: torch.device):
+    """The inverse frequencies as a tensor on ``device``, built once: a
+    fresh host-to-device copy per call would block the host on every
+    layer of every step."""
+    inv, _ = rope_frequencies(head_dim, fraction, theta)
+    return torch.from_numpy(inv).to(device)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               fraction: float = 1.0, theta: float = 10000.0
+               ) -> torch.Tensor:
+    """x: (B, T, H, hd); positions: (B, T) or (T,). Rotates the first
+    ``fraction * hd`` dims (neox halves, f32 angles), passes the rest
+    through."""
+    hd = x.shape[-1]
+    _, rot = rope_frequencies(hd, fraction, theta)
+    if rot == 0:
+        return x
+    inv_t = _rope_table(hd, fraction, theta, x.device)
+    if positions.ndim == 1:
+        positions = positions[None, :]
+    ang = positions[:, :, None].float() * inv_t[None, None, :]
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    xr, xp = x[..., :rot], x[..., rot:]
+    x1f = xr[..., : rot // 2].float()
+    x2f = xr[..., rot // 2:].float()
+    out = torch.cat([x1f * cos - x2f * sin, x2f * cos + x1f * sin],
+                    dim=-1).to(x.dtype)
+    return torch.cat([out, xp], dim=-1) if rot < hd else out
+
+
+def naive_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
+    """Materialized-score attention. q (B, T, H, hd), k/v (B, S, K, hd)
+    with H = K * G. Scores and softmax in f32; the probabilities are cast
+    to v's type before the value product, as the reference does."""
+    b, t, h, d = q.shape
+    s, n_kv = k.shape[1], k.shape[2]
+    qg = q.reshape(b, t, n_kv, h // n_kv, d)
+    scale = float(np.float32(1.0 / np.sqrt(d)))
+    scores = torch.einsum("btkgd,bskd->bkgts", qg.float(), k.float()) * scale
+    if causal:
+        mask = (torch.arange(t, device=q.device)[:, None]
+                >= torch.arange(s, device=q.device)[None, :])
+        scores = torch.where(mask[None, None, None], scores,
+                             torch.full((), NEG_INF, device=q.device))
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgts,bskd->btkgd", p.to(v.dtype).float(),
+                       v.float()).to(v.dtype)
+    return out.reshape(b, t, h, d)

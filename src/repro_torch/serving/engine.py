@@ -1,0 +1,543 @@
+"""Continuous-batching serving engine: fused paged decode and chunked
+prefill over a paged KV cache (the port of ``repro.serving.engine``,
+``mode="fused"``, dense family).
+
+The engine owns a paged KV cache (serving/cache.py) and a
+:class:`~repro_torch.serving.scheduler.Scheduler` that makes every policy
+decision: FIFO admission with lazy block allocation, chunked-prefill
+planning, and preemption of the youngest request under block pressure.
+
+**Fused decode.** ``_fused_step_impl`` advances every running sequence by
+one token: embed, the layer stack with attention read from the *paged*
+cache through the block table (kernels/flash_decode
+``paged_flash_decode_partial``; the hand-written CUDA kernel on the card),
+the fresh token's own contribution LSE-merged analytically
+(``causal_self_partial`` + ``merge_partials``), the head and greedy pick,
+and ONE all-layer scatter of the new KV after the stack. The batch is
+always ``max_batch`` rows; inactive rows have length 0, an all-zero table
+row and route their append to the null block.
+
+**Prefill** comes in two schedules: whole-prompt (``prefill_chunk=None``:
+admitted requests grouped by context length, one dense forward per group,
+one paged write per sequence) and chunked (``prefill_chunk=N``: one chunk
+step pages N context tokens of one sequence per engine step, reading its
+already-paged prefix through the same multi-query kernel, T=N, while the
+running batch keeps decoding in the same engine step).
+
+**State updates in place.** Where the reference donates its state
+buffers to each jitted step and rebinds the result, the port writes the
+KV storage in place: the step functions mutate ``self.kv.state`` and
+return only the per-step outputs. The step bodies hold no host syncs, so
+a step is a stream of launches the host does not wait on until it reads
+the tokens.
+
+**Failure semantics.** A row whose logits are not all finite is
+quarantined: it is evicted as ``FAILED`` through the scheduler's
+scrub -> release path without emitting its token. ``run`` raises
+:class:`StallError` after ``STALL_LIMIT`` steps without progress.
+"""
+from __future__ import annotations
+
+import time
+from collections import Counter
+from typing import Dict, List, Optional, Union
+
+import numpy as np
+import torch
+
+from repro_torch.core.config import ArchConfig
+from repro_torch.core.device import resolve_device
+from repro_torch.core.stats import percentile as _pct
+from repro_torch.kernels import flash_decode as fd
+from repro_torch.models import blocks as B
+from repro_torch.models import layers as L
+from repro_torch.models.lm import LM
+from repro_torch.models.params import tree_map
+from repro_torch.serving import cache as C
+from repro_torch.serving.cache import PagedKVCache, PagedKVConfig
+from repro_torch.serving.scheduler import (FAILED, FINISHED, RUNNING,
+                                           Rejected, Request, Scheduler)
+
+__all__ = ["Engine", "Request", "Rejected", "StallError"]
+
+#: consecutive steps without progress before ``run`` gives up
+STALL_LIMIT = 200
+
+
+class StallError(RuntimeError):
+    """``Engine.run`` made no progress for ``STALL_LIMIT`` consecutive
+    steps while work remained; names every stuck request."""
+
+    def __init__(self, idle_steps: int, stuck: List[Request]):
+        self.rids = [r.rid for r in stuck]
+        names = ", ".join(
+            f"rid={r.rid}({r.state}, prefilled={r.prefilled}, "
+            f"out={len(r.output)})" for r in stuck)
+        super().__init__(
+            f"engine stalled: {idle_steps} consecutive steps without "
+            f"progress; stuck requests: {names or '<none>'}")
+
+
+def _next_pow2(n: int) -> int:
+    p = 1
+    while p < n:
+        p *= 2
+    return p
+
+
+class Engine:
+    """Serve ``cfg`` with ``params`` on ``device`` (the card unless the
+    caller passes ``"cpu"``; params are moved there if needed)."""
+
+    def __init__(self, cfg: ArchConfig, params, *, max_batch: int = 8,
+                 n_blocks: int = 64, block_size: int = 16,
+                 kv_quant: str = "none",
+                 prefill_chunk: Optional[int] = None,
+                 device: Optional[Union[str, torch.device]] = None):
+        if kv_quant not in ("none", "int8"):
+            raise ValueError(f"kv_quant must be 'none' or 'int8', got "
+                             f"{kv_quant!r}")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.model = LM(cfg, device=self.device)
+        self.params = tree_map(lambda t: t.to(self.device), params)
+        # per-layer views into the stacked block tree, built once
+        self._layers = [self.model.layer_params(self.params, i)
+                        for i in range(cfg.n_layers)]
+        self.max_batch = max_batch
+        self.block_size = block_size
+        self.prefill_chunk = prefill_chunk
+        self.clock = time.monotonic
+        self._attn_pos = [i for i in range(self.model.period)
+                          if self.model.kinds[i] == "attn"]
+        self.kv_cfg = PagedKVConfig(
+            n_layers=len(self._attn_pos) * self.model.n_periods,
+            n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
+            n_blocks=n_blocks, block_size=block_size, kv_quant=kv_quant)
+        self.kv = PagedKVCache(self.kv_cfg, device=self.device)
+        self.sched = Scheduler(max_batch=max_batch, n_blocks=n_blocks,
+                               block_size=block_size,
+                               prefill_chunk=prefill_chunk)
+        # recompute-style preemption scrubs the victim's pages before the
+        # allocator reuses them
+        self.sched.on_preempt = self._scrub_preempted
+        self.finished: List[Request] = []
+        self.n_rejected = 0
+        self.steps = 0
+        self.prefill_tokens = 0
+        self.decode_tokens = 0
+        self.decode_time = 0.0
+        self.prefill_time = 0.0
+        # engine steps of each kind (host-side accounting: every decode or
+        # chunk step reads the paged cache once per attention layer)
+        self.step_counts: Counter = Counter()
+
+    @property
+    def alloc(self):
+        return self.sched.alloc
+
+    def _dev(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(self.device)
+
+    # ------------------------------------------------------------------
+    # Scheduling entry points (policy lives in serving/scheduler.py)
+    # ------------------------------------------------------------------
+
+    def submit(self, req: Request) -> None:
+        """Enqueue a request, or raise :class:`Rejected` (counted in
+        ``stats()["rejected"]``)."""
+        req.arrival = req.arrival or self.clock()
+        try:
+            self.sched.submit(req)
+        except Rejected as e:
+            self.n_rejected += 1
+            req.finish_time = req.finish_time or self.clock()
+            raise
+
+    def live_requests(self) -> List[Request]:
+        return list(self.sched.waiting) + [r for r in self.sched.running
+                                           if r is not None]
+
+    def _evict_terminal(self, req: Request, state: str) -> None:
+        """Move ``req`` to a terminal state through the preempt -> scrub
+        -> release path and account it with the finished cohort."""
+        self.sched.evict_terminal(req, state, self.clock())
+        self.finished.append(req)
+
+    # ------------------------------------------------------------------
+    # Whole-prompt prefill: one forward per group of equal-length
+    # contexts, paged out with one write per sequence. Resume-aware: a
+    # preempted request re-prefills its prompt plus generated prefix.
+    # ------------------------------------------------------------------
+
+    def _prefill(self, reqs: List[Request]) -> None:
+        by_len: Dict[int, List[Request]] = {}
+        for r in reqs:
+            by_len.setdefault(r.context_len(), []).append(r)
+        for t in sorted(by_len):
+            self._prefill_group(by_len[t], t)
+
+    def _prefill_group(self, group: List[Request], t: int) -> None:
+        toks = self._dev(np.asarray([r.context_tokens() for r in group],
+                                    np.int32))
+        logits, cache, _ = self.model.prefill(self.params, toks)
+        n_l = self.kv_cfg.n_layers
+        lkv = (len(group), t, self.kv_cfg.n_kv_heads, self.kv_cfg.head_dim)
+        k_all = torch.stack([cache[f"pos{p}"]["k"] for p in self._attn_pos],
+                            dim=1).reshape(n_l, *lkv)
+        v_all = torch.stack([cache[f"pos{p}"]["v"] for p in self._attn_pos],
+                            dim=1).reshape(n_l, *lkv)
+        for g, r in enumerate(group):
+            self.kv.write_prefill((k_all[:, g], v_all[:, g]), r.blocks)
+        next_tok = logits.argmax(dim=-1).cpu().numpy()
+        row_ok = torch.isfinite(logits.float()).all(dim=-1).cpu().numpy()
+        now = self.clock()
+        for g, r in enumerate(group):
+            if not row_ok[g]:       # poisoned prompt forward: quarantine
+                self._evict_terminal(r, FAILED)
+                continue
+            if not r.output:        # fresh request: this IS the first token
+                r.output.append(int(next_tok[g]))
+                r.first_token_time = now
+            r.prefilled = t
+            r.state = RUNNING
+            self.prefill_tokens += t
+
+    # ------------------------------------------------------------------
+    # Shared layer body. Fused decode and chunked prefill run the SAME
+    # body over the layer stack and differ only in the attention read
+    # (``attn_read``): paged multi-query prefix partial + fresh-window
+    # causal partial + LSE merge, decode being the T=1 window. The body
+    # attends to the fresh tokens exactly as the cache will store them
+    # (int8 round trip under kv_quant) and returns the encoded form for
+    # the single post-stack scatter.
+    # ------------------------------------------------------------------
+
+    def _make_stack_body(self, *, positions, attn_read):
+        cfg = self.cfg
+        quant = self.kv_cfg.kv_quant
+        period = self.model.period
+
+        def body(x, per, kv_slice):
+            new_kv: Dict[str, list] = {}
+            r = 0
+            for pos in range(period):
+                pp = self._layers[per * period + pos]
+                h = L.rmsnorm(x, pp["mix"]["ln"], cfg.norm_eps)
+                q, k, v = B._qkv(h, pp["mix"], cfg, positions)
+                kq, ks = C.quant_encode(k, quant)
+                vq, vs = C.quant_encode(v, quant)
+                out = attn_read(q, (kq, ks, vq, vs), kv_slice, r)
+                x = x + L.dense(out, pp["mix"]["wo"], n_in=2)
+                new_kv.setdefault("k", []).append(kq)
+                new_kv.setdefault("v", []).append(vq)
+                if ks is not None:
+                    new_kv.setdefault("k_scale", []).append(ks)
+                    new_kv.setdefault("v_scale", []).append(vs)
+                r += 1
+                x = B.ffn_apply(x, pp["ffn"], cfg)
+            return x, {kk: torch.stack(vv) for kk, vv in new_kv.items()}
+
+        return body
+
+    def _kv_xs(self, kv_state) -> List[Dict[str, torch.Tensor]]:
+        """(L, ...) storage -> per-period views (attn-per-period, ...)."""
+        n = len(self._attn_pos)
+        return [{kk: vv[per * n:(per + 1) * n] for kk, vv in kv_state.items()}
+                for per in range(self.model.n_periods)]
+
+    def _run_stack(self, body, x, kv_state):
+        ys = []
+        for per, kv_slice in enumerate(self._kv_xs(kv_state)):
+            x, y = body(x, per, kv_slice)
+            ys.append(y)
+        return x, ys
+
+    def _collect_enc(self, kv_ys) -> Dict[str, torch.Tensor]:
+        """Per-period ys (R, B, T, ...) -> storage-ready (L, B*T, ...) for
+        one all-layer write_token_encoded scatter."""
+        n_l = self.kv_cfg.n_layers
+        return {kk: torch.stack([y[kk] for y in kv_ys]).reshape(
+                    n_l, -1, *kv_ys[0][kk].shape[3:])
+                for kk in kv_ys[0]}
+
+    def _sm_scale(self) -> float:
+        return 1.0 / float(np.sqrt(max(self.cfg.head_dim, 1)))
+
+    def _enc_read(self, q, enc):
+        """The fresh window's causal partial, read as stored."""
+        kq, ks, vq, vs = enc
+        ka = C.quant_decode(kq, ks, torch.float32)
+        va = C.quant_decode(vq, vs, torch.float32)
+        return fd.causal_self_partial(q, ka, va, sm_scale=self._sm_scale())
+
+    def _page_kwargs(self, kv_slice, r) -> Dict:
+        if self.kv_cfg.kv_quant != "int8":
+            return {}
+        return {"k_scale": kv_slice["k_scale"][r],
+                "v_scale": kv_slice["v_scale"][r]}
+
+    # ------------------------------------------------------------------
+    # Chunked prefill: one step pages ``prefill_chunk`` context tokens of
+    # ONE sequence through its block table. The paged prefix [0, ctx) is
+    # read with the multi-query kernel (T = chunk); the chunk attends
+    # itself causally and the partials LSE-merge. A ragged tail is right-
+    # padded to the chunk size: padded KV routes to the null block and
+    # padded rows compute values nothing reads (the next token comes from
+    # row n_valid - 1).
+    # ------------------------------------------------------------------
+
+    def _chunk_step_impl(self, params, kv_state, tokens, ctx, n_valid,
+                         table):
+        cn = tokens.shape[1]
+        mbb = table.shape[1]
+        dev = tokens.device
+        model = self.model
+        sm_scale = self._sm_scale()
+
+        x = model._embed_in(params, tokens)                  # (1, C, d)
+        steps = torch.arange(cn, device=dev)
+        positions = ctx[:, None] + steps[None, :]
+
+        def attn_read(q, enc, kv_slice, r):
+            o_c, m_c, l_c = fd.paged_flash_prefix_partial(
+                q, kv_slice["k"][r], kv_slice["v"][r], table, ctx,
+                sm_scale=sm_scale, **self._page_kwargs(kv_slice, r))
+            out = fd.merge_partials([(o_c, m_c, l_c),
+                                     self._enc_read(q, enc)])
+            return out.to(q.dtype)
+
+        body = self._make_stack_body(positions=positions,
+                                     attn_read=attn_read)
+        x, kv_ys = self._run_stack(body, x, kv_state)
+
+        last = x.index_select(1, (n_valid - 1).long())       # (1, 1, d)
+        logits = model._head(params, last)[:, 0]
+        next_token = logits.argmax(dim=-1)[0]
+        # non-finite-logit quarantine flag, read by the host after the step
+        ok = torch.isfinite(logits.float()).all()
+
+        enc = self._collect_enc(kv_ys)
+        valid = steps < n_valid
+        blk, off = C.append_slots(table.expand(cn, mbb), ctx + steps,
+                                  self.block_size, self.kv_cfg.n_blocks,
+                                  valid)
+        C.write_token_encoded(kv_state, enc, blk, off)
+        return next_token, ok
+
+    def _prefill_chunk_tick(self) -> None:
+        plan = self.sched.next_prefill_chunk()
+        if plan is None:
+            return
+        req, start, n = plan
+        if not self.sched.ensure_blocks(req, start + n):
+            return      # only elders hold blocks: wait for them to finish
+        seq = req.context_tokens()
+        cn = self.prefill_chunk
+        chunk = seq[start:start + n] + [0] * (cn - n)
+        # fixed table width per request footprint
+        mbb = _next_pow2(self.sched._blocks_for(len(seq)))
+        table = np.zeros((1, mbb), np.int32)
+        table[0, : len(req.blocks)] = req.blocks
+        next_tok, ok = self._chunk_step_impl(
+            self.params, self.kv.state,
+            self._dev(np.asarray([chunk], np.int32)),
+            self._dev(np.asarray([start], np.int32)),
+            self._dev(np.asarray([n], np.int32)), self._dev(table))
+        self.step_counts["chunk"] += 1
+        if not bool(ok):
+            # poisoned mid-prefill: quarantine (pages scrubbed on eviction)
+            self._evict_terminal(req, FAILED)
+            return
+        req.prefilled = start + n
+        self.prefill_tokens += n
+        if req.prefilled >= len(seq):
+            if not req.output:      # fresh request: this IS the first token
+                req.output.append(int(next_tok))
+                req.first_token_time = self.clock()
+            req.state = RUNNING
+
+    # ------------------------------------------------------------------
+    # Fused decode: embed, layer stack with the paged read, head, greedy
+    # pick and one batched KV append. Host work per step is O(max_batch).
+    # ------------------------------------------------------------------
+
+    def _fused_step_impl(self, params, kv_state, tokens, lengths, table,
+                         active):
+        model = self.model
+        sm_scale = self._sm_scale()
+
+        x = model._embed_in(params, tokens[:, None])
+        positions = lengths[:, None]
+
+        def attn_read(q, enc, kv_slice, r):
+            o_c, m_c, l_c = fd.paged_flash_decode_partial(
+                q[:, 0], kv_slice["k"][r], kv_slice["v"][r], table, lengths,
+                sm_scale=sm_scale, **self._page_kwargs(kv_slice, r))
+            # the fresh token attends to itself as the cache will store
+            # it; its KV lands in the pages after the stack
+            out = fd.merge_partials(
+                [(o_c[:, None], m_c[:, None], l_c[:, None]),
+                 self._enc_read(q, enc)])
+            return out.to(q.dtype)
+
+        body = self._make_stack_body(positions=positions,
+                                     attn_read=attn_read)
+        x, kv_ys = self._run_stack(body, x, kv_state)
+
+        logits = model._head(params, x)[:, 0]
+        next_tokens = logits.argmax(dim=-1)
+        # per-row non-finite-logit flags; the host consults live rows only
+        row_ok = torch.isfinite(logits.float()).all(dim=-1)
+
+        enc = self._collect_enc(kv_ys)
+        # inactive slots -> the null block
+        blk, off = C.append_slots(table, lengths, self.block_size,
+                                  self.kv_cfg.n_blocks, active)
+        C.write_token_encoded(kv_state, enc, blk, off)
+        new_lengths = torch.where(active, lengths + 1, lengths)
+        return next_tokens, new_lengths, row_ok
+
+    def _decode_fused(self, live: List[Request]) -> None:
+        if not live:
+            return
+        bsz = self.max_batch
+        tokens = np.zeros((bsz,), np.int32)
+        lengths = np.zeros((bsz,), np.int32)
+        active = np.zeros((bsz,), bool)
+        mbb = _next_pow2(max(len(r.blocks) for r in live))
+        table = np.zeros((bsz, mbb), np.int32)
+        for r in live:
+            tokens[r.slot] = r.output[-1]
+            lengths[r.slot] = r.length - 1          # current KV length
+            active[r.slot] = True
+            table[r.slot, : len(r.blocks)] = r.blocks
+        next_tokens, _, row_ok = self._fused_step_impl(
+            self.params, self.kv.state, self._dev(tokens),
+            self._dev(lengths), self._dev(table), self._dev(active))
+        self.step_counts["decode"] += 1
+        self._finish_step(live, next_tokens.cpu().numpy(),
+                          row_ok=row_ok.cpu().numpy())
+
+    def _scrub_preempted(self, victim: Request) -> None:
+        """Zero a preemption victim's pages before the allocator reuses
+        them, so a preempted-then-resumed schedule leaves the storage
+        bit-identical to an uncontended one."""
+        if victim.blocks:
+            self.kv.truncate_slots(victim.blocks, 0)
+
+    def _finish_step(self, live: List[Request], next_tokens,
+                     row_ok=None) -> None:
+        now = self.clock()
+        for r in live:
+            if row_ok is not None and not row_ok[r.slot]:
+                # non-finite logits: quarantine the row without emitting
+                self._evict_terminal(r, FAILED)
+                continue
+            r.output.append(int(next_tokens[r.slot]))
+            self.decode_tokens += 1
+            if len(r.output) >= r.max_new_tokens:
+                self.sched.finish(r, now)
+                self.finished.append(r)
+
+    @torch.no_grad()
+    def step(self) -> None:
+        admitted = self.sched.admit(self.clock())
+        t0 = self.clock()
+        if self.prefill_chunk is None:
+            if admitted:
+                self._prefill(admitted)
+        else:
+            self._prefill_chunk_tick()
+        self.prefill_time += self.clock() - t0
+        # grow each decoding request's block table for this step's append;
+        # under pressure this preempts strictly-younger request(s), so
+        # states are re-checked after the loop, and a request that could
+        # only grow by evicting an elder sits this step out
+        deferred = set()
+        for r in self.sched.decode_candidates():
+            if r.state == RUNNING and \
+                    not self.sched.ensure_blocks(r, r.length):
+                deferred.add(r.rid)
+        live = [r for r in self.sched.running
+                if r is not None and r.state == RUNNING
+                and r.rid not in deferred]
+        t0 = self.clock()
+        self._decode_fused(live)
+        self.decode_time += self.clock() - t0
+        self.steps += 1
+
+    def _progress_key(self):
+        return (len(self.finished), self.sched.n_preemptions,
+                len(self.sched.waiting), self.alloc.n_free,
+                tuple((r.rid, r.state, r.prefilled, len(r.output))
+                      for r in self.sched.running if r is not None))
+
+    def run(self, max_steps: int = 10_000) -> List[Request]:
+        """Drive steps until the schedule drains (or ``max_steps``)."""
+        idle = 0
+        key = self._progress_key()
+        while self.sched.has_work and self.steps < max_steps:
+            self.step()
+            new_key = self._progress_key()
+            if new_key == key:
+                idle += 1
+                if idle >= STALL_LIMIT:
+                    raise StallError(idle, self.live_requests())
+            else:
+                idle, key = 0, new_key
+        return self.finished
+
+    def reset_stats(self) -> None:
+        """Clear request history and counters, keeping the cache storage.
+        Requires a quiescent engine."""
+        if self.sched.has_work:
+            raise RuntimeError("reset_stats() on an engine with live work")
+        self.finished = []
+        self.steps = 0
+        self.prefill_tokens = 0
+        self.decode_tokens = 0
+        self.decode_time = 0.0
+        self.prefill_time = 0.0
+        self.sched.n_preemptions = 0
+        self.n_rejected = 0
+        self.step_counts = Counter()
+
+    def stats(self) -> Dict[str, float]:
+        """Flat stats with the reference's key names for the parts of the
+        engine that are ported."""
+        done = self.finished
+        lat = [r.finish_time - r.arrival for r in done if r.finish_time]
+        ttft = [t for t in (r.ttft() for r in done) if t is not None]
+        tpot = [t for t in (r.tpot() for r in done) if t is not None]
+        wall = (max((r.finish_time or 0.0) for r in done)
+                - min(r.arrival for r in done)) if done else 0.0
+        toks = sum(len(r.output) for r in done)
+        causes = Counter(r.state for r in done)
+        return {
+            "requests": len(done),
+            "finished": causes.get(FINISHED, 0),
+            "failed": causes.get(FAILED, 0),
+            "rejected": self.n_rejected,
+            "throughput_tok_s": toks / wall if wall > 0 else 0.0,
+            "mean_latency_s": float(np.mean(lat)) if lat else 0.0,
+            "p50_latency_s": _pct(lat, 50),
+            "p99_latency_s": _pct(lat, 99),
+            "mean_ttft_s": float(np.mean(ttft)) if ttft else 0.0,
+            "p50_ttft_s": _pct(ttft, 50),
+            "p95_ttft_s": _pct(ttft, 95),
+            "p99_ttft_s": _pct(ttft, 99),
+            "mean_tpot_s": float(np.mean(tpot)) if tpot else 0.0,
+            "p50_tpot_s": _pct(tpot, 50),
+            "p99_tpot_s": _pct(tpot, 99),
+            "preemptions": self.sched.n_preemptions,
+            "kv_utilization": self.alloc.utilization(),
+            "decode_tokens": self.decode_tokens,
+            "prefill_tokens": self.prefill_tokens,
+            "decode_time_s": self.decode_time,
+            "prefill_time_s": self.prefill_time,
+            "decode_tok_s": (self.decode_tokens / self.decode_time
+                             if self.decode_time > 0 else 0.0),
+            "decode_steps": self.step_counts["decode"],
+            "chunk_steps": self.step_counts["chunk"],
+        }

@@ -1,0 +1,65 @@
+"""Weight bridge: the JAX package's params cross into the port and back
+bit for bit (bf16 leaves, stacked blocks, padded vocab, tied embeddings)."""
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config
+from repro.models.lm import LM
+from repro_torch.bridge import from_jax_numpy, to_numpy
+from repro_torch.configs import get_config as port_config
+from repro_torch.models.lm import LM as PortLM
+from repro_torch.models.params import tree_paths
+
+
+@pytest.fixture(scope="module")
+def jax_params():
+    cfg = get_config("qwen1.5-0.5b", reduced=True)
+    return jax.device_get(LM(cfg).init(jax.random.PRNGKey(0)))
+
+
+def test_roundtrip_is_bitwise(jax_params):
+    back = to_numpy(from_jax_numpy(jax_params))
+    want = dict(tree_paths(jax_params))
+    got = dict(tree_paths(back))
+    assert got.keys() == want.keys()
+    for path, a in want.items():
+        b = got[path]
+        assert b.dtype == a.dtype and b.shape == a.shape, path
+        np.testing.assert_array_equal(
+            np.asarray(b).view(np.uint8), np.asarray(a).view(np.uint8),
+            err_msg=path)
+
+
+def test_bridged_tree_matches_port_specs(jax_params):
+    """Keys, shapes and dtypes line up with the port's own param specs:
+    stacked (n_periods, ...) blocks, the padded vocabulary, no head leaf
+    under tied embeddings."""
+    port = from_jax_numpy(jax_params)
+    specs = dict(tree_paths(
+        PortLM(port_config("qwen1.5-0.5b", reduced=True),
+               device="cpu").param_specs()))
+    got = dict(tree_paths(port))
+    assert got.keys() == specs.keys()
+    assert "head" not in port
+    for path, ps in specs.items():
+        assert tuple(got[path].shape) == ps.shape, path
+        assert got[path].dtype == ps.dtype, path
+    assert port["embed"].shape[0] == 512          # 256 padded to 512
+    assert port["blocks"]["pos0"]["mix"]["wq"].shape[0] == 2   # n_periods
+
+
+def test_port_init_is_seeded_and_fan_in_scaled():
+    model = PortLM(port_config("qwen1.5-0.5b", reduced=True), device="cpu")
+    a, b = model.init(0), model.init(0)
+    c = model.init(1)
+    for (path, x), (_, y), (_, z) in zip(tree_paths(a), tree_paths(b),
+                                         tree_paths(c)):
+        assert torch.equal(x, y), path
+    assert not torch.equal(a["embed"], c["embed"])
+    wq = a["blocks"]["pos0"]["mix"]["wq"].float()
+    # fan-in of wq is d_model = 64 (the stacked axis is excluded)
+    assert abs(wq.std().item() - 1 / 8) < 0.01
+    assert torch.all(a["blocks"]["pos0"]["mix"]["bq"] == 0)
+    assert torch.all(a["final_ln"] == 1)
