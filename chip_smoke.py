@@ -29,14 +29,39 @@ imports nothing of the JAX package). Phases, one line each:
               the plain version's time and one
               ``scaled_dot_product_attention`` call on the same K/V
               gathered dense (timed here only; the port never calls it).
+6. flash    - the three flash-attention kernels (forward, dK/dV, dQ)
+              against their plain versions on the card: the reference's
+              kernel-test shapes, G in {1,2,4,8} x D in {64,128}, ragged
+              lengths, causal and full, bf16 and f32, and the training
+              shape at B=1 in f32 and bf16 (f32 within 2e-5, bf16 within
+              a few bf16 ulps); the autograd wrapper's gradient against
+              autograd through the materialized-score attention.
+7. train    - full-width qwen1.5-0.5b (seeded random weights) trains
+              through ``Trainer`` with technique F+R+Z3 at batch 4 x
+              2048 tokens. First one loss + backward through the flash
+              kernels against the same through naive attention on the
+              same params and batch, and again with each of two faults
+              planted in the flash wrappers, which the same limits must
+              catch; then 4 steps, whose losses and gradient norms must
+              be finite and which must launch the forward kernel 48
+              times and each backward kernel 24 times per step.
+8. timing   - the flash kernels at the training shape (B=4, H=16,
+              T=2048, D=64, causal, bf16): time per launch beside the
+              bound, the plain versions' times (each kernel's function
+              and the whole backward), and
+              ``scaled_dot_product_attention`` forward, backward and
+              forward + backward on the same tensors (timed here only).
 
 Any failed check raises. The last three lines of standard output are the
 kernels' JSON record, the card's name and power limit, and
-``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
+``{"ok": true, "device": {...}}``. Each main path (the two engine runs,
+the training run) is driven with every launch count set to 0 just
+before it and read just after. Without a CUDA device, or without the
 repository beside it, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -50,6 +75,19 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}
 KERNEL_TOL = dict(rtol=2e-5, atol=2e-5)   # tests/test_kernels.py f32 tolerance
+GRAD_TOL = dict(rtol=2e-3, atol=2e-3)     # tests/test_kernels.py:65
+# bf16 flash outputs against the plain version, in bf16 ulps of the larger
+# magnitude: both sum in f32 and round once, so only f32 summation order
+# differs and splits a rounding (measured at the training shape: o at most
+# 1 ulp off, dq/dk/dv bit-equal); the absolute floor covers sums that
+# cancel to near zero, where f32 roundoff (< 1e-6 here) exceeds an ulp
+BF16_ULPS = 2
+BF16_ULPS_G1_GRADS = 1             # dq/dk/dv at the training shape (G=1)
+BF16_ATOL = 1e-5
+TRAIN_SHAPE = dict(b=4, h=16, t=2048, d=64)   # qwen1.5-0.5b at 4 x 2048
+LOSS_ATOL = 1e-4                   # flash vs naive loss, full width
+GRAD_NORM_RTOL = 0.01
+GRAD_COS = 0.999
 NEAR_TIE_ULPS = 8                  # bf16 ulps of the top logit
 
 
@@ -254,6 +292,7 @@ def teacher_forced(model, params, done, kv_quant):
 def phase_engine(cfg, params, *, prefill_chunk, kv_quant):
     import torch
     from repro_torch.data.pipeline import serving_requests
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.serving.engine import Engine, Request
     eng = Engine(cfg, params, max_batch=8, n_blocks=1024, block_size=16,
@@ -265,11 +304,14 @@ def phase_engine(cfg, params, *, prefill_chunk, kv_quant):
         eng.submit(Request(rid=i, tokens=p, max_new_tokens=64))
     torch.cuda.synchronize()
     fd.LAUNCHES.clear()                  # count the main path's run only
+    fa.LAUNCHES.clear()
     t0 = time.monotonic()
     done = eng.run(max_steps=5000)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = fd.LAUNCHES["paged_attention"]
+    check(sum(fa.LAUNCHES.values()) == 0,
+          f"the engine launched flash kernels: {dict(fa.LAUNCHES)}")
     st = eng.stats()
     steps = st["decode_steps"] + st["chunk_steps"]
     check(len(done) == 16 and st["finished"] == 16,
@@ -360,6 +402,361 @@ def time_shape(cfg, *, b, t, lengths, quant, mb, n_blocks, n_layers):
             "max_abs_err": err}
 
 
+
+# --------------------------------------------------------------------------
+# flash attention and training
+# --------------------------------------------------------------------------
+
+
+def flash_inputs(*, b, h, kv, t, s, d, dtype, seed=0):
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, do = (torch.randn((b, h, t, d), generator=g, device="cuda").to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn((b, kv, s, d), generator=g, device="cuda").to(dtype)
+            for _ in range(2))
+    return q, k, v, do
+
+
+def bf16_ulp_check(a, b, n: int):
+    """(worst |a - b| in bf16 ulps of the larger magnitude among the
+    elements that differ by more than ``BF16_ATOL``, 0 if none; whether
+    every element is within ``BF16_ATOL`` + ``n`` such ulps)."""
+    import torch
+    a, b = a.float(), b.float()
+    mag = torch.maximum(a.abs(), b.abs()).clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    diff = (a - b).abs()
+    over = diff > BF16_ATOL
+    worst = float((diff / ulp)[over].max()) if bool(over.any()) else 0.0
+    return worst, bool((diff <= BF16_ATOL + n * ulp).all())
+
+
+def flash_vs_plain(q, k, v, do, causal, grad_ulps=BF16_ULPS):
+    """Forward and backward kernels against the plain versions on the
+    same inputs: f32 outputs and lse within ``KERNEL_TOL``, bf16 outputs
+    within ``BF16_ULPS`` (o) and ``grad_ulps`` (dq, dk, dv) bf16 ulps.
+    Returns the worst |err| of (o, lse, dq, dk, dv), how many elements of
+    each differ at all, and the worst bf16 ulps of the bf16 outputs."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    o, lse = fa._fwd_cuda(q, k, v, causal=causal, sm_scale=None)
+    o_ref, lse_ref = fa._flash_fwd_torch(q, k, v, causal=causal)
+    grads = fa._bwd_cuda(q, k, v, o, lse, do, causal=causal, sm_scale=None)
+    want = fa._flash_bwd_torch(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    dims = (q.shape[0], q.shape[1], k.shape[1], q.shape[2], k.shape[2],
+            q.shape[3])
+    tag = (f"B,H,K,T,S,D={dims} {q.dtype} "
+           f"{'causal' if causal else 'full'}")
+    errs, n_diff, ulps = {}, {}, {}
+    for name, a, b, n_ulps in (("o", o, o_ref, BF16_ULPS),
+                               ("lse", lse, lse_ref, None),
+                               *[(n, x, y, grad_ulps) for n, x, y in
+                                 zip(("dq", "dk", "dv"), grads, want)]):
+        errs[name] = max_err(a.float(), b.float())
+        n_diff[name] = int((a != b).sum())
+        if a.dtype == torch.bfloat16:
+            ulps[name], ok = bf16_ulp_check(a, b, n_ulps)
+            check(ok,
+                  f"flash {name} differs from plain at {tag} by "
+                  f"{ulps[name]} bf16 ulps > {n_ulps} (max |err| "
+                  f"{errs[name]})")
+        else:
+            check(allclose(a, b, **KERNEL_TOL),
+                  f"flash {name} differs from plain at {tag}: {errs[name]}")
+    return errs, n_diff, ulps
+
+
+def phase_flash_vs_plain():
+    import torch
+    from repro_torch.models import layers as L
+    cases = ([(1, 4, 4, 128, 128, 128, c) for c in (True, False)]
+             + [(2, 4, 2, 256, 256, 128, c) for c in (True, False)]
+             + [(1, 8, 1, 256, 256, 64, c) for c in (True, False)]
+             + [(2, 4, 4, 128, 384, 128, False)]
+             + [(1, 8, 8 // g, 192, 192, d, True) for g in (1, 2, 4, 8)
+                for d in (64, 128)]
+             + [(2, 4, 2, 100, 100, 64, True), (1, 2, 1, 70, 130, 64,
+                                                  False)])
+    worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    worst_ulps = 0.0
+    n = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        for i, (b, h, kv, t, s, d, causal) in enumerate(cases):
+            errs, _, ulps = flash_vs_plain(*flash_inputs(
+                b=b, h=h, kv=kv, t=t, s=s, d=d, dtype=dtype, seed=i), causal)
+            worst[dtype] = max(worst[dtype], *errs.values())
+            worst_ulps = max(worst_ulps, *ulps.values(), 0.0)
+            n += 1
+    sh = TRAIN_SHAPE
+    n_row = sh["h"] * sh["t"]
+    train = dict(b=1, h=sh["h"], kv=sh["h"], t=sh["t"], s=sh["t"],
+                 d=sh["d"])
+    f32_errs, _, _ = flash_vs_plain(*flash_inputs(
+        **train, dtype=torch.float32, seed=98), True)
+    train_errs, train_diff, train_ulps = flash_vs_plain(*flash_inputs(
+        **train, dtype=torch.bfloat16, seed=99), True,
+        grad_ulps=BF16_ULPS_G1_GRADS)
+    # the autograd wrapper end to end, f32, against naive attention
+    g = torch.Generator(device="cuda").manual_seed(1)
+    q = torch.randn((2, 256, 8, 64), generator=g, device="cuda")
+    k, v = (torch.randn((2, 256, 2, 64), generator=g, device="cuda")
+            for _ in range(2))
+    w = torch.randn((2, 256, 8, 64), generator=g, device="cuda")
+    res = []
+    for mode in ("naive", "flash"):
+        xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        out = L.attention(*xs, mode=mode, causal=True)
+        res.append((out.detach(), *torch.autograd.grad((out * w).sum(), xs)))
+    grad_err = max(max_err(a, b) for a, b in zip(*res))
+    for name, a, b in zip(("out", "dq", "dk", "dv"), *res):
+        check(allclose(a, b, **GRAD_TOL),
+              f"flash autograd {name} differs from naive: {max_err(a, b)}")
+    print(f"[flash] {n} cases fwd+bwd kernels == plain (f32 within "
+          f"rtol=atol=2e-5, max |err| {worst[torch.float32]:.3g}; bf16 "
+          f"within {BF16_ULPS} ulps + {BF16_ATOL}, max |err| "
+          f"{worst[torch.bfloat16]:.3g}, max {worst_ulps:g} ulps beyond "
+          f"the floor); training "
+          f"shape B=1 f32 within rtol=atol=2e-5, max |err| "
+          + ", ".join(f"{nm} {e:.3g}" for nm, e in f32_errs.items())
+          + f"; training shape B=1 bf16 (o within {BF16_ULPS} ulps, "
+          f"dq/dk/dv within {BF16_ULPS_G1_GRADS}) max |err| "
+          + ", ".join(f"{nm} {e:.3g}" for nm, e in train_errs.items())
+          + f", max ulps beyond the {BF16_ATOL} floor "
+          + ", ".join(f"{nm} {u:g}" for nm, u in train_ulps.items())
+          + " (elements that differ: "
+          + ", ".join(f"{nm} {c} of {n_row if nm == 'lse' else n_row * sh['d']}"
+                      for nm, c in train_diff.items()) + ")"
+          + f"; autograd through the kernels == naive autograd within "
+          f"2e-3 (max |err| {grad_err:.3g})")
+
+
+def _zero_output(fwd):
+    def run(*args, **kw):
+        o, lse = fwd(*args, **kw)
+        return o.zero_(), lse
+    return run
+
+
+def _drop_dq(bwd):
+    def run(*args, **kw):
+        dq, dk, dv = bwd(*args, **kw)
+        return dq.zero_(), dk, dv
+    return run
+
+
+# faults planted in the flash wrappers, in process, to show that the
+# flash-vs-naive limits of phase 7 can fail: (name, wrapper, fault)
+PLANTED = (("attention output zeroed", "_fwd_cuda", _zero_output),
+           ("dq dropped", "_bwd_cuda", _drop_dq))
+
+
+@contextlib.contextmanager
+def planted(attr, fault):
+    from repro_torch.kernels import flash_attention as fa
+    real = getattr(fa, attr)
+    setattr(fa, attr, fault(real))
+    try:
+        yield
+    finally:
+        setattr(fa, attr, real)
+
+
+def train_loss_and_grads(model, params, batch):
+    import torch
+    from repro_torch.models.params import tree_paths
+    leaves = [t for _, t in tree_paths(params)]
+    loss, _ = model.loss(params, batch)
+    grads = torch.autograd.grad(loss, leaves)
+    norm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                          for g in grads))
+    return float(loss.detach()), float(norm), grads
+
+
+def phase_train(cfg):
+    """Full width through the trainer's entry point: flash vs naive on
+    step 0's batch, then 4 F+R+Z3 steps with the launch counts read."""
+    import torch
+    from repro_torch.core.config import ShapeSpec, technique_from_label
+    from repro_torch.core.trainer import Trainer, TrainerConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.models.lm import LM
+    sh = TRAIN_SHAPE
+    steps = 4
+    trainer = Trainer(cfg, ShapeSpec("cli", sh["t"], sh["b"], "train"),
+                      technique_from_label("F+R+Z3"),
+                      TrainerConfig(steps=steps, log_every=1),
+                      device="cuda")
+    model = trainer.model
+    check(model.attn_impl == "flash" and model.remat == "full",
+          f"F+R+Z3 built attn_impl={model.attn_impl} remat={model.remat}")
+    params = trainer.state["params"]
+    batch = trainer._batch_for(0)
+    naive = LM(cfg, attn_impl="naive", remat="full", device="cuda")
+    t0 = time.monotonic()
+    ln, nn_, gn = train_loss_and_grads(naive, params, batch)
+
+    def against_naive():
+        """Flash's loss, grad_norm and worst leaf cosine against naive's,
+        and the limits each breaks."""
+        lf, nf, gf = train_loss_and_grads(model, params, batch)
+        cos = min(float(torch.nn.functional.cosine_similarity(
+            a.float().flatten(), b.float().flatten(), dim=0))
+            for a, b in zip(gf, gn))
+        reading = {"loss": abs(lf - ln), "grad_norm": abs(nf - nn_) / nn_,
+                   "cosine": cos}
+        broken = [k for k, bad in (
+            ("loss", reading["loss"] > LOSS_ATOL),
+            ("grad_norm", reading["grad_norm"] > GRAD_NORM_RTOL),
+            ("cosine", not cos >= GRAD_COS)) if bad]
+        return lf, nf, reading, broken
+
+    lf, nf, reading, broken = against_naive()
+    check(not broken, f"flash vs naive breaks {broken}: loss {lf} vs {ln} "
+          f"(limit {LOSS_ATOL}), grad_norm {nf} vs {nn_} (limit "
+          f"{GRAD_NORM_RTOL} relative), min leaf cosine {reading['cosine']}"
+          f" (limit {GRAD_COS})")
+    print(f"[train] step-0 batch, flash vs naive (remat full): loss "
+          f"{lf:.6f} vs {ln:.6f} (|diff| {reading['loss']:.3g} <= "
+          f"{LOSS_ATOL}), grad_norm {nf:.6f} vs {nn_:.6f} (rel "
+          f"{reading['grad_norm']:.3g} <= {GRAD_NORM_RTOL}), min leaf "
+          f"cosine {reading['cosine']:.6f} >= {GRAD_COS} "
+          f"({time.monotonic() - t0:.1f}s)")
+    for name, attr, fault in PLANTED:
+        with planted(attr, fault):
+            _, _, bad_reading, bad_broken = against_naive()
+        check(bool(bad_broken), f"planted fault '{name}' passes every "
+              f"flash-vs-naive limit: {bad_reading}")
+        print(f"[train] planted fault '{name}': |dloss| "
+              f"{bad_reading['loss']:.3g}, grad_norm rel "
+              f"{bad_reading['grad_norm']:.3g}, min leaf cosine "
+              f"{bad_reading['cosine']:.6f}; caught by "
+              + ", ".join(bad_broken))
+    del gn
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.LAUNCHES.clear()                  # count the main path's run only
+    fd.LAUNCHES.clear()
+    out = trainer.run()
+    torch.cuda.synchronize()
+    launches = {n: fa.LAUNCHES[n] for n in ("fwd", "bwd_dkv", "bwd_dq")}
+    check(fd.LAUNCHES["paged_attention"] == 0,
+          "training launched the paged kernel")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    hist = out["history"]
+    check(out["final_step"] == steps and len(hist) == steps,
+          f"trainer ran {out['final_step']} of {steps} steps")
+    for h in hist:
+        check(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]),
+              f"step {h['step']}: loss {h['loss']}, grad_norm "
+              f"{h['grad_norm']}")
+    want = {"fwd": 2 * cfg.n_layers * steps,
+            "bwd_dkv": cfg.n_layers * steps, "bwd_dq": cfg.n_layers * steps}
+    check(launches == want, f"flash launches {launches} != {want} "
+          f"(48/24/24 per step)")
+    print(f"[train] qwen1.5-0.5b full width, F+R+Z3, batch {sh['b']} x "
+          f"{sh['t']}: {steps} steps, losses "
+          + ", ".join(f"{h['loss']:.4f}" for h in hist)
+          + ", grad_norms " + ", ".join(f"{h['grad_norm']:.4f}" for h in hist)
+          + f"; steps 2-{steps}: {out['step_ms']:.1f} ms/step, "
+          f"{out['tokens_per_s']:.0f} tokens/s; flash launches "
+          f"fwd {launches['fwd']} bwd_dkv {launches['bwd_dkv']} bwd_dq "
+          f"{launches['bwd_dq']} (= {launches['fwd'] // steps}/"
+          f"{launches['bwd_dkv'] // steps}/{launches['bwd_dq'] // steps} per "
+          f"step); peak memory {peak:.2f} GiB; {card_line()}")
+    return launches, out
+
+
+def flash_bounds(*, b, h, kv, t, s, d, elt):
+    """Least time (ms) of each kernel's function on this card: bytes of
+    its inputs read once and outputs written once over HBM rate, against
+    its useful products (causal pairs only) over the bf16 tensor-core
+    rate. Returns {name: (bound_ms, bound_by)}."""
+    pairs = b * h * t * (t + 1) // 2 if t == s else b * h * t * s
+    qo = b * h * t * d * elt
+    kv_bytes = b * kv * s * d * elt
+    row = b * h * t * 4
+    work = {                             # (bytes, products of 2*D per pair)
+        "fwd": (qo + 2 * kv_bytes + qo + row, 2),
+        "bwd_dkv": (2 * qo + 2 * kv_bytes + 2 * row + 2 * kv_bytes, 4),
+        "bwd_dq": (2 * qo + 2 * kv_bytes + 2 * row + qo, 3),
+        "bwd": (3 * qo + 2 * kv_bytes + row + qo + 2 * kv_bytes, 5),
+    }
+    out = {}
+    for name, (nbytes, products) in work.items():
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = 2.0 * d * pairs * products / PEAK_OPS["bf16"] * 1e3
+        out[name] = (max(t_bytes, t_ops),
+                     "bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
+def phase_flash_timing():
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    sh = TRAIN_SHAPE
+    q, k, v, do = flash_inputs(b=sh["b"], h=sh["h"], kv=sh["h"], t=sh["t"],
+                               s=sh["t"], d=sh["d"], dtype=torch.bfloat16,
+                               seed=5)
+    errs, _, ulps = flash_vs_plain(q, k, v, do, True,
+                                   grad_ulps=BF16_ULPS_G1_GRADS)
+    scale = 1.0 / math.sqrt(sh["d"])
+    o, lse = fa._fwd_cuda(q, k, v, causal=True, sm_scale=None)
+    delta = fa._delta(o, do)
+    ms = {
+        "fwd": cuda_ms(lambda i: fa._fwd_cuda(q, k, v, causal=True,
+                                              sm_scale=None), iters=20),
+        "bwd_dkv": cuda_ms(lambda i: fa._bwd_dkv_cuda(
+            q, k, v, do, lse, delta, causal=True, scale=scale), iters=10),
+        "bwd_dq": cuda_ms(lambda i: fa._bwd_dq_cuda(
+            q, k, v, do, lse, delta, causal=True, scale=scale), iters=10),
+        "bwd": cuda_ms(lambda i: fa._bwd_cuda(q, k, v, o, lse, do,
+                                              causal=True, sm_scale=None),
+                       iters=10),
+    }
+    plain = {"fwd": cuda_ms(lambda i: fa._flash_fwd_torch(q, k, v,
+                                                          causal=True),
+                            iters=5, warmup=1)}
+    for name, part in (("bwd_dkv", "dkv"), ("bwd_dq", "dq"), ("bwd", "all")):
+        plain[name] = cuda_ms(lambda i: fa._flash_bwd_torch(
+            q, k, v, o, lse, do, causal=True, part=part), iters=5, warmup=1)
+    lib_fwd = cuda_ms(lambda i: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True), iters=20)
+    qg, kg, vg = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    lib_bwd = cuda_ms(lambda i: torch.autograd.grad(
+        out, (qg, kg, vg), do, retain_graph=True), iters=20)
+    del out
+
+    def sdpa_fwd_bwd(i):
+        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+        torch.autograd.grad(out, (qg, kg, vg), do)
+
+    lib_fb = cuda_ms(sdpa_fwd_bwd, iters=20)
+    bounds = flash_bounds(b=sh["b"], h=sh["h"], kv=sh["h"], t=sh["t"],
+                          s=sh["t"], d=sh["d"], elt=2)
+    for name in ("fwd", "bwd_dkv", "bwd_dq", "bwd"):
+        bd, by = bounds[name]
+        print(f"[timing] flash {name} B=4 H=16 T=2048 D=64 causal bf16: "
+              f"{ms[name] * 1e3:.1f} us (bound {bd * 1e3:.2f} us by {by}, "
+              f"{bd / ms[name] * 100:.2f}% of it)")
+    print(f"[timing] flash plain fwd {plain['fwd'] * 1e3:.1f} us, plain "
+          f"dk/dv {plain['bwd_dkv'] * 1e3:.1f} us, plain dq "
+          f"{plain['bwd_dq'] * 1e3:.1f} us, plain bwd (dq, dk, dv) "
+          f"{plain['bwd'] * 1e3:.1f} us; sdpa fwd {lib_fwd * 1e3:.1f} us, "
+          f"sdpa bwd {lib_bwd * 1e3:.1f} us, sdpa fwd+bwd "
+          f"{lib_fb * 1e3:.1f} us; kernels == plain (o within {BF16_ULPS} "
+          f"ulps, dq/dk/dv within {BF16_ULPS_G1_GRADS}), max |err| "
+          + ", ".join(f"{nm} {e:.3g}" for nm, e in errs.items())
+          + f", max ulps beyond the {BF16_ATOL} floor "
+          + ", ".join(f"{nm} {u:g}" for nm, u in ulps.items()))
+    return {"ms": ms, "plain": plain, "lib_fwd": lib_fwd, "lib_bwd": lib_bwd,
+            "lib_fb": lib_fb, "bounds": bounds, "errs": errs}
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -414,6 +811,10 @@ def main() -> None:
           f"{st_a['p50_ttft_s'] * 1e3:.1f} ms; chunk=64 int8 decode "
           f"{st_b['decode_tok_s']:.1f} tok/s, p50 TTFT "
           f"{st_b['p50_ttft_s'] * 1e3:.1f} ms")
+    phase_flash_vs_plain()
+    train_launches, _ = phase_train(cfg)
+    ft = phase_flash_timing()
+
     record = {"kernels": [{
         "name": "paged_attention",
         "route": "cuda",
@@ -427,6 +828,29 @@ def main() -> None:
         "bound_by": dec["bound_by"],
         "library_ms": dec["library_ms"],
     }]}
+    flash_src = "src/repro_torch/kernels/csrc/flash_attention.cu"
+    # bwd is the whole flash_attention_bwd (both kernels, one launch each
+    # per call, so its launches are either kernel's count); no one library
+    # call computes dK/dV or dQ alone
+    for name, line, errs, lib, launches in (
+            ("fwd", 76, ("o", "lse"), ft["lib_fwd"], train_launches["fwd"]),
+            ("bwd_dkv", 120, ("dk", "dv"), None, train_launches["bwd_dkv"]),
+            ("bwd_dq", 165, ("dq",), None, train_launches["bwd_dq"]),
+            ("bwd", 203, ("dq", "dk", "dv"), ft["lib_bwd"],
+             train_launches["bwd_dkv"])):
+        record["kernels"].append({
+            "name": f"flash_attention_{name}",
+            "route": "cuda",
+            "source": flash_src,
+            "replaces": f"src/repro/kernels/flash_attention.py:{line}",
+            "launches": launches,
+            "max_abs_err": max(ft["errs"][e] for e in errs),
+            "ms": ft["ms"][name],
+            "plain_ms": ft["plain"][name],
+            "bound_ms": ft["bounds"][name][0],
+            "bound_by": ft["bounds"][name][1],
+            "library_ms": lib,
+        })
     print(json.dumps(record))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,13 +1,31 @@
-"""Architecture configuration (a copy of ``repro.core.config.ArchConfig``).
+"""Architecture, workload shape and technique configuration (copies of
+``repro.core.config``'s ``ArchConfig``, ``ShapeSpec``/``SHAPES`` and
+``Technique``/``technique_from_label``).
 
 The port keeps its own copy rather than importing the JAX package. The
-TPU hardware model, workload shapes and technique matrix of the
-reference module stay behind: nothing on the serving path reads them.
+reference module's TPU hardware model stays behind: nothing the port
+runs reads it.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
 from typing import Tuple
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
 
 
 @dataclass(frozen=True)
@@ -148,3 +166,93 @@ class ArchConfig:
         if self.frontend != "none":
             kw.update(frontend_len=8)
         return replace(self, **kw)
+
+
+# --------------------------------------------------------------------------
+# The paper's optimization-technique matrix (one row == one Technique).
+# --------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class Technique:
+    """A composable row of the paper's Tables III/IV/IX.
+
+    ``zero_stage``: 0 = Naive DP (replicated params+opt, all-reduce grads);
+    1 = shard optimizer state; 2 = +shard gradients (reduce-scatter);
+    3 = +shard parameters (all-gather per use).
+    """
+    zero_stage: int = 0
+    offload: bool = False          # Z1/2: opt state -> host; Z3: opt+params
+    remat: str = "none"            # none | selective | full
+    quant: str = "none"            # none | int8 | nf4  (weight quantization)
+    flash: bool = False            # flash attention
+    peft: str = "none"             # none | lora | qlora
+    lora_rank: int = 64
+
+    # parallelism plan
+    tp: bool = True                # use the `model` mesh axis for TP
+    sp: bool = False               # Megatron-style sequence parallelism
+    attn_mode: str = "auto"        # auto | head | seq (context-parallel)
+    grad_compress: bool = False    # int8 gradient compression (beyond-paper)
+    grad_accum: int = 1
+    # beyond-paper: gather ZeRO-3 params once per step instead of once per
+    # microbatch (trades one resident TP-shard copy for accum-x fewer AGs)
+    zero3_gather_once: bool = False
+
+    # serving
+    kv_quant: str = "none"         # none | int8 (LightLLM Int8KV analogue)
+    kv_block: int = 256            # paged-KV block size (tokens)
+
+    def label(self) -> str:
+        """Short paper-style label, e.g. 'F+R+Z3+O'."""
+        parts = []
+        if self.peft == "lora":
+            parts.append("L")
+        elif self.peft == "qlora":
+            parts.append("QL")
+        if self.flash:
+            parts.append("F")
+        if self.remat != "none":
+            parts.append("R")
+        if self.zero_stage:
+            parts.append(f"Z{self.zero_stage}")
+        if self.offload:
+            parts.append("O")
+        if self.quant != "none" and self.peft == "none":
+            parts.append("Q")
+        return "+".join(parts) if parts else "Naive"
+
+
+NAIVE = Technique()
+
+
+def technique_from_label(label: str, **overrides) -> Technique:
+    """Parse a paper-style label ('F+R+Z3+O', 'QL+Z2', 'Naive') into a
+    Technique."""
+    kw: dict = {}
+    for tok in label.split("+"):
+        t = tok.strip().upper()
+        if t in ("", "NAIVE"):
+            continue
+        elif t == "L":
+            kw["peft"] = "lora"
+        elif t == "QL":
+            kw["peft"] = "qlora"
+        elif t == "F":
+            kw["flash"] = True
+        elif t == "R":
+            kw["remat"] = "full"
+        elif t == "RS":
+            kw["remat"] = "selective"
+        elif t in ("Z1", "Z2", "Z3"):
+            kw["zero_stage"] = int(t[1])
+        elif t == "O":
+            kw["offload"] = True
+        elif t == "Q":
+            kw["quant"] = "nf4"
+        elif t == "Q8":
+            kw["quant"] = "int8"
+        else:
+            raise ValueError(f"unknown technique token {tok!r} in {label!r}")
+    kw.update(overrides)
+    return Technique(**kw)

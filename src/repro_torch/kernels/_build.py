@@ -19,7 +19,7 @@ from typing import Dict, List, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-KERNELS = ("paged_attention",)
+KERNELS = ("paged_attention", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -45,10 +45,11 @@ def lib_path(name: str) -> Path:
 
 def _start(name: str, verbose: bool) -> Tuple[Path, Path, subprocess.Popen]:
     out = lib_path(name)
+    nvcc = nvcc_path()               # raises before anything is written
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, *(["-Xptxas=-v"] if verbose else []),
+    cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas=-v"] if verbose else []),
            "-o", tmp, str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)

@@ -52,14 +52,15 @@ def _qkv(x, p, cfg: ArchConfig, positions, rope: bool = True
     return q.to(x.dtype), k.to(x.dtype), v.to(x.dtype)
 
 
-def attn_apply(x, p, cfg: ArchConfig, *, positions, causal: bool = True,
-               return_kv: bool = False
+def attn_apply(x, p, cfg: ArchConfig, *, positions, attn_impl: str = "naive",
+               causal: bool = True, return_kv: bool = False
                ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Self-attention residual block over a whole sequence (train/prefill
-    branch of the reference); optionally returns the fresh (k, v)."""
+    branch of the reference); optionally returns the fresh (k, v).
+    ``attn_impl`` is a :func:`layers.attention` mode."""
     h = L.rmsnorm(x, p["ln"], cfg.norm_eps)
     q, k, v = _qkv(h, p, cfg, positions)
-    out = L.naive_attention(q, k, v, causal=causal)
+    out = L.attention(q, k, v, mode=attn_impl, causal=causal)
     y = L.dense(out, p["wo"], n_in=2)
     return x + y, ({"k": k, "v": v} if return_kv else None)
 

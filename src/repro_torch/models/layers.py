@@ -1,4 +1,4 @@
-"""Core layers: dense projection, RMSNorm, RoPE, SwiGLU, naive attention.
+"""Core layers: dense projection, RMSNorm, RoPE, SwiGLU, attention.
 
 Plain functions on tensors with the JAX package's layouts and rounding
 discipline (``repro.models.layers``): every product accumulates in f32
@@ -123,3 +123,20 @@ def naive_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
     out = torch.einsum("bkgts,bskd->btkgd", p.to(v.dtype).float(),
                        v.float()).to(v.dtype)
     return out.reshape(b, t, h, d)
+
+
+def attention(q, k, v, *, mode: str = "naive",
+              causal: bool = True) -> torch.Tensor:
+    """Whole-sequence attention, q (B, T, H, hd), k/v (B, S, K, hd).
+
+    ``"naive"`` materializes the score matrix (:func:`naive_attention`,
+    the reference's mode of the same name). ``"flash"`` is the
+    counterpart of the reference's ``"pallas"`` mode: the flash kernels
+    through ``kernels.ops.flash_attention``, with their gradient. The
+    reference's ``"chunked"`` XLA scan is not ported."""
+    if mode == "naive":
+        return naive_attention(q, k, v, causal=causal)
+    if mode == "flash":
+        from repro_torch.kernels import ops as kops
+        return kops.flash_attention(q, k, v, causal=causal)
+    raise ValueError(f"unknown attention mode {mode!r}")

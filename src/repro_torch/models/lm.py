@@ -3,20 +3,30 @@
 The dense-family subset of ``repro.models.lm.LM``. Parameters are the
 reference's tree as a nested dict of tensors, with every block leaf
 stacked on a leading ``n_periods`` axis; layer ``i`` reads the views
-``leaf[i]``. Whole-sequence attention is the plain ``naive_attention``
-(the reference computes it with XLA einsums too, outside any kernel).
+``leaf[i]``. Whole-sequence attention is ``layers.attention`` in the
+model's ``attn_impl`` mode: ``"naive"`` (the serving engine's) or
+``"flash"`` (the flash kernels, for training).
+
+``forward``/``prefill`` serve and run without autograd; ``backbone`` and
+``loss`` are the training objective and build the autograd graph, with
+each layer under ``train.remat.wrap_remat(..., remat)``. To train, make
+the stacked leaves ``requires_grad`` (``train.step.init_train_state``):
+each layer then reads them through one ``unbind``, so every layer's
+gradient lands in its slice of the stacked gradient.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.config import ArchConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models.params import materialize, spec, tree_map
+from repro_torch.train.remat import REMAT_MODES, wrap_remat
 
 VOCAB_PAD = 512
 
@@ -34,16 +44,29 @@ def _period(cfg: ArchConfig) -> int:
     return n
 
 
-class LM:
-    """``device`` is the card unless the caller passes ``"cpu"``."""
+ATTN_IMPLS = ("naive", "flash")
 
-    def __init__(self, cfg: ArchConfig, *,
+
+class LM:
+    """``device`` is the card unless the caller passes ``"cpu"``;
+    ``attn_impl`` is a ``layers.attention`` mode and ``remat`` a
+    ``train.remat`` policy (training only)."""
+
+    def __init__(self, cfg: ArchConfig, *, attn_impl: str = "naive",
+                 remat: str = "none",
                  device: Optional[Union[str, torch.device]] = None):
         if cfg.family != "dense":
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported yet; the port "
-                f"serves the dense family")
+                f"runs the dense family")
+        if attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"attn_impl {attn_impl!r} not one of "
+                             f"{ATTN_IMPLS}")
+        if remat not in REMAT_MODES:
+            raise ValueError(f"unknown remat mode {remat!r}")
         self.cfg = cfg
+        self.attn_impl = attn_impl
+        self.remat = remat
         self.device = resolve_device(device)
         self.period = _period(cfg)
         self.n_periods = cfg.n_layers // self.period
@@ -104,6 +127,7 @@ class LM:
         for i in range(cfg.n_layers):
             lp = self.layer_params(params, i)
             x, kv = B.attn_apply(x, lp["mix"], cfg, positions=positions,
+                                 attn_impl=self.attn_impl,
                                  return_kv=return_kv)
             if return_kv:
                 ks.append(kv["k"])
@@ -131,3 +155,70 @@ class LM:
         logits = self._head(params, x[:, -1:, :])[:, 0]
         lengths = torch.full((b,), t, dtype=torch.int32, device=x.device)
         return logits, cache, lengths
+
+    # ------------------------------------------------------------------
+    # Training objective
+    # ------------------------------------------------------------------
+
+    def _unstacked_layers(self, params) -> List[Dict]:
+        """Per-layer parameter trees from ONE ``unbind`` of each stacked
+        leaf: the backward then stacks all layers' gradients once
+        instead of adding one full-size zero-padded slice per layer."""
+        per_pos = [tree_map(lambda a: a.unbind(0),
+                            params["blocks"][f"pos{p}"])
+                   for p in range(self.period)]
+        out = []
+        for i in range(self.cfg.n_layers):
+            per, pos = divmod(i, self.period)
+            out.append(tree_map(lambda t: t[per], per_pos[pos]))
+        return out
+
+    def _layer(self, x, lp, positions):
+        x, _ = B.attn_apply(x, lp["mix"], self.cfg, positions=positions,
+                            attn_impl=self.attn_impl)
+        return B.ffn_apply(x, lp["ffn"], self.cfg)
+
+    def backbone(self, params, batch) -> torch.Tensor:
+        """Everything before the LM head; returns final hidden states
+        (B, T, d_model). Each layer runs under ``wrap_remat(remat)``."""
+        x = self._embed_in(params, batch["tokens"])
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        body = wrap_remat(self._layer, self.remat)
+        for lp in self._unstacked_layers(params):
+            x = body(x, lp, positions)
+        return x
+
+    def _block_ce(self, params, xb, lb):
+        """(sum of masked CE, token count) of one block: logits in f32
+        over the whole padded vocabulary, labels < 0 masked."""
+        logits = self._head(params, xb).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        label_logit = logits.gather(
+            -1, lb.long().clamp_min(0)[..., None])[..., 0]
+        mask = (lb >= 0).float()
+        return ((lse - label_logit) * mask).sum(), mask.sum()
+
+    def loss(self, params, batch, chunk_t: int = 512
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Causal-LM CE, computed block-wise over the sequence so the full
+        (B, T, V) logits tensor is never materialized: each block applies
+        the head + CE under checkpoint (recomputed in the backward).
+        Returns ``(loss, {"ce", "aux"})``; the dense family has no MoE
+        auxiliary loss, so ``aux`` is 0 and ``loss == ce``."""
+        x = self.backbone(params, batch)
+        labels = batch["labels"]
+        _, t, _ = x.shape
+        tc = min(chunk_t, t)
+        while t % tc:
+            tc //= 2
+        ce_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+        n_tok = torch.zeros((), dtype=torch.float32, device=x.device)
+        for c0 in range(0, t, tc):
+            s, n = checkpoint(self._block_ce, params, x[:, c0:c0 + tc],
+                              labels[:, c0:c0 + tc], use_reentrant=False,
+                              preserve_rng_state=False)
+            ce_sum = ce_sum + s
+            n_tok = n_tok + n
+        ce = ce_sum / torch.clamp_min(n_tok, 1.0)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return ce + aux, {"ce": ce, "aux": aux}

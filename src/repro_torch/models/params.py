@@ -49,7 +49,7 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
-def _set_path(tree: Dict, path: str, value) -> None:
+def set_path(tree: Dict, path: str, value) -> None:
     keys = path.split("/")
     for k in keys[:-1]:
         tree = tree.setdefault(k, {})
@@ -79,6 +79,6 @@ def materialize(specs, generator: torch.Generator,
                  * scale).to(ps.dtype)
         else:
             raise ValueError(f"unknown initializer {ps.init!r} at {path}")
-        _set_path(out, path, t)
+        set_path(out, path, t)
     return out
 

@@ -1,5 +1,8 @@
-"""The port's CUDA kernel on the card: against its plain version, the
-bitwise T=1 == decode contract, and the launch count of an engine run.
+"""The port's CUDA kernels on the card: the paged read against its plain
+version, the bitwise T=1 == decode contract and the launch count of an
+engine run; the flash-attention kernels (forward, dK/dV, dQ) against
+their plain versions, their autograd wrapper against autograd through
+naive attention, and their launch counts in a train step.
 
 These tests import neither ``jax`` nor the JAX package, so they also run
 on the GPU host: ``PYTHONPATH=src python -m pytest -m gpu
@@ -91,3 +94,139 @@ def test_engine_reads_through_the_kernel(cuda, prefill_chunk):
     assert len(done) == 6 and all(len(r.output) == 6 for r in done)
     assert fd.LAUNCHES["paged_attention"] == cfg.n_layers * (
         st["decode_steps"] + st["chunk_steps"])
+
+
+# --------------------------------------------------------------------------
+# flash attention kernels
+# --------------------------------------------------------------------------
+
+# bf16 outputs against the plain version in bf16 ulps of the larger
+# magnitude, beyond an absolute floor for sums that cancel to near zero:
+# both sum in f32 and round once (chip_smoke.py's limits)
+BF16_ULPS, BF16_ATOL = 2, 1e-5
+# tests/test_kernels.py:31-36 (causal only where T == S), G in {1,2,4,8},
+# D in {64,128}, and ragged lengths that end inside a 64-row tile
+FLASH_CASES = ([(1, 128, 128, 4, 4, 128, c) for c in (True, False)]
+               + [(2, 256, 256, 4, 2, 128, c) for c in (True, False)]
+               + [(1, 256, 256, 8, 1, 64, c) for c in (True, False)]
+               + [(2, 128, 384, 4, 4, 128, False)]
+               + [(1, 192, 192, 8, 8 // g, d, True) for g in (1, 2, 4, 8)
+                  for d in (64, 128)]
+               + [(2, 100, 100, 4, 2, 64, True), (1, 70, 130, 2, 1, 64,
+                                                   False)])
+
+
+def _assert_flash_close(a, b, ulps=BF16_ULPS):
+    if a.dtype != torch.bfloat16:
+        torch.testing.assert_close(a, b, **TOL)
+        return
+    a, b = a.float(), b.float()
+    mag = torch.maximum(a.abs(), b.abs()).clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    diff = (a - b).abs()
+    assert bool((diff <= BF16_ATOL + ulps * ulp).all()), \
+        f"{float((diff / ulp).max())} bf16 ulps > {ulps}"
+
+
+def _flash_case(dev, b, t, s, h, kv, d, dtype, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, do = (torch.randn((b, h, t, d), generator=g, device=dev).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn((b, kv, s, d), generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    return q, k, v, do
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_flash_kernels_match_plain(cuda, case, dtype):
+    from repro_torch.kernels import flash_attention as fa
+    *shape, causal = case
+    q, k, v, do = _flash_case(cuda, *shape, dtype)
+    before = dict(fa.LAUNCHES)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    o_ref, lse_ref = fa._flash_fwd_torch(q, k, v, causal=causal)
+    _assert_flash_close(o, o_ref)
+    torch.testing.assert_close(lse, lse_ref, **TOL)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    want = fa._flash_bwd_torch(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        _assert_flash_close(a, b)
+    assert {n: fa.LAUNCHES[n] - before.get(n, 0)
+            for n in ("fwd", "bwd_dkv", "bwd_dq")} == {
+        "fwd": 1, "bwd_dkv": 1, "bwd_dq": 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_flash_kernels_match_plain_at_training_shape(cuda, dtype):
+    """qwen1.5-0.5b's attention at T=2048 (B=1, H=16, D=64, causal): f32
+    within 2e-5; bf16 o within 2 ulps and dq/dk/dv within 1 (G=1: no sum
+    over heads, so only the forward's online rescaling reorders a sum)."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, do = _flash_case(cuda, 1, 2048, 2048, 16, 16, 64, dtype)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    o_ref, lse_ref = fa._flash_fwd_torch(q, k, v, causal=True)
+    _assert_flash_close(o, o_ref)
+    torch.testing.assert_close(lse, lse_ref, **TOL)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    want = fa._flash_bwd_torch(q, k, v, o, lse, do, causal=True)
+    for a, b in zip(got, want):
+        _assert_flash_close(a, b, ulps=1)
+
+
+@pytest.mark.gpu
+def test_flash_gradient_matches_naive_autograd(cuda):
+    """The autograd.Function through the kernels against autograd through
+    the materialized-score attention, f32 (tests/test_kernels.py:65's
+    2e-3: the two sum in different orders and naive rounds nothing)."""
+    from repro_torch.models import layers as L
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q = torch.randn((2, 256, 8, 64), generator=g, device=cuda)
+    k, v = (torch.randn((2, 256, 2, 64), generator=g, device=cuda)
+            for _ in range(2))
+    w = torch.randn((2, 256, 8, 64), generator=g, device=cuda)
+    res = []
+    for mode in ("naive", "flash"):
+        xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        out = L.attention(*xs, mode=mode, causal=True)
+        res.append((out.detach(), *torch.autograd.grad((out * w).sum(), xs)))
+    for a, b in zip(*res):
+        torch.testing.assert_close(a, b, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("label,per_layer", [
+    ("F+R", {"fwd": 2, "bwd_dkv": 1, "bwd_dq": 1}),
+    ("F", {"fwd": 1, "bwd_dkv": 1, "bwd_dq": 1}),
+    ("Naive", {"fwd": 0, "bwd_dkv": 0, "bwd_dq": 0})])
+def test_train_step_launch_counts(cuda, label, per_layer):
+    """Full-width qwen1.5-0.5b, one step of 1 x 256 tokens: per layer the
+    forward kernel once, and once more when full remat recomputes the
+    layer in the backward; each backward kernel once; none without F.
+    F+R is 48/24/24 over the 24 layers."""
+    from repro_torch.core.config import technique_from_label
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.build import make_model
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.step import build_train_step, init_train_state
+    cfg = get_config("qwen1.5-0.5b")
+    tech = technique_from_label(label)
+    model = make_model(cfg, tech, device=cuda)
+    opt = AdamWConfig(lr=1e-3, warmup=0)
+    state, _ = init_train_state(model, tech, 0, opt)
+    step = build_train_step(model, tech, opt)
+    g = torch.Generator().manual_seed(0)
+    batch = {k: torch.randint(0, cfg.vocab_size, (1, 256), generator=g,
+                              dtype=torch.int32).to(cuda)
+             for k in ("tokens", "labels")}
+    fa.LAUNCHES.clear()
+    state, met = step(state, batch)
+    torch.cuda.synchronize()
+    assert torch.isfinite(met["loss"]) and torch.isfinite(met["grad_norm"])
+    assert {n: fa.LAUNCHES[n] for n in per_layer} == {
+        n: cfg.n_layers * c for n, c in per_layer.items()}

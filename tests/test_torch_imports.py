@@ -2,6 +2,7 @@
 ``chip_smoke.py`` imports ``jax`` or the JAX package, and its entry
 points refuse to run without a card unless asked for the CPU."""
 import ast
+import signal
 from pathlib import Path
 
 import pytest
@@ -49,3 +50,23 @@ def test_entry_points_refuse_to_run_without_a_card(monkeypatch):
         Engine(cfg, params)
     eng = Engine(cfg, params, device="cpu")
     assert eng.device.type == "cpu"
+
+
+def test_training_entry_points_refuse_to_run_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(signal, "signal", lambda *a: None)  # keep SIGTERM
+    from repro_torch.configs import get_config
+    from repro_torch.core.config import ShapeSpec, technique_from_label
+    from repro_torch.core.trainer import Trainer, TrainerConfig
+    from repro_torch.launch import train as train_cli
+    cfg = get_config("qwen1.5-0.5b", reduced=True)
+    shape = ShapeSpec("cli", 16, 2, "train")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(cfg, shape, technique_from_label("F+R"),
+                TrainerConfig(steps=1))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_cli.main(["--reduced", "--steps", "1", "--batch", "2",
+                        "--seq", "16"])
+    tr = Trainer(cfg, shape, technique_from_label("F+R"),
+                 TrainerConfig(steps=1), device="cpu")
+    assert tr.device.type == "cpu"
