@@ -7,8 +7,8 @@ Run from the repository root (it puts ``src`` on ``sys.path`` itself and
 imports nothing of the JAX package). Phases, one line each:
 
 1. device   - the card's name and power limit (nvidia-smi), torch and CUDA.
-2. build    - nvcc builds every kernel of the serving path from
-              ``src/repro_torch/kernels/csrc`` (all sources in parallel).
+2. build    - nvcc builds every kernel from ``src/repro_torch/kernels/
+              csrc`` (one nvcc per source, all in parallel).
 3. kernel   - the paged-attention kernel against its plain PyTorch version
               on the card over T x G x D x {bf16, int8} with a padded table
               bucket, a zero-length row and a short row; T=1 through the
@@ -51,13 +51,31 @@ imports nothing of the JAX package). Phases, one line each:
               and the whole backward), and
               ``scaled_dot_product_attention`` forward, backward and
               forward + backward on the same tensors (timed here only).
+9. ssd      - the SSD kernel against its plain version on the card, f32,
+              at mamba2-130m's whole-prompt shape (B=4, T=1000 padded to
+              1024, H=24, P=64, N=128, chunk 256), its chunk-step shape
+              (B=1, T=64, a carried state) and an odd one (G=2, T not a
+              multiple of the chunk); y and the final state within
+              ``SSD_TOL``; two faults planted in the kernel's wrapper
+              (``init_state`` dropped, the state not carried from chunk
+              to chunk) must each break that limit.
+10. mamba2  - full-width mamba2-130m (seeded random weights) serves the
+              same 16 requests twice: whole-prompt prefill, and chunked
+              prefill (64) on a pool small enough to preempt. Every
+              request must finish; the SSD kernel must launch exactly
+              24 x (prefill groups + chunk steps) times, and never in a
+              decode step; every token must be the argmax of a
+              teacher-forced ``LM(ssd_impl="ref").forward`` or within
+              8 bf16 ulps of it.
+11. timing  - the SSD kernel at B=4, T=1024 beside its bound and its
+              plain version's time (no one library call computes SSD).
 
 Any failed check raises. The last three lines of standard output are the
 kernels' JSON record, the card's name and power limit, and
-``{"ok": true, "device": {...}}``. Each main path (the two engine runs,
-the training run) is driven with every launch count set to 0 just
-before it and read just after. Without a CUDA device, or without the
-repository beside it, the script exits non-zero and prints no result.
+``{"ok": true, "device": {...}}``. Each main path (the four engine runs,
+the training run) is driven with every launch count set to 0 just before
+it and read just after. Without a CUDA device, or without the repository
+beside it, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -74,6 +92,7 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}
+F32_FMA_OPS = 67e12                # f32 on the FMA pipes, not a bound
 KERNEL_TOL = dict(rtol=2e-5, atol=2e-5)   # tests/test_kernels.py f32 tolerance
 GRAD_TOL = dict(rtol=2e-3, atol=2e-3)     # tests/test_kernels.py:65
 # bf16 flash outputs against the plain version, in bf16 ulps of the larger
@@ -89,6 +108,20 @@ LOSS_ATOL = 1e-4                   # flash vs naive loss, full width
 GRAD_NORM_RTOL = 0.01
 GRAD_COS = 0.999
 NEAR_TIE_ULPS = 8                  # bf16 ulps of the top logit
+# SSD kernel against its plain version, f32: each scans the decay itself,
+# and a chunk's cumulative decay reaches about -200, where an f32 ulp is
+# 1.5e-5, so every decay factor may differ by ~1e-5 relative (measured at
+# mamba2's whole-prompt shape: y within 4.6e-4, the state within 8.4e-5;
+# rtol=atol=2e-5 fails): the reference's own SSD kernel test's limit
+# (tests/test_kernels.py:328)
+SSD_TOL = dict(rtol=2e-3, atol=2e-4)
+# (B, T, H, P, G, N, chunk, carried state)
+SSD_CASES = (("whole-prompt", 4, 1000, 24, 64, 1, 128, 256, False),
+             ("chunk step", 1, 64, 24, 64, 1, 128, 256, True),
+             ("odd", 2, 100, 6, 32, 2, 48, 32, True))
+# mamba2's chunked run: 16 requests on 8 slots with prompts of up to 1,000
+# tokens need more 16-token blocks than this at once, so it preempts
+MAMBA2_PRESSURE_BLOCKS = 192
 
 
 def fail(msg: str) -> None:
@@ -757,6 +790,211 @@ def phase_flash_timing():
             "lib_fb": lib_fb, "bounds": bounds, "errs": errs}
 
 
+# --------------------------------------------------------------------------
+# SSD kernel and mamba2 serving
+# --------------------------------------------------------------------------
+
+
+def ssd_case(b, t, h, p, g, n, *, init, seed):
+    """Model-layout SSD inputs at the reference kernel test's scales (x,
+    B, C ~ 0.5 N(0,1), dt = softplus(N(0,1)), A = -exp(0.3 N(0,1))), and
+    a carried state when ``init``."""
+    import torch
+    g_ = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g_, device="cuda")
+
+    x, B, C = rn(b, t, h, p) * 0.5, rn(b, t, g, n) * 0.5, rn(b, t, g, n) * 0.5
+    dt = torch.nn.functional.softplus(rn(b, t, h))
+    A, D = -torch.exp(rn(h) * 0.3), rn(h)
+    state = rn(b, h, p, n) * 0.5 if init else None
+    return x, B, C, dt, A, D, state
+
+
+def _drop_init(run):
+    def fault(*args, init_state=None, **kw):
+        return run(*args, init_state=None, **kw)
+    return fault
+
+
+def _no_carry(run):
+    """Each chunk from its own init only: the state is not carried."""
+    def fault(xdt, b, c, a, *, chunk, init_state=None):
+        import torch
+        q = min(chunk, xdt.shape[2])
+        ys, st = [], None
+        for t0 in range(0, xdt.shape[2], q):
+            sl = slice(t0, t0 + q)
+            y, st = run(xdt[:, :, sl].contiguous(), b[:, :, sl].contiguous(),
+                        c[:, :, sl].contiguous(), a[:, :, sl].contiguous(),
+                        chunk=chunk, init_state=init_state)
+            ys.append(y)
+        return torch.cat(ys, dim=2), st
+    return fault
+
+
+SSD_PLANTED = (("init_state dropped", _drop_init),
+               ("state not carried across chunks", _no_carry))
+
+
+def ssd_vs_plain(case, run=None):
+    """The kernel (or ``run``, a planted fault around it) against the plain
+    version on one case: worst |err| of y and of the final state, and
+    whether both are within ``SSD_TOL``."""
+    import torch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ssd as ssdk
+    name, b, t, h, p, g, n, chunk, init = case
+    x, B, C, dt, A, _, state = ssd_case(b, t, h, p, g, n, init=init,
+                                        seed=len(name) + t)
+    args = kops.ssd_inputs(x, B, C, dt, A, chunk, state)
+    want = ssdk.ssd_chunked_plain(*args[:4], chunk=chunk, init_state=args[4])
+    got = (run or ssdk._ssd_cuda)(*args[:4], chunk=chunk, init_state=args[4])
+    torch.cuda.synchronize()
+    errs = [max_err(a, w) for a, w in zip(got, want)]
+    ok = all(allclose(a, w, **SSD_TOL) for a, w in zip(got, want))
+    return errs, ok
+
+
+def phase_ssd_vs_plain():
+    from repro_torch.kernels import ssd as ssdk
+    for case in SSD_CASES:
+        (ey, es), ok = ssd_vs_plain(case)
+        name, b, t, h, p, g, n, chunk, init = case
+        tag = (f"{name} B={b} T={t} H={h} P={p} G={g} N={n} chunk={chunk}"
+               f"{' +init_state' if init else ''}")
+        check(ok, f"SSD kernel differs from plain at {tag}: y {ey}, state "
+              f"{es} (limit {SSD_TOL})")
+        print(f"[ssd] {tag}: kernel == plain within rtol="
+              f"{SSD_TOL['rtol']:g} atol={SSD_TOL['atol']:g}, max |err| y "
+              f"{ey:.3g}, state {es:.3g}")
+    for fault_name, fault in SSD_PLANTED:
+        caught = []
+        for case in SSD_CASES:
+            (ey, es), ok = ssd_vs_plain(case, fault(ssdk._ssd_cuda))
+            if not ok:
+                caught.append(f"{case[0]} (y {ey:.3g}, state {es:.3g})")
+        check(bool(caught), f"planted SSD fault '{fault_name}' passes "
+              f"every case")
+        print(f"[ssd] planted fault '{fault_name}': caught at "
+              + ", ".join(caught))
+
+
+def ssd_bounds(*, b, t, h, p, g, n, q, init):
+    """Least time (ms) of the SSD kernel's function, as for the other
+    kernels: its f32 inputs read once and outputs written once over HBM
+    rate, against its useful FLOPs (the causal pairs of the two Q x Q
+    products, the inter-chunk product and the state update) over the
+    card's dense tensor-core rate. Returns (bound_ms, bound_by, flops)."""
+    nbytes = 4 * (2 * b * h * t * p + 2 * b * g * t * n + b * h * t
+                  + b * h * n * p * (2 if init else 1))
+    pairs = q * (q + 1) // 2
+    flops = b * h * (t // q) * (2 * pairs * (n + p) + 4 * q * n * p)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_OPS["bf16"] * 1e3
+    return (max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations", flops)
+
+
+def phase_ssd_timing():
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ssd as ssdk
+    b, t, h, p, g, n, q = 4, 1024, 24, 64, 1, 128, 256
+    x, B, C, dt, A, _, _ = ssd_case(b, t, h, p, g, n, init=False, seed=11)
+    xdt, bm, cm, a, _ = kops.ssd_inputs(x, B, C, dt, A, q)
+    got = ssdk._ssd_cuda(xdt, bm, cm, a, chunk=q)
+    want = ssdk.ssd_chunked_plain(xdt, bm, cm, a, chunk=q)
+    err = max(max_err(u, w) for u, w in zip(got, want))
+    check(all(allclose(u, w, **SSD_TOL) for u, w in zip(got, want)),
+          f"SSD kernel differs from plain at the timing shape: {err}")
+    ms = cuda_ms(lambda i: ssdk._ssd_cuda(xdt, bm, cm, a, chunk=q), iters=20)
+    plain_ms = cuda_ms(lambda i: ssdk.ssd_chunked_plain(xdt, bm, cm, a,
+                                                        chunk=q), iters=10)
+    bound_ms, bound_by, flops = ssd_bounds(b=b, t=t, h=h, p=p, g=g, n=n,
+                                           q=q, init=False)
+    print(f"[timing] ssd B={b} T={t} H={h} P={p} N={n} G={g} chunk={q} "
+          f"f32: {ms * 1e3:.1f} us (bound {bound_ms * 1e3:.2f} us by "
+          f"{bound_by}, {bound_ms / ms * 100:.2f}% of it; its "
+          f"{flops / 1e9:.2f} GFLOP take {flops / F32_FMA_OPS * 1e6:.2f} us "
+          f"on the f32 FMA pipes), plain {plain_ms * 1e3:.1f} us, == plain "
+          f"within rtol={SSD_TOL['rtol']:g} atol={SSD_TOL['atol']:g}, max "
+          f"|err| {err:.3g}")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "max_abs_err": err}
+
+
+def phase_ssm_engine(cfg, params, *, prefill_chunk, n_blocks):
+    """Serve ``cfg`` (an attention-free arch) through the engine, count
+    the SSD kernel's launches in the run and in its decode steps, and hold
+    every token against a teacher-forced forward with the plain SSD."""
+    n_req, max_new = 16, 64
+    import torch
+    from repro_torch.data.pipeline import serving_requests
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import ssd as ssdk
+    from repro_torch.models.lm import LM
+    from repro_torch.serving.engine import Engine, Request
+    eng = Engine(cfg, params, max_batch=8, n_blocks=n_blocks, block_size=16,
+                 prefill_chunk=prefill_chunk, device="cuda")
+    check(eng.model.ssd_impl == "kernel",
+          f"the engine's SSD runs {eng.model.ssd_impl!r}, not the kernel")
+    prompts = serving_requests(n_req, cfg.vocab_size,
+                               prompt_lens=[64, 256, 1000])
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, tokens=p, max_new_tokens=max_new))
+    in_decode = []
+    fused = eng._fused_step_impl
+
+    def counted_decode(*args):
+        before = ssdk.LAUNCHES["ssd"]
+        out = fused(*args)
+        in_decode.append(ssdk.LAUNCHES["ssd"] - before)
+        return out
+
+    eng._fused_step_impl = counted_decode
+    torch.cuda.synchronize()
+    ssdk.LAUNCHES.clear()                # count the main path's run only
+    fd.LAUNCHES.clear()
+    fa.LAUNCHES.clear()
+    t0 = time.monotonic()
+    done = eng.run(max_steps=20000)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = ssdk.LAUNCHES["ssd"]
+    check(sum(fd.LAUNCHES.values()) + sum(fa.LAUNCHES.values()) == 0,
+          f"the engine launched attention kernels: {dict(fd.LAUNCHES)} "
+          f"{dict(fa.LAUNCHES)}")
+    st = eng.stats()
+    check(len(done) == n_req and st["finished"] == n_req,
+          f"{st['finished']} of {n_req} requests finished")
+    check(all(len(r.output) == max_new for r in done),
+          f"a request ended with fewer than {max_new} tokens")
+    passes = st["prefill_groups"] + st["chunk_steps"]
+    check(launches == cfg.n_layers * passes,
+          f"SSD launches {launches} != {cfg.n_layers} x {passes} "
+          f"(prefill groups + chunk steps)")
+    check(len(in_decode) == st["decode_steps"] and sum(in_decode) == 0,
+          f"decode steps launched the SSD kernel {sum(in_decode)} times")
+    if prefill_chunk:
+        check(st["preemptions"] >= 1, "the pressure pool never preempted")
+    ref = LM(cfg, ssd_impl="ref", device="cuda")
+    share, worst = teacher_forced(ref, eng.params, done, "none")
+    mode = (f"chunk={prefill_chunk}, {n_blocks} blocks"
+            if prefill_chunk else "whole-prompt")
+    print(f"[mamba2] {cfg.name} full width, {mode}: {n_req}/{n_req} "
+          f"finished x {max_new} tokens in {wall:.2f}s; "
+          f"{st['prefill_groups']} prefill groups + {st['chunk_steps']} "
+          f"chunk steps + {st['decode_steps']} decode steps, SSD launches "
+          f"{launches} = {cfg.n_layers} x {passes}, 0 in decode steps; "
+          f"preemptions {st['preemptions']}; ref-forward argmax match "
+          f"{share:.4f} (others within {worst:.1f} <= {NEAR_TIE_ULPS} bf16 "
+          f"ulps); decode {st['decode_tok_s']:.1f} tok/s, p50 TTFT "
+          f"{st['p50_ttft_s'] * 1e3:.1f} ms")
+    return launches, st
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -779,20 +1017,21 @@ def main() -> None:
     resolve_device("cuda")           # numerics switches for the whole run
     t0 = time.monotonic()
     logs = _build.build_all(verbose=True)
-    ptxas = " ".join(line.strip() for log in logs.values()
-                     for line in log.splitlines() if "registers" in line)
     print(f"[build] {', '.join(_build.KERNELS)} built by nvcc in "
-          f"{time.monotonic() - t0:.1f}s ({ptxas[:300]})")
+          f"{time.monotonic() - t0:.1f}s")
+    for name, log in logs.items():
+        print(f"[build] {name}: " + " ".join(
+            line.strip() for line in log.splitlines() if "registers" in line))
 
+    record = {"kernels": []}
     phase_kernel_vs_plain()
 
     cfg = get_config("qwen1.5-0.5b")
-    model = LM(cfg, device="cuda")
-    params = model.init(0)
+    params = LM(cfg, device="cuda").init(0)
     la, st_a = phase_engine(cfg, params, prefill_chunk=None, kv_quant="none")
     lb, st_b = phase_engine(cfg, params, prefill_chunk=64, kv_quant="int8")
-
-    mb = 128                            # table bucket of a 1064-token row
+    del params
+    mb = 128                        # table bucket of a 1064-token row
     dec = time_shape(cfg, b=8, t=1, lengths=[96, 288, 1032, 96, 288, 1032,
                                              96, 288],
                      quant=False, mb=mb, n_blocks=1025, n_layers=24)
@@ -802,20 +1041,17 @@ def main() -> None:
                     ("chunk B=1 T=64 ctx=936 int8", chk)):
         print(f"[timing] paged_attention {name}: {r['ms'] * 1e3:.1f} us "
               f"(bound {r['bound_ms'] * 1e3:.2f} us by {r['bound_by']}, "
-              f"{r['bound_ms'] / r['ms'] * 100:.1f}% of it), == plain within "
-              f"rtol=atol=2e-5, plain "
-              f"{r['plain_ms'] * 1e3:.1f} us, sdpa {r['library_ms'] * 1e3:.1f}"
-              f" us, max |err| {r['max_abs_err']:.3g}")
+              f"{r['bound_ms'] / r['ms'] * 100:.1f}% of it), == plain "
+              f"within rtol=atol=2e-5, plain "
+              f"{r['plain_ms'] * 1e3:.1f} us, sdpa "
+              f"{r['library_ms'] * 1e3:.1f} us, max |err| "
+              f"{r['max_abs_err']:.3g}")
     print(f"[timing] engine: whole-prompt bf16 decode "
           f"{st_a['decode_tok_s']:.1f} tok/s, p50 TTFT "
           f"{st_a['p50_ttft_s'] * 1e3:.1f} ms; chunk=64 int8 decode "
           f"{st_b['decode_tok_s']:.1f} tok/s, p50 TTFT "
           f"{st_b['p50_ttft_s'] * 1e3:.1f} ms")
-    phase_flash_vs_plain()
-    train_launches, _ = phase_train(cfg)
-    ft = phase_flash_timing()
-
-    record = {"kernels": [{
+    record["kernels"].append({
         "name": "paged_attention",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -827,14 +1063,20 @@ def main() -> None:
         "bound_ms": dec["bound_ms"],
         "bound_by": dec["bound_by"],
         "library_ms": dec["library_ms"],
-    }]}
+    })
+
+    phase_flash_vs_plain()
+    train_launches, _ = phase_train(get_config("qwen1.5-0.5b"))
+    ft = phase_flash_timing()
     flash_src = "src/repro_torch/kernels/csrc/flash_attention.cu"
-    # bwd is the whole flash_attention_bwd (both kernels, one launch each
-    # per call, so its launches are either kernel's count); no one library
-    # call computes dK/dV or dQ alone
+    # bwd is the whole flash_attention_bwd (both kernels, one launch
+    # each per call, so its launches are either kernel's count); no
+    # one library call computes dK/dV or dQ alone
     for name, line, errs, lib, launches in (
-            ("fwd", 76, ("o", "lse"), ft["lib_fwd"], train_launches["fwd"]),
-            ("bwd_dkv", 120, ("dk", "dv"), None, train_launches["bwd_dkv"]),
+            ("fwd", 76, ("o", "lse"), ft["lib_fwd"],
+             train_launches["fwd"]),
+            ("bwd_dkv", 120, ("dk", "dv"), None,
+             train_launches["bwd_dkv"]),
             ("bwd_dq", 165, ("dq",), None, train_launches["bwd_dq"]),
             ("bwd", 203, ("dq", "dk", "dv"), ft["lib_bwd"],
              train_launches["bwd_dkv"])):
@@ -851,6 +1093,31 @@ def main() -> None:
             "bound_by": ft["bounds"][name][1],
             "library_ms": lib,
         })
+
+    phase_ssd_vs_plain()
+    ssd_launches = 0
+    cfg = get_config("mamba2-130m")
+    params = LM(cfg, device="cuda").init(0)
+    for chunk, n_blocks in ((None, 1024), (64, MAMBA2_PRESSURE_BLOCKS)):
+        launches, _ = phase_ssm_engine(cfg, params, prefill_chunk=chunk,
+                                       n_blocks=n_blocks)
+        ssd_launches += launches
+    del params
+    sd = phase_ssd_timing()
+    record["kernels"].append({
+        "name": "ssd_chunked_kernel",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd.cu",
+        "replaces": "src/repro/kernels/ssd.py:75",
+        "launches": ssd_launches,
+        "max_abs_err": sd["max_abs_err"],
+        "ms": sd["ms"],
+        "plain_ms": sd["plain_ms"],
+        "bound_ms": sd["bound_ms"],
+        "bound_by": sd["bound_by"],
+        "library_ms": None,
+    })
+
     print(json.dumps(record))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -14,6 +14,7 @@ from repro_torch.core.config import ArchConfig
 
 _ARCH_MODULES = [
     "qwen1_5_0_5b",
+    "mamba2_130m",
 ]
 
 _REGISTRY: Dict[str, ArchConfig] = {}

@@ -1,5 +1,5 @@
 """Model-layout wrappers around the kernels (the port of
-``repro.kernels.ops``'s ``flash_attention``).
+``repro.kernels.ops``'s ``flash_attention`` and ``ssd``).
 
 :func:`flash_attention` takes the layout of ``models.layers`` — q
 (B, T, H, D), k/v (B, S, K, D) — transposes to the kernels' (B, H, T, D)
@@ -7,15 +7,25 @@ and back, and carries the gradient through :class:`_Flash`, the
 counterpart of the reference's ``custom_vjp`` (``ops.py:43-64``). The
 reference pads head_dim to 128 lanes for the TPU; the CUDA kernels take
 any head_dim up to 128 as it is.
+
+:func:`ssd` takes the layout of ``models.ssd`` and prepares the SSD
+kernel's (``kernels/ssd.py``): f32 ``xdt = x·dt`` and ``a = dt·A`` with
+heads leading, B and C as (B, G, T, N), T right-padded to a multiple of
+the chunk (state-neutral: dt = 0 gives decay 1 and update 0). It adds the
+skip term ``x·D`` and hands the state back as (B, H, P, N). The
+reference also pads P and N to 128 lanes, a TPU layout step the CUDA
+kernel does not need.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ssd as ssdk
 
 
 class _Flash(torch.autograd.Function):
@@ -55,3 +65,40 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
     vt = v.transpose(1, 2).contiguous()
     out = _Flash.apply(qt, kt, vt, causal, 1.0 / float(np.sqrt(d)))
     return out.transpose(1, 2)
+
+
+def ssd_inputs(x, B, C, dt, A, chunk: int,
+               init_state: Optional[torch.Tensor] = None):
+    """The SSD kernel's inputs from the model layout: contiguous f32
+    (xdt (B,H,T',P), b, c (B,G,T',N), a (B,H,T'), init (B,H,N,P) or None)
+    with T' = T right-padded to a multiple of ``chunk``."""
+    t = x.shape[1]
+    xk = (x.float() * dt[..., None]).transpose(1, 2)           # (B,H,T,P)
+    bk = B.float().transpose(1, 2)                             # (B,G,T,N)
+    ck = C.float().transpose(1, 2)
+    a = (dt * A[None, None, :]).transpose(1, 2)                # (B,H,T)
+    tpad = (-t) % chunk
+    if tpad:
+        xk = F.pad(xk, (0, 0, 0, tpad))
+        bk = F.pad(bk, (0, 0, 0, tpad))
+        ck = F.pad(ck, (0, 0, 0, tpad))
+        a = F.pad(a, (0, tpad))
+    init = (None if init_state is None
+            else init_state.float().transpose(2, 3).contiguous())
+    return (xk.contiguous(), bk.contiguous(), ck.contiguous(),
+            a.contiguous(), init)
+
+
+def ssd(x, B, C, dt, A, D, chunk: int = 128,
+        init_state: Optional[torch.Tensor] = None
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Same contract as ``models.ssd.ssd_chunked_ref``: x (B,T,H,P),
+    B/C (B,T,G,N), dt (B,T,H) f32, A (H,), D (H,), ``init_state``
+    (B,H,P,N) f32 or None. Returns (y (B,T,H,P) in x's type, final state
+    (B,H,P,N) f32)."""
+    xk, bk, ck, a, init = ssd_inputs(x, B, C, dt, A, chunk, init_state)
+    y, state = ssdk.ssd_chunked_kernel(xk, bk, ck, a, chunk=chunk,
+                                       init_state=init)
+    t = x.shape[1]
+    y = y[:, :, :t].transpose(1, 2) + x.float() * D[None, None, :, None]
+    return y.to(x.dtype), state.transpose(2, 3)               # (B,H,P,N)

@@ -1,8 +1,9 @@
 """Where a fused decode step's time goes on the card.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile_decode [--steps 10]
+    PYTHONPATH=src python -m repro_torch.launch.profile_decode \
+        [--arch qwen1.5-0.5b|mamba2-130m] [--steps 10]
 
-Serves full-width qwen1.5-0.5b (seeded random weights) with eight running
+Serves the arch at full width (seeded random weights) with eight running
 requests (prompts of 64/256/1000 tokens, cycled), warms up, then times
 ``--steps`` decode steps twice: on the host clock without a profiler
 (wall per step), and under ``torch.profiler`` (device busy time per step,
@@ -20,6 +21,7 @@ from typing import List, Optional
 
 def main(argv: Optional[List[str]] = None) -> None:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen1.5-0.5b")
     ap.add_argument("--steps", type=int, default=10)
     args = ap.parse_args(argv)
 
@@ -37,7 +39,7 @@ def main(argv: Optional[List[str]] = None) -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
-    cfg = get_config("qwen1.5-0.5b")
+    cfg = get_config(args.arch)
     params = LM(cfg, device=dev).init(0)
     eng = Engine(cfg, params, max_batch=8, n_blocks=1024, block_size=16,
                  device=dev)
@@ -72,10 +74,13 @@ def main(argv: Optional[List[str]] = None) -> None:
             by_name[e.name][1] += 1
     busy = sum(v[0] for v in by_name.values()) / 1e3 / args.steps
     n_kernels = sum(v[1] for v in by_name.values()) / args.steps
-    paged = sum(v[0] for k, v in by_name.items()
-                if "paged_mq_kernel" in k) / 1e3 / args.steps
-    print(f"[profile] {card} | qwen1.5-0.5b full width, 8 rows, "
-          f"bf16 KV, {args.steps} steps")
+    ours = {name: sum(v[0] for k, v in by_name.items()
+                      if kernel in k) / 1e3 / args.steps
+            for name, kernel in (("paged_attention", "paged_mq_kernel"),
+                                 ("ssd", "ssd_chunk_scan_kernel"))}
+    cache = "bf16 KV" if cfg.n_kv_heads else "f32 SSM states"
+    print(f"[profile] {card} | {cfg.name} full width, 8 rows, {cache}, "
+          f"{args.steps} steps")
     if not by_name:
         print("[profile] device time: not measured (the profiler recorded "
               f"no device events); wall per step {wall * 1e3:.2f} ms")
@@ -86,8 +91,9 @@ def main(argv: Optional[List[str]] = None) -> None:
           f"({wall_prof * 1e3:.2f} ms under the profiler); device busy "
           f"{busy:.2f} ms per step, idle share "
           f"{max(0.0, 1 - busy / (wall * 1e3)) * 100:.1f}%; "
-          f"{n_kernels:.0f} kernels per step; paged_attention "
-          f"{paged:.2f} ms per step ({paged / busy * 100:.1f}% of busy)")
+          f"{n_kernels:.0f} kernels per step; "
+          + "; ".join(f"{name} {ms:.2f} ms per step ({ms / busy * 100:.1f}% "
+                      f"of busy)" for name, ms in ours.items()))
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     for name, (us, n) in top:
         print(f"[profile]   {us / 1e3 / args.steps:8.3f} ms/step "

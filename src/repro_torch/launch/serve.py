@@ -6,9 +6,13 @@ synthetic burst, on the card by default.
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --prefill-chunk 16                     # paged chunked prefill
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \
+        --prefill-chunk 16 --device cpu        # attention-free SSM arch
 
 Fused decode and chunked prefill read the KV cache through one paged
 multi-query attention kernel (kernels/flash_decode), at T=1 and T=chunk.
+On ``mamba2-130m`` both prefill kinds run the SSD scan through the SSD
+kernel (kernels/ssd) and decode advances the per-slot SSM states.
 As the reference CLI does, it serves the arch's reduced (smoke) config
 with random weights from seed 0; ``chip_smoke.py`` drives the full width.
 """
@@ -45,7 +49,8 @@ def parse_mixed_lens(text: Optional[str]) -> Optional[List[int]]:
 
 def main(argv: Optional[List[str]] = None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen1.5-0.5b")
+    ap.add_argument("--arch", default="qwen1.5-0.5b",
+                    help="qwen1.5-0.5b (dense) or mamba2-130m (ssm)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=24)
     ap.add_argument("--max-new", type=int, default=8)

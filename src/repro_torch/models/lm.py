@@ -1,18 +1,25 @@
 """Decoder-only language model: embed -> layer stack -> tied head.
 
-The dense-family subset of ``repro.models.lm.LM``. Parameters are the
-reference's tree as a nested dict of tensors, with every block leaf
-stacked on a leading ``n_periods`` axis; layer ``i`` reads the views
-``leaf[i]``. Whole-sequence attention is ``layers.attention`` in the
-model's ``attn_impl`` mode: ``"naive"`` (the serving engine's) or
-``"flash"`` (the flash kernels, for training).
+The dense- and ssm-family subset of ``repro.models.lm.LM``. Parameters
+are the reference's tree as a nested dict of tensors, with every block
+leaf stacked on a leading ``n_periods`` axis; layer ``i`` reads the views
+``leaf[i]``. Each period position mixes with attention or with a Mamba-2
+(SSD) block, as ``cfg.layer_kinds()`` says, and every layer has a dense
+FFN (zero-width for mamba2-130m's ``d_ff=0``, a no-op on the residual, as
+in the reference). Whole-sequence attention is ``layers.attention`` in
+the model's ``attn_impl`` mode: ``"naive"`` (the serving engine's) or
+``"flash"`` (the flash kernels, for training). The SSD scan of an SSM
+layer is ``models.ssd.ssd_chunked`` in the model's ``ssd_impl``:
+``"ref"`` (the plain chunked reference) or ``"kernel"`` (the SSD kernel,
+the counterpart of the reference's ``"pallas"``).
 
 ``forward``/``prefill`` serve and run without autograd; ``backbone`` and
-``loss`` are the training objective and build the autograd graph, with
-each layer under ``train.remat.wrap_remat(..., remat)``. To train, make
-the stacked leaves ``requires_grad`` (``train.step.init_train_state``):
-each layer then reads them through one ``unbind``, so every layer's
-gradient lands in its slice of the stacked gradient.
+``loss`` are the training objective of the dense family and build the
+autograd graph, with each layer under ``train.remat.wrap_remat(...,
+remat)``. To train, make the stacked leaves ``requires_grad``
+(``train.step.init_train_state``): each layer then reads them through one
+``unbind``, so every layer's gradient lands in its slice of the stacked
+gradient.
 """
 from __future__ import annotations
 
@@ -26,6 +33,7 @@ from repro_torch.core.device import resolve_device
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models.params import materialize, spec, tree_map
+from repro_torch.models.ssd import SSD_IMPLS
 from repro_torch.train.remat import REMAT_MODES, wrap_remat
 
 VOCAB_PAD = 512
@@ -45,27 +53,34 @@ def _period(cfg: ArchConfig) -> int:
 
 
 ATTN_IMPLS = ("naive", "flash")
+FAMILIES = ("dense", "ssm")
 
 
 class LM:
     """``device`` is the card unless the caller passes ``"cpu"``;
-    ``attn_impl`` is a ``layers.attention`` mode and ``remat`` a
-    ``train.remat`` policy (training only)."""
+    ``attn_impl`` is a ``layers.attention`` mode, ``ssd_impl`` a
+    ``models.ssd.ssd_chunked`` impl and ``remat`` a ``train.remat``
+    policy (training only)."""
 
     def __init__(self, cfg: ArchConfig, *, attn_impl: str = "naive",
-                 remat: str = "none",
+                 ssd_impl: str = "ref", remat: str = "none",
                  device: Optional[Union[str, torch.device]] = None):
-        if cfg.family != "dense":
+        if cfg.family not in FAMILIES or cfg.is_moe:
             raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet; the port "
-                f"runs the dense family")
+                f"family {cfg.family!r}{' (MoE)' if cfg.is_moe else ''} "
+                f"is not ported yet; the port runs the {'/'.join(FAMILIES)} "
+                f"families without MoE")
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl {attn_impl!r} not one of "
                              f"{ATTN_IMPLS}")
+        if ssd_impl not in SSD_IMPLS:
+            raise ValueError(f"ssd_impl {ssd_impl!r} not one of "
+                             f"{SSD_IMPLS}")
         if remat not in REMAT_MODES:
             raise ValueError(f"unknown remat mode {remat!r}")
         self.cfg = cfg
         self.attn_impl = attn_impl
+        self.ssd_impl = ssd_impl
         self.remat = remat
         self.device = resolve_device(device)
         self.period = _period(cfg)
@@ -81,7 +96,8 @@ class LM:
     def param_specs(self) -> Dict:
         cfg = self.cfg
         d, v = cfg.d_model, self.vocab
-        blocks = {f"pos{i}": {"mix": B.attn_specs(cfg, self.n_periods),
+        mix = {"attn": B.attn_specs, "ssm": B.ssm_specs}
+        blocks = {f"pos{i}": {"mix": mix[self.kinds[i]](cfg, self.n_periods),
                               "ffn": B.ffn_specs(cfg, self.n_periods)}
                   for i in range(self.period)}
         p = {
@@ -120,38 +136,50 @@ class LM:
     # Whole-sequence entry points
     # ------------------------------------------------------------------
 
-    def _stack(self, params, x, *, return_kv: bool):
+    def _stack(self, params, x, *, return_cache: bool):
+        """The layer stack over a whole sequence; with ``return_cache``
+        also each layer's fresh k/v (attention) or resume state (SSM),
+        as per-position lists over the periods."""
         cfg = self.cfg
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
-        ks, vs = [], []
+        caches: Dict[int, list] = {pos: [] for pos in range(self.period)}
         for i in range(cfg.n_layers):
             lp = self.layer_params(params, i)
-            x, kv = B.attn_apply(x, lp["mix"], cfg, positions=positions,
-                                 attn_impl=self.attn_impl,
-                                 return_kv=return_kv)
-            if return_kv:
-                ks.append(kv["k"])
-                vs.append(kv["v"])
+            pos = i % self.period
+            if self.kinds[pos] == "attn":
+                x, c = B.attn_apply(x, lp["mix"], cfg, positions=positions,
+                                    attn_impl=self.attn_impl,
+                                    return_kv=return_cache)
+            else:
+                x, c = B.ssm_apply(x, lp["mix"], cfg,
+                                   ssd_impl=self.ssd_impl,
+                                   return_state=return_cache)
+            caches[pos].append(c)
             x = B.ffn_apply(x, lp["ffn"], cfg)
-        return x, ks, vs
+        return x, caches
 
     @torch.no_grad()
     def forward(self, params, tokens: torch.Tensor) -> torch.Tensor:
         """Full-sequence logits (B, T, padded_vocab) for tokens (B, T)."""
         x = self._embed_in(params, tokens)
-        x, _, _ = self._stack(params, x, return_kv=False)
+        x, _ = self._stack(params, x, return_cache=False)
         return self._head(params, x)
 
     @torch.no_grad()
     def prefill(self, params, tokens: torch.Tensor
                 ) -> Tuple[torch.Tensor, Dict, torch.Tensor]:
         """Run the prompt; returns (last_logits (B, V), cache, lengths).
-        ``cache["pos0"]`` holds k/v stacked as (n_periods, B, T, K, hd),
-        the layout of the reference's prefill cache."""
+        ``cache[f"pos{i}"]`` holds, stacked over the periods, k/v as
+        (n_periods, B, T, K, hd) for an attention position and
+        ``{"conv": (n_periods, B, W-1, C), "state": (n_periods, B, H, P,
+        N)}`` for an SSM one: the layout of the reference's prefill
+        cache."""
         b, t = tokens.shape
         x = self._embed_in(params, tokens)
-        x, ks, vs = self._stack(params, x, return_kv=True)
-        cache = {"pos0": {"k": torch.stack(ks), "v": torch.stack(vs)}}
+        x, caches = self._stack(params, x, return_cache=True)
+        cache = {f"pos{pos}": {leaf: torch.stack([c[leaf] for c in cs])
+                               for leaf in cs[0]}
+                 for pos, cs in caches.items()}
         logits = self._head(params, x[:, -1:, :])[:, 0]
         lengths = torch.full((b,), t, dtype=torch.int32, device=x.device)
         return logits, cache, lengths
@@ -180,7 +208,13 @@ class LM:
 
     def backbone(self, params, batch) -> torch.Tensor:
         """Everything before the LM head; returns final hidden states
-        (B, T, d_model). Each layer runs under ``wrap_remat(remat)``."""
+        (B, T, d_model). Each layer runs under ``wrap_remat(remat)``.
+        Dense family only: the reference's SSD kernel has no backward, and
+        training the SSM family is not ported."""
+        if "ssm" in self.kinds:
+            raise NotImplementedError(
+                "training the ssm family is not ported (the SSD kernel has "
+                "no backward)")
         x = self._embed_in(params, batch["tokens"])
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         body = wrap_remat(self._layer, self.remat)

@@ -5,7 +5,9 @@ dtype, logical axis names, initializer), the same tree the JAX package
 builds, so a checkpoint bridged from the reference (``repro_torch.bridge``)
 lands on exactly these keys and shapes. ``materialize`` draws every
 ``normal`` leaf from one explicit ``torch.Generator`` in the tree's sorted
-key order, scaled by the fan-in of its non-stacked contraction axes.
+key order, scaled by the fan-in of its non-stacked contraction axes;
+the SSM leaves ``ssm_a`` and ``dt_bias`` are uniform draws from the same
+generator, with the reference's ranges.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ class ParamSpec(NamedTuple):
     shape: Tuple[int, ...]
     dtype: torch.dtype
     logical: Tuple[Optional[str], ...]
-    init: str = "normal"   # normal | zeros | ones
+    init: str = "normal"   # normal | zeros | ones | ssm_a | dt_bias
     fan_in_axes: Tuple[int, ...] = (0,)
 
 
@@ -56,13 +58,25 @@ def set_path(tree: Dict, path: str, value) -> None:
     tree[keys[-1]] = value
 
 
+def _uniform(shape, lo: float, hi: float, generator, device):
+    u = torch.rand(shape, generator=generator, dtype=torch.float32,
+                   device=device)
+    return u * (hi - lo) + lo
+
+
 def materialize(specs, generator: torch.Generator,
                 device: torch.device) -> Dict:
     """Initialize real parameters on ``device`` from ``generator`` (which
     must live on the same device type)."""
     out: Dict = {}
     for path, ps in tree_paths(specs):
-        if ps.init == "zeros":
+        if ps.init == "ssm_a":      # A_log in [log 1, log 16], mamba2 default
+            t = torch.log(_uniform(ps.shape, 1.0, 16.0, generator,
+                                   device)).to(ps.dtype)
+        elif ps.init == "dt_bias":  # softplus^-1 of dt ~ U[1e-3, 1e-1]
+            u = _uniform(ps.shape, 1e-3, 1e-1, generator, device)
+            t = (u + torch.log(-torch.expm1(-u))).to(ps.dtype)
+        elif ps.init == "zeros":
             t = torch.zeros(ps.shape, dtype=ps.dtype, device=device)
         elif ps.init == "ones":
             t = torch.ones(ps.shape, dtype=ps.dtype, device=device)

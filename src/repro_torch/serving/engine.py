@@ -1,6 +1,6 @@
 """Continuous-batching serving engine: fused paged decode and chunked
 prefill over a paged KV cache (the port of ``repro.serving.engine``,
-``mode="fused"``, dense family).
+``mode="fused"``, dense and ssm families).
 
 The engine owns a paged KV cache (serving/cache.py) and a
 :class:`~repro_torch.serving.scheduler.Scheduler` that makes every policy
@@ -23,6 +23,21 @@ one paged write per sequence) and chunked (``prefill_chunk=N``: one chunk
 step pages N context tokens of one sequence per engine step, reading its
 already-paged prefix through the same multi-query kernel, T=N, while the
 running batch keeps decoding in the same engine step).
+
+**SSM layers** keep a dense per-slot pool of (conv, state), both f32,
+one row per engine slot. Whole-prompt prefill writes each request's
+final states into its slot; a chunk step slices its request's slot,
+carries (conv, state) through the chunk with ``n_valid`` marking the
+valid prefix of a right-padded tail, and writes it back; the fused decode
+step advances every slot's state by one token and keeps inactive slots'
+state with the ``active`` mask (a slot mid-way through chunked prefill
+must not be advanced by the running batch's decode). Under chunked
+prefill a slot starts from zero at admission. The SSD scan of both
+prefill kinds runs in the model's ``ssd_impl``: the engine builds its
+model with ``"kernel"`` (the hand-written CUDA kernel on the card, where
+no other impl is accepted); ``"ref"`` is for the CPU tests. An
+attention-free arch keeps a one-layer dummy KV pool, as the reference
+does, and skips all attention work.
 
 **State updates in place.** Where the reference donates its state
 buffers to each jitted step and rebinds the result, the port writes the
@@ -93,13 +108,18 @@ class Engine:
                  n_blocks: int = 64, block_size: int = 16,
                  kv_quant: str = "none",
                  prefill_chunk: Optional[int] = None,
+                 ssd_impl: str = "kernel",
                  device: Optional[Union[str, torch.device]] = None):
         if kv_quant not in ("none", "int8"):
             raise ValueError(f"kv_quant must be 'none' or 'int8', got "
                              f"{kv_quant!r}")
         self.device = resolve_device(device)
+        if self.device.type == "cuda" and ssd_impl != "kernel":
+            raise ValueError(
+                f"ssd_impl={ssd_impl!r}: on the card the engine's SSD scan "
+                f"runs the kernel; the plain paths are for the CPU")
         self.cfg = cfg
-        self.model = LM(cfg, device=self.device)
+        self.model = LM(cfg, ssd_impl=ssd_impl, device=self.device)
         self.params = tree_map(lambda t: t.to(self.device), params)
         # per-layer views into the stacked block tree, built once
         self._layers = [self.model.layer_params(self.params, i)
@@ -110,11 +130,17 @@ class Engine:
         self.clock = time.monotonic
         self._attn_pos = [i for i in range(self.model.period)
                           if self.model.kinds[i] == "attn"]
+        self._ssm_pos = [i for i in range(self.model.period)
+                         if self.model.kinds[i] == "ssm"]
+        # an attention-free arch keeps a one-layer dummy pool (the
+        # scheduler still accounts blocks per token), as the reference does
+        n_attn = len(self._attn_pos) * self.model.n_periods
         self.kv_cfg = PagedKVConfig(
-            n_layers=len(self._attn_pos) * self.model.n_periods,
-            n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
-            n_blocks=n_blocks, block_size=block_size, kv_quant=kv_quant)
+            n_layers=max(n_attn, 1), n_kv_heads=max(cfg.n_kv_heads, 1),
+            head_dim=max(cfg.head_dim, 1), n_blocks=n_blocks,
+            block_size=block_size, kv_quant=kv_quant)
         self.kv = PagedKVCache(self.kv_cfg, device=self.device)
+        self._ssm_states = self._init_ssm_states()
         self.sched = Scheduler(max_batch=max_batch, n_blocks=n_blocks,
                                block_size=block_size,
                                prefill_chunk=prefill_chunk)
@@ -138,6 +164,42 @@ class Engine:
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
+
+    # ------------------------------------------------------------------
+    # SSM slot pool: per SSM period position, (conv, state) stacked as
+    # (n_periods, max_batch, ...), f32
+    # ------------------------------------------------------------------
+
+    def _init_ssm_states(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        base = B.ssm_init_cache(self.cfg, self.max_batch, self.device)
+        return {f"pos{pos}": {leaf: torch.zeros(
+                    (self.model.n_periods,) + tuple(a.shape), dtype=a.dtype,
+                    device=self.device) for leaf, a in base.items()}
+                for pos in self._ssm_pos}
+
+    def _zero_ssm_slot(self, slot: int) -> None:
+        """Reset one slot's SSM state (chunked prefill starts from zeros;
+        whole-prompt prefill overwrites the slot with its final states)."""
+        for st in self._ssm_states.values():
+            for a in st.values():
+                a[:, slot].zero_()
+
+    def _ssm_xs(self, slot: Optional[int] = None):
+        """Per-period views of the SSM pool: every slot, or ``slot``'s
+        alone as a batch of one."""
+        rows = slice(None) if slot is None else slice(slot, slot + 1)
+        return [{pos: {leaf: a[per, rows] for leaf, a in st.items()}
+                 for pos, st in self._ssm_states.items()}
+                for per in range(self.model.n_periods)]
+
+    def _write_ssm(self, ssm_ys, slot: Optional[int] = None) -> None:
+        """Store each period's new (conv, state) into the pool, in place:
+        every slot, or ``slot``'s alone."""
+        rows = slice(None) if slot is None else slice(slot, slot + 1)
+        for per, new in enumerate(ssm_ys):
+            for pos, leaves in new.items():
+                for leaf, a in leaves.items():
+                    self._ssm_states[pos][leaf][per, rows].copy_(a)
 
     # ------------------------------------------------------------------
     # Scheduling entry points (policy lives in serving/scheduler.py)
@@ -181,14 +243,23 @@ class Engine:
         toks = self._dev(np.asarray([r.context_tokens() for r in group],
                                     np.int32))
         logits, cache, _ = self.model.prefill(self.params, toks)
-        n_l = self.kv_cfg.n_layers
-        lkv = (len(group), t, self.kv_cfg.n_kv_heads, self.kv_cfg.head_dim)
-        k_all = torch.stack([cache[f"pos{p}"]["k"] for p in self._attn_pos],
-                            dim=1).reshape(n_l, *lkv)
-        v_all = torch.stack([cache[f"pos{p}"]["v"] for p in self._attn_pos],
-                            dim=1).reshape(n_l, *lkv)
+        self.step_counts["prefill"] += 1
+        if self._attn_pos:
+            n_l = self.kv_cfg.n_layers
+            lkv = (len(group), t, self.kv_cfg.n_kv_heads,
+                   self.kv_cfg.head_dim)
+            k_all = torch.stack([cache[f"pos{p}"]["k"]
+                                 for p in self._attn_pos],
+                                dim=1).reshape(n_l, *lkv)
+            v_all = torch.stack([cache[f"pos{p}"]["v"]
+                                 for p in self._attn_pos],
+                                dim=1).reshape(n_l, *lkv)
         for g, r in enumerate(group):
-            self.kv.write_prefill((k_all[:, g], v_all[:, g]), r.blocks)
+            if self._attn_pos:
+                self.kv.write_prefill((k_all[:, g], v_all[:, g]), r.blocks)
+            for pos in self._ssm_pos:
+                for leaf, a in self._ssm_states[f"pos{pos}"].items():
+                    a[:, r.slot].copy_(cache[f"pos{pos}"][leaf][:, g])
         next_tok = logits.argmax(dim=-1).cpu().numpy()
         row_ok = torch.isfinite(logits.float()).all(dim=-1).cpu().numpy()
         now = self.clock()
@@ -206,52 +277,63 @@ class Engine:
     # ------------------------------------------------------------------
     # Shared layer body. Fused decode and chunked prefill run the SAME
     # body over the layer stack and differ only in the attention read
-    # (``attn_read``): paged multi-query prefix partial + fresh-window
-    # causal partial + LSE merge, decode being the T=1 window. The body
-    # attends to the fresh tokens exactly as the cache will store them
-    # (int8 round trip under kv_quant) and returns the encoded form for
-    # the single post-stack scatter.
+    # (``attn_read``: paged multi-query prefix partial + fresh-window
+    # causal partial + LSE merge, decode being the T=1 window) and the
+    # SSM cache plumbing (``ssm_step``: T=1 decode with the active-slot
+    # mask, or T>1 chunk continue). The body attends to the fresh tokens
+    # exactly as the cache will store them (int8 round trip under
+    # kv_quant) and returns the encoded form for the single post-stack
+    # scatter, and each SSM position's new (conv, state).
     # ------------------------------------------------------------------
 
-    def _make_stack_body(self, *, positions, attn_read):
+    def _make_stack_body(self, *, positions, attn_read, ssm_step):
         cfg = self.cfg
         quant = self.kv_cfg.kv_quant
         period = self.model.period
+        kinds = self.model.kinds
 
-        def body(x, per, kv_slice):
+        def body(x, per, kv_slice, ssm_slice):
             new_kv: Dict[str, list] = {}
+            new_ssm: Dict[str, Dict[str, torch.Tensor]] = {}
             r = 0
             for pos in range(period):
                 pp = self._layers[per * period + pos]
-                h = L.rmsnorm(x, pp["mix"]["ln"], cfg.norm_eps)
-                q, k, v = B._qkv(h, pp["mix"], cfg, positions)
-                kq, ks = C.quant_encode(k, quant)
-                vq, vs = C.quant_encode(v, quant)
-                out = attn_read(q, (kq, ks, vq, vs), kv_slice, r)
-                x = x + L.dense(out, pp["mix"]["wo"], n_in=2)
-                new_kv.setdefault("k", []).append(kq)
-                new_kv.setdefault("v", []).append(vq)
-                if ks is not None:
-                    new_kv.setdefault("k_scale", []).append(ks)
-                    new_kv.setdefault("v_scale", []).append(vs)
-                r += 1
+                if kinds[pos] == "ssm":
+                    x, new_ssm[f"pos{pos}"] = ssm_step(
+                        x, pp["mix"], ssm_slice[f"pos{pos}"])
+                else:
+                    h = L.rmsnorm(x, pp["mix"]["ln"], cfg.norm_eps)
+                    q, k, v = B._qkv(h, pp["mix"], cfg, positions)
+                    kq, ks = C.quant_encode(k, quant)
+                    vq, vs = C.quant_encode(v, quant)
+                    out = attn_read(q, (kq, ks, vq, vs), kv_slice, r)
+                    x = x + L.dense(out, pp["mix"]["wo"], n_in=2)
+                    new_kv.setdefault("k", []).append(kq)
+                    new_kv.setdefault("v", []).append(vq)
+                    if ks is not None:
+                        new_kv.setdefault("k_scale", []).append(ks)
+                        new_kv.setdefault("v_scale", []).append(vs)
+                    r += 1
                 x = B.ffn_apply(x, pp["ffn"], cfg)
-            return x, {kk: torch.stack(vv) for kk, vv in new_kv.items()}
+            return (x, {kk: torch.stack(vv) for kk, vv in new_kv.items()},
+                    new_ssm)
 
         return body
 
     def _kv_xs(self, kv_state) -> List[Dict[str, torch.Tensor]]:
-        """(L, ...) storage -> per-period views (attn-per-period, ...)."""
+        """(L, ...) storage -> per-period views (attn-per-period, ...);
+        empty for an attention-free arch."""
         n = len(self._attn_pos)
         return [{kk: vv[per * n:(per + 1) * n] for kk, vv in kv_state.items()}
-                for per in range(self.model.n_periods)]
+                if n else {} for per in range(self.model.n_periods)]
 
-    def _run_stack(self, body, x, kv_state):
-        ys = []
+    def _run_stack(self, body, x, kv_state, ssm_xs):
+        kv_ys, ssm_ys = [], []
         for per, kv_slice in enumerate(self._kv_xs(kv_state)):
-            x, y = body(x, per, kv_slice)
-            ys.append(y)
-        return x, ys
+            x, kv_y, ssm_y = body(x, per, kv_slice, ssm_xs[per])
+            kv_ys.append(kv_y)
+            ssm_ys.append(ssm_y)
+        return x, kv_ys, ssm_ys
 
     def _collect_enc(self, kv_ys) -> Dict[str, torch.Tensor]:
         """Per-period ys (R, B, T, ...) -> storage-ready (L, B*T, ...) for
@@ -288,7 +370,7 @@ class Engine:
     # ------------------------------------------------------------------
 
     def _chunk_step_impl(self, params, kv_state, tokens, ctx, n_valid,
-                         table):
+                         table, slot: int):
         cn = tokens.shape[1]
         mbb = table.shape[1]
         dev = tokens.device
@@ -307,9 +389,14 @@ class Engine:
                                      self._enc_read(q, enc)])
             return out.to(q.dtype)
 
+        def ssm_step(x, pp_mix, st):
+            return B.ssm_apply(x, pp_mix, self.cfg, cache=st,
+                               ssd_impl=model.ssd_impl, n_valid=n_valid)
+
         body = self._make_stack_body(positions=positions,
-                                     attn_read=attn_read)
-        x, kv_ys = self._run_stack(body, x, kv_state)
+                                     attn_read=attn_read, ssm_step=ssm_step)
+        x, kv_ys, ssm_ys = self._run_stack(body, x, kv_state,
+                                           self._ssm_xs(slot))
 
         last = x.index_select(1, (n_valid - 1).long())       # (1, 1, d)
         logits = model._head(params, last)[:, 0]
@@ -317,12 +404,14 @@ class Engine:
         # non-finite-logit quarantine flag, read by the host after the step
         ok = torch.isfinite(logits.float()).all()
 
-        enc = self._collect_enc(kv_ys)
-        valid = steps < n_valid
-        blk, off = C.append_slots(table.expand(cn, mbb), ctx + steps,
-                                  self.block_size, self.kv_cfg.n_blocks,
-                                  valid)
-        C.write_token_encoded(kv_state, enc, blk, off)
+        if self._attn_pos:
+            enc = self._collect_enc(kv_ys)
+            valid = steps < n_valid
+            blk, off = C.append_slots(table.expand(cn, mbb), ctx + steps,
+                                      self.block_size, self.kv_cfg.n_blocks,
+                                      valid)
+            C.write_token_encoded(kv_state, enc, blk, off)
+        self._write_ssm(ssm_ys, slot)
         return next_token, ok
 
     def _prefill_chunk_tick(self) -> None:
@@ -343,7 +432,8 @@ class Engine:
             self.params, self.kv.state,
             self._dev(np.asarray([chunk], np.int32)),
             self._dev(np.asarray([start], np.int32)),
-            self._dev(np.asarray([n], np.int32)), self._dev(table))
+            self._dev(np.asarray([n], np.int32)), self._dev(table),
+            req.slot)
         self.step_counts["chunk"] += 1
         if not bool(ok):
             # poisoned mid-prefill: quarantine (pages scrubbed on eviction)
@@ -381,20 +471,32 @@ class Engine:
                  self._enc_read(q, enc)])
             return out.to(q.dtype)
 
+        def ssm_step(x, pp_mix, st):
+            x, nc = B.ssm_apply(x, pp_mix, self.cfg, cache=st)
+            # inactive slots keep their state: a slot mid-way through
+            # chunked prefill must not be advanced by the running batch's
+            # decode (the SSM analogue of the null block for KV appends)
+            return x, {leaf: torch.where(active.reshape(
+                (-1,) + (1,) * (new.ndim - 1)), new, st[leaf])
+                for leaf, new in nc.items()}
+
         body = self._make_stack_body(positions=positions,
-                                     attn_read=attn_read)
-        x, kv_ys = self._run_stack(body, x, kv_state)
+                                     attn_read=attn_read, ssm_step=ssm_step)
+        x, kv_ys, ssm_ys = self._run_stack(body, x, kv_state,
+                                           self._ssm_xs())
 
         logits = model._head(params, x)[:, 0]
         next_tokens = logits.argmax(dim=-1)
         # per-row non-finite-logit flags; the host consults live rows only
         row_ok = torch.isfinite(logits.float()).all(dim=-1)
 
-        enc = self._collect_enc(kv_ys)
-        # inactive slots -> the null block
-        blk, off = C.append_slots(table, lengths, self.block_size,
-                                  self.kv_cfg.n_blocks, active)
-        C.write_token_encoded(kv_state, enc, blk, off)
+        if self._attn_pos:
+            enc = self._collect_enc(kv_ys)
+            # inactive slots -> the null block
+            blk, off = C.append_slots(table, lengths, self.block_size,
+                                      self.kv_cfg.n_blocks, active)
+            C.write_token_encoded(kv_state, enc, blk, off)
+        self._write_ssm(ssm_ys)
         new_lengths = torch.where(active, lengths + 1, lengths)
         return next_tokens, new_lengths, row_ok
 
@@ -443,6 +545,9 @@ class Engine:
     @torch.no_grad()
     def step(self) -> None:
         admitted = self.sched.admit(self.clock())
+        if self.prefill_chunk is not None:
+            for r in admitted:      # chunked prefill starts from zero state
+                self._zero_ssm_slot(r.slot)
         t0 = self.clock()
         if self.prefill_chunk is None:
             if admitted:
@@ -540,4 +645,5 @@ class Engine:
                              if self.decode_time > 0 else 0.0),
             "decode_steps": self.step_counts["decode"],
             "chunk_steps": self.step_counts["chunk"],
+            "prefill_groups": self.step_counts["prefill"],
         }

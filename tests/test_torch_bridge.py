@@ -1,5 +1,9 @@
 """Weight bridge: the JAX package's params cross into the port and back
-bit for bit (bf16 leaves, stacked blocks, padded vocab, tied embeddings)."""
+bit for bit (bf16 leaves, stacked blocks, padded vocab, tied embeddings),
+and for mamba2-130m also its f32 leaves (``a_log``, ``d_skip``,
+``dt_bias``) and the zero-width FFN leaves of its ``d_ff=0`` config."""
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
@@ -63,3 +67,58 @@ def test_port_init_is_seeded_and_fan_in_scaled():
     assert abs(wq.std().item() - 1 / 8) < 0.01
     assert torch.all(a["blocks"]["pos0"]["mix"]["bq"] == 0)
     assert torch.all(a["final_ln"] == 1)
+
+
+def _mamba2_params(d_ff=None):
+    cfg = get_config("mamba2-130m", reduced=True)
+    if d_ff is not None:         # the full config's FFN width at smoke size
+        cfg = dataclasses.replace(cfg, d_ff=d_ff)
+    return cfg, jax.device_get(LM(cfg).init(jax.random.PRNGKey(0)))
+
+
+@pytest.mark.parametrize("d_ff", [None, 0], ids=["smoke", "d_ff=0"])
+def test_mamba2_params_cross_bitwise(d_ff):
+    cfg, params = _mamba2_params(d_ff)
+    port = from_jax_numpy(params)
+    mix = port["blocks"]["pos0"]["mix"]
+    for leaf in ("a_log", "d_skip", "dt_bias"):
+        assert mix[leaf].dtype == torch.float32
+        assert tuple(mix[leaf].shape) == (2, cfg.n_ssm_heads)
+    ffn = port["blocks"]["pos0"]["ffn"]
+    assert tuple(ffn["w_gate"].shape) == (2, 64, cfg.d_ff)
+    assert tuple(ffn["w_down"].shape) == (2, cfg.d_ff, 64)
+    back = to_numpy(port)
+    want, got = dict(tree_paths(params)), dict(tree_paths(back))
+    assert got.keys() == want.keys()
+    for path, a in want.items():
+        b = got[path]
+        assert b.dtype == a.dtype and b.shape == a.shape, path
+        np.testing.assert_array_equal(
+            np.asarray(b).view(np.uint8), np.asarray(a).view(np.uint8),
+            err_msg=path)
+    port_cfg = port_config("mamba2-130m", reduced=True)
+    if d_ff is not None:
+        port_cfg = dataclasses.replace(port_cfg, d_ff=d_ff)
+    specs = dict(tree_paths(PortLM(port_cfg, device="cpu").param_specs()))
+    got = dict(tree_paths(port))
+    assert got.keys() == specs.keys()
+    for path, ps in specs.items():
+        assert tuple(got[path].shape) == ps.shape, path
+        assert got[path].dtype == ps.dtype, path
+
+
+def test_port_ssm_init_ranges():
+    """The port's own seeded draws of the SSM leaves follow the
+    reference's initializers: A_log in [log 1, log 16], softplus(dt_bias)
+    in [1e-3, 1e-1], D = 1, conv bias 0."""
+    model = PortLM(port_config("mamba2-130m", reduced=True), device="cpu")
+    a, b = model.init(0), model.init(0)
+    for (path, x), (_, y) in zip(tree_paths(a), tree_paths(b)):
+        assert torch.equal(x, y), path
+    mix = a["blocks"]["pos0"]["mix"]
+    assert mix["a_log"].dtype == torch.float32
+    assert float(mix["a_log"].min()) >= 0.0
+    assert float(mix["a_log"].max()) <= float(np.log(16.0)) + 1e-6
+    dt = torch.nn.functional.softplus(mix["dt_bias"])
+    assert float(dt.min()) >= 1e-3 - 1e-6 and float(dt.max()) <= 0.1 + 1e-6
+    assert torch.all(mix["d_skip"] == 1) and torch.all(mix["conv_b"] == 0)

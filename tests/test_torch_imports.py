@@ -50,6 +50,9 @@ def test_entry_points_refuse_to_run_without_a_card(monkeypatch):
         Engine(cfg, params)
     eng = Engine(cfg, params, device="cpu")
     assert eng.device.type == "cpu"
+    ssm = get_config("mamba2-130m", reduced=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Engine(ssm, LM(ssm, device="cpu").init(0))
 
 
 def test_training_entry_points_refuse_to_run_without_a_card(monkeypatch):
