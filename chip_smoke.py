@@ -69,13 +69,41 @@ imports nothing of the JAX package). Phases, one line each:
               8 bf16 ulps of it.
 11. timing  - the SSD kernel at B=4, T=1024 beside its bound and its
               plain version's time (no one library call computes SSD).
+12. qmm     - the int8 weight-only matmul kernel against its plain version
+              on the card: the reference's kernel-test shapes, M in {1, 7},
+              K and N off the tile, G in {1, 16}, the four fine-tuning
+              projections at M=2048; x bf16 and f32, out bf16 and f32 (f32
+              within 2e-5, bf16 within 1 bf16 ulp beyond a 1e-5 floor);
+              the autograd wrapper's dx against autograd through the plain
+              version; two planted faults (scales ignored, the last K tile
+              dropped) must each break a limit.
+13. finetune - full-width qwen1.5-0.5b (seeded random weights) fine-tunes
+              LoRA adapters (rank 64) on an int8 frozen base through
+              ``Trainer`` with technique QL+Q8+F+R at batch 4 x 2048. B is
+              set to seeded nonzero values; then one loss + backward with
+              the int8 kernel against the same with the reference's
+              dequantize-first route on the same params and batch (loss
+              within ``FT_LOSS_ATOL``, every adapter gradient's cosine >=
+              0.999), and again under each fault of phase 12, which must
+              break one of those limits; then 4 steps, whose losses and
+              gradient norms must be finite, which must leave the int8
+              base, embed, norms and biases bit-unchanged, and which must
+              launch the int8 kernel 24 x 7 x 2 = 336 times and the flash
+              kernels 48/24/24 per step; then 2 L+F+R steps (bf16 base),
+              which must launch the int8 kernel 0 times.
+14. timing  - the int8 kernel at the step's four shapes (M=8192): time per
+              launch beside its bound, the plain version's time and the
+              reference's route on the card, dequantize to x's type +
+              ``torch.matmul`` (two calls: no one PyTorch call computes
+              this function); the kernel's time per step.
 
 Any failed check raises. The last three lines of standard output are the
 kernels' JSON record, the card's name and power limit, and
-``{"ok": true, "device": {...}}``. Each main path (the four engine runs,
-the training run) is driven with every launch count set to 0 just before
-it and read just after. Without a CUDA device, or without the repository
-beside it, the script exits non-zero and prints no result.
+``{"ok": true, "device": {...}}``; the line before them gives the whole
+run's time. Each main path (the four engine runs, the training run, the
+two fine-tuning runs) is driven with every launch count set to 0 just
+before it and read just after. Without a CUDA device, or without the
+repository beside it, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -122,6 +150,29 @@ SSD_CASES = (("whole-prompt", 4, 1000, 24, 64, 1, 128, 256, False),
 # mamba2's chunked run: 16 requests on 8 slots with prompts of up to 1,000
 # tokens need more 16-token blocks than this at once, so it preempts
 MAMBA2_PRESSURE_BLOCKS = 192
+# int8 kernel cases (name, M, K, N, G): tests/test_kernels.py:362's shapes,
+# decode-size M, K and N off the 128 x 128 x 32 tiles, G = 16 head groups,
+# and qwen1.5-0.5b's four fine-tuning projections at M = 2048
+QMM_CASES = (("test_kernels", 128, 256, 128, 1),
+             ("test_kernels", 64, 512, 384, 1),
+             ("decode", 1, 1024, 1024, 16), ("ragged", 7, 1000, 1040, 16),
+             ("ragged", 7, 1000, 300, 1), ("ragged", 200, 130, 70, 1),
+             ("q/k/v", 2048, 1024, 1024, 16), ("o", 2048, 1024, 1024, 1),
+             ("gate/up", 2048, 1024, 2816, 1), ("down", 2048, 2816, 1024, 1))
+QMM_K_TILE = 32                    # kBK of csrc/quant_matmul.cu
+# the fine-tuning step's projections at M = 4 x 2048 tokens: (name, K, N,
+# G, x type, out type, launches per layer per forward pass)
+QMM_STEP = (("q/k/v", 1024, 1024, 16, "bf16", "f32", 3),
+            ("o", 1024, 1024, 1, "bf16", "bf16", 1),
+            ("gate/up", 1024, 2816, 1, "bf16", "f32", 2),
+            ("down", 2816, 1024, 1, "f32", "f32", 1))
+# the int8 kernel keeps each dequantized weight in f32 where the reference
+# route rounds it to bf16: the two routes' losses differ by that rounding
+# (measured on the CPU at reduced width, QL+Q8+F+R with B nonzero: 9.9e-5
+# at 2 x 64 tokens, 6.4e-5 at 4 x 128; tests/test_torch_finetune.py holds
+# the kernel route to the reference at 2e-3); worst adapter gradient
+# cosine 0.99982 there
+FT_LOSS_ATOL = 2e-3
 
 
 def fail(msg: str) -> None:
@@ -586,14 +637,13 @@ PLANTED = (("attention output zeroed", "_fwd_cuda", _zero_output),
 
 
 @contextlib.contextmanager
-def planted(attr, fault):
-    from repro_torch.kernels import flash_attention as fa
-    real = getattr(fa, attr)
-    setattr(fa, attr, fault(real))
+def planted(module, attr, fault):
+    real = getattr(module, attr)
+    setattr(module, attr, fault(real))
     try:
         yield
     finally:
-        setattr(fa, attr, real)
+        setattr(module, attr, real)
 
 
 def train_loss_and_grads(model, params, batch):
@@ -658,7 +708,7 @@ def phase_train(cfg):
           f"cosine {reading['cosine']:.6f} >= {GRAD_COS} "
           f"({time.monotonic() - t0:.1f}s)")
     for name, attr, fault in PLANTED:
-        with planted(attr, fault):
+        with planted(fa, attr, fault):
             _, _, bad_reading, bad_broken = against_naive()
         check(bool(bad_broken), f"planted fault '{name}' passes every "
               f"flash-vs-naive limit: {bad_reading}")
@@ -995,6 +1045,327 @@ def phase_ssm_engine(cfg, params, *, prefill_chunk, n_blocks):
     return launches, st
 
 
+# --------------------------------------------------------------------------
+# int8 weight-only matmul and LoRA fine-tuning
+# --------------------------------------------------------------------------
+
+
+def _dtype(name):
+    import torch
+    return {"bf16": torch.bfloat16, "f32": torch.float32}[name]
+
+
+def qmm_case(m, k, n, g, x_dtype, *, seed=0):
+    """x ~ N(0, 1) and a weight ~ N(0, 1/K), as the model's fan-in-scaled
+    init, quantized by ``quantize_int8`` as (K, G, N/G): scales (K, G),
+    the layout ``layers.dense`` hands the kernel."""
+    import torch
+    from repro_torch.quant.qtensor import quantize_int8
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((m, k), generator=gen, device="cuda").to(x_dtype)
+    w = torch.randn((k, g, n // g), generator=gen, device="cuda") / k ** 0.5
+    qt = quantize_int8(w.bfloat16())
+    return x, qt.data.reshape(k, n), qt.scale.reshape(k, g)
+
+
+def qmm_vs_plain(x, w_q, scale, out_dtype, run=None):
+    """The kernel (or ``run``, a planted fault around it) against the plain
+    version: (worst |err|, whether within the limit: f32 within
+    ``KERNEL_TOL``, bf16 within 1 bf16 ulp beyond ``BF16_ATOL``)."""
+    import torch
+    from repro_torch.kernels import quant_matmul as qmm
+    got = (run or qmm._qmm_cuda)(x, w_q, scale, out_dtype=out_dtype)
+    want = qmm.int8_matmul_plain(x, w_q, scale, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    err = max_err(got.float(), want.float())
+    if out_dtype == torch.bfloat16:
+        return err, bf16_ulp_check(got, want, 1)[1]
+    return err, allclose(got, want, **KERNEL_TOL)
+
+
+def _ignore_scales(run):
+    def fault(x, w_q, scale, **kw):
+        import torch
+        return run(x, w_q, torch.ones_like(scale), **kw)
+    return fault
+
+
+def _drop_last_k_tile(run):
+    """A kernel whose K loop stops one tile early."""
+    def fault(x, w_q, scale, **kw):
+        keep = (x.shape[1] - 1) // QMM_K_TILE * QMM_K_TILE
+        return run(x[:, :keep].contiguous(), w_q[:keep].contiguous(),
+                   scale[:keep].contiguous(), **kw)
+    return fault
+
+
+QMM_PLANTED = (("scales ignored", _ignore_scales),
+               ("last K tile dropped", _drop_last_k_tile))
+
+
+def phase_qmm_vs_plain():
+    import torch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import quant_matmul as qmm
+    types = (("bf16", "bf16"), ("bf16", "f32"), ("f32", "f32"),
+             ("f32", "bf16"))
+    worst = {"f32": 0.0, "bf16": 0.0}
+    n = 0
+    for i, (name, m, k, n_, g) in enumerate(QMM_CASES):
+        for xt, ot in types:
+            x, w_q, scale = qmm_case(m, k, n_, g, _dtype(xt), seed=i)
+            err, ok = qmm_vs_plain(x, w_q, scale, _dtype(ot))
+            check(ok, f"int8 kernel differs from plain at {name} M={m} "
+                  f"K={k} N={n_} G={g} x {xt} out {ot}: max |err| {err}")
+            worst[ot] = max(worst[ot], err)
+            n += 1
+    # the autograd wrapper: dx against autograd through the plain version
+    x, w_q, scale = qmm_case(2048, 1024, 1024, 16, torch.bfloat16, seed=50)
+    dy = torch.randn((2048, 1024), device="cuda")
+    grads = []
+    for fn in (lambda t: kops.int8_matmul(t, w_q, scale,
+                                          out_dtype=torch.float32),
+               lambda t: qmm.int8_matmul_plain(t, w_q, scale,
+                                               out_dtype=torch.float32)):
+        xg = x.clone().requires_grad_(True)
+        grads.append(torch.autograd.grad((fn(xg) * dy).sum(), xg)[0])
+    dx_ulps, dx_ok = bf16_ulp_check(grads[0], grads[1], 1)
+    check(dx_ok, f"int8_matmul dx differs from autograd through the plain "
+          f"version by {dx_ulps} bf16 ulps")
+    print(f"[qmm] {n} cases (10 shapes x x/out in bf16/f32) kernel == "
+          f"plain: f32 out within rtol=atol=2e-5 (max |err| "
+          f"{worst['f32']:.3g}), bf16 out within 1 ulp + {BF16_ATOL} (max "
+          f"|err| {worst['bf16']:.3g}); dx of the autograd wrapper == "
+          f"autograd through the plain version within 1 bf16 ulp (max "
+          f"{dx_ulps:g} ulps beyond the floor, max |err| "
+          f"{max_err(grads[0].float(), grads[1].float()):.3g})")
+    for fault_name, fault in QMM_PLANTED:
+        caught = []
+        for i, (name, m, k, n_, g) in enumerate(QMM_CASES):
+            x, w_q, scale = qmm_case(m, k, n_, g, torch.bfloat16, seed=i)
+            err, ok = qmm_vs_plain(x, w_q, scale, torch.float32,
+                                   fault(qmm._qmm_cuda))
+            if not ok:
+                caught.append(err)
+        check(bool(caught), f"planted int8 fault '{fault_name}' passes "
+              f"every case")
+        print(f"[qmm] planted fault '{fault_name}': caught at "
+              f"{len(caught)} of {len(QMM_CASES)} shapes (bf16 x, f32 out; "
+              f"max |err| {min(caught):.3g}-{max(caught):.3g})")
+
+
+def adapter_loss_and_grads(model, params, batch):
+    """Loss (float) and the adapters' gradients, in ``split_trainable``
+    order."""
+    import torch
+    from repro_torch.models.params import tree_paths
+    from repro_torch.peft.lora import split_trainable
+    leaves = [t for _, t in tree_paths(split_trainable(params)[0])]
+    loss, _ = model.loss(params, batch)
+    grads = torch.autograd.grad(loss, leaves)
+    return float(loss.detach()), grads
+
+
+def phase_finetune(cfg):
+    """Full width through the trainer's entry point: the int8 kernel's
+    route against the reference's on one batch, 4 QL+Q8+F+R steps with the
+    launch counts read and the frozen base held, then 2 L+F+R steps."""
+    import torch
+    from repro_torch.core.config import ShapeSpec, technique_from_label
+    from repro_torch.core.trainer import Trainer, TrainerConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import quant_matmul as qmm
+    from repro_torch.launch.build import make_model
+    from repro_torch.models.params import tree_paths
+    from repro_torch.peft.lora import split_trainable
+    sh = TRAIN_SHAPE
+    steps = 4
+    shape = ShapeSpec("cli", sh["t"], sh["b"], "train")
+    tech = technique_from_label("QL+Q8+F+R")
+    trainer = Trainer(cfg, shape, tech, TrainerConfig(steps=steps,
+                                                      log_every=1),
+                      device="cuda")
+    model = trainer.model
+    check((model.qmm_impl, model.attn_impl, model.remat) ==
+          ("kernel", "flash", "full"),
+          f"QL+Q8+F+R built qmm_impl={model.qmm_impl} attn_impl="
+          f"{model.attn_impl} remat={model.remat}")
+    params = trainer.state["params"]
+    trainable = tree_paths(split_trainable(params)[0])
+    n_train = sum(t.numel() for _, t in trainable)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    with torch.no_grad():                # B = 0 at init: A's gradient is 0
+        for path, t in trainable:
+            if path.endswith("/b"):
+                t.copy_(torch.randn(t.shape, generator=g, device="cuda")
+                        * 0.02)
+    frozen = {p: t.clone() for p, t in tree_paths(params)
+              if not p.endswith(("/a", "/b"))}
+    adapters = {p: t.detach().clone() for p, t in trainable}
+    batch = trainer._batch_for(0)
+    ref = make_model(cfg, tech, device="cuda", qmm_impl="ref")
+    t0 = time.monotonic()
+    lr, gr = adapter_loss_and_grads(ref, params, batch)
+
+    def against_ref():
+        lk, gk = adapter_loss_and_grads(model, params, batch)
+        cos = min(float(torch.nn.functional.cosine_similarity(
+            a.float().flatten(), b.float().flatten(), dim=0))
+            for a, b in zip(gk, gr))
+        reading = {"loss": abs(lk - lr), "cosine": cos}
+        broken = [k for k, bad in (("loss", reading["loss"] > FT_LOSS_ATOL),
+                                   ("cosine", not cos >= GRAD_COS)) if bad]
+        return lk, reading, broken
+
+    lk, reading, broken = against_ref()
+    check(not broken, f"int8 kernel route vs reference route breaks "
+          f"{broken}: loss {lk} vs {lr} (limit {FT_LOSS_ATOL}), min adapter "
+          f"gradient cosine {reading['cosine']} (limit {GRAD_COS})")
+    print(f"[finetune] step-0 batch, B seeded nonzero, int8 kernel vs the "
+          f"reference's dequantize-first route: loss {lk:.6f} vs {lr:.6f} "
+          f"(|diff| {reading['loss']:.3g} <= {FT_LOSS_ATOL}), min adapter "
+          f"gradient cosine {reading['cosine']:.6f} >= {GRAD_COS} over "
+          f"{len(gr)} leaves ({time.monotonic() - t0:.1f}s)")
+    for name, fault in QMM_PLANTED:
+        with planted(qmm, "_qmm_cuda", fault):
+            _, bad_reading, bad_broken = against_ref()
+        check(bool(bad_broken), f"planted fault '{name}' passes every "
+              f"kernel-vs-reference limit: {bad_reading}")
+        print(f"[finetune] planted fault '{name}': |dloss| "
+              f"{bad_reading['loss']:.3g}, min adapter gradient cosine "
+              f"{bad_reading['cosine']:.6f}; caught by "
+              + ", ".join(bad_broken))
+    del gr, ref
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    qmm.LAUNCHES.clear()                 # count the main path's run only
+    fa.LAUNCHES.clear()
+    out = trainer.run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = qmm.LAUNCHES["int8_matmul"]
+    flash = {n: fa.LAUNCHES[n] for n in ("fwd", "bwd_dkv", "bwd_dq")}
+    hist = out["history"]
+    check(out["final_step"] == steps and len(hist) == steps,
+          f"trainer ran {out['final_step']} of {steps} steps")
+    for h in hist:
+        check(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]),
+              f"step {h['step']}: loss {h['loss']}, grad_norm "
+              f"{h['grad_norm']}")
+    per_step = cfg.n_layers * 7 * 2      # 7 base projections, run twice (R)
+    check(launches == per_step * steps,
+          f"int8 launches {launches} != {per_step} x {steps} steps")
+    want = {"fwd": 2 * cfg.n_layers * steps,
+            "bwd_dkv": cfg.n_layers * steps, "bwd_dq": cfg.n_layers * steps}
+    check(flash == want, f"flash launches {flash} != {want}")
+    now = dict(tree_paths(params))
+    moved = [p for p, t in frozen.items() if not torch.equal(now[p], t)]
+    check(not moved, f"frozen leaves changed: {moved[:5]}")
+    adapters_moved = sum(not torch.equal(now[p], t)
+                         for p, t in adapters.items())
+    check(adapters_moved == len(adapters),
+          f"{len(adapters) - adapters_moved} adapter leaves never moved")
+    n_frozen = len(frozen)
+    del frozen, adapters
+    print(f"[finetune] qwen1.5-0.5b full width, QL+Q8+F+R (LoRA rank "
+          f"{tech.lora_rank}, {n_train} trainable parameters), batch "
+          f"{sh['b']} x {sh['t']}: {steps} steps, losses "
+          + ", ".join(f"{h['loss']:.4f}" for h in hist)
+          + ", grad_norms " + ", ".join(f"{h['grad_norm']:.4f}" for h in hist)
+          + f"; steps 2-{steps}: {out['step_ms']:.1f} ms/step, "
+          f"{out['tokens_per_s']:.0f} tokens/s; int8 launches {launches} "
+          f"(= {launches // steps} per step = {cfg.n_layers} x 7 x 2), "
+          f"flash {flash['fwd']}/{flash['bwd_dkv']}/{flash['bwd_dq']}; "
+          f"{n_frozen} frozen leaves bit-unchanged, {adapters_moved} of "
+          f"{len(trainable)} adapter leaves updated; peak memory "
+          f"{peak:.2f} GiB; {card_line()}")
+    del trainer, params, now
+    torch.cuda.empty_cache()
+    bf16_steps = 2
+    lora = Trainer(cfg, shape, technique_from_label("L+F+R"),
+                   TrainerConfig(steps=bf16_steps, log_every=1),
+                   device="cuda")
+    torch.cuda.synchronize()
+    qmm.LAUNCHES.clear()
+    fa.LAUNCHES.clear()
+    out_l = lora.run()
+    torch.cuda.synchronize()
+    check(qmm.LAUNCHES["int8_matmul"] == 0,
+          f"L+F+R launched the int8 kernel {qmm.LAUNCHES['int8_matmul']} "
+          f"times")
+    check(fa.LAUNCHES["fwd"] == 2 * cfg.n_layers * bf16_steps,
+          f"L+F+R flash launches {dict(fa.LAUNCHES)}")
+    for h in out_l["history"]:
+        check(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]),
+              f"L+F+R step {h['step']}: loss {h['loss']}")
+    print(f"[finetune] L+F+R (bf16 base), {bf16_steps} steps: losses "
+          + ", ".join(f"{h['loss']:.4f}" for h in out_l["history"])
+          + f"; int8 launches 0; {out_l['step_ms']:.1f} ms/step (step 2)")
+    del lora
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def qmm_bound(m, k, n, g, x_bytes, out_bytes):
+    """Least time (ms) of one int8 product on this card: x, codes, scales
+    read once and the output written once over HBM rate, against its
+    2·M·K·N FLOPs at the bf16 tensor-core rate. (ms, bound_by)."""
+    nbytes = m * k * x_bytes + k * n + k * g * 4 + m * n * out_bytes
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2.0 * m * k * n / PEAK_OPS["bf16"] * 1e3
+    return (max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_qmm_timing(cfg):
+    import torch
+    from repro_torch.kernels import quant_matmul as qmm
+    m = TRAIN_SHAPE["b"] * TRAIN_SHAPE["t"]
+    rows = {}
+    for i, (name, k, n, g, xt, ot, per_layer) in enumerate(QMM_STEP):
+        x_dtype, out_dtype = _dtype(xt), _dtype(ot)
+        x, w_q, scale = qmm_case(m, k, n, g, x_dtype, seed=100 + i)
+        err, ok = qmm_vs_plain(x, w_q, scale, out_dtype)
+        check(ok, f"int8 kernel differs from plain at the step's {name} "
+              f"shape: {err}")
+        ms = cuda_ms(lambda j: qmm._qmm_cuda(x, w_q, scale,
+                                             out_dtype=out_dtype), iters=20)
+        plain_ms = cuda_ms(lambda j: qmm.int8_matmul_plain(
+            x, w_q, scale, out_dtype=out_dtype), iters=10)
+
+        def ref_route(j):
+            # the reference's dense: dequantize to x's type, then the product
+            w = (w_q.reshape(k, g, n // g).float()
+                 * scale[:, :, None]).reshape(k, n).to(x_dtype)
+            return torch.matmul(x, w)
+
+        lib_ms = cuda_ms(ref_route, iters=20)
+        bound_ms, bound_by = qmm_bound(m, k, n, g, x.element_size(),
+                                       torch.empty((), dtype=out_dtype
+                                                   ).element_size())
+        rows[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "max_abs_err": err, "per_layer": per_layer}
+        tflops = 2.0 * m * k * n / (ms * 1e-3) / 1e12
+        print(f"[timing] int8_matmul {name} M={m} K={k} N={n} G={g} x {xt} "
+              f"out {ot}: {ms * 1e3:.1f} us ({tflops:.1f} TFLOP/s; bound "
+              f"{bound_ms * 1e3:.2f} us by {bound_by}, "
+              f"{bound_ms / ms * 100:.2f}% of it), plain (f32 dequantize + "
+              f"f32 matmul) {plain_ms * 1e3:.1f} us, reference route "
+              f"(dequantize to {xt} + torch.matmul, two calls) "
+              f"{lib_ms * 1e3:.1f} us; == plain, max |err| {err:.3g}")
+    per_step = {key: 2 * cfg.n_layers * sum(r[key] * r["per_layer"]
+                                            for r in rows.values())
+                for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    print(f"[timing] int8_matmul per QL+Q8+F+R step ({cfg.n_layers} layers "
+          f"x 7 projections x 2 with remat, {2 * cfg.n_layers * 7} "
+          f"launches): "
+          f"kernel {per_step['ms']:.1f} ms, bound {per_step['bound_ms']:.2f} "
+          f"ms, plain {per_step['plain_ms']:.1f} ms, reference route "
+          f"{per_step['library_ms']:.1f} ms; {card_line()}")
+    return rows, per_step
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1005,6 +1376,7 @@ def main() -> None:
               f"checkout of the repository", file=sys.stderr)
         sys.exit(2)
     sys.path.insert(0, str(SRC))
+    t_start = time.monotonic()
     card = card_line()
     print(f"[device] {card} | {torch.cuda.get_device_name(0)} x "
           f"{torch.cuda.device_count()} | torch {torch.__version__} "
@@ -1118,6 +1490,27 @@ def main() -> None:
         "library_ms": None,
     })
 
+    phase_qmm_vs_plain()
+    cfg = get_config("qwen1.5-0.5b")
+    ft_launches, _ = phase_finetune(cfg)
+    rows, _ = phase_qmm_timing(cfg)
+    gate = rows["gate/up"]
+    record["kernels"].append({
+        "name": "int8_matmul",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/quant_matmul.cu",
+        "replaces": "src/repro/kernels/quant_matmul.py:40",
+        "launches": ft_launches,
+        "max_abs_err": gate["max_abs_err"],
+        "ms": gate["ms"],
+        "plain_ms": gate["plain_ms"],
+        "bound_ms": gate["bound_ms"],
+        "bound_by": gate["bound_by"],
+        "library_ms": gate["library_ms"],
+    })
+
+    print(f"[done] every phase passed in {time.monotonic() - t_start:.1f}s, "
+          f"the build included")
     print(json.dumps(record))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

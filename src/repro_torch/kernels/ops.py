@@ -1,5 +1,6 @@
 """Model-layout wrappers around the kernels (the port of
-``repro.kernels.ops``'s ``flash_attention`` and ``ssd``).
+``repro.kernels.ops``'s ``flash_attention``, ``ssd`` and
+``int8_matmul``).
 
 :func:`flash_attention` takes the layout of ``models.layers`` — q
 (B, T, H, D), k/v (B, S, K, D) — transposes to the kernels' (B, H, T, D)
@@ -15,6 +16,12 @@ the chunk (state-neutral: dt = 0 gives decay 1 and update 0). It adds the
 skip term ``x·D`` and hands the state back as (B, H, P, N). The
 reference also pads P and N to 128 lanes, a TPU layout step the CUDA
 kernel does not need.
+
+:func:`int8_matmul` flattens x's leading axes for the int8 kernel
+(``kernels/quant_matmul.py``) and carries x's gradient through
+:class:`_Int8Matmul`. The reference has no backward kernel: its x
+gradient is XLA's transpose product, outside any Pallas kernel, so here
+it is one ``torch.matmul`` on the f32 dequantized weight.
 """
 from __future__ import annotations
 
@@ -25,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import quant_matmul as qmm
 from repro_torch.kernels import ssd as ssdk
 
 
@@ -102,3 +110,32 @@ def ssd(x, B, C, dt, A, D, chunk: int = 128,
     t = x.shape[1]
     y = y[:, :, :t].transpose(1, 2) + x.float() * D[None, None, :, None]
     return y.to(x.dtype), state.transpose(2, 3)               # (B,H,P,N)
+
+
+class _Int8Matmul(torch.autograd.Function):
+    """Forward: the int8 kernel. Backward: ``dx = dy @ Wᵀ`` with W the f32
+    dequantized weight, in x's type; the frozen ``w_q`` and ``scale`` get
+    no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w_q, scale, out_dtype):
+        ctx.save_for_backward(w_q, scale)
+        ctx.x_dtype = x.dtype
+        return qmm.int8_matmul_kernel(x, w_q, scale, out_dtype=out_dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        w_q, scale = ctx.saved_tensors
+        w = qmm.dequantize_groups(w_q, scale)
+        dx = torch.matmul(dy.to(torch.float32), w.T).to(ctx.x_dtype)
+        return dx, None, None, None
+
+
+def int8_matmul(x, w_q, scale, out_dtype: Optional[torch.dtype] = None
+                ) -> torch.Tensor:
+    """x (..., K) @ (w_q int8 (K, N) · scale f32 (K, G)) -> (..., N) in
+    ``out_dtype`` (default x's type), differentiable in x."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    y = _Int8Matmul.apply(x2, w_q, scale, out_dtype or x.dtype)
+    return y.reshape(*lead, y.shape[-1])

@@ -5,7 +5,10 @@ one-device part of ``repro.launch.build``).
 (``attn_impl="flash"``, the counterpart of the reference's ``"pallas"``
 mode). The reference's builder maps ``F`` to its XLA ``"chunked"`` scan,
 the stand-in it uses where Pallas cannot run; both compute the same
-function, and on the card the port has the kernel.
+function, and on the card the port has the kernel. ``qmm_impl`` routes
+the int8 projections of a quantized base (``models.layers.dense``): the
+int8 kernel by default, ``"ref"`` for the reference's dequantize-first
+product.
 """
 from __future__ import annotations
 
@@ -21,10 +24,11 @@ from repro_torch.train.step import build_train_step
 
 
 def make_model(cfg: ArchConfig, technique: Technique, *,
-               device: Optional[Union[str, torch.device]] = None) -> LM:
+               device: Optional[Union[str, torch.device]] = None,
+               qmm_impl: str = "kernel") -> LM:
     attn_impl = "flash" if technique.flash else "naive"
-    return LM(cfg, attn_impl=attn_impl, remat=technique.remat,
-              device=device)
+    return LM(cfg, attn_impl=attn_impl, qmm_impl=qmm_impl,
+              remat=technique.remat, device=device)
 
 
 def build_train(cfg: ArchConfig, technique: Technique,

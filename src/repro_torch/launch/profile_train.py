@@ -1,10 +1,13 @@
 """Where a training step's time goes on the card.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile_train [--steps 2]
+    PYTHONPATH=src python -m repro_torch.launch.profile_train [--steps 2] \
+        [--technique QL+Q8+F+R]
 
-Trains full-width qwen1.5-0.5b (seeded random weights) with technique F+R
-(flash kernels, full recomputation) at batch 4 x 2048 tokens, the shape
-of ``chip_smoke.py``'s training phase. After one warm-up step it times
+Trains full-width qwen1.5-0.5b (seeded random weights) with
+``--technique`` (default F+R: flash kernels, full recomputation;
+QL+Q8+F+R fine-tunes LoRA adapters on an int8 base through the int8
+kernel) at batch 4 x 2048 tokens, the shape of ``chip_smoke.py``'s
+training phases. After one warm-up step it times
 ``--steps`` steps three ways: on the host clock without a profiler (wall
 per step); split into its layers by the train step's own timed regions,
 each fenced by a device sync (forward: the loss; backward: the gradient;
@@ -27,6 +30,7 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq", type=int, default=2048)
+    ap.add_argument("--technique", default="F+R")
     args = ap.parse_args(argv)
 
     import torch
@@ -47,7 +51,7 @@ def main(argv: Optional[List[str]] = None) -> None:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     cfg = get_config("qwen1.5-0.5b")
-    tech = technique_from_label("F+R")
+    tech = technique_from_label(args.technique)
     model = make_model(cfg, tech, device=dev)
     opt = AdamWConfig()
     state, _ = init_train_state(model, tech, 0, opt)
@@ -87,8 +91,8 @@ def main(argv: Optional[List[str]] = None) -> None:
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_name[e.name][0] += e.time_range.elapsed_us()
             by_name[e.name][1] += 1
-    print(f"[profile] {card} | qwen1.5-0.5b full width, F+R, batch "
-          f"{args.batch} x {args.seq}, {args.steps} steps, peak memory "
+    print(f"[profile] {card} | qwen1.5-0.5b full width, {args.technique}, "
+          f"batch {args.batch} x {args.seq}, {args.steps} steps, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(f"[profile] layers (fenced, host clock): forward "
           f"{split['forward']:.1f} ms, backward (recompute included) "
@@ -103,6 +107,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     flash = sum(v[0] for k, v in by_name.items()
                 if "fwd_kernel" in k or "bwd_dkv_kernel" in k
                 or "bwd_dq_kernel" in k) / 1e3 / args.steps
+    int8 = sum(v[0] for k, v in by_name.items()
+               if "qmm_kernel" in k) / 1e3 / args.steps
     # the profiler slows the host, not the device: the idle share is the
     # busy time against the unprofiled wall time
     print(f"[profile] wall per train step {wall * 1e3:.2f} ms "
@@ -111,7 +117,9 @@ def main(argv: Optional[List[str]] = None) -> None:
           f"{busy:.2f} ms per step, idle share "
           f"{max(0.0, 1 - busy / (wall * 1e3)) * 100:.1f}%; "
           f"{n_kernels:.0f} kernels per step; flash kernels "
-          f"{flash:.2f} ms per step ({flash / busy * 100:.1f}% of busy)")
+          f"{flash:.2f} ms per step ({flash / busy * 100:.1f}% of busy); "
+          f"int8 kernel {int8:.2f} ms per step ({int8 / busy * 100:.1f}% "
+          f"of busy)")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
     for name, (us, n) in top:
         print(f"[profile]   {us / 1e3 / args.steps:9.3f} ms/step "

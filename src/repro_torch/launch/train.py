@@ -4,13 +4,28 @@
         --technique F+R+Z3 --steps 10 --batch 4 --seq 2048
 
 runs on the card; ``--reduced --device cpu`` runs the smoke config on
-the CPU through the kernels' plain versions.
+the CPU through the kernels' plain versions. ``--technique QL+Q8+F+R``
+fine-tunes LoRA adapters on an int8 frozen base; the trainable and total
+parameter counts are printed first.
 """
 import argparse
 
 from repro_torch.configs import get_config, list_archs
 from repro_torch.core.config import SHAPES, ShapeSpec, technique_from_label
 from repro_torch.core.trainer import Trainer, TrainerConfig
+from repro_torch.models.params import tree_paths
+from repro_torch.peft.lora import split_trainable
+from repro_torch.quant.qtensor import QTensor
+
+
+def n_weights(tree) -> int:
+    """Weights in a parameter tree; an int8 QTensor holds one code per
+    weight (its scales are not counted; the trainable tree's QTensors
+    hold none)."""
+    return sum((0 if leaf.data is None else leaf.data.numel())
+               if isinstance(leaf, QTensor) else leaf.numel()
+               for _, leaf in tree_paths(tree, is_leaf=lambda x: isinstance(
+                   x, QTensor)))
 
 
 def main(argv=None):
@@ -33,6 +48,9 @@ def main(argv=None):
     technique = technique_from_label(args.technique)
     trainer = Trainer(cfg, shape, technique, TrainerConfig(steps=args.steps),
                       device=args.device)
+    params = trainer.state["params"]
+    print(f"{args.technique}: {n_weights(split_trainable(params)[0])} "
+          f"trainable of {n_weights(params)} parameters")
     out = trainer.run()
     for h in out["history"]:
         print(f"step {h['step']:>6d}  loss {h['loss']:.4f}")

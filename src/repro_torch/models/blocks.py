@@ -43,14 +43,16 @@ def attn_specs(cfg: ArchConfig, n_stack: int) -> Dict:
     return p
 
 
-def _qkv(x, p, cfg: ArchConfig, positions, rope: bool = True
+def _qkv(x, p, cfg: ArchConfig, positions, rope: bool = True,
+         qmm_impl: str = "kernel"
          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Projection -> RoPE as real f32 tensors, ONE rounding at the end:
     q/k/v feed the int8 KV encode in the serving engine, where a one-ulp
     input flip moves a whole vector's scale."""
-    q = L.dense(x, p["wq"], bias=p.get("bq"), out_dtype=torch.float32)
-    k = L.dense(x, p["wk"], bias=p.get("bk"), out_dtype=torch.float32)
-    v = L.dense(x, p["wv"], bias=p.get("bv"), out_dtype=torch.float32)
+    f32 = torch.float32
+    q = L.dense(x, p["wq"], bias=p.get("bq"), out_dtype=f32, qmm_impl=qmm_impl)
+    k = L.dense(x, p["wk"], bias=p.get("bk"), out_dtype=f32, qmm_impl=qmm_impl)
+    v = L.dense(x, p["wv"], bias=p.get("bv"), out_dtype=f32, qmm_impl=qmm_impl)
     if rope:
         q = L.apply_rope(q, positions, cfg.rope_fraction, cfg.rope_theta)
         k = L.apply_rope(k, positions, cfg.rope_fraction, cfg.rope_theta)
@@ -58,15 +60,17 @@ def _qkv(x, p, cfg: ArchConfig, positions, rope: bool = True
 
 
 def attn_apply(x, p, cfg: ArchConfig, *, positions, attn_impl: str = "naive",
-               causal: bool = True, return_kv: bool = False
+               causal: bool = True, return_kv: bool = False,
+               qmm_impl: str = "kernel"
                ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Self-attention residual block over a whole sequence (train/prefill
     branch of the reference); optionally returns the fresh (k, v).
-    ``attn_impl`` is a :func:`layers.attention` mode."""
+    ``attn_impl`` is a :func:`layers.attention` mode, ``qmm_impl`` a
+    :func:`layers.dense` route for int8 weights."""
     h = L.rmsnorm(x, p["ln"], cfg.norm_eps)
-    q, k, v = _qkv(h, p, cfg, positions)
+    q, k, v = _qkv(h, p, cfg, positions, qmm_impl=qmm_impl)
     out = L.attention(q, k, v, mode=attn_impl, causal=causal)
-    y = L.dense(out, p["wo"], n_in=2)
+    y = L.dense(out, p["wo"], n_in=2, qmm_impl=qmm_impl)
     return x + y, ({"k": k, "v": v} if return_kv else None)
 
 
@@ -81,9 +85,11 @@ def ffn_specs(cfg: ArchConfig, n_stack: int) -> Dict:
     }
 
 
-def ffn_apply(x, p, cfg: ArchConfig) -> torch.Tensor:
+def ffn_apply(x, p, cfg: ArchConfig, qmm_impl: str = "kernel"
+              ) -> torch.Tensor:
     h = L.rmsnorm(x, p["ln"], cfg.norm_eps)
-    return x + L.swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
+    return x + L.swiglu(h, p["w_gate"], p["w_up"], p["w_down"],
+                        qmm_impl=qmm_impl)
 
 
 # ==========================================================================

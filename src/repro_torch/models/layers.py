@@ -4,7 +4,8 @@ Plain functions on tensors with the JAX package's layouts and rounding
 discipline (``repro.models.layers``): every product accumulates in f32
 and rounds ONCE to its output type, and chains that feed more f32 math
 (swiglu's gate, the q/k/v projection) stay real f32 until one final
-rounding.
+rounding. Quantized (``QTensor``) and LoRA (``LoRATensor``) weights are
+dispatched inside :func:`dense`, as in the reference.
 """
 from __future__ import annotations
 
@@ -14,11 +15,18 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.peft.lora import LoRATensor
+from repro_torch.quant.qtensor import QTensor
+
 NEG_INF = -1e30
 
 
-def dense(x: torch.Tensor, w: torch.Tensor, n_in: int = 1, bias=None,
-          out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+QMM_IMPLS = ("kernel", "ref")
+
+
+def dense(x: torch.Tensor, w, n_in: int = 1, bias=None,
+          out_dtype: Optional[torch.dtype] = None,
+          qmm_impl: str = "kernel") -> torch.Tensor:
     """Contract the last ``n_in`` dims of ``x`` with the first ``n_in``
     dims of ``w``; the output gets ``w``'s remaining dims.
 
@@ -26,7 +34,24 @@ def dense(x: torch.Tensor, w: torch.Tensor, n_in: int = 1, bias=None,
     once to ``out_dtype`` (default: the promoted input type).
     ``out_dtype=torch.float32`` keeps the f32 accumulator as the output.
     ``bias`` is added after the rounding, in the output type, as the
-    reference does."""
+    reference does.
+
+    ``w`` may be a ``LoRATensor`` (``base(x) + scaling · b(a(x))``, then
+    the bias once) or a ``QTensor``. An int8 ``QTensor`` goes to the int8
+    kernel (``kernels.ops.int8_matmul``: the weight dequantized to f32)
+    under ``qmm_impl="kernel"``; under ``"ref"`` it is dequantized to x's
+    type first and takes the product above, the reference's ``dense``
+    exactly. An nf4 ``QTensor`` is dequantized to x's type."""
+    if isinstance(w, LoRATensor):
+        y = dense(x, w.base, n_in, out_dtype=out_dtype, qmm_impl=qmm_impl)
+        t = dense(x, w.a, n_in)                                 # (..., r)
+        y = y + w.scaling * dense(t, w.b, 1, out_dtype=out_dtype)
+        return y if bias is None else y + bias
+    if isinstance(w, QTensor):
+        # repro: allow[JIT-04] QTensor.kind is a static string field (the reference's pytree aux data), not a device value
+        if w.kind == "int8" and qmm_impl == "kernel":
+            return _int8_dense(x, w, n_in, bias, out_dtype)
+        w = w.dequantize(x.dtype)
     in_shape = x.shape[:-n_in]
     k = int(np.prod(x.shape[-n_in:]))
     out_dims = tuple(w.shape[n_in:])
@@ -42,6 +67,28 @@ def dense(x: torch.Tensor, w: torch.Tensor, n_in: int = 1, bias=None,
     return y
 
 
+def _int8_dense(x, w, n_in: int, bias, out_dtype) -> torch.Tensor:
+    """``dense`` of an int8 ``QTensor`` through the kernel. Its scales
+    ``data.shape[:-1] + (1,)`` become (K, G) with G the product of the
+    output dims before the last (the heads of ``wq``/``wk``/``wv``, 1
+    elsewhere). Shapes come from ``data``: a per-layer slice keeps the
+    stacked static ``shape``."""
+    from repro_torch.kernels import ops as kops
+    data = w.data
+    if tuple(w.scale.shape) != tuple(data.shape[:-1]) + (1,):
+        raise ValueError(f"int8 scales {tuple(w.scale.shape)} are not the "
+                         f"last-axis absmax scales of {tuple(data.shape)}")
+    in_shape = x.shape[:-n_in]
+    k = int(np.prod(data.shape[:n_in]))
+    out_dims = tuple(data.shape[n_in:])
+    n = int(np.prod(out_dims))
+    y = kops.int8_matmul(x.reshape(*in_shape, k), data.reshape(k, n),
+                         w.scale.reshape(k, n // out_dims[-1]),
+                         out_dtype=out_dtype or x.dtype)
+    y = y.reshape(*in_shape, *out_dims)
+    return y if bias is None else y + bias
+
+
 def rmsnorm(x: torch.Tensor, w: torch.Tensor,
             eps: float = 1e-5) -> torch.Tensor:
     xf = x.float()
@@ -54,12 +101,13 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)
 
 
-def swiglu(x, w_gate, w_up, w_down) -> torch.Tensor:
+def swiglu(x, w_gate, w_up, w_down, qmm_impl: str = "kernel"
+           ) -> torch.Tensor:
     """The gate chain is real f32 with one rounding at the end."""
-    g = dense(x, w_gate, out_dtype=torch.float32)
-    u = dense(x, w_up, out_dtype=torch.float32)
+    g = dense(x, w_gate, out_dtype=torch.float32, qmm_impl=qmm_impl)
+    u = dense(x, w_up, out_dtype=torch.float32, qmm_impl=qmm_impl)
     h = silu(g) * u
-    return dense(h, w_down).to(x.dtype)
+    return dense(h, w_down, qmm_impl=qmm_impl).to(x.dtype)
 
 
 def rope_frequencies(head_dim: int, fraction: float, theta: float):

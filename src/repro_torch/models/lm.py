@@ -11,7 +11,10 @@ the model's ``attn_impl`` mode: ``"naive"`` (the serving engine's) or
 ``"flash"`` (the flash kernels, for training). The SSD scan of an SSM
 layer is ``models.ssd.ssd_chunked`` in the model's ``ssd_impl``:
 ``"ref"`` (the plain chunked reference) or ``"kernel"`` (the SSD kernel,
-the counterpart of the reference's ``"pallas"``).
+the counterpart of the reference's ``"pallas"``). An int8 (``QTensor``)
+projection runs in the model's ``qmm_impl``: ``"kernel"`` (the int8
+kernel) or ``"ref"`` (dequantize to the activation's type, the
+reference's ``dense``); see ``layers.dense``.
 
 ``forward``/``prefill`` serve and run without autograd; ``backbone`` and
 ``loss`` are the training objective of the dense family and build the
@@ -32,8 +35,10 @@ from repro_torch.core.config import ArchConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
-from repro_torch.models.params import materialize, spec, tree_map
+from repro_torch.models.params import (materialize, spec, tree_map,
+                                       tree_unstack)
 from repro_torch.models.ssd import SSD_IMPLS
+from repro_torch.quant.qtensor import QTensor
 from repro_torch.train.remat import REMAT_MODES, wrap_remat
 
 VOCAB_PAD = 512
@@ -59,11 +64,13 @@ FAMILIES = ("dense", "ssm")
 class LM:
     """``device`` is the card unless the caller passes ``"cpu"``;
     ``attn_impl`` is a ``layers.attention`` mode, ``ssd_impl`` a
-    ``models.ssd.ssd_chunked`` impl and ``remat`` a ``train.remat``
-    policy (training only)."""
+    ``models.ssd.ssd_chunked`` impl, ``qmm_impl`` a ``layers.dense`` route
+    for int8 weights and ``remat`` a ``train.remat`` policy (training
+    only)."""
 
     def __init__(self, cfg: ArchConfig, *, attn_impl: str = "naive",
-                 ssd_impl: str = "ref", remat: str = "none",
+                 ssd_impl: str = "ref", qmm_impl: str = "kernel",
+                 remat: str = "none",
                  device: Optional[Union[str, torch.device]] = None):
         if cfg.family not in FAMILIES or cfg.is_moe:
             raise NotImplementedError(
@@ -76,11 +83,15 @@ class LM:
         if ssd_impl not in SSD_IMPLS:
             raise ValueError(f"ssd_impl {ssd_impl!r} not one of "
                              f"{SSD_IMPLS}")
+        if qmm_impl not in L.QMM_IMPLS:
+            raise ValueError(f"qmm_impl {qmm_impl!r} not one of "
+                             f"{L.QMM_IMPLS}")
         if remat not in REMAT_MODES:
             raise ValueError(f"unknown remat mode {remat!r}")
         self.cfg = cfg
         self.attn_impl = attn_impl
         self.ssd_impl = ssd_impl
+        self.qmm_impl = qmm_impl
         self.remat = remat
         self.device = resolve_device(device)
         self.period = _period(cfg)
@@ -115,7 +126,8 @@ class LM:
         return materialize(self.param_specs(), g, self.device)
 
     def layer_params(self, params, i: int) -> Dict:
-        """Views of layer ``i``'s parameters in the stacked block tree."""
+        """Views of layer ``i``'s parameters in the stacked block tree
+        (``QTensor``/``LoRATensor`` fields sliced, static fields kept)."""
         per, pos = divmod(i, self.period)
         return tree_map(lambda a: a[per], params["blocks"][f"pos{pos}"])
 
@@ -124,13 +136,23 @@ class LM:
     # ------------------------------------------------------------------
 
     def _embed_in(self, params, tokens: torch.Tensor) -> torch.Tensor:
-        return params["embed"][tokens.long()]
+        table = params["embed"]
+        if isinstance(table, QTensor):
+            table = table.dequantize(torch.bfloat16)
+        return table[tokens.long()]
 
     def _head(self, params, x: torch.Tensor) -> torch.Tensor:
-        """Logits over the padded vocabulary (tied: x @ embed.T)."""
+        """Logits over the padded vocabulary (tied: x @ embed.T). A
+        quantized tied table is dequantized first, as in the reference:
+        its scales lie along the head's output axis, not the int8
+        kernel's K rows."""
         x = L.rmsnorm(x, params["final_ln"], self.cfg.norm_eps)
-        w = params["embed"].T if self.cfg.tie_embeddings else params["head"]
-        return L.dense(x, w)
+        if not self.cfg.tie_embeddings:
+            return L.dense(x, params["head"], qmm_impl=self.qmm_impl)
+        w = params["embed"]
+        if isinstance(w, QTensor):
+            w = w.dequantize(x.dtype)
+        return L.dense(x, w.T)
 
     # ------------------------------------------------------------------
     # Whole-sequence entry points
@@ -149,13 +171,14 @@ class LM:
             if self.kinds[pos] == "attn":
                 x, c = B.attn_apply(x, lp["mix"], cfg, positions=positions,
                                     attn_impl=self.attn_impl,
-                                    return_kv=return_cache)
+                                    return_kv=return_cache,
+                                    qmm_impl=self.qmm_impl)
             else:
                 x, c = B.ssm_apply(x, lp["mix"], cfg,
                                    ssd_impl=self.ssd_impl,
                                    return_state=return_cache)
             caches[pos].append(c)
-            x = B.ffn_apply(x, lp["ffn"], cfg)
+            x = B.ffn_apply(x, lp["ffn"], cfg, qmm_impl=self.qmm_impl)
         return x, caches
 
     @torch.no_grad()
@@ -190,21 +213,16 @@ class LM:
 
     def _unstacked_layers(self, params) -> List[Dict]:
         """Per-layer parameter trees from ONE ``unbind`` of each stacked
-        leaf: the backward then stacks all layers' gradients once
-        instead of adding one full-size zero-padded slice per layer."""
-        per_pos = [tree_map(lambda a: a.unbind(0),
-                            params["blocks"][f"pos{p}"])
+        leaf (``params.tree_unstack``)."""
+        per_pos = [tree_unstack(params["blocks"][f"pos{p}"], self.n_periods)
                    for p in range(self.period)]
-        out = []
-        for i in range(self.cfg.n_layers):
-            per, pos = divmod(i, self.period)
-            out.append(tree_map(lambda t: t[per], per_pos[pos]))
-        return out
+        return [per_pos[i % self.period][i // self.period]
+                for i in range(self.cfg.n_layers)]
 
     def _layer(self, x, lp, positions):
         x, _ = B.attn_apply(x, lp["mix"], self.cfg, positions=positions,
-                            attn_impl=self.attn_impl)
-        return B.ffn_apply(x, lp["ffn"], self.cfg)
+                            attn_impl=self.attn_impl, qmm_impl=self.qmm_impl)
+        return B.ffn_apply(x, lp["ffn"], self.cfg, qmm_impl=self.qmm_impl)
 
     def backbone(self, params, batch) -> torch.Tensor:
         """Everything before the LM head; returns final hidden states

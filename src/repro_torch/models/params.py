@@ -11,6 +11,7 @@ generator, with the reference's ranges.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
@@ -34,21 +35,86 @@ def spec(shape, logical, init="normal", dtype=torch.bfloat16,
                      init, tuple(fan_in_axes))
 
 
-def tree_paths(tree, prefix: str = "") -> List[Tuple[str, Any]]:
+# Node types whose fields hold subtrees (``QTensor``, ``LoRATensor``):
+# the trees' counterpart of the reference's pytree registration. Each
+# registers the names of its tensor fields; a field may hold ``None`` or
+# a tuple of tensors (nf4's ``scale2``).
+_NODES: Dict[type, Tuple[str, ...]] = {}
+
+
+def register_node(cls, fields: Tuple[str, ...]) -> None:
+    _NODES[cls] = tuple(fields)
+
+
+def _join(prefix: str, key) -> str:
+    return f"{prefix}/{key}" if prefix else str(key)
+
+
+def tree_paths(tree, prefix: str = "", is_leaf=None
+               ) -> List[Tuple[str, Any]]:
     """(path, leaf) pairs in sorted-key order, the order jax flattens
-    dicts in; paths read like ``blocks/pos0/mix/wq``."""
+    dicts in; paths read like ``blocks/pos0/mix/wq``, a node's fields
+    like ``blocks/pos0/mix/wq/base/data``. ``None`` is an empty subtree,
+    as in jax."""
+    if is_leaf is not None and is_leaf(tree):
+        return [(prefix, tree)]
+    if tree is None:
+        return []
     if isinstance(tree, dict):
         out: List[Tuple[str, Any]] = []
         for k in sorted(tree):
-            out += tree_paths(tree[k], f"{prefix}/{k}" if prefix else k)
+            out += tree_paths(tree[k], _join(prefix, k), is_leaf)
         return out
-    return [(prefix, tree)]
+    fields = _NODES.get(type(tree))
+    if fields is None:
+        return [(prefix, tree)]
+    out = []
+    for f in fields:
+        v = getattr(tree, f)
+        if isinstance(v, tuple):
+            for j, e in enumerate(v):
+                out += tree_paths(e, _join(prefix, f"{f}/{j}"), is_leaf)
+        else:
+            out += tree_paths(v, _join(prefix, f), is_leaf)
+    return out
 
 
-def tree_map(fn, tree):
+def tree_map_with_path(fn, tree, is_leaf=None, prefix: str = ""):
+    """``fn(path, leaf)`` over the leaves of :func:`tree_paths`; dicts and
+    nodes are rebuilt around the results, ``None`` stays ``None``."""
+    if is_leaf is not None and is_leaf(tree):
+        return fn(prefix, tree)
+    if tree is None:
+        return None
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: tree_map_with_path(fn, v, is_leaf, _join(prefix, k))
+                for k, v in tree.items()}
+    fields = _NODES.get(type(tree))
+    if fields is None:
+        return fn(prefix, tree)
+    new = {}
+    for f in fields:
+        v = getattr(tree, f)
+        new[f] = (tuple(tree_map_with_path(fn, e, is_leaf,
+                                           _join(prefix, f"{f}/{j}"))
+                        for j, e in enumerate(v))
+                  if isinstance(v, tuple)
+                  else tree_map_with_path(fn, v, is_leaf, _join(prefix, f)))
+    return dataclasses.replace(tree, **new)
+
+
+def tree_map(fn, tree, is_leaf=None):
+    return tree_map_with_path(lambda _, leaf: fn(leaf), tree, is_leaf)
+
+
+def tree_unstack(tree, n: int) -> List:
+    """``n`` trees, the i-th holding slice i of every (stacked) leaf, as
+    ``lax.scan`` slices a pytree: nodes keep their static fields. Each
+    leaf is ``unbind`` once, so a backward stacks all slices' gradients
+    once instead of adding one zero-padded slice per tree."""
+    slices = {p: leaf.unbind(0) for p, leaf in tree_paths(tree)}
+    return [tree_map_with_path(lambda p, _: slices[p][i], tree)
+            for i in range(n)]
 
 
 def set_path(tree: Dict, path: str, value) -> None:

@@ -122,3 +122,60 @@ def test_port_ssm_init_ranges():
     dt = torch.nn.functional.softplus(mix["dt_bias"])
     assert float(dt.min()) >= 1e-3 - 1e-6 and float(dt.max()) <= 0.1 + 1e-6
     assert torch.all(mix["d_skip"] == 1) and torch.all(mix["conv_b"] == 0)
+
+
+def _to_reference_classes(tree):
+    """The port's QTensor/LoRATensor of numpy fields as the reference's
+    classes, so jax can flatten and compare the whole tree."""
+    from repro.peft.lora import LoRATensor as JLoRA
+    from repro.quant.qtensor import QTensor as JQ
+    from repro_torch.peft.lora import LoRATensor
+    from repro_torch.quant.qtensor import QTensor
+    if isinstance(tree, dict):
+        return {k: _to_reference_classes(v) for k, v in tree.items()}
+    if isinstance(tree, QTensor):
+        return JQ(_to_reference_classes(tree.data),
+                  _to_reference_classes(tree.scale), tree.scale2, tree.kind,
+                  tree.shape, tree.dtype_orig)
+    if isinstance(tree, LoRATensor):
+        return JLoRA(_to_reference_classes(tree.base), tree.a, tree.b,
+                     scaling=tree.scaling)
+    return tree
+
+
+@pytest.mark.parametrize("label", ["QL+Q8", "L"])
+def test_lora_train_state_crosses_and_back_bitwise(label):
+    """A LoRA train state from the reference (int8 QTensors, LoRATensors,
+    m/v trees with None at frozen leaves and QTensors of None fields)
+    crosses into the port and back with the same tree structure, static
+    fields included, and the same bytes in every leaf."""
+    from repro.core.config import technique_from_label
+    from repro.train.step import init_train_state
+    from repro_torch.bridge import train_state_from_jax
+    from repro_torch.peft.lora import LoRATensor
+    from repro_torch.quant.qtensor import QTensor
+    cfg = get_config("qwen1.5-0.5b", reduced=True)
+    state = jax.device_get(init_train_state(
+        LM(cfg), technique_from_label(label, lora_rank=4),
+        jax.random.PRNGKey(0))[0])
+    port = train_state_from_jax(state, "cpu")
+    wq = port["params"]["blocks"]["pos0"]["mix"]["wq"]
+    assert isinstance(wq, LoRATensor) and wq.scaling == 4.0
+    assert wq.a.requires_grad and wq.b.requires_grad
+    if label == "QL+Q8":
+        assert isinstance(wq.base, QTensor) and wq.base.kind == "int8"
+        assert wq.base.dtype_orig == torch.bfloat16
+        assert not wq.base.data.requires_grad
+        assert port["opt"]["m"]["embed"].data is None
+    else:
+        assert not wq.base.requires_grad
+    assert port["opt"]["m"]["final_ln"] is None
+    back = _to_reference_classes(to_numpy(port))
+    want_leaves, want_def = jax.tree_util.tree_flatten(state)
+    got_leaves, got_def = jax.tree_util.tree_flatten(back)
+    assert got_def == want_def
+    for a, b in zip(want_leaves, got_leaves):
+        a, b = np.asarray(a), np.asarray(b)
+        assert b.dtype == a.dtype and b.shape == a.shape
+        np.testing.assert_array_equal(np.atleast_1d(b).view(np.uint8),
+                                      np.atleast_1d(a).view(np.uint8))

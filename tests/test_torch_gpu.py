@@ -4,7 +4,9 @@ engine run; the flash-attention kernels (forward, dK/dV, dQ) against
 their plain versions, their autograd wrapper against autograd through
 naive attention, and their launch counts in a train step; the SSD kernel
 against its plain version (with and without a carried state) and its
-launch count in a mamba2 engine run.
+launch count in a mamba2 engine run; the int8 weight-only matmul kernel
+against its plain version, its x gradient against autograd through the
+plain version, and its launch count in a QL+Q8 fine-tuning step.
 
 These tests import neither ``jax`` nor the JAX package, so they also run
 on the GPU host: ``PYTHONPATH=src python -m pytest -m gpu
@@ -302,3 +304,100 @@ def test_mamba2_engine_runs_prefill_through_the_ssd_kernel(cuda,
     assert ssdk.LAUNCHES["ssd"] == cfg.n_layers * (
         st["prefill_groups"] + st["chunk_steps"]) > 0
     assert fd.LAUNCHES["paged_attention"] == 0
+
+
+# --------------------------------------------------------------------------
+# int8 weight-only matmul kernel
+# --------------------------------------------------------------------------
+
+# (M, K, N, G): tests/test_kernels.py:362's shapes, decode-size M, K and N
+# off the 128 x 128 x 32 tiles, G = 16 head groups, and qwen1.5-0.5b's
+# four fine-tuning projections (q/k/v, o, gate/up, down) at M = 512
+QMM_CASES = [(128, 256, 128, 1), (64, 512, 384, 1), (1, 1024, 1024, 16),
+             (7, 1000, 1040, 16), (7, 1000, 300, 1), (200, 130, 70, 1),
+             (512, 1024, 1024, 16), (512, 1024, 1024, 1),
+             (512, 1024, 2816, 1), (512, 2816, 1024, 1)]
+
+
+def _qmm_case(dev, m, k, n, g, x_dtype, seed=0):
+    """x ~ N(0, 1) and a weight ~ N(0, 1/K), as the model's fan-in-scaled
+    init, quantized by ``quantize_int8`` as (K, G, N/G) so its scales are
+    (K, G): the layout ``layers.dense`` hands the kernel."""
+    from repro_torch.quant.qtensor import quantize_int8
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((m, k), generator=gen, device=dev).to(x_dtype)
+    w = torch.randn((k, g, n // g), generator=gen, device=dev) / k ** 0.5
+    qt = quantize_int8(w.bfloat16())
+    return x, qt.data.reshape(k, n), qt.scale.reshape(k, g)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", QMM_CASES, ids=str)
+@pytest.mark.parametrize("x_dtype,out_dtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
+    (torch.float32, torch.float32), (torch.float32, torch.bfloat16)],
+    ids=["bf16-bf16", "bf16-f32", "f32-f32", "f32-bf16"])
+def test_int8_matmul_kernel_matches_plain(cuda, case, x_dtype, out_dtype):
+    """f32 outputs within 2e-5, bf16 within 1 bf16 ulp beyond a 1e-5
+    floor: both dequantize to the same f32 weight and sum in f32, in
+    different orders, then round once."""
+    from repro_torch.kernels import quant_matmul as qmm
+    x, w_q, scale = _qmm_case(cuda, *case, x_dtype)
+    before = qmm.LAUNCHES["int8_matmul"]
+    got = qmm.int8_matmul_kernel(x, w_q, scale, out_dtype=out_dtype)
+    want = qmm.int8_matmul_plain(x, w_q, scale, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert qmm.LAUNCHES["int8_matmul"] == before + 1
+    assert got.dtype == out_dtype and got.shape == want.shape
+    _assert_flash_close(got, want, ulps=1)
+
+
+@pytest.mark.gpu
+def test_int8_matmul_gradient_matches_plain_autograd(cuda):
+    """``ops.int8_matmul``'s dx against autograd through the plain version
+    (the same f32 product, transposed), f32 and bf16 x."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import quant_matmul as qmm
+    for x_dtype in (torch.float32, torch.bfloat16):
+        x, w_q, scale = _qmm_case(cuda, 96, 320, 256, 4, x_dtype, seed=3)
+        x = x.reshape(2, 48, 320)
+        dy = torch.randn((2, 48, 256), device=cuda)
+        grads = []
+        for fn in (lambda t: kops.int8_matmul(t, w_q, scale,
+                                              out_dtype=torch.float32),
+                   lambda t: qmm.int8_matmul_plain(
+                       t.reshape(96, 320), w_q, scale,
+                       out_dtype=torch.float32).reshape(2, 48, 256)):
+            xg = x.clone().requires_grad_(True)
+            grads.append(torch.autograd.grad((fn(xg) * dy).sum(), xg)[0])
+        assert grads[0].dtype == x_dtype
+        _assert_flash_close(grads[0], grads[1], ulps=1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("label,per_layer", [("QL+Q8+F+R", 14),
+                                             ("QL+Q8+F", 7), ("L+F+R", 0)])
+def test_finetune_step_launches_the_int8_kernel(cuda, label, per_layer):
+    """Full-width qwen1.5-0.5b, one step of 1 x 256 tokens: the int8 kernel
+    once per base projection (q, k, v, o, gate, up, down) per forward,
+    twice under full remat; never on a bf16 base."""
+    from repro_torch.core.config import technique_from_label
+    from repro_torch.kernels import quant_matmul as qmm
+    from repro_torch.launch.build import make_model
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.step import build_train_step, init_train_state
+    cfg = get_config("qwen1.5-0.5b")
+    tech = technique_from_label(label)
+    model = make_model(cfg, tech, device=cuda)
+    opt = AdamWConfig(lr=1e-3, warmup=0)
+    state, _ = init_train_state(model, tech, 0, opt)
+    step = build_train_step(model, tech, opt)
+    g = torch.Generator().manual_seed(0)
+    batch = {k: torch.randint(0, cfg.vocab_size, (1, 256), generator=g,
+                              dtype=torch.int32).to(cuda)
+             for k in ("tokens", "labels")}
+    qmm.LAUNCHES.clear()
+    state, met = step(state, batch)
+    torch.cuda.synchronize()
+    assert torch.isfinite(met["loss"]) and torch.isfinite(met["grad_norm"])
+    assert qmm.LAUNCHES["int8_matmul"] == cfg.n_layers * per_layer

@@ -26,6 +26,10 @@ def _imported_modules(path: Path):
 def test_port_files_exist():
     assert len(PORT_FILES) > 10
     assert all(p.exists() for p in PORT_FILES)
+    port = REPO / "src" / "repro_torch"
+    for module in ("quant/qtensor.py", "peft/lora.py",
+                   "kernels/quant_matmul.py"):
+        assert port / module in PORT_FILES, module
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -66,6 +70,9 @@ def test_training_entry_points_refuse_to_run_without_a_card(monkeypatch):
     shape = ShapeSpec("cli", 16, 2, "train")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Trainer(cfg, shape, technique_from_label("F+R"),
+                TrainerConfig(steps=1))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(cfg, shape, technique_from_label("QL+Q8+F+R"),
                 TrainerConfig(steps=1))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_cli.main(["--reduced", "--steps", "1", "--batch", "2",

@@ -370,7 +370,7 @@ def test_loss_decreases_over_steps(label):
 
 def test_unported_techniques_raise():
     model = LM(port_config(ARCH, reduced=True), device="cpu")
-    for tech in (technique_from_label("Q"), technique_from_label("L"),
+    for tech in (technique_from_label("Q"), technique_from_label("QL"),
                  Technique(grad_compress=True), Technique(sp=True),
                  Technique(attn_mode="seq")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
