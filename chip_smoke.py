@@ -18,7 +18,8 @@ imports nothing of the JAX package). Phases, one line each:
               requests (prompts 64/256/1000, 64 new tokens each) twice:
               whole-prompt prefill with bf16 KV, and chunked prefill (64)
               with int8 KV. Every request must finish; the kernel's launch
-              count must be 24 x (decode steps + chunk steps); every
+              count must be 24 x (decode steps + chunk steps), the RMSNorm
+              kernel's 49 x (prefill groups + decode + chunk steps); every
               generated token must be the argmax of a dense, unpaged
               forward over the same tokens, or within a bf16 near-tie
               margin of it.
@@ -44,7 +45,10 @@ imports nothing of the JAX package). Phases, one line each:
               planted in the flash wrappers, which the same limits must
               catch; then 4 steps, whose losses and gradient norms must
               be finite and which must launch the forward kernel 48
-              times and each backward kernel 24 times per step.
+              times and each backward kernel 24 times per step, and the
+              RMSNorm kernel 104 times per step (2 x 24 layers, twice
+              with remat, plus the final norm in 4 checkpointed loss
+              blocks, forward and recompute).
 8. timing   - the flash kernels at the training shape (B=4, H=16,
               T=2048, D=64, causal, bf16): time per launch beside the
               bound, the plain versions' times (each kernel's function
@@ -64,7 +68,8 @@ imports nothing of the JAX package). Phases, one line each:
               prefill (64) on a pool small enough to preempt. Every
               request must finish; the SSD kernel must launch exactly
               24 x (prefill groups + chunk steps) times, and never in a
-              decode step; every token must be the argmax of a
+              decode step, the RMSNorm kernel 73 x (prefill groups +
+              chunk + decode steps); every token must be the argmax of a
               teacher-forced ``LM(ssd_impl="ref").forward`` or within
               8 bf16 ulps of it.
 11. timing  - the SSD kernel at B=4, T=1024 beside its bound and its
@@ -88,22 +93,61 @@ imports nothing of the JAX package). Phases, one line each:
               break one of those limits; then 4 steps, whose losses and
               gradient norms must be finite, which must leave the int8
               base, embed, norms and biases bit-unchanged, and which must
-              launch the int8 kernel 24 x 7 x 2 = 336 times and the flash
-              kernels 48/24/24 per step; then 2 L+F+R steps (bf16 base),
-              which must launch the int8 kernel 0 times.
+              launch the int8 kernel 24 x 7 x 2 = 336 times, the flash
+              kernels 48/24/24 and the RMSNorm kernel 104 per step; then 2
+              L+F+R steps (bf16 base), which must launch the int8 kernel
+              0 times and RMSNorm 104 per step.
 14. timing  - the int8 kernel at the step's four shapes (M=8192): time per
               launch beside its bound, the plain version's time and the
               reference's route on the card, dequantize to x's type +
               ``torch.matmul`` (two calls: no one PyTorch call computes
               this function); the kernel's time per step.
+15. rmsnorm - the RMSNorm kernel against its plain version on the card:
+              rows {1, 8, 333, 8192} x D {768, 1024, 1536} x x and w each
+              in {bf16, f32} (f32 within 2e-5, bf16 within 1 bf16 ulp
+              beyond a 1e-5 floor), rows at magnitudes 1e-3..10; two
+              planted faults (eps dropped, the last row tile skipped)
+              must each break that limit; the autograd wrapper's dx and
+              dw against autograd through the plain version at a training
+              shape (1 ulp).
+16. decode  - the dense-cache decode kernel against its plain version:
+              tests/test_kernels.py:72-75's shapes, the draft model's
+              shape (B=1, H=K=16, D=64, S in {65, 1068}), G=2, a
+              zero-length row and a length past S, bf16 and f32
+              (normalized output, m and l within 2e-5); two planted
+              faults (length mask off by one, m not carried across tiles)
+              must each break it.
+17. spec    - full-width qwen1.5-0.5b (seeded random weights) with
+              speculative decoding, max_batch 8, block_size 16, 1024
+              blocks: (a) n-gram, depth 4, on 16 repeated-pattern prompts
+              of 256 tokens, 64 new tokens each; (b) a self-draft (a
+              DraftModelProposer with the target's own weights), depth 4,
+              on 4 requests (prompts 64 and 256), 32 new tokens. Each
+              runs spec-off, then spec-on: every request finishes with
+              its budget, and every stream equals spec-off's up to a
+              split at a bf16 near tie (4 ulps) of spec-off's logits.
+              Launches: paged read 24 x verify steps, dense decode 24 x
+              draft decode steps, RMSNorm 49 x (prefill groups + verify
+              steps + draft prefills + draft decode steps); the
+              self-draft's accept_rate must exceed 0.6 and each of its
+              rejected proposals must be a bf16 near tie (8 ulps) of a
+              dense forward's logits.
+18. timing  - the RMSNorm kernel at the training step's shape (8,192 x
+              1,024 bf16) and at decode (8 x 1,024), the dense decode
+              kernel at the draft's shape, each beside its bound, its
+              plain version and one library call (``F.rms_norm``;
+              ``scaled_dot_product_attention`` with the length mask),
+              timed as CUDA-graph replays: the host's cost per call
+              exceeds these kernels' device time.
 
 Any failed check raises. The last three lines of standard output are the
 kernels' JSON record, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``; the line before them gives the whole
 run's time. Each main path (the four engine runs, the training run, the
-two fine-tuning runs) is driven with every launch count set to 0 just
-before it and read just after. Without a CUDA device, or without the
-repository beside it, the script exits non-zero and prints no result.
+two fine-tuning runs, the four speculative engine runs) is driven with
+every launch count set to 0 just before it and read just after. Without
+a CUDA device, or without the repository beside it, the script exits
+non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -175,6 +219,35 @@ QMM_STEP = (("q/k/v", 1024, 1024, 16, "bf16", "f32", 3),
 FT_LOSS_ATOL = 2e-3
 
 
+# RMSNorm kernel launches of each main-path run, by run
+RMSNORM_RUNS = {}
+# a self-draft proposes the target's own greedy tokens, computed through
+# other reads (its prefill's naive attention and its dense decode read
+# against the verify's paged read), so it is rejected only at bf16 near
+# ties: every rejected proposal must be within NEAR_TIE_ULPS of the top
+# of a dense forward's logits there (read on an H100 at full width: 0.768
+# accepted, 4 of 4 streams split at such ties). A dense read that
+# disagrees with the paged one would leave only each round's first
+# proposal (from the draft's prefill) right, so back-off would settle at
+# depth 2 with accept_rate <= 0.5: the run must exceed this
+SELF_DRAFT_ACCEPT = 0.6
+SPEC_NEAR_TIE_ULPS = 4             # the port's rule for spec-on vs spec-off
+# RMSNorm kernel cases: the layers' widths (qwen1.5-0.5b 1024, mamba2
+# 768 and its gated norm's 1536) at decode, odd and training row counts
+RMS_ROWS = (1, 8, 333, 8192)
+RMS_DIMS = (768, 1024, 1536)
+RMS_ROW_TILE = 8                   # kWarps in csrc/rmsnorm.cu
+# dense decode kernel cases (B, S, H, K, D, lengths): tests/test_kernels.py
+# :72-75, the draft model's shape, G = 2, a zero-length row, a length past S
+DENSE_CASES = ((2, 256, 4, 4, 128, [128, 256]),
+               (3, 512, 8, 2, 128, [256, 512, 128]),
+               (2, 256, 4, 1, 64, [128, 256]),
+               (1, 65, 16, 16, 64, [61]), (1, 1068, 16, 16, 64, [1064]),
+               (2, 300, 8, 4, 64, [300, 37]),
+               (3, 300, 16, 16, 64, [300, 0, 1000]))
+DENSE_TILE = 32                    # positions per warp tile in the kernel
+
+
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
@@ -182,6 +255,28 @@ def fail(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         fail(msg)
+
+
+def norms_per_forward(cfg) -> int:
+    """RMSNorm calls of one forward: each layer's mixer and FFN norms, an
+    SSM layer's gated norm, and the final norm."""
+    return sum(3 if kind == "ssm" else 2
+               for kind in cfg.layer_kinds()) + 1
+
+
+def norms_per_train_step(cfg, seq: int, remat: bool) -> int:
+    """RMSNorm launches of one dense training step: 2 norms a layer (again
+    when full remat recomputes the layer), and the final norm in each
+    512-token loss block, which is checkpointed (forward and
+    recompute)."""
+    return 2 * cfg.n_layers * (2 if remat else 1) + 2 * -(-seq // 512)
+
+
+def count_rmsnorm(run: str, launches: int, want: int, what: str) -> str:
+    check(launches == want, f"{run}: RMSNorm launches {launches} != {want} "
+          f"({what})")
+    RMSNORM_RUNS[run] = launches
+    return f"RMSNorm launches {launches} = {what}"
 
 
 def card_line() -> str:
@@ -210,6 +305,35 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 48, reps: int = 10) -> float:
+    """Device time (ms) per call of ``fn(i)``, i < ``iters``, captured
+    once in a CUDA graph and replayed ``reps`` times between two events:
+    for calls whose device time is near or below the host's per-call cost
+    (a small kernel behind its Python wrapper), where ``cuda_ms`` would
+    time the host."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):             # warm up off the capture
+        for i in range(3):
+            fn(i)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(i)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * iters)
 
 
 def make_paged_case(*, b, t, h, kv, d, bs, lengths, mb, n_blocks, quant,
@@ -378,6 +502,7 @@ def phase_engine(cfg, params, *, prefill_chunk, kv_quant):
     from repro_torch.data.pipeline import serving_requests
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import rmsnorm as rn
     from repro_torch.serving.engine import Engine, Request
     eng = Engine(cfg, params, max_batch=8, n_blocks=1024, block_size=16,
                  kv_quant=kv_quant, prefill_chunk=prefill_chunk,
@@ -389,6 +514,7 @@ def phase_engine(cfg, params, *, prefill_chunk, kv_quant):
     torch.cuda.synchronize()
     fd.LAUNCHES.clear()                  # count the main path's run only
     fa.LAUNCHES.clear()
+    rn.LAUNCHES.clear()
     t0 = time.monotonic()
     done = eng.run(max_steps=5000)
     torch.cuda.synchronize()
@@ -404,12 +530,16 @@ def phase_engine(cfg, params, *, prefill_chunk, kv_quant):
           "a request ended with fewer than 64 tokens")
     check(launches == cfg.n_layers * steps,
           f"kernel launches {launches} != {cfg.n_layers} x {steps} steps")
-    share, worst = teacher_forced(eng.model, eng.params, done, kv_quant)
     mode = (f"chunk={prefill_chunk}" if prefill_chunk else "whole-prompt")
+    forwards = st["prefill_groups"] + steps
+    rms = count_rmsnorm(f"qwen {mode} kv={kv_quant}", rn.LAUNCHES["rmsnorm"],
+                        norms_per_forward(cfg) * forwards,
+                        f"{norms_per_forward(cfg)} x {forwards} forwards")
+    share, worst = teacher_forced(eng.model, eng.params, done, kv_quant)
     print(f"[engine] qwen1.5-0.5b full width, {mode}, kv={kv_quant}: "
           f"16/16 finished x 64 tokens in {wall:.2f}s; "
           f"{st['decode_steps']} decode + {st['chunk_steps']} chunk steps, "
-          f"kernel launches {launches} = {cfg.n_layers} x {steps}; "
+          f"kernel launches {launches} = {cfg.n_layers} x {steps}; {rms}; "
           f"preemptions {st['preemptions']}; dense-argmax match "
           f"{share:.4f} (others within {worst:.1f} <= {NEAR_TIE_ULPS} "
           f"bf16 ulps); decode {st['decode_tok_s']:.1f} tok/s, "
@@ -665,6 +795,7 @@ def phase_train(cfg):
     from repro_torch.core.trainer import Trainer, TrainerConfig
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import rmsnorm as rn
     from repro_torch.models.lm import LM
     sh = TRAIN_SHAPE
     steps = 4
@@ -722,9 +853,13 @@ def phase_train(cfg):
     torch.cuda.reset_peak_memory_stats()
     fa.LAUNCHES.clear()                  # count the main path's run only
     fd.LAUNCHES.clear()
+    rn.LAUNCHES.clear()
     out = trainer.run()
     torch.cuda.synchronize()
     launches = {n: fa.LAUNCHES[n] for n in ("fwd", "bwd_dkv", "bwd_dq")}
+    per_step = norms_per_train_step(cfg, sh["t"], remat=True)
+    rms = count_rmsnorm("F+R+Z3 training", rn.LAUNCHES["rmsnorm"],
+                        per_step * steps, f"{per_step} per step x {steps}")
     check(fd.LAUNCHES["paged_attention"] == 0,
           "training launched the paged kernel")
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -744,7 +879,7 @@ def phase_train(cfg):
           + ", ".join(f"{h['loss']:.4f}" for h in hist)
           + ", grad_norms " + ", ".join(f"{h['grad_norm']:.4f}" for h in hist)
           + f"; steps 2-{steps}: {out['step_ms']:.1f} ms/step, "
-          f"{out['tokens_per_s']:.0f} tokens/s; flash launches "
+          f"{out['tokens_per_s']:.0f} tokens/s; {rms}; flash launches "
           f"fwd {launches['fwd']} bwd_dkv {launches['bwd_dkv']} bwd_dq "
           f"{launches['bwd_dq']} (= {launches['fwd'] // steps}/"
           f"{launches['bwd_dkv'] // steps}/{launches['bwd_dq'] // steps} per "
@@ -983,6 +1118,7 @@ def phase_ssm_engine(cfg, params, *, prefill_chunk, n_blocks):
     from repro_torch.data.pipeline import serving_requests
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import rmsnorm as rn
     from repro_torch.kernels import ssd as ssdk
     from repro_torch.models.lm import LM
     from repro_torch.serving.engine import Engine, Request
@@ -1008,6 +1144,7 @@ def phase_ssm_engine(cfg, params, *, prefill_chunk, n_blocks):
     ssdk.LAUNCHES.clear()                # count the main path's run only
     fd.LAUNCHES.clear()
     fa.LAUNCHES.clear()
+    rn.LAUNCHES.clear()
     t0 = time.monotonic()
     done = eng.run(max_steps=20000)
     torch.cuda.synchronize()
@@ -1029,16 +1166,20 @@ def phase_ssm_engine(cfg, params, *, prefill_chunk, n_blocks):
           f"decode steps launched the SSD kernel {sum(in_decode)} times")
     if prefill_chunk:
         check(st["preemptions"] >= 1, "the pressure pool never preempted")
-    ref = LM(cfg, ssd_impl="ref", device="cuda")
-    share, worst = teacher_forced(ref, eng.params, done, "none")
     mode = (f"chunk={prefill_chunk}, {n_blocks} blocks"
             if prefill_chunk else "whole-prompt")
+    forwards = passes + st["decode_steps"]
+    rms = count_rmsnorm(f"mamba2 {mode}", rn.LAUNCHES["rmsnorm"],
+                        norms_per_forward(cfg) * forwards,
+                        f"{norms_per_forward(cfg)} x {forwards} forwards")
+    ref = LM(cfg, ssd_impl="ref", device="cuda")
+    share, worst = teacher_forced(ref, eng.params, done, "none")
     print(f"[mamba2] {cfg.name} full width, {mode}: {n_req}/{n_req} "
           f"finished x {max_new} tokens in {wall:.2f}s; "
           f"{st['prefill_groups']} prefill groups + {st['chunk_steps']} "
           f"chunk steps + {st['decode_steps']} decode steps, SSD launches "
           f"{launches} = {cfg.n_layers} x {passes}, 0 in decode steps; "
-          f"preemptions {st['preemptions']}; ref-forward argmax match "
+          f"{rms}; preemptions {st['preemptions']}; ref-forward argmax match "
           f"{share:.4f} (others within {worst:.1f} <= {NEAR_TIE_ULPS} bf16 "
           f"ulps); decode {st['decode_tok_s']:.1f} tok/s, p50 TTFT "
           f"{st['p50_ttft_s'] * 1e3:.1f} ms")
@@ -1175,6 +1316,7 @@ def phase_finetune(cfg):
     from repro_torch.core.trainer import Trainer, TrainerConfig
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import quant_matmul as qmm
+    from repro_torch.kernels import rmsnorm as rn
     from repro_torch.launch.build import make_model
     from repro_torch.models.params import tree_paths
     from repro_torch.peft.lora import split_trainable
@@ -1240,6 +1382,7 @@ def phase_finetune(cfg):
     torch.cuda.reset_peak_memory_stats()
     qmm.LAUNCHES.clear()                 # count the main path's run only
     fa.LAUNCHES.clear()
+    rn.LAUNCHES.clear()
     out = trainer.run()
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -1258,6 +1401,9 @@ def phase_finetune(cfg):
     want = {"fwd": 2 * cfg.n_layers * steps,
             "bwd_dkv": cfg.n_layers * steps, "bwd_dq": cfg.n_layers * steps}
     check(flash == want, f"flash launches {flash} != {want}")
+    norms = norms_per_train_step(cfg, sh["t"], remat=True)
+    rms = count_rmsnorm("QL+Q8+F+R fine-tuning", rn.LAUNCHES["rmsnorm"],
+                        norms * steps, f"{norms} per step x {steps}")
     now = dict(tree_paths(params))
     moved = [p for p, t in frozen.items() if not torch.equal(now[p], t)]
     check(not moved, f"frozen leaves changed: {moved[:5]}")
@@ -1276,7 +1422,8 @@ def phase_finetune(cfg):
           f"{out['tokens_per_s']:.0f} tokens/s; int8 launches {launches} "
           f"(= {launches // steps} per step = {cfg.n_layers} x 7 x 2), "
           f"flash {flash['fwd']}/{flash['bwd_dkv']}/{flash['bwd_dq']}; "
-          f"{n_frozen} frozen leaves bit-unchanged, {adapters_moved} of "
+          f"{rms}; {n_frozen} frozen leaves bit-unchanged, "
+          f"{adapters_moved} of "
           f"{len(trainable)} adapter leaves updated; peak memory "
           f"{peak:.2f} GiB; {card_line()}")
     del trainer, params, now
@@ -1288,8 +1435,12 @@ def phase_finetune(cfg):
     torch.cuda.synchronize()
     qmm.LAUNCHES.clear()
     fa.LAUNCHES.clear()
+    rn.LAUNCHES.clear()
     out_l = lora.run()
     torch.cuda.synchronize()
+    rms_l = count_rmsnorm("L+F+R fine-tuning", rn.LAUNCHES["rmsnorm"],
+                          norms * bf16_steps,
+                          f"{norms} per step x {bf16_steps}")
     check(qmm.LAUNCHES["int8_matmul"] == 0,
           f"L+F+R launched the int8 kernel {qmm.LAUNCHES['int8_matmul']} "
           f"times")
@@ -1300,7 +1451,8 @@ def phase_finetune(cfg):
               f"L+F+R step {h['step']}: loss {h['loss']}")
     print(f"[finetune] L+F+R (bf16 base), {bf16_steps} steps: losses "
           + ", ".join(f"{h['loss']:.4f}" for h in out_l["history"])
-          + f"; int8 launches 0; {out_l['step_ms']:.1f} ms/step (step 2)")
+          + f"; int8 launches 0; {rms_l}; {out_l['step_ms']:.1f} ms/step "
+          f"(step 2)")
     del lora
     torch.cuda.empty_cache()
     return launches, out
@@ -1364,6 +1516,443 @@ def phase_qmm_timing(cfg):
           f"ms, plain {per_step['plain_ms']:.1f} ms, reference route "
           f"{per_step['library_ms']:.1f} ms; {card_line()}")
     return rows, per_step
+
+
+# --------------------------------------------------------------------------
+# RMSNorm and dense-cache decode kernels, speculative serving
+# --------------------------------------------------------------------------
+
+
+def rms_case(rows, d, xd, wd, *, seed=0):
+    """x (rows, d) with each row at a magnitude in 1e-3..10, so eps
+    matters in some rows; w near 1."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    scale = 10.0 ** (torch.rand((rows, 1), generator=g, device="cuda") * 4
+                     - 3)
+    x = torch.randn((rows, d), generator=g, device="cuda") * scale
+    w = torch.randn(d, generator=g, device="cuda") + 1.0
+    return x.to(_dtype(xd)), w.to(_dtype(wd))
+
+
+def rms_vs_plain(x, w, run=None):
+    """The kernel (or ``run``, a planted fault around it) against the plain
+    version: (worst |err|, whether within the limit: f32 out within
+    ``KERNEL_TOL``, bf16 out within 1 bf16 ulp beyond ``BF16_ATOL``)."""
+    import torch
+    from repro_torch.kernels import rmsnorm as rn
+    got = (run or rn._rmsnorm_cuda)(x, w, 1e-5)
+    want = rn.rmsnorm_plain(x, w, 1e-5)
+    torch.cuda.synchronize()
+    err = max_err(got.float(), want.float())
+    if x.dtype == torch.bfloat16:
+        return err, bf16_ulp_check(got, want, 1)[1]
+    return err, allclose(got, want, **KERNEL_TOL)
+
+
+def _drop_eps(run):
+    def fault(x, w, eps):
+        return run(x, w, 0.0)
+    return fault
+
+
+def _skip_last_row_tile(run):
+    """A kernel whose grid stops one row tile early (those rows unwritten,
+    here zeros)."""
+    def fault(x, w, eps):
+        import torch
+        keep = (x.shape[0] - 1) // RMS_ROW_TILE * RMS_ROW_TILE
+        out = torch.zeros_like(x)
+        if keep:
+            out[:keep] = run(x[:keep].contiguous(), w, eps)
+        return out
+    return fault
+
+
+RMS_PLANTED = (("eps dropped", _drop_eps),
+               ("last row tile skipped", _skip_last_row_tile))
+
+
+def phase_rmsnorm_vs_plain():
+    import torch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import rmsnorm as rn
+    types = (("bf16", "bf16"), ("bf16", "f32"), ("f32", "bf16"),
+             ("f32", "f32"))
+    cases = [(rows, d, xd, wd) for rows in RMS_ROWS for d in RMS_DIMS
+             for xd, wd in types]
+    worst = {"f32": 0.0, "bf16": 0.0}
+    for i, (rows, d, xd, wd) in enumerate(cases):
+        x, w = rms_case(rows, d, xd, wd, seed=i)
+        err, ok = rms_vs_plain(x, w)
+        check(ok, f"RMSNorm kernel differs from plain at rows={rows} D={d} "
+              f"x {xd} w {wd}: max |err| {err}")
+        worst[xd] = max(worst[xd], err)
+    # the autograd wrapper at a training shape: dx and dw against autograd
+    # through the plain version
+    x, w = rms_case(8192, 1024, "bf16", "bf16", seed=99)
+    dy = torch.randn(x.shape, device="cuda").bfloat16()
+    grads = []
+    for fn in (kops.rmsnorm, rn.rmsnorm_plain):
+        xg, wg = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        grads.append(torch.autograd.grad(fn(xg, wg), (xg, wg), dy))
+    for name, a, b in zip(("dx", "dw"), *grads):
+        ulps, ok = bf16_ulp_check(a, b, 1)
+        check(ok, f"RMSNorm {name} differs from autograd through the plain "
+              f"version by {ulps} bf16 ulps")
+    print(f"[rmsnorm] {len(cases)} cases (rows {RMS_ROWS} x D {RMS_DIMS} x "
+          f"x/w in bf16/f32) kernel == plain: f32 out within rtol=atol=2e-5 "
+          f"(max |err| {worst['f32']:.3g}), bf16 out within 1 ulp + "
+          f"{BF16_ATOL} (max |err| {worst['bf16']:.3g}); dx, dw of the "
+          f"autograd wrapper at 8192 x 1024 bf16 == autograd through the "
+          f"plain version within 1 bf16 ulp")
+    for fault_name, fault in RMS_PLANTED:
+        caught = []
+        for i, (rows, d, xd, wd) in enumerate(cases):
+            x, w = rms_case(rows, d, xd, wd, seed=i)
+            err, ok = rms_vs_plain(x, w, fault(rn._rmsnorm_cuda))
+            if not ok:
+                caught.append(err)
+        check(bool(caught), f"planted RMSNorm fault '{fault_name}' passes "
+              f"every case")
+        print(f"[rmsnorm] planted fault '{fault_name}': caught at "
+              f"{len(caught)} of {len(cases)} cases (max |err| "
+              f"{min(caught):.3g}-{max(caught):.3g})")
+
+
+def dense_case(b, s, h, kv, d, lengths, dtype, *, seed=0):
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((b, h, d), generator=g, device="cuda").to(dtype)
+    k = torch.randn((b, kv, s, d), generator=g, device="cuda").to(dtype)
+    v = torch.randn((b, kv, s, d), generator=g, device="cuda").to(dtype)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    return q, k, v, lens
+
+
+def dense_vs_plain(q, k, v, lens, run=None):
+    """The kernel (or ``run``) against the plain version: (worst |err| of
+    the normalized output, whether o/l, m and l are within
+    ``KERNEL_TOL``)."""
+    import torch
+    from repro_torch.kernels import flash_decode as fd
+    got = (run or fd._dense_decode_cuda)(q, k, v, lens)
+    want = fd._dense_decode_torch(q, k, v, lens)
+    torch.cuda.synchronize()
+    og, ow = normalized(got[0], got[2]), normalized(want[0], want[2])
+    ok = (allclose(og, ow, **KERNEL_TOL) and
+          allclose(got[1], want[1], **KERNEL_TOL) and
+          allclose(got[2], want[2], **KERNEL_TOL))
+    return max_err(og, ow), ok
+
+
+def _mask_off_by_one(run):
+    def fault(q, k, v, lens):
+        import torch
+        return run(q, k, v, torch.clamp(lens + 1, max=k.shape[2]))
+    return fault
+
+
+def _m_not_carried(run):
+    """Each 32-position tile's partial summed into the result without the
+    rescale to a common max: the running max restarts every tile."""
+    def fault(q, k, v, lens):
+        import torch
+        s = k.shape[2]
+        o = l = m = None
+        for t0 in range(0, s, DENSE_TILE):
+            part = run(q, k[:, :, t0:t0 + DENSE_TILE],
+                       v[:, :, t0:t0 + DENSE_TILE],
+                       torch.clamp(lens - t0, 0, DENSE_TILE))
+            o = part[0] if o is None else o + part[0]
+            l = part[2] if l is None else l + part[2]
+            m = part[1] if m is None else torch.maximum(m, part[1])
+        return o, m, l
+    return fault
+
+
+DENSE_PLANTED = (("length mask off by one", _mask_off_by_one),
+                 ("m not carried across tiles", _m_not_carried))
+
+
+def phase_dense_decode_vs_plain():
+    import torch
+    from repro_torch.kernels import flash_decode as fd
+    worst = 0.0
+    n = 0
+    for i, case in enumerate(DENSE_CASES):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, lens = dense_case(*case, dtype, seed=i)
+            err, ok = dense_vs_plain(q, k, v, lens)
+            check(ok, f"dense decode kernel differs from plain at {case} "
+                  f"{dtype}: max |err| {err}")
+            got = fd._dense_decode_cuda(q, k, v, lens)
+            empty = lens == 0
+            check(bool((got[0][empty] == 0).all() and
+                       (got[2][empty] == 0).all() and
+                       (got[1][empty] == -1e30).all()),
+                  f"zero-length row not empty at {case}")
+            worst = max(worst, err)
+            n += 1
+    print(f"[decode] {n} cases (tests/test_kernels.py:72-75, the draft's "
+          f"B=1 H=K=16 D=64 at S=65 and 1068, G=2, a zero-length row, a "
+          f"length past S; bf16 and f32) kernel == plain: normalized "
+          f"output, m and l within rtol=atol=2e-5 (max |err| {worst:.3g})")
+    for fault_name, fault in DENSE_PLANTED:
+        caught = []
+        for i, case in enumerate(DENSE_CASES):
+            q, k, v, lens = dense_case(*case, torch.float32, seed=i)
+            err, ok = dense_vs_plain(q, k, v, lens,
+                                     fault(fd._dense_decode_cuda))
+            if not ok:
+                caught.append(err)
+        check(bool(caught), f"planted dense decode fault '{fault_name}' "
+              f"passes every case")
+        print(f"[decode] planted fault '{fault_name}': caught at "
+              f"{len(caught)} of {len(DENSE_CASES)} shapes (f32; max |err| "
+              f"{min(caught):.3g}-{max(caught):.3g})")
+
+
+def spec_splits(model, params, prompts, want, got):
+    """Streams of a spec-on run against spec-off's: a stream may split only
+    at a position where spec-off's own logits (a dense forward over the
+    prompt and spec-off's tokens before the split) put the spec-on token
+    within ``SPEC_NEAR_TIE_ULPS`` bf16 ulps of the top. Returns the split
+    count."""
+    import torch
+    splits = 0
+    for rid, ref in want.items():
+        out = got[rid]
+        j = next((i for i, (a, b) in enumerate(zip(ref, out)) if a != b),
+                 None)
+        if j is None:
+            continue
+        splits += 1
+        toks = torch.tensor([prompts[rid] + ref[:j]], dtype=torch.int64,
+                            device="cuda")
+        row = model.forward(params, toks)[0, -1].float()
+        top = float(row.max())
+        ulp = 2.0 ** (math.floor(math.log2(max(abs(top), 1e-30))) - 7)
+        check(float(row[out[j]]) >= top - SPEC_NEAR_TIE_ULPS * ulp,
+              f"rid {rid}: spec-on splits from spec-off at token {j} "
+              f"({out[j]} vs {ref[j]}), not a bf16 near tie")
+    return splits
+
+
+def rejected_draft_gaps(model, params, prompts, final, rounds):
+    """For each round whose proposals were not all accepted, the first
+    rejected proposal's gap below the top logit, in bf16 ulps of the top,
+    in a dense forward over the prompt and the run's tokens before it."""
+    import torch
+    gaps = []
+    for rid, n_out, props in rounds:
+        out = final[rid]
+        j = next((i for i, p in enumerate(props)
+                  if n_out + i < len(out) and out[n_out + i] != p), None)
+        if j is None:
+            continue
+        toks = torch.tensor([prompts[rid] + out[:n_out + j]],
+                            dtype=torch.int64, device="cuda")
+        row = model.forward(params, toks)[0, -1].float()
+        top = float(row.max())
+        ulp = 2.0 ** (math.floor(math.log2(max(abs(top), 1e-30))) - 7)
+        gaps.append((top - float(row[props[j]])) / ulp)
+    return gaps
+
+
+def phase_spec_engine(cfg, params, *, name, prompts, max_new, draft):
+    """Serve ``prompts`` spec-off, then spec-on (n-gram when ``draft`` is
+    False, else a self-draft), with the launch counts of the spec-on run
+    held against its stats."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.serving.engine import Engine, Request
+    from repro_torch.serving.speculate import DraftModelProposer
+    outs, stats, walls = {}, {}, {}
+    proposer = None
+    rounds = []                          # (rid, tokens emitted, proposals)
+    for mode in ("off", "on"):
+        if mode == "on":
+            proposer = (DraftModelProposer(cfg, params, device="cuda")
+                        if draft else "ngram")
+        if mode == "on" and draft:
+            propose = proposer.propose
+
+            def recorded(req, k, propose=propose):
+                out = propose(req, k)
+                rounds.append((req.rid, len(req.output), list(out)))
+                return out
+
+            proposer.propose = recorded
+        eng = Engine(cfg, params, max_batch=8, n_blocks=1024, block_size=16,
+                     speculate=proposer, spec_depth=4, device="cuda")
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, tokens=p, max_new_tokens=max_new))
+        torch.cuda.synchronize()
+        fd.LAUNCHES.clear()              # count the main path's run only
+        fa.LAUNCHES.clear()
+        rn.LAUNCHES.clear()
+        t0 = time.monotonic()
+        done = eng.run(max_steps=5000)
+        torch.cuda.synchronize()
+        walls[mode] = time.monotonic() - t0
+        st = stats[mode] = eng.stats()
+        check(len(done) == len(prompts) and st["finished"] == len(prompts),
+              f"{name} spec-{mode}: {st['finished']} of {len(prompts)} "
+              f"requests finished")
+        check(all(len(r.output) == max_new for r in done),
+              f"{name} spec-{mode}: a request ended off its budget of "
+              f"{max_new} tokens")
+        outs[mode] = {r.rid: r.output for r in done}
+    # the spec-on run's counts, read before any check runs a forward
+    paged = fd.LAUNCHES["paged_attention"]
+    dense = fd.LAUNCHES["dense_decode"]
+    norms = rn.LAUNCHES["rmsnorm"]
+    steps = st["decode_steps"] + st["chunk_steps"] + st["verify_steps"]
+    check(st["decode_steps"] == 0 and st["verify_steps"] > 0 and
+          st["spec_rounds"] > 0,
+          f"{name}: {st['verify_steps']} verify steps, {st['decode_steps']} "
+          f"plain decode steps, {st['spec_rounds']} spec rounds")
+    check(paged == cfg.n_layers * steps,
+          f"{name}: paged launches {paged} != {cfg.n_layers} x {steps} steps")
+    check(sum(fa.LAUNCHES.values()) == 0,
+          f"{name}: the engine launched flash kernels: {dict(fa.LAUNCHES)}")
+    n_pre, n_dec = ((proposer.n_prefills, proposer.n_decode_steps)
+                    if draft else (0, 0))
+    check(dense == cfg.n_layers * n_dec,
+          f"{name}: dense decode launches {dense} != {cfg.n_layers} x "
+          f"{n_dec} draft decode steps")
+    tie_note = ""
+    if draft:
+        check(dense > 0, f"{name}: the draft never decoded")
+        check(st["accept_rate"] > SELF_DRAFT_ACCEPT,
+              f"{name}: self-draft accept_rate {st['accept_rate']:.4f} <= "
+              f"{SELF_DRAFT_ACCEPT}")
+        gaps = rejected_draft_gaps(eng.model, eng.params, prompts,
+                                   outs["on"], rounds)
+        check(all(g <= NEAR_TIE_ULPS for g in gaps),
+              f"{name}: rejected self-draft proposals {max(gaps):.1f} bf16 "
+              f"ulps below the top (margin {NEAR_TIE_ULPS})")
+        tie_note = (f"; {len(gaps)} rejected proposals, each within "
+                    f"{max(gaps, default=0.0):.1f} <= {NEAR_TIE_ULPS} bf16 "
+                    f"ulps of the top of a dense forward")
+    forwards = st["prefill_groups"] + steps + n_pre + n_dec
+    rms = count_rmsnorm(f"spec {name}", norms,
+                        norms_per_forward(cfg) * forwards,
+                        f"{norms_per_forward(cfg)} x {forwards} forwards")
+    splits = spec_splits(eng.model, eng.params, prompts, outs["off"],
+                         outs["on"])
+    off = stats["off"]
+    print(f"[spec] qwen1.5-0.5b full width, {name}: {len(prompts)}/"
+          f"{len(prompts)} finished x {max_new} tokens both ways; spec-on "
+          f"== spec-off except {splits} split(s) at near ties; "
+          f"accept_rate {st['accept_rate']:.4f} ({st['spec_accepted_tokens']}"
+          f" of {st['spec_proposed_tokens']} in {st['spec_rounds']} rounds),"
+          f" depth histogram {st['spec_depth_hist']}; {st['verify_steps']} "
+          f"verify steps vs {off['decode_steps']} spec-off decode steps; "
+          f"paged launches {paged} = {cfg.n_layers} x {steps}, dense decode "
+          f"{dense} = {cfg.n_layers} x {n_dec} draft decode steps "
+          f"({n_pre} draft prefills){tie_note}; {rms}; decode tok/s spec-on "
+          f"{st['decode_tok_s']:.1f} vs spec-off {off['decode_tok_s']:.1f}; "
+          f"wall {walls['on']:.2f}s vs {walls['off']:.2f}s")
+    return {"dense": dense, "st": st, "off": off}
+
+
+def rms_bound(rows, d, x_bytes, w_bytes):
+    """Least time (ms) of one RMSNorm: x read once, w read once, the output
+    written once, against ~4 f32 operations an element on the FMA pipes.
+    (ms, bound_by)."""
+    t_bytes = (2 * rows * d * x_bytes + d * w_bytes) / HBM_BYTES_PER_S * 1e3
+    t_ops = 4.0 * rows * d / F32_FMA_OPS * 1e3
+    return (max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_new_kernel_timing(cfg):
+    """The RMSNorm kernel at the training step's and a decode step's shape,
+    and the dense decode kernel at the draft model's shape, each beside
+    its bound, the plain version and one library call, all as device time
+    per call of a CUDA-graph replay (``graph_ms``)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import rmsnorm as rn
+    rows_out = {}
+    for name, rows, xd in (("train", 8192, "bf16"), ("decode", 8, "bf16")):
+        d = cfg.d_model
+        # four inputs cycled, so the 16 MB training operand is not L2-hot
+        ins = [rms_case(rows, d, xd, "bf16", seed=200 + j) for j in range(4)]
+        err, ok = rms_vs_plain(*ins[0])
+        check(ok, f"RMSNorm kernel differs from plain at {rows} x {d}: {err}")
+        ms = graph_ms(lambda i: rn._rmsnorm_cuda(*ins[i % 4]))
+        plain_ms = graph_ms(lambda i: rn.rmsnorm_plain(*ins[i % 4]))
+        lib_ms = graph_ms(lambda i: F.rms_norm(ins[i % 4][0], (d,),
+                                               ins[i % 4][1], 1e-5))
+        bound_ms, bound_by = rms_bound(rows, d, 2, 2)
+        rows_out[name] = {"ms": ms, "plain_ms": plain_ms,
+                          "library_ms": lib_ms, "bound_ms": bound_ms,
+                          "bound_by": bound_by, "max_abs_err": err}
+        print(f"[timing] rmsnorm {rows} x {d} {xd} (w bf16): "
+              f"{ms * 1e3:.2f} us (bound {bound_ms * 1e3:.3f} us by "
+              f"{bound_by}, {bound_ms / ms * 100:.2f}% of it), plain "
+              f"{plain_ms * 1e3:.2f} us, F.rms_norm {lib_ms * 1e3:.2f} us; "
+              f"== plain, max |err| {err:.3g}")
+    # the draft's decode read: B=1, S = context + k, one cache per layer
+    b, s, h, kv, d, live = 1, 1068, cfg.n_heads, cfg.n_kv_heads, \
+        cfg.head_dim, 1064
+    n_l = cfg.n_layers
+    g = torch.Generator(device="cuda").manual_seed(300)
+    q = torch.randn((b, h, d), generator=g, device="cuda").bfloat16()
+    caches = [tuple(torch.randn((b, s, kv, d), generator=g,
+                                device="cuda").bfloat16() for _ in range(2))
+              for _ in range(n_l)]
+    lens = torch.tensor([live], dtype=torch.int32, device="cuda")
+    scale = 1.0 / math.sqrt(d)
+
+    def args(i):
+        kc, vc = caches[i % n_l]
+        return q, kc.transpose(1, 2), vc.transpose(1, 2), lens
+
+    err, ok = dense_vs_plain(*args(0))
+    check(ok, f"dense decode kernel differs from plain at the draft shape: "
+          f"{err}")
+    ms = graph_ms(lambda i: fd._dense_decode_cuda(*args(i), sm_scale=scale))
+    norm_ms = graph_ms(lambda i: fd.flash_decode(*args(i), sm_scale=scale))
+    plain_ms = graph_ms(lambda i: fd._dense_decode_torch(*args(i),
+                                                         sm_scale=scale))
+    mask = (torch.arange(s, device="cuda") < lens[:, None])[:, None, None, :]
+    qd = q[:, :, None]
+
+    def sdpa(i):
+        kc, vc = caches[i % n_l]
+        return F.scaled_dot_product_attention(
+            qd, kc.transpose(1, 2), vc.transpose(1, 2), attn_mask=mask,
+            scale=scale)
+
+    lib_ms = graph_ms(sdpa)
+    o_p, _, l_p = fd._dense_decode_torch(*args(0), sm_scale=scale)
+    check(allclose(sdpa(0)[:, :, 0].float(), normalized(o_p, l_p),
+                   rtol=2e-2, atol=2e-2),
+          "SDPA's output is not the dense decode read's function")
+    kv_bytes = 2 * live * kv * d * 2
+    io_bytes = b * h * d * 2 + b * h * d * 4 + b * h * 4 * 2 + b * 4
+    t_bytes = (kv_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
+    t_ops = 4.0 * h * live * d / PEAK_OPS["bf16"] * 1e3
+    dec = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "max_abs_err": err}
+    print(f"[timing] dense_decode B={b} H={h} K={kv} D={d} S={s} ({live} "
+          f"live) bf16, {n_l} caches cycled: {ms * 1e3:.2f} us (bound "
+          f"{dec['bound_ms'] * 1e3:.3f} us by {dec['bound_by']}, "
+          f"{dec['bound_ms'] / ms * 100:.2f}% of it); with the "
+          f"normalisation {norm_ms * 1e3:.2f} us; plain "
+          f"{plain_ms * 1e3:.2f} us; sdpa with the length mask "
+          f"{lib_ms * 1e3:.2f} us; == plain, max |err| {err:.3g}; "
+          f"{card_line()}")
+    return rows_out, dec
 
 
 def main() -> None:
@@ -1507,6 +2096,51 @@ def main() -> None:
         "bound_ms": gate["bound_ms"],
         "bound_by": gate["bound_by"],
         "library_ms": gate["library_ms"],
+    })
+
+    phase_rmsnorm_vs_plain()
+    phase_dense_decode_vs_plain()
+    from repro_torch.data.pipeline import repetitive_requests, serving_requests
+    params = LM(cfg, device="cuda").init(0)
+    ngram = phase_spec_engine(
+        cfg, params, name="n-gram depth 4, 16 repetitive requests",
+        prompts=repetitive_requests(16, cfg.vocab_size, prompt_len=256),
+        max_new=64, draft=False)
+    self_draft = phase_spec_engine(
+        cfg, params, name="self-draft depth 4, 4 requests",
+        prompts=serving_requests(4, cfg.vocab_size, prompt_lens=[64, 256],
+                                 seed=1),
+        max_new=32, draft=True)
+    del params
+    rms_t, dec_t = phase_new_kernel_timing(cfg)
+    print(f"[spec] RMSNorm launches per run: " + ", ".join(
+        f"{k} {v}" for k, v in RMSNORM_RUNS.items()))
+    train = rms_t["train"]
+    record["kernels"].append({
+        "name": "rmsnorm",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+        "replaces": "src/repro/kernels/rmsnorm.py:24",
+        "launches": sum(RMSNORM_RUNS.values()),
+        "max_abs_err": train["max_abs_err"],
+        "ms": train["ms"],
+        "plain_ms": train["plain_ms"],
+        "bound_ms": train["bound_ms"],
+        "bound_by": train["bound_by"],
+        "library_ms": train["library_ms"],
+    })
+    record["kernels"].append({
+        "name": "dense_decode",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/dense_decode.cu",
+        "replaces": "src/repro/kernels/flash_decode.py:93",
+        "launches": self_draft["dense"] + ngram["dense"],
+        "max_abs_err": dec_t["max_abs_err"],
+        "ms": dec_t["ms"],
+        "plain_ms": dec_t["plain_ms"],
+        "bound_ms": dec_t["bound_ms"],
+        "bound_by": dec_t["bound_by"],
+        "library_ms": dec_t["library_ms"],
     })
 
     print(f"[done] every phase passed in {time.monotonic() - t_start:.1f}s, "

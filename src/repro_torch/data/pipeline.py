@@ -1,7 +1,7 @@
 """Synthetic data (numpy only; the port's copy of the numpy part of
-``repro.data.pipeline``): the serving prompts and the packed training
-batches. Same generators and draws as the reference, so the two packages
-see identical tokens for one seed."""
+``repro.data.pipeline``): the serving prompts (random and repeated-
+pattern) and the packed training batches. Same generators and draws as
+the reference, so the two packages see identical tokens for one seed."""
 from __future__ import annotations
 
 import dataclasses
@@ -77,3 +77,15 @@ def serving_requests(n: int, vocab: int, prompt_len: int = SERVING_PROMPT_LEN,
         t = prompt_lens[i % len(prompt_lens)] if prompt_lens else prompt_len
         out.append(rng.integers(1, vocab, size=t, dtype=np.int32).tolist())
     return out
+
+
+def repetitive_requests(n: int, vocab: int,
+                        prompt_len: int = SERVING_PROMPT_LEN,
+                        pattern_len: int = 8, seed: int = 0):
+    """Repeated-pattern prompts: one random ``pattern_len``-token pattern
+    tiled to ``prompt_len``, shared by all ``n`` requests (the trace on
+    which the n-gram proposer fires)."""
+    rng = np.random.default_rng(seed)
+    pat = rng.integers(1, vocab, size=pattern_len, dtype=np.int32).tolist()
+    reps = -(-prompt_len // pattern_len)
+    return [(pat * reps)[:prompt_len] for _ in range(n)]

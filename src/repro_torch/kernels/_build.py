@@ -19,7 +19,8 @@ from typing import Dict, List, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-KERNELS = ("paged_attention", "flash_attention", "ssd", "quant_matmul")
+KERNELS = ("paged_attention", "flash_attention", "ssd", "quant_matmul",
+           "rmsnorm", "dense_decode")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

@@ -1,6 +1,7 @@
-"""Paged multi-query attention partials, and the plain helpers around them.
+"""Paged multi-query and dense-cache decode attention partials, and the
+plain helpers around them (the port of ``repro.kernels.flash_decode``).
 
-The port of ``repro.kernels.flash_decode``'s serving read. One wrapper,
+**Paged read** (the serving engine's). One wrapper,
 :func:`paged_flash_prefix_partial`, serves every window width T: fused
 decode (:func:`paged_flash_decode_partial`, T=1) and chunked prefill
 (T=chunk) both go through it, so the T=1 read is the decode read bit for
@@ -15,6 +16,15 @@ the oracle the kernel is held against on the card.
 
 Every launch adds one to ``LAUNCHES["paged_attention"]``; nothing else
 does, so a run can show that its main path went through the kernel.
+
+**Dense-cache decode** (the models' ``decode_step``, which speculative
+decoding's draft model runs). :func:`flash_decode_partial` reads one query
+token per row against a dense ``(B, K, S, D)`` cache: on CUDA tensors the
+hand-written kernel ``csrc/dense_decode.cu`` (it replaces the TPU kernel
+``flash_decode.py::_decode_kernel``), counted in
+``LAUNCHES["dense_decode"]``; on CPU tensors the plain version
+:func:`_dense_decode_torch`, which mirrors ``_decode_kernel``'s block
+loop. :func:`flash_decode` normalizes the partials.
 """
 from __future__ import annotations
 
@@ -103,10 +113,10 @@ def _paged_prefix_torch(q, k_pages, v_pages, table, lengths, k_scale,
 # ==========================================================================
 
 
-def _check(cond: bool, msg: str) -> None:
+def _check(cond: bool, msg: str, kernel: str = "paged_attention") -> None:
     # repro: allow[JIT-04] the wrapper's checks read tensor metadata (device, dtype, shape, strides), never device values
     if not cond:
-        raise ValueError(f"paged_attention: {msg}")
+        raise ValueError(f"{kernel}: {msg}")
 
 
 @functools.lru_cache(maxsize=None)
@@ -251,3 +261,127 @@ def causal_self_partial(q, k, v, *, sm_scale: Optional[float] = None):
     o = torch.einsum("bikgj,bjkd->bikgd", p, v.float())
     return (o.reshape(b, t, h, d), m.reshape(b, t, h, 1),
             l.reshape(b, t, h, 1))
+
+
+# ==========================================================================
+# Dense-cache decode: one query token per row against a (B, K, S, D) cache
+# ==========================================================================
+
+_DENSE_KINDS = {torch.float32: 0, torch.bfloat16: 1}
+_DENSE_MAX_G = 8            # kMaxG in csrc/dense_decode.cu
+
+
+def _dense_decode_torch(q, k, v, lengths, *, sm_scale=None, bk: int = 256):
+    """The plain version: ``_decode_kernel``'s block loop in torch. Blocks
+    of ``bk`` positions (the last one ragged when ``bk`` does not divide
+    S) update an f32 online softmax; a block runs for row b only while it
+    starts before ``lengths[b]``, so a zero-length row keeps o = 0, l = 0,
+    m = -1e30. Every block is visited (a shape-static loop, no host read
+    of ``lengths``)."""
+    b, h, d = q.shape
+    n_kv, s = k.shape[1], k.shape[2]
+    g = h // n_kv
+    dev = q.device
+    qg = q.reshape(b, n_kv, g, d).float() * _scale(d, sm_scale)
+    m = torch.full((b, n_kv, g, 1), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, n_kv, g, 1), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, n_kv, g, d), dtype=torch.float32, device=dev)
+    neg = torch.full((), NEG_INF, dtype=torch.float32, device=dev)
+    lens = lengths.long()[:, None, None, None]
+    for j0 in range(0, s, bk):
+        kb = k[:, :, j0:j0 + bk].float()                    # (B, K, bk, D)
+        vb = v[:, :, j0:j0 + bk].float()
+        sc = torch.einsum("bkgd,bksd->bkgs", qg, kb)
+        kpos = j0 + torch.arange(kb.shape[2], device=dev)
+        sc = torch.where(kpos < lens, sc, neg)
+        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+        p = torch.exp(sc - m_new)
+        corr = torch.exp(m - m_new)
+        run = j0 < lens
+        l = torch.where(run, l * corr + p.sum(-1, keepdim=True), l)
+        acc = torch.where(run, acc * corr
+                          + torch.einsum("bkgs,bksd->bkgd", p, vb), acc)
+        m = torch.where(run, m_new, m)
+    return (acc.reshape(b, h, d), m.reshape(b, h, 1), l.reshape(b, h, 1))
+
+
+@functools.lru_cache(maxsize=None)
+def _dense_entry():
+    """The dense decode kernel's C entry point, built and loaded on first
+    use, with its ctypes signature set once."""
+    fn = _build.load("dense_decode").dense_decode_partial
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    strides = ctypes.POINTER(ctypes.c_longlong)
+    fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
+                   strides, strides, ctypes.c_float, ci, vp]
+    fn.restype = ci
+    return fn
+
+
+def _dcheck(cond: bool, msg: str) -> None:
+    _check(cond, msg, "dense_decode")
+
+
+def _dense_decode_cuda(q, k, v, lengths, *, sm_scale=None):
+    _dcheck(q.ndim == 3 and k.ndim == 4 and v.shape == k.shape,
+           f"q must be (B, H, D) and k/v (B, K, S, D), got "
+           f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    b, h, d = q.shape
+    bk_, n_kv, s, dk = k.shape
+    _dcheck(q.dtype in _DENSE_KINDS and k.dtype == q.dtype and
+           v.dtype == q.dtype,
+           f"q, k and v must all be bf16 or all f32, got {q.dtype}, "
+           f"{k.dtype}, {v.dtype}")
+    _dcheck(bk_ == b and dk == d and 0 < d <= _MAX_HEAD_DIM,
+           f"k {tuple(k.shape)} against q {tuple(q.shape)}: batch and "
+           f"head_dim must match, head_dim <= {_MAX_HEAD_DIM}")
+    _dcheck(n_kv > 0 and h % n_kv == 0 and h // n_kv <= _DENSE_MAX_G,
+           f"{h} heads over {n_kv} kv heads: G must be <= {_DENSE_MAX_G}")
+    _dcheck(q.is_contiguous() and k.stride(3) == 1 and v.stride(3) == 1,
+           "q must be contiguous and k/v contiguous along head_dim")
+    _dcheck(lengths.dtype == torch.int32 and tuple(lengths.shape) == (b,),
+           f"lengths must be int32 ({b},)")
+    dev = q.device
+    _dcheck(dev.type == "cuda", f"the kernel takes CUDA tensors, got {dev}")
+    for t in (k, v, lengths):
+        _dcheck(t.device == dev, f"all tensors must be on {dev}, got "
+               f"{t.device}")
+    o = torch.empty((b, h, d), dtype=torch.float32, device=dev)
+    m = torch.empty((b, h, 1), dtype=torch.float32, device=dev)
+    l = torch.empty((b, h, 1), dtype=torch.float32, device=dev)
+    if b == 0:
+        return o, m, l
+    ks = (ctypes.c_longlong * 3)(*(k.stride(i) for i in range(3)))
+    vs = (ctypes.c_longlong * 3)(*(v.stride(i) for i in range(3)))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _dense_entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                            lengths.contiguous().data_ptr(), o.data_ptr(),
+                            m.data_ptr(), l.data_ptr(), b, h, n_kv, s, d, ks,
+                            vs, _scale(d, sm_scale),
+                            _DENSE_KINDS[q.dtype], stream)
+    # repro: allow[JIT-04] rc is the C int cudaGetLastError() returned to the host, not a device value
+    if rc != 0:
+        raise RuntimeError(f"dense_decode launch failed: CUDA error {rc}")
+    LAUNCHES["dense_decode"] += 1
+    return o, m, l
+
+
+def flash_decode_partial(q, k, v, lengths, *,
+                         sm_scale: Optional[float] = None):
+    """Single-token decode partials against a dense cache: q (B, H, D),
+    k/v (B, K, S, D) (any strides with D contiguous, e.g. a transposed
+    view of the models' (B, S, K, D) cache), lengths (B,) int32 valid
+    prefixes. Returns unnormalized (o (B, H, D) f32, m (B, H, 1),
+    l (B, H, 1)). CUDA tensors launch the kernel; CPU tensors run the
+    plain version."""
+    # repro: allow[JIT-04] dispatch on where the tensor lives (host metadata): the card launches the kernel, host memory runs the plain version
+    if q.is_cuda:
+        return _dense_decode_cuda(q, k, v, lengths, sm_scale=sm_scale)
+    return _dense_decode_torch(q, k, v, lengths, sm_scale=sm_scale)
+
+
+def flash_decode(q, k, v, lengths, *, sm_scale: Optional[float] = None):
+    """:func:`flash_decode_partial` normalized, in q's type."""
+    o, _, l = flash_decode_partial(q, k, v, lengths, sm_scale=sm_scale)
+    return (o / torch.clamp_min(l, 1e-30)).to(q.dtype)

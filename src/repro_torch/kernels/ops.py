@@ -1,6 +1,6 @@
 """Model-layout wrappers around the kernels (the port of
-``repro.kernels.ops``'s ``flash_attention``, ``ssd`` and
-``int8_matmul``).
+``repro.kernels.ops``'s ``flash_attention``, ``flash_decode``, ``ssd``,
+``rmsnorm`` and ``int8_matmul``).
 
 :func:`flash_attention` takes the layout of ``models.layers`` — q
 (B, T, H, D), k/v (B, S, K, D) — transposes to the kernels' (B, H, T, D)
@@ -22,6 +22,18 @@ kernel does not need.
 :class:`_Int8Matmul`. The reference has no backward kernel: its x
 gradient is XLA's transpose product, outside any Pallas kernel, so here
 it is one ``torch.matmul`` on the f32 dequantized weight.
+
+:func:`flash_decode` takes the models' cache layout — q (B, 1, H, D) or
+(B, H, D), k/v (B, S, K, D) — and hands the dense decode kernel a
+transposed view (the kernel reads through strides, so nothing is
+copied); the reference's pad of head_dim to 128 lanes is a TPU layout
+step and is not done.
+
+:func:`rmsnorm` is the models' RMSNorm. On CUDA tensors it runs
+:class:`_RMSNorm`: the forward is the RMSNorm kernel, the backward the
+analytic gradient in plain torch ops (the reference has no backward
+kernel: XLA differentiates its jnp form). On CPU tensors it is the plain
+version, differentiated by autograd through its ops.
 """
 from __future__ import annotations
 
@@ -32,7 +44,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import quant_matmul as qmm
+from repro_torch.kernels import rmsnorm as rn
 from repro_torch.kernels import ssd as ssdk
 
 
@@ -73,6 +87,48 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
     vt = v.transpose(1, 2).contiguous()
     out = _Flash.apply(qt, kt, vt, causal, 1.0 / float(np.sqrt(d)))
     return out.transpose(1, 2)
+
+
+def flash_decode(q, k, v, lengths) -> torch.Tensor:
+    """q (B, 1, H, D) or (B, H, D); k, v (B, S, K, D) cache; lengths (B,)
+    int32 valid prefixes. Returns the normalized output shaped like q, in
+    q's type."""
+    squeeze = q.ndim == 4
+    if squeeze:
+        q = q[:, 0]
+    d = q.shape[-1]
+    out = fd.flash_decode(q.contiguous(), k.transpose(1, 2),
+                          v.transpose(1, 2), lengths,
+                          sm_scale=1.0 / float(np.sqrt(d)))
+    return out[:, None] if squeeze else out
+
+
+class _RMSNorm(torch.autograd.Function):
+    """Forward: the RMSNorm kernel. Backward: ``rmsnorm_backward``, the
+    analytic gradient on f32 with ``rstd`` recomputed from x."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps: float):
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        return rn.rmsnorm(x, w, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx, dw = rn.rmsnorm_backward(x, w, dy, ctx.eps)
+        return (dx if ctx.needs_input_grad[0] else None,
+                dw if ctx.needs_input_grad[1] else None, None)
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor,
+            eps: float = 1e-5) -> torch.Tensor:
+    """``x (..., D)`` RMS-normalized and scaled by ``w (D,)``, in x's type,
+    differentiable in both."""
+    # repro: allow[JIT-04] dispatch on where the tensor lives (host metadata): the card runs the kernel, host memory the plain version with autograd through its ops
+    if not x.is_cuda:
+        return rn.rmsnorm_plain(x, w, eps)
+    return _RMSNorm.apply(x.contiguous(), w.contiguous(), eps)
 
 
 def ssd_inputs(x, B, C, dt, A, chunk: int,

@@ -1,14 +1,18 @@
 """Where a fused decode step's time goes on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_decode \
-        [--arch qwen1.5-0.5b|mamba2-130m] [--steps 10]
+        [--arch qwen1.5-0.5b|mamba2-130m] [--steps 10] \
+        [--speculate off|ngram] [--repetitive]
 
 Serves the arch at full width (seeded random weights) with eight running
-requests (prompts of 64/256/1000 tokens, cycled), warms up, then times
-``--steps`` decode steps twice: on the host clock without a profiler
-(wall per step), and under ``torch.profiler`` (device busy time per step,
-the device's idle share, kernels per step, and device time by kernel).
-Prints the card's name and power limit first; needs a CUDA device.
+requests (prompts of 64/256/1000 tokens, cycled; ``--repetitive`` tiles
+one random 8-token pattern instead, the trace on which the n-gram
+proposer fires), warms up, then times ``--steps`` decode steps twice: on
+the host clock without a profiler (wall per step, tokens per step), and
+under ``torch.profiler`` (device busy time per step, the device's idle
+share, kernels per step, and device time by kernel). With ``--speculate
+ngram`` every decode step is a verify step of up to depth + 1 tokens a
+row. Prints the card's name and power limit first; needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -23,6 +27,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen1.5-0.5b")
     ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--speculate", default="off", choices=("off", "ngram"))
+    ap.add_argument("--repetitive", action="store_true")
     args = ap.parse_args(argv)
 
     import torch
@@ -30,7 +36,8 @@ def main(argv: Optional[List[str]] = None) -> None:
 
     from repro_torch.configs import get_config
     from repro_torch.core.device import resolve_device
-    from repro_torch.data.pipeline import serving_requests
+    from repro_torch.data.pipeline import (repetitive_requests,
+                                           serving_requests)
     from repro_torch.models.lm import LM
     from repro_torch.serving.engine import Engine, Request
 
@@ -42,22 +49,28 @@ def main(argv: Optional[List[str]] = None) -> None:
     cfg = get_config(args.arch)
     params = LM(cfg, device=dev).init(0)
     eng = Engine(cfg, params, max_batch=8, n_blocks=1024, block_size=16,
-                 device=dev)
+                 speculate=args.speculate, device=dev)
     warm = 3
-    for i, p in enumerate(serving_requests(8, cfg.vocab_size,
-                                           prompt_lens=[64, 256, 1000])):
+    prompts = (repetitive_requests(8, cfg.vocab_size, prompt_len=256)
+               if args.repetitive else
+               serving_requests(8, cfg.vocab_size,
+                                prompt_lens=[64, 256, 1000]))
+    for i, p in enumerate(prompts):
         eng.submit(Request(rid=i, tokens=p,
-                           max_new_tokens=4 + warm + 2 * args.steps))
+                           max_new_tokens=(4 + warm + 2 * args.steps)
+                           * (1 + eng.spec.depth if eng.spec else 1)))
     for _ in range(1 + warm):          # whole-prompt prefill, then decode
         eng.step()
     if sum(r is not None for r in eng.sched.running) != 8:
         raise RuntimeError("expected eight running requests")
     torch.cuda.synchronize()
+    tok0 = eng.decode_tokens
     t0 = time.perf_counter()
     for _ in range(args.steps):
         eng.step()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / args.steps
+    per_step = (eng.decode_tokens - tok0) / args.steps
 
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
@@ -77,10 +90,15 @@ def main(argv: Optional[List[str]] = None) -> None:
     ours = {name: sum(v[0] for k, v in by_name.items()
                       if kernel in k) / 1e3 / args.steps
             for name, kernel in (("paged_attention", "paged_mq_kernel"),
-                                 ("ssd", "ssd_chunk_scan_kernel"))}
+                                 ("ssd", "ssd_chunk_scan_kernel"),
+                                 ("rmsnorm", "rmsnorm_kernel"))}
     cache = "bf16 KV" if cfg.n_kv_heads else "f32 SSM states"
+    spec = (f"speculate {args.speculate}, "
+            f"accept_rate {eng.stats().get('accept_rate', 0.0):.3f}, "
+            if args.speculate != "off" else "")
     print(f"[profile] {card} | {cfg.name} full width, 8 rows, {cache}, "
-          f"{args.steps} steps")
+          f"{'repetitive' if args.repetitive else 'random'} prompts, "
+          f"{spec}{args.steps} steps, {per_step:.2f} tokens per step")
     if not by_name:
         print("[profile] device time: not measured (the profiler recorded "
               f"no device events); wall per step {wall * 1e3:.2f} ms")

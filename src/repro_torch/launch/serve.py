@@ -8,11 +8,18 @@ synthetic burst, on the card by default.
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \
         --prefill-chunk 16 --device cpu        # attention-free SSM arch
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --speculate ngram --repetitive         # speculative decoding
 
 Fused decode and chunked prefill read the KV cache through one paged
 multi-query attention kernel (kernels/flash_decode), at T=1 and T=chunk.
 On ``mamba2-130m`` both prefill kinds run the SSD scan through the SSD
 kernel (kernels/ssd) and decode advances the per-slot SSM states.
+``--speculate`` verifies proposed tokens through the same paged read
+(T = 1 + depth); ``draft:<config>`` drafts with that config's model,
+whose decode reads its dense cache through the dense decode kernel, and
+``--repetitive`` serves repeated-pattern prompts, on which the n-gram
+proposer fires.
 As the reference CLI does, it serves the arch's reduced (smoke) config
 with random weights from seed 0; ``chip_smoke.py`` drives the full width.
 """
@@ -64,13 +71,21 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--mixed-lens", default=None,
                     help="comma-separated prompt lengths cycled over the "
                          "burst, e.g. 16,64,24 (overrides --prompt-len)")
+    ap.add_argument("--speculate", default="off",
+                    help="off | ngram | draft:<config> (dense archs)")
+    ap.add_argument("--spec-depth", type=int, default=4,
+                    help="proposed tokens per verify round (at most)")
+    ap.add_argument("--repetitive", action="store_true",
+                    help="repeated-pattern prompts (the n-gram proposer's "
+                         "trace) instead of random ones")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; cpu runs the plain "
                          "PyTorch path)")
     args = ap.parse_args(argv)
 
     from repro_torch.configs import get_config, list_archs
-    from repro_torch.data.pipeline import serving_requests
+    from repro_torch.data.pipeline import (repetitive_requests,
+                                           serving_requests)
     from repro_torch.models.lm import LM
     from repro_torch.serving.engine import Engine, Rejected, Request
 
@@ -88,10 +103,16 @@ def main(argv: Optional[List[str]] = None) -> None:
                  n_blocks=args.n_blocks, block_size=args.block_size,
                  kv_quant="int8" if args.int8_kv else "none",
                  prefill_chunk=args.prefill_chunk or None,
+                 speculate=args.speculate, spec_depth=args.spec_depth,
                  device=model.device)
-    for i, p in enumerate(serving_requests(args.requests, cfg.vocab_size,
-                                           prompt_len=args.prompt_len,
-                                           prompt_lens=lens)):
+    if args.repetitive:
+        prompts = repetitive_requests(args.requests, cfg.vocab_size,
+                                      prompt_len=args.prompt_len)
+    else:
+        prompts = serving_requests(args.requests, cfg.vocab_size,
+                                   prompt_len=args.prompt_len,
+                                   prompt_lens=lens)
+    for i, p in enumerate(prompts):
         try:
             eng.submit(Request(rid=i, tokens=p,
                                max_new_tokens=args.max_new))

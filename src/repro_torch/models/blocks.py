@@ -1,11 +1,13 @@
 """Transformer and Mamba-2 blocks: param specs and apply functions.
 
 The dense- and ssm-family subset of ``repro.models.blocks``: the
-attention block (QKV bias, prefill branch), the SwiGLU FFN and the
+attention block (QKV bias; whole-sequence and dense-cache decode
+branches), the SwiGLU FFN and the
 Mamba-2 (SSD) block with its three branches (whole sequence, chunk
 continue, T=1 decode). No sharding context: the port serves on one card.
 
-SSM cache convention (decode and chunked prefill):
+Cache conventions (decode): attention ``{"k", "v"}`` as (B, S, K, hd)
+bf16 with the global ``lengths`` (B,); SSM (also chunked prefill)
 ``{"conv": (B, W-1, C) f32, "state": (B, H, P, N) f32}``.
 """
 from __future__ import annotations
@@ -61,17 +63,44 @@ def _qkv(x, p, cfg: ArchConfig, positions, rope: bool = True,
 
 def attn_apply(x, p, cfg: ArchConfig, *, positions, attn_impl: str = "naive",
                causal: bool = True, return_kv: bool = False,
-               qmm_impl: str = "kernel"
+               qmm_impl: str = "kernel", cache: Optional[Dict] = None,
+               lengths: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    """Self-attention residual block over a whole sequence (train/prefill
-    branch of the reference); optionally returns the fresh (k, v).
-    ``attn_impl`` is a :func:`layers.attention` mode, ``qmm_impl`` a
+    """Self-attention residual block.
+
+    Whole sequence (``cache=None``, train/prefill): :func:`layers.attention`
+    in mode ``attn_impl``; optionally returns the fresh (k, v). Decode
+    (``cache`` holds (B, S, K, hd) k/v, x is one token per row): the new
+    k/v are written at ``clip(lengths, 0, S-1)`` — in place, into the
+    cache tensors the caller passed — and the token attends the whole
+    cache with ``kv_len = lengths + 1`` through ``kernels.ops.
+    flash_decode`` (the dense decode kernel on the card, its plain version
+    on the CPU) whatever ``attn_impl`` is: the counterpart of the
+    reference's intended ``"pallas_decode"``. ``qmm_impl`` is a
     :func:`layers.dense` route for int8 weights."""
     h = L.rmsnorm(x, p["ln"], cfg.norm_eps)
     q, k, v = _qkv(h, p, cfg, positions, qmm_impl=qmm_impl)
-    out = L.attention(q, k, v, mode=attn_impl, causal=causal)
+    new_cache = None
+    if cache is not None:
+        from repro_torch.kernels import ops as kops
+        kc, vc = cache["k"], cache["v"]
+        if not kc.dtype.is_floating_point:
+            raise NotImplementedError(
+                f"a {kc.dtype} dense cache is not ported (the reference "
+                f"casts k/v to it with no scale)")
+        slot = torch.clamp(lengths.long(), 0, kc.shape[1] - 1)
+        rows = torch.arange(kc.shape[0], device=kc.device)
+        kc[rows, slot] = k[:, 0].to(kc.dtype)
+        vc[rows, slot] = v[:, 0].to(vc.dtype)
+        new_cache = {"k": kc, "v": vc}
+        out = kops.flash_decode(q, kc.to(q.dtype), vc.to(q.dtype),
+                                (lengths + 1).int())
+    else:
+        out = L.attention(q, k, v, mode=attn_impl, causal=causal)
+        if return_kv:
+            new_cache = {"k": k, "v": v}
     y = L.dense(out, p["wo"], n_in=2, qmm_impl=qmm_impl)
-    return x + y, ({"k": k, "v": v} if return_kv else None)
+    return x + y, new_cache
 
 
 def ffn_specs(cfg: ArchConfig, n_stack: int) -> Dict:

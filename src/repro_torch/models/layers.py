@@ -91,10 +91,11 @@ def _int8_dense(x, w, n_in: int, bias, out_dtype) -> torch.Tensor:
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor,
             eps: float = 1e-5) -> torch.Tensor:
-    xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    y = xf * torch.rsqrt(var + eps)
-    return (y * w.float()).to(x.dtype)
+    """``x·rsqrt(mean(x²)+eps)·w`` in f32, rounded once to x's type:
+    ``kernels.ops.rmsnorm``, the RMSNorm kernel on the card (with its
+    analytic backward) and the plain version on the CPU."""
+    from repro_torch.kernels import ops as kops
+    return kops.rmsnorm(x, w, eps)
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
@@ -153,19 +154,28 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return torch.cat([out, xp], dim=-1) if rot < hd else out
 
 
-def naive_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
+def naive_attention(q, k, v, *, causal: bool = True, q_offset=0,
+                    kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Materialized-score attention. q (B, T, H, hd), k/v (B, S, K, hd)
-    with H = K * G. Scores and softmax in f32; the probabilities are cast
-    to v's type before the value product, as the reference does."""
+    with H = K * G. Query row i sits at position ``q_offset + i`` for the
+    causal mask; ``kv_len`` (B,) masks keys at or past each row's length.
+    Scores and softmax in f32; the probabilities are cast to v's type
+    before the value product, as the reference does."""
     b, t, h, d = q.shape
     s, n_kv = k.shape[1], k.shape[2]
     qg = q.reshape(b, t, n_kv, h // n_kv, d)
     scale = float(np.float32(1.0 / np.sqrt(d)))
     scores = torch.einsum("btkgd,bskd->bkgts", qg.float(), k.float()) * scale
+    kpos = torch.arange(s, device=q.device)
+    mask = None
     if causal:
-        mask = (torch.arange(t, device=q.device)[:, None]
-                >= torch.arange(s, device=q.device)[None, :])
-        scores = torch.where(mask[None, None, None], scores,
+        qpos = torch.arange(t, device=q.device)[:, None] + q_offset
+        mask = (qpos >= kpos[None, :])[None, None, None]         # (T, S)
+    if kv_len is not None:
+        live = (kpos[None, :] < kv_len[:, None])[:, None, None, None, :]
+        mask = live if mask is None else mask & live
+    if mask is not None:
+        scores = torch.where(mask, scores,
                              torch.full((), NEG_INF, device=q.device))
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgts,bskd->btkgd", p.to(v.dtype).float(),
@@ -173,18 +183,23 @@ def naive_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
     return out.reshape(b, t, h, d)
 
 
-def attention(q, k, v, *, mode: str = "naive",
-              causal: bool = True) -> torch.Tensor:
-    """Whole-sequence attention, q (B, T, H, hd), k/v (B, S, K, hd).
+def attention(q, k, v, *, mode: str = "naive", causal: bool = True,
+              q_offset=0, kv_len: Optional[torch.Tensor] = None
+              ) -> torch.Tensor:
+    """Attention, q (B, T, H, hd), k/v (B, S, K, hd).
 
     ``"naive"`` materializes the score matrix (:func:`naive_attention`,
-    the reference's mode of the same name). ``"flash"`` is the
-    counterpart of the reference's ``"pallas"`` mode: the flash kernels
-    through ``kernels.ops.flash_attention``, with their gradient. The
-    reference's ``"chunked"`` XLA scan is not ported."""
+    the reference's mode of the same name), with ``q_offset``/``kv_len``.
+    ``"flash"`` is the counterpart of the reference's ``"pallas"`` mode:
+    the flash kernels through ``kernels.ops.flash_attention``, with their
+    gradient; it takes no ``q_offset``/``kv_len`` (cached decode reads go
+    through ``kernels.ops.flash_decode``). The reference's ``"chunked"``
+    XLA scan is not ported."""
     if mode == "naive":
-        return naive_attention(q, k, v, causal=causal)
+        return naive_attention(q, k, v, causal=causal, q_offset=q_offset,
+                               kv_len=kv_len)
     if mode == "flash":
         from repro_torch.kernels import ops as kops
-        return kops.flash_attention(q, k, v, causal=causal)
+        return kops.flash_attention(q, k, v, causal=causal,
+                                    q_offset=q_offset, kv_len=kv_len)
     raise ValueError(f"unknown attention mode {mode!r}")

@@ -16,7 +16,10 @@ projection runs in the model's ``qmm_impl``: ``"kernel"`` (the int8
 kernel) or ``"ref"`` (dequantize to the activation's type, the
 reference's ``dense``); see ``layers.dense``.
 
-``forward``/``prefill`` serve and run without autograd; ``backbone`` and
+``forward``/``prefill`` serve and run without autograd; ``init_cache``,
+``prefill(max_len=)`` and ``decode_step`` decode the dense family against
+a dense (B, max_len, K, hd) cache, whose read is the dense decode kernel
+on the card (``blocks.attn_apply``'s decode branch). ``backbone`` and
 ``loss`` are the training objective of the dense family and build the
 autograd graph, with each layer under ``train.remat.wrap_remat(...,
 remat)``. To train, make the stacked leaves ``requires_grad``
@@ -189,23 +192,79 @@ class LM:
         return self._head(params, x)
 
     @torch.no_grad()
-    def prefill(self, params, tokens: torch.Tensor
+    def prefill(self, params, tokens: torch.Tensor,
+                max_len: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Dict, torch.Tensor]:
         """Run the prompt; returns (last_logits (B, V), cache, lengths).
         ``cache[f"pos{i}"]`` holds, stacked over the periods, k/v as
-        (n_periods, B, T, K, hd) for an attention position and
-        ``{"conv": (n_periods, B, W-1, C), "state": (n_periods, B, H, P,
-        N)}`` for an SSM one: the layout of the reference's prefill
-        cache."""
+        (n_periods, B, max_len, K, hd) for an attention position (the T
+        prompt positions, then zeros up to ``max_len``, default T: the
+        reference's ``_prefill_to_cache``) and ``{"conv": (n_periods, B,
+        W-1, C), "state": (n_periods, B, H, P, N)}`` for an SSM one: the
+        layout of the reference's prefill cache."""
         b, t = tokens.shape
         x = self._embed_in(params, tokens)
         x, caches = self._stack(params, x, return_cache=True)
-        cache = {f"pos{pos}": {leaf: torch.stack([c[leaf] for c in cs])
-                               for leaf in cs[0]}
-                 for pos, cs in caches.items()}
+        pad = max(0, (max_len or t) - t)
+        cache = {}
+        for pos, cs in caches.items():
+            stacked = {leaf: torch.stack([c[leaf] for c in cs])
+                       for leaf in cs[0]}
+            if self.kinds[pos] == "attn" and pad:      # (.., T, K, hd)
+                stacked = {leaf: torch.nn.functional.pad(
+                    a, (0, 0, 0, 0, 0, pad)) for leaf, a in stacked.items()}
+            cache[f"pos{pos}"] = stacked
         logits = self._head(params, x[:, -1:, :])[:, 0]
         lengths = torch.full((b,), t, dtype=torch.int32, device=x.device)
         return logits, cache, lengths
+
+    def _require_dense(self, what: str) -> None:
+        if "ssm" in self.kinds:
+            raise NotImplementedError(
+                f"{what} of the ssm family is not ported (the reference's "
+                f"per-token ssd_decode_scan is a later slice)")
+
+    def init_cache(self, batch: int, max_len: int,
+                   dtype: torch.dtype = torch.bfloat16) -> Dict:
+        """Zero dense decode cache: per attention position, k and v as
+        (n_periods, batch, max_len, K, hd) (two tensors: decode writes
+        them in place). Only float caches: the reference's ``int8`` cache
+        casts k/v with no scale, which the port does not copy."""
+        self._require_dense("init_cache")
+        if not dtype.is_floating_point:
+            raise NotImplementedError(
+                f"a {dtype} dense cache is not ported (the reference casts "
+                f"k/v to it with no scale)")
+        cfg = self.cfg
+        shape = (self.n_periods, batch, max_len, cfg.n_kv_heads,
+                 cfg.head_dim)
+        return {f"pos{i}": {leaf: torch.zeros(shape, dtype=dtype,
+                                              device=self.device)
+                            for leaf in ("k", "v")}
+                for i in range(self.period)}
+
+    @torch.no_grad()
+    def decode_step(self, params, cache: Dict, tokens: torch.Tensor,
+                    lengths: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+        """One decode step: tokens (B, 1), lengths (B,) int32 current KV
+        lengths. Each layer writes its new k/v at ``lengths`` in ``cache``
+        (in place) and attends ``lengths + 1`` positions through the dense
+        decode read. Returns (logits (B, V), cache)."""
+        self._require_dense("decode_step")
+        cfg = self.cfg
+        x = self._embed_in(params, tokens)
+        positions = lengths[:, None]
+        for i in range(cfg.n_layers):
+            lp = self.layer_params(params, i)
+            per, pos = divmod(i, self.period)
+            c = cache[f"pos{pos}"]
+            x, _ = B.attn_apply(x, lp["mix"], cfg, positions=positions,
+                                attn_impl=self.attn_impl,
+                                qmm_impl=self.qmm_impl,
+                                cache={"k": c["k"][per], "v": c["v"][per]},
+                                lengths=lengths)
+            x = B.ffn_apply(x, lp["ffn"], cfg, qmm_impl=self.qmm_impl)
+        return self._head(params, x)[:, 0], cache
 
     # ------------------------------------------------------------------
     # Training objective

@@ -1,6 +1,7 @@
-"""Continuous-batching serving engine: fused paged decode and chunked
-prefill over a paged KV cache (the port of ``repro.serving.engine``,
-``mode="fused"``, dense and ssm families).
+"""Continuous-batching serving engine: fused paged decode, chunked
+prefill and speculative decoding over a paged KV cache (the port of
+``repro.serving.engine``, ``mode="fused"``, dense and ssm families;
+speculation on the dense family).
 
 The engine owns a paged KV cache (serving/cache.py) and a
 :class:`~repro_torch.serving.scheduler.Scheduler` that makes every policy
@@ -39,6 +40,23 @@ no other impl is accepted); ``"ref"`` is for the CPU tests. An
 attention-free arch keeps a one-layer dummy KV pool, as the reference
 does, and skips all attention work.
 
+**Speculative decoding** (``speculate="ngram" | "draft:<config>"`` or
+any proposer object; serving/speculate.py). A proposer guesses up to
+``spec_depth`` tokens per running request, and ONE verify step
+(``_verify_step_impl``) scores every request's window: the fused step's
+layer body with the paged read at T = 1 + proposals (the multi-query
+kernel's T > 1 path), the fresh window's causal partial and the LSE
+merge. Proposals are accepted while they equal the forward's own argmax
+(the leading run of matches), so greedy output equals spec-off decode,
+and every row emits its accepted tokens plus the model's own token at
+the first disagreement. Rejected positions' KV appends route to the
+null-write sentinel, so rollback is exact. The window width is the
+largest row's, rounded up to a power of two and capped at depth + 1,
+as in the reference, so the products run at the reference's shapes. The
+reference's prefix-cache copy-on-write (``_cow_tail``) and fault
+injection (``_inj_mask``) are not ported; speculation on an SSM arch
+(its per-token verify scan) is a later slice and raises.
+
 **State updates in place.** Where the reference donates its state
 buffers to each jitted step and rebinds the result, the port writes the
 KV storage in place: the step functions mutate ``self.kv.state`` and
@@ -72,6 +90,7 @@ from repro_torch.serving import cache as C
 from repro_torch.serving.cache import PagedKVCache, PagedKVConfig
 from repro_torch.serving.scheduler import (FAILED, FINISHED, RUNNING,
                                            Rejected, Request, Scheduler)
+from repro_torch.serving.speculate import build_speculator
 
 __all__ = ["Engine", "Request", "Rejected", "StallError"]
 
@@ -108,7 +127,8 @@ class Engine:
                  n_blocks: int = 64, block_size: int = 16,
                  kv_quant: str = "none",
                  prefill_chunk: Optional[int] = None,
-                 ssd_impl: str = "kernel",
+                 ssd_impl: str = "kernel", speculate=None,
+                 spec_depth: int = 4,
                  device: Optional[Union[str, torch.device]] = None):
         if kv_quant not in ("none", "int8"):
             raise ValueError(f"kv_quant must be 'none' or 'int8', got "
@@ -132,6 +152,13 @@ class Engine:
                           if self.model.kinds[i] == "attn"]
         self._ssm_pos = [i for i in range(self.model.period)
                          if self.model.kinds[i] == "ssm"]
+        if self._ssm_pos and speculate not in (None, "off"):
+            raise NotImplementedError(
+                "speculative decoding on an SSM arch is not ported (the "
+                "verify step's per-token scan, ssm_apply_spec, is a later "
+                "slice)")
+        self.spec = build_speculator(speculate, cfg, depth=spec_depth,
+                                     device=self.device)
         # an attention-free arch keeps a one-layer dummy pool (the
         # scheduler still accounts blocks per token), as the reference does
         n_attn = len(self._attn_pos) * self.model.n_periods
@@ -223,6 +250,8 @@ class Engine:
     def _evict_terminal(self, req: Request, state: str) -> None:
         """Move ``req`` to a terminal state through the preempt -> scrub
         -> release path and account it with the finished cohort."""
+        if self.spec is not None and req.state == RUNNING:
+            self.spec.abandon(req)
         self.sched.evict_terminal(req, state, self.clock())
         self.finished.append(req)
 
@@ -521,6 +550,132 @@ class Engine:
         self._finish_step(live, next_tokens.cpu().numpy(),
                           row_ok=row_ok.cpu().numpy())
 
+    # ------------------------------------------------------------------
+    # Speculative decoding: ONE verify forward scores every running
+    # request's window [last token, proposals...] through the shared
+    # layer body (paged prefix read at T = window + fresh-window causal
+    # partial, LSE-merged). A row with no proposals runs at depth 0, a
+    # plain decode row. Accepted: the leading run of proposals equal to
+    # the forward's own argmax; the argmax after it is the bonus token.
+    # KV appends of rejected positions and inactive rows go to the null
+    # block, so nothing needs rolling back.
+    # ------------------------------------------------------------------
+
+    def _verify_step_impl(self, params, kv_state, tokens, ctx, n_valid,
+                          table, active):
+        cn = tokens.shape[1]             # 1 + spec depth (bucketed)
+        model = self.model
+        sm_scale = self._sm_scale()
+        dev = tokens.device
+
+        x = model._embed_in(params, tokens)                  # (B, T, d)
+        steps = torch.arange(cn, device=dev)
+        positions = ctx[:, None] + steps[None, :]
+        # per-row validity: [last token, proposals...] then padding; an
+        # inactive slot has n_valid == 0 (the whole row inert)
+        valid_rows = steps[None, :] < n_valid[:, None]
+
+        def attn_read(q, enc, kv_slice, r):
+            o_c, m_c, l_c = fd.paged_flash_prefix_partial(
+                q, kv_slice["k"][r], kv_slice["v"][r], table, ctx,
+                sm_scale=sm_scale, **self._page_kwargs(kv_slice, r))
+            out = fd.merge_partials([(o_c, m_c, l_c),
+                                     self._enc_read(q, enc)])
+            return out.to(q.dtype)
+
+        # no SSM layers: the engine refuses speculation on an SSM arch
+        body = self._make_stack_body(positions=positions,
+                                     attn_read=attn_read, ssm_step=None)
+        x, kv_ys, _ = self._run_stack(body, x, kv_state, self._ssm_xs())
+
+        logits = model._head(params, x)                      # (B, T, V)
+        greedy = logits.argmax(dim=-1).int()
+        # quarantine flags over the VALID window positions only (padded
+        # positions compute values nothing reads)
+        fin = torch.isfinite(logits.float()) | ~valid_rows[:, :, None]
+        row_ok = fin.flatten(1).all(dim=1)
+        # the proposals are the input tokens shifted left: count the
+        # leading run where proposal == the model's own argmax
+        match = ((tokens[:, 1:] == greedy[:, :-1])
+                 & (steps[None, :-1] < (n_valid - 1)[:, None]))
+        n_acc = torch.cumprod(match.int(), dim=1).sum(dim=1)   # (B,)
+
+        if self._attn_pos:
+            enc = self._collect_enc(kv_ys)          # rows: (B, T) C-order
+            accepted = (steps[None, :] <= n_acc[:, None]) & active[:, None]
+            blk, off = C.append_slots(
+                table.repeat_interleave(cn, dim=0), positions.reshape(-1),
+                self.block_size, self.kv_cfg.n_blocks, accepted.reshape(-1))
+            C.write_token_encoded(kv_state, enc, blk, off)
+        return greedy, n_acc, row_ok
+
+    def _decode_spec(self, live: List[Request]) -> None:
+        """One batched verify round over every live request: gather the
+        proposals (oldest first), grow block tables for the speculative
+        appends, run the verify step, emit accepted + bonus tokens. A
+        request the proposer is silent on (or whose growth would need an
+        elder's blocks) rides along at depth 0."""
+        if not live:
+            return
+        bsz = self.max_batch
+        width = self.spec.depth + 1
+        tokens = np.zeros((bsz, width), np.int32)
+        ctx = np.zeros((bsz,), np.int32)
+        n_valid = np.zeros((bsz,), np.int32)
+        active = np.zeros((bsz,), bool)
+        n_props: Dict[int, int] = {}
+        rows: List[Request] = []
+        for r in sorted(live, key=lambda r: (r.arrival, r.rid)):
+            if r.state != RUNNING:      # preempted by an elder's growth
+                continue
+            budget = r.max_new_tokens - len(r.output) - 1
+            k = self.spec.depth_for(r, budget) if budget >= 1 else 0
+            props = self.spec.propose(r, k) if k >= 1 else []
+            # the window appends up to len(props)+1 tokens of KV; growth
+            # can only preempt rows not yet gathered (strictly younger)
+            if props and not self.sched.ensure_blocks(
+                    r, r.length + len(props)):
+                props = []
+            tokens[r.slot, 0] = r.output[-1]
+            tokens[r.slot, 1: 1 + len(props)] = props
+            ctx[r.slot] = r.length - 1          # current KV length
+            n_valid[r.slot] = 1 + len(props)
+            active[r.slot] = True
+            n_props[r.rid] = len(props)
+            rows.append(r)
+        if not rows:
+            return
+        mbb = _next_pow2(max(len(r.blocks) for r in rows))
+        table = np.zeros((bsz, mbb), np.int32)
+        for r in rows:
+            table[r.slot, : len(r.blocks)] = r.blocks
+        # window width bucketed to powers of two, capped at depth + 1
+        t = min(_next_pow2(int(n_valid.max())), width)
+        greedy, n_acc, row_ok = self._verify_step_impl(
+            self.params, self.kv.state, self._dev(tokens[:, :t]),
+            self._dev(ctx), self._dev(n_valid), self._dev(table),
+            self._dev(active))
+        self.step_counts["verify"] += 1
+        greedy = greedy.cpu().numpy()
+        n_acc = n_acc.cpu().numpy()
+        row_ok = row_ok.cpu().numpy()
+        now = self.clock()
+        for r in rows:
+            if not row_ok[r.slot]:
+                # quarantine: nothing the poisoned forward produced is
+                # emitted or recorded; eviction scrubs its pages
+                self._evict_terminal(r, FAILED)
+                continue
+            j = int(n_acc[r.slot])
+            emitted = [int(tok) for tok in greedy[r.slot, : j + 1]]
+            r.output.extend(emitted)
+            self.decode_tokens += len(emitted)
+            if n_props[r.rid]:
+                self.spec.record(r, proposed=n_props[r.rid], accepted=j)
+            if len(r.output) >= r.max_new_tokens:
+                self.sched.finish(r, now)
+                self.finished.append(r)
+
     def _scrub_preempted(self, victim: Request) -> None:
         """Zero a preemption victim's pages before the allocator reuses
         them, so a preempted-then-resumed schedule leaves the storage
@@ -568,7 +723,10 @@ class Engine:
                 if r is not None and r.state == RUNNING
                 and r.rid not in deferred]
         t0 = self.clock()
-        self._decode_fused(live)
+        if self.spec is not None:
+            self._decode_spec(live)
+        else:
+            self._decode_fused(live)
         self.decode_time += self.clock() - t0
         self.steps += 1
 
@@ -607,6 +765,8 @@ class Engine:
         self.sched.n_preemptions = 0
         self.n_rejected = 0
         self.step_counts = Counter()
+        if self.spec is not None:
+            self.spec.reset()
 
     def stats(self) -> Dict[str, float]:
         """Flat stats with the reference's key names for the parts of the
@@ -620,6 +780,7 @@ class Engine:
         toks = sum(len(r.output) for r in done)
         causes = Counter(r.state for r in done)
         return {
+            **(self.spec.stats() if self.spec is not None else {}),
             "requests": len(done),
             "finished": causes.get(FINISHED, 0),
             "failed": causes.get(FAILED, 0),
@@ -644,6 +805,7 @@ class Engine:
             "decode_tok_s": (self.decode_tokens / self.decode_time
                              if self.decode_time > 0 else 0.0),
             "decode_steps": self.step_counts["decode"],
+            "verify_steps": self.step_counts["verify"],
             "chunk_steps": self.step_counts["chunk"],
             "prefill_groups": self.step_counts["prefill"],
         }

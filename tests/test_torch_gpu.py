@@ -6,7 +6,12 @@ naive attention, and their launch counts in a train step; the SSD kernel
 against its plain version (with and without a carried state) and its
 launch count in a mamba2 engine run; the int8 weight-only matmul kernel
 against its plain version, its x gradient against autograd through the
-plain version, and its launch count in a QL+Q8 fine-tuning step.
+plain version, and its launch count in a QL+Q8 fine-tuning step; the
+RMSNorm kernel against its plain version, its autograd wrapper against
+autograd through the plain version and its launch counts in a train
+step; the dense decode kernel against its plain version (also on the
+models' strided cache layout); and the launch counts of a speculative
+engine run (n-gram and self-draft).
 
 These tests import neither ``jax`` nor the JAX package, so they also run
 on the GPU host: ``PYTHONPATH=src python -m pytest -m gpu
@@ -401,3 +406,188 @@ def test_finetune_step_launches_the_int8_kernel(cuda, label, per_layer):
     torch.cuda.synchronize()
     assert torch.isfinite(met["loss"]) and torch.isfinite(met["grad_norm"])
     assert qmm.LAUNCHES["int8_matmul"] == cfg.n_layers * per_layer
+
+
+# --------------------------------------------------------------------------
+# RMSNorm kernel
+# --------------------------------------------------------------------------
+
+DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
+
+
+def _rms_case(dev, rows, d, xd, wd, seed=0):
+    """Rows at magnitudes 1e-3..10 (eps matters in the small ones)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    scale = 10.0 ** (torch.rand((rows, 1), generator=g, device=dev) * 4 - 3)
+    x = (torch.randn((rows, d), generator=g, device=dev) * scale)
+    w = torch.randn(d, generator=g, device=dev) + 1.0
+    return x.to(DTYPES[xd]), w.to(DTYPES[wd])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [1, 8, 333, 8192])
+@pytest.mark.parametrize("d", [768, 1024, 1536])
+@pytest.mark.parametrize("xd,wd", [("bf16", "bf16"), ("bf16", "f32"),
+                                   ("f32", "bf16"), ("f32", "f32")])
+def test_rmsnorm_kernel_matches_plain(cuda, rows, d, xd, wd):
+    """f32 out within 2e-5, bf16 out within one bf16 ulp (both round one
+    f32 value once; only the order of the sum of squares differs)."""
+    from repro_torch.kernels import rmsnorm as rn
+    x, w = _rms_case(cuda, rows, d, xd, wd, seed=rows + d)
+    before = rn.LAUNCHES["rmsnorm"]
+    got = rn.rmsnorm(x, w)
+    want = rn.rmsnorm_plain(x, w)
+    torch.cuda.synchronize()
+    assert rn.LAUNCHES["rmsnorm"] == before + 1
+    assert got.dtype == x.dtype and got.shape == x.shape
+    _assert_flash_close(got, want, ulps=1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("xd,wd", [("bf16", "bf16"), ("f32", "bf16")])
+def test_rmsnorm_gradient_matches_plain_autograd(cuda, xd, wd):
+    """The wrapper (kernel forward, analytic backward) against autograd
+    through the plain version at a training shape: dx and dw within one
+    bf16 ulp (bf16) or 2e-5 (f32)."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import rmsnorm as rn
+    x, w = _rms_case(cuda, 2048, 1024, xd, wd, seed=3)
+    dy = torch.randn(x.shape, device=cuda).to(x.dtype)
+    grads = []
+    for fn in (kops.rmsnorm, rn.rmsnorm_plain):
+        xg, wg = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        grads.append(torch.autograd.grad(fn(xg, wg), (xg, wg), dy))
+    for a, b in zip(*grads):
+        assert a.dtype == b.dtype
+        _assert_flash_close(a, b, ulps=1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("label,per_layer", [("F+R", 4), ("F", 2),
+                                             ("QL+Q8+F+R", 4)])
+def test_train_step_launches_the_rmsnorm_kernel(cuda, label, per_layer):
+    """Full-width qwen1.5-0.5b, one step of 1 x 256 tokens: two norms a
+    layer, run again when full remat recomputes the layer, and the final
+    norm in the loss's one checkpointed block (forward and recompute)."""
+    from repro_torch.core.config import technique_from_label
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.launch.build import make_model
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.step import build_train_step, init_train_state
+    cfg = get_config("qwen1.5-0.5b")
+    tech = technique_from_label(label)
+    model = make_model(cfg, tech, device=cuda)
+    opt = AdamWConfig(lr=1e-3, warmup=0)
+    state, _ = init_train_state(model, tech, 0, opt)
+    step = build_train_step(model, tech, opt)
+    g = torch.Generator().manual_seed(0)
+    batch = {k: torch.randint(0, cfg.vocab_size, (1, 256), generator=g,
+                              dtype=torch.int32).to(cuda)
+             for k in ("tokens", "labels")}
+    rn.LAUNCHES.clear()
+    state, met = step(state, batch)
+    torch.cuda.synchronize()
+    assert torch.isfinite(met["loss"]) and torch.isfinite(met["grad_norm"])
+    assert rn.LAUNCHES["rmsnorm"] == cfg.n_layers * per_layer + 2
+
+
+# --------------------------------------------------------------------------
+# Dense-cache decode kernel
+# --------------------------------------------------------------------------
+
+# (B, S, H, K, D, lengths): tests/test_kernels.py:72-75, the draft
+# model's shape (qwen1.5-0.5b at batch 1, S = context + k), G = 2, G = 8,
+# a zero-length row and a length past S
+DENSE_CASES = [(2, 256, 4, 4, 128, [128, 256]),
+               (3, 512, 8, 2, 128, [256, 512, 128]),
+               (2, 256, 4, 1, 64, [128, 256]),
+               (1, 65, 16, 16, 64, [61]), (1, 1068, 16, 16, 64, [1064]),
+               (3, 300, 8, 4, 64, [300, 0, 37]),
+               (2, 100, 16, 2, 32, [100, 250])]
+
+
+def _dense_case(dev, b, s, h, kv, d, lengths, dtype, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((b, h, d), generator=g, device=dev).to(dtype)
+    k = torch.randn((b, kv, s, d), generator=g, device=dev).to(dtype)
+    v = torch.randn((b, kv, s, d), generator=g, device=dev).to(dtype)
+    return q, k, v, torch.tensor(lengths, dtype=torch.int32, device=dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", DENSE_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_dense_decode_kernel_matches_plain(cuda, case, dtype):
+    """Normalized output, m and l within 2e-5 of the plain version (both
+    in f32); a zero-length row is o = 0, l = 0, m = -1e30."""
+    args = _dense_case(cuda, *case, dtype, seed=case[1])
+    before = fd.LAUNCHES["dense_decode"]
+    o, m, l = fd.flash_decode_partial(*args)
+    wo, wm, wl = fd._dense_decode_torch(*args)
+    torch.cuda.synchronize()
+    assert fd.LAUNCHES["dense_decode"] == before + 1
+    torch.testing.assert_close(o / l.clamp_min(1e-30),
+                               wo / wl.clamp_min(1e-30), **TOL)
+    torch.testing.assert_close(m, wm, **TOL)
+    torch.testing.assert_close(l, wl, **TOL)
+    empty = args[3] == 0
+    assert bool((o[empty] == 0).all() and (l[empty] == 0).all())
+    assert bool((m[empty] == -1e30).all())
+
+
+@pytest.mark.gpu
+def test_dense_decode_reads_the_model_layout_in_place(cuda):
+    """``ops.flash_decode`` hands the kernel a transposed view of the
+    (B, S, K, D) cache: equal to the plain version on the same view."""
+    from repro_torch.kernels import ops as kops
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q = torch.randn((2, 1, 16, 64), generator=g, device=cuda).bfloat16()
+    k = torch.randn((2, 200, 16, 64), generator=g, device=cuda).bfloat16()
+    v = torch.randn((2, 200, 16, 64), generator=g, device=cuda).bfloat16()
+    lens = torch.tensor([200, 77], dtype=torch.int32, device=cuda)
+    got = kops.flash_decode(q, k, v, lens)
+    want = fd._dense_decode_torch(q[:, 0], k.transpose(1, 2),
+                                  v.transpose(1, 2), lens, sm_scale=0.125)
+    want = (want[0] / want[2]).bfloat16()[:, None]
+    _assert_flash_close(got, want, ulps=1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec", ["ngram", "self-draft"])
+def test_spec_engine_launch_counts(cuda, spec):
+    """Smoke qwen1.5-0.5b with speculation on the card: the paged read once
+    a layer per verify step, the dense decode read once a layer per draft
+    decode step, RMSNorm 2 x layers + 1 per forward (engine steps and
+    draft forwards), every request finished with its budget (agreement
+    with spec-off, up to bf16 near ties, is chip_smoke.py's check)."""
+    from repro_torch.data.pipeline import repetitive_requests
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.serving.speculate import DraftModelProposer
+    cfg = get_config("qwen1.5-0.5b", reduced=True)
+    params = LM(cfg, device=cuda).init(0)
+    prompts = repetitive_requests(4, cfg.vocab_size, prompt_len=20,
+                                  pattern_len=6)
+    for mode in ("off", spec):
+        draft = (DraftModelProposer(cfg, params, device=cuda)
+                 if mode == "self-draft" else None)
+        eng = Engine(cfg, params, max_batch=4, n_blocks=64, block_size=4,
+                     speculate=draft or mode, spec_depth=4, device=cuda)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, tokens=p, max_new_tokens=10))
+        fd.LAUNCHES.clear()
+        rn.LAUNCHES.clear()
+        done = eng.run()
+        st = eng.stats()
+        assert len(done) == 4 and all(len(r.output) == 10 for r in done)
+        steps = st["decode_steps"] + st["chunk_steps"] + st["verify_steps"]
+        assert fd.LAUNCHES["paged_attention"] == cfg.n_layers * steps
+        drafted = ((draft.n_prefills, draft.n_decode_steps) if draft
+                   else (0, 0))
+        assert fd.LAUNCHES["dense_decode"] == cfg.n_layers * drafted[1]
+        forwards = steps + st["prefill_groups"] + sum(drafted)
+        assert rn.LAUNCHES["rmsnorm"] == (2 * cfg.n_layers + 1) * forwards
+        if mode != "off":
+            assert st["spec_rounds"] > 0 and st["decode_steps"] == 0
+    if spec == "self-draft":
+        assert drafted[1] > 0

@@ -28,7 +28,8 @@ def test_port_files_exist():
     assert all(p.exists() for p in PORT_FILES)
     port = REPO / "src" / "repro_torch"
     for module in ("quant/qtensor.py", "peft/lora.py",
-                   "kernels/quant_matmul.py"):
+                   "kernels/quant_matmul.py", "kernels/rmsnorm.py",
+                   "serving/speculate.py"):
         assert port / module in PORT_FILES, module
 
 
