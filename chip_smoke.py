@@ -8,7 +8,9 @@ imports nothing of the JAX package). Phases, one line each:
 
 1. device   - the card's name and power limit (nvidia-smi), torch and CUDA.
 2. build    - nvcc builds every kernel from ``src/repro_torch/kernels/
-              csrc`` (one nvcc per source, all in parallel).
+              csrc`` (one nvcc per source, all in parallel), and the flash
+              library once more with ``-DFLASH_PLANT_P_HI_ONLY`` (phase
+              6's planted fault). Phase 19 runs next.
 3. kernel   - the paged-attention kernel against its plain PyTorch version
               on the card over T x G x D x {bf16, int8} with a padded table
               bucket, a zero-length row and a short row; T=1 through the
@@ -36,7 +38,12 @@ imports nothing of the JAX package). Phases, one line each:
               lengths, causal and full, bf16 and f32, and the training
               shape at B=1 in f32 and bf16 (f32 within 2e-5, bf16 within
               a few bf16 ulps); the autograd wrapper's gradient against
-              autograd through the materialized-score attention.
+              autograd through the materialized-score attention. It says
+              which backward body each case ran (bf16 at D 64/128: bf16
+              mma.sync tiles with P and dS split hi + lo; f32: the FMA
+              body), and counts the tensor-core cases at which the
+              planted build (P rounded to bf16, no low half) breaks a
+              limit: a reading, not a check.
 7. train    - full-width qwen1.5-0.5b (seeded random weights) trains
               through ``Trainer`` with technique F+R+Z3 at batch 4 x
               2048 tokens. First one loss + backward through the flash
@@ -54,7 +61,9 @@ imports nothing of the JAX package). Phases, one line each:
               bound, the plain versions' times (each kernel's function
               and the whole backward), and
               ``scaled_dot_product_attention`` forward, backward and
-              forward + backward on the same tensors (timed here only).
+              forward + backward on the same tensors (timed here only);
+              the backward's bound as built (10 products: P and dS each
+              take two) beside the useful work's.
 9. ssd      - the SSD kernel against its plain version on the card, f32,
               at mamba2-130m's whole-prompt shape (B=4, T=1000 padded to
               1024, H=24, P=64, N=128, chunk 256), its chunk-step shape
@@ -113,10 +122,14 @@ imports nothing of the JAX package). Phases, one line each:
 16. decode  - the dense-cache decode kernel against its plain version:
               tests/test_kernels.py:72-75's shapes, the draft model's
               shape (B=1, H=K=16, D=64, S in {65, 1068}), G=2, a
-              zero-length row and a length past S, bf16 and f32
-              (normalized output, m and l within 2e-5); two planted
-              faults (length mask off by one, m not carried across tiles)
-              must each break it.
+              zero-length row and a length past S, and long caches the
+              kernel splits many ways (S 4,096 and 8,192, B 1/4/8, G
+              1/2/8, D 64/128, whole splits empty, a length reaching S),
+              bf16 and f32 (normalized output, m and l within 2e-5); four
+              planted faults (length mask off by one, m not carried
+              across tiles, one split's partial dropped, the partials
+              summed without the rescale to their common max) must each
+              break it.
 17. spec    - full-width qwen1.5-0.5b (seeded random weights) with
               speculative decoding, max_batch 8, block_size 16, 1024
               blocks: (a) n-gram, depth 4, on 16 repeated-pattern prompts
@@ -134,11 +147,21 @@ imports nothing of the JAX package). Phases, one line each:
               dense forward's logits.
 18. timing  - the RMSNorm kernel at the training step's shape (8,192 x
               1,024 bf16) and at decode (8 x 1,024), the dense decode
-              kernel at the draft's shape, each beside its bound, its
-              plain version and one library call (``F.rms_norm``;
-              ``scaled_dot_product_attention`` with the length mask),
-              timed as CUDA-graph replays: the host's cost per call
-              exceeds these kernels' device time.
+              kernel at the draft's shape and at B=8, S=4,096, each
+              beside its bound, its plain version and one library call
+              (``F.rms_norm``; ``scaled_dot_product_attention`` with the
+              length mask), timed as CUDA-graph replays: the host's cost
+              per call exceeds these kernels' device time.
+19. dense   - ``layers.dense`` on the card (bf16 operands on the tensor
+              cores, f32 sums, one rounding; an f32 output through
+              ``aten::mm.dtype``, its gradient from a three-part bf16
+              split of the f32 cotangent) against the f32 route on the
+              same tensors at every product of qwen1.5-0.5b (q/k/v, o,
+              gate/up, down, the tied head) at 8 and 8,192 rows, forward
+              and gradients: bf16 within 1 ulp beyond a 1e-5 floor, f32
+              within 2e-5; the down projection (an f32 input) keeps the
+              f32 route; an f32 output rounded through bf16 (planted)
+              must break 2e-5. It runs right after the build.
 
 Any failed check raises. The last three lines of standard output are the
 kernels' JSON record, the card's name and power limit, and
@@ -245,7 +268,28 @@ DENSE_CASES = ((2, 256, 4, 4, 128, [128, 256]),
                (1, 65, 16, 16, 64, [61]), (1, 1068, 16, 16, 64, [1064]),
                (2, 300, 8, 4, 64, [300, 37]),
                (3, 300, 16, 16, 64, [300, 0, 1000]))
-DENSE_TILE = 32                    # positions per warp tile in the kernel
+DENSE_TILE = 32                    # positions the m-carry fault cuts at
+# long caches the split kernel cuts many ways (B, S, H, K, D, lengths):
+# S 4,096 and 8,192, B in {1, 4, 8}, G in {1, 2, 8}, D in {64, 128},
+# lengths that leave whole splits empty and one that reaches S
+DENSE_SPLIT_CASES = ((1, 4096, 16, 16, 64, [4096]),
+                     (4, 4096, 8, 4, 128, [4096, 3000, 17, 0]),
+                     (8, 4096, 16, 16, 64, [4096, 1, 2048, 4095, 333, 64,
+                                            0, 4000]),
+                     (1, 8192, 8, 1, 128, [8192]),
+                     (4, 8192, 16, 2, 64, [8192, 100, 7000, 5]),
+                     (8, 8192, 8, 4, 64, [8192, 0, 1, 8191, 4096, 4097, 63,
+                                          64]))
+# rows of the dense phase: a decode step's 8 and a training step's 4 x 2048
+DENSE_ROWS = (8, 8192)
+# the tensor cores and an f32 SGEMM sum a product's K terms in other orders
+# and roundings, so the two routes' f32 sums differ by roundoff that grows
+# with K and with the sums' scale (projections sum to 10-100 over up to
+# 152,064 terms, against flash's ~1 over <= 8,192); where a sum cancels to
+# near zero that difference is many bf16 ulps of the result. The floor is
+# that roundoff, sqrt(K) * 2^-24 * the output's rms, this many times over;
+# phase 19 also prints which products break 1 ulp at flash's 1e-5 floor
+DENSE_ROUNDOFFS = 16
 
 
 def fail(msg: str) -> None:
@@ -632,26 +676,27 @@ def flash_inputs(*, b, h, kv, t, s, d, dtype, seed=0):
     return q, k, v, do
 
 
-def bf16_ulp_check(a, b, n: int):
+def bf16_ulp_check(a, b, n: int, atol: float = BF16_ATOL):
     """(worst |a - b| in bf16 ulps of the larger magnitude among the
-    elements that differ by more than ``BF16_ATOL``, 0 if none; whether
-    every element is within ``BF16_ATOL`` + ``n`` such ulps)."""
+    elements that differ by more than ``atol``, 0 if none; whether every
+    element is within ``atol`` + ``n`` such ulps)."""
     import torch
     a, b = a.float(), b.float()
     mag = torch.maximum(a.abs(), b.abs()).clamp_min(2.0 ** -126)
     ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
     diff = (a - b).abs()
-    over = diff > BF16_ATOL
+    over = diff > atol
     worst = float((diff / ulp)[over].max()) if bool(over.any()) else 0.0
-    return worst, bool((diff <= BF16_ATOL + n * ulp).all())
+    return worst, bool((diff <= atol + n * ulp).all())
 
 
-def flash_vs_plain(q, k, v, do, causal, grad_ulps=BF16_ULPS):
+def flash_vs_plain(q, k, v, do, causal, grad_ulps=BF16_ULPS, strict=True):
     """Forward and backward kernels against the plain versions on the
     same inputs: f32 outputs and lse within ``KERNEL_TOL``, bf16 outputs
     within ``BF16_ULPS`` (o) and ``grad_ulps`` (dq, dk, dv) bf16 ulps.
     Returns the worst |err| of (o, lse, dq, dk, dv), how many elements of
-    each differ at all, and the worst bf16 ulps of the bf16 outputs."""
+    each differ at all, and the worst bf16 ulps of the bf16 outputs; with
+    ``strict=False`` the outputs whose limit broke instead of failing."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     o, lse = fa._fwd_cuda(q, k, v, causal=causal, sm_scale=None)
@@ -663,7 +708,7 @@ def flash_vs_plain(q, k, v, do, causal, grad_ulps=BF16_ULPS):
             q.shape[3])
     tag = (f"B,H,K,T,S,D={dims} {q.dtype} "
            f"{'causal' if causal else 'full'}")
-    errs, n_diff, ulps = {}, {}, {}
+    errs, n_diff, ulps, broken = {}, {}, {}, []
     for name, a, b, n_ulps in (("o", o, o_ref, BF16_ULPS),
                                ("lse", lse, lse_ref, None),
                                *[(n, x, y, grad_ulps) for n, x, y in
@@ -672,13 +717,18 @@ def flash_vs_plain(q, k, v, do, causal, grad_ulps=BF16_ULPS):
         n_diff[name] = int((a != b).sum())
         if a.dtype == torch.bfloat16:
             ulps[name], ok = bf16_ulp_check(a, b, n_ulps)
-            check(ok,
-                  f"flash {name} differs from plain at {tag} by "
-                  f"{ulps[name]} bf16 ulps > {n_ulps} (max |err| "
-                  f"{errs[name]})")
+            msg = (f"flash {name} differs from plain at {tag} by "
+                   f"{ulps[name]} bf16 ulps > {n_ulps} (max |err| "
+                   f"{errs[name]})")
         else:
-            check(allclose(a, b, **KERNEL_TOL),
-                  f"flash {name} differs from plain at {tag}: {errs[name]}")
+            ok = allclose(a, b, **KERNEL_TOL)
+            msg = f"flash {name} differs from plain at {tag}: {errs[name]}"
+        if not ok:
+            broken.append(name)
+        if strict:
+            check(ok, msg)
+    if not strict:
+        return broken
     return errs, n_diff, ulps
 
 
@@ -693,15 +743,19 @@ def phase_flash_vs_plain():
                 for d in (64, 128)]
              + [(2, 4, 2, 100, 100, 64, True), (1, 2, 1, 70, 130, 64,
                                                   False)])
+    from repro_torch.kernels import flash_attention as fa
     worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
     worst_ulps = 0.0
     n = 0
+    bodies = {}
     for dtype in (torch.bfloat16, torch.float32):
         for i, (b, h, kv, t, s, d, causal) in enumerate(cases):
             errs, _, ulps = flash_vs_plain(*flash_inputs(
                 b=b, h=h, kv=kv, t=t, s=s, d=d, dtype=dtype, seed=i), causal)
             worst[dtype] = max(worst[dtype], *errs.values())
             worst_ulps = max(worst_ulps, *ulps.values(), 0.0)
+            key = (str(dtype).replace("torch.", ""), fa.bwd_body(dtype, d))
+            bodies[key] = bodies.get(key, 0) + 1
             n += 1
     sh = TRAIN_SHAPE
     n_row = sh["h"] * sh["t"]
@@ -743,7 +797,34 @@ def phase_flash_vs_plain():
           + ", ".join(f"{nm} {c} of {n_row if nm == 'lse' else n_row * sh['d']}"
                       for nm, c in train_diff.items()) + ")"
           + f"; autograd through the kernels == naive autograd within "
-          f"2e-3 (max |err| {grad_err:.3g})")
+          f"2e-3 (max |err| {grad_err:.3g}); backward body per case: "
+          + ", ".join(f"{dt} {body} x {c}" for (dt, body), c in
+                      sorted(bodies.items()))
+          + f", training shape bf16 {fa.bwd_body(torch.bfloat16, sh['d'])}")
+    # planted in the kernel build: P's low half dropped from dV += P^T dO
+    caught, total = [], 0
+    with fault_build(fa, FLASH_FAULT):
+        for i, (b, h, kv, t, s, d, causal) in enumerate(cases):
+            if fa.bwd_body(torch.bfloat16, d) != "mma":
+                continue
+            total += 1
+            broken = flash_vs_plain(*flash_inputs(
+                b=b, h=h, kv=kv, t=t, s=s, d=d, dtype=torch.bfloat16,
+                seed=i), causal, strict=False)
+            if broken:
+                caught.append(f"{(b, h, kv, t, s, d, causal)}: "
+                              f"{'/'.join(broken)}")
+        total += 1
+        broken = flash_vs_plain(*flash_inputs(
+            **train, dtype=torch.bfloat16, seed=99), True,
+            grad_ulps=BF16_ULPS_G1_GRADS, strict=False)
+        if broken:
+            caught.append(f"training shape: {'/'.join(broken)}")
+    print(f"[flash] planted fault 'P rounded to bf16 with no low half' "
+          f"(a build with -D{FLASH_FAULT[0]}): caught at {len(caught)} of "
+          f"{total} bf16 tensor-core cases"
+          + (": " + "; ".join(caught) if caught else
+             " (dV moves by under a bf16 ulp; a finding, not a check)"))
 
 
 def _zero_output(fwd):
@@ -774,6 +855,22 @@ def planted(module, attr, fault):
         yield
     finally:
         setattr(module, attr, real)
+
+
+# a macro that builds the flash library with P's low half dropped from the
+# dV product of the tensor-core backward (csrc/flash_attention.cu)
+FLASH_FAULT = ("FLASH_PLANT_P_HI_ONLY",)
+
+
+@contextlib.contextmanager
+def fault_build(module, defines):
+    """``module``'s kernels from the library built with ``defines``."""
+    real = module._entries
+    module._entries = lambda: real(defines)
+    try:
+        yield
+    finally:
+        module._entries = real
 
 
 def train_loss_and_grads(model, params, batch):
@@ -911,6 +1008,16 @@ def flash_bounds(*, b, h, kv, t, s, d, elt):
     return out
 
 
+def built_bounds(*, b, h, t, d):
+    """Least time (ms) of the tensor-core backward as built, at the bf16
+    tensor-core rate: P and dS split hi + lo double the three products
+    that take them, so dK/dV runs 2 + 4 products of 2*D per causal pair,
+    dQ 2 + 2, the whole backward 10 (5 of them useful)."""
+    pairs = b * h * t * (t + 1) // 2
+    return {name: 2.0 * d * pairs * n / PEAK_OPS["bf16"] * 1e3
+            for name, n in (("bwd_dkv", 6), ("bwd_dq", 4), ("bwd", 10))}
+
+
 def phase_flash_timing():
     import torch
     import torch.nn.functional as F
@@ -924,13 +1031,18 @@ def phase_flash_timing():
     scale = 1.0 / math.sqrt(sh["d"])
     o, lse = fa._fwd_cuda(q, k, v, causal=True, sm_scale=None)
     delta = fa._delta(o, do)
+    # as the backward runs it: the tensor-core dQ kernel computes delta
+    # itself (into a buffer the dK/dV kernel then reads)
+    mma = fa.bwd_body(q.dtype, sh["d"]) == "mma"
+    dq_delta = torch.empty_like(delta) if mma else delta
     ms = {
         "fwd": cuda_ms(lambda i: fa._fwd_cuda(q, k, v, causal=True,
                                               sm_scale=None), iters=20),
         "bwd_dkv": cuda_ms(lambda i: fa._bwd_dkv_cuda(
             q, k, v, do, lse, delta, causal=True, scale=scale), iters=10),
         "bwd_dq": cuda_ms(lambda i: fa._bwd_dq_cuda(
-            q, k, v, do, lse, delta, causal=True, scale=scale), iters=10),
+            q, k, v, do, lse, dq_delta, causal=True, scale=scale,
+            out=o if mma else None), iters=10),
         "bwd": cuda_ms(lambda i: fa._bwd_cuda(q, k, v, o, lse, do,
                                               causal=True, sm_scale=None),
                        iters=10),
@@ -956,11 +1068,15 @@ def phase_flash_timing():
     lib_fb = cuda_ms(sdpa_fwd_bwd, iters=20)
     bounds = flash_bounds(b=sh["b"], h=sh["h"], kv=sh["h"], t=sh["t"],
                           s=sh["t"], d=sh["d"], elt=2)
+    built = built_bounds(b=sh["b"], h=sh["h"], t=sh["t"], d=sh["d"])
+    body = fa.bwd_body(torch.bfloat16, sh["d"])
     for name in ("fwd", "bwd_dkv", "bwd_dq", "bwd"):
         bd, by = bounds[name]
+        note = (f"; {body} body, bound as built {built[name] * 1e3:.2f} us"
+                if name in built else "")
         print(f"[timing] flash {name} B=4 H=16 T=2048 D=64 causal bf16: "
               f"{ms[name] * 1e3:.1f} us (bound {bd * 1e3:.2f} us by {by}, "
-              f"{bd / ms[name] * 100:.2f}% of it)")
+              f"{bd / ms[name] * 100:.2f}% of it{note})")
     print(f"[timing] flash plain fwd {plain['fwd'] * 1e3:.1f} us, plain "
           f"dk/dv {plain['bwd_dkv'] * 1e3:.1f} us, plain dq "
           f"{plain['bwd_dq'] * 1e3:.1f} us, plain bwd (dq, dk, dv) "
@@ -1671,8 +1787,57 @@ def _m_not_carried(run):
     return fault
 
 
+def split_parts(run, q, k, v, lens):
+    """Each of the kernel's position splits at this shape as its own
+    partial, from ``run`` on that split's positions alone (a launch per
+    row and split)."""
+    import torch
+    from repro_torch.kernels import flash_decode as fd
+    n_split = fd.dense_splits(q.shape[0], k.shape[1], k.shape[2],
+                              torch.cuda.get_device_properties(
+                                  0).multi_processor_count)
+    parts = []
+    for lo, hi in fd.split_spans(lens, k.shape[2], n_split):
+        rows = []
+        for r in range(q.shape[0]):
+            a, b = int(lo[r]), int(hi[r])
+            rows.append(run(q[r:r + 1], k[r:r + 1, :, a:b],
+                            v[r:r + 1, :, a:b],
+                            torch.tensor([b - a], dtype=torch.int32,
+                                         device=q.device)))
+        parts.append(tuple(torch.cat(x) for x in zip(*rows)))
+    return parts
+
+
+def _split_dropped(run):
+    """The middle split's partial left out of the merge (a shape the
+    kernel does not split keeps its one partial)."""
+    def fault(q, k, v, lens):
+        from repro_torch.kernels import flash_decode as fd
+        parts = split_parts(run, q, k, v, lens)
+        if len(parts) > 1:
+            del parts[len(parts) // 2]
+        return fd.merge_split_partials(parts)
+    return fault
+
+
+def _no_rescale(run):
+    """The splits' partials summed as they are, without the rescale to
+    their common max."""
+    def fault(q, k, v, lens):
+        import torch
+        parts = split_parts(run, q, k, v, lens)
+        return (sum(p[0] for p in parts),
+                torch.stack([p[1] for p in parts]).amax(0),
+                sum(p[2] for p in parts))
+    return fault
+
+
 DENSE_PLANTED = (("length mask off by one", _mask_off_by_one),
-                 ("m not carried across tiles", _m_not_carried))
+                 ("m not carried across tiles", _m_not_carried),
+                 ("one split's partial dropped", _split_dropped),
+                 ("partials summed without the rescale to the common max",
+                  _no_rescale))
 
 
 def phase_dense_decode_vs_plain():
@@ -1680,7 +1845,10 @@ def phase_dense_decode_vs_plain():
     from repro_torch.kernels import flash_decode as fd
     worst = 0.0
     n = 0
-    for i, case in enumerate(DENSE_CASES):
+    cases = DENSE_CASES + DENSE_SPLIT_CASES
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    splits = [fd.dense_splits(c[0], c[3], c[1], n_sm) for c in cases]
+    for i, case in enumerate(cases):
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v, lens = dense_case(*case, dtype, seed=i)
             err, ok = dense_vs_plain(q, k, v, lens)
@@ -1696,11 +1864,14 @@ def phase_dense_decode_vs_plain():
             n += 1
     print(f"[decode] {n} cases (tests/test_kernels.py:72-75, the draft's "
           f"B=1 H=K=16 D=64 at S=65 and 1068, G=2, a zero-length row, a "
-          f"length past S; bf16 and f32) kernel == plain: normalized "
-          f"output, m and l within rtol=atol=2e-5 (max |err| {worst:.3g})")
+          f"length past S; S 4096 and 8192 at B 1/4/8, G 1/2/8, D 64/128, "
+          f"whole splits empty, a length reaching S; bf16 and f32) kernel "
+          f"== plain: normalized output, m and l within rtol=atol=2e-5 "
+          f"(max |err| {worst:.3g}); position splits per case "
+          f"{splits}")
     for fault_name, fault in DENSE_PLANTED:
         caught = []
-        for i, case in enumerate(DENSE_CASES):
+        for i, case in enumerate(cases):
             q, k, v, lens = dense_case(*case, torch.float32, seed=i)
             err, ok = dense_vs_plain(q, k, v, lens,
                                      fault(fd._dense_decode_cuda))
@@ -1709,7 +1880,7 @@ def phase_dense_decode_vs_plain():
         check(bool(caught), f"planted dense decode fault '{fault_name}' "
               f"passes every case")
         print(f"[decode] planted fault '{fault_name}': caught at "
-              f"{len(caught)} of {len(DENSE_CASES)} shapes (f32; max |err| "
+              f"{len(caught)} of {len(cases)} shapes (f32; max |err| "
               f"{min(caught):.3g}-{max(caught):.3g})")
 
 
@@ -1870,14 +2041,77 @@ def rms_bound(rows, d, x_bytes, w_bytes):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def time_dense_decode(cfg, *, b, s, live):
+    """The dense decode kernel at B = ``b`` rows of ``live`` positions in a
+    cache of S = ``s`` (one cache per layer, cycled), beside its byte
+    bound, its plain version, and SDPA with the length mask, all by
+    CUDA-graph replay."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_decode as fd
+    h, kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    n_l = cfg.n_layers
+    g = torch.Generator(device="cuda").manual_seed(300 + b)
+    q = torch.randn((b, h, d), generator=g, device="cuda").bfloat16()
+    caches = [tuple(torch.randn((b, s, kv, d), generator=g,
+                                device="cuda").bfloat16() for _ in range(2))
+              for _ in range(n_l)]
+    lens = torch.full((b,), live, dtype=torch.int32, device="cuda")
+    scale = 1.0 / math.sqrt(d)
+
+    def args(i):
+        kc, vc = caches[i % n_l]
+        return q, kc.transpose(1, 2), vc.transpose(1, 2), lens
+
+    err, ok = dense_vs_plain(*args(0))
+    check(ok, f"dense decode kernel differs from plain at B={b} S={s}: "
+          f"{err}")
+    ms = graph_ms(lambda i: fd._dense_decode_cuda(*args(i), sm_scale=scale))
+    norm_ms = graph_ms(lambda i: fd.flash_decode(*args(i), sm_scale=scale))
+    plain_ms = graph_ms(lambda i: fd._dense_decode_torch(*args(i),
+                                                         sm_scale=scale))
+    mask = (torch.arange(s, device="cuda") < lens[:, None])[:, None, None, :]
+    qd = q[:, :, None]
+
+    def sdpa(i):
+        kc, vc = caches[i % n_l]
+        return F.scaled_dot_product_attention(
+            qd, kc.transpose(1, 2), vc.transpose(1, 2), attn_mask=mask,
+            scale=scale)
+
+    lib_ms = graph_ms(sdpa)
+    o_p, _, l_p = fd._dense_decode_torch(*args(0), sm_scale=scale)
+    check(allclose(sdpa(0)[:, :, 0].float(), normalized(o_p, l_p),
+                   rtol=2e-2, atol=2e-2),
+          "SDPA's output is not the dense decode read's function")
+    kv_bytes = 2 * b * live * kv * d * 2
+    io_bytes = b * h * d * 2 + b * h * d * 4 + b * h * 4 * 2 + b * 4
+    t_bytes = (kv_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
+    t_ops = 4.0 * b * h * live * d / PEAK_OPS["bf16"] * 1e3
+    dec = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "max_abs_err": err}
+    n_split = fd.dense_splits(b, kv, s, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    print(f"[timing] dense_decode B={b} H={h} K={kv} D={d} S={s} ({live} "
+          f"live) bf16, {n_split} position splits, {n_l} caches cycled: "
+          f"{ms * 1e3:.2f} us (bound {dec['bound_ms'] * 1e3:.3f} us by "
+          f"{dec['bound_by']}, {dec['bound_ms'] / ms * 100:.2f}% of it); "
+          f"with the normalisation {norm_ms * 1e3:.2f} us; plain "
+          f"{plain_ms * 1e3:.2f} us; sdpa with the length mask "
+          f"{lib_ms * 1e3:.2f} us; == plain, max |err| {err:.3g}; "
+          f"{card_line()}")
+    return dec
+
+
 def phase_new_kernel_timing(cfg):
     """The RMSNorm kernel at the training step's and a decode step's shape,
     and the dense decode kernel at the draft model's shape, each beside
     its bound, the plain version and one library call, all as device time
-    per call of a CUDA-graph replay (``graph_ms``)."""
-    import torch
+    per call of a CUDA-graph replay (``graph_ms``); the dense decode
+    kernel again at B = 8, S = 4,096."""
     import torch.nn.functional as F
-    from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import rmsnorm as rn
     rows_out = {}
     for name, rows, xd in (("train", 8192, "bf16"), ("decode", 8, "bf16")):
@@ -1899,60 +2133,152 @@ def phase_new_kernel_timing(cfg):
               f"{bound_by}, {bound_ms / ms * 100:.2f}% of it), plain "
               f"{plain_ms * 1e3:.2f} us, F.rms_norm {lib_ms * 1e3:.2f} us; "
               f"== plain, max |err| {err:.3g}")
-    # the draft's decode read: B=1, S = context + k, one cache per layer
-    b, s, h, kv, d, live = 1, 1068, cfg.n_heads, cfg.n_kv_heads, \
-        cfg.head_dim, 1064
-    n_l = cfg.n_layers
-    g = torch.Generator(device="cuda").manual_seed(300)
-    q = torch.randn((b, h, d), generator=g, device="cuda").bfloat16()
-    caches = [tuple(torch.randn((b, s, kv, d), generator=g,
-                                device="cuda").bfloat16() for _ in range(2))
-              for _ in range(n_l)]
-    lens = torch.tensor([live], dtype=torch.int32, device="cuda")
-    scale = 1.0 / math.sqrt(d)
-
-    def args(i):
-        kc, vc = caches[i % n_l]
-        return q, kc.transpose(1, 2), vc.transpose(1, 2), lens
-
-    err, ok = dense_vs_plain(*args(0))
-    check(ok, f"dense decode kernel differs from plain at the draft shape: "
-          f"{err}")
-    ms = graph_ms(lambda i: fd._dense_decode_cuda(*args(i), sm_scale=scale))
-    norm_ms = graph_ms(lambda i: fd.flash_decode(*args(i), sm_scale=scale))
-    plain_ms = graph_ms(lambda i: fd._dense_decode_torch(*args(i),
-                                                         sm_scale=scale))
-    mask = (torch.arange(s, device="cuda") < lens[:, None])[:, None, None, :]
-    qd = q[:, :, None]
-
-    def sdpa(i):
-        kc, vc = caches[i % n_l]
-        return F.scaled_dot_product_attention(
-            qd, kc.transpose(1, 2), vc.transpose(1, 2), attn_mask=mask,
-            scale=scale)
-
-    lib_ms = graph_ms(sdpa)
-    o_p, _, l_p = fd._dense_decode_torch(*args(0), sm_scale=scale)
-    check(allclose(sdpa(0)[:, :, 0].float(), normalized(o_p, l_p),
-                   rtol=2e-2, atol=2e-2),
-          "SDPA's output is not the dense decode read's function")
-    kv_bytes = 2 * live * kv * d * 2
-    io_bytes = b * h * d * 2 + b * h * d * 4 + b * h * 4 * 2 + b * 4
-    t_bytes = (kv_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
-    t_ops = 4.0 * h * live * d / PEAK_OPS["bf16"] * 1e3
-    dec = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-           "bound_ms": max(t_bytes, t_ops),
-           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-           "max_abs_err": err}
-    print(f"[timing] dense_decode B={b} H={h} K={kv} D={d} S={s} ({live} "
-          f"live) bf16, {n_l} caches cycled: {ms * 1e3:.2f} us (bound "
-          f"{dec['bound_ms'] * 1e3:.3f} us by {dec['bound_by']}, "
-          f"{dec['bound_ms'] / ms * 100:.2f}% of it); with the "
-          f"normalisation {norm_ms * 1e3:.2f} us; plain "
-          f"{plain_ms * 1e3:.2f} us; sdpa with the length mask "
-          f"{lib_ms * 1e3:.2f} us; == plain, max |err| {err:.3g}; "
-          f"{card_line()}")
+    # the draft's decode read: B=1, S = context + k, one cache per layer;
+    # then a batch of 8 long rows, which the kernel splits 3 ways
+    dec = time_dense_decode(cfg, b=1, s=1068, live=1064)
+    time_dense_decode(cfg, b=8, s=4096, live=4096)
     return rows_out, dec
+
+
+# --------------------------------------------------------------------------
+# dense on the tensor cores
+# --------------------------------------------------------------------------
+
+
+def ulp_check_rows(a, b, n: int, atol: float, rows: int = 512):
+    """``bf16_ulp_check`` over blocks of ``rows`` leading rows, so a
+    152,064-wide output needs no f32 copies of the whole of it."""
+    worst, ok = 0.0, True
+    a2, b2 = a.reshape(a.shape[0], -1), b.reshape(b.shape[0], -1)
+    for r0 in range(0, a2.shape[0], rows):
+        w, o = bf16_ulp_check(a2[r0:r0 + rows], b2[r0:r0 + rows], n, atol)
+        worst, ok = max(worst, w), ok and o
+    return worst, ok
+
+
+def dense_floor(k: int, ref) -> float:
+    """The absolute floor of a bf16 product output's check: the f32
+    roundoff of a K-term sum at the output's scale, sqrt(K) * 2^-24 *
+    rms, ``DENSE_ROUNDOFFS`` times over (flash's 1e-5 floor is that for
+    sums of magnitude ~1; a projection's sums reach 10-100 over up to
+    152,064 terms), and never below ``BF16_ATOL``."""
+    import torch
+    rms = float(torch.linalg.vector_norm(ref, dtype=torch.float32)
+                / math.sqrt(ref.numel()))
+    return max(BF16_ATOL, DENSE_ROUNDOFFS * math.sqrt(k) * 2.0 ** -24 * rms)
+
+
+def dense_projections(cfg):
+    """qwen1.5-0.5b's products through ``layers.dense``: (name, x dims
+    after the rows, x dtype, w shape or "tied", n_in, out_dtype)."""
+    import torch
+    d, h, hd, ff = cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff
+    f32 = torch.float32
+    return (("q/k/v", (d,), "bf16", (d, h, hd), 1, f32),
+            ("o", (h, hd), "bf16", (h, hd, d), 2, None),
+            ("gate/up", (d,), "bf16", (d, ff), 1, f32),
+            ("down", (ff,), "f32", (ff, d), 1, None),
+            ("head", (d,), "bf16", "tied", 1, None))
+
+
+def phase_dense(cfg):
+    """``layers.dense`` on the card against its f32 route on the same
+    tensors at every projection of qwen1.5-0.5b, at 8 and 8,192 rows,
+    forward and gradients; an f32 output rounded through bf16 must break
+    the f32 limit."""
+    import torch
+    from repro_torch.models import layers as L
+    worst = {"bf16": 0.0, "f32": 0.0, "f32 grads": 0.0}
+    caught, floors, past_flat, n = [], [], [], 0
+    for rows in DENSE_ROWS:
+        for name, xs, xd, ws, n_in, out in dense_projections(cfg):
+            g = torch.Generator(device="cuda").manual_seed(rows + n)
+            x = torch.randn((rows, *xs), generator=g, device="cuda")
+            x = x.to(_dtype(xd))
+            if ws == "tied":                 # the head: embed (V, d).T
+                emb = (torch.randn((cfg.vocab_size, cfg.d_model),
+                                   generator=g, device="cuda") * 0.02
+                       ).bfloat16()
+            else:
+                k_in = math.prod(ws[:n_in])
+                emb = (torch.randn(ws, generator=g, device="cuda")
+                       / math.sqrt(k_in)).bfloat16()
+            out_dt = out or torch.promote_types(x.dtype, emb.dtype)
+            k = math.prod(xs)
+
+            def weight(t):
+                return t.T if ws == "tied" else t
+
+            def f32_route(a, t):
+                w2 = weight(t).reshape(k, -1)
+                y = L._dense_f32(a.reshape(rows, k), w2, out_dt)
+                return y.reshape(rows, *weight(t).shape[n_in:])
+
+            res = []
+            for fn in (lambda a, t: L.dense(a, weight(t), n_in,
+                                            out_dtype=out), f32_route):
+                xg = x.clone().requires_grad_(True)
+                wg = emb.clone().requires_grad_(True)
+                y = fn(xg, wg)
+                dy = torch.randn(y.shape, generator=torch.Generator(
+                    device="cuda").manual_seed(7), device="cuda").to(y.dtype)
+                res.append((y.detach(), *torch.autograd.grad(y, (xg, wg),
+                                                             dy)))
+                del y, dy
+            route = L.tensor_core_route(x.dtype, emb.dtype, out_dt)
+            check(route == (xd == "bf16"), f"dense {name}: tensor-core "
+                  f"route {route} for {xd} x")
+            tag = f"dense {name} at {rows} rows"
+            n_out = res[1][0][0].numel()
+            for what, a, b, k_sum in zip(("y", "dx", "dw"), *res,
+                                         (k, n_out, rows)):
+                check(a.dtype == b.dtype and a.shape == b.shape,
+                      f"{tag}: {what} {a.dtype} {tuple(a.shape)} vs "
+                      f"{b.dtype} {tuple(b.shape)}")
+                if a.dtype == torch.bfloat16:
+                    floor = dense_floor(k_sum, b)
+                    floors.append(floor)
+                    ulps, ok = ulp_check_rows(a, b, 1, floor)
+                    check(ok, f"{tag}: {what} {ulps} bf16 ulps from the f32 "
+                          f"route beyond the {floor:.3g} floor (limit 1)")
+                    # a reading: the flash checks' 1e-5 floor here
+                    flat, flat_ok = ulp_check_rows(a, b, 1, BF16_ATOL)
+                    if not flat_ok:
+                        past_flat.append(f"{name} {what} at {rows} rows "
+                                         f"({flat:g} ulps, K {k_sum})")
+                    key = "f32 grads" if out_dt == torch.float32 else "bf16"
+                    worst[key] = max(worst[key], ulps)
+                else:
+                    err = max_err(a, b)
+                    check(allclose(a, b, **KERNEL_TOL),
+                          f"{tag}: {what} differs from the f32 route by "
+                          f"{err} (limit rtol=atol=2e-5)")
+                    worst["f32"] = max(worst["f32"], err)
+            if route and out_dt == torch.float32:
+                w2 = emb.reshape(k, -1)
+                bad = torch.matmul(x.reshape(rows, k), w2).float()
+                check(not allclose(bad, res[1][0].reshape(rows, -1),
+                                   **KERNEL_TOL),
+                      f"{tag}: the planted bf16 rounding passes 2e-5")
+                caught.append(max_err(bad, res[1][0].reshape(rows, -1)))
+            del res
+            n += 1
+    torch.cuda.empty_cache()
+    print(f"[dense] {n} products (q/k/v, o, gate/up, down, tied head at "
+          f"{' and '.join(map(str, DENSE_ROWS))} rows) through layers.dense "
+          f"== the f32 route: bf16 outputs and gradients within 1 ulp "
+          f"beyond a floor of {DENSE_ROUNDOFFS} x sqrt(K) x 2^-24 x rms "
+          f"({min(floors):.3g}-{max(floors):.3g}; max "
+          f"{worst['bf16']:g} ulps among the elements past it), f32 "
+          f"outputs within rtol=atol=2e-5 (max |err| {worst['f32']:.3g}), "
+          f"the gradients of f32-output products (bf16 hi + lo cotangent) "
+          f"max {worst['f32 grads']:g} ulps; the down projection (f32 x) "
+          f"keeps the f32 route; planted fault 'f32 output rounded through "
+          f"bf16' caught at {len(caught)} of {len(caught)} f32-output "
+          f"products (|err| {min(caught):.3g}-{max(caught):.3g}); at the "
+          f"flash checks' {BF16_ATOL} floor instead, {len(past_flat)} of "
+          f"{len(floors)} bf16 tensors break 1 ulp"
+          + (": " + ", ".join(past_flat) if past_flat else ""))
 
 
 def main() -> None:
@@ -1977,14 +2303,17 @@ def main() -> None:
     from repro_torch.models.lm import LM
     resolve_device("cuda")           # numerics switches for the whole run
     t0 = time.monotonic()
-    logs = _build.build_all(verbose=True)
-    print(f"[build] {', '.join(_build.KERNELS)} built by nvcc in "
+    logs = _build.build_all(verbose=True, variants=[("flash_attention",
+                                                     FLASH_FAULT)])
+    print(f"[build] {', '.join(_build.KERNELS)} and the flash library with "
+          f"-D{FLASH_FAULT[0]} (a planted fault) built by nvcc in "
           f"{time.monotonic() - t0:.1f}s")
     for name, log in logs.items():
         print(f"[build] {name}: " + " ".join(
             line.strip() for line in log.splitlines() if "registers" in line))
 
     record = {"kernels": []}
+    phase_dense(get_config("qwen1.5-0.5b"))
     phase_kernel_vs_plain()
 
     cfg = get_config("qwen1.5-0.5b")

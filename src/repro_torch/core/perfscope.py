@@ -1,5 +1,5 @@
 """Wall-clock regions (the port's copy of ``repro.core.perfscope.Timer``'s
-``region`` and ``summary``)."""
+``region`` and ``summary``), and the profiles' kernel classes."""
 from __future__ import annotations
 
 import contextlib
@@ -37,3 +37,38 @@ class Timer:
                 "calls": len(ts),
             }
         return out
+
+
+# (class, name fragments) in match order: cuBLAS names its bf16-operand
+# GEMMs nvjet_t* (f32 sums) or *gemm_bf16*, its f32 ones *sgemm*,
+# *f32f32_f32f32* or nvjet_s*
+KERNEL_CLASSES = (
+    ("the port's CUDA kernels", ("paged_mq_kernel", "ssd_chunk_scan",
+                                 "rmsnorm_kernel", "dense_decode_kernel",
+                                 "fwd_kernel", "bwd_dkv", "bwd_dq",
+                                 "qmm_kernel")),
+    ("split-K reductions", ("splitKreduce",)),
+    ("tensor-core GEMMs", ("nvjet_t", "gemm_bf16", "bf16gemm")),
+    ("f32 GEMMs", ("sgemm", "f32f32_f32f32", "nvjet_s")),
+    ("casts and copies", ("copy_kernel", "Memcpy")),
+)
+
+
+def kernel_classes(by_name: Dict[str, List[float]], steps: int
+                   ) -> Dict[str, List[float]]:
+    """Device time (ms per step) and launches per step of each kernel
+    class, from ``{kernel name: [us, count]}`` over ``steps`` steps; what
+    no class names is "other"."""
+    out = {name: [0.0, 0.0] for name, _ in KERNEL_CLASSES}
+    out["other"] = [0.0, 0.0]
+    for kname, (us, n) in by_name.items():
+        cls = next((name for name, frags in KERNEL_CLASSES
+                    if any(f in kname for f in frags)), "other")
+        out[cls][0] += us / 1e3 / steps
+        out[cls][1] += n / steps
+    return out
+
+
+def format_classes(classes: Dict[str, List[float]]) -> str:
+    return "; ".join(f"{name} {ms:.2f} ms ({n:.0f})"
+                     for name, (ms, n) in classes.items())

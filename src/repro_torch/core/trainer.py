@@ -41,7 +41,7 @@ class Trainer:
         if tcfg.checkpoint_dir is not None or tcfg.resume != "none":
             raise NotImplementedError(
                 "checkpointing is not ported yet (checkpoint/manager.py, "
-                "ROADMAP queue 1 item 12)")
+                "ROADMAP queue 1 item 5)")
         self.cfg, self.shape, self.tcfg = cfg, shape, tcfg
         step_fn, self.technique, self.model, self.opt_cfg = build_train(
             cfg, technique, opt_cfg, device=device)

@@ -24,7 +24,7 @@ KERNELS = ("paged_attention", "flash_attention", "ssd", "quant_matmul",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-_LIBS: Dict[str, ctypes.CDLL] = {}
+_LIBS: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
 
 
 def nvcc_path() -> str:
@@ -38,43 +38,53 @@ def nvcc_path() -> str:
     return found
 
 
-def lib_path(name: str) -> Path:
+def lib_path(name: str, defines: Sequence[str] = ()) -> Path:
+    """The library of ``csrc/<name>.cu`` built with ``-D`` each of
+    ``defines`` (a planted fault's build, for instance: the digest and the
+    file name tell the variants apart)."""
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    flags = " ".join((*NVCC_FLAGS, *(f"-D{d}" for d in defines)))
+    digest = hashlib.sha256(src + flags.encode()).hexdigest()
+    tag = "".join(f"-{d.lower()}" for d in defines)
+    return BUILD_DIR / f"lib{name}{tag}-{digest[:16]}.so"
 
 
-def _start(name: str, verbose: bool) -> Tuple[Path, Path, subprocess.Popen]:
-    out = lib_path(name)
+def _start(name: str, verbose: bool, defines: Sequence[str]
+           ) -> Tuple[Path, Path, subprocess.Popen]:
+    out = lib_path(name, defines)
     nvcc = nvcc_path()               # raises before anything is written
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas=-v"] if verbose else []),
+    cmd = [nvcc, *NVCC_FLAGS, *(f"-D{d}" for d in defines),
+           *(["-Xptxas=-v"] if verbose else []),
            "-o", tmp, str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return out, Path(tmp), proc
 
 
-def build_all(names: Sequence[str] = KERNELS, verbose: bool = False
+def build_all(names: Sequence[str] = KERNELS, verbose: bool = False,
+              variants: Sequence[Tuple[str, Tuple[str, ...]]] = ()
               ) -> Dict[str, str]:
-    """Compile every missing library, one ``nvcc`` per source, all started
-    together. Returns the compiler's output per kernel built (``-Xptxas
-    -v`` register/shared-memory report when ``verbose``)."""
+    """Compile every missing library, one ``nvcc`` per source (and per
+    ``(name, defines)`` of ``variants``), all started together. Returns
+    the compiler's output per library built (``-Xptxas -v``
+    register/shared-memory report when ``verbose``)."""
     jobs: List[Tuple[str, Path, Path, subprocess.Popen]] = []
-    for name in names:
-        if lib_path(name).exists() and not verbose:
+    for name, defines in [(n, ()) for n in names] + list(variants):
+        if lib_path(name, defines).exists() and not verbose:
             continue
-        jobs.append((name, *_start(name, verbose)))
+        label = " ".join((name, *(f"-D{d}" for d in defines)))
+        jobs.append((label, *_start(name, verbose, defines)))
     logs: Dict[str, str] = {}
     failed = []
-    for name, out, tmp, proc in jobs:
+    for label, out, tmp, proc in jobs:
         log, _ = proc.communicate()
-        logs[name] = log
+        logs[label] = log
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
-            failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+            failed.append(f"{label}: nvcc exited {proc.returncode}\n{log}")
         else:
             os.replace(tmp, out)
     if failed:
@@ -82,13 +92,14 @@ def build_all(names: Sequence[str] = KERNELS, verbose: bool = False
     return logs
 
 
-def load(name: str) -> ctypes.CDLL:
+def load(name: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
     """The kernel library, built on first use."""
-    lib = _LIBS.get(name)
+    key = (name, tuple(defines))
+    lib = _LIBS.get(key)
     if lib is None:
-        path = lib_path(name)
+        path = lib_path(name, defines)
         if not path.exists():
-            build_all([name])
+            build_all([], variants=[(name, tuple(defines))])
         lib = ctypes.CDLL(str(path))
-        _LIBS[name] = lib
+        _LIBS[key] = lib
     return lib

@@ -18,10 +18,13 @@ change the summation order only.
 On CUDA tensors the wrappers launch the hand-written kernels of
 ``csrc/flash_attention.cu`` (they replace the TPU kernels ``_fwd_kernel``,
 ``_bwd_dkv_kernel`` and ``_bwd_dq_kernel``) or raise; they never fall
-back. On CPU tensors they run the plain versions :func:`_flash_fwd_torch`
-and :func:`_flash_bwd_torch`, which repeat the kernels' arithmetic on the
-whole score matrix and are the oracle the kernels are held against on
-the card.
+back. The backward of bf16 inputs at head_dim 64 or 128 runs on the
+tensor cores with P and dS split into bf16 hi + lo
+(:func:`_flash_bwd_split_torch` repeats that arithmetic on the CPU);
+:func:`bwd_body` says which body a case takes. On CPU tensors they run
+the plain versions :func:`_flash_fwd_torch` and :func:`_flash_bwd_torch`,
+which repeat the kernels' arithmetic on the whole score matrix and are
+the oracle the kernels are held against on the card.
 
 Every launch adds one to ``LAUNCHES[name]`` for ``name`` in ``fwd``,
 ``bwd_dkv`` and ``bwd_dq``; nothing else does.
@@ -127,6 +130,59 @@ def _flash_bwd_torch(q, k, v, out, lse, do, *, causal: bool = True,
     return dq, dk, dv
 
 
+def split_bf16(x: torch.Tensor, parts: int = 2):
+    """f32 ``x`` as ``parts`` bf16 tensors, each the bf16 rounding of what
+    the ones before it leave: ``hi = bf16(x)``, ``lo = bf16(x - hi)``, ...
+    Every remainder is exact in f32 and each rounding keeps 8 bits, so the
+    parts sum to ``x`` within 2^(-8·parts) |x|: 2^-16 for hi + lo, 2^-24
+    (an f32 rounding) for three parts."""
+    out = []
+    rest = x
+    for i in range(parts):
+        out.append(rest.to(torch.bfloat16))
+        if i + 1 < parts:
+            rest = rest - out[-1].float()
+    return tuple(out)
+
+
+def _flash_bwd_split_torch(q, k, v, out, lse, do, *, causal: bool = True,
+                           sm_scale: Optional[float] = None):
+    """The tensor-core backward body's arithmetic, for bf16 inputs: S =
+    q·k and dP = dO·v from the bf16 values (f32 sums), ``S·scale`` into
+    ``p = exp(· - lse)`` and ``ds = p·(dp - delta)·scale`` in f32, then
+    ``p`` and ``ds`` split into bf16 hi + lo (:func:`split_bf16`) and
+    each half multiplied in f32, the two products summed: dv = p_hiᵀ·dO
+    + p_loᵀ·dO, dk = ds_hiᵀ·q + ds_loᵀ·q, dq = ds_hi·k + ds_lo·k. The
+    plain version's function to within 2^-16 relative per ``p`` and
+    ``ds`` element, before the one rounding to the inputs' type."""
+    b, h, t, d = q.shape
+    n_kv, s_len = k.shape[1], k.shape[2]
+    g = h // n_kv
+    scale = _scale(d, sm_scale)
+    f = torch.float32
+    qg = q.reshape(b, n_kv, g, t, d).to(f)
+    dog = do.reshape(b, n_kv, g, t, d).to(f)
+    sc = torch.einsum("bkgtd,bksd->bkgts", qg, k.to(f)) * scale
+    if causal:
+        keep = (torch.arange(t, device=q.device)[:, None]
+                >= torch.arange(s_len, device=q.device)[None, :])
+        sc = torch.where(keep, sc, torch.full((), NEG_INF, device=q.device))
+    p = torch.exp(sc - lse.reshape(b, n_kv, g, t, 1).to(f))
+    delta = (out.to(f) * do.to(f)).sum(-1, keepdim=True)
+    dp = torch.einsum("bkgtd,bksd->bkgts", dog, v.to(f))
+    ds = p * (dp - delta.reshape(b, n_kv, g, t, 1)) * scale
+    p_hi, p_lo = (x.float() for x in split_bf16(p))
+    ds_hi, ds_lo = (x.float() for x in split_bf16(ds))
+    dq = (torch.einsum("bkgts,bksd->bkgtd", ds_hi, k.to(f))
+          + torch.einsum("bkgts,bksd->bkgtd", ds_lo, k.to(f)))
+    dk = (torch.einsum("bkgts,bkgtd->bksd", ds_hi, qg)
+          + torch.einsum("bkgts,bkgtd->bksd", ds_lo, qg))
+    dv = (torch.einsum("bkgts,bkgtd->bksd", p_hi, dog)
+          + torch.einsum("bkgts,bkgtd->bksd", p_lo, dog))
+    return (dq.reshape(b, h, t, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
 # ==========================================================================
 # The CUDA kernels' wrappers
 # ==========================================================================
@@ -139,10 +195,11 @@ def _check(cond: bool, msg: str) -> None:
 
 
 @functools.lru_cache(maxsize=None)
-def _entries():
+def _entries(defines: Tuple[str, ...] = ()):
     """The kernels' C entry points, built and loaded on first use, with
-    their ctypes signatures set once."""
-    lib = _build.load("flash_attention")
+    their ctypes signatures set once (``defines``: a variant build's
+    macros, which only a planted fault's check uses)."""
+    lib = _build.load("flash_attention", defines)
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     dims = [ci] * 7                  # kind, B, H, K, T, S, D
     fwd = lib.flash_attention_fwd
@@ -150,10 +207,21 @@ def _entries():
     bwd_dkv = lib.flash_attention_bwd_dkv
     bwd_dkv.argtypes = [vp] * 8 + dims + [ci, cf, vp]
     bwd_dq = lib.flash_attention_bwd_dq
-    bwd_dq.argtypes = [vp] * 7 + dims + [ci, cf, vp]
-    for fn in (fwd, bwd_dkv, bwd_dq):
+    bwd_dq.argtypes = [vp] * 8 + dims + [ci, cf, vp]
+    body = lib.flash_attention_bwd_body
+    body.argtypes = [ci, ci]
+    for fn in (fwd, bwd_dkv, bwd_dq, body):
         fn.restype = ci
-    return {"fwd": fwd, "bwd_dkv": bwd_dkv, "bwd_dq": bwd_dq}
+    return {"fwd": fwd, "bwd_dkv": bwd_dkv, "bwd_dq": bwd_dq,
+            "bwd_body": body}
+
+
+def bwd_body(dtype: torch.dtype, d: int) -> str:
+    """Which body the backward kernels run for inputs of ``dtype`` and
+    head_dim ``d`` on the card, as the library dispatches: ``"mma"`` (bf16
+    tensor-core tiles, D 64 or 128) or ``"simt"`` (the f32 FMA body)."""
+    return "mma" if _entries()["bwd_body"](_DTYPE_KIND[dtype], d) else \
+        "simt"
 
 
 def _check_qkv(q, k, v) -> Tuple[int, int, int, int, int, int]:
@@ -209,7 +277,8 @@ def _fwd_cuda(q, k, v, *, causal: bool, sm_scale: Optional[float]):
 
 def _delta(out, do):
     """rowsum(dO∘O) in f32, (B,H,T,1): computed outside the kernels, as
-    the reference does."""
+    the reference does, for the FMA body (the tensor-core dQ kernel
+    computes it itself)."""
     return (out.float() * do.float()).sum(-1, keepdim=True)
 
 
@@ -229,18 +298,22 @@ def _bwd_dkv_cuda(q, k, v, do, lse, delta, *, causal: bool, scale: float):
     return dk, dv
 
 
-def _bwd_dq_cuda(q, k, v, do, lse, delta, *, causal: bool, scale: float):
+def _bwd_dq_cuda(q, k, v, do, lse, delta, *, causal: bool, scale: float,
+                 out=None):
     """dq: one launch of the dQ kernel, on inputs :func:`_bwd_cuda` has
-    checked."""
+    checked. Given ``out`` (the tensor-core body only), the kernel computes
+    delta = rowsum(dO∘O) itself and writes it into ``delta``; else it reads
+    ``delta``."""
     b, h, t, d = q.shape
     n_kv, s = k.shape[1], k.shape[2]
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         _launch("bwd_dq", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                dq.data_ptr(), _DTYPE_KIND[q.dtype], b, h, n_kv, t, s, d,
-                int(causal), scale, stream)
+                do.data_ptr(), None if out is None else out.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                _DTYPE_KIND[q.dtype], b, h, n_kv, t, s, d, int(causal),
+                scale, stream)
     return dq
 
 
@@ -257,11 +330,18 @@ def _bwd_cuda(q, k, v, out, lse, do, *, causal: bool,
     if b * h * t == 0 or s == 0:
         return (torch.zeros_like(q), torch.zeros_like(k),
                 torch.zeros_like(v))
-    delta = _delta(out, do)
     scale = _scale(d, sm_scale)
+    if bwd_body(q.dtype, d) == "mma":   # the dQ kernel writes delta
+        delta = torch.empty((b, h, t, 1), dtype=torch.float32,
+                            device=q.device)
+        dq = _bwd_dq_cuda(q, k, v, do, lse, delta, causal=causal,
+                          scale=scale, out=out)
+    else:
+        delta = _delta(out, do)
+        dq = _bwd_dq_cuda(q, k, v, do, lse, delta, causal=causal,
+                          scale=scale)
     dk, dv = _bwd_dkv_cuda(q, k, v, do, lse, delta, causal=causal,
                            scale=scale)
-    dq = _bwd_dq_cuda(q, k, v, do, lse, delta, causal=causal, scale=scale)
     return dq, dk, dv
 
 
@@ -283,8 +363,8 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
 def flash_attention_bwd(q, k, v, out, lse, do, *, causal: bool = True,
                         sm_scale: Optional[float] = None):
     """(dq, dk, dv) from the forward's inputs, its (out, lse) and the
-    output gradient ``do``. CUDA tensors launch the two kernels (dK/dV,
-    then dQ); CPU tensors run the plain version."""
+    output gradient ``do``. CUDA tensors launch the two kernels (dQ, then
+    dK/dV); CPU tensors run the plain version."""
     # repro: allow[JIT-04] dispatch on where the tensor lives (host metadata): the card launches the kernels, host memory runs the plain version
     if q.is_cuda:
         return _bwd_cuda(q, k, v, out, lse, do, causal=causal,

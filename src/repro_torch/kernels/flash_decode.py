@@ -21,10 +21,12 @@ does, so a run can show that its main path went through the kernel.
 decoding's draft model runs). :func:`flash_decode_partial` reads one query
 token per row against a dense ``(B, K, S, D)`` cache: on CUDA tensors the
 hand-written kernel ``csrc/dense_decode.cu`` (it replaces the TPU kernel
-``flash_decode.py::_decode_kernel``), counted in
-``LAUNCHES["dense_decode"]``; on CPU tensors the plain version
-:func:`_dense_decode_torch`, which mirrors ``_decode_kernel``'s block
-loop. :func:`flash_decode` normalizes the partials.
+``flash_decode.py::_decode_kernel``; it splits each row's positions over
+:func:`dense_splits` blocks and merges their partials in the same launch),
+counted in ``LAUNCHES["dense_decode"]``, one per call; on CPU tensors the
+plain version :func:`_dense_decode_torch`, which mirrors
+``_decode_kernel``'s block loop (and, given ``n_split``, the kernel's
+split and merge). :func:`flash_decode` normalizes the partials.
 """
 from __future__ import annotations
 
@@ -269,15 +271,64 @@ def causal_self_partial(q, k, v, *, sm_scale: Optional[float] = None):
 
 _DENSE_KINDS = {torch.float32: 0, torch.bfloat16: 1}
 _DENSE_MAX_G = 8            # kMaxG in csrc/dense_decode.cu
+_DENSE_MIN_SPLIT = 64       # positions of S per split, at least
+_DENSE_MAX_SPLITS = 64
 
 
-def _dense_decode_torch(q, k, v, lengths, *, sm_scale=None, bk: int = 256):
+def _dense_decode_torch(q, k, v, lengths, *, sm_scale=None, bk: int = 256,
+                       n_split: int = 1):
     """The plain version: ``_decode_kernel``'s block loop in torch. Blocks
     of ``bk`` positions (the last one ragged when ``bk`` does not divide
     S) update an f32 online softmax; a block runs for row b only while it
     starts before ``lengths[b]``, so a zero-length row keeps o = 0, l = 0,
     m = -1e30. Every block is visited (a shape-static loop, no host read
-    of ``lengths``)."""
+    of ``lengths``).
+
+    ``n_split > 1`` computes the kernel's split arithmetic instead: split
+    i of row b covers positions [i·c, min((i+1)·c, len)) with c =
+    ceil(len / n_split), each split's partial comes from the block loop
+    over its own positions, and the partials are rescaled to their common
+    max and summed in split order (:func:`merge_split_partials`)."""
+    if n_split > 1:
+        return merge_split_partials([
+            _dense_decode_span(q, k, v, lengths, sm_scale, bk, span)
+            for span in split_spans(lengths, k.shape[2], n_split)])
+    return _dense_decode_span(q, k, v, lengths, sm_scale, bk, None)
+
+
+def split_spans(lengths, s: int, n_split: int):
+    """The kernel's position ranges: per split i, (lo, hi) int tensors of
+    shape (B,) with lo = min(i·c, len), hi = min(lo + c, len), c =
+    ceil(len / n_split), len = clamp(lengths, 0, S)."""
+    ln = torch.clamp(lengths.long(), 0, s)
+    c = (ln + n_split - 1) // n_split
+    spans = []
+    for i in range(n_split):
+        lo = torch.minimum(i * c, ln)
+        spans.append((lo, torch.minimum(lo + c, ln)))
+    return spans
+
+
+def merge_split_partials(parts):
+    """(o, m, l) partials over disjoint position ranges -> one partial:
+    each rescaled to the common max and summed in the given order, as the
+    kernel's last block does. Empty partials (m = -1e30, l = 0, o = 0)
+    weigh 0 beside a live one and leave an all-empty row empty."""
+    m = parts[0][1]
+    for _, mi, _ in parts[1:]:
+        m = torch.maximum(m, mi)
+    o = torch.zeros_like(parts[0][0])
+    l = torch.zeros_like(parts[0][2])
+    for oi, mi, li in parts:
+        f = torch.exp(mi - m)
+        o = o + oi * f
+        l = l + li * f
+    return o, m, l
+
+
+def _dense_decode_span(q, k, v, lengths, sm_scale, bk, span):
+    """The block loop over positions [lo, hi) of each row (``span``), or
+    [0, lengths) when ``span`` is None."""
     b, h, d = q.shape
     n_kv, s = k.shape[1], k.shape[2]
     g = h // n_kv
@@ -287,17 +338,21 @@ def _dense_decode_torch(q, k, v, lengths, *, sm_scale=None, bk: int = 256):
     l = torch.zeros((b, n_kv, g, 1), dtype=torch.float32, device=dev)
     acc = torch.zeros((b, n_kv, g, d), dtype=torch.float32, device=dev)
     neg = torch.full((), NEG_INF, dtype=torch.float32, device=dev)
-    lens = lengths.long()[:, None, None, None]
+    if span is None:
+        lo = torch.zeros_like(lengths.long())[:, None, None, None]
+        hi = lengths.long()[:, None, None, None]
+    else:
+        lo, hi = (x[:, None, None, None] for x in span)
     for j0 in range(0, s, bk):
         kb = k[:, :, j0:j0 + bk].float()                    # (B, K, bk, D)
         vb = v[:, :, j0:j0 + bk].float()
         sc = torch.einsum("bkgd,bksd->bkgs", qg, kb)
         kpos = j0 + torch.arange(kb.shape[2], device=dev)
-        sc = torch.where(kpos < lens, sc, neg)
+        sc = torch.where((kpos >= lo) & (kpos < hi), sc, neg)
         m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
         p = torch.exp(sc - m_new)
         corr = torch.exp(m - m_new)
-        run = j0 < lens
+        run = (j0 < hi) & (j0 + kb.shape[2] > lo)
         l = torch.where(run, l * corr + p.sum(-1, keepdim=True), l)
         acc = torch.where(run, acc * corr
                           + torch.einsum("bkgs,bksd->bkgd", p, vb), acc)
@@ -312,17 +367,53 @@ def _dense_entry():
     fn = _build.load("dense_decode").dense_decode_partial
     vp, ci = ctypes.c_void_p, ctypes.c_int
     strides = ctypes.POINTER(ctypes.c_longlong)
-    fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
-                   strides, strides, ctypes.c_float, ci, vp]
+    fn.argtypes = [vp] * 9 + [ci] * 5 + [strides, strides, ci, ci,
+                                         ctypes.c_float, ci, vp]
     fn.restype = ci
     return fn
+
+
+def dense_splits(b: int, n_kv: int, s: int, n_sm: int) -> int:
+    """Blocks the dense decode kernel splits each (b, kh) row's positions
+    over on a card of ``n_sm`` SMs: about two blocks per SM over the B·K
+    pairs, at most
+    one per ``_DENSE_MIN_SPLIT`` positions of S (the host does not read
+    ``lengths``: S bounds them) and at most ``_DENSE_MAX_SPLITS``."""
+    want = -(-2 * n_sm // max(1, b * n_kv))
+    return max(1, min(want, s // _DENSE_MIN_SPLIT, _DENSE_MAX_SPLITS))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+_COUNTERS: dict = {}
+
+
+def _split_counters(dev: torch.device, n: int) -> torch.Tensor:
+    """The per-(b, kh) arrival counters of the split merge, one buffer per
+    device, zeroed once: each call leaves them zero (the merging block
+    resets its pair's), so the kernel replays inside a CUDA graph. Grown
+    outside a graph capture only."""
+    buf = _COUNTERS.get(dev)
+    if buf is None or buf.numel() < n:
+        _dcheck(not torch.cuda.is_current_stream_capturing(),
+                f"the split counters must hold {n} pairs before a graph "
+                f"capture: call the kernel once at this shape first")
+        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=dev)
+        _COUNTERS[dev] = buf
+    return buf
 
 
 def _dcheck(cond: bool, msg: str) -> None:
     _check(cond, msg, "dense_decode")
 
 
-def _dense_decode_cuda(q, k, v, lengths, *, sm_scale=None):
+def _dense_decode_cuda(q, k, v, lengths, *, sm_scale=None,
+                       n_split: Optional[int] = None):
+    """One launch of the dense decode kernel over ``n_split`` position
+    splits a row (default :func:`dense_splits` for this card)."""
     _dcheck(q.ndim == 3 and k.ndim == 4 and v.shape == k.shape,
            f"q must be (B, H, D) and k/v (B, K, S, D), got "
            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -351,14 +442,26 @@ def _dense_decode_cuda(q, k, v, lengths, *, sm_scale=None):
     l = torch.empty((b, h, 1), dtype=torch.float32, device=dev)
     if b == 0:
         return o, m, l
+    if n_split is None:
+        n_split = dense_splits(b, n_kv, s, _sm_count(dev))
+    _dcheck(1 <= n_split <= 65535, f"n_split {n_split} out of range")
+    counters = _split_counters(dev, b * n_kv)
+    ws = (torch.empty(b * n_kv * n_split * (h // n_kv) * (d + 2),
+                      dtype=torch.float32, device=dev)
+          if n_split > 1 else o)
+    epl = 16 // q.element_size()         # elements in one 16-byte load
+    vec = int(d % epl == 0 and all(x.data_ptr() % 16 == 0 and
+                                   all(x.stride(i) % epl == 0
+                                       for i in range(3)) for x in (k, v)))
     ks = (ctypes.c_longlong * 3)(*(k.stride(i) for i in range(3)))
     vs = (ctypes.c_longlong * 3)(*(v.stride(i) for i in range(3)))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _dense_entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                             lengths.contiguous().data_ptr(), o.data_ptr(),
-                            m.data_ptr(), l.data_ptr(), b, h, n_kv, s, d, ks,
-                            vs, _scale(d, sm_scale),
+                            m.data_ptr(), l.data_ptr(), ws.data_ptr(),
+                            counters.data_ptr(), b, h, n_kv, s, d, ks, vs,
+                            n_split, vec, _scale(d, sm_scale),
                             _DENSE_KINDS[q.dtype], stream)
     # repro: allow[JIT-04] rc is the C int cudaGetLastError() returned to the host, not a device value
     if rc != 0:

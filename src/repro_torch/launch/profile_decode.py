@@ -36,6 +36,7 @@ def main(argv: Optional[List[str]] = None) -> None:
 
     from repro_torch.configs import get_config
     from repro_torch.core.device import resolve_device
+    from repro_torch.core.perfscope import format_classes, kernel_classes
     from repro_torch.data.pipeline import (repetitive_requests,
                                            serving_requests)
     from repro_torch.models.lm import LM
@@ -112,6 +113,8 @@ def main(argv: Optional[List[str]] = None) -> None:
           f"{n_kernels:.0f} kernels per step; "
           + "; ".join(f"{name} {ms:.2f} ms per step ({ms / busy * 100:.1f}% "
                       f"of busy)" for name, ms in ours.items()))
+    print("[profile] by class (ms per step, launches per step): "
+          + format_classes(kernel_classes(by_name, args.steps)))
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     for name, (us, n) in top:
         print(f"[profile]   {us / 1e3 / args.steps:8.3f} ms/step "

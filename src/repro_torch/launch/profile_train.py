@@ -39,7 +39,7 @@ def main(argv: Optional[List[str]] = None) -> None:
     from repro_torch.configs import get_config
     from repro_torch.core.config import technique_from_label
     from repro_torch.core.device import resolve_device
-    from repro_torch.core.perfscope import Timer
+    from repro_torch.core.perfscope import Timer, format_classes, kernel_classes
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.launch.build import make_model
     from repro_torch.train.optimizer import AdamWConfig
@@ -105,8 +105,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     busy = sum(v[0] for v in by_name.values()) / 1e3 / args.steps
     n_kernels = sum(v[1] for v in by_name.values()) / args.steps
     flash = sum(v[0] for k, v in by_name.items()
-                if "fwd_kernel" in k or "bwd_dkv_kernel" in k
-                or "bwd_dq_kernel" in k) / 1e3 / args.steps
+                if "fwd_kernel" in k or "bwd_dkv" in k
+                or "bwd_dq" in k) / 1e3 / args.steps
     int8 = sum(v[0] for k, v in by_name.items()
                if "qmm_kernel" in k) / 1e3 / args.steps
     # the profiler slows the host, not the device: the idle share is the
@@ -120,6 +120,8 @@ def main(argv: Optional[List[str]] = None) -> None:
           f"{flash:.2f} ms per step ({flash / busy * 100:.1f}% of busy); "
           f"int8 kernel {int8:.2f} ms per step ({int8 / busy * 100:.1f}% "
           f"of busy)")
+    print("[profile] by class (ms per step, launches per step): "
+          + format_classes(kernel_classes(by_name, args.steps)))
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
     for name, (us, n) in top:
         print(f"[profile]   {us / 1e3 / args.steps:9.3f} ms/step "

@@ -15,6 +15,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.kernels.flash_attention import split_bf16
 from repro_torch.peft.lora import LoRATensor
 from repro_torch.quant.qtensor import QTensor
 
@@ -30,9 +31,13 @@ def dense(x: torch.Tensor, w, n_in: int = 1, bias=None,
     """Contract the last ``n_in`` dims of ``x`` with the first ``n_in``
     dims of ``w``; the output gets ``w``'s remaining dims.
 
-    The product runs on f32 operands (bf16 widens exactly) and is rounded
-    once to ``out_dtype`` (default: the promoted input type).
+    Every product is exact and accumulates in f32, then is rounded once
+    to ``out_dtype`` (default: the promoted input type);
     ``out_dtype=torch.float32`` keeps the f32 accumulator as the output.
+    On the card, bf16 operands go to the tensor cores as they are
+    (:func:`_dense_bf16`); on the CPU, and for an f32 operand, both widen
+    exactly to f32 (:func:`_dense_f32`). The two differ only in the order
+    of the f32 sums.
     ``bias`` is added after the rounding, in the output type, as the
     reference does.
 
@@ -58,13 +63,86 @@ def dense(x: torch.Tensor, w, n_in: int = 1, bias=None,
     x2 = x.reshape(*in_shape, k)
     w2 = w.reshape(k, int(np.prod(out_dims)))
     out_dt = out_dtype or torch.promote_types(x2.dtype, w2.dtype)
-    acc = (torch.promote_types(torch.float32, out_dt)
-           if out_dt.is_floating_point else out_dt)
-    y = torch.matmul(x2.to(acc), w2.to(acc)).to(out_dt)
+    # repro: allow[JIT-04] dispatch on where the tensor lives (host metadata): the card multiplies bf16 operands on the tensor cores, host memory keeps the f32 route
+    if x2.is_cuda and tensor_core_route(x2.dtype, w2.dtype, out_dt):
+        y = _dense_bf16(x2, w2, out_dt)
+    else:
+        y = _dense_f32(x2, w2, out_dt)
     y = y.reshape(*in_shape, *out_dims)
     if bias is not None:
         y = y + bias
     return y
+
+
+def tensor_core_route(x_dtype: torch.dtype, w_dtype: torch.dtype,
+                      out_dtype: torch.dtype) -> bool:
+    """Whether a product on the card takes the tensor cores: both operands
+    bf16 and the output bf16 or f32. Any f32 operand (swiglu's down
+    projection reads the f32 gate chain, mamba2's ``out_proj`` the f32
+    gated norm) keeps the f32 route: its products are not exact in bf16."""
+    return (x_dtype == w_dtype == torch.bfloat16 and
+            out_dtype in (torch.bfloat16, torch.float32))
+
+
+def _dense_f32(x2, w2, out_dt) -> torch.Tensor:
+    """The f32 route: both operands widened (exactly) to f32, one f32
+    product, one rounding to ``out_dt``. Every product on the CPU, and
+    the products with an f32 operand on the card."""
+    acc = (torch.promote_types(torch.float32, out_dt)
+           if out_dt.is_floating_point else out_dt)
+    return torch.matmul(x2.to(acc), w2.to(acc)).to(out_dt)
+
+
+def _dense_bf16(x2, w2, out_dt) -> torch.Tensor:
+    """bf16 operands on the tensor cores, f32 accumulation (the card's
+    numerics switches forbid reduced-precision reductions), one rounding:
+    the f32 route's function up to the order of the f32 sums. A bf16
+    output is a bf16 ``torch.matmul``; an f32 output is
+    :class:`_MatmulF32Out`."""
+    if out_dt == torch.bfloat16:
+        return torch.matmul(x2, w2)
+    lead = x2.shape[:-1]
+    y = _MatmulF32Out.apply(x2.reshape(-1, x2.shape[-1]), w2)
+    return y.reshape(*lead, w2.shape[1])
+
+
+def _mm_f32(pairs) -> torch.Tensor:
+    """The sum of ``a @ b`` over ``pairs`` of bf16 matrices, each product
+    exact on the tensor cores and summed in f32 (``aten::mm.dtype``, then
+    ``addmm.dtype`` adding each next product into the f32 result)."""
+    y = None
+    for a, b in pairs:
+        y = (torch.mm(a, b, out_dtype=torch.float32) if y is None else
+             torch.addmm(y, a, b, out_dtype=torch.float32))
+    return y
+
+
+class _MatmulF32Out(torch.autograd.Function):
+    """``a @ b`` of bf16 matrices with an f32 output: exact products, f32
+    sums, no rounding to bf16. The cotangent of an f32 output is f32 and
+    not bf16-valued (RoPE and the swiglu product follow these
+    projections), so the backward splits it into three bf16 parts
+    (:func:`split_bf16`, within 2^-24 of it) and multiplies each on the
+    tensor cores, the products summed in f32: the f32 route's gradient up
+    to the order of the f32 sums, before the one rounding to the
+    operand's type. (hi + lo alone, 2^-16, strays past one bf16 ulp
+    wherever a gradient's sum cancels.)"""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _mm_f32([(a, b)])
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        parts = split_bf16(g.float(), 3)
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = _mm_f32([(p, b.t()) for p in parts]).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            db = _mm_f32([(a.t(), p) for p in parts]).to(b.dtype)
+        return da, db
 
 
 def _int8_dense(x, w, n_in: int, bias, out_dtype) -> torch.Tensor:

@@ -62,7 +62,7 @@ def apply_lora(params, generator: torch.Generator, rank: int = 64,
             raise NotImplementedError(
                 f"LoRA on an {leaf.kind} base ({path}) is not ported: the "
                 f"reference's apply_lora misreads a stacked nf4 QTensor's "
-                f"shape (repro/peft/lora.py:74-75; ROADMAP queue 1 item 12, "
+                f"shape (repro/peft/lora.py:74-75; ROADMAP queue 1 item 5, "
                 f"queue 3)")
         shape = tuple(leaf.shape)
         lead, body = shape[:1], shape[1:]

@@ -50,20 +50,20 @@ def check_technique(technique: Technique) -> None:
         waiting.append(f"peft={technique.peft!r} on an nf4 base (the "
                        f"reference's apply_lora misreads a stacked nf4 "
                        f"QTensor, repro/peft/lora.py:74-75; ROADMAP queue 1 "
-                       f"item 12, queue 3)")
+                       f"item 5, queue 3)")
     if technique.peft == "none" and technique.quant != "none":
         waiting.append(f"quant={technique.quant!r} without peft (the "
                        f"dequant-train-requant cycle with 8-bit Opt8 "
-                       f"moments, ROADMAP queue 1 item 12)")
+                       f"moments, ROADMAP queue 1 item 5)")
     if technique.grad_compress:
         waiting.append("grad_compress (parallel/compression.py, ROADMAP "
-                       "queue 1 item 12)")
+                       "queue 1 item 7)")
     if technique.sp:
         waiting.append("sp (sequence parallelism needs a mesh, ROADMAP "
-                       "queue 1 items 11-12)")
+                       "queue 1 item 7)")
     if technique.attn_mode != "auto":
         waiting.append(f"attn_mode={technique.attn_mode!r} (needs a mesh, "
-                       f"ROADMAP queue 1 items 11-12)")
+                       f"ROADMAP queue 1 item 7)")
     if waiting:
         raise NotImplementedError(
             "not ported yet: " + "; ".join(waiting))

@@ -154,3 +154,56 @@ def test_cuda_wrapper_refuses_bad_inputs(case, match):
     with pytest.raises(ValueError, match=match):
         tfd._dense_decode_cuda(q, k, v, lens)
     assert tfd.LAUNCHES["dense_decode"] == before
+
+
+# (B, S, H, K, D, lengths, n_split): several split counts, splits past a
+# row's length (a short row, a split count above the length) and a
+# zero-length row
+SPLIT_CASES = [(2, 256, 4, 4, 128, [128, 256], 2),
+               (3, 512, 8, 2, 128, [256, 512, 128], 5),
+               (2, 256, 4, 1, 64, [128, 256], 16),
+               (3, 512, 8, 4, 64, [500, 0, 7], 12),
+               (2, 256, 4, 2, 64, [3, 256], 64)]
+
+
+@pytest.mark.parametrize("b,s,h,kv,d,lens,n_split", SPLIT_CASES)
+def test_split_partials_match_pallas_kernel(b, s, h, kv, d, lens, n_split):
+    """The kernel's split arithmetic (per-split partials over [i·c,
+    min((i+1)·c, len)), c = ceil(len / n_split), rescaled to the common max
+    and summed in split order) against the JAX package's
+    ``flash_decode_partial`` at 2e-5; a zero-length row stays empty."""
+    q, k, v, ln = _case(b, s, h, kv, d, lens, seed=n_split)
+    oj, mj, lj = jfd.flash_decode_partial(
+        *[jnp.asarray(a) for a in (q, k, v, ln)], interpret=True)
+    ot, mt, lt = tfd._dense_decode_torch(*_t(q, k, v, ln), n_split=n_split)
+    np.testing.assert_allclose(_normalized(ot, lt), _normalized(oj, lj),
+                               **TOL)
+    live = ln > 0
+    np.testing.assert_allclose(mt.numpy()[live], np.asarray(mj)[live], **TOL)
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **TOL)
+    empty = ~live
+    assert bool((ot[empty] == 0).all() and (lt[empty] == 0).all())
+    assert bool((mt[empty] == -1e30).all())
+
+
+def test_split_spans_cover_each_row_once():
+    """Split i of a row covers [i·c, min((i+1)·c, len)): the spans tile
+    [0, len) in order, and splits past the length are empty."""
+    lens = torch.tensor([0, 1, 67, 1064, 5000], dtype=torch.int32)
+    spans = tfd.split_spans(lens, 1068, 16)
+    assert len(spans) == 16
+    for r, n in enumerate([0, 1, 67, 1064, 1068]):
+        edges = [(int(lo[r]), int(hi[r])) for lo, hi in spans]
+        assert edges[0][0] == 0 and edges[-1][1] == n
+        assert all(a[1] == b_[0] for a, b_ in zip(edges, edges[1:]))
+        assert all(lo <= hi for lo, hi in edges)
+    assert [int(hi[2] - lo[2]) for lo, hi in spans] == [5] * 13 + [2, 0, 0]
+
+
+@pytest.mark.parametrize("b,n_kv,s,want", [
+    (1, 16, 1068, 16), (8, 16, 4096, 3), (1, 16, 65, 1), (4, 4, 8192, 17),
+    (1, 1, 100000, 64), (64, 16, 4096, 1)])
+def test_split_count_fills_the_card(b, n_kv, s, want):
+    """About two blocks per SM over the B·K pairs (132 SMs), at least 64
+    positions of S a split, at most 64 splits."""
+    assert tfd.dense_splits(b, n_kv, s, 132) == want

@@ -203,3 +203,70 @@ def test_cuda_path_raises_instead_of_falling_back(monkeypatch, tmp_path):
         tfa._entries.cache_clear()
     assert not (tmp_path / "build").exists()
     assert sum(tfa.LAUNCHES.values()) == 0
+
+
+def _bf16_ulps_beyond(a, b, atol=1e-5):
+    """Worst |a - b| beyond ``atol``, in bf16 ulps of the larger
+    magnitude (chip_smoke.py's rule for bf16 outputs)."""
+    a, b = _f32(a), _f32(b)
+    mag = np.maximum(np.abs(a), np.abs(b)).clip(2.0 ** -126)
+    ulp = np.exp2(np.floor(np.log2(mag)) - 7)
+    return float(np.max(np.clip(np.abs(a - b) - atol, 0, None) / ulp))
+
+
+# (B, T, S, H, K, D, causal): G in {1, 2, 4}, D in {64, 128}, causal and
+# full, T != S (the reference's blocks must divide T and S)
+SPLIT_CASES = [(1, 128, 128, 4, 4, 64, True), (1, 128, 128, 4, 2, 128, True),
+               (1, 64, 256, 4, 1, 64, False), (2, 128, 128, 2, 2, 128, False)]
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=str)
+def test_split_backward_matches_pallas_kernel(case):
+    """The tensor-core body's arithmetic (P and dS as bf16 hi + lo, every
+    product in f32) against the TPU kernels' backward in interpret mode on
+    the same bf16 inputs: dq, dk, dv within one bf16 ulp at G = 1 and two
+    at G > 1, beyond a 1e-5 floor (chip_smoke.py's flash limits)."""
+    b, t, s, h, kv, d, causal = case
+    rng = np.random.default_rng(9)
+    q, do = (_rand(rng, (b, h, t, d), "bf16") for _ in range(2))
+    k, v = (_rand(rng, (b, kv, s, d), "bf16") for _ in range(2))
+    jo, jl = jfa.flash_attention_fwd(jnp.asarray(q), jnp.asarray(k),
+                                     jnp.asarray(v), causal=causal,
+                                     interpret=True)
+    jg = jfa.flash_attention_bwd(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v), jo, jl, jnp.asarray(do),
+                                 causal=causal, interpret=True)
+    tg = tfa._flash_bwd_split_torch(
+        _torch(q), _torch(k), _torch(v), _torch(np.asarray(jo)),
+        _torch(np.asarray(jl)), _torch(do), causal=causal)
+    ulps = 1 if h == kv else 2
+    for name, a, c in zip(("dq", "dk", "dv"), tg, jg):
+        assert a.dtype == torch.bfloat16
+        assert _bf16_ulps_beyond(a, c) <= ulps, name
+
+
+def test_hi_lo_split_rebuilds_f32_to_2_pow_minus_16():
+    """hi = bf16(x), lo = bf16(x - hi): hi + lo is x within 2^-16 |x|
+    over magnitudes 1e-20..1e20, and hi alone is not (2^-9)."""
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy((rng.standard_normal(100_000)
+                          * 10.0 ** rng.uniform(-20, 20, 100_000))
+                         .astype(np.float32))
+    hi, lo = tfa.split_bf16(x)
+    assert hi.dtype == lo.dtype == torch.bfloat16
+    rel = ((hi.float() + lo.float()) - x).abs() / x.abs()
+    assert float(rel.max()) <= 2.0 ** -16
+    assert float(((hi.float() - x).abs() / x.abs()).max()) > 2.0 ** -10
+
+
+def test_three_part_split_rebuilds_f32_to_2_pow_minus_24():
+    """Three bf16 parts (the f32-output ``dense`` gradient's cotangent)
+    sum to x within 2^-24 |x|, an f32 rounding."""
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy((rng.standard_normal(100_000)
+                          * 10.0 ** rng.uniform(-20, 20, 100_000))
+                         .astype(np.float32))
+    parts = tfa.split_bf16(x, 3)
+    assert len(parts) == 3 and all(p.dtype == torch.bfloat16 for p in parts)
+    back = (parts[0].float() + parts[1].float()) + parts[2].float()
+    assert float(((back - x).abs() / x.abs()).max()) <= 2.0 ** -24

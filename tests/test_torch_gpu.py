@@ -130,7 +130,7 @@ FLASH_CASES = ([(1, 128, 128, 4, 4, 128, c) for c in (True, False)]
                                                    False)])
 
 
-def _assert_flash_close(a, b, ulps=BF16_ULPS):
+def _assert_flash_close(a, b, ulps=BF16_ULPS, atol=BF16_ATOL):
     if a.dtype != torch.bfloat16:
         torch.testing.assert_close(a, b, **TOL)
         return
@@ -138,8 +138,9 @@ def _assert_flash_close(a, b, ulps=BF16_ULPS):
     mag = torch.maximum(a.abs(), b.abs()).clamp_min(2.0 ** -126)
     ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
     diff = (a - b).abs()
-    assert bool((diff <= BF16_ATOL + ulps * ulp).all()), \
-        f"{float((diff / ulp).max())} bf16 ulps > {ulps}"
+    assert bool((diff <= atol + ulps * ulp).all()), \
+        f"{float(((diff - atol).clamp_min(0) / ulp).max())} bf16 ulps " \
+        f"beyond {atol} > {ulps}"
 
 
 def _flash_case(dev, b, t, s, h, kv, d, dtype, seed=0):
@@ -591,3 +592,220 @@ def test_spec_engine_launch_counts(cuda, spec):
             assert st["spec_rounds"] > 0 and st["decode_steps"] == 0
     if spec == "self-draft":
         assert drafted[1] > 0
+
+
+# --------------------------------------------------------------------------
+# Split dense decode: many splits, planted split faults, graph replay
+# --------------------------------------------------------------------------
+
+# (B, S, H, K, D, lengths): long caches that the kernel splits many ways,
+# G in {1, 2, 8}, D in {64, 128}, lengths that leave whole splits empty
+# and one that reaches S
+SPLIT_CASES = [(1, 4096, 16, 16, 64, [4096]), (4, 4096, 8, 4, 128,
+                                               [4096, 3000, 17, 0]),
+               (8, 4096, 16, 16, 64, [4096, 1, 2048, 4095, 333, 64, 0,
+                                      4000]),
+               (1, 8192, 8, 1, 128, [8192]), (4, 8192, 16, 2, 64,
+                                             [8192, 100, 7000, 5]),
+               (8, 8192, 8, 4, 64, [8192, 0, 1, 8191, 4096, 4097, 63, 64])]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_dense_decode_split_kernel_matches_plain(cuda, case, dtype):
+    """The split kernel at its own split count and at forced ones (1, 3,
+    64) against the plain version (2e-5 on the normalized output, m, l)."""
+    args = _dense_case(cuda, *case, dtype, seed=case[1] + case[0])
+    wo, wm, wl = fd._dense_decode_torch(*args)
+    n_auto = fd.dense_splits(case[0], case[3], case[1],
+                             torch.cuda.get_device_properties(
+                                 cuda).multi_processor_count)
+    assert n_auto > 1 or case[0] * case[3] >= 264
+    for n_split in (None, 1, 3, 64):
+        o, m, l = fd._dense_decode_cuda(*args, n_split=n_split)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(o / l.clamp_min(1e-30),
+                                   wo / wl.clamp_min(1e-30), **TOL)
+        torch.testing.assert_close(m, wm, **TOL)
+        torch.testing.assert_close(l, wl, **TOL)
+        empty = args[3] == 0
+        assert bool((o[empty] == 0).all() and (l[empty] == 0).all())
+        assert bool((m[empty] == -1e30).all())
+
+
+def _split_parts(q, k, v, lens, n_split):
+    """Each split's partial, from the kernel run on that split's positions
+    alone (one launch per row and split)."""
+    parts = []
+    for lo, hi in fd.split_spans(lens, k.shape[2], n_split):
+        rows = []
+        for r in range(q.shape[0]):
+            a, b = int(lo[r]), int(hi[r])
+            rows.append(fd._dense_decode_cuda(
+                q[r:r + 1], k[r:r + 1, :, a:b], v[r:r + 1, :, a:b],
+                torch.tensor([b - a], dtype=torch.int32, device=q.device),
+                n_split=1))
+        parts.append(tuple(torch.cat(x) for x in zip(*rows)))
+    return parts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fault", ["split dropped", "no rescale"])
+def test_dense_decode_split_faults_break_the_limit(cuda, fault):
+    """The per-split partials merged as the kernel merges them equal the
+    kernel; one split dropped, or the partials summed without the rescale
+    to the common max, breaks 2e-5."""
+    case = (2, 4096, 8, 4, 64, [4096, 2500])
+    q, k, v, lens = _dense_case(cuda, *case, torch.float32, seed=11)
+    n_split = 8
+    parts = _split_parts(q, k, v, lens, n_split)
+    want = fd._dense_decode_cuda(q, k, v, lens, n_split=n_split)
+    good = fd.merge_split_partials(parts)
+    for a, b in zip(good, want):
+        torch.testing.assert_close(a, b, **TOL)
+    if fault == "split dropped":
+        bad = fd.merge_split_partials(parts[:3] + parts[4:])
+    else:
+        bad = (sum(p[0] for p in parts), torch.stack(
+            [p[1] for p in parts]).amax(0), sum(p[2] for p in parts))
+    norm = [x[0] / x[2].clamp_min(1e-30) for x in (bad, want)]
+    assert not (torch.allclose(*norm, **TOL) and
+                torch.allclose(bad[2], want[2], **TOL))
+
+
+@pytest.mark.gpu
+def test_dense_decode_split_kernel_replays_in_a_cuda_graph(cuda):
+    """Captured once at the draft's shape and replayed on new inputs
+    copied into the captured buffers: each replay equals the plain
+    version, and the split counters stay zero between calls."""
+    q, k, v, lens = _dense_case(cuda, 1, 1068, 16, 16, 64, [1064],
+                                torch.bfloat16, seed=3)
+    kt, vt = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    kv = (kt.transpose(1, 2), vt.transpose(1, 2))     # the models' layout
+    fd._dense_decode_cuda(q, *kv, lens)               # sizes the counters
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fd._dense_decode_cuda(q, *kv, lens)
+    for seed in (4, 5, 6):
+        g = torch.Generator(device=cuda).manual_seed(seed)
+        for x in (q, kt, vt):
+            x.copy_(torch.randn(x.shape, generator=g, device=cuda))
+        lens.fill_(100 * seed)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = fd._dense_decode_torch(q, *kv, lens)
+        torch.testing.assert_close(out[0] / out[2], want[0] / want[2],
+                                   **TOL)
+        torch.testing.assert_close(out[1], want[1], **TOL)
+        assert int(fd._COUNTERS[q.device].abs().sum()) == 0
+
+
+# --------------------------------------------------------------------------
+# flash backward on the tensor cores
+# --------------------------------------------------------------------------
+
+# (B, T, S, H, K, D, causal): G in {1, 2, 4, 8} x D in {64, 128}, causal
+# and full, T and S off the 64-row tiles
+MMA_BWD_CASES = [(1, t, s, 8, 8 // g, d, c) for g in (1, 2, 4, 8)
+                 for d in (64, 128)
+                 for t, s, c in ((100, 100, True), (70, 130, False))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", MMA_BWD_CASES, ids=str)
+def test_flash_backward_runs_the_tensor_cores(cuda, case):
+    """bf16 at D 64 and 128 takes the mma body; its dq, dk and dv are
+    within one bf16 ulp of the plain version at G = 1 and two elsewhere
+    (the limits of the FMA body), beyond the 1e-5 floor."""
+    from repro_torch.kernels import flash_attention as fa
+    *shape, causal = case
+    q, k, v, do = _flash_case(cuda, *shape, torch.bfloat16, seed=7)
+    assert fa.bwd_body(torch.bfloat16, shape[-1]) == "mma"
+    assert fa.bwd_body(torch.float32, shape[-1]) == "simt"
+    o, lse = fa._flash_fwd_torch(q, k, v, causal=causal)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    want = fa._flash_bwd_torch(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    ulps = 1 if shape[3] == shape[4] else BF16_ULPS
+    for a, b in zip(got, want):
+        _assert_flash_close(a, b, ulps=ulps)
+
+
+# --------------------------------------------------------------------------
+# dense on the tensor cores
+# --------------------------------------------------------------------------
+
+# qwen1.5-0.5b's projections: (name, x shape after the rows, w shape, out)
+QWEN_PROJ = [("q/k/v", (1024,), (1024, 16, 64), torch.float32),
+             ("o", (16, 64), (16, 64, 1024), None),
+             ("gate/up", (1024,), (1024, 2816), torch.float32),
+             ("head", (1024,), (1024, 151936), None)]
+
+
+def _dense_floor(k, ref):
+    """chip_smoke.py's floor for a bf16 product output: 16 x the f32
+    roundoff of a K-term sum at the output's scale (sqrt(K) 2^-24 rms),
+    never below ``BF16_ATOL``."""
+    rms = float(torch.linalg.vector_norm(ref, dtype=torch.float32)
+                / ref.numel() ** 0.5)
+    return max(BF16_ATOL, 16 * k ** 0.5 * 2.0 ** -24 * rms)
+
+
+def _dense_grads(fn, x, w, dy):
+    xg, wg = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    y = fn(xg, wg)
+    return (y.detach(), *torch.autograd.grad(y, (xg, wg), dy))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [8, 512])
+@pytest.mark.parametrize("proj", QWEN_PROJ, ids=[p[0] for p in QWEN_PROJ])
+def test_dense_tensor_core_route_matches_f32_route(cuda, rows, proj):
+    """``dense`` on bf16 CUDA operands against the f32 route on the same
+    tensors: bf16 outputs and gradients within one bf16 ulp beyond the
+    sums' f32 roundoff floor, f32 outputs within 2e-5; an f32 output
+    rounded through bf16 breaks that limit."""
+    from repro_torch.core.device import resolve_device
+    from repro_torch.models import layers as L
+    resolve_device(cuda)            # the card's numerics switches
+    _, xs, ws, out = proj
+    g = torch.Generator(device=cuda).manual_seed(rows)
+    x = torch.randn((rows, *xs), generator=g, device=cuda).bfloat16()
+    w = (torch.randn(ws, generator=g, device=cuda) * 0.03).bfloat16()
+    n_in = len(xs)
+    out_dt = out or torch.bfloat16
+    dy = torch.randn((rows, *ws[n_in:]), generator=g, device=cuda).to(out_dt)
+
+    def f32_route(a, b):
+        k = a[0].numel()
+        y = L._dense_f32(a.reshape(rows, k), b.reshape(k, -1), out_dt)
+        return y.reshape(rows, *ws[n_in:])
+
+    got = _dense_grads(lambda a, b: L.dense(a, b, n_in, out_dtype=out), x,
+                       w, dy)
+    want = _dense_grads(f32_route, x, w, dy)
+    assert L.tensor_core_route(x.dtype, w.dtype, out_dt)
+    n_out = want[0][0].numel()
+    for a, b, k_sum in zip(got, want, (x[0].numel(), n_out, rows)):
+        assert a.dtype == b.dtype
+        _assert_flash_close(a, b, ulps=1, atol=_dense_floor(k_sum, b))
+    if out_dt == torch.float32:
+        k = x[0].numel()
+        bad = torch.matmul(x.reshape(rows, k), w.reshape(k, -1)).float()
+        assert not torch.allclose(bad, want[0].reshape(rows, -1), **TOL)
+
+
+@pytest.mark.gpu
+def test_dense_keeps_the_f32_route_for_an_f32_operand(cuda):
+    """swiglu's down projection reads the f32 gate chain: its product is
+    the f32 route's, bit for bit."""
+    from repro_torch.models import layers as L
+    g = torch.Generator(device=cuda).manual_seed(0)
+    h = torch.randn((8, 2816), generator=g, device=cuda)
+    w = (torch.randn((2816, 1024), generator=g, device=cuda) * 0.02
+         ).bfloat16()
+    assert not L.tensor_core_route(h.dtype, w.dtype, torch.float32)
+    assert torch.equal(L.dense(h, w), L._dense_f32(h, w, torch.float32))
