@@ -9,13 +9,19 @@ imports nothing of the JAX package). Phases, one line each:
 1. device   - the card's name and power limit (nvidia-smi), torch and CUDA.
 2. build    - nvcc builds every kernel from ``src/repro_torch/kernels/
               csrc`` (one nvcc per source, all in parallel), and the flash
-              library once more with ``-DFLASH_PLANT_P_HI_ONLY`` (phase
-              6's planted fault). Phase 19 runs next.
+              library twice more, with ``-DFLASH_PLANT_P_HI_ONLY`` and
+              with ``-DFLASH_PLANT_FWD_P_HI_ONLY`` (phase 6's planted
+              faults). Phase 19 runs next.
 3. kernel   - the paged-attention kernel against its plain PyTorch version
               on the card over T x G x D x {bf16, int8} with a padded table
-              bucket, a zero-length row and a short row; T=1 through the
+              bucket, a zero-length row and a short row, and at contexts it
+              splits many ways (up to 4,096 positions on a 256-column
+              table; the split count per case is printed); T=1 through the
               decode entry point equals T=1 through the prefix entry point
-              bit for bit.
+              bit for bit, and row t of every T-wide read equals the T=1
+              read of q[:, t] bit for bit; four planted faults (one split
+              dropped, the merge without the rescale, each split's span one
+              page short, the int8 scales skipped) must each break 2e-5.
 4. engine   - full-width qwen1.5-0.5b (seeded random weights) serves 16
               requests (prompts 64/256/1000, 64 new tokens each) twice:
               whole-prompt prefill with bf16 KV, and chunked prefill (64)
@@ -27,8 +33,8 @@ imports nothing of the JAX package). Phases, one line each:
               margin of it.
 5. timing   - engine decode tok/s and p50 TTFT; the kernel held against
               its plain version at the engine's decode and chunk shapes
-              (16 KV heads, D=64), and its time per launch there beside
-              its byte bound,
+              (16 KV heads, D=64), and its time per launch there by CUDA-
+              graph replay (and once by events) beside its byte bound,
               the plain version's time and one
               ``scaled_dot_product_attention`` call on the same K/V
               gathered dense (timed here only; the port never calls it).
@@ -39,11 +45,12 @@ imports nothing of the JAX package). Phases, one line each:
               shape at B=1 in f32 and bf16 (f32 within 2e-5, bf16 within
               a few bf16 ulps); the autograd wrapper's gradient against
               autograd through the materialized-score attention. It says
-              which backward body each case ran (bf16 at D 64/128: bf16
-              mma.sync tiles with P and dS split hi + lo; f32: the FMA
-              body), and counts the tensor-core cases at which the
-              planted build (P rounded to bf16, no low half) breaks a
-              limit: a reading, not a check.
+              which forward and backward body each case ran (bf16 at D
+              64/128 must be bf16 mma.sync tiles with P and dS split hi +
+              lo; f32: the FMA body), and counts the tensor-core cases at
+              which each planted build (P rounded to bf16, no low half, in
+              the backward's dV and in the forward's O) breaks a limit:
+              readings, not checks.
 7. train    - full-width qwen1.5-0.5b (seeded random weights) trains
               through ``Trainer`` with technique F+R+Z3 at batch 4 x
               2048 tokens. First one loss + backward through the flash
@@ -62,8 +69,9 @@ imports nothing of the JAX package). Phases, one line each:
               and the whole backward), and
               ``scaled_dot_product_attention`` forward, backward and
               forward + backward on the same tensors (timed here only);
-              the backward's bound as built (10 products: P and dS each
-              take two) beside the useful work's.
+              each kernel's body and bound as built (the forward 3
+              products, the backward 10: P and dS each take two) beside
+              the useful work's.
 9. ssd      - the SSD kernel against its plain version on the card, f32,
               at mamba2-130m's whole-prompt shape (B=4, T=1000 padded to
               1024, H=24, P=64, N=128, chunk 256), its chunk-step shape
@@ -280,6 +288,14 @@ DENSE_SPLIT_CASES = ((1, 4096, 16, 16, 64, [4096]),
                      (4, 8192, 16, 2, 64, [8192, 100, 7000, 5]),
                      (8, 8192, 8, 4, 64, [8192, 0, 1, 8191, 4096, 4097, 63,
                                           64]))
+# paged cases the kernel splits many ways (T, B, G, D, lengths, int8): up to
+# 4,096 positions on a 256-column table, a verify window, a chunk, whole
+# splits empty, a zero-length row
+PAGED_SPLIT_CASES = ((1, 8, 1, 64, [4096, 1, 2048, 4095, 333, 64, 0, 4000],
+                      False),
+                     (5, 4, 2, 128, [4096, 17, 0, 2000], True),
+                     (64, 1, 1, 64, [4096], True),
+                     (8, 2, 4, 64, [3000, 40], False))
 # rows of the dense phase: a decode step's 8 and a training step's 4 x 2048
 DENSE_ROWS = (8, 8192)
 # the tensor cores and an f32 SGEMM sum a product's K terms in other orders
@@ -432,55 +448,179 @@ def allclose(a, b, **tol) -> bool:
 # --------------------------------------------------------------------------
 
 
+def paged_vs_plain(args, run=None):
+    """The paged kernel (or ``run``) against the plain version on the same
+    inputs: (worst |err| of the normalized output, whether it, m and l are
+    within ``KERNEL_TOL``)."""
+    import torch
+    from repro_torch.kernels import flash_decode as fd
+    got = (run or fd._paged_mq_cuda)(*args)
+    want = fd._paged_prefix_torch(*args)
+    torch.cuda.synchronize()
+    og, ow = normalized(got[0], got[2]), normalized(want[0], want[2])
+    ok = (allclose(og, ow, **KERNEL_TOL) and
+          allclose(got[1], want[1], **KERNEL_TOL) and
+          allclose(got[2], want[2], **KERNEL_TOL))
+    return max_err(og, ow), ok
+
+
+def paged_split_parts(run, args, short=False):
+    """Each of the kernel's column splits at this shape as its own
+    partial, from ``run`` on that split's table columns alone (one launch
+    per row and split, one split each); ``short`` drops the last page of
+    every split's span."""
+    import torch
+    from repro_torch.kernels import flash_decode as fd
+    q, k, v, table, lens, ks, vs = args
+    bs, mb = k.shape[1], table.shape[1]
+    n_split = fd.paged_splits(q.shape[0], k.shape[2], mb,
+                              torch.cuda.get_device_properties(
+                                  0).multi_processor_count)
+    parts = []
+    for lo, hi in fd.page_spans(lens, bs, mb, n_split):
+        rows = []
+        for r in range(q.shape[0]):
+            a, b = int(lo[r]), int(hi[r]) - int(short and hi[r] > lo[r])
+            live = max(0, min(int(lens[r]) - a * bs, (b - a) * bs))
+            cols = (slice(a, b) if live else slice(0, 1))  # >= 1 column
+            rows.append(run(q[r:r + 1], k, v,
+                            table[r:r + 1, cols].contiguous(),
+                            torch.tensor([live], dtype=torch.int32,
+                                         device=q.device), ks, vs,
+                            n_split=1))
+        parts.append(tuple(torch.cat(x) for x in zip(*rows)))
+    return parts
+
+
+def _paged_split_dropped(run):
+    """The middle split's partial left out of the merge."""
+    def fault(*args):
+        from repro_torch.kernels import flash_decode as fd
+        parts = paged_split_parts(run, args)
+        if len(parts) > 1:
+            del parts[len(parts) // 2]
+        return fd.merge_split_partials(parts)
+    return fault
+
+
+def _paged_no_rescale(run):
+    """The splits' partials summed as they are, without the rescale to
+    their common max."""
+    def fault(*args):
+        import torch
+        parts = paged_split_parts(run, args)
+        return (sum(p[0] for p in parts),
+                torch.stack([p[1] for p in parts]).amax(0),
+                sum(p[2] for p in parts))
+    return fault
+
+
+def _paged_span_short(run):
+    """Every split's span one page short (its last page not read)."""
+    def fault(*args):
+        from repro_torch.kernels import flash_decode as fd
+        return fd.merge_split_partials(paged_split_parts(run, args,
+                                                         short=True))
+    return fault
+
+
+def _paged_scale_skipped(run):
+    """int8 pages read without their scales (all ones)."""
+    def fault(q, k, v, table, lens, ks, vs):
+        import torch
+        if ks is not None:
+            ks, vs = torch.ones_like(ks), torch.ones_like(vs)
+        return run(q, k, v, table, lens, ks, vs)
+    return fault
+
+
+PAGED_PLANTED = (("one split's partial dropped", _paged_split_dropped),
+                 ("partials merged without the rescale to the common max",
+                  _paged_no_rescale),
+                 ("each split's span one page short", _paged_span_short),
+                 ("int8 scales skipped", _paged_scale_skipped))
+
+
 def phase_kernel_vs_plain():
     import torch
     from repro_torch.kernels import flash_decode as fd
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     n = 0
     worst = 0.0
+    cases = []
     for t in (1, 4, 8, 64):
         for gq in (1, 2, 4):
             for d in (64, 128):
                 for quant in (False, True):
                     bs, mb, kv = 16, 8, 2
-                    lengths = [mb * bs - 5, bs + 3, 0]   # full, short, empty
-                    q, k, v, ks, vs, table, lens = make_paged_case(
-                        b=3, t=t, h=kv * gq, kv=kv, d=d, bs=bs,
-                        lengths=lengths, mb=mb, n_blocks=40, quant=quant,
-                        seed=n)
-                    args = (q, k[0], v[0], table, lens, layer(ks, 0),
-                            layer(vs, 0))
-                    want = fd._paged_prefix_torch(*args)
-                    got = fd._paged_mq_cuda(*args)
-                    torch.cuda.synchronize()
-                    ow, og = normalized(want[0], want[2]), normalized(
-                        got[0], got[2])
-                    tag = f"T={t} G={gq} D={d} {'int8' if quant else 'bf16'}"
-                    check(allclose(og, ow, **KERNEL_TOL),
-                          f"kernel output differs at {tag}: "
-                          f"{max_err(og, ow)}")
-                    check(allclose(got[1], want[1], **KERNEL_TOL),
-                          f"kernel m differs at {tag}")
-                    check(allclose(got[2], want[2], **KERNEL_TOL),
-                          f"kernel l differs at {tag}")
-                    check(bool(torch.all(got[0][2] == 0)) and
-                          bool(torch.all(got[2][2] == 0)) and
-                          bool(torch.all(got[1][2] == -1e30)),
-                          f"zero-length row not empty at {tag}")
-                    worst = max(worst, max_err(og, ow))
-                    if t == 1:
-                        one = fd.paged_flash_decode_partial(
-                            q[:, 0], k[0], v[0], table, lens,
-                            k_scale=layer(ks, 0), v_scale=layer(vs, 0))
-                        mq = fd.paged_flash_prefix_partial(
-                            q, k[0], v[0], table, lens,
-                            k_scale=layer(ks, 0), v_scale=layer(vs, 0))
-                        for a, b in zip(one, mq):
-                            check(torch.equal(a, b[:, 0]),
-                                  f"T=1 decode != prefix bitwise at {tag}")
-                    n += 1
+                    cases.append(dict(b=3, t=t, h=kv * gq, kv=kv, d=d, bs=bs,
+                                      lengths=[mb * bs - 5, bs + 3, 0],
+                                      mb=mb, n_blocks=40, quant=quant))
+    # contexts the kernel splits many ways: up to 4,096 positions on a
+    # 256-column table, B up to 8, G 1/2/4, whole splits empty
+    for t, b, gq, d, lengths, quant in PAGED_SPLIT_CASES:
+        kv = 16 if gq == 1 else 4
+        cases.append(dict(b=b, t=t, h=kv * gq, kv=kv, d=d, bs=16,
+                          lengths=lengths, mb=256,
+                          n_blocks=sum(-(-x // 16) for x in lengths) + 2,
+                          quant=quant))
+    splits = []
+    for i, c in enumerate(cases):
+        q, k, v, ks, vs, table, lens = make_paged_case(**c, seed=i)
+        args = (q, k[0], v[0], table, lens, layer(ks, 0), layer(vs, 0))
+        tag = (f"B={c['b']} T={c['t']} G={c['h'] // c['kv']} D={c['d']} "
+               f"mb={c['mb']} {'int8' if c['quant'] else 'bf16'}")
+        err, ok = paged_vs_plain(args)
+        check(ok, f"kernel differs from plain at {tag}: {err}")
+        got = fd._paged_mq_cuda(*args)
+        empty = lens == 0
+        check(bool((got[0][empty] == 0).all() and (got[2][empty] == 0).all()
+                   and (got[1][empty] == -1e30).all()),
+              f"zero-length row not empty at {tag}")
+        worst = max(worst, err)
+        splits.append(fd.paged_splits(c["b"], c["kv"], c["mb"], n_sm))
+        # row t of a T-wide read is the T=1 read of q[:, t], bit for bit
+        for t in range(c["t"]):
+            one = fd._paged_mq_cuda(q[:, t:t + 1].contiguous(), *args[1:])
+            check(all(torch.equal(a[:, t:t + 1], b) for a, b in
+                      zip(got, one)),
+                  f"row {t} of the T={c['t']} read != the T=1 read at {tag}")
+        if c["t"] == 1:
+            kw = dict(k_scale=layer(ks, 0), v_scale=layer(vs, 0))
+            one = fd.paged_flash_decode_partial(q[:, 0], *args[1:5], **kw)
+            mq = fd.paged_flash_prefix_partial(q, *args[1:5], **kw)
+            for a, b in zip(one, mq):
+                check(torch.equal(a, b[:, 0]),
+                      f"T=1 decode != prefix bitwise at {tag}")
+        n += 1
+    long = splits[-len(PAGED_SPLIT_CASES):]
+    check(all(x > 1 for x in long), f"a long case ran unsplit: {long}")
     print(f"[kernel] {n} cases kernel == plain within rtol=atol=2e-5 "
           f"(max |err| of normalized output {worst:.3g}); T=1 decode read "
-          f"== prefix read bitwise")
+          f"== prefix read bitwise; row t of every T-wide read == the T=1 "
+          f"read bitwise; zero-length rows empty; column splits per case "
+          f"{splits[0]} (the {n - len(long)} short cases), then {long} (up "
+          f"to 4,096 positions on a 256-column table)")
+    for name, fault in PAGED_PLANTED:
+        caught, total = [], 0
+        for i, c in enumerate(cases):
+            if name.startswith("int8") and not c["quant"]:
+                continue
+            if "split" in name or "merged" in name:
+                if splits[i] == 1:
+                    continue
+            total += 1
+            q, k, v, ks, vs, table, lens = make_paged_case(**c, seed=i)
+            err, ok = paged_vs_plain(
+                (q, k[0], v[0], table, lens, layer(ks, 0), layer(vs, 0)),
+                fault(fd._paged_mq_cuda))
+            if not ok:
+                caught.append(err)
+        check(bool(caught), f"planted paged fault '{name}' passes every "
+              f"case")
+        print(f"[kernel] planted fault '{name}': caught at {len(caught)} of "
+              f"{total} cases it applies to (max |err| "
+              f"{min(caught):.3g}-{max(caught):.3g})")
 
 
 def dense_reference_logits(model, params, tokens, kv_quant):
@@ -591,11 +731,17 @@ def phase_engine(cfg, params, *, prefill_chunk, kv_quant):
     return launches, st
 
 
-def time_shape(cfg, *, b, t, lengths, quant, mb, n_blocks, n_layers):
+def time_shape(cfg, *, b, t, lengths, quant, mb, n_blocks, n_layers,
+               splits=()):
     """The kernel against its plain version at one shape of the main path
     (normalized output, m and l within ``KERNEL_TOL``), then kernel, plain
     and library times there, cycling through ``n_layers`` pools as the
-    engine does so the pages are not L2-hot."""
+    engine does so the pages are not L2-hot. The kernel and SDPA are timed
+    by CUDA-graph replay (their device time is below the wrapper's host
+    cost), and once more by events around a run of calls, as earlier
+    readings were; the plain version reads ``lengths`` on the host, so
+    events time it. The kernel is also timed at each split count of
+    ``splits``, the neighbours of ``paged_splits``' choice."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_decode as fd
@@ -620,8 +766,12 @@ def time_shape(cfg, *, b, t, lengths, quant, mb, n_blocks, n_layers):
           f"kernel m differs from plain at {tag}")
     check(allclose(out[2], ref[2], **KERNEL_TOL),
           f"kernel l differs from plain at {tag}")
-    ms = cuda_ms(lambda i: fd._paged_mq_cuda(*args(i), sm_scale=scale),
-                 iters=200)
+    ms = graph_ms(lambda i: fd._paged_mq_cuda(*args(i), sm_scale=scale))
+    by_split = {n: graph_ms(lambda i: fd._paged_mq_cuda(
+        *args(i), sm_scale=scale, n_split=n)) for n in splits}
+    event_ms = cuda_ms(lambda i: fd._paged_mq_cuda(*args(i),
+                                                   sm_scale=scale),
+                       iters=200)
     plain_ms = cuda_ms(
         lambda i: fd._paged_prefix_torch(*args(i), sm_scale=scale), iters=20)
     # the same attention as one library call on K/V gathered dense
@@ -641,8 +791,13 @@ def time_shape(cfg, *, b, t, lengths, quant, mb, n_blocks, n_layers):
     mask = (torch.arange(cols * bs, device="cuda")[None, :]
             < lens[:, None])[:, None, None, :]
     qd = q.transpose(1, 2).contiguous()
-    lib_ms = cuda_ms(lambda i: F.scaled_dot_product_attention(
-        qd, *dense[i % n_layers], attn_mask=mask, scale=scale), iters=200)
+
+    def sdpa(i):
+        return F.scaled_dot_product_attention(
+            qd, *dense[i % n_layers], attn_mask=mask, scale=scale)
+
+    lib_ms = graph_ms(sdpa)
+    lib_event_ms = cuda_ms(sdpa, iters=200)
     # least traffic: live K/V (+ int8 scales) once, the live table columns,
     # lengths and q once, o/m/l once
     live = sum(lengths)
@@ -657,7 +812,11 @@ def time_shape(cfg, *, b, t, lengths, quant, mb, n_blocks, n_layers):
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "max_abs_err": err}
+            "max_abs_err": err, "event_ms": event_ms, "by_split": by_split,
+            "library_event_ms": lib_event_ms,
+            "n_split": fd.paged_splits(b, kv, mb, torch.cuda.
+                                       get_device_properties(0).
+                                       multi_processor_count)}
 
 
 
@@ -754,7 +913,11 @@ def phase_flash_vs_plain():
                 b=b, h=h, kv=kv, t=t, s=s, d=d, dtype=dtype, seed=i), causal)
             worst[dtype] = max(worst[dtype], *errs.values())
             worst_ulps = max(worst_ulps, *ulps.values(), 0.0)
-            key = (str(dtype).replace("torch.", ""), fa.bwd_body(dtype, d))
+            fwd, bwd = fa.fwd_body(dtype, d), fa.bwd_body(dtype, d)
+            check(fwd == bwd == ("mma" if dtype == torch.bfloat16 and
+                                 d in (64, 128) else "simt"),
+                  f"flash bodies fwd {fwd}, bwd {bwd} for {dtype} at D={d}")
+            key = (str(dtype).replace("torch.", ""), fwd, bwd)
             bodies[key] = bodies.get(key, 0) + 1
             n += 1
     sh = TRAIN_SHAPE
@@ -797,10 +960,12 @@ def phase_flash_vs_plain():
           + ", ".join(f"{nm} {c} of {n_row if nm == 'lse' else n_row * sh['d']}"
                       for nm, c in train_diff.items()) + ")"
           + f"; autograd through the kernels == naive autograd within "
-          f"2e-3 (max |err| {grad_err:.3g}); backward body per case: "
-          + ", ".join(f"{dt} {body} x {c}" for (dt, body), c in
+          f"2e-3 (max |err| {grad_err:.3g}); forward/backward body per "
+          f"case: "
+          + ", ".join(f"{dt} {fb}/{bb} x {c}" for (dt, fb, bb), c in
                       sorted(bodies.items()))
-          + f", training shape bf16 {fa.bwd_body(torch.bfloat16, sh['d'])}")
+          + f", training shape bf16 {fa.fwd_body(torch.bfloat16, sh['d'])}/"
+          f"{fa.bwd_body(torch.bfloat16, sh['d'])}")
     # planted in the kernel build: P's low half dropped from dV += P^T dO
     caught, total = [], 0
     with fault_build(fa, FLASH_FAULT):
@@ -825,6 +990,31 @@ def phase_flash_vs_plain():
           f"{total} bf16 tensor-core cases"
           + (": " + "; ".join(caught) if caught else
              " (dV moves by under a bf16 ulp; a finding, not a check)"))
+    # planted in the kernel build: P's low half dropped from the forward's
+    # O += P V (a reading, as the backward's)
+    caught, total = [], 0
+    with fault_build(fa, FLASH_FWD_FAULT):
+        for i, (b, h, kv, t, s, d, causal) in enumerate(cases):
+            if fa.fwd_body(torch.bfloat16, d) != "mma":
+                continue
+            total += 1
+            broken = flash_vs_plain(*flash_inputs(
+                b=b, h=h, kv=kv, t=t, s=s, d=d, dtype=torch.bfloat16,
+                seed=i), causal, strict=False)
+            if broken:
+                caught.append(f"{(b, h, kv, t, s, d, causal)}: "
+                              f"{'/'.join(broken)}")
+        total += 1
+        broken = flash_vs_plain(*flash_inputs(
+            **train, dtype=torch.bfloat16, seed=99), True,
+            grad_ulps=BF16_ULPS_G1_GRADS, strict=False)
+        if broken:
+            caught.append(f"training shape: {'/'.join(broken)}")
+    print(f"[flash] planted fault 'forward P rounded to bf16 with no low "
+          f"half' (a build with -D{FLASH_FWD_FAULT[0]}): caught at "
+          f"{len(caught)} of {total} bf16 tensor-core cases"
+          + (": " + "; ".join(caught) if caught else
+             " (o moves by under a bf16 ulp; a finding, not a check)"))
 
 
 def _zero_output(fwd):
@@ -860,6 +1050,8 @@ def planted(module, attr, fault):
 # a macro that builds the flash library with P's low half dropped from the
 # dV product of the tensor-core backward (csrc/flash_attention.cu)
 FLASH_FAULT = ("FLASH_PLANT_P_HI_ONLY",)
+# and with P's low half dropped from the tensor-core forward's O += P V
+FLASH_FWD_FAULT = ("FLASH_PLANT_FWD_P_HI_ONLY",)
 
 
 @contextlib.contextmanager
@@ -1009,13 +1201,15 @@ def flash_bounds(*, b, h, kv, t, s, d, elt):
 
 
 def built_bounds(*, b, h, t, d):
-    """Least time (ms) of the tensor-core backward as built, at the bf16
-    tensor-core rate: P and dS split hi + lo double the three products
-    that take them, so dK/dV runs 2 + 4 products of 2*D per causal pair,
-    dQ 2 + 2, the whole backward 10 (5 of them useful)."""
+    """Least time (ms) of the tensor-core kernels as built, at the bf16
+    tensor-core rate: P and dS split hi + lo double the products that take
+    them, so the forward runs 1 + 2 products of 2*D per causal pair (2 of
+    them useful), dK/dV 2 + 4, dQ 2 + 2, the whole backward 10 (5
+    useful)."""
     pairs = b * h * t * (t + 1) // 2
     return {name: 2.0 * d * pairs * n / PEAK_OPS["bf16"] * 1e3
-            for name, n in (("bwd_dkv", 6), ("bwd_dq", 4), ("bwd", 10))}
+            for name, n in (("fwd", 3), ("bwd_dkv", 6), ("bwd_dq", 4),
+                            ("bwd", 10))}
 
 
 def phase_flash_timing():
@@ -1069,14 +1263,14 @@ def phase_flash_timing():
     bounds = flash_bounds(b=sh["b"], h=sh["h"], kv=sh["h"], t=sh["t"],
                           s=sh["t"], d=sh["d"], elt=2)
     built = built_bounds(b=sh["b"], h=sh["h"], t=sh["t"], d=sh["d"])
-    body = fa.bwd_body(torch.bfloat16, sh["d"])
     for name in ("fwd", "bwd_dkv", "bwd_dq", "bwd"):
         bd, by = bounds[name]
-        note = (f"; {body} body, bound as built {built[name] * 1e3:.2f} us"
-                if name in built else "")
+        body = (fa.fwd_body if name == "fwd" else fa.bwd_body)(
+            torch.bfloat16, sh["d"])
+        note = f"; {body} body, bound as built {built[name] * 1e3:.2f} us"
         print(f"[timing] flash {name} B=4 H=16 T=2048 D=64 causal bf16: "
               f"{ms[name] * 1e3:.1f} us (bound {bd * 1e3:.2f} us by {by}, "
-              f"{bd / ms[name] * 100:.2f}% of it{note})")
+              f"{bd / ms[name] * 100:.2f}% of it{note}); {card_line()}")
     print(f"[timing] flash plain fwd {plain['fwd'] * 1e3:.1f} us, plain "
           f"dk/dv {plain['bwd_dkv'] * 1e3:.1f} us, plain dq "
           f"{plain['bwd_dq'] * 1e3:.1f} us, plain bwd (dq, dk, dv) "
@@ -2303,11 +2497,11 @@ def main() -> None:
     from repro_torch.models.lm import LM
     resolve_device("cuda")           # numerics switches for the whole run
     t0 = time.monotonic()
-    logs = _build.build_all(verbose=True, variants=[("flash_attention",
-                                                     FLASH_FAULT)])
+    logs = _build.build_all(verbose=True, variants=[
+        ("flash_attention", FLASH_FAULT), ("flash_attention", FLASH_FWD_FAULT)])
     print(f"[build] {', '.join(_build.KERNELS)} and the flash library with "
-          f"-D{FLASH_FAULT[0]} (a planted fault) built by nvcc in "
-          f"{time.monotonic() - t0:.1f}s")
+          f"-D{FLASH_FAULT[0]} and with -D{FLASH_FWD_FAULT[0]} (planted "
+          f"faults) built by nvcc in {time.monotonic() - t0:.1f}s")
     for name, log in logs.items():
         print(f"[build] {name}: " + " ".join(
             line.strip() for line in log.splitlines() if "registers" in line))
@@ -2324,18 +2518,24 @@ def main() -> None:
     mb = 128                        # table bucket of a 1064-token row
     dec = time_shape(cfg, b=8, t=1, lengths=[96, 288, 1032, 96, 288, 1032,
                                              96, 288],
-                     quant=False, mb=mb, n_blocks=1025, n_layers=24)
+                     quant=False, mb=mb, n_blocks=1025, n_layers=24,
+                     splits=(3, 16))
     chk = time_shape(cfg, b=1, t=64, lengths=[936], quant=True, mb=64,
-                     n_blocks=1025, n_layers=24)
+                     n_blocks=1025, n_layers=24, splits=(4, 8))
     for name, r in (("decode B=8 T=1 bf16", dec),
                     ("chunk B=1 T=64 ctx=936 int8", chk)):
-        print(f"[timing] paged_attention {name}: {r['ms'] * 1e3:.1f} us "
+        print(f"[timing] paged_attention {name}, {r['n_split']} column "
+              f"splits: {r['ms'] * 1e3:.2f} us by graph replay "
               f"(bound {r['bound_ms'] * 1e3:.2f} us by {r['bound_by']}, "
-              f"{r['bound_ms'] / r['ms'] * 100:.1f}% of it), == plain "
+              f"{r['bound_ms'] / r['ms'] * 100:.1f}% of it; by events "
+              f"around 200 calls {r['event_ms'] * 1e3:.2f} us), == plain "
               f"within rtol=atol=2e-5, plain "
               f"{r['plain_ms'] * 1e3:.1f} us, sdpa "
-              f"{r['library_ms'] * 1e3:.1f} us, max |err| "
-              f"{r['max_abs_err']:.3g}")
+              f"{r['library_ms'] * 1e3:.2f} us by graph replay (by events "
+              f"{r['library_event_ms'] * 1e3:.2f} us), max |err| "
+              f"{r['max_abs_err']:.3g}; at other split counts "
+              + ", ".join(f"{n}: {v * 1e3:.2f} us" for n, v in
+                          r["by_split"].items()) + f"; {card_line()}")
     print(f"[timing] engine: whole-prompt bf16 decode "
           f"{st_a['decode_tok_s']:.1f} tok/s, p50 TTFT "
           f"{st_a['p50_ttft_s'] * 1e3:.1f} ms; chunk=64 int8 decode "

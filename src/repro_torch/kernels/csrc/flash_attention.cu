@@ -19,8 +19,8 @@
 //            buffers outside), cast once to the input type.
 //   bwd_dq:  dQ += ds k over key tiles up to the diagonal.
 //
-// Forward, and the backward of f32 inputs or of a head_dim other than 64
-// or 128 (the FMA body). Tiles of 64 query rows by 64 keys, 256 threads:
+// f32 inputs, or a head_dim other than 64 or 128 (the FMA body, forward
+// and backward). Tiles of 64 query rows by 64 keys, 256 threads:
 // thread (ty, tx) = (tid / 16, tid % 16) owns rows ty + 16 i and columns
 // tx + 16 j (i, j < 4) of a score tile, and dims tx + 16 k (k < DPT =
 // ceil(D / 16)) of an output row. Operand tiles are staged into shared
@@ -30,6 +30,25 @@
 // a row sit in one half-warp, so row max and row sum are shuffles. Causal
 // blocks walk only the tiles up to (fwd, dq) or from (dkv) the diagonal,
 // and the grid hands out the longest rows first.
+//
+// Forward of bf16 inputs at D = 64 or 128 (the tensor-core body,
+// fwd_mma_kernel below). A block owns 64 query rows of one (b, h), 16 a
+// warp; each warp loads its Q fragments once by ldmatrix and keeps them in
+// registers for the whole key loop. K/V tiles of 64 keys come in by
+// cp.async into padded shared memory, double-buffered, so the next tile
+// lands while this one is multiplied. S = Q K^T runs on mma.sync with the
+// bf16 values as they are (exact products, f32 sums); the scale is applied
+// to S, as the backward's recompute does: at D = 64 it is 2^-3, so S*scale
+// is bitwise the TPU body's (q*scale).k up to the order of the sums; at
+// D = 128 (scale 2^-3.5) the two differ by one f32 rounding a score. The
+// online softmax keeps f32 m and l per row (quad shuffles on the
+// accumulator layout), rescales O by corr each tile, and P stays f32, as in
+// the TPU body: it is split into hi = bf16(p) and lo = bf16(p - hi) in
+// registers (the accumulator layout of S is the A-operand layout of P V,
+// so P never leaves them) and each half is multiplied by V (ldmatrix
+// .trans), the two products summed in f32. Causal blocks walk only the key
+// tiles up to the diagonal and mask only the diagonal (and the ragged last)
+// tile; o is rounded once.
 //
 // Backward of bf16 inputs at D = 64 or 128 (the tensor-core body,
 // bwd_dkv_mma_kernel and bwd_dq_mma_kernel below): mma.sync.m16n8k16 with
@@ -56,9 +75,10 @@
 // q/k/v/o/lse traffic at 3.35 TB/s, so it is bound by operations; the
 // backward's five products are 2.5 times that, 86.8 us. As built, the
 // tensor-core backward issues ten products (P and dS take two each, and S
-// and dP are computed in both kernels): 174 us at that rate. The forward
-// still runs on the FP32 FMA pipes (67 TFLOP/s at best), one shared-memory
-// load per two FMAs, with no overlap of loads and math.
+// and dP are computed in both kernels): 174 us at that rate; the
+// tensor-core forward issues three (S, then P V twice): 52 us. The FMA
+// body runs on the FP32 pipes (67 TFLOP/s at best), one shared-memory load
+// per two FMAs, with no overlap of loads and math.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -920,6 +940,199 @@ bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // ------------------------------------------------------------------------
+// forward on the tensor cores: bf16, D in {64, 128}
+// ------------------------------------------------------------------------
+
+// blocks an SM must hold at once: four at D = 64 (45 KB of shared memory
+// each, registers capped at 128), two at D = 128 (85 KB)
+template <int D>
+constexpr int fwd_min_blocks() {
+  return D <= 64 ? 4 : 2;
+}
+
+// A block owns 64 query rows of one (b, h), 16 a warp, and walks the key
+// tiles of kBc = 64 (up to the diagonal when causal), the next tile's K
+// and V loaded by cp.async while this one is multiplied. Row r_lo of the
+// warp's accumulators is lane / 4 (and r_lo + 8); each lane holds two
+// columns of every 8-key n-tile, so a row's max and sum are shuffles over
+// the four lanes of a quad. l is kept per lane (its columns' share of the
+// row sum, all under the row's common max) and summed over the quad once
+// at the end.
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, fwd_min_blocks<D>())
+fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
+               const __nv_bfloat16* __restrict__ k,
+               const __nv_bfloat16* __restrict__ v,
+               __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+               int H, int KH, int Tn, int S, int causal, float scale) {
+  constexpr int BR = 64;
+  constexpr int LD = D + 8;
+  constexpr int NT = kBc / 8;             // key n-tiles of S
+  constexpr int DT = D / 8;               // n-tiles of an O row
+  constexpr int KD = D / 16;              // k-steps of Q K^T
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* k_s = q_s + BR * LD;     // two stages of kBc x LD
+  __nv_bfloat16* v_s = k_s + 2 * kBc * LD;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int kh = (bh - b * H) / (H / KH);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BR;  // longest first
+  const size_t base = (size_t)bh * Tn;
+  const __nv_bfloat16* kp = k + (size_t)(b * KH + kh) * S * D;
+  const __nv_bfloat16* vp = v + (size_t)(b * KH + kh) * S * D;
+  const int kend = causal ? min(S, q0 + BR) : S;
+  const int n_kt = (kend + kBc - 1) / kBc;
+
+  tile_async<BR, D>(q_s, q + base * D, q0, Tn);
+  tile_async<kBc, D>(k_s, kp, 0, S);
+  tile_async<kBc, D>(v_s, vp, 0, S);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int qw = warp * 16;
+  const int a_row = qw + (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int a_col = (lane >> 4) * 8;
+  uint32_t qa[KD][4];                     // this warp's Q, for every tile
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk)
+    ldsm_x4(qa[kk], q_s + a_row * LD + kk * 16 + a_col);
+  const int b_row = (lane & 7) + ((lane >> 4) << 3);
+  const int b_col = ((lane >> 3) & 1) * 8;
+  const int t_row = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int t_col = (lane >> 4) * 8;
+  const int r_lo = q0 + qw + (lane >> 2);  // rows r_lo and r_lo + 8
+
+  float m_r[2] = {kNegInf, kNegInf};
+  float l_r[2] = {0.f, 0.f};
+  float acc[DT][4];
+#pragma unroll
+  for (int j = 0; j < DT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int it = 0; it < n_kt; ++it) {
+    const int st = it & 1;
+    if (it + 1 < n_kt) {
+      tile_async<kBc, D>(k_s + (st ^ 1) * kBc * LD, kp, (it + 1) * kBc, S);
+      tile_async<kBc, D>(v_s + (st ^ 1) * kBc * LD, vp, (it + 1) * kBc, S);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();                   // stage `st` has landed
+    __syncthreads();
+    const int k0 = it * kBc;
+    const __nv_bfloat16* ks = k_s + st * kBc * LD;
+    const __nv_bfloat16* vs = v_s + st * kBc * LD;
+
+    float sc[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t kb[4];
+        ldsm_x4(kb, ks + (np * 16 + b_row) * LD + kk * 16 + b_col);
+        mma_bf16(sc[2 * np], qa[kk], kb[0], kb[1]);
+        mma_bf16(sc[2 * np + 1], qa[kk], kb[2], kb[3]);
+      }
+    }
+    // scale; mask only a tile that holds keys past S or above a row's
+    // diagonal (block-uniform)
+    const bool edge = k0 + kBc > S || (causal && k0 + kBc - 1 > q0);
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float s = sc[j][e] * scale;
+        if (edge) {
+          const int r = r_lo + (e >> 1) * 8;
+          const int key = k0 + j * 8 + 2 * (lane & 3) + (e & 1);
+          if (key >= S || (causal && r < key)) s = kNegInf;
+        }
+        sc[j][e] = s;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s);
+      }
+    float corr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m_r[h], mx[h]);
+      corr[h] = expf(m_r[h] - m_new);
+      m_r[h] = m_new;
+    }
+    float ps[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + j * 8 + 2 * (lane & 3) + (e & 1);
+        const float p = key < S ? expf(sc[j][e] - m_r[e >> 1]) : 0.f;
+        sc[j][e] = p;
+        ps[e >> 1] += p;
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l_r[h] = fmaf(l_r[h], corr[h], ps[h]);
+#pragma unroll
+    for (int j = 0; j < DT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] *= corr[e >> 1];
+    // O += P V, P split into bf16 hi + lo
+#pragma unroll
+    for (int kk = 0; kk < kBc / 16; ++kk) {
+      uint32_t ph[4], pl[4];
+      a_hi_lo(sc[2 * kk], sc[2 * kk + 1], ph, pl);
+#pragma unroll
+      for (int dn = 0; dn < DT / 2; ++dn) {
+        uint32_t vb[4];
+        ldsm_x4_t(vb, vs + (kk * 16 + t_row) * LD + dn * 16 + t_col);
+        mma_bf16(acc[2 * dn], ph, vb[0], vb[1]);
+        mma_bf16(acc[2 * dn + 1], ph, vb[2], vb[3]);
+#ifndef FLASH_PLANT_FWD_P_HI_ONLY           // a planted fault's build only
+        mma_bf16(acc[2 * dn], pl, vb[0], vb[1]);
+        mma_bf16(acc[2 * dn + 1], pl, vb[2], vb[3]);
+#endif
+      }
+    }
+    __syncthreads();                      // stage `st` is free again
+  }
+  cp_async_wait<0>();
+
+  float lc[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float l = l_r[h];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    lc[h] = fmaxf(l, 1e-30f);
+  }
+#pragma unroll
+  for (int j = 0; j < DT; ++j) {
+    const int col = j * 8 + 2 * (lane & 3);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = r_lo + half * 8;
+      if (r < Tn)
+        *reinterpret_cast<uint32_t*>(o + (base + r) * D + col) =
+            as_u32(__floats2bfloat162_rn(acc[j][2 * half] / lc[half],
+                                         acc[j][2 * half + 1] / lc[half]));
+    }
+  }
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r_lo + half * 8;
+    if ((lane & 3) == 0 && r < Tn) lse[base + r] = m_r[half] + logf(lc[half]);
+  }
+}
+
+// ------------------------------------------------------------------------
 // launchers
 // ------------------------------------------------------------------------
 
@@ -1014,6 +1227,27 @@ size_t dq_mma_smem() {
 }
 
 template <int D>
+size_t fwd_mma_smem() {
+  return sizeof(__nv_bfloat16) * (size_t)(64 + 4 * kBc) * (D + 8);
+}
+
+template <int D>
+int launch_fwd_mma(const void* q, const void* k, const void* v, void* o,
+                   float* lse, int B, int H, int KH, int Tn, int S,
+                   int causal, float scale, cudaStream_t stream) {
+  const size_t smem = fwd_mma_smem<D>();
+  int rc = prepare(fwd_mma_kernel<D>, smem);
+  if (rc) return rc;
+  const dim3 grid(B * H, (Tn + 63) / 64);
+  using bf = __nv_bfloat16;
+  fwd_mma_kernel<D><<<grid, kMmaThreads, smem, stream>>>(
+      static_cast<const bf*>(q), static_cast<const bf*>(k),
+      static_cast<const bf*>(v), static_cast<bf*>(o), lse, H, KH, Tn, S,
+      causal, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
 int launch_dkv_mma(const void* q, const void* k, const void* v,
                    const void* dout, const float* lse, const float* delta,
                    void* dk, void* dv, int B, int H, int KH, int Tn, int S,
@@ -1050,8 +1284,8 @@ int launch_dq_mma(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-// the backward's body for (kind, D): 1 = tensor cores (bf16, D 64 or 128),
-// 0 = the f32 FMA body
+// the body of the forward and of the backward for (kind, D): 1 = tensor
+// cores (bf16, D 64 or 128), 0 = the f32 FMA body
 int mma_body(int kind, int D) { return kind == 1 && (D == 64 || D == 128); }
 
 bool bad_dims(int B, int H, int KH, int Tn, int S, int D) {
@@ -1094,6 +1328,11 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    void* stream) {
   if (bad_dims(B, H, KH, Tn, S, D)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (mma_body(kind, D))
+    return D == 64 ? launch_fwd_mma<64>(q, k, v, o, lse, B, H, KH, Tn, S,
+                                        causal, scale, st)
+                   : launch_fwd_mma<128>(q, k, v, o, lse, B, H, KH, Tn, S,
+                                         causal, scale, st);
   FA_DISPATCH(launch_fwd, q, k, v, o, lse, B, H, KH, Tn, S, D, causal, scale,
               st);
 }
@@ -1135,8 +1374,11 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
               causal, scale, st);
 }
 
-// 1 when the backward of (kind, D) runs on the tensor cores, 0 when it runs
-// the f32 FMA body.
+// 1 when the forward (the backward) of (kind, D) runs on the tensor cores,
+// 0 when it runs the f32 FMA body.
+extern "C" int flash_attention_fwd_body(int kind, int D) {
+  return mma_body(kind, D);
+}
 extern "C" int flash_attention_bwd_body(int kind, int D) {
   return mma_body(kind, D);
 }

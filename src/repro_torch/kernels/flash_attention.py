@@ -18,10 +18,11 @@ change the summation order only.
 On CUDA tensors the wrappers launch the hand-written kernels of
 ``csrc/flash_attention.cu`` (they replace the TPU kernels ``_fwd_kernel``,
 ``_bwd_dkv_kernel`` and ``_bwd_dq_kernel``) or raise; they never fall
-back. The backward of bf16 inputs at head_dim 64 or 128 runs on the
-tensor cores with P and dS split into bf16 hi + lo
-(:func:`_flash_bwd_split_torch` repeats that arithmetic on the CPU);
-:func:`bwd_body` says which body a case takes. On CPU tensors they run
+back. The forward and the backward of bf16 inputs at head_dim 64 or 128
+run on the tensor cores with P (and dS) split into bf16 hi + lo
+(:func:`_flash_fwd_split_torch` and :func:`_flash_bwd_split_torch` repeat
+that arithmetic on the CPU); :func:`fwd_body` and :func:`bwd_body` say
+which body a case takes. On CPU tensors they run
 the plain versions :func:`_flash_fwd_torch` and :func:`_flash_bwd_torch`,
 which repeat the kernels' arithmetic on the whole score matrix and are
 the oracle the kernels are held against on the card.
@@ -145,6 +146,38 @@ def split_bf16(x: torch.Tensor, parts: int = 2):
     return tuple(out)
 
 
+def _flash_fwd_split_torch(q, k, v, *, causal: bool = True,
+                           sm_scale: Optional[float] = None):
+    """The tensor-core forward body's arithmetic, for bf16 inputs: S = q·k
+    from the bf16 values (f32 sums), then ``S·scale`` masked; ``m``, ``p =
+    exp(S·scale - m)`` and ``l = sum(p)`` in f32, then ``p`` split into
+    bf16 hi + lo (:func:`split_bf16`) and each half multiplied by v in f32,
+    the two products summed: ``o = (p_hi·v + p_lo·v) / max(l, 1e-30)``
+    rounded once to the inputs' type, ``lse = m + log(max(l, 1e-30))``.
+    The plain version's function to within 2^-16 relative per ``p``
+    element (and, at a scale that is not a power of two, one f32 rounding
+    per score). The kernel takes m and the split per key tile (online);
+    this takes them over the whole row, which moves only roundoff."""
+    b, h, t, d = q.shape
+    n_kv, s_len = k.shape[1], k.shape[2]
+    g = h // n_kv
+    f = torch.float32
+    qg = q.reshape(b, n_kv, g, t, d).to(f)
+    sc = torch.einsum("bkgtd,bksd->bkgts", qg, k.to(f)) * _scale(d, sm_scale)
+    if causal:
+        keep = (torch.arange(t, device=q.device)[:, None]
+                >= torch.arange(s_len, device=q.device)[None, :])
+        sc = torch.where(keep, sc, torch.full((), NEG_INF, device=q.device))
+    m = sc.amax(-1, keepdim=True)
+    p = torch.exp(sc - m)
+    l = torch.clamp_min(p.sum(-1, keepdim=True), 1e-30)
+    p_hi, p_lo = (x.float() for x in split_bf16(p))
+    o = (torch.einsum("bkgts,bksd->bkgtd", p_hi, v.to(f))
+         + torch.einsum("bkgts,bksd->bkgtd", p_lo, v.to(f))) / l
+    lse = m + torch.log(l)
+    return (o.reshape(b, h, t, d).to(q.dtype), lse.reshape(b, h, t, 1))
+
+
 def _flash_bwd_split_torch(q, k, v, out, lse, do, *, causal: bool = True,
                            sm_scale: Optional[float] = None):
     """The tensor-core backward body's arithmetic, for bf16 inputs: S =
@@ -208,12 +241,22 @@ def _entries(defines: Tuple[str, ...] = ()):
     bwd_dkv.argtypes = [vp] * 8 + dims + [ci, cf, vp]
     bwd_dq = lib.flash_attention_bwd_dq
     bwd_dq.argtypes = [vp] * 8 + dims + [ci, cf, vp]
-    body = lib.flash_attention_bwd_body
-    body.argtypes = [ci, ci]
-    for fn in (fwd, bwd_dkv, bwd_dq, body):
+    fwd_body = lib.flash_attention_fwd_body
+    bwd_body = lib.flash_attention_bwd_body
+    for fn in (fwd_body, bwd_body):
+        fn.argtypes = [ci, ci]
+    for fn in (fwd, bwd_dkv, bwd_dq, fwd_body, bwd_body):
         fn.restype = ci
     return {"fwd": fwd, "bwd_dkv": bwd_dkv, "bwd_dq": bwd_dq,
-            "bwd_body": body}
+            "fwd_body": fwd_body, "bwd_body": bwd_body}
+
+
+def fwd_body(dtype: torch.dtype, d: int) -> str:
+    """Which body the forward kernel runs for inputs of ``dtype`` and
+    head_dim ``d`` on the card, as the library dispatches: ``"mma"`` (bf16
+    tensor-core tiles, D 64 or 128) or ``"simt"`` (the f32 FMA body)."""
+    return "mma" if _entries()["fwd_body"](_DTYPE_KIND[dtype], d) else \
+        "simt"
 
 
 def bwd_body(dtype: torch.dtype, d: int) -> str:

@@ -9,10 +9,13 @@ bit by construction.
 
 On CUDA tensors the wrapper launches the hand-written kernel
 ``csrc/paged_attention.cu`` (it replaces the TPU kernel
-``flash_decode.py::_paged_mq_pallas``) or raises; it never falls back.
-On CPU tensors it runs the plain version :func:`_paged_prefix_torch`,
-which mirrors the reference's ``_paged_prefix_xla`` column loop and is
-the oracle the kernel is held against on the card.
+``flash_decode.py::_paged_mq_pallas``; it splits each row's live table
+columns over :func:`paged_splits` blocks and merges their partials in the
+same launch) or raises; it never falls back. On CPU tensors it runs the
+plain version :func:`_paged_prefix_torch`, which mirrors the reference's
+``_paged_prefix_xla`` column loop (and, given ``n_split``, the kernel's
+spans and merge, :func:`page_spans`) and is the oracle the kernel is held
+against on the card.
 
 Every launch adds one to ``LAUNCHES["paged_attention"]``; nothing else
 does, so a run can show that its main path went through the kernel.
@@ -47,9 +50,10 @@ LAUNCHES: Counter = Counter()
 
 _KV_KIND = {torch.bfloat16: 0, torch.int8: 1}
 _MAX_HEAD_DIM = 128
-_MAX_SMEM = 227 * 1024
-_ROWS_PER_BLOCK = 16       # kRowsPerBlock in the kernel
-_WARPS = 4
+_PAGED_MIN_COLS = 4        # live table columns per split, at least
+_PAGED_MAX_SPLITS = 64
+_PAGED_BLOCKS_PER_SM = 6  # chip_smoke times the two read shapes beside it
+_PAGED_SMEM = 200 * 1024   # kMaxDynSmem in the kernel
 
 
 def _scale(d: int, sm_scale: Optional[float]) -> float:
@@ -73,9 +77,46 @@ def _live_cols(lengths: torch.Tensor, bs: int, mb: int) -> int:
 
 
 def _paged_prefix_torch(q, k_pages, v_pages, table, lengths, k_scale,
-                        v_scale, *, sm_scale=None):
+                        v_scale, *, sm_scale=None, n_split: int = 1):
     """Column loop over the block table: one (B, bs, K, hd) page tile is
-    gathered per step and reused by all T rows; f32 online softmax."""
+    gathered per step and reused by all T rows; f32 online softmax.
+
+    ``n_split > 1`` computes the kernel's split arithmetic instead: split
+    i of row b takes the table columns of :func:`page_spans`, each split's
+    partial comes from the column loop over its own columns, and the
+    partials are rescaled to their common max and summed in split order
+    (:func:`merge_split_partials`)."""
+    if n_split > 1:
+        return merge_split_partials([
+            _paged_span_torch(q, k_pages, v_pages, table, lengths, k_scale,
+                              v_scale, sm_scale, span)
+            for span in page_spans(lengths, k_pages.shape[1],
+                                   table.shape[1], n_split)])
+    return _paged_span_torch(q, k_pages, v_pages, table, lengths, k_scale,
+                             v_scale, sm_scale, None)
+
+
+def page_spans(lengths, bs: int, mb: int, n_split: int):
+    """The kernel's table-column ranges: per split i, (lo, hi) int tensors
+    of shape (B,) with lo = min(i·c, n), hi = min(lo + c, n), c =
+    ceil(n / n_split), n = ceil(min(len, mb·bs) / bs) the row's live
+    columns (len clamped at 0)."""
+    ln = torch.clamp(lengths.long(), 0, mb * bs)
+    n = (ln + bs - 1) // bs
+    c = (n + n_split - 1) // n_split
+    spans = []
+    for i in range(n_split):
+        lo = torch.minimum(i * c, n)
+        spans.append((lo, torch.minimum(lo + c, n)))
+    return spans
+
+
+def _paged_span_torch(q, k_pages, v_pages, table, lengths, k_scale,
+                      v_scale, sm_scale, span):
+    """The column loop over table columns [lo, hi) of each row (``span``),
+    or over every live column when ``span`` is None. A column outside a
+    row's span is masked like a position past its length: a bitwise no-op
+    of the recurrence."""
     b, tq, h, d = q.shape
     _, bs, n_kv, _ = k_pages.shape
     g = h // n_kv
@@ -95,7 +136,10 @@ def _paged_prefix_torch(q, k_pages, v_pages, table, lengths, k_scale,
             v = v * v_scale[blk]
         s = torch.einsum("btkgd,bskd->btkgs", qg, k)        # (B,T,K,G,bs)
         kpos = j * bs + torch.arange(bs, device=dev)
-        valid = (kpos[None, :] < lengths[:, None])[:, None, None, None, :]
+        valid = kpos[None, :] < lengths[:, None]
+        if span is not None:
+            valid = valid & ((span[0] <= j) & (j < span[1]))[:, None]
+        valid = valid[:, None, None, None, :]
         s = torch.where(valid, s, neg)
         m_new = torch.maximum(m, s.amax(-1))
         # mask p explicitly: a row with no valid position yet would give
@@ -127,14 +171,41 @@ def _entry():
     ctypes signature set once."""
     fn = _build.load("paged_attention").paged_attention_partial
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, vp, vp, ci, vp, vp, vp, vp, vp, vp, vp,
-                   ci, ci, ci, ci, ci, ci, ci, ctypes.c_float, vp]
+    fn.argtypes = [vp, vp, vp, ci] + [vp] * 9 + [ci] * 8 + [ctypes.c_float,
+                                                           vp]
     fn.restype = ci
     return fn
 
 
+def _paged_smem(bs: int, d: int, elt: int, quant: bool) -> int:
+    """Dynamic shared memory of the paged kernel at its largest row tile
+    (``smem_bytes`` there): a ring of two granules of pages (a granule: up
+    to 4 pages and 64 positions, or one longer page; rows padded by 16
+    bytes), then the row tile's scores, row state and q."""
+    gpg = 1 if bs >= 64 else min(4, 64 // bs)
+    slot = (2 * bs * (d * elt + 16) + (8 * bs if quant else 0) + 15) // 16 * 16
+    rt = 64 if d <= 64 else 32
+    scores = max(rt * (gpg * bs + 1), _PAGED_MAX_SPLITS)
+    return 2 * gpg * slot + 4 * (scores + 3 * rt + rt * (d + 4))
+
+
+def paged_splits(b: int, n_kv: int, mb: int, n_sm: int) -> int:
+    """Blocks the paged kernel splits each (b, kh) pair's live table
+    columns over on a card of ``n_sm`` SMs: about ``_PAGED_BLOCKS_PER_SM``
+    blocks per SM over the B·K pairs (a block's per-granule phases are
+    latency-bound, so several share an SM), at most one per
+    ``_PAGED_MIN_COLS`` columns of the table (``mb``) and at most
+    ``_PAGED_MAX_SPLITS``. It reads shapes only: never the window width T
+    (so row t of a T-wide read is the T=1 read) and never ``lengths`` (no
+    host read; the kernel divides each row's live columns on the card)."""
+    want = -(-_PAGED_BLOCKS_PER_SM * n_sm // max(1, b * n_kv))
+    return max(1, min(want, mb // _PAGED_MIN_COLS, _PAGED_MAX_SPLITS))
+
+
 def _paged_mq_cuda(q, k_pages, v_pages, table, lengths, k_scale, v_scale,
-                   *, sm_scale=None):
+                   *, sm_scale=None, n_split: Optional[int] = None):
+    """One launch of the paged kernel over ``n_split`` column splits a
+    (b, kh) pair (default :func:`paged_splits` for this card)."""
     b, tq, h, d = q.shape
     nb, bs, n_kv, dk = k_pages.shape
     mb = table.shape[1]
@@ -152,8 +223,9 @@ def _paged_mq_cuda(q, k_pages, v_pages, table, lengths, k_scale, v_scale,
            f"page dtypes {k_pages.dtype}/{v_pages.dtype} not one of "
            f"bf16/int8")
     _check(v_pages.shape == k_pages.shape, "k/v page shapes differ")
-    _check(dk == d and 0 < d <= _MAX_HEAD_DIM,
-           f"head_dim {dk} vs q {d}, must match and be <= {_MAX_HEAD_DIM}")
+    _check(dk == d and 0 < d <= _MAX_HEAD_DIM and d % 16 == 0,
+           f"head_dim {dk} vs q {d}, must match, be a multiple of 16 and "
+           f"be <= {_MAX_HEAD_DIM}")
     _check(n_kv > 0 and h % n_kv == 0, f"{h} heads over {n_kv} kv heads")
     _check(quant == (k_pages.dtype == torch.int8) and
            (v_scale is not None) == quant,
@@ -168,14 +240,26 @@ def _paged_mq_cuda(q, k_pages, v_pages, table, lengths, k_scale, v_scale,
            f"table must be int32 ({b}, max_blocks)")
     _check(lengths.dtype == torch.int32 and tuple(lengths.shape) == (b,),
            f"lengths must be int32 ({b},)")
-    smem = 4 * (bs * (d + 1) + bs * d + _ROWS_PER_BLOCK * d + _WARPS * bs)
-    _check(smem <= _MAX_SMEM, f"block_size {bs} x head_dim {d} needs "
-           f"{smem} bytes of shared memory")
+    _check(_paged_smem(bs, d, k_pages.element_size(), quant) <= _PAGED_SMEM,
+           f"block_size {bs} x head_dim {d}: the kernel's page ring does "
+           f"not fit in shared memory")
+    # repro: allow[JIT-04] page addresses are host metadata of the tensors, not device values
+    _check(k_pages.data_ptr() % 16 == 0 and v_pages.data_ptr() % 16 == 0,
+           "pages must be 16-byte aligned")
+    _check(dev.type == "cuda", f"the kernel takes CUDA tensors, got {dev}")
     o = torch.empty((b, tq, h, d), dtype=torch.float32, device=dev)
     m = torch.empty((b, tq, h, 1), dtype=torch.float32, device=dev)
     l = torch.empty((b, tq, h, 1), dtype=torch.float32, device=dev)
     if b * tq * h * d == 0:
         return o, m, l
+    if n_split is None:
+        n_split = paged_splits(b, n_kv, mb, _sm_count(dev))
+    _check(1 <= n_split <= _PAGED_MAX_SPLITS, f"n_split {n_split} out of "
+           f"range")
+    counters = _split_counters(dev, b * n_kv, _PAGED_COUNTERS,
+                               "paged_attention")
+    ws = torch.empty(b * n_kv * n_split * tq * (h // n_kv) * (d + 2),
+                     dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _entry()(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
@@ -184,7 +268,9 @@ def _paged_mq_cuda(q, k_pages, v_pages, table, lengths, k_scale, v_scale,
                       v_scale.data_ptr() if quant else None,
                       table.data_ptr(), lengths.data_ptr(),
                       o.data_ptr(), m.data_ptr(), l.data_ptr(),
-                      b, tq, h, n_kv, d, bs, mb, _scale(d, sm_scale), stream)
+                      ws.data_ptr(), counters.data_ptr(),
+                      b, tq, h, n_kv, d, bs, mb, n_split,
+                      _scale(d, sm_scale), stream)
     # repro: allow[JIT-04] rc is the C int cudaGetLastError() returned to the host, not a device value
     if rc != 0:
         raise RuntimeError(f"paged_attention launch failed: CUDA error {rc}")
@@ -388,21 +474,26 @@ def _sm_count(dev: torch.device) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
+# the split merge's arrival counters, per device: the dense decode
+# kernel's and the paged kernel's, each a buffer of its own
 _COUNTERS: dict = {}
+_PAGED_COUNTERS: dict = {}
 
 
-def _split_counters(dev: torch.device, n: int) -> torch.Tensor:
-    """The per-(b, kh) arrival counters of the split merge, one buffer per
-    device, zeroed once: each call leaves them zero (the merging block
-    resets its pair's), so the kernel replays inside a CUDA graph. Grown
-    outside a graph capture only."""
-    buf = _COUNTERS.get(dev)
+def _split_counters(dev: torch.device, n: int, store: dict = _COUNTERS,
+                    kernel: str = "dense_decode") -> torch.Tensor:
+    """The per-(b, kh) arrival counters of a kernel's split merge, one
+    buffer per device in ``store``, zeroed once: each call leaves them
+    zero (the merging block resets its pair's), so the kernel replays
+    inside a CUDA graph. Grown outside a graph capture only."""
+    buf = store.get(dev)
+    # repro: allow[JIT-04] the buffer's size is host metadata, not a device value
     if buf is None or buf.numel() < n:
-        _dcheck(not torch.cuda.is_current_stream_capturing(),
-                f"the split counters must hold {n} pairs before a graph "
-                f"capture: call the kernel once at this shape first")
+        _check(not torch.cuda.is_current_stream_capturing(),
+               f"the split counters must hold {n} pairs before a graph "
+               f"capture: call the kernel once at this shape first", kernel)
         buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=dev)
-        _COUNTERS[dev] = buf
+        store[dev] = buf
     return buf
 
 

@@ -105,8 +105,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     busy = sum(v[0] for v in by_name.values()) / 1e3 / args.steps
     n_kernels = sum(v[1] for v in by_name.values()) / args.steps
     flash = sum(v[0] for k, v in by_name.items()
-                if "fwd_kernel" in k or "bwd_dkv" in k
-                or "bwd_dq" in k) / 1e3 / args.steps
+                if "fwd_kernel" in k or "fwd_mma_kernel" in k
+                or "bwd_dkv" in k or "bwd_dq" in k) / 1e3 / args.steps
     int8 = sum(v[0] for k, v in by_name.items()
                if "qmm_kernel" in k) / 1e3 / args.steps
     # the profiler slows the host, not the device: the idle share is the

@@ -168,3 +168,145 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(case):
     its checks run on host tensors too."""
     with pytest.raises(ValueError, match="paged_attention"):
         tfd._paged_mq_cuda(*_bad(case))
+
+
+# --------------------------------------------------------------------------
+# the split kernel's arithmetic (n_split column spans, merged in order)
+# --------------------------------------------------------------------------
+
+
+@pytest.fixture
+def one_thread():
+    """torch's CPU ops on the calling thread: in some processes one
+    worker of torch's thread pool evaluates f32 exp at ~1.5e-4 relative
+    error (see tests/test_torch_ssd.py), above these tests' limits."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _plain(args, n_split):
+    q, kp, vp, table, lengths, ks, vs = _tensors(args)
+    return tfd._paged_prefix_torch(q, kp, vp, table, lengths, ks, vs,
+                                   n_split=n_split)
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 3, 7])
+@pytest.mark.parametrize("t", [1, 4, 64])
+@pytest.mark.parametrize("h,kv", [(2, 2), (4, 2)], ids=["G1", "G2"])
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("impl", ["pallas", "xla"])
+def test_split_plain_matches_reference(one_thread, n_split, t, h, kv, quant,
+                                       impl):
+    """The plain version with the kernel's column spans and merge
+    against the JAX package's paged read (the Pallas kernel in interpret
+    mode, and the XLA column loop) at 2e-5, on the reference's contract
+    case (a full row, a short row with dead bucket columns, an empty
+    row); splits past a row's columns are empty, and the empty row stays
+    o = 0, l = 0, m = -1e30."""
+    args = _case(t, h, kv, quant, seed=n_split)
+    want = _jax(args, impl)
+    got = _plain(args, n_split)
+    for name, a, b in zip("oml", want, got):
+        assert tuple(b.shape) == a.shape, name
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), err_msg=name,
+                                   **TOL)
+    o, m, l = got
+    assert torch.all(o[2] == 0) and torch.all(l[2] == 0)
+    assert torch.all(m[2] == np.float32(-1e30))
+
+
+def _column_loop(q, k_pages, v_pages, table, lengths, k_scale, v_scale):
+    """The plain version as it stood before the split (one running state
+    per row over every live column), kept to pin ``n_split=1`` to it."""
+    b, tq, h, d = q.shape
+    _, bs, n_kv, _ = k_pages.shape
+    g = h // n_kv
+    qg = q.reshape(b, tq, n_kv, g, d).float() * (1.0 / float(np.sqrt(d)))
+    m = torch.full((b, tq, n_kv, g), -1e30, dtype=torch.float32)
+    l = torch.zeros((b, tq, n_kv, g), dtype=torch.float32)
+    acc = torch.zeros((b, tq, n_kv, g, d), dtype=torch.float32)
+    neg = torch.full((), -1e30, dtype=torch.float32)
+    n_cols = min(table.shape[1], (int(lengths.max()) + bs - 1) // bs)
+    for j in range(n_cols):
+        blk = table[:, j].long()
+        k = k_pages[blk].float()
+        v = v_pages[blk].float()
+        if k_scale is not None:
+            k = k * k_scale[blk]
+            v = v * v_scale[blk]
+        s = torch.einsum("btkgd,bskd->btkgs", qg, k)
+        kpos = j * bs + torch.arange(bs)
+        valid = (kpos[None, :] < lengths[:, None])[:, None, None, None, :]
+        s = torch.where(valid, s, neg)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.where(valid, torch.exp(s - m_new[..., None]),
+                        torch.zeros(()))
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum("btkgs,bskd->btkgd", p, v)
+        m = m_new
+    return (acc.reshape(b, tq, h, d), m.reshape(b, tq, h, 1),
+            l.reshape(b, tq, h, 1))
+
+
+@pytest.mark.parametrize("t", [1, 8])
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_one_split_is_the_column_loop_bitwise(t, quant):
+    args = _tensors(_case(t, 4, 2, quant, seed=5))
+    for a, b in zip(tfd._paged_prefix_torch(*args, n_split=1),
+                    _column_loop(*args)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 3, 16, 64])
+def test_page_spans_cover_each_live_column_once(n_split):
+    """Split i of a row takes columns [i·c, min((i+1)·c, n)), n the row's
+    live columns (its length, capped by the table, over the page size):
+    the spans tile [0, n) in order, and splits past n are empty."""
+    bs, mb = 16, 64
+    lens = torch.tensor([0, 1, 16, 17, 936, 1024, 5000], dtype=torch.int32)
+    spans = tfd.page_spans(lens, bs, mb, n_split)
+    assert len(spans) == n_split
+    for r, n in enumerate([0, 1, 1, 2, 59, 64, 64]):
+        edges = [(int(lo[r]), int(hi[r])) for lo, hi in spans]
+        assert edges[0][0] == 0 and edges[-1][1] == n
+        assert all(a[1] == b_[0] for a, b_ in zip(edges, edges[1:]))
+        assert all(0 <= hi - lo <= -(-n // n_split) for lo, hi in edges)
+
+
+def test_split_count_reads_shapes_only():
+    """``paged_splits`` takes B, K, the table width and the SM count, and
+    nothing of the window (T) or of ``lengths``: about six blocks per SM
+    over the B·K pairs, at most one per 4 table columns and 64 in all. On
+    132 SMs the decode shape (B=8, K=16, 128 columns) takes 7 splits and
+    the chunk shape (B=1, K=16, 64 columns) 16."""
+    import inspect
+    assert list(inspect.signature(tfd.paged_splits).parameters) == [
+        "b", "n_kv", "mb", "n_sm"]
+    assert tfd.paged_splits(8, 16, 128, 132) == 7
+    assert tfd.paged_splits(1, 16, 64, 132) == 16
+    assert tfd.paged_splits(1, 1, 1024, 132) == 64
+    assert tfd.paged_splits(1, 16, 4, 132) == 1
+    assert tfd.paged_splits(64, 16, 128, 132) == 1
+    assert tfd.paged_splits(3, 2, 8, 132) == 2
+
+
+@pytest.mark.parametrize("n_split", [1, 3])
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_rows_of_a_window_are_the_single_token_reads(one_thread, n_split,
+                                                     quant):
+    """Row t of a T-wide plain read is the T=1 read of q[:, t], at the
+    same split count, within 2e-5 (the kernel's rows are bitwise the T=1
+    reads, checked on the card; here torch's CPU einsum blocks its sums by
+    T, so only the function is the same)."""
+    q, kp, vp, table, lengths, ks, vs = _tensors(_case(8, 4, 2, quant,
+                                                       seed=6))
+    full = tfd._paged_prefix_torch(q, kp, vp, table, lengths, ks, vs,
+                                   n_split=n_split)
+    for t in range(q.shape[1]):
+        one = tfd._paged_prefix_torch(q[:, t:t + 1], kp, vp, table, lengths,
+                                      ks, vs, n_split=n_split)
+        for a, b in zip(full, one):
+            torch.testing.assert_close(a[:, t:t + 1], b, **TOL)

@@ -10,8 +10,12 @@ plain version, and its launch count in a QL+Q8 fine-tuning step; the
 RMSNorm kernel against its plain version, its autograd wrapper against
 autograd through the plain version and its launch counts in a train
 step; the dense decode kernel against its plain version (also on the
-models' strided cache layout); and the launch counts of a speculative
-engine run (n-gram and self-draft).
+models' strided cache layout); the launch counts of a speculative
+engine run (n-gram and self-draft); the tensor-core flash forward (its
+body dispatch, against the plain version and its CPU emulation); and the
+paged read split over pages (against the plain version and its split
+emulation, rows bitwise the single-token reads, the split counts at the
+engine's shapes, replay in a CUDA graph).
 
 These tests import neither ``jax`` nor the JAX package, so they also run
 on the GPU host: ``PYTHONPATH=src python -m pytest -m gpu
@@ -809,3 +813,151 @@ def test_dense_keeps_the_f32_route_for_an_f32_operand(cuda):
          ).bfloat16()
     assert not L.tensor_core_route(h.dtype, w.dtype, torch.float32)
     assert torch.equal(L.dense(h, w), L._dense_f32(h, w, torch.float32))
+
+
+# --------------------------------------------------------------------------
+# flash forward on the tensor cores
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+def test_flash_forward_body_dispatch(cuda):
+    """bf16 at D 64 and 128 runs the mma forward, as the backward; f32 and
+    other head_dims keep the FMA body."""
+    from repro_torch.kernels import flash_attention as fa
+    for d in (64, 128):
+        assert fa.fwd_body(torch.bfloat16, d) == "mma"
+        assert fa.fwd_body(torch.float32, d) == "simt"
+    for d in (16, 32, 96):
+        assert fa.fwd_body(torch.bfloat16, d) == "simt"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", MMA_BWD_CASES + [
+    (1, 2048, 2048, 16, 16, 64, True), (2, 128, 384, 4, 4, 128, False)],
+    ids=str)
+def test_flash_forward_runs_the_tensor_cores(cuda, case):
+    """The mma forward against the plain version (o within two bf16 ulps
+    beyond the 1e-5 floor, lse within 2e-5) and against its own CPU
+    emulation ``_flash_fwd_split_torch`` (the same limits)."""
+    from repro_torch.kernels import flash_attention as fa
+    *shape, causal = case
+    q, k, v, _ = _flash_case(cuda, *shape, torch.bfloat16, seed=8)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    for want_o, want_l in (fa._flash_fwd_torch(q, k, v, causal=causal),
+                           fa._flash_fwd_split_torch(q, k, v,
+                                                     causal=causal)):
+        _assert_flash_close(o, want_o)
+        torch.testing.assert_close(lse, want_l, **TOL)
+
+
+# --------------------------------------------------------------------------
+# the paged read split over pages
+# --------------------------------------------------------------------------
+
+# (B, T, H, K, D, lengths, table columns, int8): the engine's decode and
+# chunk shapes, a verify window, and long contexts on a wide table
+PAGED_SPLIT_CASES = [
+    (8, 1, 16, 16, 64, [96, 288, 1032, 96, 288, 1032, 96, 288], 128, False),
+    (1, 64, 16, 16, 64, [936], 64, True),
+    (8, 5, 16, 16, 64, [96, 288, 1032, 96, 288, 1032, 96, 0], 128, False),
+    (4, 4, 8, 2, 128, [4096, 17, 0, 2000], 256, True),
+    (2, 64, 8, 4, 64, [3000, 40], 256, False)]
+
+
+def _paged_split_case(dev, b, t, h, kv, d, lengths, mb, quant, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bs = 16
+    n_blocks = sum(-(-x // bs) for x in lengths) + 2
+    q = torch.randn((b, t, h, d), generator=g, device=dev).bfloat16()
+    k = torch.randn((n_blocks, bs, kv, d), generator=g, device=dev).bfloat16()
+    v = torch.randn((n_blocks, bs, kv, d), generator=g, device=dev).bfloat16()
+    ks = vs = None
+    if quant:
+        k, ks = quant_encode(k, "int8")
+        v, vs = quant_encode(v, "int8")
+    perm = torch.randperm(n_blocks - 1, generator=g, device=dev) + 1
+    table = torch.zeros((b, mb), dtype=torch.int32, device=dev)
+    used = 0
+    for i, ln in enumerate(lengths):
+        nb = -(-ln // bs)
+        table[i, :nb] = perm[used:used + nb].int()
+        used += nb
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    return q, k, v, table, lens, ks, vs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", PAGED_SPLIT_CASES, ids=str)
+def test_paged_split_kernel_matches_plain(cuda, case):
+    """The kernel at its own split count and at forced ones (1, 3, 7)
+    against the plain version and against the plain version's emulation
+    of the same split count (2e-5 on the normalized output, m, l); the
+    zero-length row stays empty."""
+    args = _paged_split_case(cuda, *case)
+    want = fd._paged_prefix_torch(*args)
+    for n_split in (None, 1, 3, 7):
+        o, m, l = fd._paged_mq_cuda(*args, n_split=n_split)
+        torch.cuda.synchronize()
+        n = n_split or fd.paged_splits(case[0], case[3], case[6],
+                                       torch.cuda.get_device_properties(
+                                           cuda).multi_processor_count)
+        for wo, wm, wl in (want, fd._paged_prefix_torch(*args, n_split=n)):
+            torch.testing.assert_close(o / l.clamp_min(1e-30),
+                                       wo / wl.clamp_min(1e-30), **TOL)
+            torch.testing.assert_close(m, wm, **TOL)
+            torch.testing.assert_close(l, wl, **TOL)
+        empty = args[4] == 0
+        assert bool((o[empty] == 0).all() and (l[empty] == 0).all())
+        assert bool((m[empty] == -1e30).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", PAGED_SPLIT_CASES, ids=str)
+def test_paged_rows_are_the_single_token_reads_bitwise(cuda, case):
+    """Row t of a T-wide read is the T=1 read of q[:, t] bit for bit (the
+    split count and each row's arithmetic do not depend on T)."""
+    q, *rest = _paged_split_case(cuda, *case, seed=1)
+    full = fd._paged_mq_cuda(q, *rest)
+    for t in range(q.shape[1]):
+        one = fd._paged_mq_cuda(q[:, t:t + 1].contiguous(), *rest)
+        for a, b in zip(full, one):
+            assert torch.equal(a[:, t:t + 1], b)
+
+
+@pytest.mark.gpu
+def test_paged_split_counts_at_the_engine_shapes(cuda):
+    """This card's split counts at the decode shape (B=8, K=16, 128
+    columns) and the chunk shape (B=1, K=16, 64 columns): 7 and 16 on an
+    H100's 132 SMs; more than one on any card."""
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    dec, chunk = (fd.paged_splits(8, 16, 128, n_sm),
+                  fd.paged_splits(1, 16, 64, n_sm))
+    assert dec > 1 and chunk > 1
+    if n_sm == 132:
+        assert (dec, chunk) == (7, 16)
+
+
+@pytest.mark.gpu
+def test_paged_split_kernel_replays_in_a_cuda_graph(cuda):
+    """Captured once at the decode shape and replayed on new lengths
+    written into the captured buffer: each replay equals the plain version,
+    and the split counters stay zero between calls."""
+    args = list(_paged_split_case(cuda, *PAGED_SPLIT_CASES[0], seed=2))
+    fd._paged_mq_cuda(*args)                    # sizes the counters
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fd._paged_mq_cuda(*args)
+    lens = args[4]
+    for scale in (1, 2, 3):
+        lens.copy_(torch.tensor([90, 200, 1030, 17, 1, 0, 96, 288],
+                                dtype=torch.int32, device=cuda) // scale)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = fd._paged_prefix_torch(*args)
+        torch.testing.assert_close(out[0] / out[2].clamp_min(1e-30),
+                                   want[0] / want[2].clamp_min(1e-30), **TOL)
+        torch.testing.assert_close(out[1], want[1], **TOL)
+        assert int(fd._PAGED_COUNTERS[lens.device].abs().sum()) == 0
