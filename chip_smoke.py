@@ -8,10 +8,12 @@ imports nothing of the JAX package). Phases, one line each:
 
 1. device   - the card's name and power limit (nvidia-smi), torch and CUDA.
 2. build    - nvcc builds every kernel from ``src/repro_torch/kernels/
-              csrc`` (one nvcc per source, all in parallel), and the flash
+              csrc`` (one nvcc per source, all in parallel), the flash
               library twice more, with ``-DFLASH_PLANT_P_HI_ONLY`` and
               with ``-DFLASH_PLANT_FWD_P_HI_ONLY`` (phase 6's planted
-              faults). Phase 19 runs next.
+              faults), and the int8 library with
+              ``-DQMM_PLANT_SPLIT_HI_ONLY`` (phase 12's). Phase 19 runs
+              next.
 3. kernel   - the paged-attention kernel against its plain PyTorch version
               on the card over T x G x D x {bf16, int8} with a padded table
               bucket, a zero-length row and a short row, and at contexts it
@@ -89,16 +91,22 @@ imports nothing of the JAX package). Phases, one line each:
               chunk + decode steps); every token must be the argmax of a
               teacher-forced ``LM(ssd_impl="ref").forward`` or within
               8 bf16 ulps of it.
-11. timing  - the SSD kernel at B=4, T=1024 beside its bound and its
-              plain version's time (no one library call computes SSD).
+11. timing  - the SSD kernel at B=4, T=1024 and at the chunk step's shape
+              (B=1, T=64 padded to the 256 chunk, a carried state), each
+              beside its bound and its plain version's time (no one
+              library call computes SSD).
 12. qmm     - the int8 weight-only matmul kernel against its plain version
               on the card: the reference's kernel-test shapes, M in {1, 7},
               K and N off the tile, G in {1, 16}, the four fine-tuning
               projections at M=2048; x bf16 and f32, out bf16 and f32 (f32
               within 2e-5, bf16 within 1 bf16 ulp beyond a 1e-5 floor);
-              the autograd wrapper's dx against autograd through the plain
-              version; two planted faults (scales ignored, the last K tile
-              dropped) must each break a limit.
+              the body of every case is printed, and the four projections
+              must run the tensor-core body; the autograd wrapper's dx
+              against autograd through the plain version; two planted
+              faults (scales ignored, the last K tile dropped) must each
+              break a limit, and the library built with the split operand's
+              hi part alone (``QMM_PLANT_SPLIT_HI_ONLY``) must break one at
+              some case (the count is printed).
 13. finetune - full-width qwen1.5-0.5b (seeded random weights) fine-tunes
               LoRA adapters (rank 64) on an int8 frozen base through
               ``Trainer`` with technique QL+Q8+F+R at batch 4 x 2048. B is
@@ -110,20 +118,24 @@ imports nothing of the JAX package). Phases, one line each:
               break one of those limits; then 4 steps, whose losses and
               gradient norms must be finite, which must leave the int8
               base, embed, norms and biases bit-unchanged, and which must
-              launch the int8 kernel 24 x 7 x 2 = 336 times, the flash
+              launch the int8 kernel 24 x 7 x 2 = 336 times (every launch
+              on the tensor-core body), the flash
               kernels 48/24/24 and the RMSNorm kernel 104 per step; then 2
               L+F+R steps (bf16 base), which must launch the int8 kernel
               0 times and RMSNorm 104 per step.
-14. timing  - the int8 kernel at the step's four shapes (M=8192): time per
-              launch beside its bound, the plain version's time and the
-              reference's route on the card, dequantize to x's type +
-              ``torch.matmul`` (two calls: no one PyTorch call computes
-              this function); the kernel's time per step.
+14. timing  - the int8 kernel at the step's four shapes (M=8192): its body,
+              time per launch beside its bound and its bound as built (the
+              useful operations times the part products it runs), the
+              plain version's time and the reference's route on the card,
+              dequantize to x's type + ``torch.matmul`` (two calls: no one
+              PyTorch call computes this function); the kernel's time per
+              step.
 15. rmsnorm - the RMSNorm kernel against its plain version on the card:
-              rows {1, 8, 333, 8192} x D {768, 1024, 1536} x x and w each
+              rows {1, 8, 333, 8192} x D {768, 1024, 1536, and the ragged
+              1000, 999} x x and w each
               in {bf16, f32} (f32 within 2e-5, bf16 within 1 bf16 ulp
               beyond a 1e-5 floor), rows at magnitudes 1e-3..10; two
-              planted faults (eps dropped, the last row tile skipped)
+              planted faults (eps dropped, the last block's rows skipped)
               must each break that limit; the autograd wrapper's dx and
               dw against autograd through the plain version at a training
               shape (1 ulp).
@@ -154,7 +166,8 @@ imports nothing of the JAX package). Phases, one line each:
               rejected proposals must be a bf16 near tie (8 ulps) of a
               dense forward's logits.
 18. timing  - the RMSNorm kernel at the training step's shape (8,192 x
-              1,024 bf16) and at decode (8 x 1,024), the dense decode
+              1,024 bf16), at decode (8 x 1,024) and at the draft's decode
+              (1 x 1,024), the dense decode
               kernel at the draft's shape and at B=8, S=4,096, each
               beside its bound, its plain version and one library call
               (``F.rms_norm``; ``scaled_dot_product_attention`` with the
@@ -226,7 +239,7 @@ SSD_CASES = (("whole-prompt", 4, 1000, 24, 64, 1, 128, 256, False),
 # tokens need more 16-token blocks than this at once, so it preempts
 MAMBA2_PRESSURE_BLOCKS = 192
 # int8 kernel cases (name, M, K, N, G): tests/test_kernels.py:362's shapes,
-# decode-size M, K and N off the 128 x 128 x 32 tiles, G = 16 head groups,
+# decode-size M, K and N off the 128 x 128 x 64 (32) tiles, G = 16 head groups,
 # and qwen1.5-0.5b's four fine-tuning projections at M = 2048
 QMM_CASES = (("test_kernels", 128, 256, 128, 1),
              ("test_kernels", 64, 512, 384, 1),
@@ -234,7 +247,7 @@ QMM_CASES = (("test_kernels", 128, 256, 128, 1),
              ("ragged", 7, 1000, 300, 1), ("ragged", 200, 130, 70, 1),
              ("q/k/v", 2048, 1024, 1024, 16), ("o", 2048, 1024, 1024, 1),
              ("gate/up", 2048, 1024, 2816, 1), ("down", 2048, 2816, 1024, 1))
-QMM_K_TILE = 32                    # kBK of csrc/quant_matmul.cu
+STEP_NAMES = ("q/k/v", "o", "gate/up", "down")
 # the fine-tuning step's projections at M = 4 x 2048 tokens: (name, K, N,
 # G, x type, out type, launches per layer per forward pass)
 QMM_STEP = (("q/k/v", 1024, 1024, 16, "bf16", "f32", 3),
@@ -264,10 +277,12 @@ RMSNORM_RUNS = {}
 SELF_DRAFT_ACCEPT = 0.6
 SPEC_NEAR_TIE_ULPS = 4             # the port's rule for spec-on vs spec-off
 # RMSNorm kernel cases: the layers' widths (qwen1.5-0.5b 1024, mamba2
-# 768 and its gated norm's 1536) at decode, odd and training row counts
+# 768 and its gated norm's 1536) and two ragged ones (1000: the last
+# vectors of a row fall to some threads only; 999: not a whole number of
+# 16-byte vectors, read element by element) at decode, odd and training
+# row counts
 RMS_ROWS = (1, 8, 333, 8192)
-RMS_DIMS = (768, 1024, 1536)
-RMS_ROW_TILE = 8                   # kWarps in csrc/rmsnorm.cu
+RMS_DIMS = (768, 1024, 1536, 1000, 999)
 # dense decode kernel cases (B, S, H, K, D, lengths): tests/test_kernels.py
 # :72-75, the draft model's shape, G = 2, a zero-length row, a length past S
 DENSE_CASES = ((2, 256, 4, 4, 128, [128, 256]),
@@ -1054,6 +1069,11 @@ FLASH_FAULT = ("FLASH_PLANT_P_HI_ONLY",)
 FLASH_FWD_FAULT = ("FLASH_PLANT_FWD_P_HI_ONLY",)
 
 
+# a macro that builds the int8 library with only the hi part of its split
+# operands (csrc/quant_matmul.cu)
+QMM_FAULT = ("QMM_PLANT_SPLIT_HI_ONLY",)
+
+
 @contextlib.contextmanager
 def fault_build(module, defines):
     """``module``'s kernels from the library built with ``defines``."""
@@ -1392,31 +1412,51 @@ def ssd_bounds(*, b, t, h, p, g, n, q, init):
             "bytes" if t_bytes >= t_ops else "operations", flops)
 
 
-def phase_ssd_timing():
+def time_ssd(name, b, t, *, init, seed):
+    """The SSD kernel at mamba2-130m's widths (H=24, P=64, N=128, chunk
+    256) on B = ``b`` rows of T = ``t`` tokens (padded to the chunk), with
+    a carried state when ``init``, beside its bound and its plain
+    version."""
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ssd as ssdk
-    b, t, h, p, g, n, q = 4, 1024, 24, 64, 1, 128, 256
-    x, B, C, dt, A, _, _ = ssd_case(b, t, h, p, g, n, init=False, seed=11)
-    xdt, bm, cm, a, _ = kops.ssd_inputs(x, B, C, dt, A, q)
-    got = ssdk._ssd_cuda(xdt, bm, cm, a, chunk=q)
-    want = ssdk.ssd_chunked_plain(xdt, bm, cm, a, chunk=q)
+    h, p, g, n, q = 24, 64, 1, 128, 256
+    x, B, C, dt, A, _, st = ssd_case(b, t, h, p, g, n, init=init, seed=seed)
+    xdt, bm, cm, a, init_state = kops.ssd_inputs(x, B, C, dt, A, q, st)
+    tp = xdt.shape[2]
+
+    def run(i):
+        return ssdk._ssd_cuda(xdt, bm, cm, a, chunk=q, init_state=init_state)
+
+    got = run(0)
+    want = ssdk.ssd_chunked_plain(xdt, bm, cm, a, chunk=q,
+                                  init_state=init_state)
     err = max(max_err(u, w) for u, w in zip(got, want))
     check(all(allclose(u, w, **SSD_TOL) for u, w in zip(got, want)),
-          f"SSD kernel differs from plain at the timing shape: {err}")
-    ms = cuda_ms(lambda i: ssdk._ssd_cuda(xdt, bm, cm, a, chunk=q), iters=20)
-    plain_ms = cuda_ms(lambda i: ssdk.ssd_chunked_plain(xdt, bm, cm, a,
-                                                        chunk=q), iters=10)
-    bound_ms, bound_by, flops = ssd_bounds(b=b, t=t, h=h, p=p, g=g, n=n,
-                                           q=q, init=False)
-    print(f"[timing] ssd B={b} T={t} H={h} P={p} N={n} G={g} chunk={q} "
-          f"f32: {ms * 1e3:.1f} us (bound {bound_ms * 1e3:.2f} us by "
+          f"SSD kernel differs from plain at the {name} timing shape: {err}")
+    ms = cuda_ms(run, iters=20)
+    plain_ms = cuda_ms(lambda i: ssdk.ssd_chunked_plain(
+        xdt, bm, cm, a, chunk=q, init_state=init_state), iters=10)
+    bound_ms, bound_by, flops = ssd_bounds(b=b, t=tp, h=h, p=p, g=g, n=n,
+                                           q=q, init=init)
+    print(f"[timing] ssd {name} B={b} T={t} (padded {tp}) H={h} P={p} "
+          f"N={n} G={g} chunk={q}{' +init_state' if init else ''} f32: "
+          f"{ms * 1e3:.1f} us (bound {bound_ms * 1e3:.2f} us by "
           f"{bound_by}, {bound_ms / ms * 100:.2f}% of it; its "
           f"{flops / 1e9:.2f} GFLOP take {flops / F32_FMA_OPS * 1e6:.2f} us "
           f"on the f32 FMA pipes), plain {plain_ms * 1e3:.1f} us, == plain "
           f"within rtol={SSD_TOL['rtol']:g} atol={SSD_TOL['atol']:g}, max "
-          f"|err| {err:.3g}")
+          f"|err| {err:.3g}; {card_line()}")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "max_abs_err": err}
+
+
+def phase_ssd_timing():
+    """The SSD kernel at mamba2's whole-prompt shape (B=4, T=1024) and at
+    its chunk step's (B=1, T=64 padded to one 256 chunk, a carried
+    state)."""
+    whole = time_ssd("whole-prompt", 4, 1024, init=False, seed=11)
+    time_ssd("chunk step", 1, 64, init=True, seed=12)
+    return whole
 
 
 def phase_ssm_engine(cfg, params, *, prefill_chunk, n_blocks):
@@ -1542,9 +1582,12 @@ def _ignore_scales(run):
 
 
 def _drop_last_k_tile(run):
-    """A kernel whose K loop stops one tile early."""
+    """A kernel whose K loop stops one of its K tiles early."""
     def fault(x, w_q, scale, **kw):
-        keep = (x.shape[1] - 1) // QMM_K_TILE * QMM_K_TILE
+        from repro_torch.kernels import quant_matmul as qmm
+        tile = qmm.k_tile(x.dtype, x.shape[0], w_q.shape[1], x.shape[1],
+                          scale.shape[1])
+        keep = (x.shape[1] - 1) // tile * tile
         return run(x[:, :keep].contiguous(), w_q[:keep].contiguous(),
                    scale[:keep].contiguous(), **kw)
     return fault
@@ -1554,22 +1597,32 @@ QMM_PLANTED = (("scales ignored", _ignore_scales),
                ("last K tile dropped", _drop_last_k_tile))
 
 
+QMM_TYPES = (("bf16", "bf16"), ("bf16", "f32"), ("f32", "f32"),
+             ("f32", "bf16"))
+
+
 def phase_qmm_vs_plain():
     import torch
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import quant_matmul as qmm
-    types = (("bf16", "bf16"), ("bf16", "f32"), ("f32", "f32"),
-             ("f32", "bf16"))
     worst = {"f32": 0.0, "bf16": 0.0}
     n = 0
+    bodies = []
     for i, (name, m, k, n_, g) in enumerate(QMM_CASES):
-        for xt, ot in types:
+        for xt, ot in QMM_TYPES:
             x, w_q, scale = qmm_case(m, k, n_, g, _dtype(xt), seed=i)
+            body = qmm.qmm_body(x.dtype, m, n_, k, g)
+            if name in STEP_NAMES:
+                check(body.startswith("mma"), f"the step's {name} shape "
+                      f"(x {xt}) runs the {body} body")
             err, ok = qmm_vs_plain(x, w_q, scale, _dtype(ot))
             check(ok, f"int8 kernel differs from plain at {name} M={m} "
-                  f"K={k} N={n_} G={g} x {xt} out {ot}: max |err| {err}")
+                  f"K={k} N={n_} G={g} x {xt} out {ot} ({body} body): max "
+                  f"|err| {err}")
             worst[ot] = max(worst[ot], err)
+            bodies.append(f"{name} M={m} K={k} N={n_} G={g} x {xt}: {body}")
             n += 1
+    print("[qmm] bodies: " + "; ".join(bodies[::2]))
     # the autograd wrapper: dx against autograd through the plain version
     x, w_q, scale = qmm_case(2048, 1024, 1024, 16, torch.bfloat16, seed=50)
     dy = torch.randn((2048, 1024), device="cuda")
@@ -1603,6 +1656,24 @@ def phase_qmm_vs_plain():
         print(f"[qmm] planted fault '{fault_name}': caught at "
               f"{len(caught)} of {len(QMM_CASES)} shapes (bf16 x, f32 out; "
               f"max |err| {min(caught):.3g}-{max(caught):.3g})")
+    # the split operand's hi part alone, in the tensor-core body: a reading
+    # of how many cases it breaks (the SIMT cases cannot change)
+    caught, missed = [], []
+    with fault_build(qmm, QMM_FAULT):
+        for i, (name, m, k, n_, g) in enumerate(QMM_CASES):
+            for xt, ot in QMM_TYPES:
+                x, w_q, scale = qmm_case(m, k, n_, g, _dtype(xt), seed=i)
+                if qmm.qmm_body(x.dtype, m, n_, k, g) == "simt":
+                    continue
+                err, ok = qmm_vs_plain(x, w_q, scale, _dtype(ot))
+                (missed if ok else caught).append(
+                    (f"{name} M={m} x {xt} out {ot}", err))
+    check(bool(caught), f"the -D{QMM_FAULT[0]} build passes every case")
+    errs = [e for _, e in caught]
+    print(f"[qmm] planted build -D{QMM_FAULT[0]} (hi parts only): caught at "
+          f"{len(caught)} of {len(caught) + len(missed)} tensor-core cases "
+          f"(max |err| {min(errs):.3g}-{max(errs):.3g}); passed at: "
+          + (", ".join(f"{c} ({e:.3g})" for c, e in missed) or "none"))
 
 
 def adapter_loss_and_grads(model, params, batch):
@@ -1691,12 +1762,17 @@ def phase_finetune(cfg):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     qmm.LAUNCHES.clear()                 # count the main path's run only
+    qmm.BODIES.clear()
     fa.LAUNCHES.clear()
     rn.LAUNCHES.clear()
     out = trainer.run()
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() / 2**30
     launches = qmm.LAUNCHES["int8_matmul"]
+    bodies = dict(qmm.BODIES)
+    check(sum(bodies.values()) == launches and "simt" not in bodies,
+          f"fine-tuning int8 launches by body {bodies} (of {launches}): "
+          f"every one must run the tensor cores")
     flash = {n: fa.LAUNCHES[n] for n in ("fwd", "bwd_dkv", "bwd_dq")}
     hist = out["history"]
     check(out["final_step"] == steps and len(hist) == steps,
@@ -1730,7 +1806,8 @@ def phase_finetune(cfg):
           + ", grad_norms " + ", ".join(f"{h['grad_norm']:.4f}" for h in hist)
           + f"; steps 2-{steps}: {out['step_ms']:.1f} ms/step, "
           f"{out['tokens_per_s']:.0f} tokens/s; int8 launches {launches} "
-          f"(= {launches // steps} per step = {cfg.n_layers} x 7 x 2), "
+          f"(= {launches // steps} per step = {cfg.n_layers} x 7 x 2; by "
+          f"body {bodies}), "
           f"flash {flash['fwd']}/{flash['bwd_dkv']}/{flash['bwd_dq']}; "
           f"{rms}; {n_frozen} frozen leaves bit-unchanged, "
           f"{adapters_moved} of "
@@ -1779,6 +1856,14 @@ def qmm_bound(m, k, n, g, x_bytes, out_bytes):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def qmm_products(body: str, x_dtype) -> int:
+    """bf16 part products the tensor-core body runs for each useful one: 3
+    (bf16 x and w split in three, or x·s split in three and the codes),
+    6 for f32 x and w both split (the six of weight >= 2^-16)."""
+    import torch
+    return 6 if body == "mma_w" and x_dtype == torch.float32 else 3
+
+
 def phase_qmm_timing(cfg):
     import torch
     from repro_torch.kernels import quant_matmul as qmm
@@ -1787,6 +1872,9 @@ def phase_qmm_timing(cfg):
     for i, (name, k, n, g, xt, ot, per_layer) in enumerate(QMM_STEP):
         x_dtype, out_dtype = _dtype(xt), _dtype(ot)
         x, w_q, scale = qmm_case(m, k, n, g, x_dtype, seed=100 + i)
+        body = qmm.qmm_body(x_dtype, m, n, k, g)
+        check(body.startswith("mma"), f"the step's {name} shape runs the "
+              f"{body} body")
         err, ok = qmm_vs_plain(x, w_q, scale, out_dtype)
         check(ok, f"int8 kernel differs from plain at the step's {name} "
               f"shape: {err}")
@@ -1805,26 +1893,35 @@ def phase_qmm_timing(cfg):
         bound_ms, bound_by = qmm_bound(m, k, n, g, x.element_size(),
                                        torch.empty((), dtype=out_dtype
                                                    ).element_size())
+        parts = qmm_products(body, x_dtype)
+        built_ms = 2.0 * m * k * n * parts / PEAK_OPS["bf16"] * 1e3
         rows[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                       "bound_ms": bound_ms, "bound_by": bound_by,
-                      "max_abs_err": err, "per_layer": per_layer}
+                      "built_ms": built_ms, "max_abs_err": err,
+                      "per_layer": per_layer}
         tflops = 2.0 * m * k * n / (ms * 1e-3) / 1e12
         print(f"[timing] int8_matmul {name} M={m} K={k} N={n} G={g} x {xt} "
-              f"out {ot}: {ms * 1e3:.1f} us ({tflops:.1f} TFLOP/s; bound "
-              f"{bound_ms * 1e3:.2f} us by {bound_by}, "
-              f"{bound_ms / ms * 100:.2f}% of it), plain (f32 dequantize + "
+              f"out {ot}, {body} body: {ms * 1e3:.1f} us ({tflops:.1f} "
+              f"TFLOP/s; bound {bound_ms * 1e3:.2f} us by {bound_by}, "
+              f"{bound_ms / ms * 100:.2f}% of it; as built ({parts} part "
+              f"products) {built_ms * 1e3:.2f} us, {built_ms / ms * 100:.2f}% "
+              f"of it), plain (f32 dequantize + "
               f"f32 matmul) {plain_ms * 1e3:.1f} us, reference route "
               f"(dequantize to {xt} + torch.matmul, two calls) "
               f"{lib_ms * 1e3:.1f} us; == plain, max |err| {err:.3g}")
     per_step = {key: 2 * cfg.n_layers * sum(r[key] * r["per_layer"]
                                             for r in rows.values())
-                for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+                for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                            "built_ms")}
     print(f"[timing] int8_matmul per QL+Q8+F+R step ({cfg.n_layers} layers "
           f"x 7 projections x 2 with remat, {2 * cfg.n_layers * 7} "
           f"launches): "
           f"kernel {per_step['ms']:.1f} ms, bound {per_step['bound_ms']:.2f} "
-          f"ms, plain {per_step['plain_ms']:.1f} ms, reference route "
-          f"{per_step['library_ms']:.1f} ms; {card_line()}")
+          f"ms, as built {per_step['built_ms']:.2f} ms, plain "
+          f"{per_step['plain_ms']:.1f} ms, reference route "
+          f"{per_step['library_ms']:.1f} ms; down "
+          f"{rows['down']['ms'] * 1e3:.1f} us against its reference route's "
+          f"{rows['down']['library_ms'] * 1e3:.1f} us; {card_line()}")
     return rows, per_step
 
 
@@ -1867,11 +1964,13 @@ def _drop_eps(run):
 
 
 def _skip_last_row_tile(run):
-    """A kernel whose grid stops one row tile early (those rows unwritten,
-    here zeros)."""
+    """A kernel whose grid stops one block early (its rows, as many as the
+    kernel puts in a block at this shape, unwritten: here zeros)."""
     def fault(x, w, eps):
         import torch
-        keep = (x.shape[0] - 1) // RMS_ROW_TILE * RMS_ROW_TILE
+        from repro_torch.kernels import rmsnorm as rn
+        tile = rn.rows_per_block(x.shape[0], x.shape[1], x.dtype)
+        keep = (x.shape[0] - 1) // tile * tile
         out = torch.zeros_like(x)
         if keep:
             out[:keep] = run(x[:keep].contiguous(), w, eps)
@@ -1880,7 +1979,7 @@ def _skip_last_row_tile(run):
 
 
 RMS_PLANTED = (("eps dropped", _drop_eps),
-               ("last row tile skipped", _skip_last_row_tile))
+               ("last block's rows skipped", _skip_last_row_tile))
 
 
 def phase_rmsnorm_vs_plain():
@@ -2308,7 +2407,8 @@ def phase_new_kernel_timing(cfg):
     import torch.nn.functional as F
     from repro_torch.kernels import rmsnorm as rn
     rows_out = {}
-    for name, rows, xd in (("train", 8192, "bf16"), ("decode", 8, "bf16")):
+    for name, rows, xd in (("train", 8192, "bf16"), ("decode", 8, "bf16"),
+                           ("draft", 1, "bf16")):
         d = cfg.d_model
         # four inputs cycled, so the 16 MB training operand is not L2-hot
         ins = [rms_case(rows, d, xd, "bf16", seed=200 + j) for j in range(4)]
@@ -2322,7 +2422,8 @@ def phase_new_kernel_timing(cfg):
         rows_out[name] = {"ms": ms, "plain_ms": plain_ms,
                           "library_ms": lib_ms, "bound_ms": bound_ms,
                           "bound_by": bound_by, "max_abs_err": err}
-        print(f"[timing] rmsnorm {rows} x {d} {xd} (w bf16): "
+        print(f"[timing] rmsnorm {rows} x {d} {xd} (w bf16, "
+              f"{rn.rows_per_block(rows, d, _dtype(xd))} rows a block): "
               f"{ms * 1e3:.2f} us (bound {bound_ms * 1e3:.3f} us by "
               f"{bound_by}, {bound_ms / ms * 100:.2f}% of it), plain "
               f"{plain_ms * 1e3:.2f} us, F.rms_norm {lib_ms * 1e3:.2f} us; "
@@ -2498,10 +2599,12 @@ def main() -> None:
     resolve_device("cuda")           # numerics switches for the whole run
     t0 = time.monotonic()
     logs = _build.build_all(verbose=True, variants=[
-        ("flash_attention", FLASH_FAULT), ("flash_attention", FLASH_FWD_FAULT)])
-    print(f"[build] {', '.join(_build.KERNELS)} and the flash library with "
-          f"-D{FLASH_FAULT[0]} and with -D{FLASH_FWD_FAULT[0]} (planted "
-          f"faults) built by nvcc in {time.monotonic() - t0:.1f}s")
+        ("flash_attention", FLASH_FAULT), ("flash_attention", FLASH_FWD_FAULT),
+        ("quant_matmul", QMM_FAULT)])
+    print(f"[build] {', '.join(_build.KERNELS)}, the flash library with "
+          f"-D{FLASH_FAULT[0]} and with -D{FLASH_FWD_FAULT[0]} and the int8 "
+          f"library with -D{QMM_FAULT[0]} (planted faults) built by nvcc in "
+          f"{time.monotonic() - t0:.1f}s")
     for name, log in logs.items():
         print(f"[build] {name}: " + " ".join(
             line.strip() for line in log.splitlines() if "registers" in line))

@@ -46,7 +46,7 @@ KERNEL_CLASSES = (
     ("the port's CUDA kernels", ("paged_mq_kernel", "ssd_chunk_scan",
                                  "rmsnorm_kernel", "dense_decode_kernel",
                                  "fwd_kernel", "fwd_mma_kernel", "bwd_dkv",
-                                 "bwd_dq", "qmm_kernel")),
+                                 "bwd_dq", "qmm_kernel", "qmm_mma_kernel")),
     ("split-K reductions", ("splitKreduce",)),
     ("tensor-core GEMMs", ("nvjet_t", "gemm_bf16", "bf16gemm")),
     ("f32 GEMMs", ("sgemm", "f32f32_f32f32", "nvjet_s")),

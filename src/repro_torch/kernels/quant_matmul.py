@@ -15,21 +15,34 @@ kernel of ``csrc/quant_matmul.cu`` (it replaces the TPU kernel
 ``_qmm_kernel``) or raises; it never falls back. On CPU tensors it runs
 the plain version :func:`int8_matmul_plain`, which is also the kernel's
 oracle on the card. Every launch adds one to
-``LAUNCHES["int8_matmul"]``; nothing else does.
+``LAUNCHES["int8_matmul"]`` and to ``BODIES`` under the body it ran;
+nothing else does.
+
+The kernel has two bodies; :func:`qmm_body` says which one a shape takes.
+The tensor-core body feeds every term to bf16 ``mma.sync`` as parts that
+are exact: the f32 operand that carries the scale (``q·s``, or ``x·s``
+where G = 1 and x is f32) split in three by
+:func:`~repro_torch.kernels.flash_attention.split_bf16`, the other operand
+as it is (bf16 x, int8 codes) or, for f32 x under the scale on the weight,
+split too (six part products, those of weight >= 2^-16). The SIMT body
+(f32 FMA) takes the shapes the tensor-core body does not.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 from collections import Counter
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import split_bf16
 
 #: launches of the CUDA kernel of this module
 LAUNCHES: Counter = Counter()
+#: the same launches by the body they ran (:func:`qmm_body`'s names)
+BODIES: Counter = Counter()
 
 _KINDS = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -53,6 +66,40 @@ def int8_matmul_plain(x, w_q, scale, *,
                         ).to(out_dtype or x.dtype)
 
 
+def _qmm_split_torch(x, w_q, scale, *, placement: str = "w",
+                     hi_only: bool = False,
+                     out_dtype: Optional[torch.dtype] = None
+                     ) -> torch.Tensor:
+    """The tensor-core body's arithmetic in plain torch (a model for the
+    tests, no route of the models): the operand that carries the scale,
+    ``q·s`` (``placement="w"``) or ``x·s`` (``"x"``, G = 1 only), formed
+    in f32 and split into three bf16 parts by :func:`split_bf16`, which
+    rebuild it exactly; the other operand as it is (bf16 x, or the codes,
+    exact in bf16), or also split in three (f32 x under ``"w"``). The part
+    products of weight >= 2^-16 (index sum <= 2) are each exact in f32 and
+    are summed in f32; ``hi_only`` keeps the hi parts alone (the planted
+    fault's build)."""
+    f = torch.float32
+    if placement == "w":
+        a = ((x,) if x.dtype == torch.bfloat16 else split_bf16(x.to(f), 3))
+        b = split_bf16(dequantize_groups(w_q, scale), 3)
+    elif placement == "x":
+        if scale.shape[1] != 1:
+            raise ValueError("the scale goes on x only where G = 1")
+        a = split_bf16(x.to(f) * scale[:, 0].to(f), 3)
+        b = (w_q.to(torch.bfloat16),)
+    else:
+        raise ValueError(f"placement must be 'w' or 'x', got {placement!r}")
+    top = 0 if hi_only else 2
+    out = None
+    for i, ai in enumerate(a):
+        for j, bj in enumerate(b):
+            if i + j <= top:
+                term = torch.matmul(ai.to(f), bj.to(f))
+                out = term if out is None else out + term
+    return out.to(out_dtype or x.dtype)
+
+
 # ==========================================================================
 # The CUDA kernel's wrapper
 # ==========================================================================
@@ -65,14 +112,42 @@ def _check(cond: bool, msg: str) -> None:
 
 
 @functools.lru_cache(maxsize=None)
-def _entry():
-    """The kernel's C entry point, built and loaded on first use, with its
-    ctypes signature set once."""
-    fn = _build.load("quant_matmul").int8_matmul
+def _entries(defines: Tuple[str, ...] = ()):
+    """The kernel's C entry points, built and loaded on first use, with
+    their ctypes signatures set once (``defines``: a variant build's
+    macros, which only a planted fault's check uses)."""
+    lib = _build.load("quant_matmul", defines)
     vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn = lib.int8_matmul
     fn.argtypes = [vp] * 4 + [ci] * 6 + [vp]
     fn.restype = ci
-    return fn
+    body, k_tile = lib.int8_matmul_body, lib.int8_matmul_k_tile
+    for f in (body, k_tile):
+        f.argtypes = [ci] * 5
+        f.restype = ci
+    return {"int8_matmul": fn, "body": body, "k_tile": k_tile}
+
+
+#: int8_matmul_body's codes
+_BODIES = {0: "simt", 1: "mma_w", 2: "mma_x"}
+
+
+def qmm_body(x_dtype: torch.dtype, m: int, n: int, k: int, g: int) -> str:
+    """Which body the kernel runs for 16-byte-aligned operands (every fresh
+    allocation) of these shapes, as the library dispatches: ``"mma_w"``
+    (bf16 tensor cores, the scale on the weight), ``"mma_x"`` (the scale on
+    x: f32 x with G = 1) or ``"simt"`` (the f32 FMA body)."""
+    code = _entries()["body"](_KINDS[x_dtype], m, n, k, g)
+    _check(code in _BODIES, f"no body takes M={m} N={n} K={k} G={g}")
+    return _BODIES[code]
+
+
+def k_tile(x_dtype: torch.dtype, m: int, n: int, k: int, g: int) -> int:
+    """The K tile the body :func:`qmm_body` names walks (64 for bf16 x on
+    the tensor cores, 32 otherwise)."""
+    tile = _entries()["k_tile"](_KINDS[x_dtype], m, n, k, g)
+    _check(tile > 0, f"no body takes M={m} N={n} K={k} G={g}")
+    return tile
 
 
 def _qmm_cuda(x, w_q, scale, *, out_dtype: Optional[torch.dtype] = None):
@@ -99,15 +174,19 @@ def _qmm_cuda(x, w_q, scale, *, out_dtype: Optional[torch.dtype] = None):
                f"{t.device}")
         _check(t.is_contiguous(), "tensors must be contiguous")
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
+    # the library's rule: a pointer off 16 bytes takes the SIMT body
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, w_q, scale, out))
+    body = qmm_body(x.dtype, m, n, k, g) if aligned else "simt"
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _entry()(x.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
-                      out.data_ptr(), m, n, k, g, _KINDS[x.dtype],
-                      _KINDS[out_dtype], stream)
+        rc = _entries()["int8_matmul"](
+            x.data_ptr(), w_q.data_ptr(), scale.data_ptr(), out.data_ptr(),
+            m, n, k, g, _KINDS[x.dtype], _KINDS[out_dtype], stream)
     # repro: allow[JIT-04] rc is the C int cudaGetLastError() returned to the host, not a device value
     if rc != 0:
         raise RuntimeError(f"int8_matmul launch failed: CUDA error {rc}")
     LAUNCHES["int8_matmul"] += 1
+    BODIES[body] += 1
     return out
 
 

@@ -87,6 +87,18 @@ def _entry():
     return fn
 
 
+def rows_per_block(rows: int, d: int, dtype: torch.dtype) -> int:
+    """Rows of x that one block of the kernel normalizes at this shape, as
+    the library launches it: 1 below 1,024 rows (a row spread over a
+    block), else as many as a 256-thread block holds (8 at D 1,024 bf16)."""
+    _check(0 < d <= MAX_D and rows > 0 and dtype in _KINDS,
+           f"no launch for rows={rows} D={d} {dtype}")
+    fn = _build.load("rmsnorm").rmsnorm_rows_per_block
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    return fn(rows, d, _KINDS[dtype])
+
+
 def _rmsnorm_cuda(x, w, eps: float = 1e-5) -> torch.Tensor:
     _check(x.ndim >= 1 and w.ndim == 1 and w.shape[0] == x.shape[-1],
            f"x {tuple(x.shape)} and w {tuple(w.shape)}: w must be (D,) "

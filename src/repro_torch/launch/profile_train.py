@@ -108,7 +108,8 @@ def main(argv: Optional[List[str]] = None) -> None:
                 if "fwd_kernel" in k or "fwd_mma_kernel" in k
                 or "bwd_dkv" in k or "bwd_dq" in k) / 1e3 / args.steps
     int8 = sum(v[0] for k, v in by_name.items()
-               if "qmm_kernel" in k) / 1e3 / args.steps
+               if "qmm_kernel" in k or "qmm_mma_kernel" in k
+               ) / 1e3 / args.steps
     # the profiler slows the host, not the device: the idle share is the
     # busy time against the unprofiled wall time
     print(f"[profile] wall per train step {wall * 1e3:.2f} ms "

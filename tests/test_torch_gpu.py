@@ -321,7 +321,7 @@ def test_mamba2_engine_runs_prefill_through_the_ssd_kernel(cuda,
 # --------------------------------------------------------------------------
 
 # (M, K, N, G): tests/test_kernels.py:362's shapes, decode-size M, K and N
-# off the 128 x 128 x 32 tiles, G = 16 head groups, and qwen1.5-0.5b's
+# off the 128 x 128 x 64 (32) tiles, G = 16 head groups, and qwen1.5-0.5b's
 # four fine-tuning projections (q/k/v, o, gate/up, down) at M = 512
 QMM_CASES = [(128, 256, 128, 1), (64, 512, 384, 1), (1, 1024, 1024, 16),
              (7, 1000, 1040, 16), (7, 1000, 300, 1), (200, 130, 70, 1),
@@ -360,6 +360,33 @@ def test_int8_matmul_kernel_matches_plain(cuda, case, x_dtype, out_dtype):
     assert qmm.LAUNCHES["int8_matmul"] == before + 1
     assert got.dtype == out_dtype and got.shape == want.shape
     _assert_flash_close(got, want, ulps=1)
+
+
+@pytest.mark.gpu
+def test_int8_matmul_body_dispatch(cuda):
+    """The fine-tuning step's four projections (M = 8192) and every shape
+    with N % 16 == 0 and K a whole number of 16-byte x chunks run the
+    tensor cores, the scale on x only for f32 x with G = 1; the rest the
+    SIMT body. Each launch counts under the body it ran."""
+    from repro_torch.kernels import quant_matmul as qmm
+    bf16, f32 = torch.bfloat16, torch.float32
+    for k, n, g, x_dtype in ((1024, 1024, 16, bf16), (1024, 1024, 1, bf16),
+                             (1024, 2816, 1, bf16), (2816, 1024, 1, f32)):
+        want = "mma_x" if x_dtype == f32 else "mma_w"
+        assert qmm.qmm_body(x_dtype, 8192, n, k, g) == want
+    for m, k, n, g in QMM_CASES:
+        for x_dtype in (bf16, f32):
+            body = qmm.qmm_body(x_dtype, m, n, k, g)
+            assert body == ("simt" if n % 16 else
+                            "mma_x" if (x_dtype, g) == (f32, 1) else "mma_w")
+            assert qmm.k_tile(x_dtype, m, n, k, g) == (
+                64 if (body, x_dtype) == ("mma_w", bf16) else 32)
+    x, w_q, scale = _qmm_case(cuda, 7, 1000, 300, 1, bf16)
+    qmm.BODIES.clear()
+    qmm.int8_matmul_kernel(x, w_q, scale)
+    x, w_q, scale = _qmm_case(cuda, 64, 512, 384, 1, f32)
+    qmm.int8_matmul_kernel(x, w_q, scale)
+    assert dict(qmm.BODIES) == {"simt": 1, "mma_x": 1}
 
 
 @pytest.mark.gpu
@@ -431,12 +458,14 @@ def _rms_case(dev, rows, d, xd, wd, seed=0):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("rows", [1, 8, 333, 8192])
-@pytest.mark.parametrize("d", [768, 1024, 1536])
+@pytest.mark.parametrize("d", [768, 1024, 1536, 1000, 999])
 @pytest.mark.parametrize("xd,wd", [("bf16", "bf16"), ("bf16", "f32"),
                                    ("f32", "bf16"), ("f32", "f32")])
 def test_rmsnorm_kernel_matches_plain(cuda, rows, d, xd, wd):
     """f32 out within 2e-5, bf16 out within one bf16 ulp (both round one
-    f32 value once; only the order of the sum of squares differs)."""
+    f32 value once; only the order of the sum of squares differs), also
+    at ragged D: 1000 (the last vectors of a row fall to some threads
+    only) and 999 (read element by element)."""
     from repro_torch.kernels import rmsnorm as rn
     x, w = _rms_case(cuda, rows, d, xd, wd, seed=rows + d)
     before = rn.LAUNCHES["rmsnorm"]
@@ -446,6 +475,20 @@ def test_rmsnorm_kernel_matches_plain(cuda, rows, d, xd, wd):
     assert rn.LAUNCHES["rmsnorm"] == before + 1
     assert got.dtype == x.dtype and got.shape == x.shape
     _assert_flash_close(got, want, ulps=1)
+
+
+@pytest.mark.gpu
+def test_rmsnorm_rows_per_block(cuda):
+    """One row a block below 1,024 rows; above, as many rows as a
+    256-thread block holds at up to four 16-byte vectors a thread."""
+    from repro_torch.kernels import rmsnorm as rn
+    bf16, f32 = torch.bfloat16, torch.float32
+    for rows in (1, 8, 333, 1023):
+        assert rn.rows_per_block(rows, 1024, bf16) == 1
+    assert rn.rows_per_block(8192, 1024, bf16) == 8
+    assert rn.rows_per_block(8192, 768, bf16) == 8
+    assert rn.rows_per_block(8192, 1536, f32) == 2
+    assert rn.rows_per_block(8192, 8192, f32) == 1
 
 
 @pytest.mark.gpu

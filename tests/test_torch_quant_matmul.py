@@ -142,9 +142,101 @@ def test_a_missing_compiler_raises_instead_of_falling_back(monkeypatch,
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(_build, "nvcc_path", no_nvcc)
     monkeypatch.setattr(_build, "_LIBS", {})
-    qmm._entry.cache_clear()
+    qmm._entries.cache_clear()
     try:
         with pytest.raises(RuntimeError, match="nvcc"):
-            qmm._entry()
+            qmm._entries()
     finally:
-        qmm._entry.cache_clear()
+        qmm._entries.cache_clear()
+
+
+# --------------------------------------------------------------------------
+# the tensor-core body's split arithmetic (``_qmm_split_torch``)
+# --------------------------------------------------------------------------
+
+# (M, K, N, G): tests/test_kernels.py's shapes, a grouped one (4 heads of
+# 16) and ragged ones (M, K and N off every tile; 65-wide groups)
+SPLIT_CASES = [(128, 256, 128, 1), (64, 512, 384, 1), (48, 64, 64, 4),
+               (7, 130, 70, 1), (7, 1000, 1040, 16)]
+
+
+def _grouped_case(m, k, n, g, x_dtype, seed):
+    """``_case`` with the weight quantized as (K, G, N/G): codes (K, N),
+    scales (K, G), as ``layers.dense`` hands them to the kernel."""
+    heads = None if g == 1 else g
+    x, q, s = _case(m, k, n, x_dtype, seed=seed, heads=heads)
+    return x, q.reshape(k, n), s.reshape(k, g)
+
+
+def _reference_kernel(x, q, s):
+    """The JAX package's Pallas kernel, one call per column group."""
+    g, k = s.shape[1], q.shape[0]
+    cols = q.shape[1] // g
+    return np.concatenate(
+        [np.asarray(jops.int8_matmul(
+            jnp.asarray(x), jnp.asarray(q[:, h * cols:(h + 1) * cols]),
+            jnp.asarray(s[:, h:h + 1])), np.float32) for h in range(g)],
+        axis=-1)
+
+
+def _placements(g):
+    return ("w", "x") if g == 1 else ("w",)
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=str)
+@pytest.mark.parametrize("x_dtype", [jnp.bfloat16, np.float32],
+                         ids=["bf16", "f32"])
+def test_split_arithmetic_matches_the_reference_kernel_and_plain(case,
+                                                                 x_dtype):
+    """Each placement of the scale, both x types: the sum of the bf16 part
+    products equals the reference kernel (interpret mode, x's type out)
+    and the plain version (f32 out) within the repo's 2e-5, bf16 outputs
+    within one bf16 ulp."""
+    m, k, n, g = case
+    x, q, s = _grouped_case(m, k, n, g, x_dtype, seed=k + n)
+    tx, tq, ts = (from_jax_numpy(a) for a in (x, q, s))
+    ref = _reference_kernel(x, q, s)
+    plain = qmm.int8_matmul_plain(tx, tq, ts, out_dtype=torch.float32)
+    for placement in _placements(g):
+        got = qmm._qmm_split_torch(tx, tq, ts, placement=placement)
+        assert got.dtype == tx.dtype and got.shape == (m, n)
+        _assert_close(got, ref)
+        got32 = qmm._qmm_split_torch(tx, tq, ts, placement=placement,
+                                     out_dtype=torch.float32)
+        torch.testing.assert_close(got32, plain, **TOL)
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=str)
+@pytest.mark.parametrize("x_dtype", [jnp.bfloat16, np.float32],
+                         ids=["bf16", "f32"])
+def test_split_hi_parts_alone_break_the_limit(case, x_dtype):
+    """The planted build's arithmetic: the split operands' hi parts alone
+    are off the plain version by ~2^-9 of each term, far past 2e-5."""
+    m, k, n, g = case
+    x, q, s = _grouped_case(m, k, n, g, x_dtype, seed=k + n)
+    tx, tq, ts = (from_jax_numpy(a) for a in (x, q, s))
+    plain = qmm.int8_matmul_plain(tx, tq, ts, out_dtype=torch.float32)
+    for placement in _placements(g):
+        bad = qmm._qmm_split_torch(tx, tq, ts, placement=placement,
+                                   hi_only=True, out_dtype=torch.float32)
+        assert not torch.allclose(bad, plain, **TOL)
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=str)
+def test_three_bf16_parts_rebuild_the_scaled_operand_exactly(case):
+    """``split_bf16(q·s, 3)`` and ``split_bf16(x·s, 3)`` (f32 x and bf16
+    x) sum to their f32 operand exactly, and the codes are exact in bf16:
+    every part product the kernel runs is an exact piece of a term."""
+    from repro_torch.kernels.flash_attention import split_bf16
+    m, k, n, g = case
+    for x_dtype in (np.float32, jnp.bfloat16):
+        x, q, s = _grouped_case(m, k, n, g, x_dtype, seed=k + n)
+        tx, tq, ts = (from_jax_numpy(a) for a in (x, q, s))
+        w = qmm.dequantize_groups(tq, ts)
+        xs = tx.float() * ts[:, :1].T
+        for v in (w, xs):
+            parts = split_bf16(v, 3)
+            assert all(p.dtype == torch.bfloat16 for p in parts)
+            rebuilt = sum(p.double() for p in parts)
+            assert torch.equal(rebuilt, v.double())
+        assert torch.equal(tq.to(torch.bfloat16).float(), tq.float())
