@@ -11,8 +11,10 @@ imports nothing of the JAX package). Phases, one line each:
               csrc`` (one nvcc per source, all in parallel), the flash
               library twice more, with ``-DFLASH_PLANT_P_HI_ONLY`` and
               with ``-DFLASH_PLANT_FWD_P_HI_ONLY`` (phase 6's planted
-              faults), and the int8 library with
-              ``-DQMM_PLANT_SPLIT_HI_ONLY`` (phase 12's). Phase 19 runs
+              faults), the int8 library with
+              ``-DQMM_PLANT_SPLIT_HI_ONLY`` (phase 12's) and the SSD
+              library with ``-DSSD_PLANT_HI_ONLY`` and with
+              ``-DSSD_PLANT_PASS_SKIPS_U0`` (phase 9's). Phase 19 runs
               next.
 3. kernel   - the paged-attention kernel against its plain PyTorch version
               on the card over T x G x D x {bf16, int8} with a padded table
@@ -76,12 +78,21 @@ imports nothing of the JAX package). Phases, one line each:
               the useful work's.
 9. ssd      - the SSD kernel against its plain version on the card, f32,
               at mamba2-130m's whole-prompt shape (B=4, T=1000 padded to
-              1024, H=24, P=64, N=128, chunk 256), its chunk-step shape
-              (B=1, T=64, a carried state) and an odd one (G=2, T not a
-              multiple of the chunk); y and the final state within
-              ``SSD_TOL``; two faults planted in the kernel's wrapper
-              (``init_state`` dropped, the state not carried from chunk
-              to chunk) must each break that limit.
+              1024, H=24, P=64, N=128, chunk 256), its chunk step's (B=1,
+              T=64 taken at its live length, a carried state), four
+              chunks with a carried state, an odd one (G=2, T not a
+              multiple of the chunk) and one the FMA body takes (N=4,
+              P=8); y and the final state within ``SSD_TOL``. It prints
+              each case's body and CUDA kernels a call; both mamba2 shapes
+              must run the tensor-core body, each within 2x the FMA body's
+              max |err| on the same inputs (y and state each). Two faults
+              planted in the wrapper (``init_state`` dropped, the state not
+              carried from chunk to chunk) and one in the kernel (the
+              state pass leaves out the first chunk's contribution, a
+              build with ``SSD_PLANT_PASS_SKIPS_U0``) must each break that
+              limit; the build with only the hi parts
+              (``SSD_PLANT_HI_ONLY``) is a reading: the tensor-core cases
+              at which it breaks a limit are counted.
 10. mamba2  - full-width mamba2-130m (seeded random weights) serves the
               same 16 requests twice: whole-prompt prefill, and chunked
               prefill (64) on a pool small enough to preempt. Every
@@ -91,10 +102,15 @@ imports nothing of the JAX package). Phases, one line each:
               chunk + decode steps); every token must be the argmax of a
               teacher-forced ``LM(ssd_impl="ref").forward`` or within
               8 bf16 ulps of it.
-11. timing  - the SSD kernel at B=4, T=1024 and at the chunk step's shape
-              (B=1, T=64 padded to the 256 chunk, a carried state), each
-              beside its bound and its plain version's time (no one
-              library call computes SSD).
+11. timing  - the SSD kernel at B=4, T=1024, at the chunk step's shape
+              as the engine now passes it (B=1, T=64, one chunk of 64, a
+              carried state) and padded to one 256 chunk as the engine
+              passed it before: device time per call by CUDA-graph replay
+              (and by events), and that of the build without its products
+              (``SSD_TIME_NO_PRODUCTS``: its staging alone), each beside
+              its bound, its bound as built (the six part products of the
+              tensor-core body), the plain version's time and the CUDA
+              kernels a call launches (no one library call computes SSD).
 12. qmm     - the int8 weight-only matmul kernel against its plain version
               on the card: the reference's kernel-test shapes, M in {1, 7},
               K and N off the tile, G in {1, 16}, the four fine-tuning
@@ -234,7 +250,13 @@ SSD_TOL = dict(rtol=2e-3, atol=2e-4)
 # (B, T, H, P, G, N, chunk, carried state)
 SSD_CASES = (("whole-prompt", 4, 1000, 24, 64, 1, 128, 256, False),
              ("chunk step", 1, 64, 24, 64, 1, 128, 256, True),
-             ("odd", 2, 100, 6, 32, 2, 48, 32, True))
+             ("4 chunks", 2, 1024, 24, 64, 1, 128, 256, True),
+             ("odd", 2, 100, 6, 32, 2, 48, 32, True),
+             ("fma", 3, 70, 2, 8, 1, 4, 32, True))
+# the two mamba2 shapes: the tensor-core body, within this factor of the
+# FMA body's max |err| against the plain version on the same inputs
+SSD_MAMBA2 = ("whole-prompt", "chunk step")
+SSD_FMA_FACTOR = 2.0
 # mamba2's chunked run: 16 requests on 8 slots with prompts of up to 1,000
 # tokens need more 16-token blocks than this at once, so it preempts
 MAMBA2_PRESSURE_BLOCKS = 192
@@ -1072,6 +1094,13 @@ FLASH_FWD_FAULT = ("FLASH_PLANT_FWD_P_HI_ONLY",)
 # a macro that builds the int8 library with only the hi part of its split
 # operands (csrc/quant_matmul.cu)
 QMM_FAULT = ("QMM_PLANT_SPLIT_HI_ONLY",)
+# macros that build the SSD library with only the hi parts of its split
+# operands, and with the state pass leaving out the first chunk's
+# contribution (csrc/ssd.cu)
+SSD_HI_FAULT = ("SSD_PLANT_HI_ONLY",)
+SSD_PASS_FAULT = ("SSD_PLANT_PASS_SKIPS_U0",)
+# and with every part product left out: phase 11 times its staging alone
+SSD_NO_PRODUCTS = ("SSD_TIME_NO_PRODUCTS",)
 
 
 @contextlib.contextmanager
@@ -1353,10 +1382,10 @@ SSD_PLANTED = (("init_state dropped", _drop_init),
                ("state not carried across chunks", _no_carry))
 
 
-def ssd_vs_plain(case, run=None):
-    """The kernel (or ``run``, a planted fault around it) against the plain
-    version on one case: worst |err| of y and of the final state, and
-    whether both are within ``SSD_TOL``."""
+def ssd_vs_plain(case, run=None, body=None):
+    """The kernel (or ``run``, a planted fault around it; ``body`` forces
+    one body) against the plain version on one case: worst |err| of y and
+    of the final state, and whether both are within ``SSD_TOL``."""
     import torch
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ssd as ssdk
@@ -1365,25 +1394,58 @@ def ssd_vs_plain(case, run=None):
                                         seed=len(name) + t)
     args = kops.ssd_inputs(x, B, C, dt, A, chunk, state)
     want = ssdk.ssd_chunked_plain(*args[:4], chunk=chunk, init_state=args[4])
-    got = (run or ssdk._ssd_cuda)(*args[:4], chunk=chunk, init_state=args[4])
+    kw = {} if body is None else {"body": body}
+    got = (run or ssdk._ssd_cuda)(*args[:4], chunk=chunk, init_state=args[4],
+                                  **kw)
     torch.cuda.synchronize()
     errs = [max_err(a, w) for a, w in zip(got, want)]
     ok = all(allclose(a, w, **SSD_TOL) for a, w in zip(got, want))
     return errs, ok
 
 
+def ssd_shape(case):
+    """(T as the kernel takes it, its chunk Q, CUDA kernels a call)."""
+    from repro_torch.kernels import ssd as ssdk
+    _, _, t, _, p, _, n, chunk, _ = case
+    tp = -(-t // min(chunk, t)) * min(chunk, t)
+    q = min(chunk, tp)
+    return tp, q, ssdk.kernels_per_call(tp, q, n, p)
+
+
 def phase_ssd_vs_plain():
     from repro_torch.kernels import ssd as ssdk
+    mma_cases = []
     for case in SSD_CASES:
-        (ey, es), ok = ssd_vs_plain(case)
         name, b, t, h, p, g, n, chunk, init = case
+        body = ssdk.ssd_body(n, p)
+        ssdk.BODIES.clear()
+        (ey, es), ok = ssd_vs_plain(case)
+        tp, q, kernels = ssd_shape(case)
         tag = (f"{name} B={b} T={t} H={h} P={p} G={g} N={n} chunk={chunk}"
                f"{' +init_state' if init else ''}")
         check(ok, f"SSD kernel differs from plain at {tag}: y {ey}, state "
               f"{es} (limit {SSD_TOL})")
-        print(f"[ssd] {tag}: kernel == plain within rtol="
-              f"{SSD_TOL['rtol']:g} atol={SSD_TOL['atol']:g}, max |err| y "
-              f"{ey:.3g}, state {es:.3g}")
+        check(dict(ssdk.BODIES) == {body: 1},
+              f"the {tag} call ran {dict(ssdk.BODIES)}, not one {body}")
+        line = (f"[ssd] {tag}: {body} body, T'={tp} in chunks of {q}, "
+                f"{kernels} CUDA kernel{'s' if kernels > 1 else ''} a call; "
+                f"kernel == plain within rtol={SSD_TOL['rtol']:g} "
+                f"atol={SSD_TOL['atol']:g}, max |err| y {ey:.3g}, state "
+                f"{es:.3g}")
+        if body == "mma":
+            mma_cases.append(case)
+        if name in SSD_MAMBA2:
+            check(body == "mma", f"mamba2's {name} shape runs the {body} "
+                  f"body, not the tensor cores")
+            (fy, fs), _ = ssd_vs_plain(case, body="fma")
+            check(ey <= SSD_FMA_FACTOR * fy and es <= SSD_FMA_FACTOR * fs,
+                  f"the tensor-core body's max |err| at {tag} (y {ey:.3g}, "
+                  f"state {es:.3g}) is over {SSD_FMA_FACTOR:g}x the FMA "
+                  f"body's (y {fy:.3g}, state {fs:.3g})")
+            line += (f" (the FMA body on the same inputs: y {fy:.3g}, state "
+                     f"{fs:.3g}; ratio {ey / max(fy, 1e-30):.2f}, "
+                     f"{es / max(fs, 1e-30):.2f})")
+        print(line)
     for fault_name, fault in SSD_PLANTED:
         caught = []
         for case in SSD_CASES:
@@ -1394,6 +1456,23 @@ def phase_ssd_vs_plain():
               f"every case")
         print(f"[ssd] planted fault '{fault_name}': caught at "
               + ", ".join(caught))
+    for defines, what, must in (
+            (SSD_PASS_FAULT, "the state pass without the first chunk's "
+             "contribution", True),
+            (SSD_HI_FAULT, "hi parts only", False)):
+        caught, passed = [], []
+        with fault_build(ssdk, defines):
+            for case in mma_cases:
+                (ey, es), ok = ssd_vs_plain(case)
+                (passed if ok else caught).append(
+                    f"{case[0]} (y {ey:.3g}, state {es:.3g})")
+        if must:
+            check(bool(caught), f"planted build -D{defines[0]} passes every "
+                  f"case")
+        print(f"[ssd] planted build -D{defines[0]} ({what}): caught at "
+              f"{len(caught)} of {len(mma_cases)} tensor-core cases: "
+              + (", ".join(caught) or "none") + "; passed at: "
+              + (", ".join(passed) or "none"))
 
 
 def ssd_bounds(*, b, t, h, p, g, n, q, init):
@@ -1412,50 +1491,79 @@ def ssd_bounds(*, b, t, h, p, g, n, q, init):
             "bytes" if t_bytes >= t_ops else "operations", flops)
 
 
-def time_ssd(name, b, t, *, init, seed):
+# part products a useful product runs on the SSD kernel's tensor-core body
+SSD_PARTS = 6
+
+
+def time_ssd(name, b, t, *, init, seed, pad_to=None):
     """The SSD kernel at mamba2-130m's widths (H=24, P=64, N=128, chunk
-    256) on B = ``b`` rows of T = ``t`` tokens (padded to the chunk), with
-    a carried state when ``init``, beside its bound and its plain
-    version."""
+    256) on B = ``b`` rows of T = ``t`` tokens as the engine passes them
+    (padded to a multiple of min(256, T)), or padded to ``pad_to``, with a
+    carried state when ``init``, beside its bound, its bound as built and
+    its plain version."""
+    import torch
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ssd as ssdk
-    h, p, g, n, q = 24, 64, 1, 128, 256
+    h, p, g, n, chunk = 24, 64, 1, 128, 256
     x, B, C, dt, A, _, st = ssd_case(b, t, h, p, g, n, init=init, seed=seed)
-    xdt, bm, cm, a, init_state = kops.ssd_inputs(x, B, C, dt, A, q, st)
+    xdt, bm, cm, a, init_state = kops.ssd_inputs(x, B, C, dt, A, chunk, st)
+    if pad_to is not None:                # zero positions after the live
+        extra = pad_to - xdt.shape[2]
+        xdt, bm, cm = (torch.nn.functional.pad(v, (0, 0, 0, extra))
+                       for v in (xdt, bm, cm))
+        a = torch.nn.functional.pad(a, (0, extra))
     tp = xdt.shape[2]
+    q = min(chunk, tp)
 
     def run(i):
-        return ssdk._ssd_cuda(xdt, bm, cm, a, chunk=q, init_state=init_state)
+        return ssdk._ssd_cuda(xdt, bm, cm, a, chunk=chunk,
+                              init_state=init_state)
 
     got = run(0)
-    want = ssdk.ssd_chunked_plain(xdt, bm, cm, a, chunk=q,
+    want = ssdk.ssd_chunked_plain(xdt, bm, cm, a, chunk=chunk,
                                   init_state=init_state)
     err = max(max_err(u, w) for u, w in zip(got, want))
     check(all(allclose(u, w, **SSD_TOL) for u, w in zip(got, want)),
           f"SSD kernel differs from plain at the {name} timing shape: {err}")
-    ms = cuda_ms(run, iters=20)
+    # device time per call by CUDA-graph replay: at the chunk step it is
+    # below the wrapper's host cost, which events around calls would time
+    iters = 8 if tp * b > 1024 else 48
+    ms = graph_ms(run, iters=iters)
+    event_ms = cuda_ms(run, iters=20)
+    with fault_build(ssdk, SSD_NO_PRODUCTS):
+        staging_ms = graph_ms(run, iters=iters)
     plain_ms = cuda_ms(lambda i: ssdk.ssd_chunked_plain(
-        xdt, bm, cm, a, chunk=q, init_state=init_state), iters=10)
+        xdt, bm, cm, a, chunk=chunk, init_state=init_state), iters=10)
     bound_ms, bound_by, flops = ssd_bounds(b=b, t=tp, h=h, p=p, g=g, n=n,
                                            q=q, init=init)
-    print(f"[timing] ssd {name} B={b} T={t} (padded {tp}) H={h} P={p} "
-          f"N={n} G={g} chunk={q}{' +init_state' if init else ''} f32: "
-          f"{ms * 1e3:.1f} us (bound {bound_ms * 1e3:.2f} us by "
-          f"{bound_by}, {bound_ms / ms * 100:.2f}% of it; its "
-          f"{flops / 1e9:.2f} GFLOP take {flops / F32_FMA_OPS * 1e6:.2f} us "
-          f"on the f32 FMA pipes), plain {plain_ms * 1e3:.1f} us, == plain "
-          f"within rtol={SSD_TOL['rtol']:g} atol={SSD_TOL['atol']:g}, max "
-          f"|err| {err:.3g}; {card_line()}")
+    body = ssdk.ssd_body(n, p)
+    built_ms = SSD_PARTS * flops / PEAK_OPS["bf16"] * 1e3
+    kernels = ssdk.kernels_per_call(tp, q, n, p)
+    print(f"[timing] ssd {name} B={b} T={t} (as passed {tp}, chunks of {q}) "
+          f"H={h} P={p} N={n} G={g}{' +init_state' if init else ''} f32, "
+          f"{body} body, {kernels} CUDA kernel{'s' if kernels > 1 else ''} "
+          f"a call: {ms * 1e3:.1f} us by graph replay (by events "
+          f"{event_ms * 1e3:.1f} us; without its products, "
+          f"-D{SSD_NO_PRODUCTS[0]}: {staging_ms * 1e3:.1f} us) (bound "
+          f"{bound_ms * 1e3:.2f} us by {bound_by}, {bound_ms / ms * 100:.2f}% "
+          f"of it; its {flops / 1e9:.3f} GFLOP take "
+          f"{flops / PEAK_OPS['bf16'] * 1e6:.2f} us on the tensor cores, as "
+          f"built ({SSD_PARTS} part products) {built_ms * 1e3:.2f} us, "
+          f"{built_ms / ms * 100:.1f}% of it), plain {plain_ms * 1e3:.1f} "
+          f"us, == plain within rtol={SSD_TOL['rtol']:g} "
+          f"atol={SSD_TOL['atol']:g}, max |err| {err:.3g}; {card_line()}")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "max_abs_err": err}
+            "bound_by": bound_by, "max_abs_err": err, "built_ms": built_ms}
 
 
 def phase_ssd_timing():
     """The SSD kernel at mamba2's whole-prompt shape (B=4, T=1024) and at
-    its chunk step's (B=1, T=64 padded to one 256 chunk, a carried
-    state)."""
+    its chunk step's (B=1, T=64, a carried state): as the engine passes
+    it (one chunk of 64) and padded to one 256 chunk, as it was passed
+    before."""
     whole = time_ssd("whole-prompt", 4, 1024, init=False, seed=11)
     time_ssd("chunk step", 1, 64, init=True, seed=12)
+    time_ssd("chunk step padded", 1, 64, init=True, seed=12, pad_to=256)
     return whole
 
 
@@ -2600,11 +2708,14 @@ def main() -> None:
     t0 = time.monotonic()
     logs = _build.build_all(verbose=True, variants=[
         ("flash_attention", FLASH_FAULT), ("flash_attention", FLASH_FWD_FAULT),
-        ("quant_matmul", QMM_FAULT)])
+        ("quant_matmul", QMM_FAULT), ("ssd", SSD_HI_FAULT),
+        ("ssd", SSD_PASS_FAULT), ("ssd", SSD_NO_PRODUCTS)])
     print(f"[build] {', '.join(_build.KERNELS)}, the flash library with "
-          f"-D{FLASH_FAULT[0]} and with -D{FLASH_FWD_FAULT[0]} and the int8 "
-          f"library with -D{QMM_FAULT[0]} (planted faults) built by nvcc in "
-          f"{time.monotonic() - t0:.1f}s")
+          f"-D{FLASH_FAULT[0]} and with -D{FLASH_FWD_FAULT[0]}, the int8 "
+          f"library with -D{QMM_FAULT[0]} and the SSD library with "
+          f"-D{SSD_HI_FAULT[0]} and with -D{SSD_PASS_FAULT[0]} (planted "
+          f"faults) and with -D{SSD_NO_PRODUCTS[0]} (timed alone) built by "
+          f"nvcc in {time.monotonic() - t0:.1f}s")
     for name, log in logs.items():
         print(f"[build] {name}: " + " ".join(
             line.strip() for line in log.splitlines() if "registers" in line))

@@ -135,13 +135,17 @@ def ssd_inputs(x, B, C, dt, A, chunk: int,
                init_state: Optional[torch.Tensor] = None):
     """The SSD kernel's inputs from the model layout: contiguous f32
     (xdt (B,H,T',P), b, c (B,G,T',N), a (B,H,T'), init (B,H,N,P) or None)
-    with T' = T right-padded to a multiple of ``chunk``."""
+    with T' = T right-padded to a multiple of the chunk the kernel takes,
+    q = min(chunk, T), as the reference model pads: a chunk step shorter
+    than ``chunk`` goes in at its own length. Padded positions come after
+    the live ones with a = x = B = C = 0, so they change no live row and
+    not the state."""
     t = x.shape[1]
     xk = (x.float() * dt[..., None]).transpose(1, 2)           # (B,H,T,P)
     bk = B.float().transpose(1, 2)                             # (B,G,T,N)
     ck = C.float().transpose(1, 2)
     a = (dt * A[None, None, :]).transpose(1, 2)                # (B,H,T)
-    tpad = (-t) % chunk
+    tpad = (-t) % min(chunk, t)
     if tpad:
         xk = F.pad(xk, (0, 0, 0, tpad))
         bk = F.pad(bk, (0, 0, 0, tpad))

@@ -91,7 +91,7 @@ def main(argv: Optional[List[str]] = None) -> None:
     ours = {name: sum(v[0] for k, v in by_name.items()
                       if kernel in k) / 1e3 / args.steps
             for name, kernel in (("paged_attention", "paged_mq_kernel"),
-                                 ("ssd", "ssd_chunk_scan_kernel"),
+                                 ("ssd", "ssd_chunk_scan"),
                                  ("rmsnorm", "rmsnorm_kernel"))}
     cache = "bf16 KV" if cfg.n_kv_heads else "f32 SSM states"
     spec = (f"speculate {args.speculate}, "

@@ -3,8 +3,10 @@ version, the bitwise T=1 == decode contract and the launch count of an
 engine run; the flash-attention kernels (forward, dK/dV, dQ) against
 their plain versions, their autograd wrapper against autograd through
 naive attention, and their launch counts in a train step; the SSD kernel
-against its plain version (with and without a carried state) and its
-launch count in a mamba2 engine run; the int8 weight-only matmul kernel
+against its plain version (with and without a carried state, the chunk
+step at its live length, several chunks of state passing), its bodies
+(the tensor cores at mamba2's shapes, within twice the FMA body's error)
+and its launch count in a mamba2 engine run; the int8 weight-only matmul kernel
 against its plain version, its x gradient against autograd through the
 plain version, and its launch count in a QL+Q8 fine-tuning step; the
 RMSNorm kernel against its plain version, its autograd wrapper against
@@ -256,40 +258,77 @@ def test_train_step_launch_counts(cuda, label, per_layer):
 # --------------------------------------------------------------------------
 
 # (B, T, H, P, G, N, chunk, carried state): mamba2-130m's whole-prompt and
-# chunk-step shapes, the smoke config's, and ragged / grouped small ones
+# chunk-step shapes (the chunk step at its live length: T=64 against a
+# 256 chunk, and a ragged 40), four and eight chunks with a carried state
+# (the state pass carries across them), the smoke config's, and ragged /
+# grouped small ones
 SSD_CASES = [(4, 1000, 24, 64, 1, 128, 256, False),
              (1, 64, 24, 64, 1, 128, 256, True),
+             (1, 40, 24, 64, 1, 128, 256, True),
+             (2, 1024, 24, 64, 1, 128, 256, True),
+             (1, 512, 4, 64, 1, 128, 64, True),
              (2, 70, 8, 16, 1, 16, 32, True),
              (2, 100, 6, 32, 2, 48, 32, False),
              (1, 200, 4, 128, 4, 64, 96, True),
              (3, 17, 2, 8, 1, 4, 256, False)]
+# mamba2-130m's whole prompt and chunk step
+SSD_MAMBA2 = SSD_CASES[:2]
+
+
+def _ssd_args(dev, case):
+    from repro_torch.kernels import ops as kops
+    b, t, h, p, g, n, chunk, init = case
+    gen = torch.Generator(device=dev).manual_seed(t)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    x, B, C = rn(b, t, h, p) * 0.5, rn(b, t, g, n) * 0.5, rn(b, t, g, n) * 0.5
+    dt = torch.nn.functional.softplus(rn(b, t, h))
+    A = -torch.exp(rn(h) * 0.3)
+    s0 = rn(b, h, p, n) * 0.5 if init else None
+    return kops.ssd_inputs(x, B, C, dt, A, chunk, s0)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", SSD_CASES, ids=str)
 def test_ssd_kernel_matches_plain(cuda, case):
     """y and the final state within ``SSD_TOL`` of the plain version on
-    the same inputs."""
-    from repro_torch.kernels import ops as kops
+    the same inputs; one launch counted a call, under the body the shape
+    takes."""
     from repro_torch.kernels import ssd as ssdk
-    b, t, h, p, g, n, chunk, init = case
-    gen = torch.Generator(device=cuda).manual_seed(t)
-
-    def rn(*shape):
-        return torch.randn(shape, generator=gen, device=cuda)
-
-    x, B, C = rn(b, t, h, p) * 0.5, rn(b, t, g, n) * 0.5, rn(b, t, g, n) * 0.5
-    dt = torch.nn.functional.softplus(rn(b, t, h))
-    A = -torch.exp(rn(h) * 0.3)
-    s0 = rn(b, h, p, n) * 0.5 if init else None
-    args = kops.ssd_inputs(x, B, C, dt, A, chunk, s0)
+    chunk, p, n = case[6], case[3], case[5]
+    args = _ssd_args(cuda, case)
     before = ssdk.LAUNCHES["ssd"]
+    bodies = dict(ssdk.BODIES)
     got = ssdk.ssd_chunked_kernel(*args[:4], chunk=chunk, init_state=args[4])
     want = ssdk.ssd_chunked_plain(*args[:4], chunk=chunk, init_state=args[4])
     torch.cuda.synchronize()
     assert ssdk.LAUNCHES["ssd"] == before + 1
+    body = ssdk.ssd_body(n, p)
+    assert ssdk.BODIES[body] == bodies.get(body, 0) + 1
     for a, w in zip(got, want):
         torch.testing.assert_close(a, w, **SSD_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", SSD_MAMBA2, ids=str)
+def test_ssd_mamba2_shapes_run_the_tensor_cores(cuda, case):
+    """Both mamba2 shapes take the tensor-core body, and its worst |err|
+    against the plain version is within 2x the FMA body's on the same
+    inputs (y and the state each)."""
+    from repro_torch.kernels import ssd as ssdk
+    chunk, p, n = case[6], case[3], case[5]
+    assert ssdk.ssd_body(n, p) == "mma"
+    args = _ssd_args(cuda, case)
+    want = ssdk.ssd_chunked_plain(*args[:4], chunk=chunk, init_state=args[4])
+    errs = {}
+    for body in ("mma", "fma"):
+        got = ssdk._ssd_cuda(*args[:4], chunk=chunk, init_state=args[4],
+                             body=body)
+        errs[body] = [(a - w).abs().max().item() for a, w in zip(got, want)]
+    for e_mma, e_fma in zip(errs["mma"], errs["fma"]):
+        assert e_mma <= 2 * e_fma, errs
 
 
 @pytest.mark.gpu

@@ -3,8 +3,11 @@ the SSD kernel's plain twin against the reference's Pallas kernel (run in
 interpret mode, as tests/test_kernels.py runs it) and, with a carried
 state, against ``ssd_chunked_ref(init_state=...)``; the port's own
 ``ssd_chunked_ref`` and ``ssd_decode_step`` against the reference's; the
-CUDA wrapper's input checks. Inputs are numpy-seeded, f32, at the
-reference kernel test's scales.
+kernel's inputs at the chunk step's live length; the tensor-core body's
+product arithmetic (``_ssd_split_torch``) against the plain version; the
+CUDA wrapper's input checks and its launch plan (body, P slices, CUDA
+kernels a call). Inputs are numpy-seeded, f32, at the reference kernel
+test's scales.
 
 Tolerance: rtol = atol = 2e-5 in f32 (the repo's f32 kernel tolerance).
 Measured against the reference (|err| / (atol + rtol |want|), worst
@@ -36,6 +39,9 @@ from repro_torch.kernels import ssd as tssdk
 from repro_torch.models import ssd as tssd
 
 TOL = dict(rtol=2e-5, atol=2e-5)
+# the card's kernel against its plain version (tests/test_torch_gpu.py,
+# chip_smoke.py): the reference's SSD kernel test's limit
+SSD_TOL = dict(rtol=2e-3, atol=2e-4)
 # tests/test_kernels.py:316-320, plus G=2 with T not a multiple of chunk
 SHAPES = [(1, 128, 2, 64, 1, 128, 64), (2, 256, 4, 64, 2, 64, 128),
           (1, 96, 2, 64, 1, 16, 32), (2, 70, 4, 16, 2, 16, 32)]
@@ -233,8 +239,12 @@ def _kernel_args():
      "multiple of 4"),
     (dict(chunk=48), "multiple of the chunk"),
     (dict(init_state=torch.zeros((1, 2, 16, 8))), "init_state"),
+    (dict(body="wgmma"), "body"),
+    (dict(body="mma"), "multiples of 16"),
+    (dict(xdt=torch.zeros(2 * 64 * 16 + 1)[1:].view(1, 2, 64, 16)),
+     "16-byte aligned"),
 ], ids=["cpu", "a_shape", "c_shape", "groups", "head_dim", "state_dim",
-        "chunk", "init_layout"])
+        "chunk", "init_layout", "body", "mma_shape", "misaligned"])
 def test_cuda_wrapper_refuses_bad_inputs(bad, match):
     """The CUDA wrapper checks device, type and shapes before it loads
     anything (so these run without a card)."""
@@ -243,3 +253,122 @@ def test_cuda_wrapper_refuses_bad_inputs(bad, match):
     args = [kw.pop(k) for k in ("xdt", "b", "c", "a")]
     with pytest.raises(ValueError, match=match):
         tssdk._ssd_cuda(*args, **kw)
+
+
+@pytest.mark.parametrize("t,chunk,want", [(64, 256, 64), (40, 256, 40),
+                                          (256, 256, 256), (300, 256, 512),
+                                          (70, 32, 96)])
+def test_ssd_inputs_pad_to_the_chunk_the_kernel_takes(t, chunk, want):
+    """T is padded to a multiple of q = min(chunk, T), as the reference
+    model pads: not at all below one chunk (the engine's chunk step goes
+    in at its live length), to whole chunks above. Padded positions are
+    zero and the live ones are those of the unpadded inputs."""
+    x, B, C, dt, A, _, s0 = _torch(*_inputs(2, t, 4, 16, 2, 8, seed=9,
+                                           init=True))
+    xk, bk, ck, a, init = tops.ssd_inputs(x, B, C, dt, A, chunk, s0)
+    assert xk.shape == (2, 4, want, 16) and a.shape == (2, 4, want)
+    assert bk.shape == ck.shape == (2, 2, want, 8)
+    assert init.shape == (2, 4, 8, 16)
+    for full in (xk, bk, ck):
+        assert not full[:, :, t:].any()
+    assert not a[:, :, t:].any()
+    live = tops.ssd_inputs(x, B, C, dt, A, t, s0)
+    for got, ref in zip((xk, bk, ck), live[:3]):
+        assert torch.equal(got[:, :, :t], ref)
+    assert torch.equal(a[:, :, :t], live[3])
+
+
+@pytest.mark.parametrize("t", [64, 40])
+def test_chunk_step_at_its_live_length_matches_reference(t):
+    """``kernels.ops.ssd`` on a chunk step shorter than the chunk (T=64
+    and a ragged 40, chunk 256, a carried state), which the kernel now
+    takes unpadded, against the reference's ``ssd_chunked_ref``."""
+    x, B, C, dt, A, D, s0 = _inputs(1, t, 4, 16, 1, 32, seed=10, init=True)
+    yr, sr = rssd.ssd_chunked_ref(*_jax(x, B, C, dt, A, D), chunk=256,
+                                  init_state=jnp.asarray(s0))
+    yt, st = tops.ssd(*_torch(x, B, C, dt, A, D), chunk=256,
+                      init_state=torch.from_numpy(s0))
+    _close(yt, yr)
+    _close(st, sr)
+
+
+def _split_errs(shape, init, parts):
+    b, t, h, p, g, n, chunk = shape
+    x, B, C, dt, A, _, s0 = _torch(*_inputs(b, t, h, p, g, n, seed=11,
+                                            init=init))
+    args = tops.ssd_inputs(x, B, C, dt, A, chunk, s0)
+    want = tssdk.ssd_chunked_plain(*args[:4], chunk=chunk,
+                                   init_state=args[4])
+    got = tssdk._ssd_split_torch(*args[:4], chunk=chunk, init_state=args[4],
+                                 parts=parts)
+    return got, want
+
+
+# mamba2-130m's chunk step at 4 heads (T=64 against a 256 chunk, N=128,
+# P=64, a carried state), two chunks of 32 with G=2, and three chunks of 64
+# at mamba2's widths with a carried state
+SPLIT_SHAPES = [((1, 64, 4, 64, 1, 128, 256), True),
+                ((2, 64, 4, 32, 2, 48, 32), False),
+                ((1, 192, 2, 64, 1, 128, 64), True)]
+
+
+@pytest.mark.parametrize("shape,init", SPLIT_SHAPES, ids=str)
+def test_split_products_match_plain(shape, init):
+    """The tensor-core body's arithmetic (every product as six bf16 part
+    products of exact three-part splits, f32 sums) within ``SSD_TOL`` of
+    the plain version, and within the repo's f32 limit: each term is the
+    f32 product to within about 2^-24 (measured: y within 6.7e-6, the
+    state within 4.8e-7)."""
+    got, want = _split_errs(shape, init, 3)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, **SSD_TOL)
+        torch.testing.assert_close(a, w, **TOL)
+
+
+@pytest.mark.parametrize("shape,init", SPLIT_SHAPES, ids=str)
+def test_fewer_parts_lie_further_off(shape, init):
+    """Two parts (hi·hi + hi·lo + lo·hi: 2^-16 a term) lie at least 8x
+    further from the plain version than three, and hi alone (the planted
+    ``SSD_PLANT_HI_ONLY`` build's arithmetic) at least 8x further again
+    and past ``SSD_TOL``: the split's error shows on the CPU. Measured at
+    the chunk step's shape (max |err| of y, state): three parts 4.3e-6,
+    4.8e-7; two 1.9e-4, 2.7e-5; hi alone 5.6e-2, 1.1e-2. The card's FMA
+    body lies 7.4e-5, 9.1e-6 from the plain version at its chunk step
+    (chip_smoke.py phase 9): two parts would more than double that."""
+    errs = []
+    for parts in (3, 2, 1):
+        got, want = _split_errs(shape, init, parts)
+        errs.append(max((a - w).abs().max().item()
+                        for a, w in zip(got, want)))
+    assert errs[1] >= 8 * errs[0] and errs[2] >= 8 * errs[1], errs
+    with pytest.raises(AssertionError):
+        for a, w in zip(got, want):
+            torch.testing.assert_close(a, w, **SSD_TOL)
+
+
+@pytest.mark.parametrize("n,p,body", [(128, 64, "mma"), (48, 32, "mma"),
+                                      (16, 16, "mma"), (4, 8, "fma"),
+                                      (16, 8, "fma"), (12, 16, "fma")])
+def test_body_by_shape(n, p, body):
+    assert tssdk.ssd_body(n, p) == body
+
+
+@pytest.mark.parametrize("t,q,n,p,want", [(1024, 256, 128, 64, 3),
+                                          (64, 64, 128, 64, 1),
+                                          (256, 256, 128, 64, 1),
+                                          (128, 32, 48, 32, 3),
+                                          (96, 32, 4, 8, 1)])
+def test_kernels_per_call(t, q, n, p, want):
+    """The tensor-core body launches its state, pass and output kernels,
+    or one fused kernel when T is one chunk; the FMA body one kernel."""
+    assert tssdk.kernels_per_call(t, q, n, p) == want
+
+
+@pytest.mark.parametrize("blocks,p,want", [(24, 64, 4), (96, 64, 2),
+                                           (1536, 64, 1), (12, 32, 2),
+                                           (6, 48, 1), (1, 128, 8)])
+def test_p_split_fills_the_card(blocks, p, want):
+    """P slices double while the output blocks number fewer than the 132
+    SMs and the slice stays a multiple of 16 (the engine's chunk step: 24
+    blocks, four slices of 16)."""
+    assert tssdk.p_split(blocks, p, 132) == want
