@@ -29,17 +29,20 @@ imports nothing of the JAX package). Phases, one line each:
 4. engine   - full-width qwen1.5-0.5b (seeded random weights) serves 16
               requests (prompts 64/256/1000, 64 new tokens each) twice:
               whole-prompt prefill with bf16 KV, and chunked prefill (64)
-              with int8 KV. Every request must finish; the kernel's launch
-              count must be 24 x (decode steps + chunk steps), the RMSNorm
-              kernel's 49 x (prefill groups + decode + chunk steps); every
-              generated token must be the argmax of a dense, unpaged
-              forward over the same tokens, or within a bf16 near-tie
-              margin of it.
+              with int8 KV, each after ``Engine.warmup`` for every table
+              bucket of the trace, its steps replayed as CUDA graphs.
+              Every request must finish; the kernel's launch count must be
+              24 x (decode steps + chunk steps), the RMSNorm kernel's 49 x
+              (prefill groups + decode + chunk steps); every generated
+              token must be the argmax of a dense, unpaged forward over
+              the same tokens, or within a bf16 near-tie margin of it.
+              Each run's eager twin follows it (phase 20).
 5. timing   - engine decode tok/s and p50 TTFT; the kernel held against
               its plain version at the engine's decode and chunk shapes
-              (16 KV heads, D=64), and its time per launch there by CUDA-
-              graph replay (and once by events) beside its byte bound,
-              the plain version's time and one
+              (16 KV heads, D=64), and at llama2-7b's decode shape (B=8,
+              32 KV heads, D=128) after phase 21, and its time per launch
+              there by CUDA-graph replay (and once by events) beside its
+              byte bound, the plain version's time and one
               ``scaled_dot_product_attention`` call on the same K/V
               gathered dense (timed here only; the port never calls it).
 6. flash    - the three flash-attention kernels (forward, dK/dV, dQ)
@@ -94,7 +97,9 @@ imports nothing of the JAX package). Phases, one line each:
               (``SSD_PLANT_HI_ONLY``) is a reading: the tensor-core cases
               at which it breaks a limit are counted.
 10. mamba2  - full-width mamba2-130m (seeded random weights) serves the
-              same 16 requests twice: whole-prompt prefill, and chunked
+              same 16 requests twice, through the replayed steps after
+              warmup, each run followed by its eager twin (phase 20):
+              whole-prompt prefill, and chunked
               prefill (64) on a pool small enough to preempt. Every
               request must finish; the SSD kernel must launch exactly
               24 x (prefill groups + chunk steps) times, and never in a
@@ -147,8 +152,8 @@ imports nothing of the JAX package). Phases, one line each:
               PyTorch call computes this function); the kernel's time per
               step.
 15. rmsnorm - the RMSNorm kernel against its plain version on the card:
-              rows {1, 8, 333, 8192} x D {768, 1024, 1536, and the ragged
-              1000, 999} x x and w each
+              rows {1, 8, 333, 8192} x D {768, 1024, 1536, 4096, and the
+              ragged 1000, 999} x x and w each
               in {bf16, f32} (f32 within 2e-5, bf16 within 1 bf16 ulp
               beyond a 1e-5 floor), rows at magnitudes 1e-3..10; two
               planted faults (eps dropped, the last block's rows skipped)
@@ -172,7 +177,10 @@ imports nothing of the JAX package). Phases, one line each:
               of 256 tokens, 64 new tokens each; (b) a self-draft (a
               DraftModelProposer with the target's own weights), depth 4,
               on 4 requests (prompts 64 and 256), 32 new tokens. Each
-              runs spec-off, then spec-on: every request finishes with
+              runs spec-off, then spec-on, both through the replayed
+              steps after warmup (the draft model decodes eagerly); the
+              n-gram spec-on run then has its eager twin (phase 20).
+              Every request finishes with
               its budget, and every stream equals spec-off's up to a
               split at a bf16 near tie (4 ulps) of spec-off's logits.
               Launches: paged read 24 x verify steps, dense decode 24 x
@@ -199,13 +207,35 @@ imports nothing of the JAX package). Phases, one line each:
               within 2e-5; the down projection (an f32 input) keeps the
               f32 route; an f32 output rounded through bf16 (planted)
               must break 2e-5. It runs right after the build.
+20. graphs  - each engine trace of phases 4, 10 and 17 (qwen whole-prompt
+              bf16 and chunked int8, mamba2 whole-prompt and chunked with
+              preemption, the n-gram spec-on run) is served once through
+              the replayed steps and once eagerly (``Engine(...,
+              cuda_graphs=False)``) in this process: tokens, ``stats()``
+              counters (all but times) and the final KV pool (without its
+              null block, which inactive rows' appends race into) and SSM
+              pool must be bitwise equal; the replaying engine must
+              capture nothing after ``warmup``, and ``warmup`` must leave
+              both pools (null block included) bitwise as it found them.
+              It prints, replayed and eager, decode tok/s, p50 TTFT and
+              the wall per decode step (min/median/max), and the graphs.
+21. llama2  - full-width llama2-7b (seeded random weights, 6.7 B
+              parameters in bf16) serves phase 4's 16 requests through
+              the replayed steps, whole-prompt bf16 KV and chunked (64)
+              int8 KV, with phase 4's checks (paged launches 32 x steps,
+              RMSNorm 65 x forwards, tokens against a dense forward); it
+              prints decode tok/s, the wall per decode step and the device
+              time of a decode step with all 8 rows live (its graph
+              replayed between two events) beside that step's byte bound
+              (every weight and the live KV read once).
 
 Any failed check raises. The last three lines of standard output are the
 kernels' JSON record, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``; the line before them gives the whole
-run's time. Each main path (the four engine runs, the training run, the
+run's time. Each main path (the six engine runs, the training run, the
 two fine-tuning runs, the four speculative engine runs) is driven with
-every launch count set to 0 just before it and read just after. Without
+every launch count set to 0 just before it (after the engine's warmup)
+and read just after; so is each eager twin. Without
 a CUDA device, or without the repository beside it, the script exits
 non-zero and prints no result.
 """
@@ -299,12 +329,12 @@ RMSNORM_RUNS = {}
 SELF_DRAFT_ACCEPT = 0.6
 SPEC_NEAR_TIE_ULPS = 4             # the port's rule for spec-on vs spec-off
 # RMSNorm kernel cases: the layers' widths (qwen1.5-0.5b 1024, mamba2
-# 768 and its gated norm's 1536) and two ragged ones (1000: the last
-# vectors of a row fall to some threads only; 999: not a whole number of
-# 16-byte vectors, read element by element) at decode, odd and training
-# row counts
+# 768 and its gated norm's 1536, llama2-7b 4096) and two ragged ones (1000:
+# the last vectors of a row fall to some threads only; 999: not a whole
+# number of 16-byte vectors, read element by element) at decode, odd and
+# training row counts
 RMS_ROWS = (1, 8, 333, 8192)
-RMS_DIMS = (768, 1024, 1536, 1000, 999)
+RMS_DIMS = (768, 1024, 1536, 4096, 1000, 999)
 # dense decode kernel cases (B, S, H, K, D, lengths): tests/test_kernels.py
 # :72-75, the draft model's shape, G = 2, a zero-length row, a length past S
 DENSE_CASES = ((2, 256, 4, 4, 128, [128, 256]),
@@ -718,54 +748,287 @@ def teacher_forced(model, params, done, kv_quant):
     return match / total, worst
 
 
-def phase_engine(cfg, params, *, prefill_chunk, kv_quant):
+SERVE_LENS = [64, 256, 1000]       # the engine phases' prompts, cycled
+SERVE_NEW = 64                     # new tokens a request
+
+
+def free_card() -> None:
+    """Release what dropped engines held: an engine is a reference cycle
+    (its scheduler's preemption hook), and its graphs hold their pool."""
+    import gc
     import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def pool_bytes(eng, null_block: bool):
+    """Clones of the paged KV storage (with or without the null block,
+    which the appends of inactive rows race into) and the SSM pool."""
+    kv = eng.kv.state if null_block else eng.kv.pool()
+    return ({k: v.clone() for k, v in kv.items()},
+            {(pos, leaf): a.clone() for pos, st in eng._ssm_states.items()
+             for leaf, a in st.items()})
+
+
+def mib(tensors: dict) -> int:
+    return sum(v.numel() * v.element_size() for v in tensors.values()) >> 20
+
+
+def pools_equal(a, b) -> bool:
+    import torch
+    return all(a[i].keys() == b[i].keys() and
+               all(torch.equal(a[i][k], b[i][k]) for k in a[i])
+               for i in range(2))
+
+
+def counters(st) -> dict:
+    """``stats()`` without its times (every key ending in ``_s``)."""
+    return {k: v for k, v in st.items() if not k.endswith("_s")}
+
+
+def drive_engine(eng, prompts, max_new: int, max_steps: int):
+    """The engine phases' main path: ``warmup`` for every table bucket of
+    the trace (it must leave both pools bitwise as they were), every
+    launch count set to 0, the burst served, each decode step's wall and
+    SSD launches recorded (and the host inputs of the last decode step
+    with every row live, by key). Returns the run's record."""
+    import torch
+    from repro_torch.kernels import ssd as ssdk
+    from repro_torch.serving import graphs
+    from repro_torch.serving.engine import Request
+    before = pool_bytes(eng, null_block=True)
+    lens = sorted({len(p) for p in prompts})
+    t0 = time.monotonic()
+    eng.warmup(max(lens) + max_new, prompt_lens=lens)
+    torch.cuda.synchronize()
+    warm_s = time.monotonic() - t0
+    check(pools_equal(before, pool_bytes(eng, null_block=True)),
+          "warmup changed the pools")
+    del before
+    warm_traces = dict(eng.trace_counts)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, tokens=p, max_new_tokens=max_new))
+    walls, ssd_in_decode, full = [], [], {}
+    name = "_decode_spec" if eng.spec is not None else "_decode_fused"
+    decode, run_step = getattr(eng, name), eng._run_step
+
+    def timed(live):
+        if live:
+            n, t = ssdk.LAUNCHES["ssd"], time.perf_counter()
+        decode(live)
+        if live:
+            walls.append(time.perf_counter() - t)
+            ssd_in_decode.append(ssdk.LAUNCHES["ssd"] - n)
+
+    def recorded(key, impl, inputs):
+        if key[0] == "decode" and inputs["active"].all():
+            full.clear()
+            full[key] = {k: a.copy() for k, a in inputs.items()}
+        return run_step(key, impl, inputs)
+
+    setattr(eng, name, timed)
+    eng._run_step = recorded
+    torch.cuda.synchronize()
+    for c in graphs.KERNEL_COUNTERS:   # count the main path's run only
+        c.clear()
+    t0 = time.monotonic()
+    done = eng.run(max_steps=max_steps)
+    torch.cuda.synchronize()
+    return {"done": done, "st": eng.stats(), "wall": time.monotonic() - t0,
+            "walls": walls, "ssd_in_decode": ssd_in_decode, "full": full,
+            "warm_traces": warm_traces, "traces": dict(eng.trace_counts),
+            "graphs": len(eng._graphs), "warm_s": warm_s}
+
+
+def wall_line(rec) -> str:
+    w = sorted(rec["walls"])
+    return (f"{rec['st']['decode_tok_s']:.1f} tok/s, p50 TTFT "
+            f"{rec['st']['p50_ttft_s'] * 1e3:.1f} ms, wall per decode step "
+            f"{w[0] * 1e3:.2f}/{w[len(w) // 2] * 1e3:.2f}/{w[-1] * 1e3:.2f} "
+            f"ms (min/median/max of {len(w)})")
+
+
+def compare_replay(name, rep, eager_rec, eager_eng, pools: str) -> None:
+    """The graph phase's checks of one trace: the replaying engine's
+    tokens, ``stats()`` counters and final pools (``rep["pools"]``)
+    bitwise the eager engine's, and no capture after its warmup."""
+    got = {r.rid: r.output for r in rep["done"]}
+    want = {r.rid: r.output for r in eager_rec["done"]}
+    check(got == want, f"{name}: replayed tokens differ from the eager "
+          f"engine's at rids {[k for k in want if got.get(k) != want[k]]}")
+    a, b = counters(rep["st"]), counters(eager_rec["st"])
+    check(a == b, f"{name}: stats() counters differ: "
+          f"{ {k: (a[k], b.get(k)) for k in a if a[k] != b.get(k)} }")
+    check(pools_equal(rep["pools"], pool_bytes(eager_eng, null_block=False)),
+          f"{name}: final KV or SSM pool bytes differ from the eager "
+          f"engine's")
+    check(rep["traces"] == rep["warm_traces"],
+          f"{name}: captured while serving: "
+          f"{set(rep['traces']) - set(rep['warm_traces'])}")
+    check(rep["graphs"] == len(rep["warm_traces"]) and
+          eager_rec["graphs"] == 0,
+          f"{name}: {rep['graphs']} graphs for {len(rep['warm_traces'])} "
+          f"keys, the eager engine {eager_rec['graphs']}")
+    print(f"[graphs] {name}: replay == eager bitwise: the tokens of "
+          f"{len(got)} requests, {len(a)} stats() counters, the final "
+          f"pools ({pools}); {rep['graphs']} "
+          f"graphs captured by warmup in {rep['warm_s']:.2f}s (both pools "
+          f"bitwise unchanged), 0 while serving. Replay: {wall_line(rep)}; "
+          f"eager: {wall_line(eager_rec)}; {card_line()}")
+
+
+def phase_engine(cfg, params, *, prefill_chunk, kv_quant, cuda_graphs=True):
+    """Serve the 16-request burst through the engine's entry points and
+    hold the run's launch counts and tokens. ``cuda_graphs=False`` is the
+    graph phase's eager twin of the same run (its tokens are held to the
+    replayed run's, bitwise, instead of to a dense forward)."""
     from repro_torch.data.pipeline import serving_requests
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import rmsnorm as rn
-    from repro_torch.serving.engine import Engine, Request
+    from repro_torch.serving.engine import Engine
     eng = Engine(cfg, params, max_batch=8, n_blocks=1024, block_size=16,
                  kv_quant=kv_quant, prefill_chunk=prefill_chunk,
-                 device="cuda")
-    prompts = serving_requests(16, cfg.vocab_size,
-                               prompt_lens=[64, 256, 1000])
-    for i, p in enumerate(prompts):
-        eng.submit(Request(rid=i, tokens=p, max_new_tokens=64))
-    torch.cuda.synchronize()
-    fd.LAUNCHES.clear()                  # count the main path's run only
-    fa.LAUNCHES.clear()
-    rn.LAUNCHES.clear()
-    t0 = time.monotonic()
-    done = eng.run(max_steps=5000)
-    torch.cuda.synchronize()
-    wall = time.monotonic() - t0
+                 device="cuda", cuda_graphs=cuda_graphs)
+    prompts = serving_requests(16, cfg.vocab_size, prompt_lens=SERVE_LENS)
+    rec = drive_engine(eng, prompts, SERVE_NEW, 5000)
+    done, st = rec["done"], rec["st"]
     launches = fd.LAUNCHES["paged_attention"]
     check(sum(fa.LAUNCHES.values()) == 0,
           f"the engine launched flash kernels: {dict(fa.LAUNCHES)}")
-    st = eng.stats()
     steps = st["decode_steps"] + st["chunk_steps"]
     check(len(done) == 16 and st["finished"] == 16,
           f"{st['finished']} of 16 requests finished")
-    check(all(len(r.output) == 64 for r in done),
-          "a request ended with fewer than 64 tokens")
+    check(all(len(r.output) == SERVE_NEW for r in done),
+          f"a request ended with fewer than {SERVE_NEW} tokens")
     check(launches == cfg.n_layers * steps,
           f"kernel launches {launches} != {cfg.n_layers} x {steps} steps")
     mode = (f"chunk={prefill_chunk}" if prefill_chunk else "whole-prompt")
+    run = (f"{cfg.name} {mode} kv={kv_quant}"
+           + ("" if cuda_graphs else " eager"))
     forwards = st["prefill_groups"] + steps
-    rms = count_rmsnorm(f"qwen {mode} kv={kv_quant}", rn.LAUNCHES["rmsnorm"],
-                        norms_per_forward(cfg) * forwards,
-                        f"{norms_per_forward(cfg)} x {forwards} forwards")
-    share, worst = teacher_forced(eng.model, eng.params, done, kv_quant)
-    print(f"[engine] qwen1.5-0.5b full width, {mode}, kv={kv_quant}: "
-          f"16/16 finished x 64 tokens in {wall:.2f}s; "
-          f"{st['decode_steps']} decode + {st['chunk_steps']} chunk steps, "
-          f"kernel launches {launches} = {cfg.n_layers} x {steps}; {rms}; "
-          f"preemptions {st['preemptions']}; dense-argmax match "
-          f"{share:.4f} (others within {worst:.1f} <= {NEAR_TIE_ULPS} "
-          f"bf16 ulps); decode {st['decode_tok_s']:.1f} tok/s, "
-          f"p50 TTFT {st['p50_ttft_s'] * 1e3:.1f} ms")
-    return launches, st
+    want = norms_per_forward(cfg) * forwards
+    what = f"{norms_per_forward(cfg)} x {forwards} forwards"
+    if cuda_graphs:
+        rms = count_rmsnorm(run, rn.LAUNCHES["rmsnorm"], want, what)
+        share, worst = teacher_forced(eng.model, eng.params, done, kv_quant)
+        tokens = (f"dense-argmax match {share:.4f} (others within "
+                  f"{worst:.1f} <= {NEAR_TIE_ULPS} bf16 ulps)")
+    else:
+        check(rn.LAUNCHES["rmsnorm"] == want, f"{run}: RMSNorm launches "
+              f"{rn.LAUNCHES['rmsnorm']} != {want} ({what})")
+        rms = f"RMSNorm launches {want} = {what}"
+        tokens = "tokens held to the replayed run's"
+    print(f"[engine] {cfg.name} full width, {mode}, kv={kv_quant}, "
+          f"{'graph replay' if cuda_graphs else 'eager'}: 16/16 finished x "
+          f"{SERVE_NEW} tokens in {rec['wall']:.2f}s; {st['decode_steps']} "
+          f"decode + {st['chunk_steps']} chunk steps, kernel launches "
+          f"{launches} = {cfg.n_layers} x {steps}; {rms}; preemptions "
+          f"{st['preemptions']}; {tokens}; decode "
+          f"{st['decode_tok_s']:.1f} tok/s, p50 TTFT "
+          f"{st['p50_ttft_s'] * 1e3:.1f} ms")
+    rec["launches"] = launches
+    return rec, eng
+
+
+def phase_graphs_dense(cfg, params):
+    """Phases 4 and 20 on a dense arch: each engine trace through the
+    replayed steps (phase 4's checks), then eagerly, held bitwise."""
+    out = []
+    for chunk, quant in ((None, "none"), (64, "int8")):
+        rep, eng = phase_engine(cfg, params, prefill_chunk=chunk,
+                                kv_quant=quant)
+        rep["pools"] = pool_bytes(eng, null_block=False)
+        pools = f"KV {mib(rep['pools'][0])} MiB"
+        del eng
+        free_card()
+        eager, eng = phase_engine(cfg, params, prefill_chunk=chunk,
+                                  kv_quant=quant, cuda_graphs=False)
+        mode = f"chunk={chunk} int8" if chunk else "whole-prompt bf16"
+        compare_replay(f"{cfg.name} {mode}", rep, eager, eng, pools)
+        del eng, eager, rep["pools"]
+        free_card()
+        out.append(rep)
+    return out
+
+
+def replay_busy_ms(eng, full, reps: int = 20) -> float:
+    """Device time (ms) of one decode step with every row live: the graph
+    of the run's last such step replayed ``reps`` times on its inputs
+    between two events (each replay writes the same KV again)."""
+    import torch
+    (key, inputs), = full.items()
+    graph = eng._graphs[key]
+    graph.replay(inputs)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def decode_bound_ms(eng, inputs) -> float:
+    """Least time (ms) of one decode step on these inputs: every weight
+    read once (an untied embedding table only at the batch's rows), the
+    live KV (with int8 scales) read once, each row's new KV written once,
+    at the card's memory rate; its operations (2 per weight a row) take
+    far less at the bf16 peak."""
+    from repro_torch.models.params import tree_paths
+    cfg, kv = eng.cfg, eng.kv_cfg
+    rows = int(inputs["active"].sum())
+    leaves = [t for path, t in tree_paths(eng.params)
+              if path != "embed" or cfg.tie_embeddings]
+    n_weights = sum(t.numel() for t in leaves)
+    weights = sum(t.numel() * t.element_size() for t in leaves)
+    if not cfg.tie_embeddings:
+        weights += rows * cfg.d_model * eng.params["embed"].element_size()
+    per_token = kv.n_layers * 2 * kv.n_kv_heads * (
+        kv.head_dim * (1 if kv.kv_quant == "int8" else 2)
+        + (4 if kv.kv_quant == "int8" else 0))
+    live = int(inputs["lengths"][inputs["active"]].sum())
+    t_bytes = (weights + (live + rows) * per_token) / HBM_BYTES_PER_S
+    t_ops = 2.0 * rows * n_weights / PEAK_OPS["bf16"]
+    return max(t_bytes, t_ops) * 1e3
+
+
+def phase_llama2(cfg):
+    """llama2-7b at full width (seeded weights) through the captured
+    steps: phase 4's burst and checks, whole-prompt bf16 KV then chunked
+    (64) int8 KV; decode tok/s, the wall per decode step and the device
+    time of a full decode step beside that step's byte bound."""
+    from repro_torch.models.lm import LM
+    params = LM(cfg, device="cuda").init(0)
+    out = []
+    for chunk, quant in ((None, "none"), (64, "int8")):
+        rec, eng = phase_engine(cfg, params, prefill_chunk=chunk,
+                                kv_quant=quant)
+        (_, inputs), = rec["full"].items()
+        busy = replay_busy_ms(eng, rec["full"])
+        bound = decode_bound_ms(eng, inputs)
+        rows = int(inputs["active"].sum())
+        w = sorted(rec["walls"])
+        check(rec["traces"] == rec["warm_traces"],
+              f"llama2 captured while serving: "
+              f"{set(rec['traces']) - set(rec['warm_traces'])}")
+        mode = f"chunk={chunk} int8" if chunk else "whole-prompt bf16"
+        print(f"[llama2] {cfg.name} {mode}: {rec['graphs']} graphs, 0 "
+              f"captured while serving; decode {rec['st']['decode_tok_s']:.1f}"
+              f" tok/s; wall per decode step {w[0] * 1e3:.2f}/"
+              f"{w[len(w) // 2] * 1e3:.2f}/{w[-1] * 1e3:.2f} ms (min/median/"
+              f"max); a full step ({rows} rows, "
+              f"{int(inputs['lengths'].sum())} live positions) by graph "
+              f"replay {busy:.3f} ms against its byte bound {bound:.3f} ms "
+              f"({bound / busy * 100:.1f}% of it; at most "
+              f"{rows / bound * 1e3:.0f} tok/s); {card_line()}")
+        out.append(rec)
+        del eng
+        free_card()
+    del params
+    free_card()
+    return out
 
 
 def time_shape(cfg, *, b, t, lengths, quant, mb, n_blocks, n_layers,
@@ -1567,51 +1830,33 @@ def phase_ssd_timing():
     return whole
 
 
-def phase_ssm_engine(cfg, params, *, prefill_chunk, n_blocks):
+def phase_ssm_engine(cfg, params, *, prefill_chunk, n_blocks,
+                     cuda_graphs=True):
     """Serve ``cfg`` (an attention-free arch) through the engine, count
     the SSD kernel's launches in the run and in its decode steps, and hold
-    every token against a teacher-forced forward with the plain SSD."""
-    n_req, max_new = 16, 64
-    import torch
+    every token against a teacher-forced forward with the plain SSD
+    (``cuda_graphs=False``: the graph phase's eager twin, whose tokens are
+    held to the replayed run's instead)."""
+    n_req, max_new = 16, SERVE_NEW
     from repro_torch.data.pipeline import serving_requests
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import rmsnorm as rn
     from repro_torch.kernels import ssd as ssdk
     from repro_torch.models.lm import LM
-    from repro_torch.serving.engine import Engine, Request
+    from repro_torch.serving.engine import Engine
     eng = Engine(cfg, params, max_batch=8, n_blocks=n_blocks, block_size=16,
-                 prefill_chunk=prefill_chunk, device="cuda")
+                 prefill_chunk=prefill_chunk, device="cuda",
+                 cuda_graphs=cuda_graphs)
     check(eng.model.ssd_impl == "kernel",
           f"the engine's SSD runs {eng.model.ssd_impl!r}, not the kernel")
-    prompts = serving_requests(n_req, cfg.vocab_size,
-                               prompt_lens=[64, 256, 1000])
-    for i, p in enumerate(prompts):
-        eng.submit(Request(rid=i, tokens=p, max_new_tokens=max_new))
-    in_decode = []
-    fused = eng._fused_step_impl
-
-    def counted_decode(*args):
-        before = ssdk.LAUNCHES["ssd"]
-        out = fused(*args)
-        in_decode.append(ssdk.LAUNCHES["ssd"] - before)
-        return out
-
-    eng._fused_step_impl = counted_decode
-    torch.cuda.synchronize()
-    ssdk.LAUNCHES.clear()                # count the main path's run only
-    fd.LAUNCHES.clear()
-    fa.LAUNCHES.clear()
-    rn.LAUNCHES.clear()
-    t0 = time.monotonic()
-    done = eng.run(max_steps=20000)
-    torch.cuda.synchronize()
-    wall = time.monotonic() - t0
+    prompts = serving_requests(n_req, cfg.vocab_size, prompt_lens=SERVE_LENS)
+    rec = drive_engine(eng, prompts, max_new, 20000)
+    done, st, in_decode = rec["done"], rec["st"], rec["ssd_in_decode"]
     launches = ssdk.LAUNCHES["ssd"]
     check(sum(fd.LAUNCHES.values()) + sum(fa.LAUNCHES.values()) == 0,
           f"the engine launched attention kernels: {dict(fd.LAUNCHES)} "
           f"{dict(fa.LAUNCHES)}")
-    st = eng.stats()
     check(len(done) == n_req and st["finished"] == n_req,
           f"{st['finished']} of {n_req} requests finished")
     check(all(len(r.output) == max_new for r in done),
@@ -1627,21 +1872,53 @@ def phase_ssm_engine(cfg, params, *, prefill_chunk, n_blocks):
     mode = (f"chunk={prefill_chunk}, {n_blocks} blocks"
             if prefill_chunk else "whole-prompt")
     forwards = passes + st["decode_steps"]
-    rms = count_rmsnorm(f"mamba2 {mode}", rn.LAUNCHES["rmsnorm"],
-                        norms_per_forward(cfg) * forwards,
-                        f"{norms_per_forward(cfg)} x {forwards} forwards")
-    ref = LM(cfg, ssd_impl="ref", device="cuda")
-    share, worst = teacher_forced(ref, eng.params, done, "none")
-    print(f"[mamba2] {cfg.name} full width, {mode}: {n_req}/{n_req} "
-          f"finished x {max_new} tokens in {wall:.2f}s; "
+    want = norms_per_forward(cfg) * forwards
+    what = f"{norms_per_forward(cfg)} x {forwards} forwards"
+    if cuda_graphs:
+        rms = count_rmsnorm(f"mamba2 {mode}", rn.LAUNCHES["rmsnorm"], want,
+                            what)
+        ref = LM(cfg, ssd_impl="ref", device="cuda")
+        share, worst = teacher_forced(ref, eng.params, done, "none")
+        tokens = (f"ref-forward argmax match {share:.4f} (others within "
+                  f"{worst:.1f} <= {NEAR_TIE_ULPS} bf16 ulps)")
+    else:
+        check(rn.LAUNCHES["rmsnorm"] == want, f"mamba2 {mode} eager: "
+              f"RMSNorm launches {rn.LAUNCHES['rmsnorm']} != {want}")
+        rms = f"RMSNorm launches {want} = {what}"
+        tokens = "tokens held to the replayed run's"
+    print(f"[mamba2] {cfg.name} full width, {mode}, "
+          f"{'graph replay' if cuda_graphs else 'eager'}: {n_req}/{n_req} "
+          f"finished x {max_new} tokens in {rec['wall']:.2f}s; "
           f"{st['prefill_groups']} prefill groups + {st['chunk_steps']} "
           f"chunk steps + {st['decode_steps']} decode steps, SSD launches "
           f"{launches} = {cfg.n_layers} x {passes}, 0 in decode steps; "
-          f"{rms}; preemptions {st['preemptions']}; ref-forward argmax match "
-          f"{share:.4f} (others within {worst:.1f} <= {NEAR_TIE_ULPS} bf16 "
-          f"ulps); decode {st['decode_tok_s']:.1f} tok/s, p50 TTFT "
+          f"{rms}; preemptions {st['preemptions']}; {tokens}; decode "
+          f"{st['decode_tok_s']:.1f} tok/s, p50 TTFT "
           f"{st['p50_ttft_s'] * 1e3:.1f} ms")
-    return launches, st
+    rec["launches"] = launches
+    return rec, eng
+
+
+def phase_graphs_ssm(cfg, params):
+    """Phases 10 and 20 on mamba2: each trace through the replayed steps
+    (phase 10's checks), then eagerly, held bitwise."""
+    total = 0
+    for chunk, n_blocks in ((None, 1024), (64, MAMBA2_PRESSURE_BLOCKS)):
+        rep, eng = phase_ssm_engine(cfg, params, prefill_chunk=chunk,
+                                    n_blocks=n_blocks)
+        rep["pools"] = pool_bytes(eng, null_block=False)
+        del eng
+        free_card()
+        eager, eng = phase_ssm_engine(cfg, params, prefill_chunk=chunk,
+                                      n_blocks=n_blocks, cuda_graphs=False)
+        mode = (f"chunk={chunk} on {n_blocks} blocks" if chunk
+                else "whole-prompt")
+        compare_replay(f"{cfg.name} {mode}", rep, eager, eng,
+                       f"SSM {mib(rep['pools'][1])} MiB")
+        del eng, eager, rep["pools"]
+        free_card()
+        total += rep["launches"]
+    return total
 
 
 # --------------------------------------------------------------------------
@@ -2332,15 +2609,17 @@ def rejected_draft_gaps(model, params, prompts, final, rounds):
     return gaps
 
 
-def phase_spec_engine(cfg, params, *, name, prompts, max_new, draft):
+def phase_spec_engine(cfg, params, *, name, prompts, max_new, draft,
+                      eager_twin=False):
     """Serve ``prompts`` spec-off, then spec-on (n-gram when ``draft`` is
     False, else a self-draft), with the launch counts of the spec-on run
-    held against its stats."""
+    held against its stats; with ``eager_twin`` the spec-on run again
+    eagerly, held bitwise to the replayed one (phase 20)."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import rmsnorm as rn
-    from repro_torch.serving.engine import Engine, Request
+    from repro_torch.serving.engine import Engine
     from repro_torch.serving.speculate import DraftModelProposer
     outs, stats, walls = {}, {}, {}
     proposer = None
@@ -2360,17 +2639,13 @@ def phase_spec_engine(cfg, params, *, name, prompts, max_new, draft):
             proposer.propose = recorded
         eng = Engine(cfg, params, max_batch=8, n_blocks=1024, block_size=16,
                      speculate=proposer, spec_depth=4, device="cuda")
-        for i, p in enumerate(prompts):
-            eng.submit(Request(rid=i, tokens=p, max_new_tokens=max_new))
-        torch.cuda.synchronize()
-        fd.LAUNCHES.clear()              # count the main path's run only
-        fa.LAUNCHES.clear()
-        rn.LAUNCHES.clear()
-        t0 = time.monotonic()
-        done = eng.run(max_steps=5000)
-        torch.cuda.synchronize()
-        walls[mode] = time.monotonic() - t0
-        st = stats[mode] = eng.stats()
+        rec = drive_engine(eng, prompts, max_new, 5000)
+        done = rec["done"]
+        walls[mode] = rec["wall"]
+        st = stats[mode] = rec["st"]
+        check(rec["traces"] == rec["warm_traces"],
+              f"{name} spec-{mode}: captured while serving: "
+              f"{set(rec['traces']) - set(rec['warm_traces'])}")
         check(len(done) == len(prompts) and st["finished"] == len(prompts),
               f"{name} spec-{mode}: {st['finished']} of {len(prompts)} "
               f"requests finished")
@@ -2429,6 +2704,18 @@ def phase_spec_engine(cfg, params, *, name, prompts, max_new, draft):
           f"({n_pre} draft prefills){tie_note}; {rms}; decode tok/s spec-on "
           f"{st['decode_tok_s']:.1f} vs spec-off {off['decode_tok_s']:.1f}; "
           f"wall {walls['on']:.2f}s vs {walls['off']:.2f}s")
+    if eager_twin:
+        rep = dict(rec, pools=pool_bytes(eng, null_block=False))
+        del eng
+        free_card()
+        twin = Engine(cfg, params, max_batch=8, n_blocks=1024, block_size=16,
+                      speculate=proposer, spec_depth=4, device="cuda",
+                      cuda_graphs=False)
+        eager = drive_engine(twin, prompts, max_new, 5000)
+        compare_replay(f"{cfg.name} {name} spec-on", rep, eager, twin,
+                       f"KV {mib(rep['pools'][0])} MiB")
+        del twin, rep
+        free_card()
     return {"dense": dense, "st": st, "off": off}
 
 
@@ -2726,9 +3013,10 @@ def main() -> None:
 
     cfg = get_config("qwen1.5-0.5b")
     params = LM(cfg, device="cuda").init(0)
-    la, st_a = phase_engine(cfg, params, prefill_chunk=None, kv_quant="none")
-    lb, st_b = phase_engine(cfg, params, prefill_chunk=64, kv_quant="int8")
+    run_a, run_b = phase_graphs_dense(cfg, params)
+    st_a, st_b = run_a["st"], run_b["st"]
     del params
+    free_card()
     mb = 128                        # table bucket of a 1064-token row
     dec = time_shape(cfg, b=8, t=1, lengths=[96, 288, 1032, 96, 288, 1032,
                                              96, 288],
@@ -2750,17 +3038,33 @@ def main() -> None:
               f"{r['max_abs_err']:.3g}; at other split counts "
               + ", ".join(f"{n}: {v * 1e3:.2f} us" for n, v in
                           r["by_split"].items()) + f"; {card_line()}")
-    print(f"[timing] engine: whole-prompt bf16 decode "
+    print(f"[timing] engine (graph replay): whole-prompt bf16 decode "
           f"{st_a['decode_tok_s']:.1f} tok/s, p50 TTFT "
           f"{st_a['p50_ttft_s'] * 1e3:.1f} ms; chunk=64 int8 decode "
           f"{st_b['decode_tok_s']:.1f} tok/s, p50 TTFT "
           f"{st_b['p50_ttft_s'] * 1e3:.1f} ms")
+    llama = get_config("llama2-7b")
+    llama_runs = phase_llama2(llama)
+    wide = time_shape(llama, b=8, t=1, lengths=[96, 288, 1032, 96, 288,
+                                                1032, 96, 288],
+                      quant=False, mb=mb, n_blocks=1025, n_layers=32)
+    free_card()
+    print(f"[timing] paged_attention llama2-7b decode B=8 T=1 H=K=32 D=128 "
+          f"bf16, {wide['n_split']} column splits: {wide['ms'] * 1e3:.2f} "
+          f"us by graph replay (bound {wide['bound_ms'] * 1e3:.2f} us by "
+          f"{wide['bound_by']}, {wide['bound_ms'] / wide['ms'] * 100:.1f}% "
+          f"of it; by events {wide['event_ms'] * 1e3:.2f} us), == plain "
+          f"within rtol=atol=2e-5 (max |err| {wide['max_abs_err']:.3g}), "
+          f"plain {wide['plain_ms'] * 1e3:.1f} us, sdpa "
+          f"{wide['library_ms'] * 1e3:.2f} us by graph replay; "
+          f"{card_line()}")
     record["kernels"].append({
         "name": "paged_attention",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
         "replaces": "src/repro/kernels/flash_decode.py:206",
-        "launches": la + lb,
+        "launches": run_a["launches"] + run_b["launches"] + sum(
+            r["launches"] for r in llama_runs),
         "max_abs_err": dec["max_abs_err"],
         "ms": dec["ms"],
         "plain_ms": dec["plain_ms"],
@@ -2799,14 +3103,11 @@ def main() -> None:
         })
 
     phase_ssd_vs_plain()
-    ssd_launches = 0
     cfg = get_config("mamba2-130m")
     params = LM(cfg, device="cuda").init(0)
-    for chunk, n_blocks in ((None, 1024), (64, MAMBA2_PRESSURE_BLOCKS)):
-        launches, _ = phase_ssm_engine(cfg, params, prefill_chunk=chunk,
-                                       n_blocks=n_blocks)
-        ssd_launches += launches
+    ssd_launches = phase_graphs_ssm(cfg, params)
     del params
+    free_card()
     sd = phase_ssd_timing()
     record["kernels"].append({
         "name": "ssd_chunked_kernel",
@@ -2848,7 +3149,7 @@ def main() -> None:
     ngram = phase_spec_engine(
         cfg, params, name="n-gram depth 4, 16 repetitive requests",
         prompts=repetitive_requests(16, cfg.vocab_size, prompt_len=256),
-        max_new=64, draft=False)
+        max_new=64, draft=False, eager_twin=True)
     self_draft = phase_spec_engine(
         cfg, params, name="self-draft depth 4, 4 requests",
         prompts=serving_requests(4, cfg.vocab_size, prompt_lens=[64, 256],

@@ -15,6 +15,9 @@ from repro_torch.core.config import ArchConfig
 _ARCH_MODULES = [
     "qwen1_5_0_5b",
     "mamba2_130m",
+    "llama2_7b",
+    "llama2_13b",
+    "llama2_70b",
 ]
 
 _REGISTRY: Dict[str, ArchConfig] = {}

@@ -22,6 +22,9 @@ whose decode reads its dense cache through the dense decode kernel, and
 proposer fires.
 As the reference CLI does, it serves the arch's reduced (smoke) config
 with random weights from seed 0; ``chip_smoke.py`` drives the full width.
+Before the burst it calls ``Engine.warmup`` for every table bucket the
+trace implies: on the card that captures each step's CUDA graph, which
+the burst then replays; it prints their count as ``fused_step_traces``.
 """
 from __future__ import annotations
 
@@ -57,7 +60,8 @@ def parse_mixed_lens(text: Optional[str]) -> Optional[List[int]]:
 def main(argv: Optional[List[str]] = None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen1.5-0.5b",
-                    help="qwen1.5-0.5b (dense) or mamba2-130m (ssm)")
+                    help="qwen1.5-0.5b, llama2-7b/13b/70b (dense) or "
+                         "mamba2-130m (ssm)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=24)
     ap.add_argument("--max-new", type=int, default=8)
@@ -112,6 +116,9 @@ def main(argv: Optional[List[str]] = None) -> None:
         prompts = serving_requests(args.requests, cfg.vocab_size,
                                    prompt_len=args.prompt_len,
                                    prompt_lens=lens)
+    # every table bucket the trace implies, before it arrives
+    eng.warmup(max(lens or [args.prompt_len]) + args.max_new,
+               prompt_lens=lens or [args.prompt_len])
     for i, p in enumerate(prompts):
         try:
             eng.submit(Request(rid=i, tokens=p,
@@ -123,6 +130,7 @@ def main(argv: Optional[List[str]] = None) -> None:
     for k, v in eng.stats().items():
         print(f"{k:>20s}: {v:.4f}" if isinstance(v, float) else
               f"{k:>20s}: {v}")
+    print(f"{'fused_step_traces':>20s}: {sum(eng.trace_counts.values())}")
 
 
 if __name__ == "__main__":

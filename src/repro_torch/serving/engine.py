@@ -58,11 +58,26 @@ injection (``_inj_mask``) are not ported; speculation on an SSM arch
 (its per-token verify scan) is a later slice and raises.
 
 **State updates in place.** Where the reference donates its state
-buffers to each jitted step and rebinds the result, the port writes the
-KV storage in place: the step functions mutate ``self.kv.state`` and
-return only the per-step outputs. The step bodies hold no host syncs, so
-a step is a stream of launches the host does not wait on until it reads
-the tokens.
+buffers to each jitted step and rebinds the result, the port writes both
+pools in place: the step functions take the paged KV storage and the SSM
+slot pool as arguments, mutate them and return only the per-step
+outputs. The step bodies hold no host syncs, so a step is a stream of
+launches the host does not wait on until it reads the tokens.
+
+**CUDA graphs** (serving/graphs.py). On the card each step kind runs as
+one CUDA graph per static shape, the reference's one executable per
+``(kind, T, table bucket)``: ``("decode", 1, mbb)``, ``("chunk", cn,
+mbb)`` and ``("verify", t, mbb)``. A graph is captured once over the
+live pools (all graphs in one memory pool) and replayed by ``step()``;
+its first use runs the step eagerly, then captures it, and
+:meth:`Engine.warmup` captures the shapes a trace will need before
+traffic arrives. ``trace_counts`` counts the captures by key (on the
+CPU, which captures nothing, the first use of each key), as the
+reference counts its traces. A replay gives the eager step's bits: the
+same kernels in the same order. ``cuda_graphs=False`` runs every step
+eagerly on the card too, for that comparison; a capture or replay that
+fails raises. Whole-prompt prefill, the draft model's decode and the
+preemption scrubs stay eager.
 
 **Failure semantics.** A row whose logits are not all finite is
 quarantined: it is evicted as ``FAILED`` through the scheduler's
@@ -73,7 +88,7 @@ from __future__ import annotations
 
 import time
 from collections import Counter
-from typing import Dict, List, Optional, Union
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -88,6 +103,7 @@ from repro_torch.models.lm import LM
 from repro_torch.models.params import tree_map
 from repro_torch.serving import cache as C
 from repro_torch.serving.cache import PagedKVCache, PagedKVConfig
+from repro_torch.serving.graphs import StepGraph
 from repro_torch.serving.scheduler import (FAILED, FINISHED, RUNNING,
                                            Rejected, Request, Scheduler)
 from repro_torch.serving.speculate import build_speculator
@@ -121,7 +137,8 @@ def _next_pow2(n: int) -> int:
 
 class Engine:
     """Serve ``cfg`` with ``params`` on ``device`` (the card unless the
-    caller passes ``"cpu"``; params are moved there if needed)."""
+    caller passes ``"cpu"``; params are moved there if needed). On the
+    card the steps replay CUDA graphs unless ``cuda_graphs=False``."""
 
     def __init__(self, cfg: ArchConfig, params, *, max_batch: int = 8,
                  n_blocks: int = 64, block_size: int = 16,
@@ -129,7 +146,8 @@ class Engine:
                  prefill_chunk: Optional[int] = None,
                  ssd_impl: str = "kernel", speculate=None,
                  spec_depth: int = 4,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 cuda_graphs: bool = True):
         if kv_quant not in ("none", "int8"):
             raise ValueError(f"kv_quant must be 'none' or 'int8', got "
                              f"{kv_quant!r}")
@@ -184,13 +202,128 @@ class Engine:
         # engine steps of each kind (host-side accounting: every decode or
         # chunk step reads the paged cache once per attention layer)
         self.step_counts: Counter = Counter()
+        # one graph per (kind, T, table bucket), all in one memory pool;
+        # trace_counts counts their captures (first uses on the CPU)
+        self.capture = cuda_graphs and self.device.type == "cuda"
+        self._graph_pool = (torch.cuda.graph_pool_handle() if self.capture
+                            else None)
+        self._graphs: Dict[tuple, StepGraph] = {}
+        self.trace_counts: Counter = Counter()
 
     @property
     def alloc(self):
         return self.sched.alloc
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(a).to(self.device)
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    # ------------------------------------------------------------------
+    # Step dispatch: one CUDA graph per (kind, T, table bucket) on the
+    # card, the eager step on the CPU (serving/graphs.py)
+    # ------------------------------------------------------------------
+
+    def _run_step(self, key: tuple, impl: Callable,
+                  inputs: Dict[str, np.ndarray]) -> Tuple[np.ndarray, ...]:
+        """One step of ``key`` on the host ``inputs`` over the live pools:
+        the key's graph replayed, else the step run eagerly (then, at the
+        key's first use on the card, captured). Returns the step's
+        outputs as numpy."""
+        graph = self._graphs.get(key)
+        if graph is not None:
+            return graph.replay(inputs)
+        dev_in = {k: self._dev(a) for k, a in inputs.items()}
+        out = tuple(o.cpu().numpy() for o in impl(
+            self.params, self.kv.state, self._ssm_states, **dev_in))
+        self._trace(key, impl, dev_in)
+        return out
+
+    def _trace(self, key: tuple, impl: Callable,
+               dev_in: Dict[str, torch.Tensor]) -> None:
+        """Count ``key``'s first use and, when capturing, capture its
+        graph over the live pools. The step has just run eagerly at this
+        shape, so every kernel's lazily built state exists."""
+        if key in self.trace_counts:
+            return
+        self.trace_counts[key] += 1
+        if self.capture:
+            self._graphs[key] = StepGraph(
+                lambda **kw: impl(self.params, self.kv.state,
+                                  self._ssm_states, **kw),
+                dev_in, self._graph_pool)
+
+    def _chunk_inputs(self, tokens: np.ndarray, start: int, n: int,
+                      table: np.ndarray, slot: int) -> Dict[str, np.ndarray]:
+        return dict(tokens=tokens, ctx=np.asarray([start], np.int32),
+                    n_valid=np.asarray([n], np.int32), table=table,
+                    slot=np.asarray([slot], np.int64))
+
+    @torch.no_grad()
+    def warmup(self, max_seq_len: int,
+               prompt_lens: Optional[List[int]] = None) -> None:
+        """Build the steps for the shapes a trace needs before it
+        arrives, as a deployment compiles before taking traffic (the
+        reference's ``warmup``): on the card each shape's graph is
+        captured, on the CPU its key is counted. No pool byte and no
+        ``stats()`` counter changes: each shape first runs eagerly on
+        throwaway copies of both pools.
+
+        ``max_seq_len`` (prompt + generation budget) sets the largest
+        table bucket. With ``prompt_lens`` every power-of-two bucket from
+        the smallest prompt's up to it is built: for chunk steps, as in
+        the reference, since a preemption victim re-prefills its prompt
+        plus generated prefix into buckets no fresh prompt uses; and for
+        decode and verify steps, whose bucket follows the live batch's
+        largest footprint through the same buckets (the reference builds
+        those at the largest bucket only and compiles the others while
+        serving). Verify steps are built at every window width
+        ``min(next_pow2(k), depth + 1)``."""
+        top = _next_pow2(-(-max_seq_len // self.block_size))
+        buckets = [top]
+        if prompt_lens:
+            b = min(_next_pow2(self.sched._blocks_for(t))
+                    for t in prompt_lens)
+            buckets = []
+            while b < top:
+                buckets.append(b)
+                b *= 2
+            buckets.append(top)
+        pools = ({k: v.clone() for k, v in self.kv.state.items()},
+                 {pos: {leaf: a.clone() for leaf, a in st.items()}
+                  for pos, st in self._ssm_states.items()})
+        bsz = self.max_batch
+        zeros = np.zeros((bsz,), np.int32)
+        if self.spec is None:
+            for mbb in buckets:
+                self._warm(("decode", 1, mbb), self._fused_step_impl, pools,
+                           dict(tokens=zeros, lengths=zeros,
+                                table=np.zeros((bsz, mbb), np.int32),
+                                active=np.zeros((bsz,), bool)))
+        if self.prefill_chunk is not None:
+            cn = self.prefill_chunk
+            for mbb in buckets:
+                self._warm(("chunk", cn, mbb), self._chunk_step_impl, pools,
+                           self._chunk_inputs(
+                               np.zeros((1, cn), np.int32), 0, cn,
+                               np.zeros((1, mbb), np.int32), 0))
+        if self.spec is not None:
+            depth = self.spec.depth
+            for t in sorted({min(_next_pow2(k), depth + 1)
+                             for k in range(1, depth + 2)}):
+                for mbb in buckets:
+                    self._warm(("verify", t, mbb), self._verify_step_impl,
+                               pools,
+                               dict(tokens=np.zeros((bsz, t), np.int32),
+                                    ctx=zeros, n_valid=zeros,
+                                    table=np.zeros((bsz, mbb), np.int32),
+                                    active=np.zeros((bsz,), bool)))
+
+    def _warm(self, key: tuple, impl: Callable, pools,
+              inputs: Dict[str, np.ndarray]) -> None:
+        if key in self.trace_counts:
+            return
+        dev_in = {k: self._dev(a) for k, a in inputs.items()}
+        impl(self.params, *pools, **dev_in)
+        self._trace(key, impl, dev_in)
 
     # ------------------------------------------------------------------
     # SSM slot pool: per SSM period position, (conv, state) stacked as
@@ -211,22 +344,36 @@ class Engine:
             for a in st.values():
                 a[:, slot].zero_()
 
-    def _ssm_xs(self, slot: Optional[int] = None):
-        """Per-period views of the SSM pool: every slot, or ``slot``'s
-        alone as a batch of one."""
-        rows = slice(None) if slot is None else slice(slot, slot + 1)
-        return [{pos: {leaf: a[per, rows] for leaf, a in st.items()}
-                 for pos, st in self._ssm_states.items()}
+    def _ssm_xs(self, ssm_state):
+        """Per-period views of every slot of the SSM pool ``ssm_state``."""
+        return [{pos: {leaf: a[per] for leaf, a in st.items()}
+                 for pos, st in ssm_state.items()}
                 for per in range(self.model.n_periods)]
 
-    def _write_ssm(self, ssm_ys, slot: Optional[int] = None) -> None:
-        """Store each period's new (conv, state) into the pool, in place:
-        every slot, or ``slot``'s alone."""
-        rows = slice(None) if slot is None else slice(slot, slot + 1)
+    def _ssm_slot_xs(self, ssm_state, slot: torch.Tensor):
+        """Per-period copies of one slot's rows, a batch of one: ``slot``
+        is a (1,) int64 device index, so one graph serves every slot."""
+        return [{pos: {leaf: a[per].index_select(0, slot)
+                       for leaf, a in st.items()}
+                 for pos, st in ssm_state.items()}
+                for per in range(self.model.n_periods)]
+
+    def _write_ssm(self, ssm_state, ssm_ys) -> None:
+        """Store each period's new (conv, state) of every slot into the
+        pool, in place."""
         for per, new in enumerate(ssm_ys):
             for pos, leaves in new.items():
                 for leaf, a in leaves.items():
-                    self._ssm_states[pos][leaf][per, rows].copy_(a)
+                    ssm_state[pos][leaf][per].copy_(a)
+
+    def _write_ssm_slot(self, ssm_state, ssm_ys, slot: torch.Tensor
+                        ) -> None:
+        """Store each period's new (conv, state) of one slot (a (1,)
+        int64 device index) into the pool, in place."""
+        for per, new in enumerate(ssm_ys):
+            for pos, leaves in new.items():
+                for leaf, a in leaves.items():
+                    ssm_state[pos][leaf][per].index_copy_(0, slot, a)
 
     # ------------------------------------------------------------------
     # Scheduling entry points (policy lives in serving/scheduler.py)
@@ -398,8 +545,8 @@ class Engine:
     # row n_valid - 1).
     # ------------------------------------------------------------------
 
-    def _chunk_step_impl(self, params, kv_state, tokens, ctx, n_valid,
-                         table, slot: int):
+    def _chunk_step_impl(self, params, kv_state, ssm_state, tokens, ctx,
+                         n_valid, table, slot):
         cn = tokens.shape[1]
         mbb = table.shape[1]
         dev = tokens.device
@@ -424,8 +571,8 @@ class Engine:
 
         body = self._make_stack_body(positions=positions,
                                      attn_read=attn_read, ssm_step=ssm_step)
-        x, kv_ys, ssm_ys = self._run_stack(body, x, kv_state,
-                                           self._ssm_xs(slot))
+        x, kv_ys, ssm_ys = self._run_stack(
+            body, x, kv_state, self._ssm_slot_xs(ssm_state, slot))
 
         last = x.index_select(1, (n_valid - 1).long())       # (1, 1, d)
         logits = model._head(params, last)[:, 0]
@@ -440,7 +587,7 @@ class Engine:
                                       self.block_size, self.kv_cfg.n_blocks,
                                       valid)
             C.write_token_encoded(kv_state, enc, blk, off)
-        self._write_ssm(ssm_ys, slot)
+        self._write_ssm_slot(ssm_state, ssm_ys, slot)
         return next_token, ok
 
     def _prefill_chunk_tick(self) -> None:
@@ -457,12 +604,9 @@ class Engine:
         mbb = _next_pow2(self.sched._blocks_for(len(seq)))
         table = np.zeros((1, mbb), np.int32)
         table[0, : len(req.blocks)] = req.blocks
-        next_tok, ok = self._chunk_step_impl(
-            self.params, self.kv.state,
-            self._dev(np.asarray([chunk], np.int32)),
-            self._dev(np.asarray([start], np.int32)),
-            self._dev(np.asarray([n], np.int32)), self._dev(table),
-            req.slot)
+        next_tok, ok = self._run_step(
+            ("chunk", cn, mbb), self._chunk_step_impl, self._chunk_inputs(
+                np.asarray([chunk], np.int32), start, n, table, req.slot))
         self.step_counts["chunk"] += 1
         if not bool(ok):
             # poisoned mid-prefill: quarantine (pages scrubbed on eviction)
@@ -481,8 +625,8 @@ class Engine:
     # pick and one batched KV append. Host work per step is O(max_batch).
     # ------------------------------------------------------------------
 
-    def _fused_step_impl(self, params, kv_state, tokens, lengths, table,
-                         active):
+    def _fused_step_impl(self, params, kv_state, ssm_state, tokens, lengths,
+                         table, active):
         model = self.model
         sm_scale = self._sm_scale()
 
@@ -512,7 +656,7 @@ class Engine:
         body = self._make_stack_body(positions=positions,
                                      attn_read=attn_read, ssm_step=ssm_step)
         x, kv_ys, ssm_ys = self._run_stack(body, x, kv_state,
-                                           self._ssm_xs())
+                                           self._ssm_xs(ssm_state))
 
         logits = model._head(params, x)[:, 0]
         next_tokens = logits.argmax(dim=-1)
@@ -525,7 +669,7 @@ class Engine:
             blk, off = C.append_slots(table, lengths, self.block_size,
                                       self.kv_cfg.n_blocks, active)
             C.write_token_encoded(kv_state, enc, blk, off)
-        self._write_ssm(ssm_ys)
+        self._write_ssm(ssm_state, ssm_ys)
         new_lengths = torch.where(active, lengths + 1, lengths)
         return next_tokens, new_lengths, row_ok
 
@@ -543,12 +687,11 @@ class Engine:
             lengths[r.slot] = r.length - 1          # current KV length
             active[r.slot] = True
             table[r.slot, : len(r.blocks)] = r.blocks
-        next_tokens, _, row_ok = self._fused_step_impl(
-            self.params, self.kv.state, self._dev(tokens),
-            self._dev(lengths), self._dev(table), self._dev(active))
+        next_tokens, _, row_ok = self._run_step(
+            ("decode", 1, mbb), self._fused_step_impl,
+            dict(tokens=tokens, lengths=lengths, table=table, active=active))
         self.step_counts["decode"] += 1
-        self._finish_step(live, next_tokens.cpu().numpy(),
-                          row_ok=row_ok.cpu().numpy())
+        self._finish_step(live, next_tokens, row_ok=row_ok)
 
     # ------------------------------------------------------------------
     # Speculative decoding: ONE verify forward scores every running
@@ -561,8 +704,8 @@ class Engine:
     # block, so nothing needs rolling back.
     # ------------------------------------------------------------------
 
-    def _verify_step_impl(self, params, kv_state, tokens, ctx, n_valid,
-                          table, active):
+    def _verify_step_impl(self, params, kv_state, ssm_state, tokens, ctx,
+                          n_valid, table, active):
         cn = tokens.shape[1]             # 1 + spec depth (bucketed)
         model = self.model
         sm_scale = self._sm_scale()
@@ -586,7 +729,8 @@ class Engine:
         # no SSM layers: the engine refuses speculation on an SSM arch
         body = self._make_stack_body(positions=positions,
                                      attn_read=attn_read, ssm_step=None)
-        x, kv_ys, _ = self._run_stack(body, x, kv_state, self._ssm_xs())
+        x, kv_ys, _ = self._run_stack(body, x, kv_state,
+                                      self._ssm_xs(ssm_state))
 
         logits = model._head(params, x)                      # (B, T, V)
         greedy = logits.argmax(dim=-1).int()
@@ -651,14 +795,11 @@ class Engine:
             table[r.slot, : len(r.blocks)] = r.blocks
         # window width bucketed to powers of two, capped at depth + 1
         t = min(_next_pow2(int(n_valid.max())), width)
-        greedy, n_acc, row_ok = self._verify_step_impl(
-            self.params, self.kv.state, self._dev(tokens[:, :t]),
-            self._dev(ctx), self._dev(n_valid), self._dev(table),
-            self._dev(active))
+        greedy, n_acc, row_ok = self._run_step(
+            ("verify", t, mbb), self._verify_step_impl,
+            dict(tokens=tokens[:, :t], ctx=ctx, n_valid=n_valid,
+                 table=table, active=active))
         self.step_counts["verify"] += 1
-        greedy = greedy.cpu().numpy()
-        n_acc = n_acc.cpu().numpy()
-        row_ok = row_ok.cpu().numpy()
         now = self.clock()
         for r in rows:
             if not row_ok[r.slot]:

@@ -1,7 +1,8 @@
 """Weight bridge: the JAX package's params cross into the port and back
 bit for bit (bf16 leaves, stacked blocks, padded vocab, tied embeddings),
-and for mamba2-130m also its f32 leaves (``a_log``, ``d_skip``,
-``dt_bias``) and the zero-width FFN leaves of its ``d_ff=0`` config."""
+for mamba2-130m also its f32 leaves (``a_log``, ``d_skip``,
+``dt_bias``) and the zero-width FFN leaves of its ``d_ff=0`` config, and
+for the llama2 family its untied head and grouped KV heads."""
 import dataclasses
 
 import jax
@@ -100,6 +101,36 @@ def test_mamba2_params_cross_bitwise(d_ff):
     if d_ff is not None:
         port_cfg = dataclasses.replace(port_cfg, d_ff=d_ff)
     specs = dict(tree_paths(PortLM(port_cfg, device="cpu").param_specs()))
+    got = dict(tree_paths(port))
+    assert got.keys() == specs.keys()
+    for path, ps in specs.items():
+        assert tuple(got[path].shape) == ps.shape, path
+        assert got[path].dtype == ps.dtype, path
+
+
+@pytest.mark.parametrize("arch", ["llama2-7b", "llama2-13b", "llama2-70b"])
+def test_llama2_params_cross_bitwise(arch):
+    """An untied ``head`` leaf (d_model, vocab), no QKV biases, and for
+    70b grouped KV projections; the tree crosses bitwise both ways and
+    lines up with the port's own specs."""
+    cfg = get_config(arch, reduced=True)
+    params = jax.device_get(LM(cfg).init(jax.random.PRNGKey(0)))
+    port = from_jax_numpy(params)
+    assert tuple(port["head"].shape) == (64, 512)        # 256 padded
+    mix = port["blocks"]["pos0"]["mix"]
+    assert "bq" not in mix
+    assert tuple(mix["wk"].shape) == (2, 64, cfg.n_kv_heads, 16)
+    back = to_numpy(port)
+    want, got = dict(tree_paths(params)), dict(tree_paths(back))
+    assert got.keys() == want.keys()
+    for path, a in want.items():
+        b = got[path]
+        assert b.dtype == a.dtype and b.shape == a.shape, path
+        np.testing.assert_array_equal(
+            np.asarray(b).view(np.uint8), np.asarray(a).view(np.uint8),
+            err_msg=path)
+    specs = dict(tree_paths(PortLM(port_config(arch, reduced=True),
+                                   device="cpu").param_specs()))
     got = dict(tree_paths(port))
     assert got.keys() == specs.keys()
     for path, ps in specs.items():

@@ -17,7 +17,10 @@ engine run (n-gram and self-draft); the tensor-core flash forward (its
 body dispatch, against the plain version and its CPU emulation); and the
 paged read split over pages (against the plain version and its split
 emulation, rows bitwise the single-token reads, the split counts at the
-engine's shapes, replay in a CUDA graph).
+engine's shapes, replay in a CUDA graph); and the engine's steps as CUDA
+graphs (replay bitwise the eager engine for decode, chunk and verify
+steps on qwen and mamba2, nothing captured after warmup, warmup leaving
+both pools as it found them, each replay adding its graph's launches).
 
 These tests import neither ``jax`` nor the JAX package, so they also run
 on the GPU host: ``PYTHONPATH=src python -m pytest -m gpu
@@ -1043,3 +1046,137 @@ def test_paged_split_kernel_replays_in_a_cuda_graph(cuda):
                                    want[0] / want[2].clamp_min(1e-30), **TOL)
         torch.testing.assert_close(out[1], want[1], **TOL)
         assert int(fd._PAGED_COUNTERS[lens.device].abs().sum()) == 0
+
+
+# --------------------------------------------------------------------------
+# The engine's steps as CUDA graphs: replay against the eager engine
+# --------------------------------------------------------------------------
+
+# (arch, engine options, prompt lengths): decode, chunk (int8 KV; mamba2
+# on a pool small enough to preempt) and verify steps
+GRAPH_CASES = {
+    "qwen whole-prompt": ("qwen1.5-0.5b", dict(n_blocks=64), [5, 12, 9]),
+    "qwen chunk=8 int8": ("qwen1.5-0.5b", dict(
+        n_blocks=64, prefill_chunk=8, kv_quant="int8"), [5, 12, 9, 40]),
+    "mamba2 chunk=8": ("mamba2-130m", dict(n_blocks=20, prefill_chunk=8),
+                       [6, 17, 40]),
+    "qwen ngram": ("qwen1.5-0.5b", dict(n_blocks=64, speculate="ngram",
+                                        spec_depth=4), None),
+}
+
+
+def _graph_run(cuda, case, cuda_graphs):
+    from repro_torch.data.pipeline import repetitive_requests
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import ssd as ssdk
+    arch, kw, lens = GRAPH_CASES[case]
+    cfg = get_config(arch, reduced=True)
+    params = LM(cfg, device=cuda).init(0)
+    eng = Engine(cfg, params, max_batch=4, block_size=4, device=cuda,
+                 cuda_graphs=cuda_graphs, **kw)
+    prompts = (repetitive_requests(6, cfg.vocab_size, prompt_len=20,
+                                   pattern_len=6) if lens is None else
+               serving_requests(8, cfg.vocab_size, prompt_lens=lens))
+    lens = sorted({len(p) for p in prompts})
+    eng.warmup(max(lens) + 8, prompt_lens=lens)
+    warm = dict(eng.trace_counts)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, tokens=p, max_new_tokens=8))
+    for c in (fd.LAUNCHES, rn.LAUNCHES, ssdk.LAUNCHES):
+        c.clear()
+    done = eng.run()
+    torch.cuda.synchronize()
+    st = eng.stats()
+    steps = st["decode_steps"] + st["chunk_steps"] + st["verify_steps"]
+    kinds = cfg.layer_kinds()
+    assert fd.LAUNCHES["paged_attention"] == kinds.count("attn") * steps
+    forwards = steps + st["prefill_groups"]
+    norms = sum(3 if k == "ssm" else 2 for k in kinds) + 1
+    assert rn.LAUNCHES["rmsnorm"] == norms * forwards
+    if arch == "mamba2-130m":
+        assert ssdk.LAUNCHES["ssd"] == cfg.n_layers * (
+            st["prefill_groups"] + st["chunk_steps"])
+        assert st["preemptions"] > 0
+    assert len(done) == len(prompts)
+    pools = ({k: v.clone() for k, v in eng.kv.pool().items()},
+             [a.clone() for st_ in eng._ssm_states.values()
+              for a in st_.values()])
+    return eng, warm, {r.rid: r.output for r in done}, st, pools
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(GRAPH_CASES))
+def test_replay_is_the_eager_engine_bitwise(cuda, case):
+    """Smoke size on the card, after ``warmup`` for every bucket of the
+    trace: the replaying engine's tokens, ``stats()`` counters and final
+    KV pool (its null block aside: inactive rows' appends race there) and
+    SSM pool equal the eager engine's bit for bit; it captured one graph a
+    key in warmup and none while serving; and the launch counts hold
+    through replay (paged read once a layer a decode, chunk or verify
+    step, RMSNorm once a norm a forward, SSD once a layer a prefill
+    pass)."""
+    eng, warm, toks, st, pools = _graph_run(cuda, case, True)
+    assert dict(eng.trace_counts) == warm and len(eng._graphs) == len(warm)
+    eager, _, toks_e, st_e, pools_e = _graph_run(cuda, case, False)
+    assert not eager._graphs
+    assert toks == toks_e
+    assert ({k: v for k, v in st.items() if not k.endswith("_s")} ==
+            {k: v for k, v in st_e.items() if not k.endswith("_s")})
+    for k in pools[0]:
+        assert torch.equal(pools[0][k], pools_e[0][k]), k
+    for a, b in zip(pools[1], pools_e[1]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_warmup_mid_burst_leaves_the_pools_on_the_card(cuda):
+    """``warmup`` with live requests in both pools (mamba2's SSM slots,
+    its dummy KV pool; qwen's KV pages) captures every bucket and leaves
+    every byte of both, the null block included."""
+    for arch, kw in (("mamba2-130m", dict(prefill_chunk=8)),
+                     ("qwen1.5-0.5b", dict(prefill_chunk=8,
+                                           kv_quant="int8"))):
+        cfg = get_config(arch, reduced=True)
+        eng = Engine(cfg, LM(cfg, device=cuda).init(0), max_batch=4,
+                     n_blocks=64, block_size=4, device=cuda, **kw)
+        for i, p in enumerate(serving_requests(4, cfg.vocab_size,
+                                               prompt_lens=[6, 17, 40])):
+            eng.submit(Request(rid=i, tokens=p, max_new_tokens=8))
+        for _ in range(5):
+            eng.step()
+        before = [a.clone() for a in eng.kv.state.values()] + [
+            a.clone() for st in eng._ssm_states.values()
+            for a in st.values()]
+        eng.warmup(48, prompt_lens=[6, 17, 40])
+        torch.cuda.synchronize()
+        after = list(eng.kv.state.values()) + [
+            a for st in eng._ssm_states.values() for a in st.values()]
+        assert all(torch.equal(a, b) for a, b in zip(before, after))
+        assert len(eng._graphs) == len(eng.trace_counts) > 0
+
+
+@pytest.mark.gpu
+def test_replay_adds_each_graph_launches(cuda):
+    """A decode graph of smoke qwen records one paged read a layer and
+    2 x layers + 1 RMSNorm launches; the capture leaves the counters as
+    they were and each replay adds that record once."""
+    import numpy as np
+    from repro_torch.kernels import rmsnorm as rn
+    cfg = get_config("qwen1.5-0.5b", reduced=True)
+    eng = Engine(cfg, LM(cfg, device=cuda).init(0), max_batch=4,
+                 n_blocks=64, block_size=4, device=cuda)
+    eng.warmup(16)
+    fd.LAUNCHES.clear()
+    rn.LAUNCHES.clear()
+    (key, graph), = eng._graphs.items()
+    assert key == ("decode", 1, 4)
+    want = {"paged_attention": cfg.n_layers, "rmsnorm": 2 * cfg.n_layers + 1}
+    got = {k: n for c in graph.launches for k, n in c.items()}
+    assert got == want
+    inputs = dict(tokens=np.zeros(4, np.int32), lengths=np.zeros(4, np.int32),
+                  table=np.zeros((4, 4), np.int32),
+                  active=np.zeros(4, bool))
+    for i in range(1, 4):
+        graph.replay(inputs)
+        assert fd.LAUNCHES["paged_attention"] == i * cfg.n_layers
+        assert rn.LAUNCHES["rmsnorm"] == i * (2 * cfg.n_layers + 1)

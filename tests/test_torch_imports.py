@@ -29,7 +29,9 @@ def test_port_files_exist():
     port = REPO / "src" / "repro_torch"
     for module in ("quant/qtensor.py", "peft/lora.py",
                    "kernels/quant_matmul.py", "kernels/rmsnorm.py",
-                   "serving/speculate.py"):
+                   "serving/speculate.py", "serving/graphs.py",
+                   "configs/llama2_7b.py", "configs/llama2_13b.py",
+                   "configs/llama2_70b.py"):
         assert port / module in PORT_FILES, module
 
 
