@@ -228,14 +228,38 @@ imports nothing of the JAX package). Phases, one line each:
               time of a decode step with all 8 rows live (its graph
               replayed between two events) beside that step's byte bound
               (every weight and the live KV read once).
+22. lifecycle - the serving engine's lifecycle slice at full width,
+              through the replayed steps after ``warmup``, on phase 4's
+              pool (8 slots, 1,024 blocks of 16, chunk 64): (a) qwen
+              int8 KV and (b) mamba2 serve one warming request, then
+              (``reset_stats``) 16 requests of a 960-token shared prefix
+              and a 64-token suffix each, 64 new, prefix cache off and
+              on: tokens bitwise, hit rate 1.0, 16 x 960 tokens reused,
+              prefill tokens 16,384 against 1,024 and chunk steps 256
+              against 16, the launch identities of phases 4 and 10, no
+              capture after warmup, the allocator clean; on mamba2 the
+              snapshot restored at depth 960 is bitwise the state a cold
+              prefill reached there, and the snapshots' MiB are printed;
+              (c) phase 4's chunked int8 burst with the cache on under
+              ``FaultInjector.from_seed`` for two seeds (squeezes,
+              allocator failures, cancels, two pollution twins, a NaN):
+              survivors bitwise the fault-free run, the NaN-armed
+              request failed, terminal causes summing to the requests
+              that entered, the allocator clean; (d) that trace with
+              telemetry off, on and fenced: tokens, ``trace_counts`` and
+              pool bytes bitwise, the snapshot's documented keys, a
+              Chrome trace written under ``build/``, the fenced per-step
+              sweep / schedule / dispatch / sync split. p50 TTFT and
+              decode tok/s are printed as readings.
 
 Any failed check raises. The last three lines of standard output are the
 kernels' JSON record, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``; the line before them gives the whole
 run's time. Each main path (the six engine runs, the training run, the
-two fine-tuning runs, the four speculative engine runs) is driven with
-every launch count set to 0 just before it (after the engine's warmup)
-and read just after; so is each eager twin. Without
+two fine-tuning runs, the four speculative engine runs, the nine
+lifecycle bursts) is driven with every launch count set to 0 just before
+it (after the engine's warmup, and in phase 22 (a)/(b) after the warming
+request) and read just after; so is each eager twin. Without
 a CUDA device, or without the repository beside it, the script exits
 non-zero and prints no result.
 """
@@ -1922,6 +1946,354 @@ def phase_graphs_ssm(cfg, params):
 
 
 # --------------------------------------------------------------------------
+# phase 22: the serving lifecycle (prefix cache, faults, telemetry)
+# --------------------------------------------------------------------------
+
+# the prefix-cache trace: a 960-token shared prefix (15 chunks of 64, on a
+# chunk boundary as a hit must be), a distinct 64-token suffix each
+LIFE_PREFIX, LIFE_SUFFIX, LIFE_BURST = 960, 64, 16
+# FaultInjector.from_seed seeds whose NaN lands on a row of that step's
+# forward (a request armed while it waits, or while another request's
+# chunk runs, is not poisoned): read from the schedule replayed on the CPU
+# at smoke size, which schedules as the card does (no EOS: the schedule
+# does not depend on the weights)
+CHAOS_SEEDS = (5, 23)
+CHAOS_NAN_PERIOD = 12
+# docs/observability.md's schema v1 (tests/test_telemetry.py pins it)
+DOCUMENTED_SCHEMA = {
+    "engine": {"steps", "mode", "prefill_chunk", "model_parallel"},
+    "requests": {"completed", "finished", "timed_out", "cancelled",
+                 "failed", "rejected", "rejected_reasons"},
+    "latency": {"e2e", "ttft", "tpot", "queue"},
+    "throughput": {"tok_s", "decode_tok_s", "decode_tokens",
+                   "prefill_tokens", "decode_time_s", "prefill_time_s"},
+    "pool": {"utilization", "owned", "cached_reclaimable", "free"},
+    "prefix_cache": {"hit_rate", "cached_blocks", "tokens_reused",
+                     "cow_copies"},
+    "scheduler": {"preemptions", "queue_depth"},
+    "telemetry": {"enabled", "fenced", "events", "events_dropped",
+                  "chaos_actions"},
+    "timeline": {"recorded", "dropped", "phase_totals_s", "step_kinds"},
+}
+
+
+def life_engine(cfg, params, **kw):
+    """Phase 4's chunked engine: 8 slots, 1,024 blocks of 16, chunk 64."""
+    from repro_torch.serving.engine import Engine
+    return Engine(cfg, params, max_batch=8, n_blocks=1024, block_size=16,
+                  prefill_chunk=64, device="cuda", **kw)
+
+
+def drive_life(eng, prompts, max_new: int, warm=None):
+    """Phase 22's main path: ``warmup`` (the pools left bitwise), then,
+    given ``warm``, that request served to completion and ``reset_stats``
+    (the prefix cache keeps what it registered); every launch count set
+    to 0, the burst served. Returns the burst's record."""
+    import torch
+    from repro_torch.serving import graphs
+    from repro_torch.serving.engine import Request
+    lens = sorted({len(p) for p in prompts})
+    before = pool_bytes(eng, null_block=True)
+    eng.warmup(max(lens) + max_new, prompt_lens=lens)
+    torch.cuda.synchronize()
+    check(pools_equal(before, pool_bytes(eng, null_block=True)),
+          "warmup changed the pools")
+    del before
+    warm_traces = dict(eng.trace_counts)
+    if warm is not None:
+        eng.submit(Request(rid=len(prompts), tokens=warm,
+                           max_new_tokens=max_new))
+        eng.run(max_steps=5000)
+        eng.reset_stats()
+    torch.cuda.synchronize()
+    for c in graphs.KERNEL_COUNTERS:   # count the burst's run only
+        c.clear()
+    t0 = time.monotonic()
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, tokens=p, max_new_tokens=max_new))
+    done = eng.run(max_steps=20000)
+    torch.cuda.synchronize()
+    return {"done": done, "toks": {r.rid: r.output for r in done},
+            "st": eng.stats(), "wall": time.monotonic() - t0,
+            "warm_traces": warm_traces, "traces": dict(eng.trace_counts)}
+
+
+def hold_launches(eng, rec, run: str) -> dict:
+    """Phase 4's and 10's launch identities for one burst: the paged read
+    once an attention layer a decode or chunk step, the SSD scan once an
+    SSM layer a chunk step, RMSNorm once a norm a forward; no capture
+    after warmup."""
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import ssd as ssdk
+    cfg, st = eng.cfg, rec["st"]
+    kinds = cfg.layer_kinds()
+    steps = st["decode_steps"] + st["chunk_steps"] + st["verify_steps"]
+    got = {"paged": fd.LAUNCHES["paged_attention"],
+           "ssd": ssdk.LAUNCHES["ssd"], "rmsnorm": rn.LAUNCHES["rmsnorm"]}
+    check(got["paged"] == kinds.count("attn") * steps,
+          f"{run}: paged launches {got['paged']} != "
+          f"{kinds.count('attn')} x {steps} steps")
+    check(got["ssd"] == kinds.count("ssm") * (st["chunk_steps"]
+                                              + st["prefill_groups"]),
+          f"{run}: SSD launches {got['ssd']} != {kinds.count('ssm')} x "
+          f"{st['chunk_steps'] + st['prefill_groups']} prefill passes")
+    forwards = steps + st["prefill_groups"]
+    count_rmsnorm(run, got["rmsnorm"], norms_per_forward(cfg) * forwards,
+                  f"{norms_per_forward(cfg)} x {forwards} forwards")
+    check(rec["traces"] == rec["warm_traces"],
+          f"{run}: captured while serving: "
+          f"{set(rec['traces']) - set(rec['warm_traces'])}")
+    return got
+
+
+def alloc_clean(eng, run: str) -> None:
+    """Every block free or parked (one reclaim from free), the free list
+    without duplicates, no reference left."""
+    alloc = eng.alloc
+    free = list(alloc.free)
+    check(alloc.n_available == alloc.n_blocks and
+          len(free) == len(set(free)) and
+          all(rc == 0 for rc in alloc.refcount),
+          f"{run}: the allocator is not clean: {alloc.occupancy()}")
+
+
+def snapshot_mib(eng) -> float:
+    """Bytes of the SSM slot snapshots the prefix cache holds, in MiB."""
+    return sum(a.numel() * a.element_size()
+               for node in eng._prefix.by_block.values()
+               if node.ssm is not None
+               for leaves in node.ssm.values()
+               for a in leaves.values()) / 2 ** 20
+
+
+def phase_prefix(cfg, params, *, kv_quant="none"):
+    """(a), (b): a warming request, then the 16-request shared-prefix
+    burst, cache-off and cache-on; bitwise tokens, every burst request a
+    hit of 960 tokens, the prefill work and the launches it saves."""
+    import torch
+    from repro_torch.data.pipeline import shared_prefix_requests
+    prompts = shared_prefix_requests(LIFE_BURST + 1, cfg.vocab_size,
+                                     prefix_len=LIFE_PREFIX,
+                                     suffix_len=LIFE_SUFFIX, seed=5)
+    warm, burst = prompts[0], prompts[1:]
+    ssm = "ssm" in cfg.layer_kinds()
+    recs, cold = {}, {}
+    for on in (False, True):
+        eng = life_engine(cfg, params, kv_quant=kv_quant, prefix_cache=on)
+        if ssm and not on:
+            # the state a cold prefill reaches at depth 960 (the warming
+            # request's slot right after its 15th chunk)
+            tick = eng._prefill_chunk_tick
+
+            def tick_and_keep(tick=tick, eng=eng):
+                tick()
+                for r in eng.sched.running:
+                    if not cold and r is not None and \
+                            r.prefilled == LIFE_PREFIX:
+                        cold.update(eng._snapshot_ssm_slot(r.slot))
+            eng._prefill_chunk_tick = tick_and_keep
+        run = f"{cfg.name} prefix cache {'on' if on else 'off'}"
+        rec = drive_life(eng, burst, SERVE_NEW, warm=warm)
+        st = rec["st"]
+        check(st["finished"] == LIFE_BURST and all(
+            len(r.output) == SERVE_NEW for r in rec["done"]),
+            f"{run}: {st['finished']} of {LIFE_BURST} finished")
+        rec["launches"] = hold_launches(eng, rec, run)
+        alloc_clean(eng, run)
+        n_prompt = LIFE_PREFIX + LIFE_SUFFIX
+        want = (LIFE_BURST * LIFE_SUFFIX if on else LIFE_BURST * n_prompt)
+        check(st["prefill_tokens"] == want and
+              st["chunk_steps"] == want // 64,
+              f"{run}: prefill tokens {st['prefill_tokens']}, chunk steps "
+              f"{st['chunk_steps']}; want {want}, {want // 64}")
+        if on:
+            check(st["prefix_cache_hit_rate"] == 1.0 and
+                  st["cached_tokens_reused"] == LIFE_BURST * LIFE_PREFIX,
+                  f"{run}: hit rate {st['prefix_cache_hit_rate']}, reused "
+                  f"{st['cached_tokens_reused']}")
+            check(rec["toks"] == recs[False]["toks"],
+                  f"{run}: tokens differ from cache-off at rids "
+                  f"{[k for k, v in rec['toks'].items() if v != recs[False]['toks'][k]]}")
+            rec["snap_mib"] = snapshot_mib(eng) if ssm else 0.0
+            if ssm:
+                node, _ = eng._prefix.match(burst[0])
+                check(node is not None and node.depth * 16 == LIFE_PREFIX,
+                      f"{run}: no snapshot node at depth {LIFE_PREFIX}")
+                check(all(torch.equal(node.ssm[pos][leaf], a)
+                          for pos, leaves in cold.items()
+                          for leaf, a in leaves.items()),
+                      f"{run}: the restored snapshot is not the state a "
+                      f"cold prefill reached at depth {LIFE_PREFIX}")
+        recs[on] = rec
+        del eng
+        free_card()
+    off, on = recs[False], recs[True]
+    snap = (f"; SSD launches {off['launches']['ssd']} -> "
+            f"{on['launches']['ssd']}; SSM snapshots held "
+            f"{on['snap_mib']:.1f} MiB; the restored snapshot == the cold "
+            f"prefill's state at depth {LIFE_PREFIX}, bitwise"
+            if ssm else "")
+    print(f"[lifecycle] {cfg.name} prefix cache, kv={kv_quant}, "
+          f"{LIFE_BURST} requests of {LIFE_PREFIX} shared + {LIFE_SUFFIX} "
+          f"tokens, {SERVE_NEW} new: tokens bitwise cache-off's; hit rate "
+          f"{on['st']['prefix_cache_hit_rate']:.2f}, reused "
+          f"{on['st']['cached_tokens_reused']} tokens; prefill tokens "
+          f"{off['st']['prefill_tokens']} -> {on['st']['prefill_tokens']}, "
+          f"chunk steps {off['st']['chunk_steps']} -> "
+          f"{on['st']['chunk_steps']}; paged launches "
+          f"{off['launches']['paged']} -> {on['launches']['paged']}, "
+          f"RMSNorm {off['launches']['rmsnorm']} -> "
+          f"{on['launches']['rmsnorm']}{snap}; p50 TTFT "
+          f"{off['st']['p50_ttft_s'] * 1e3:.1f} -> "
+          f"{on['st']['p50_ttft_s'] * 1e3:.1f} ms, decode "
+          f"{off['st']['decode_tok_s']:.1f} -> "
+          f"{on['st']['decode_tok_s']:.1f} tok/s, burst wall "
+          f"{off['wall']:.2f} -> {on['wall']:.2f} s (readings); no capture "
+          f"after warmup; allocator clean; {card_line()}")
+    return recs
+
+
+def phase_telemetry(cfg, params):
+    """(d): phase 4's chunked int8 trace telemetry-off, on and fenced:
+    tokens, ``trace_counts`` and pool bytes bitwise; the snapshot's
+    documented keys; the Chrome export; the fenced host/device split.
+    Returns the off run (the fault-free run of (c)) and the launches."""
+    import numpy as np
+    from repro_torch.data.pipeline import serving_requests
+    from repro_torch.serving.telemetry import PHASES, Telemetry
+    prompts = serving_requests(16, cfg.vocab_size, prompt_lens=SERVE_LENS)
+    recs, launches = {}, {}
+    for name, tel in (("off", None), ("on", True),
+                      ("fenced", Telemetry(fenced=True))):
+        eng = life_engine(cfg, params, kv_quant="int8", telemetry=tel)
+        run = f"{cfg.name} chunk=64 int8 telemetry {name}"
+        rec = drive_life(eng, prompts, SERVE_NEW)
+        launches[name] = hold_launches(eng, rec, run)
+        rec["pools"] = pool_bytes(eng, null_block=False)
+        if name != "off":
+            base = recs["off"]
+            check(rec["toks"] == base["toks"],
+                  f"{run}: tokens differ from telemetry off")
+            check(rec["traces"] == base["traces"],
+                  f"{run}: trace_counts differ from telemetry off")
+            check(pools_equal(rec["pools"], base["pools"]),
+                  f"{run}: pool bytes differ from telemetry off")
+            snap = eng.snapshot()
+            missing = {s: sorted(keys - set(snap.get(s, {})))
+                       for s, keys in DOCUMENTED_SCHEMA.items()
+                       if keys - set(snap.get(s, {}))}
+            check(not missing, f"{run}: snapshot lacks {missing}")
+            tel = eng.telemetry
+            rec["timeline"] = list(tel.timeline)
+            if name == "on":
+                path = ROOT / "build" / "phase22_trace.json"
+                path.parent.mkdir(exist_ok=True)
+                trace = tel.export_chrome(str(path),
+                                          metadata={"run": run})
+                rec["events"] = len(trace["traceEvents"])
+                rec["trace_path"] = path
+            del rec["pools"]
+        recs[name] = rec
+        del eng
+        free_card()
+    del recs["off"]["pools"]
+    fenced = recs["fenced"]["timeline"]
+
+    def mean_ms(recs_, phase):
+        return float(np.mean([r["phases"][phase] for r in recs_])) * 1e3
+
+    decode_only = [r for r in fenced if r["kinds"] == ("decode",)]
+    both = [r for r in fenced if set(r["kinds"]) == {"chunk", "decode"}]
+    split = "; ".join(
+        f"{label} ({len(rs)} steps): " + ", ".join(
+            f"{ph} {mean_ms(rs, ph):.3f}" for ph in PHASES) + " ms"
+        for label, rs in (("decode-only steps", decode_only),
+                          ("chunk + decode steps", both)) if rs)
+    st = {k: recs[k]["st"] for k in recs}
+    print(f"[lifecycle] {cfg.name} telemetry, phase 4's chunk=64 int8 "
+          f"trace: on and fenced == off bitwise (tokens of 16 requests, "
+          f"trace_counts, KV pool); snapshot has every documented key; "
+          f"Chrome trace {recs['on']['events']} events -> "
+          f"{recs['on']['trace_path'].relative_to(ROOT)}; fenced per-step "
+          f"host split (mean): {split}; decode tok/s off "
+          f"{st['off']['decode_tok_s']:.1f}, on {st['on']['decode_tok_s']:.1f}"
+          f", fenced {st['fenced']['decode_tok_s']:.1f}; p50 TTFT off "
+          f"{st['off']['p50_ttft_s'] * 1e3:.1f}, on "
+          f"{st['on']['p50_ttft_s'] * 1e3:.1f} ms (readings); {card_line()}")
+    return recs["off"], launches
+
+
+def phase_chaos(cfg, params, base):
+    """(c): phase 4's chunked int8 burst with the prefix cache on under
+    two seeded fault schedules (squeezes, allocator failures, cancels,
+    pollution twins, one NaN): survivors bitwise the fault-free run's,
+    the NaN-armed request failed, every request accounted once, the
+    allocator clean, no capture after warmup."""
+    from repro_torch.data.pipeline import serving_requests
+    from repro_torch.serving.faults import POLLUTE_RID_BASE, FaultInjector
+    prompts = serving_requests(16, cfg.vocab_size, prompt_lens=SERVE_LENS)
+    launches = {}
+    for seed in CHAOS_SEEDS:
+        inj = FaultInjector.from_seed(seed, rids=range(16),
+                                      nan_period=CHAOS_NAN_PERIOD, pollute=2)
+        eng = life_engine(cfg, params, kv_quant="int8", prefix_cache=True,
+                          faults=inj)
+        run = f"{cfg.name} chaos seed {seed}"
+        rec = drive_life(eng, prompts, SERVE_NEW)
+        inj.release_all(eng)
+        check(inj.quiescent, f"{run}: the injector holds blocks")
+        launches[seed] = hold_launches(eng, rec, run)
+        alloc_clean(eng, run)
+        st, done = rec["st"], rec["done"]
+        armed = [d[0] for _, a, d in inj.log if a == "nan"]
+        states = {r.rid: r.state for r in done}
+        check(len(armed) == 1 and states.get(armed[0]) == "failed",
+              f"{run}: NaN armed on {armed}, states {states}")
+        entered = 16 + sum(1 for _, a, _ in inj.log if a == "pollute")
+        causes = {k: st[k] for k in ("finished", "timed_out", "cancelled",
+                                     "failed")}
+        check(sum(causes.values()) == len(done) == entered,
+              f"{run}: causes {causes} over {len(done)} done, "
+              f"{entered} entered")
+        survivors = [r for r in done
+                     if r.rid < POLLUTE_RID_BASE and r.state == "finished"]
+        bad = [r.rid for r in survivors if r.output != base[r.rid]]
+        check(not bad, f"{run}: survivors {bad} differ from the fault-free "
+              f"run; log {inj.log}")
+        print(f"[lifecycle] {run}: {len(inj.log)} actions "
+              f"({', '.join(a for _, a, _ in inj.log)}); causes {causes} "
+              f"of {entered} entered; {len(survivors)} survivors bitwise "
+              f"the fault-free run; rid {armed[0]} quarantined; hit rate "
+              f"{st['prefix_cache_hit_rate']:.3f}; no capture after "
+              f"warmup; allocator clean")
+        del eng
+        free_card()
+    return launches
+
+
+def phase_lifecycle():
+    """Phase 22 on qwen1.5-0.5b and mamba2-130m at full width."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import LM
+    cfg = get_config("qwen1.5-0.5b")
+    params = LM(cfg, device="cuda").init(0)
+    base, tel_launches = phase_telemetry(cfg, params)
+    chaos_launches = phase_chaos(cfg, params, base["toks"])
+    qwen = phase_prefix(cfg, params, kv_quant="int8")
+    del params
+    free_card()
+    cfg = get_config("mamba2-130m")
+    params = LM(cfg, device="cuda").init(0)
+    mamba = phase_prefix(cfg, params)
+    del params
+    free_card()
+    runs = (list(tel_launches.values()) + list(chaos_launches.values())
+            + [r["launches"] for r in (*qwen.values(), *mamba.values())])
+    return {k: sum(r[k] for r in runs) for k in ("paged", "ssd")}
+
+
+# --------------------------------------------------------------------------
 # int8 weight-only matmul and LoRA fine-tuning
 # --------------------------------------------------------------------------
 
@@ -3157,6 +3529,12 @@ def main() -> None:
         max_new=32, draft=True)
     del params
     rms_t, dec_t = phase_new_kernel_timing(cfg)
+    life = phase_lifecycle()
+    for entry in record["kernels"]:
+        if entry["name"] == "paged_attention":
+            entry["launches"] += life["paged"]
+        if entry["name"] == "ssd_chunked_kernel":
+            entry["launches"] += life["ssd"]
     print(f"[spec] RMSNorm launches per run: " + ", ".join(
         f"{k} {v}" for k, v in RMSNORM_RUNS.items()))
     train = rms_t["train"]

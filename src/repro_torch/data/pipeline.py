@@ -1,6 +1,7 @@
 """Synthetic data (numpy only; the port's copy of the numpy part of
-``repro.data.pipeline``): the serving prompts (random and repeated-
-pattern) and the packed training batches. Same generators and draws as
+``repro.data.pipeline``): the serving prompts (random, repeated-pattern
+and shared-prefix), Poisson arrival offsets and the packed training
+batches. Same generators and draws as
 the reference, so the two packages see identical tokens for one seed."""
 from __future__ import annotations
 
@@ -89,3 +90,22 @@ def repetitive_requests(n: int, vocab: int,
     pat = rng.integers(1, vocab, size=pattern_len, dtype=np.int32).tolist()
     reps = -(-prompt_len // pattern_len)
     return [(pat * reps)[:prompt_len] for _ in range(n)]
+
+
+def shared_prefix_requests(n: int, vocab: int, prefix_len: int = 48,
+                           suffix_len: int = 8, seed: int = 0):
+    """Shared-system-prompt trace: every request opens with the SAME
+    ``prefix_len``-token prefix and appends its own random
+    ``suffix_len``-token tail (the prefix cache's workload)."""
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(1, vocab, size=prefix_len, dtype=np.int32).tolist()
+    return [prefix + rng.integers(1, vocab, size=suffix_len,
+                                  dtype=np.int32).tolist()
+            for _ in range(n)]
+
+
+def poisson_arrivals(n: int, rate_rps: float, seed: int = 0) -> np.ndarray:
+    """Cumulative arrival offsets (seconds from t0) of a Poisson process
+    at ``rate_rps`` requests/second."""
+    rng = np.random.default_rng(seed)
+    return np.cumsum(rng.exponential(1.0 / rate_rps, size=n))

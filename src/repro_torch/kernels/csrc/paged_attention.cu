@@ -28,13 +28,18 @@
 //
 // Design: flash-decoding over pages, as dense_decode.cu does over
 // positions. Grid (n_split, K, B). The live table columns of row b,
-// ceil(min(lengths[b], max_blocks * bs) / bs), are split over the n_split
-// blocks of its (b, kh) pair: split i takes columns [i * c, min((i + 1) *
-// c, n_cols)) with c = ceil(n_cols / n_split), computed on the card from
+// n_cols = ceil(min(lengths[b], max_blocks * bs) / bs), are split over
+// s = max(1, min(n_split, ceil(n_cols / kMinCols))) of the n_split blocks
+// of its (b, kh) pair: split i takes columns [i * c, min((i + 1) * c,
+// n_cols)) with c = ceil(n_cols / s), computed on the card from
 // lengths[b], so a short row does not spread over dead columns and a split
-// past its row's columns reads nothing (it writes an empty partial). The
+// past its row's s reads nothing (it writes an empty partial). The
 // wrapper picks n_split from B * K and the table width alone
-// (flash_decode.paged_splits), never from T or a host read of lengths.
+// (flash_decode.paged_splits), never from T or a host read of lengths;
+// it allows at most one split per kMinCols columns of the table, so s is
+// min(n_split, ceil(n_cols / kMinCols)) whatever the table's width: a
+// row's spans depend on its own length only, never on the table bucket,
+// which the engine sizes by the batch's longest row.
 //   Loads: a head's K or V row of a page is D contiguous elements (128
 // bytes in bf16 at D = 64, 64 in int8), consecutive positions K * D apart.
 // The block reads its span's block ids from the table once, then copies
@@ -82,9 +87,11 @@
 // launch.
 //   Row invariance: a row's arithmetic (its q, each score's products and
 // shuffle tree, the granules and their softmax, the order of every sum
-// and merge, the split spans) does not depend on T or on the other rows,
-// so row t of a T-wide read is bitwise the T=1 read of q[:, t], and a
-// verify step's rows are the decode read's.
+// and merge, the split spans) does not depend on T, on the other rows or
+// on the table's width (empty splits add exact zeros to the merge, and
+// the l tree's extra levels only add zero lanes), so row t of a T-wide
+// read is bitwise the T=1 read of q[:, t], a verify step's rows are the
+// decode read's, and a row's read is the same whichever rows share it.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -97,6 +104,8 @@ constexpr int kE = 8;           // K/V elements a lane takes from a row
 constexpr int kMaxD = 128;
 // splits of a pair at most: the merge takes two a lane
 constexpr int kMaxSplits = 64;
+// live columns a split at least (flash_decode._PAGED_MIN_COLS)
+constexpr int kMinCols = 4;
 constexpr int kTblCache = 256;  // a span's block ids kept in shared memory
 constexpr int kMaxDynSmem = 200 * 1024;
 constexpr float kNegInf = -1e30f;
@@ -240,7 +249,9 @@ paged_mq_kernel(const __nv_bfloat16* __restrict__ q,
   int len = lengths[b];
   len = len < 0 ? 0 : min(len, max_blocks * bs);
   const int n_cols = (len + bs - 1) / bs;
-  const int chunk = (n_cols + n_split - 1) / n_split;
+  // the row's own split count: its spans follow its length alone
+  const int n_row = max(1, min(n_split, (n_cols + kMinCols - 1) / kMinCols));
+  const int chunk = (n_cols + n_row - 1) / n_row;
   const int c0 = min(split * chunk, n_cols);
   const int c1 = min(c0 + chunk, n_cols);
   const int span = c1 - c0;

@@ -99,11 +99,16 @@ def _paged_prefix_torch(q, k_pages, v_pages, table, lengths, k_scale,
 def page_spans(lengths, bs: int, mb: int, n_split: int):
     """The kernel's table-column ranges: per split i, (lo, hi) int tensors
     of shape (B,) with lo = min(i·c, n), hi = min(lo + c, n), c =
-    ceil(n / n_split), n = ceil(min(len, mb·bs) / bs) the row's live
-    columns (len clamped at 0)."""
+    ceil(n / s), s = max(1, min(n_split, ceil(n / 4))) the row's own split
+    count, n = ceil(min(len, mb·bs) / bs) the row's live columns (len
+    clamped at 0). With ``n_split`` from :func:`paged_splits` (at most one
+    split per 4 table columns) s does not depend on the table width, so a
+    row's spans, and its read, are the same whichever rows share its
+    step."""
     ln = torch.clamp(lengths.long(), 0, mb * bs)
     n = (ln + bs - 1) // bs
-    c = (n + n_split - 1) // n_split
+    s = torch.clamp((n + _PAGED_MIN_COLS - 1) // _PAGED_MIN_COLS, 1, n_split)
+    c = (n + s - 1) // s
     spans = []
     for i in range(n_split):
         lo = torch.minimum(i * c, n)
@@ -197,7 +202,9 @@ def paged_splits(b: int, n_kv: int, mb: int, n_sm: int) -> int:
     ``_PAGED_MIN_COLS`` columns of the table (``mb``) and at most
     ``_PAGED_MAX_SPLITS``. It reads shapes only: never the window width T
     (so row t of a T-wide read is the T=1 read) and never ``lengths`` (no
-    host read; the kernel divides each row's live columns on the card)."""
+    host read; the kernel divides each row's live columns on the card,
+    over at most one split per ``_PAGED_MIN_COLS`` of them, so a row's
+    spans do not follow the table width: :func:`page_spans`)."""
     want = -(-_PAGED_BLOCKS_PER_SM * n_sm // max(1, b * n_kv))
     return max(1, min(want, mb // _PAGED_MIN_COLS, _PAGED_MAX_SPLITS))
 

@@ -248,6 +248,21 @@ def write_prefill(state: Dict[str, torch.Tensor], kv_quant: str,
         state["v_scale"][:, ids] = vs
 
 
+def write_token(state: Dict[str, torch.Tensor], kv_quant: str,
+                layer_kv: Tuple[torch.Tensor, torch.Tensor],
+                block_ids: torch.Tensor, offsets: torch.Tensor) -> None:
+    """Decode append for every layer of ``state`` in one scatter a leaf:
+    k, v (L, B, K, hd) encoded, then :func:`write_token_encoded`. Rows
+    routed to block ``n_blocks`` land in the null block."""
+    k, v = layer_kv
+    kq, ks = quant_encode(k, kv_quant)
+    vq, vs = quant_encode(v, kv_quant)
+    enc = {"k": kq, "v": vq}
+    if ks is not None:
+        enc["k_scale"], enc["v_scale"] = ks, vs
+    write_token_encoded(state, enc, block_ids, offsets)
+
+
 def write_token_encoded(state: Dict[str, torch.Tensor],
                         enc: Dict[str, torch.Tensor],
                         block_ids: torch.Tensor,
@@ -314,6 +329,37 @@ def scrub_blocks(state: Dict[str, torch.Tensor], block_ids) -> None:
         state[key][:, ids] = _fill(key)
 
 
+def copy_block(state: Dict[str, torch.Tensor], src: int, dst: int) -> None:
+    """Copy one block's bytes (every layer, every leaf) ``src`` -> ``dst``
+    in place: the copy-on-write primitive (a request about to append into
+    a shared or cache-registered block first duplicates it)."""
+    for key in state:
+        state[key][:, dst].copy_(state[key][:, src])
+
+
+def gather(state: Dict[str, torch.Tensor], layer: int,
+           block_table: torch.Tensor, dtype=torch.bfloat16
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dense per-row view of one layer (the legacy path's read):
+    ``block_table`` (B, max_blocks) -> k, v (B, max_blocks * block, K,
+    hd) in ``dtype``. Ids outside the pool proper, the null block
+    ``n_blocks`` included, read as zeros, as in the reference."""
+    nb = state["k"].shape[1] - 1                 # the null block aside
+    table = block_table.long()
+    in_range = (table >= 0) & (table < nb)
+    safe = torch.where(in_range, table, torch.zeros_like(table))
+    ks = state["k_scale"][layer][safe] if "k_scale" in state else None
+    vs = state["v_scale"][layer][safe] if "v_scale" in state else None
+    k = quant_decode(state["k"][layer][safe], ks, dtype)
+    v = quant_decode(state["v"][layer][safe], vs, dtype)
+    mask = in_range[:, :, None, None, None]
+    k = torch.where(mask, k, torch.zeros((), dtype=dtype, device=k.device))
+    v = torch.where(mask, v, torch.zeros((), dtype=dtype, device=v.device))
+    b, mb, bs = k.shape[:3]
+    return (k.reshape(b, mb * bs, *k.shape[3:]),
+            v.reshape(b, mb * bs, *v.shape[3:]))
+
+
 class PagedKVCache:
     """Owns the storage dict and updates it in place; :meth:`pool` views
     the reference-shaped storage without the null block."""
@@ -330,6 +376,21 @@ class PagedKVCache:
     def write_prefill(self, layer_kv, block_ids: List[int]) -> None:
         write_prefill(self.state, self.cfg.kv_quant, layer_kv, block_ids)
 
+    def write_token(self, layer_kv, block_ids: torch.Tensor,
+                    offsets: torch.Tensor) -> None:
+        write_token(self.state, self.cfg.kv_quant, layer_kv, block_ids,
+                    offsets)
+
     def truncate_slots(self, block_ids, keep_tokens: int) -> None:
         truncate_slots(self.state, block_ids, keep_tokens,
                        self.cfg.block_size)
+
+    def gather(self, layer: int, block_table: torch.Tensor,
+               dtype=torch.bfloat16) -> Tuple[torch.Tensor, torch.Tensor]:
+        return gather(self.state, layer, block_table, dtype)
+
+    def hbm_bytes(self) -> int:
+        """Bytes of the pool proper (k, v and int8 scales; the null
+        block aside), as the reference counts its storage."""
+        return sum(v.numel() * v.element_size()
+                   for v in self.pool().values())

@@ -111,6 +111,9 @@ class Speculator:
             raise ValueError("spec_depth must be >= 1")
         self.proposer = proposer
         self.depth = depth
+        # optional Telemetry (serving/telemetry.py), wired by the engine:
+        # per-round proposed/accepted counts feed the step timeline
+        self.tel = None
         self.reset()
 
     def reset(self) -> None:
@@ -136,6 +139,8 @@ class Speculator:
         self.proposed_tokens += proposed
         self.accepted_tokens += accepted
         self.depth_hist[proposed] += 1
+        if self.tel is not None:
+            self.tel.spec_round(proposed, accepted)
         # back-off: full acceptance creeps back toward the cap, full
         # rejection halves, partial settles just past the accepted run
         if accepted >= proposed:
@@ -146,11 +151,13 @@ class Speculator:
             req.spec_depth = max(1, min(self.depth, accepted + 1))
 
     def abandon(self, req) -> None:
-        """A running request left the schedule mid-flight (quarantined).
-        Its window rolls back with its pages (rejected appends were
-        null-writes, accepted ones are scrubbed on eviction), so only the
-        abandonment is counted."""
+        """A running request left the schedule mid-flight (cancelled,
+        timed out, quarantined). Its window rolls back with its pages
+        (rejected appends were null-writes, accepted ones are scrubbed on
+        eviction), so only the abandonment is counted."""
         self.n_abandoned += 1
+        if self.tel is not None and self.tel.enabled:
+            self.tel.registry.count("spec_abandoned")
 
     def stats(self) -> Dict:
         return {

@@ -202,3 +202,63 @@ def test_serve_cli_on_cpu(capsys):
     for bad in ("16,,8", "x", "0"):
         with pytest.raises(ValueError):
             parse_mixed_lens(bad)
+
+
+@pytest.mark.parametrize("arch,kv_quant", [
+    ("qwen1.5-0.5b", "none"),
+    ("qwen1.5-0.5b", "int8"),
+    ("mamba2-130m", "none"),
+])
+def test_legacy_matches_fused_tokens(arch, kv_quant):
+    """tests/test_serving.py:135 on the port: the legacy per-layer oracle
+    (each layer's token paged, the pages gathered dense, naive f32
+    attention) emits the fused steps' greedy tokens, bit for bit, with
+    int8 KV and a partly occupied batch (5 requests on 3 slots)."""
+    cfg = port_config(arch, reduced=True)
+    params = PortLM(cfg, device="cpu").init(0)
+    outs = {}
+    for mode in ("legacy", "fused"):
+        eng = Engine(cfg, params, max_batch=3, n_blocks=32, block_size=8,
+                     kv_quant=kv_quant, mode=mode, ssd_impl="ref",
+                     device="cpu")
+        rng = np.random.default_rng(0)
+        for rid in range(5):
+            eng.submit(Request(
+                rid=rid,
+                tokens=rng.integers(1, cfg.vocab_size, size=12).tolist(),
+                max_new_tokens=5))
+        done = eng.run(max_steps=200)
+        assert len(done) == 5 and eng.stats()["decode_steps"] > 0
+        outs[mode] = {r.rid: r.output for r in done}
+        assert eng.snapshot()["engine"]["mode"] == mode
+        if mode == "legacy":
+            assert not eng.trace_counts          # nothing built for it
+    assert outs["fused"] == outs["legacy"]
+
+
+def test_serve_cli_lifecycle_flags(capsys, tmp_path):
+    """The prefix cache, a seeded fault schedule and the Chrome trace
+    from the CLI, and its refusals (the reference CLI's ``ap.error``
+    rules)."""
+    import json
+    from repro_torch.launch.serve import main
+    out_path = tmp_path / "t.json"
+    main(["--device", "cpu", "--prefix-cache", "--prefill-chunk", "8",
+          "--chaos", "0", "--trace-out", str(out_path), "--requests", "4",
+          "--max-new", "3", "--queue-cap", "8", "--deadline-s", "600"])
+    out = capsys.readouterr().out
+    for key in ("prefix_cache_hit_rate", "cached_tokens_reused",
+                "timed_out", "cancelled", "rejected_reasons", "chaos",
+                "trace_out"):
+        assert f"{key}:" in out, key
+    assert "finished: 4" in out
+    trace = json.loads(out_path.read_text())
+    assert trace["otherData"]["chaos_seed"] == 0
+    assert any(e["name"] == "terminal" for e in trace["traceEvents"])
+    main(["--device", "cpu", "--legacy", "--requests", "2", "--max-new",
+          "2"])
+    assert "mode: legacy" in capsys.readouterr().out
+    for bad in (["--prefix-cache"], ["--trace-fenced"],
+                ["--chaos", "1", "--legacy"], ["--fused", "--legacy"]):
+        with pytest.raises(SystemExit):
+            main(["--device", "cpu"] + bad)

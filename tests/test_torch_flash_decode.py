@@ -263,17 +263,60 @@ def test_one_split_is_the_column_loop_bitwise(t, quant):
 @pytest.mark.parametrize("n_split", [1, 2, 3, 16, 64])
 def test_page_spans_cover_each_live_column_once(n_split):
     """Split i of a row takes columns [i·c, min((i+1)·c, n)), n the row's
-    live columns (its length, capped by the table, over the page size):
-    the spans tile [0, n) in order, and splits past n are empty."""
+    live columns (its length, capped by the table, over the page size),
+    c = ceil(n / s), s = max(1, min(n_split, ceil(n / 4))) the row's own
+    split count: the spans tile [0, n) in order, at most s of them hold
+    columns, and the splits past them are empty."""
     bs, mb = 16, 64
     lens = torch.tensor([0, 1, 16, 17, 936, 1024, 5000], dtype=torch.int32)
     spans = tfd.page_spans(lens, bs, mb, n_split)
     assert len(spans) == n_split
     for r, n in enumerate([0, 1, 1, 2, 59, 64, 64]):
+        s = max(1, min(n_split, -(-n // 4)))
         edges = [(int(lo[r]), int(hi[r])) for lo, hi in spans]
         assert edges[0][0] == 0 and edges[-1][1] == n
         assert all(a[1] == b_[0] for a, b_ in zip(edges, edges[1:]))
-        assert all(0 <= hi - lo <= -(-n // n_split) for lo, hi in edges)
+        assert all(0 <= hi - lo <= -(-n // s) for lo, hi in edges)
+        assert sum(hi > lo for lo, hi in edges) <= s
+        assert all(lo == hi == n for lo, hi in edges[s:])
+
+
+@pytest.mark.parametrize("b,kv", [(8, 16), (1, 16), (8, 32), (3, 2)])
+def test_a_rows_spans_do_not_follow_the_table_width(b, kv):
+    """With ``paged_splits``' count a row's spans are the same at every
+    power-of-two table width that holds it: the engine sizes a decode
+    step's table by the batch's longest row, so a row's read must not
+    depend on which rows share its step (found by the chaos run of
+    chip_smoke phase 22: a survivor decoded beside other rows than in the
+    fault-free run split its pages otherwise)."""
+    bs = 16
+    lens = torch.tensor([0, 1, 17, 70, 128, 100], dtype=torch.int32)
+    seen = []
+    for mb in (8, 16, 32, 64, 128):
+        n_split = tfd.paged_splits(b, kv, mb, 132)
+        spans = tfd.page_spans(lens, bs, mb, n_split)
+        seen.append([[(int(lo[r]), int(hi[r])) for lo, hi in spans
+                      if hi[r] > lo[r]] for r in range(len(lens))])
+    assert all(s == seen[0] for s in seen)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_plain_split_read_is_the_same_at_any_table_width(one_thread, quant):
+    """The plain split read of a row, padded to wider tables (more dead
+    columns, more empty splits at ``paged_splits``' count), is bit for
+    bit the same: empty splits add exact zeros to the merge."""
+    q, kp, vp, table, lengths, ks, vs = _tensors(_case(1, 4, 2, quant,
+                                                       seed=7))
+    outs = []
+    for mb in (4, 8, 32, 64):
+        wide = torch.zeros((table.shape[0], mb), dtype=table.dtype)
+        wide[:, :table.shape[1]] = table
+        outs.append(tfd._paged_prefix_torch(
+            q, kp, vp, wide, lengths, ks, vs,
+            n_split=tfd.paged_splits(q.shape[0], kp.shape[2], mb, 132)))
+    for got in outs[1:]:
+        for a, b in zip(outs[0], got):
+            assert torch.equal(a, b)
 
 
 def test_split_count_reads_shapes_only():

@@ -1180,3 +1180,164 @@ def test_replay_adds_each_graph_launches(cuda):
         graph.replay(inputs)
         assert fd.LAUNCHES["paged_attention"] == i * cfg.n_layers
         assert rn.LAUNCHES["rmsnorm"] == i * (2 * cfg.n_layers + 1)
+
+
+# --------------------------------------------------------------------------
+# The lifecycle slice on the card: the NaN mask through replayed graphs,
+# in-place cache ops under captured graphs, the prefix cache, legacy mode
+# --------------------------------------------------------------------------
+
+# (arch, engine options, fault step, (rid, period)): a NaN armed while
+# the rid decodes, and while it pages its prompt out
+NAN_GRAPH_CASES = {
+    "decode": ("qwen1.5-0.5b", dict(max_batch=3), 3, (2, 0)),
+    "chunk": ("qwen1.5-0.5b", dict(max_batch=2, prefill_chunk=4,
+                                   kv_quant="int8"), 1, (0, 1)),
+}
+
+
+def _lifecycle_run(cuda, arch, kw, prompts, max_new, faults=None,
+                   drip=False, **more):
+    cfg = get_config(arch, reduced=True)
+    eng = Engine(cfg, LM(cfg, device=cuda).init(0), block_size=8,
+                 device=cuda, faults=faults, **{**dict(n_blocks=48), **kw},
+                 **more)
+    lens = sorted({len(p) for p in prompts})
+    eng.warmup(max(lens) + max_new, prompt_lens=lens)
+    warm = dict(eng.trace_counts)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, tokens=list(p), max_new_tokens=max_new))
+        if drip:
+            eng.step()
+    done = eng.run()
+    torch.cuda.synchronize()
+    return eng, warm, {r.rid: (r.state, list(r.output)) for r in done}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(NAN_GRAPH_CASES))
+def test_armed_nan_through_replayed_graphs(cuda, case):
+    """A NaN armed through a replayed decode or chunk graph quarantines
+    exactly the armed row; every other request keeps the tokens of the
+    unarmed replayed run bit for bit, and nothing was captured after
+    warmup (the mask is one more static input)."""
+    from repro_torch.serving.faults import FaultInjector, StepFaults
+    arch, kw, step, nan = NAN_GRAPH_CASES[case]
+    cfg = get_config(arch, reduced=True)
+    prompts = serving_requests(4, cfg.vocab_size, prompt_lens=[12])
+    _, _, base = _lifecycle_run(cuda, arch, kw, prompts, 5)
+    inj = FaultInjector({step: StepFaults(nan=nan)})
+    eng, warm, got = _lifecycle_run(cuda, arch, kw, prompts, 5, faults=inj)
+    assert inj.log == [(step, "nan", nan)]
+    assert dict(eng.trace_counts) == warm and len(eng._graphs) == len(warm)
+    for rid, (state, out) in got.items():
+        if rid == nan[0]:
+            assert state == "failed"
+        else:
+            assert (state, out) == base[rid]
+    assert eng.alloc.n_free == eng.alloc.n_blocks
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "mamba2-130m"])
+def test_in_place_cache_ops_keep_the_graphs_pools(cuda, arch):
+    """``copy_block``, block scrubs and SSM snapshot restores (a drip-fed
+    shared-prefix trace with the prefix cache on) write the pools in
+    place: every pool tensor keeps its address, so the captured graphs
+    read the live pools, and the replaying engine equals the eager one
+    bit for bit (tokens, prefix counters, pool bytes)."""
+    from repro_torch.data.pipeline import shared_prefix_requests
+    from repro_torch.serving import cache as C
+    cfg = get_config(arch, reduced=True)
+    kw = dict(max_batch=2, prefill_chunk=8 if arch.startswith("qwen")
+              else 32, prefix_cache=True)
+    prompts = shared_prefix_requests(4, cfg.vocab_size, prefix_len=32 if
+                                     arch.startswith("qwen") else 64,
+                                     suffix_len=8, seed=3)
+    runs = []
+    for graphs in (True, False):
+        eng = Engine(cfg, LM(cfg, device=cuda).init(0), block_size=8,
+                     n_blocks=48, device=cuda, cuda_graphs=graphs, **kw)
+        eng.warmup(80, prompt_lens=[len(prompts[0])])
+        ptrs = [a.data_ptr() for a in eng.kv.state.values()] + [
+            a.data_ptr() for st in eng._ssm_states.values()
+            for a in st.values()]
+        C.copy_block(eng.kv.state, 0, 1)
+        C.scrub_blocks(eng.kv.state, [0, 1])
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, tokens=list(p), max_new_tokens=6))
+            eng.step()
+        done = eng.run()
+        torch.cuda.synchronize()
+        assert ptrs == [a.data_ptr() for a in eng.kv.state.values()] + [
+            a.data_ptr() for st in eng._ssm_states.values()
+            for a in st.values()]
+        assert eng.prefix_hits > 0
+        runs.append(({r.rid: r.output for r in done},
+                     (eng.prefix_hits, eng.prefix_tokens_reused),
+                     [a.clone() for a in eng.kv.pool().values()],
+                     [a.clone() for st in eng._ssm_states.values()
+                      for a in st.values()]))
+    assert runs[0][:2] == runs[1][:2]
+    for a, b in zip(runs[0][2] + runs[0][3], runs[1][2] + runs[1][3]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "mamba2-130m"])
+def test_prefix_cache_on_equals_off_on_the_card(cuda, arch):
+    from repro_torch.data.pipeline import shared_prefix_requests
+    cfg = get_config(arch, reduced=True)
+    qwen = arch.startswith("qwen")
+    kw = dict(max_batch=2, prefill_chunk=8 if qwen else 32,
+              kv_quant="int8" if qwen else "none")
+    prompts = shared_prefix_requests(4, cfg.vocab_size, prefix_len=24 if
+                                     qwen else 64, suffix_len=8, seed=3)
+    _, _, off = _lifecycle_run(cuda, arch, kw, prompts, 6, drip=True)
+    eng, warm, on = _lifecycle_run(cuda, arch, {**kw, "prefix_cache": True},
+                                   prompts, 6, drip=True)
+    assert on == off
+    assert eng.stats()["prefix_cache_hit_rate"] > 0.0
+    assert dict(eng.trace_counts) == warm
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,kv_quant", [("qwen1.5-0.5b", "none"),
+                                           ("qwen1.5-0.5b", "int8"),
+                                           ("mamba2-130m", "none")])
+def test_legacy_matches_fused_on_the_card(cuda, arch, kv_quant):
+    """The legacy oracle (eager, naive f32 attention over the gathered
+    pages, the RMSNorm kernel) emits the replayed fused steps' tokens."""
+    cfg = get_config(arch, reduced=True)
+    prompts = serving_requests(5, cfg.vocab_size, prompt_lens=[12])
+    outs = {}
+    for mode in ("legacy", "fused"):
+        _, _, outs[mode] = _lifecycle_run(
+            cuda, arch, dict(max_batch=3, kv_quant=kv_quant), prompts, 5,
+            mode=mode)
+    assert outs["legacy"] == outs["fused"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant", [False, True])
+def test_paged_row_read_is_the_same_at_any_table_width(cuda, quant):
+    """A row's kernel read with its table padded to wider buckets (more
+    dead columns, more launched splits: 2 to 17 here) is bit for bit the
+    same: a row splits its own live columns, at least 4 a split, so the
+    batch's longest row, which sizes the engine's decode table, cannot
+    change another row's read."""
+    q, k, v, table, lengths, ks, vs = _case(cuda, 1, 16, 16, 64, quant)
+    outs, splits = [], []
+    for mb in (8, 16, 32, 64, 128):
+        wide = torch.zeros((table.shape[0], mb), dtype=table.dtype,
+                           device=cuda)
+        wide[:, :table.shape[1]] = table
+        outs.append(fd.paged_flash_prefix_partial(
+            q, k, v, wide, lengths, k_scale=ks, v_scale=vs))
+        splits.append(fd.paged_splits(3, 16, mb, torch.cuda.
+                                      get_device_properties(cuda)
+                                      .multi_processor_count))
+    assert len(set(splits)) > 2
+    for got in outs[1:]:
+        for a, b in zip(outs[0], got):
+            assert torch.equal(a, b)
