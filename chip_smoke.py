@@ -251,15 +251,46 @@ imports nothing of the JAX package). Phases, one line each:
               Chrome trace written under ``build/``, the fenced per-step
               sweep / schedule / dispatch / sync split. p50 TTFT and
               decode tok/s are printed as readings.
+23. moe     - (a) full-width qwen3-moe-30b-a3b (48 layers, 128 experts
+              top-8, q/k norms; 30.5 B seeded parameters, 57 GiB of
+              bf16, drawn a layer slice at a time) serves phase 4's 16
+              requests through the replayed steps, whole-prompt bf16 KV
+              and chunked (64) int8 KV, with phase 4's launch checks
+              (paged launches per attention layer a step, RMSNorm 4 x
+              layers + 1 a forward). Each run prints decode tok/s, p50
+              TTFT, the wall per decode step, peak
+              ``max_memory_allocated``, and a full decode step's device
+              time by graph replay against its byte bound with every
+              expert and with only the experts that step routed to. Each
+              run is then served again with a ``MoeProbe`` installed
+              before the warmup (a wrapper around ``blocks._moe_local``
+              whose copies of each call's experts the graphs capture; the
+              timed runs carry none): its tokens and ``stats()``
+              counters bitwise the timed run's (the chunked run's probed
+              twin is eager, with phase 20's checks), its tokens within 8
+              bf16 ulps of a teacher-forced forward's argmax with the
+              engine's routing forced (each token's experts in every MoE
+              layer and the assignments the capacity step dropped, from
+              the plain capacity step on the recorded experts), its
+              dropped assignments printed. (b) jamba-v0.1-52b at full
+              width cut to one period (8 of its 32 layers: attention at
+              offset 4, an MoE FFN at the odd offsets, 7 SSD layers) the
+              same runs, with SSD launches 7 x (prefill groups + chunk
+              steps), 0 in decode. (c) the paged read at G = 8, D = 128
+              (decode B = 8, chunk T = 64 int8) and the SSD scan at H =
+              128, N = 16 (B = 4, T = 1,024; the chunk step) against their
+              plain versions (2e-5; the SSD limit) and timed by graph
+              replay.
 
 Any failed check raises. The last three lines of standard output are the
 kernels' JSON record, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``; the line before them gives the whole
 run's time. Each main path (the six engine runs, the training run, the
 two fine-tuning runs, the four speculative engine runs, the nine
-lifecycle bursts) is driven with every launch count set to 0 just before
-it (after the engine's warmup, and in phase 22 (a)/(b) after the warming
-request) and read just after; so is each eager twin. Without
+lifecycle bursts, phase 23's eight runs) is driven with every launch
+count set to 0 just before it (after the engine's warmup, and in phase
+22 (a)/(b) after the warming request) and read just after; so is each
+eager twin. Without
 a CUDA device, or without the repository beside it, the script exits
 non-zero and prints no result.
 """
@@ -353,12 +384,14 @@ RMSNORM_RUNS = {}
 SELF_DRAFT_ACCEPT = 0.6
 SPEC_NEAR_TIE_ULPS = 4             # the port's rule for spec-on vs spec-off
 # RMSNorm kernel cases: the layers' widths (qwen1.5-0.5b 1024, mamba2
-# 768 and its gated norm's 1536, llama2-7b 4096) and two ragged ones (1000:
-# the last vectors of a row fall to some threads only; 999: not a whole
-# number of 16-byte vectors, read element by element) at decode, odd and
-# training row counts
-RMS_ROWS = (1, 8, 333, 8192)
-RMS_DIMS = (768, 1024, 1536, 4096, 1000, 999)
+# 768 and its gated norm's 1536, qwen3-moe 2048, llama2-7b and jamba
+# 4096, the q/k norms' head width 128) and two ragged ones (1000: the last
+# vectors of a row fall to some threads only; 999: not a whole number of
+# 16-byte vectors, read element by element) at decode, odd and training
+# row counts and the q/k norms' rows (qwen3-moe's 32 query heads of a
+# decode step's 8 rows, and of a 64-token chunk)
+RMS_ROWS = (1, 8, 256, 333, 2048, 8192)
+RMS_DIMS = (128, 768, 1024, 1536, 2048, 4096, 1000, 999)
 # dense decode kernel cases (B, S, H, K, D, lengths): tests/test_kernels.py
 # :72-75, the draft model's shape, G = 2, a zero-length row, a length past S
 DENSE_CASES = ((2, 256, 4, 4, 128, [128, 256]),
@@ -410,8 +443,9 @@ def check(cond: bool, msg: str) -> None:
 
 def norms_per_forward(cfg) -> int:
     """RMSNorm calls of one forward: each layer's mixer and FFN norms, an
-    SSM layer's gated norm, and the final norm."""
-    return sum(3 if kind == "ssm" else 2
+    SSM layer's gated norm, an attention layer's q and k norms under
+    ``qk_norm``, and the final norm."""
+    return sum(3 if kind == "ssm" else 4 if cfg.qk_norm else 2
                for kind in cfg.layer_kinds()) + 1
 
 
@@ -739,20 +773,300 @@ def dense_reference_logits(model, params, tokens, kv_quant):
     return model._head(params, x)[0]
 
 
-def teacher_forced(model, params, done, kv_quant):
+def moe_window(model, params, x, caches, pos0, kv_quant, moe):
+    """The layer stack over a window ``x`` (B, T, d) at positions pos0..:
+    an attention layer attends its cached prefix ((k, v) as stored, or
+    None) and the window causally, an SSM layer continues its cached
+    (conv, state) (None: from zeros), the plain SSD; ``moe(h, p)`` is an
+    MoE FFN's output on its normed input. Returns x and the caches
+    extended by the window."""
+    import torch
+    from repro_torch.models import blocks as B
+    from repro_torch.models import layers as L
+    from repro_torch.serving.cache import quant_decode, quant_encode
+    cfg = model.cfg
+    out = []
+    for i in range(cfg.n_layers):
+        lp, pos, c = model.layer_params(params, i), i % model.period, \
+            caches[i]
+        if model.kinds[pos] == "ssm":
+            x, c = B.ssm_apply(x, lp["mix"], cfg, cache=c, ssd_impl="ref",
+                               return_state=c is None)
+        else:
+            h = L.rmsnorm(x, lp["mix"]["ln"], cfg.norm_eps)
+            at = pos0 + torch.arange(x.shape[1], device=x.device)[None]
+            q, k, v = B._qkv(h, lp["mix"], cfg, at)
+            if kv_quant == "int8":
+                k = quant_decode(*quant_encode(k, "int8"), torch.float32)
+                v = quant_decode(*quant_encode(v, "int8"), torch.float32)
+            if c is not None:
+                k, v = torch.cat([c[0], k], 1), torch.cat([c[1], v], 1)
+            att = L.naive_attention(q, k, v, causal=True, q_offset=pos0)
+            x = x + L.dense(att.to(q.dtype), lp["mix"]["wo"], n_in=2)
+            c = (k, v)
+        out.append(c)
+        if model.fkinds[pos] == "moe":
+            x = x + moe(L.rmsnorm(x, lp["ffn"]["ln"], cfg.norm_eps),
+                        lp["ffn"])
+        else:
+            x = B.ffn_apply(x, lp["ffn"], cfg)
+    return x, out
+
+
+# tokens ``forced_moe`` dispatches at a time: an expert takes at most one
+# assignment a token, so its rows stay within this however skewed the
+# routing (a random router's prompt groups pile thousands of tokens on
+# one expert)
+FORCED_TOKENS = 512
+
+
+def forced_moe(h, p, cfg, top_e, keep):
+    """The MoE FFN's output on normed ``h`` (B, T, d) with the engine's
+    routing: each token's experts ``top_e`` (B, T, k) in the engine's
+    choice order, their gates this function's own f32 softmax at those
+    experts renormalised over the k, the assignments ``keep`` (B, T, k)
+    marks false adding nothing; each expert's SwiGLU
+    (``blocks._expert_ffn``) over its assignments, ``FORCED_TOKENS``
+    tokens at a time (forced, a token's output depends on no other
+    token), the combine in f32 in choice order from zeros, rounded once.
+    Also returns, per token, whether this function's own top-k set is
+    the engine's."""
+    import torch
+    from repro_torch.models import blocks as B
+    from repro_torch.models import layers as L
+    from repro_torch.quant.qtensor import QTensor
+    wg, wu, wd = (p[w].dequantize(h.dtype) if isinstance(p[w], QTensor)
+                  else p[w] for w in ("w_gate", "w_up", "w_down"))
+    d, e, k = cfg.d_model, cfg.n_experts, cfg.top_k
+    x = h.reshape(-1, d)
+    n, dev = x.shape[0], x.device
+    te, kp = top_e.reshape(n, k), keep.reshape(n, k)
+    gates = torch.softmax(L.dense(x.float(), p["router"]).float(), dim=-1)
+    own = torch.sort(gates, dim=-1, descending=True, stable=True)[1][:, :k]
+    same = (own.sort(-1)[0] == te.sort(-1)[0]).all(-1)
+    w = gates.gather(1, te)
+    w = w / torch.clamp_min(w.sum(-1, keepdim=True), 1e-9)
+    out = torch.empty((n, d), dtype=h.dtype, device=dev)
+    for t0 in range(0, n, FORCED_TOKENS):
+        t1 = min(n, t0 + FORCED_TOKENS)
+        m = t1 - t0
+        flat = te[t0:t1].reshape(-1)
+        counts = torch.bincount(flat, minlength=e)
+        cap = int(counts.max())
+        order = torch.argsort(flat, stable=True)
+        starts = torch.cumsum(counts, 0) - counts
+        pos = torch.empty_like(flat)
+        pos[order] = torch.arange(m * k, device=dev) - starts[flat[order]]
+        slot = flat * cap + pos
+        buf = torch.zeros((e * cap, d), dtype=h.dtype, device=dev)
+        buf[slot] = x[t0 + torch.arange(m * k, device=dev) // k]
+        ys = B._expert_ffn(buf.reshape(e, cap, d), wg, wu, wd)
+        part = (ys.reshape(e * cap, d)[slot].float()
+                * w[t0:t1].reshape(-1)[:, None])
+        part = torch.where(kp[t0:t1].reshape(-1)[:, None], part,
+                           torch.zeros((), device=dev)).reshape(m, k, d)
+        acc = torch.zeros((m, d), dtype=torch.float32, device=dev)
+        for j in range(k):
+            acc = acc + part[:, j]
+        out[t0:t1] = acc.to(h.dtype)
+        del buf, ys, part
+    return out.reshape(h.shape), same
+
+
+def moe_reference_rows(model, params, done, kv_quant, prefill_chunk,
+                       groups, moe):
+    """Teacher-forced logits of each request's outputs ({rid: rows}) on
+    an MoE arch, with the engine's routing forced (``forced_moe``): every
+    token's experts and dropped assignments in every MoE layer as the
+    probed engine recorded them (``moe``, ``MoeProbe.file``); the windows
+    as the engine's prefill ran them (its whole-prompt ``groups``, or its
+    chunks of ``prefill_chunk`` tokens), then each request's generated
+    tokens. Also returns the (token, layer) pairs the reference's own
+    router would route as the engine, and all of them."""
+    import numpy as np
+    import torch
+    cfg = model.cfg
+    by_rid = {r.rid: r for r in done}
+    dev = model.device
+    ptrs = moe_layers(model, params)
+    agree = [0, 0]
+    route = {}
+
+    def forced(h, p):                  # one MoE layer of the window
+        i = ptrs[p["router"].data_ptr()]
+        y, same = forced_moe(h, p, cfg, route["top_e"][i],
+                             route["keep"][i])
+        agree[0] += int(same.sum())
+        agree[1] += same.numel()
+        return y
+
+    def force(parts):                  # [(top_e, keep) (L, T, k)] a row
+        for n, j in (("top_e", 0), ("keep", 1)):
+            route[n] = torch.stack([torch.as_tensor(a[j]) for a in parts],
+                                   1).to(dev)
+
+    def embed(toks):
+        return model._embed_in(params, torch.tensor(toks, device=dev))
+
+    def head(x):
+        return model._head(params, x)
+
+    rows = {}
+
+    def generated(r, last, caches):    # the outputs after the prompt
+        gen = moe["gen"][r.rid]
+        force([tuple(np.stack([gen[j][m] for j in range(1, len(r.output))],
+                              1) for m in range(2))])
+        x, _ = moe_window(model, params, embed([r.output[:-1]]), caches,
+                          len(r.tokens), kv_quant, forced)
+        rows[r.rid] = torch.cat([last[None], head(x)[0]])
+
+    if prefill_chunk is None:
+        for rids in groups:
+            toks = [by_rid[rid].tokens for rid in rids]
+            force([moe["prompt"][rid] for rid in rids])
+            x, caches = moe_window(model, params, embed(toks),
+                                   [None] * cfg.n_layers, 0, kv_quant,
+                                   forced)
+            last = head(x[:, -1:])[:, 0]
+            for i, rid in enumerate(rids):
+                generated(by_rid[rid], last[i], [
+                    tuple(a[i:i + 1] for a in c) if isinstance(c, tuple)
+                    else {k: a[i:i + 1] for k, a in c.items()}
+                    for c in caches])
+    else:
+        for r in done:
+            caches = [None] * cfg.n_layers
+            top_e, keep = moe["prompt"][r.rid]
+            for s0 in range(0, len(r.tokens), prefill_chunk):
+                toks = r.tokens[s0:s0 + prefill_chunk]
+                cut = slice(s0, s0 + len(toks))
+                force([(top_e[:, cut], keep[:, cut])])
+                x, caches = moe_window(model, params, embed([toks]),
+                                       caches, s0, kv_quant, forced)
+            generated(r, head(x[:, -1:])[0, 0], caches)
+    return rows, agree
+
+
+def moe_layers(model, params) -> dict:
+    """{address of an MoE layer's router weight: its index among the MoE
+    layers}: the engine's layer views and ``layer_params``' share it."""
+    out = {}
+    for i in range(model.cfg.n_layers):
+        if model.fkinds[i % model.period] == "moe":
+            lp = model.layer_params(params, i)
+            out[lp["ffn"]["router"].data_ptr()] = len(out)
+    return out
+
+
+def capacity_keep(top_e, cap: int, n_experts: int):
+    """The capacity step in numpy: whether each (token, choice) of one
+    call, ``top_e`` (n, k), keeps its row, i.e. has fewer than ``cap``
+    earlier assignments to its expert in (token, choice) order."""
+    import numpy as np
+    flat = top_e.reshape(-1)
+    order = np.argsort(flat, kind="stable")
+    counts = np.bincount(flat, minlength=n_experts)
+    starts = np.cumsum(counts) - counts
+    pos = np.empty_like(flat)
+    pos[order] = np.arange(flat.size) - starts[flat[order]]
+    return (pos < cap).reshape(top_e.shape)
+
+
+class MoeProbe:
+    """Each MoE call's routing, recorded on the card: a wrapper around
+    ``blocks._moe_local`` (and ``_route``, to take the experts the call
+    used) copies the call's (B, T, k) experts into this probe's buffer of
+    its shape, one (n_moe_layers, B, T, k) int64 tensor a (B, T). Install
+    it before an engine's ``warmup``, and its graphs capture the copies;
+    ``read`` after a step takes the buffers that step wrote (and marks
+    them unwritten, -1), with each call's kept assignments from the
+    capacity step of the plain function (``capacity_keep``)."""
+
+    def __init__(self, model, params):
+        self.cfg = model.cfg
+        self.layers = moe_layers(model, params)
+        self.bufs, self.mults = {}, {}
+
+    def install(self) -> None:
+        from repro_torch.models import blocks as B
+        self.saved = B._route, B._moe_local
+        route, local = self.saved
+        last = []
+
+        def routed(x, w, cfg):
+            out = route(x, w, cfg)
+            last[:] = [out[1]]
+            return out
+
+        def dispatched(h, p, cfg, capacity_mult):
+            out = local(h, p, cfg, capacity_mult)
+            self._record(h, p, capacity_mult, last.pop())
+            return out
+
+        B._route, B._moe_local = routed, dispatched
+
+    def remove(self) -> None:
+        from repro_torch.models import blocks as B
+        B._route, B._moe_local = self.saved
+
+    def _record(self, h, p, mult, top_e) -> None:
+        import torch
+        b, t = h.shape[0], h.numel() // (h.shape[0] * h.shape[-1])
+        i = self.layers[p["router"].data_ptr()]
+        buf = self.bufs.get((b, t))
+        if buf is None:
+            buf = self.bufs[(b, t)] = torch.full(
+                (len(self.layers), b, t, self.cfg.top_k), -1,
+                dtype=torch.int64, device=h.device)
+        check(self.mults.setdefault((b, t), mult) == mult,
+              f"MoE calls of shape {(b, t)} at two capacity multipliers")
+        buf[i].copy_(top_e.reshape(b, t, -1))
+
+    def read(self) -> dict:
+        """{(B, T): (top_e, keep) (n_moe_layers, B, T, k)} of the calls
+        since the last read."""
+        import numpy as np
+        from repro_torch.models import blocks as B
+        out = {}
+        for key, buf in self.bufs.items():
+            top_e = buf.to("cpu", copy=True).numpy()
+            written = top_e >= 0
+            if not written.any():
+                continue
+            check(bool(written.all()), f"MoE calls of shape {key}: some "
+                  f"layers unrecorded in a step")
+            buf.fill_(-1)
+            b, t = key
+            cap = B.capacity(b * t, self.cfg, self.mults[key])
+            keep = np.stack([capacity_keep(layer.reshape(b * t, -1), cap,
+                                           self.cfg.n_experts)
+                             for layer in top_e]).reshape(top_e.shape)
+            out[key] = (top_e, keep)
+        return out
+
+
+def teacher_forced(model, params, done, kv_quant, rows=None):
     """Share of generated tokens equal to the dense argmax, and the worst
-    near-tie gap (in bf16 ulps of the top logit) among the others."""
+    near-tie gap (in bf16 ulps of the top logit) among the others.
+    ``rows`` ({rid: logits of its outputs}) replaces the dense forward
+    (``moe_reference_rows``)."""
     import torch
     match = total = 0
     worst = 0.0
+    given = rows
     for r in done:
-        seq = list(r.tokens) + r.output
-        toks = torch.tensor([seq[:-1]], dtype=torch.int64, device="cuda")
-        with torch.no_grad():
-            logits = dense_reference_logits(model, params, toks,
-                                            kv_quant).float()
-        p0 = len(r.tokens) - 1
-        rows = logits[p0:p0 + len(r.output)]
+        if given is None:
+            seq = list(r.tokens) + r.output
+            toks = torch.tensor([seq[:-1]], dtype=torch.int64,
+                                device="cuda")
+            with torch.no_grad():
+                logits = dense_reference_logits(model, params, toks,
+                                                kv_quant).float()
+            p0 = len(r.tokens) - 1
+            rows = logits[p0:p0 + len(r.output)]
+        else:
+            rows = given[r.rid].float()
         top, arg = rows.max(dim=-1)
         got = torch.tensor(r.output, device="cuda")
         mine = rows.gather(1, got[:, None])[:, 0]
@@ -810,18 +1124,24 @@ def counters(st) -> dict:
     return {k: v for k, v in st.items() if not k.endswith("_s")}
 
 
-def drive_engine(eng, prompts, max_new: int, max_steps: int):
+def drive_engine(eng, prompts, max_new: int, max_steps: int, probe=None):
     """The engine phases' main path: ``warmup`` for every table bucket of
     the trace (it must leave both pools bitwise as they were), every
     launch count set to 0, the burst served, each decode step's wall and
     SSD launches recorded (and the host inputs of the last decode step
-    with every row live, by key). Returns the run's record."""
+    with every row live, by key). With ``probe`` (a ``MoeProbe``), it is
+    installed before the warmup, read after every step and filed by
+    request (``track_moe``), and removed after the run. Returns the run's
+    record."""
     import torch
     from repro_torch.kernels import ssd as ssdk
+    from repro_torch.models import blocks as B
     from repro_torch.serving import graphs
     from repro_torch.serving.engine import Request
     before = pool_bytes(eng, null_block=True)
     lens = sorted({len(p) for p in prompts})
+    if probe is not None:
+        probe.install()
     t0 = time.monotonic()
     eng.warmup(max(lens) + max_new, prompt_lens=lens)
     torch.cuda.synchronize()
@@ -852,16 +1172,90 @@ def drive_engine(eng, prompts, max_new: int, max_steps: int):
 
     setattr(eng, name, timed)
     eng._run_step = recorded
+    moe = {"total": 0, "decode": 0, "steps": 0, "prompt": {}, "gen": {}}
+    groups, in_step, prefill_group = [], [], eng._prefill_group
+
+    def grouped(group, t):             # whole-prompt groups, in order
+        groups.append([r.rid for r in group])
+        in_step.append((groups[-1], t))
+        return prefill_group(group, t)
+
+    eng._prefill_group = grouped
+    if probe is not None:
+        track_moe(eng, probe, moe, in_step)
+        probe.read()                   # drop the warmup's records
     torch.cuda.synchronize()
     for c in graphs.KERNEL_COUNTERS:   # count the main path's run only
         c.clear()
     t0 = time.monotonic()
-    done = eng.run(max_steps=max_steps)
+    try:
+        done = eng.run(max_steps=max_steps)
+    finally:
+        if probe is not None:
+            probe.remove()
     torch.cuda.synchronize()
     return {"done": done, "st": eng.stats(), "wall": time.monotonic() - t0,
             "walls": walls, "ssd_in_decode": ssd_in_decode, "full": full,
             "warm_traces": warm_traces, "traces": dict(eng.trace_counts),
-            "graphs": len(eng._graphs), "warm_s": warm_s}
+            "graphs": len(eng._graphs), "warm_s": warm_s, "moe": moe,
+            "groups": groups}
+
+
+def track_moe(eng, probe, moe, in_step) -> None:
+    """After every engine step, read the probe (``MoeProbe.read``) and
+    file each call's (experts, kept) by request: a whole-prompt group's
+    rows and a chunk step's live rows under ``moe["prompt"][rid]`` ((L,
+    T, k) each, in prompt order), a decode step's slot under
+    ``moe["gen"][rid][j]`` ((L, k) each) for the output index j the step
+    emitted; count the dropped assignments (every row of a call, padded
+    and inactive ones too: they take capacity). A call no request
+    explains fails."""
+    import numpy as np
+    step, decode = eng.step, eng._decode_fused
+    decoded = []
+
+    def decoding(live):                # the rows this decode step emits
+        slots = [(r, r.slot) for r in live]
+        decode(live)
+        decoded.extend((r, s) for r, s in slots)
+
+    def stepped():
+        before = {r.rid: r.prefilled for r in eng.live_requests()}
+        n_fin = len(eng.finished)
+        in_step.clear()
+        decoded.clear()
+        step()
+        calls = probe.read()
+        for top_e, keep in calls.values():
+            moe["total"] += int((~keep).sum())
+        moe["steps"] += any(bool((~keep).any())
+                            for _, keep in calls.values())
+        for rids, t in in_step:        # whole-prompt prefill groups
+            top_e, keep = calls.pop((len(rids), t))
+            for i, rid in enumerate(rids):
+                moe["prompt"][rid] = (top_e[:, i], keep[:, i])
+        if decoded:
+            top_e, keep = calls.pop((eng.max_batch, 1))
+            moe["decode"] += int((~keep).sum())
+            for r, slot in decoded:
+                moe["gen"].setdefault(r.rid, {})[len(r.output) - 1] = (
+                    top_e[:, slot, 0], keep[:, slot, 0])
+        chunked = [r for r in list(eng.sched.running) + eng.finished[n_fin:]
+                   if r is not None and r.rid in before
+                   and r.prefilled != before[r.rid]]
+        if eng.prefill_chunk is not None and chunked:
+            check(len(chunked) == 1, f"{len(chunked)} chunks in one step")
+            r, = chunked
+            top_e, keep = calls.pop((1, eng.prefill_chunk))
+            p0, n = before[r.rid], r.prefilled - before[r.rid]
+            part = (top_e[:, 0, :n], keep[:, 0, :n])
+            moe["prompt"][r.rid] = part if p0 == 0 else tuple(
+                np.concatenate([a, b], 1)
+                for a, b in zip(moe["prompt"][r.rid], part))
+        check(not calls, f"MoE calls of shapes {sorted(calls)} in a step "
+              f"that no request explains")
+
+    eng.step, eng._decode_fused = stepped, decoding
 
 
 def wall_line(rec) -> str:
@@ -901,23 +1295,33 @@ def compare_replay(name, rep, eager_rec, eager_eng, pools: str) -> None:
           f"eager: {wall_line(eager_rec)}; {card_line()}")
 
 
-def phase_engine(cfg, params, *, prefill_chunk, kv_quant, cuda_graphs=True):
+def phase_engine(cfg, params, *, prefill_chunk, kv_quant, cuda_graphs=True,
+                 probe=False):
     """Serve the 16-request burst through the engine's entry points and
     hold the run's launch counts and tokens. ``cuda_graphs=False`` is the
     graph phase's eager twin of the same run (its tokens are held to the
-    replayed run's, bitwise, instead of to a dense forward)."""
+    replayed run's, bitwise, instead of to a dense forward). On an MoE
+    arch the tokens are held to a teacher-forced forward only in the run
+    with ``probe`` (a ``MoeProbe`` records the engine's routing, which
+    the forward takes); the caller holds the other runs to that one."""
+    import torch
     from repro_torch.data.pipeline import serving_requests
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import ssd as ssdk
+    from repro_torch.models.lm import LM
     from repro_torch.serving.engine import Engine
     eng = Engine(cfg, params, max_batch=8, n_blocks=1024, block_size=16,
                  kv_quant=kv_quant, prefill_chunk=prefill_chunk,
                  device="cuda", cuda_graphs=cuda_graphs)
     prompts = serving_requests(16, cfg.vocab_size, prompt_lens=SERVE_LENS)
-    rec = drive_engine(eng, prompts, SERVE_NEW, 5000)
+    rec = drive_engine(eng, prompts, SERVE_NEW, 5000,
+                       probe=MoeProbe(eng.model, eng.params) if probe
+                       else None)
     done, st = rec["done"], rec["st"]
     launches = fd.LAUNCHES["paged_attention"]
+    rec["ssd"] = ssdk.LAUNCHES["ssd"]
     check(sum(fa.LAUNCHES.values()) == 0,
           f"the engine launched flash kernels: {dict(fa.LAUNCHES)}")
     steps = st["decode_steps"] + st["chunk_steps"]
@@ -925,29 +1329,63 @@ def phase_engine(cfg, params, *, prefill_chunk, kv_quant, cuda_graphs=True):
           f"{st['finished']} of 16 requests finished")
     check(all(len(r.output) == SERVE_NEW for r in done),
           f"a request ended with fewer than {SERVE_NEW} tokens")
-    check(launches == cfg.n_layers * steps,
-          f"kernel launches {launches} != {cfg.n_layers} x {steps} steps")
+    kinds = cfg.layer_kinds()
+    n_attn, n_ssm = kinds.count("attn"), kinds.count("ssm")
+    check(launches == n_attn * steps,
+          f"kernel launches {launches} != {n_attn} x {steps} steps")
+    passes = st["prefill_groups"] + st["chunk_steps"]
+    check(rec["ssd"] == n_ssm * passes and sum(rec["ssd_in_decode"]) == 0,
+          f"SSD launches {rec['ssd']} != {n_ssm} x {passes} (prefill "
+          f"groups + chunk steps), {sum(rec['ssd_in_decode'])} in decode")
     mode = (f"chunk={prefill_chunk}" if prefill_chunk else "whole-prompt")
+    how = ("graph replay" if cuda_graphs else "eager") + (
+        ", probed" if probe else "")
     run = (f"{cfg.name} {mode} kv={kv_quant}"
-           + ("" if cuda_graphs else " eager"))
+           + ("" if cuda_graphs else " eager") + (" probed" if probe else ""))
     forwards = st["prefill_groups"] + steps
     want = norms_per_forward(cfg) * forwards
     what = f"{norms_per_forward(cfg)} x {forwards} forwards"
-    if cuda_graphs:
+    moe = rec["moe"]
+    if cuda_graphs and not probe:
         rms = count_rmsnorm(run, rn.LAUNCHES["rmsnorm"], want, what)
-        share, worst = teacher_forced(eng.model, eng.params, done, kv_quant)
-        tokens = (f"dense-argmax match {share:.4f} (others within "
-                  f"{worst:.1f} <= {NEAR_TIE_ULPS} bf16 ulps)")
     else:
         check(rn.LAUNCHES["rmsnorm"] == want, f"{run}: RMSNorm launches "
               f"{rn.LAUNCHES['rmsnorm']} != {want} ({what})")
         rms = f"RMSNorm launches {want} = {what}"
+    if cfg.is_moe and probe:
+        check(st["preemptions"] == 0, f"{run}: preempted, so the prefill "
+              f"the reference reproduces is not the engine's")
+        with torch.no_grad():
+            rows, agree = moe_reference_rows(
+                LM(cfg, ssd_impl="ref", device="cuda"), eng.params, done,
+                kv_quant, prefill_chunk, rec["groups"], moe)
+        share, worst = teacher_forced(eng.model, eng.params, done, kv_quant,
+                                      rows=rows)
+        del rows
+        tokens = (f"reference-argmax match {share:.4f} (others within "
+                  f"{worst:.1f} bf16 ulps, {NEAR_TIE_ULPS} at most) with "
+                  f"the engine's routing and drops forced, the reference's "
+                  f"own router choosing the engine's expert set at "
+                  f"{agree[0]} of {agree[1]} (token, MoE layer) pairs")
+    elif cuda_graphs and not cfg.is_moe:
+        share, worst = teacher_forced(eng.model, eng.params, done, kv_quant)
+        tokens = (f"reference-argmax match {share:.4f} (others within "
+                  f"{worst:.1f} bf16 ulps, {NEAR_TIE_ULPS} at most)")
+    elif cuda_graphs:
+        tokens = "tokens held to the probed run's"
+    else:
         tokens = "tokens held to the replayed run's"
     print(f"[engine] {cfg.name} full width, {mode}, kv={kv_quant}, "
-          f"{'graph replay' if cuda_graphs else 'eager'}: 16/16 finished x "
+          f"{how}: 16/16 finished x "
           f"{SERVE_NEW} tokens in {rec['wall']:.2f}s; {st['decode_steps']} "
           f"decode + {st['chunk_steps']} chunk steps, kernel launches "
-          f"{launches} = {cfg.n_layers} x {steps}; {rms}; preemptions "
+          f"{launches} = {n_attn} x {steps}; "
+          + (f"SSD launches {rec['ssd']} = {n_ssm} x {passes}, 0 in decode; "
+             if n_ssm else "")
+          + (f"MoE dropped assignments {moe['total']} in "
+             f"{moe['steps']} steps ({moe['decode']} in decode steps); "
+             if probe else "")
+          + f"{rms}; preemptions "
           f"{st['preemptions']}; {tokens}; decode "
           f"{st['decode_tok_s']:.1f} tok/s, p50 TTFT "
           f"{st['p50_ttft_s'] * 1e3:.1f} ms")
@@ -994,12 +1432,14 @@ def replay_busy_ms(eng, full, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def decode_bound_ms(eng, inputs) -> float:
+def decode_bound_ms(eng, inputs, experts=None) -> float:
     """Least time (ms) of one decode step on these inputs: every weight
     read once (an untied embedding table only at the batch's rows), the
     live KV (with int8 scales) read once, each row's new KV written once,
     at the card's memory rate; its operations (2 per weight a row) take
-    far less at the bf16 peak."""
+    far less at the bf16 peak. With ``experts`` (the distinct experts each
+    MoE layer routed the step's rows to, in layer order), an MoE layer's
+    expert weights count only those experts'."""
     from repro_torch.models.params import tree_paths
     cfg, kv = eng.cfg, eng.kv_cfg
     rows = int(inputs["active"].sum())
@@ -1007,52 +1447,22 @@ def decode_bound_ms(eng, inputs) -> float:
               if path != "embed" or cfg.tie_embeddings]
     n_weights = sum(t.numel() for t in leaves)
     weights = sum(t.numel() * t.element_size() for t in leaves)
+    if experts is not None:             # bf16 gate, up and down of one
+        per_expert = 3 * cfg.d_model * cfg.d_ff * 2
+        weights -= per_expert * (len(experts) * cfg.n_experts - sum(experts))
     if not cfg.tie_embeddings:
         weights += rows * cfg.d_model * eng.params["embed"].element_size()
     per_token = kv.n_layers * 2 * kv.n_kv_heads * (
         kv.head_dim * (1 if kv.kv_quant == "int8" else 2)
         + (4 if kv.kv_quant == "int8" else 0))
     live = int(inputs["lengths"][inputs["active"]].sum())
-    t_bytes = (weights + (live + rows) * per_token) / HBM_BYTES_PER_S
+    # the live rows' SSM (conv, state), read and written once
+    ssm = sum(a.numel() * a.element_size() for st in eng._ssm_states.values()
+              for a in st.values()) * rows // eng.max_batch
+    t_bytes = (weights + 2 * ssm + (live + rows) * per_token) \
+        / HBM_BYTES_PER_S
     t_ops = 2.0 * rows * n_weights / PEAK_OPS["bf16"]
     return max(t_bytes, t_ops) * 1e3
-
-
-def phase_llama2(cfg):
-    """llama2-7b at full width (seeded weights) through the captured
-    steps: phase 4's burst and checks, whole-prompt bf16 KV then chunked
-    (64) int8 KV; decode tok/s, the wall per decode step and the device
-    time of a full decode step beside that step's byte bound."""
-    from repro_torch.models.lm import LM
-    params = LM(cfg, device="cuda").init(0)
-    out = []
-    for chunk, quant in ((None, "none"), (64, "int8")):
-        rec, eng = phase_engine(cfg, params, prefill_chunk=chunk,
-                                kv_quant=quant)
-        (_, inputs), = rec["full"].items()
-        busy = replay_busy_ms(eng, rec["full"])
-        bound = decode_bound_ms(eng, inputs)
-        rows = int(inputs["active"].sum())
-        w = sorted(rec["walls"])
-        check(rec["traces"] == rec["warm_traces"],
-              f"llama2 captured while serving: "
-              f"{set(rec['traces']) - set(rec['warm_traces'])}")
-        mode = f"chunk={chunk} int8" if chunk else "whole-prompt bf16"
-        print(f"[llama2] {cfg.name} {mode}: {rec['graphs']} graphs, 0 "
-              f"captured while serving; decode {rec['st']['decode_tok_s']:.1f}"
-              f" tok/s; wall per decode step {w[0] * 1e3:.2f}/"
-              f"{w[len(w) // 2] * 1e3:.2f}/{w[-1] * 1e3:.2f} ms (min/median/"
-              f"max); a full step ({rows} rows, "
-              f"{int(inputs['lengths'].sum())} live positions) by graph "
-              f"replay {busy:.3f} ms against its byte bound {bound:.3f} ms "
-              f"({bound / busy * 100:.1f}% of it; at most "
-              f"{rows / bound * 1e3:.0f} tok/s); {card_line()}")
-        out.append(rec)
-        del eng
-        free_card()
-    del params
-    free_card()
-    return out
 
 
 def time_shape(cfg, *, b, t, lengths, quant, mb, n_blocks, n_layers,
@@ -1116,9 +1526,10 @@ def time_shape(cfg, *, b, t, lengths, quant, mb, n_blocks, n_layers,
             < lens[:, None])[:, None, None, :]
     qd = q.transpose(1, 2).contiguous()
 
-    def sdpa(i):
+    def sdpa(i):                          # grouped KV heads as they are
         return F.scaled_dot_product_attention(
-            qd, *dense[i % n_layers], attn_mask=mask, scale=scale)
+            qd, *dense[i % n_layers], attn_mask=mask, scale=scale,
+            enable_gqa=h != kv)
 
     lib_ms = graph_ms(sdpa)
     lib_event_ms = cuda_ms(sdpa, iters=200)
@@ -1782,16 +2193,16 @@ def ssd_bounds(*, b, t, h, p, g, n, q, init):
 SSD_PARTS = 6
 
 
-def time_ssd(name, b, t, *, init, seed, pad_to=None):
+def time_ssd(name, b, t, *, init, seed, pad_to=None, h=24, n=128):
     """The SSD kernel at mamba2-130m's widths (H=24, P=64, N=128, chunk
-    256) on B = ``b`` rows of T = ``t`` tokens as the engine passes them
-    (padded to a multiple of min(256, T)), or padded to ``pad_to``, with a
-    carried state when ``init``, beside its bound, its bound as built and
-    its plain version."""
+    256; jamba's: H=128, N=16) on B = ``b`` rows of T = ``t`` tokens as
+    the engine passes them (padded to a multiple of min(256, T)), or
+    padded to ``pad_to``, with a carried state when ``init``, beside its
+    bound, its bound as built and its plain version."""
     import torch
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ssd as ssdk
-    h, p, g, n, chunk = 24, 64, 1, 128, 256
+    p, g, chunk = 64, 1, 256
     x, B, C, dt, A, _, st = ssd_case(b, t, h, p, g, n, init=init, seed=seed)
     xdt, bm, cm, a, init_state = kops.ssd_inputs(x, B, C, dt, A, chunk, st)
     if pad_to is not None:                # zero positions after the live
@@ -3343,6 +3754,177 @@ def phase_dense(cfg):
           + (": " + ", ".join(past_flat) if past_flat else ""))
 
 
+# --------------------------------------------------------------------------
+# phase 23: MoE and the hybrid period at full width
+# --------------------------------------------------------------------------
+
+# jamba-v0.1-52b is cut to one period of its 32 layers (attention at
+# offset 4, an MoE FFN at the odd offsets, SSD mixers elsewhere): its
+# 104 GB of bf16 weights do not fit one 80 GB card, one period's 27 do
+JAMBA_LAYERS = 8
+
+
+def routed_experts(eng, inputs):
+    """The distinct experts each MoE layer of this decode step routes the
+    live rows to, in layer order: the step rerun eagerly on copies of both
+    pools with the router's choices recorded (the graph replays the same
+    inputs, so it routes the same)."""
+    import torch
+    from repro_torch.models import blocks as B
+    seen, route = [], B._route
+
+    def recorded(h, w, cfg):
+        out = route(h, w, cfg)
+        seen.append(out[1])
+        return out
+
+    pools = ({k: v.clone() for k, v in eng.kv.state.items()},
+             {pos: {leaf: a.clone() for leaf, a in st.items()}
+              for pos, st in eng._ssm_states.items()})
+    dev_in = {k: eng._dev(a) for k, a in inputs.items()}
+    B._route = recorded
+    try:
+        with torch.no_grad():
+            eng._fused_step_impl(eng.params, *pools, **dev_in)
+    finally:
+        B._route = route
+    live = dev_in["active"]
+    return [int(torch.unique(e[live]).numel()) for e in seen]
+
+
+def same_run(name, got, want) -> None:
+    """Two runs of one trace through replayed steps: tokens and
+    ``stats()`` counters bitwise equal."""
+    a = {r.rid: r.output for r in got["done"]}
+    b = {r.rid: r.output for r in want["done"]}
+    check(a == b, f"{name}: tokens differ at rids "
+          f"{[k for k in b if a.get(k) != b[k]]}")
+    x, y = counters(got["st"]), counters(want["st"])
+    check(x == y, f"{name}: stats() counters differ: "
+          f"{ {k: (x[k], y.get(k)) for k in x if x[k] != y.get(k)} }")
+
+
+def phase_full_width(cfg, what: str, eager_twin: bool = False):
+    """``cfg`` at full width (seeded weights, drawn a layer slice at a
+    time) through the captured steps: phase 4's two runs (whole-prompt
+    bf16 KV, then chunked (64) int8 KV) with phase 4's checks, each run's
+    peak device memory, and a full decode step's device time by graph
+    replay against its byte bound. With ``eager_twin`` the chunked run is
+    served again eagerly and held bitwise to the replayed one (phase 20's
+    checks). On an MoE arch also the bound with only the experts that
+    step routed to, and each run served again with a ``MoeProbe`` (the
+    eager twin is that run), its tokens and counters bitwise the timed
+    run's, its tokens held to a forward with its routing forced, its
+    dropped assignments printed: the timed runs carry no probe."""
+    import torch
+    from repro_torch.models.lm import LM
+    from repro_torch.models.params import tree_paths
+    t0 = time.monotonic()
+    torch.cuda.reset_peak_memory_stats()
+    params = LM(cfg, device="cuda").init(0)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for _, t in tree_paths(params))
+    print(f"[full] {what}: {n / 1e9:.2f} B parameters ({n * 2 / 2**30:.1f} "
+          f"GiB bf16) drawn a layer slice at a time in "
+          f"{time.monotonic() - t0:.1f}s, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    out = []
+    for chunk, quant in ((None, "none"), (64, "int8")):
+        torch.cuda.reset_peak_memory_stats()
+        rec, eng = phase_engine(cfg, params, prefill_chunk=chunk,
+                                kv_quant=quant)
+        peak = torch.cuda.max_memory_allocated()
+        twin = eager_twin and chunk
+        if twin:                       # before the replays below rewrite KV
+            rec["pools"] = pool_bytes(eng, null_block=False)
+        (_, inputs), = rec["full"].items()
+        busy = replay_busy_ms(eng, rec["full"])
+        every = decode_bound_ms(eng, inputs)
+        rows = int(inputs["active"].sum())
+        mode = f"chunk={chunk} int8" if chunk else "whole-prompt bf16"
+        check(rec["traces"] == rec["warm_traces"],
+              f"{cfg.name} captured while serving: "
+              f"{set(rec['traces']) - set(rec['warm_traces'])}")
+        moe = ""
+        if cfg.is_moe:
+            experts = routed_experts(eng, inputs)
+            routed = decode_bound_ms(eng, inputs, experts=experts)
+            moe = (f" and with the {sum(experts) / len(experts):.1f} of "
+                   f"{cfg.n_experts} experts a layer that step routed to "
+                   f"{routed:.3f} ms ({routed / busy * 100:.1f}%)")
+        print(f"[full] {what} {mode}: {rec['graphs']} graphs, 0 captured "
+              f"while serving; {wall_line(rec)}; peak device memory "
+              f"{peak / 2**30:.2f} GiB (max_memory_allocated); a full decode "
+              f"step ({rows} rows, {int(inputs['lengths'].sum())} live "
+              f"positions) by graph replay {busy:.3f} ms against its byte "
+              f"bound {'with every expert ' if cfg.is_moe else ''}"
+              f"{every:.3f} ms ({every / busy * 100:.1f}% of it){moe}; "
+              f"{card_line()}")
+        if twin or cfg.is_moe:
+            pools = f"KV {mib(rec['pools'][0])} MiB" if twin else ""
+            del eng
+            free_card()
+            again, eng = phase_engine(cfg, params, prefill_chunk=chunk,
+                                      kv_quant=quant, cuda_graphs=not twin,
+                                      probe=cfg.is_moe)
+            if twin:
+                compare_replay(f"{cfg.name} {mode}", rec, again, eng, pools)
+                del rec["pools"]
+            else:
+                same_run(f"{cfg.name} {mode} probed", again, rec)
+                print(f"[full] {what} {mode}: the probed run's tokens and "
+                      f"{len(counters(rec['st']))} stats() counters == the "
+                      f"timed run's, bitwise")
+            del again
+        del eng
+        free_card()
+        out.append(rec)
+    del params
+    free_card()
+    return out
+
+
+def phase_moe_hybrid():
+    """Phase 23: qwen3-moe-30b-a3b at full width (48 layers, 128 experts
+    top-8, q/k norms) and jamba-v0.1-52b at full width over one period (8
+    of its 32 layers) through the engine's captured steps, then the paged
+    read and the SSD scan at the shapes these models give them, each
+    against its plain version. Returns the runs' paged and SSD launches."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    qwen3 = get_config("qwen3-moe-30b-a3b")
+    jamba = dataclasses.replace(get_config("jamba-v0.1-52b"),
+                                n_layers=JAMBA_LAYERS)
+    runs = phase_full_width(qwen3, f"{qwen3.name} full width",
+                            eager_twin=True)
+    runs += phase_full_width(jamba, f"{jamba.name} full width, "
+                             f"{JAMBA_LAYERS} of 32 layers (one period)")
+    mb = 128
+    for name, kw in (("decode B=8 T=1 bf16",
+                      dict(b=8, t=1, lengths=[96, 288, 1032, 96, 288, 1032,
+                                              96, 288], quant=False,
+                           mb=mb)),
+                     ("chunk B=1 T=64 ctx=936 int8",
+                      dict(b=1, t=64, lengths=[936], quant=True, mb=64))):
+        r = time_shape(qwen3, n_blocks=1025, n_layers=qwen3.n_layers, **kw)
+        print(f"[timing] paged_attention {qwen3.name} {name} H=32 K=4 "
+              f"(G=8) D=128, {r['n_split']} column splits: "
+              f"{r['ms'] * 1e3:.2f} us by graph replay (bound "
+              f"{r['bound_ms'] * 1e3:.2f} us by {r['bound_by']}, "
+              f"{r['bound_ms'] / r['ms'] * 100:.1f}% of it), == plain "
+              f"within rtol=atol=2e-5 (max |err| {r['max_abs_err']:.3g}), "
+              f"plain {r['plain_ms'] * 1e3:.1f} us, sdpa "
+              f"{r['library_ms'] * 1e3:.2f} us by graph replay; "
+              f"{card_line()}")
+        free_card()
+    time_ssd(f"{jamba.name} whole-prompt", 4, 1024, init=False, seed=13,
+             h=128, n=16)
+    time_ssd(f"{jamba.name} chunk step", 1, 64, init=True, seed=14, h=128,
+             n=16)
+    return {"paged": sum(r["launches"] for r in runs),
+            "ssd": sum(r["ssd"] for r in runs)}
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -3416,7 +3998,7 @@ def main() -> None:
           f"{st_b['decode_tok_s']:.1f} tok/s, p50 TTFT "
           f"{st_b['p50_ttft_s'] * 1e3:.1f} ms")
     llama = get_config("llama2-7b")
-    llama_runs = phase_llama2(llama)
+    llama_runs = phase_full_width(llama, f"{llama.name} full width")
     wide = time_shape(llama, b=8, t=1, lengths=[96, 288, 1032, 96, 288,
                                                 1032, 96, 288],
                       quant=False, mb=mb, n_blocks=1025, n_layers=32)
@@ -3530,11 +4112,12 @@ def main() -> None:
     del params
     rms_t, dec_t = phase_new_kernel_timing(cfg)
     life = phase_lifecycle()
+    moe = phase_moe_hybrid()
     for entry in record["kernels"]:
         if entry["name"] == "paged_attention":
-            entry["launches"] += life["paged"]
+            entry["launches"] += life["paged"] + moe["paged"]
         if entry["name"] == "ssd_chunked_kernel":
-            entry["launches"] += life["ssd"]
+            entry["launches"] += life["ssd"] + moe["ssd"]
     print(f"[spec] RMSNorm launches per run: " + ", ".join(
         f"{k} {v}" for k, v in RMSNORM_RUNS.items()))
     train = rms_t["train"]

@@ -1,9 +1,9 @@
 """Architecture registry of the port.
 
 ``get_config(name)`` returns the full :class:`ArchConfig`;
-``get_config(name, reduced=True)`` the CPU-runnable smoke config. Only the
-archs whose family the port already serves are registered; the others
-join with their slices.
+``get_config(name, reduced=True)`` the CPU-runnable smoke config. The
+dense, ssm, moe and hybrid archs of the reference are registered; the
+encoder-decoder and vision-language ones join with their slice.
 """
 from __future__ import annotations
 
@@ -18,6 +18,12 @@ _ARCH_MODULES = [
     "llama2_7b",
     "llama2_13b",
     "llama2_70b",
+    "granite_3_2b",
+    "qwen2_5_14b",
+    "chatglm3_6b",
+    "qwen3_moe_30b_a3b",
+    "dbrx_132b",
+    "jamba_v0_1_52b",
 ]
 
 _REGISTRY: Dict[str, ArchConfig] = {}

@@ -41,7 +41,8 @@ class Timer:
 
 # (class, name fragments) in match order: cuBLAS names its bf16-operand
 # GEMMs nvjet_t* (f32 sums) or *gemm_bf16*, its f32 ones *sgemm*,
-# *f32f32_f32f32* or nvjet_s*
+# *f32f32_f32f32*, nvjet_s* or, batched over few rows (the MoE experts'
+# down projection), gemmSN_*_kernel<float
 KERNEL_CLASSES = (
     ("the port's CUDA kernels", ("paged_mq_kernel", "ssd_chunk_scan",
                                  "rmsnorm_kernel", "dense_decode_kernel",
@@ -49,7 +50,8 @@ KERNEL_CLASSES = (
                                  "bwd_dq", "qmm_kernel", "qmm_mma_kernel")),
     ("split-K reductions", ("splitKreduce",)),
     ("tensor-core GEMMs", ("nvjet_t", "gemm_bf16", "bf16gemm")),
-    ("f32 GEMMs", ("sgemm", "f32f32_f32f32", "nvjet_s")),
+    ("f32 GEMMs", ("sgemm", "f32f32_f32f32", "nvjet_s",
+                   "gemmSN_NN_kernel<float", "gemmSN_TN_kernel<float")),
     ("casts and copies", ("copy_kernel", "Memcpy")),
 )
 

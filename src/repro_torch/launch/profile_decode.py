@@ -1,7 +1,8 @@
 """Where a fused decode step's time goes on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_decode \
-        [--arch qwen1.5-0.5b|mamba2-130m|llama2-7b] [--steps 10] \
+        [--arch qwen1.5-0.5b|mamba2-130m|llama2-7b|qwen3-moe-30b-a3b] \
+        [--steps 10] \
         [--speculate off|ngram] [--repetitive] [--eager]
 
 Serves the arch at full width (seeded random weights) with eight running

@@ -9,6 +9,8 @@ synthetic burst, on the card by default.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \
         --prefill-chunk 16 --device cpu        # attention-free SSM arch
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --arch qwen3-moe-30b-a3b|jamba-v0.1-52b   # MoE; hybrid SSM + MoE
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --speculate ngram --repetitive         # speculative decoding
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --prefix-cache --prefill-chunk 8 --chaos 0 \
@@ -17,7 +19,10 @@ synthetic burst, on the card by default.
 Fused decode and chunked prefill read the KV cache through one paged
 multi-query attention kernel (kernels/flash_decode), at T=1 and T=chunk.
 On ``mamba2-130m`` both prefill kinds run the SSD scan through the SSD
-kernel (kernels/ssd) and decode advances the per-slot SSM states.
+kernel (kernels/ssd) and decode advances the per-slot SSM states; on
+``jamba-v0.1-52b`` so do its SSD layers, beside one paged attention
+layer a period of 8. ``qwen3-moe-30b-a3b``, ``dbrx-132b`` and jamba run
+their MoE FFNs at the serving capacity multiplier (4.0).
 ``--speculate`` verifies proposed tokens through the same paged read
 (T = 1 + depth); ``draft:<config>`` drafts with that config's model,
 whose decode reads its dense cache through the dense decode kernel, and

@@ -1,10 +1,12 @@
-"""Transformer and Mamba-2 blocks: param specs and apply functions.
+"""Transformer, MoE and Mamba-2 blocks: param specs and apply functions.
 
-The dense- and ssm-family subset of ``repro.models.blocks``: the
-attention block (QKV bias; whole-sequence and dense-cache decode
-branches), the SwiGLU FFN and the
-Mamba-2 (SSD) block with its three branches (whole sequence, chunk
-continue, T=1 decode). No sharding context: the port serves on one card.
+The decoder-only subset of ``repro.models.blocks``: the attention block
+(QKV bias, Qwen3's per-head q/k norms; whole-sequence and dense-cache
+decode branches), the SwiGLU FFN, the MoE FFN (top-k routing and the
+one-device capacity dispatch, ``_moe_local``) and the Mamba-2 (SSD)
+block with its three branches (whole sequence, chunk continue, T=1
+decode). No sharding context: the port serves on one card, so the
+reference's expert-parallel ``_moe_ep`` is not ported.
 
 Cache conventions (decode): attention ``{"k", "v"}`` as (B, S, K, hd)
 bf16 with the global ``lengths`` (B,); SSM (also chunked prefill)
@@ -14,11 +16,13 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.config import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models.params import spec
+from repro_torch.quant.qtensor import QTensor
 from repro_torch.models.ssd import ssd_chunked, ssd_decode_step
 
 
@@ -39,22 +43,25 @@ def attn_specs(cfg: ArchConfig, n_stack: int) -> Dict:
         p["bk"] = spec(s + (kv, hd), ly + ("kv_heads", "head_dim"), "zeros")
         p["bv"] = spec(s + (kv, hd), ly + ("kv_heads", "head_dim"), "zeros")
     if cfg.qk_norm:
-        raise NotImplementedError(
-            "qk_norm archs are not ported yet (the port serves the dense "
-            "family without per-head q/k norms)")
+        p["q_norm"] = spec(s + (hd,), ly + ("head_dim",), "ones")
+        p["k_norm"] = spec(s + (hd,), ly + ("head_dim",), "ones")
     return p
 
 
 def _qkv(x, p, cfg: ArchConfig, positions, rope: bool = True,
          qmm_impl: str = "kernel"
          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Projection -> RoPE as real f32 tensors, ONE rounding at the end:
-    q/k/v feed the int8 KV encode in the serving engine, where a one-ulp
-    input flip moves a whole vector's scale."""
+    """Projection -> per-head q/k norms (``qk_norm``) -> RoPE as real f32
+    tensors, ONE rounding at the end: q/k/v feed the int8 KV encode in the
+    serving engine, where a one-ulp input flip moves a whole vector's
+    scale."""
     f32 = torch.float32
     q = L.dense(x, p["wq"], bias=p.get("bq"), out_dtype=f32, qmm_impl=qmm_impl)
     k = L.dense(x, p["wk"], bias=p.get("bk"), out_dtype=f32, qmm_impl=qmm_impl)
     v = L.dense(x, p["wv"], bias=p.get("bv"), out_dtype=f32, qmm_impl=qmm_impl)
+    if cfg.qk_norm:
+        q = L.qk_headnorm(q, p["q_norm"], cfg.norm_eps)
+        k = L.qk_headnorm(k, p["k_norm"], cfg.norm_eps)
     if rope:
         q = L.apply_rope(q, positions, cfg.rope_fraction, cfg.rope_theta)
         k = L.apply_rope(k, positions, cfg.rope_fraction, cfg.rope_theta)
@@ -119,6 +126,131 @@ def ffn_apply(x, p, cfg: ArchConfig, qmm_impl: str = "kernel"
     h = L.rmsnorm(x, p["ln"], cfg.norm_eps)
     return x + L.swiglu(h, p["w_gate"], p["w_up"], p["w_down"],
                         qmm_impl=qmm_impl)
+
+
+# ==========================================================================
+# MoE FFN: top-k routing, token-choice dispatch with capacity (one device)
+# ==========================================================================
+
+def moe_specs(cfg: ArchConfig, n_stack: int) -> Dict:
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    s, ly = (n_stack,), ("layers",)
+    return {
+        "ln": spec(s + (d,), ly + ("embed",), "ones"),
+        "router": spec(s + (d, e), ly + ("embed", "null")),
+        "w_gate": spec(s + (e, d, f), ly + ("experts", "embed", "mlp"),
+                       fan_in_axes=(1,)),
+        "w_up": spec(s + (e, d, f), ly + ("experts", "embed", "mlp"),
+                     fan_in_axes=(1,)),
+        "w_down": spec(s + (e, f, d), ly + ("experts", "mlp", "embed"),
+                       fan_in_axes=(1,)),
+    }
+
+
+def _route(h, router_w, cfg: ArchConfig):
+    """Router: f32 logits of h, softmax gates, the top-k experts (the
+    lower index first on ties, as ``lax.top_k``: a stable descending
+    sort) with their gates renormalised, and the Switch-style load
+    balancing loss. Returns (top_w (..., k) f32, top_e (..., k) int64,
+    aux)."""
+    logits = L.dense(h.float(), router_w).float()
+    gates = torch.softmax(logits, dim=-1)                       # (..., E)
+    vals, idx = torch.sort(gates, dim=-1, descending=True, stable=True)
+    top_w, top_e = vals[..., :cfg.top_k], idx[..., :cfg.top_k]
+    top_w = top_w / torch.clamp_min(top_w.sum(-1, keepdim=True), 1e-9)
+    lead = tuple(range(gates.ndim - 1))
+    me = gates.mean(dim=lead)
+    # one_hot of the first choice, by comparison: F.one_hot checks its
+    # input's range on the host, a device sync
+    experts = torch.arange(cfg.n_experts, device=top_e.device)
+    ce = (top_e[..., :1] == experts).float().mean(dim=lead)
+    aux = cfg.n_experts * (me * ce).sum()
+    return top_w, top_e, aux
+
+
+def _expert_ffn(xs, wg, wu, wd):
+    """xs (E, C, D); weights (E, D, F) / (E, F, D): every expert's SwiGLU
+    over its C rows, each product batched over the experts
+    (``layers.dense_batched``). The gate chain is real f32 into the down
+    projection, rounded once at the end, as ``layers.swiglu``."""
+    g = L.dense_batched(xs, wg, out_dtype=torch.float32)
+    u = L.dense_batched(xs, wu, out_dtype=torch.float32)
+    return L.dense_batched(L.silu(g) * u, wd).to(xs.dtype)
+
+
+def capacity(n: int, cfg: ArchConfig, capacity_mult: float) -> int:
+    """Rows each expert takes from a call of ``n`` tokens: read from
+    shapes only (at capture, as the reference at trace time)."""
+    k, e = cfg.top_k, cfg.n_experts
+    cap = int(np.ceil(k * n / e * cfg.capacity_factor * capacity_mult))
+    return min(max(cap, 4), k * n)
+
+
+def _moe_local(h, p, cfg: ArchConfig, capacity_mult: float
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One-device token-choice dispatch with capacity, sort-based.
+
+    Every (token, choice) assignment takes the next row of its expert's
+    ``cap`` rows in (token, choice) order (a stable sort by expert);
+    past ``cap`` it is dropped to a pad row and adds nothing. Each expert
+    runs its SwiGLU over all its ``cap`` rows, filled or not. No host
+    sync (the per-expert counts are an integer ``scatter_add_``) and no
+    order-dependent float atomics: a token's k gate-weighted outputs are
+    added in f32 in choice order, starting from zeros, as the
+    reference's scatter-add does, then rounded once."""
+    wg, wu, wd = (p[w].dequantize(h.dtype) if isinstance(p[w], QTensor)
+                  else p[w] for w in ("w_gate", "w_up", "w_down"))
+    d, e, k = cfg.d_model, cfg.n_experts, cfg.top_k
+    x = h.reshape(-1, d)
+    n = x.shape[0]
+    dev = x.device
+    top_w, top_e, aux = _route(x, p["router"], cfg)
+    cap = capacity(n, cfg, capacity_mult)
+    flat_e = top_e.reshape(-1)                                  # (n*k,)
+    flat_t = torch.arange(n * k, device=dev) // k               # its token
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    counts = torch.zeros(e, dtype=torch.int64, device=dev).scatter_add_(
+        0, sorted_e, torch.ones_like(sorted_e))
+    starts = torch.cumsum(counts, 0) - counts
+    pos_sorted = torch.arange(n * k, device=dev) - starts[sorted_e]
+    pos = torch.empty_like(pos_sorted).scatter_(0, order, pos_sorted)
+    keep = pos < cap
+    # a dropped assignment goes to the pad row e * cap (written, never read)
+    slot = torch.where(keep, flat_e * cap + pos,
+                       torch.full_like(pos, e * cap))
+    buf = torch.zeros((e * cap + 1, d), dtype=h.dtype, device=dev)
+    buf.index_copy_(0, slot, x[flat_t])
+    ys = _expert_ffn(buf[:-1].reshape(e, cap, d), wg, wu, wd)
+    ys = torch.cat([ys.reshape(e * cap, d),
+                    torch.zeros((1, d), dtype=h.dtype, device=dev)])
+    gathered = ys[slot].float() * top_w.reshape(-1)[:, None]    # (n*k, D)
+    gathered = torch.where(keep[:, None], gathered,
+                           torch.zeros((), device=dev)).reshape(n, k, d)
+    out = torch.zeros((n, d), dtype=torch.float32, device=dev)
+    for j in range(k):
+        out = out + gathered[:, j]
+    return out.to(h.dtype).reshape(h.shape), aux
+
+
+def moe_apply(x, p, cfg: ArchConfig, capacity_mult: float = 1.0
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """MoE residual block: RMSNorm, then :func:`_moe_local`. Returns
+    (x + y, the load-balancing loss). The expert-parallel dispatch of
+    the reference (``_moe_ep``) is not ported: the port runs one card."""
+    h = L.rmsnorm(x, p["ln"], cfg.norm_eps)
+    y, aux = _moe_local(h, p, cfg, capacity_mult)
+    return x + y, aux
+
+
+def ffn_or_moe(x, p, cfg: ArchConfig, kind: str, capacity_mult: float,
+               qmm_impl: str = "kernel") -> torch.Tensor:
+    """The FFN of a layer of ``kind`` (``cfg.ffn_kinds()``): the dense
+    SwiGLU, or the MoE FFN at ``capacity_mult`` (its loss dropped: the
+    serving and inference paths)."""
+    if kind == "moe":
+        return moe_apply(x, p, cfg, capacity_mult)[0]
+    return ffn_apply(x, p, cfg, qmm_impl=qmm_impl)
 
 
 # ==========================================================================

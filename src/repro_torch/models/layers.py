@@ -74,6 +74,24 @@ def dense(x: torch.Tensor, w, n_in: int = 1, bias=None,
     return y
 
 
+def dense_batched(x: torch.Tensor, w: torch.Tensor,
+                  out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """:func:`dense` batched over a leading axis: x (E, C, K) against w
+    (E, K, N), one product per leading index (the reference's ``einsum(
+    "ecd,edf->ecf", preferred_element_type=f32)``), by the same routes:
+    bf16 operands on the card to the tensor cores (``torch.bmm``; an f32
+    output through ``bmm.dtype``, exact products summed in f32), an f32
+    operand and every product on the CPU widened to f32. Forward only:
+    the MoE experts it serves are not trained yet."""
+    out_dt = out_dtype or torch.promote_types(x.dtype, w.dtype)
+    # repro: allow[JIT-04] dispatch on where the tensor lives (host metadata), as dense does
+    if x.is_cuda and tensor_core_route(x.dtype, w.dtype, out_dt):
+        if out_dt == torch.bfloat16:
+            return torch.bmm(x, w)
+        return torch.bmm(x, w, out_dtype=torch.float32)
+    return _dense_f32(x, w, out_dt)
+
+
 def tensor_core_route(x_dtype: torch.dtype, w_dtype: torch.dtype,
                       out_dtype: torch.dtype) -> bool:
     """Whether a product on the card takes the tensor cores: both operands
@@ -174,6 +192,15 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor,
     analytic backward) and the plain version on the CPU."""
     from repro_torch.kernels import ops as kops
     return kops.rmsnorm(x, w, eps)
+
+
+def qk_headnorm(x: torch.Tensor, w: torch.Tensor,
+                eps: float = 1e-6) -> torch.Tensor:
+    """Qwen3's per-head RMSNorm over head_dim: x (..., H, hd), w (hd,), in
+    f32 and in x's type (the projections hand it real f32, which it keeps).
+    It is :func:`rmsnorm` over the last axis: the RMSNorm kernel on the
+    card (f32 in, f32 out), its plain version on the CPU."""
+    return rmsnorm(x, w, eps)
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:

@@ -1,12 +1,16 @@
 """Decoder-only language model: embed -> layer stack -> tied head.
 
-The dense- and ssm-family subset of ``repro.models.lm.LM``. Parameters
-are the reference's tree as a nested dict of tensors, with every block
-leaf stacked on a leading ``n_periods`` axis; layer ``i`` reads the views
-``leaf[i]``. Each period position mixes with attention or with a Mamba-2
-(SSD) block, as ``cfg.layer_kinds()`` says, and every layer has a dense
-FFN (zero-width for mamba2-130m's ``d_ff=0``, a no-op on the residual, as
-in the reference). Whole-sequence attention is ``layers.attention`` in
+The decoder-only subset of ``repro.models.lm.LM``: the dense, moe, ssm
+and hybrid families. Parameters are the reference's tree as a nested dict
+of tensors, with every block leaf stacked on a leading ``n_periods``
+axis; layer ``i`` reads the views ``leaf[i]``. Each period position mixes
+with attention or with a Mamba-2 (SSD) block, as ``cfg.layer_kinds()``
+says, and has a dense FFN (zero-width for mamba2-130m's ``d_ff=0``, a
+no-op on the residual, as in the reference) or an MoE FFN, as
+``cfg.ffn_kinds()`` says (jamba's period of 8: attention at offset 4, MoE
+at the odd offsets). An MoE FFN's expert capacity scales with the
+reference's ``capacity_mult`` of each entry point: 1.0 in ``forward``
+(its train mode), 4.0 in ``prefill``, 2.0 in ``decode_step``. Whole-sequence attention is ``layers.attention`` in
 the model's ``attn_impl`` mode: ``"naive"`` (the serving engine's) or
 ``"flash"`` (the flash kernels, for training). The SSD scan of an SSM
 layer is ``models.ssd.ssd_chunked`` in the model's ``ssd_impl``:
@@ -20,7 +24,8 @@ reference's ``dense``); see ``layers.dense``.
 ``prefill(max_len=)`` and ``decode_step`` decode the dense family against
 a dense (B, max_len, K, hd) cache, whose read is the dense decode kernel
 on the card (``blocks.attn_apply``'s decode branch). ``backbone`` and
-``loss`` are the training objective of the dense family and build the
+``loss`` are the training objective of the dense family (MoE and
+hybrid training raise: queue 1 item 5 of ROADMAP.md) and build the
 autograd graph, with each layer under ``train.remat.wrap_remat(...,
 remat)``. To train, make the stacked leaves ``requires_grad``
 (``train.step.init_train_state``): each layer then reads them through one
@@ -61,7 +66,9 @@ def _period(cfg: ArchConfig) -> int:
 
 
 ATTN_IMPLS = ("naive", "flash")
-FAMILIES = ("dense", "ssm")
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
+# the reference's MoE capacity multiplier of each mode (its lm.py)
+CAPACITY_MULT = {"train": 1.0, "prefill": 4.0, "decode": 2.0}
 
 
 class LM:
@@ -75,11 +82,10 @@ class LM:
                  ssd_impl: str = "ref", qmm_impl: str = "kernel",
                  remat: str = "none",
                  device: Optional[Union[str, torch.device]] = None):
-        if cfg.family not in FAMILIES or cfg.is_moe:
+        if cfg.family not in FAMILIES:
             raise NotImplementedError(
-                f"family {cfg.family!r}{' (MoE)' if cfg.is_moe else ''} "
-                f"is not ported yet; the port runs the {'/'.join(FAMILIES)} "
-                f"families without MoE")
+                f"family {cfg.family!r} is not ported yet; the port runs "
+                f"the {'/'.join(FAMILIES)} families")
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl {attn_impl!r} not one of "
                              f"{ATTN_IMPLS}")
@@ -111,8 +117,9 @@ class LM:
         cfg = self.cfg
         d, v = cfg.d_model, self.vocab
         mix = {"attn": B.attn_specs, "ssm": B.ssm_specs}
+        ffn = {"dense": B.ffn_specs, "moe": B.moe_specs}
         blocks = {f"pos{i}": {"mix": mix[self.kinds[i]](cfg, self.n_periods),
-                              "ffn": B.ffn_specs(cfg, self.n_periods)}
+                              "ffn": ffn[self.fkinds[i]](cfg, self.n_periods)}
                   for i in range(self.period)}
         p = {
             "embed": spec((v, d), ("vocab", "embed")),
@@ -161,10 +168,11 @@ class LM:
     # Whole-sequence entry points
     # ------------------------------------------------------------------
 
-    def _stack(self, params, x, *, return_cache: bool):
+    def _stack(self, params, x, *, return_cache: bool, mode: str):
         """The layer stack over a whole sequence; with ``return_cache``
         also each layer's fresh k/v (attention) or resume state (SSM),
-        as per-position lists over the periods."""
+        as per-position lists over the periods. ``mode`` sets the MoE
+        capacity (``CAPACITY_MULT``)."""
         cfg = self.cfg
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         caches: Dict[int, list] = {pos: [] for pos in range(self.period)}
@@ -181,14 +189,15 @@ class LM:
                                    ssd_impl=self.ssd_impl,
                                    return_state=return_cache)
             caches[pos].append(c)
-            x = B.ffn_apply(x, lp["ffn"], cfg, qmm_impl=self.qmm_impl)
+            x = B.ffn_or_moe(x, lp["ffn"], cfg, self.fkinds[pos],
+                             CAPACITY_MULT[mode], qmm_impl=self.qmm_impl)
         return x, caches
 
     @torch.no_grad()
     def forward(self, params, tokens: torch.Tensor) -> torch.Tensor:
         """Full-sequence logits (B, T, padded_vocab) for tokens (B, T)."""
         x = self._embed_in(params, tokens)
-        x, _ = self._stack(params, x, return_cache=False)
+        x, _ = self._stack(params, x, return_cache=False, mode="train")
         return self._head(params, x)
 
     @torch.no_grad()
@@ -204,7 +213,8 @@ class LM:
         layout of the reference's prefill cache."""
         b, t = tokens.shape
         x = self._embed_in(params, tokens)
-        x, caches = self._stack(params, x, return_cache=True)
+        x, caches = self._stack(params, x, return_cache=True,
+                                mode="prefill")
         pad = max(0, (max_len or t) - t)
         cache = {}
         for pos, cs in caches.items():
@@ -263,7 +273,8 @@ class LM:
                                 qmm_impl=self.qmm_impl,
                                 cache={"k": c["k"][per], "v": c["v"][per]},
                                 lengths=lengths)
-            x = B.ffn_apply(x, lp["ffn"], cfg, qmm_impl=self.qmm_impl)
+            x = B.ffn_or_moe(x, lp["ffn"], cfg, self.fkinds[pos],
+                             CAPACITY_MULT["decode"], qmm_impl=self.qmm_impl)
         return self._head(params, x)[:, 0], cache
 
     # ------------------------------------------------------------------
@@ -287,11 +298,13 @@ class LM:
         """Everything before the LM head; returns final hidden states
         (B, T, d_model). Each layer runs under ``wrap_remat(remat)``.
         Dense family only: the reference's SSD kernel has no backward, and
-        training the SSM family is not ported."""
-        if "ssm" in self.kinds:
+        training the ssm, moe and hybrid families is not ported."""
+        if "ssm" in self.kinds or self.cfg.is_moe:
             raise NotImplementedError(
-                "training the ssm family is not ported (the SSD kernel has "
-                "no backward)")
+                f"training the {self.cfg.family} family is not ported "
+                f"(ROADMAP.md queue 1 item 5; the SSD kernel has no "
+                f"backward, and MoE training with its auxiliary loss is a "
+                f"later slice)")
         x = self._embed_in(params, batch["tokens"])
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         body = wrap_remat(self._layer, self.remat)

@@ -2,8 +2,8 @@
 prefill, speculative decoding, a cross-request prefix cache, the request
 lifecycle with fault injection, and telemetry over a paged KV cache (the
 port of ``repro.serving.engine``, ``mode="fused"`` and the
-``mode="legacy"`` oracle, dense and ssm families; speculation on the
-dense family).
+``mode="legacy"`` oracle, dense, moe, ssm and hybrid families;
+speculation on the families without SSM layers).
 
 The engine owns a paged KV cache (serving/cache.py) and a
 :class:`~repro_torch.serving.scheduler.Scheduler` that makes every policy
@@ -40,7 +40,14 @@ prefill kinds runs in the model's ``ssd_impl``: the engine builds its
 model with ``"kernel"`` (the hand-written CUDA kernel on the card, where
 no other impl is accepted); ``"ref"`` is for the CPU tests. An
 attention-free arch keeps a one-layer dummy KV pool, as the reference
-does, and skips all attention work.
+does, and skips all attention work. A hybrid arch (jamba) pages its
+attention positions' KV and keeps its SSM positions in the slot pool.
+
+**MoE FFNs** (``models.blocks.moe_apply``) run in every step at the
+reference engine's ``capacity_mult`` 4.0 over the step's static rows:
+inactive and padded rows route and take capacity too, so a token's
+output may depend on its step's other rows where an expert overflows
+(never at smoke size, whose capacity factor is 8).
 
 **Speculative decoding** (``speculate="ngram" | "draft:<config>"`` or
 any proposer object; serving/speculate.py). A proposer guesses up to
@@ -161,6 +168,10 @@ from repro_torch.serving.speculate import build_speculator
 from repro_torch.serving.telemetry import Telemetry
 
 __all__ = ["Engine", "Request", "Rejected", "StallError"]
+
+# an MoE FFN's capacity multiplier in every serving step (the reference
+# engine's): a step's static row count sets each expert's rows
+MOE_CAPACITY_MULT = 4.0
 
 
 class StallError(RuntimeError):
@@ -754,7 +765,7 @@ class Engine:
         cfg = self.cfg
         quant = self.kv_cfg.kv_quant
         period = self.model.period
-        kinds = self.model.kinds
+        kinds, fkinds = self.model.kinds, self.model.fkinds
 
         def body(x, per, kv_slice, ssm_slice, inj):
             x = torch.where(inj[:, None, None], self._nan, x)
@@ -779,7 +790,8 @@ class Engine:
                         new_kv.setdefault("k_scale", []).append(ks)
                         new_kv.setdefault("v_scale", []).append(vs)
                     r += 1
-                x = B.ffn_apply(x, pp["ffn"], cfg)
+                x = B.ffn_or_moe(x, pp["ffn"], cfg, fkinds[pos],
+                                 MOE_CAPACITY_MULT)
             return (x, {kk: torch.stack(vv) for kk, vv in new_kv.items()},
                     new_ssm)
 
@@ -1194,7 +1206,8 @@ class Engine:
                 for leaf, new in nc.items():
                     st[leaf].copy_(torch.where(active.reshape(
                         (-1,) + (1,) * (new.ndim - 1)), new, st[leaf]))
-            x = B.ffn_apply(x, pp["ffn"], cfg)
+            x = B.ffn_or_moe(x, pp["ffn"], cfg, self.model.fkinds[pos],
+                             MOE_CAPACITY_MULT)
         logits = self.model._head(self.params, x)[:, 0]
         next_tokens = logits.argmax(dim=-1).cpu().numpy()
         # host-side quarantine (no injection mask on this path)

@@ -64,7 +64,8 @@ class DraftModelProposer:
     """Greedy K-token continuation from a draft model.
 
     ``cfg`` is any config of the port's registry whose vocabulary matches
-    the target's; ``params`` defaults to a fresh init from ``seed`` (the
+    the target's and whose decode read fits the dense decode kernel (at
+    most 8 query heads a KV head: not chatglm3-6b's 16); ``params`` defaults to a fresh init from ``seed`` (the
     port's own generator, so not the reference's weights), and passing the
     target's params self-drafts. ``device`` is the card unless the caller
     passes ``"cpu"``. ``n_prefills`` and ``n_decode_steps`` count the
@@ -74,9 +75,16 @@ class DraftModelProposer:
     name = "draft"
 
     def __init__(self, cfg, params=None, *, seed: int = 1, device=None):
+        from repro_torch.kernels.flash_decode import _DENSE_MAX_G
         from repro_torch.models.lm import LM
         from repro_torch.models.params import tree_map
 
+        if cfg.n_heads // max(cfg.n_kv_heads, 1) > _DENSE_MAX_G:
+            # chatglm3-6b (32 heads over 2 KV heads) is such a config
+            raise ValueError(
+                f"draft config {cfg.name!r}: {cfg.n_heads} heads over "
+                f"{cfg.n_kv_heads} KV heads; the draft's dense decode "
+                f"kernel takes at most {_DENSE_MAX_G} query heads a KV head")
         self.cfg = cfg
         self.model = LM(cfg, device=device)
         self.params = (tree_map(lambda t: t.to(self.model.device), params)

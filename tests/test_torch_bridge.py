@@ -108,17 +108,23 @@ def test_mamba2_params_cross_bitwise(d_ff):
         assert got[path].dtype == ps.dtype, path
 
 
-@pytest.mark.parametrize("arch", ["llama2-7b", "llama2-13b", "llama2-70b"])
+@pytest.mark.parametrize("arch", ["llama2-7b", "llama2-13b", "llama2-70b",
+                                  "granite-3-2b", "qwen2.5-14b",
+                                  "chatglm3-6b"])
 def test_llama2_params_cross_bitwise(arch):
-    """An untied ``head`` leaf (d_model, vocab), no QKV biases, and for
-    70b grouped KV projections; the tree crosses bitwise both ways and
-    lines up with the port's own specs."""
+    """An untied ``head`` leaf (d_model, vocab) or none under tied
+    embeddings (granite), QKV biases where the config has them (qwen2.5,
+    chatglm3), and grouped KV projections; the tree crosses bitwise both
+    ways and lines up with the port's own specs."""
     cfg = get_config(arch, reduced=True)
     params = jax.device_get(LM(cfg).init(jax.random.PRNGKey(0)))
     port = from_jax_numpy(params)
-    assert tuple(port["head"].shape) == (64, 512)        # 256 padded
+    if cfg.tie_embeddings:
+        assert "head" not in port
+    else:
+        assert tuple(port["head"].shape) == (64, 512)    # 256 padded
     mix = port["blocks"]["pos0"]["mix"]
-    assert "bq" not in mix
+    assert ("bq" in mix) == cfg.qkv_bias
     assert tuple(mix["wk"].shape) == (2, 64, cfg.n_kv_heads, 16)
     back = to_numpy(port)
     want, got = dict(tree_paths(params)), dict(tree_paths(back))

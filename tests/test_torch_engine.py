@@ -37,15 +37,24 @@ NEAR_TIE_ULPS = 4
 TRACE = dict(n=6, lens=[5, 12, 9], max_new=6)
 PRESSURE = dict(n=5, lens=[24, 40, 32], max_new=8)
 LLAMA2 = ["llama2-7b", "llama2-13b", "llama2-70b"]
+# the other dense configs: grouped KV heads (granite G = 4, qwen2.5 G = 5
+# with QKV bias, theta 1e6 and eps 1e-6, chatglm3 G = 16 with RoPE on half
+# the head dim), granite with a tied head
+DENSE = ["granite-3-2b", "qwen2.5-14b", "chatglm3-6b"]
 # qwen over the whole grid (the ids the grid has always had), each llama2
-# config whole-prompt bf16 and chunked int8
+# config whole-prompt bf16 and chunked int8, one case of each other dense
+# config
 ENGINE_CASES = [
     pytest.param("qwen1.5-0.5b", quant, chunk, batch,
                  id=f"{quant}-{chunk}-{batch}")
     for quant in ("none", "int8") for chunk in (None, 8)
     for batch in (1, 4)] + [
     pytest.param(arch, quant, chunk, 4, id=f"{arch}-{quant}-{chunk}-4")
-    for arch in LLAMA2 for quant, chunk in (("none", None), ("int8", 8))]
+    for arch in LLAMA2 for quant, chunk in (("none", None), ("int8", 8))] + [
+    pytest.param(arch, quant, chunk, 4, id=f"{arch}-{quant}-{chunk}-4")
+    for arch, quant, chunk in (("granite-3-2b", "none", None),
+                               ("qwen2.5-14b", "int8", 8),
+                               ("chatglm3-6b", "int8", 8))]
 
 
 @functools.lru_cache(maxsize=None)
@@ -132,9 +141,10 @@ def test_prefill_logits_match_reference(weights):
     _check_prefill(weights, "qwen1.5-0.5b", 512)      # padded vocab
 
 
-@pytest.mark.parametrize("arch", LLAMA2)
+@pytest.mark.parametrize("arch", LLAMA2 + DENSE)
 def test_llama2_forward_and_prefill_match_reference(arch):
-    """Smoke llama2: the untied head's logits, whole-sequence and after
+    """Smoke llama2 (and the other dense configs: grouped KV heads, QKV
+    bias, partial RoPE, a tied head): the logits, whole-sequence and after
     prefill, and the prefill cache, against the reference's. The whole
     sequence's logits agree to ``NEAR_TIE_ULPS`` bf16 ulps of each row's
     largest logit: the frameworks round their f32 sums to bf16 at the

@@ -72,7 +72,8 @@ def _case(dev, t, h, kv, d, quant, seed=0):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("t", [1, 8, 64])
-@pytest.mark.parametrize("h,kv,d", [(4, 2, 64), (16, 16, 64), (4, 1, 128)])
+@pytest.mark.parametrize("h,kv,d", [(4, 2, 64), (16, 16, 64), (4, 1, 128),
+                                    (32, 4, 128)])
 @pytest.mark.parametrize("quant", [False, True])
 def test_kernel_matches_plain(cuda, t, h, kv, d, quant):
     args = _case(cuda, t, h, kv, d, quant)
@@ -273,8 +274,11 @@ SSD_CASES = [(4, 1000, 24, 64, 1, 128, 256, False),
              (2, 70, 8, 16, 1, 16, 32, True),
              (2, 100, 6, 32, 2, 48, 32, False),
              (1, 200, 4, 128, 4, 64, 96, True),
-             (3, 17, 2, 8, 1, 4, 256, False)]
-# mamba2-130m's whole prompt and chunk step
+             (3, 17, 2, 8, 1, 4, 256, False),
+             (4, 1024, 128, 64, 1, 16, 256, False),
+             (1, 64, 128, 64, 1, 16, 256, True)]
+# mamba2-130m's whole prompt and chunk step (jamba-v0.1-52b's are the
+# last two: 128 heads of 64, state 16)
 SSD_MAMBA2 = SSD_CASES[:2]
 
 
@@ -499,15 +503,17 @@ def _rms_case(dev, rows, d, xd, wd, seed=0):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("rows", [1, 8, 333, 8192])
-@pytest.mark.parametrize("d", [768, 1024, 1536, 1000, 999])
+@pytest.mark.parametrize("rows", [1, 8, 256, 333, 2048, 8192])
+@pytest.mark.parametrize("d", [128, 768, 1024, 1536, 2048, 1000, 999])
 @pytest.mark.parametrize("xd,wd", [("bf16", "bf16"), ("bf16", "f32"),
                                    ("f32", "bf16"), ("f32", "f32")])
 def test_rmsnorm_kernel_matches_plain(cuda, rows, d, xd, wd):
     """f32 out within 2e-5, bf16 out within one bf16 ulp (both round one
     f32 value once; only the order of the sum of squares differs), also
     at ragged D: 1000 (the last vectors of a row fall to some threads
-    only) and 999 (read element by element)."""
+    only) and 999 (read element by element), and at the q/k norms' head
+    width 128 (f32 rows: 256 a decode step of qwen3-moe, 2,048 a 64-token
+    chunk) and qwen3-moe's d_model 2048."""
     from repro_torch.kernels import rmsnorm as rn
     x, w = _rms_case(cuda, rows, d, xd, wd, seed=rows + d)
     before = rn.LAUNCHES["rmsnorm"]
@@ -1062,6 +1068,12 @@ GRAPH_CASES = {
                        [6, 17, 40]),
     "qwen ngram": ("qwen1.5-0.5b", dict(n_blocks=64, speculate="ngram",
                                         spec_depth=4), None),
+    "qwen3-moe chunk=8 int8": ("qwen3-moe-30b-a3b", dict(
+        n_blocks=64, prefill_chunk=8, kv_quant="int8"), [5, 12, 9, 40]),
+    "qwen3-moe ngram": ("qwen3-moe-30b-a3b", dict(
+        n_blocks=64, speculate="ngram", spec_depth=4), None),
+    "jamba chunk=8": ("jamba-v0.1-52b", dict(n_blocks=64, prefill_chunk=8),
+                      [6, 17, 40]),
 }
 
 
@@ -1091,11 +1103,12 @@ def _graph_run(cuda, case, cuda_graphs):
     kinds = cfg.layer_kinds()
     assert fd.LAUNCHES["paged_attention"] == kinds.count("attn") * steps
     forwards = steps + st["prefill_groups"]
-    norms = sum(3 if k == "ssm" else 2 for k in kinds) + 1
+    norms = sum(3 if k == "ssm" else 4 if cfg.qk_norm else 2
+                for k in kinds) + 1
     assert rn.LAUNCHES["rmsnorm"] == norms * forwards
+    assert ssdk.LAUNCHES["ssd"] == kinds.count("ssm") * (
+        st["prefill_groups"] + st["chunk_steps"])
     if arch == "mamba2-130m":
-        assert ssdk.LAUNCHES["ssd"] == cfg.n_layers * (
-            st["prefill_groups"] + st["chunk_steps"])
         assert st["preemptions"] > 0
     assert len(done) == len(prompts)
     pools = ({k: v.clone() for k, v in eng.kv.pool().items()},

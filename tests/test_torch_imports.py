@@ -31,7 +31,10 @@ def test_port_files_exist():
                    "kernels/quant_matmul.py", "kernels/rmsnorm.py",
                    "serving/speculate.py", "serving/graphs.py",
                    "configs/llama2_7b.py", "configs/llama2_13b.py",
-                   "configs/llama2_70b.py"):
+                   "configs/llama2_70b.py", "configs/granite_3_2b.py",
+                   "configs/qwen2_5_14b.py", "configs/chatglm3_6b.py",
+                   "configs/qwen3_moe_30b_a3b.py", "configs/dbrx_132b.py",
+                   "configs/jamba_v0_1_52b.py"):
         assert port / module in PORT_FILES, module
 
 

@@ -160,6 +160,19 @@ def test_build_speculator_validation():
         TS.Speculator(TS.NGramProposer(), depth=0)
 
 
+def test_draft_refuses_more_query_heads_a_kv_head_than_the_kernel():
+    """chatglm3-6b at full width (32 heads over 2 KV heads, G = 16)
+    cannot draft: the draft's dense decode kernel takes G <= 8 (refused
+    before any weight is drawn). Its smoke config (G = 2) and granite-3-2b
+    (G = 4) can."""
+    with pytest.raises(ValueError, match="at most 8 query heads"):
+        TS.DraftModelProposer(port_config("chatglm3-6b"), device="cpu")
+    cfg = port_config("qwen1.5-0.5b", reduced=True)
+    assert TS.build_speculator("draft:chatglm3-6b", cfg, device="cpu")
+    draft = TS.build_speculator("draft:granite-3-2b", cfg, device="cpu")
+    assert draft.proposer.cfg.name == "granite-3-2b-smoke"
+
+
 @pytest.mark.parametrize("n,vocab,prompt_len,pattern_len,seed", [
     (16, 151936, 256, 8, 0), (3, 256, 24, 6, 1), (2, 50280, 7, 9, 5)])
 def test_repetitive_requests_bit_equal(n, vocab, prompt_len, pattern_len,
