@@ -70,14 +70,17 @@ imports nothing of the JAX package). Phases, one line each:
               RMSNorm kernel 104 times per step (2 x 24 layers, twice
               with remat, plus the final norm in 4 checkpointed loss
               blocks, forward and recompute).
-8. timing   - the flash kernels at the training shape (B=4, H=16,
-              T=2048, D=64, causal, bf16): time per launch beside the
+8. timing   - the flash kernels at the training shapes (B=4, T=2048,
+              causal, bf16: qwen H=16, D=64; llama2-7b H=32, D=128;
+              qwen3-moe H=32 over 4 KV heads, D=128): time per launch
+              beside the
               bound, the plain versions' times (each kernel's function
               and the whole backward), and
               ``scaled_dot_product_attention`` forward, backward and
               forward + backward on the same tensors (timed here only);
               each kernel's body and bound as built (the forward 3
-              products, the backward 10: P and dS each take two) beside
+              products, the backward 12: P and dS take three parts in
+              dK/dV, dS two in dQ) beside
               the useful work's.
 9. ssd      - the SSD kernel against its plain version on the card, f32,
               at mamba2-130m's whole-prompt shape (B=4, T=1000 padded to
@@ -119,7 +122,9 @@ imports nothing of the JAX package). Phases, one line each:
 12. qmm     - the int8 weight-only matmul kernel against its plain version
               on the card: the reference's kernel-test shapes, M in {1, 7},
               K and N off the tile, G in {1, 16}, the four fine-tuning
-              projections at M=2048; x bf16 and f32, out bf16 and f32 (f32
+              projections of qwen and of llama2-7b (K, N in {4096, 11008},
+              G = 32 head groups) at M=2048; x bf16 and f32, out bf16 and
+              f32 (f32
               within 2e-5, bf16 within 1 bf16 ulp beyond a 1e-5 floor);
               the body of every case is printed, and the four projections
               must run the tensor-core body; the autograd wrapper's dx
@@ -144,7 +149,8 @@ imports nothing of the JAX package). Phases, one line each:
               kernels 48/24/24 and the RMSNorm kernel 104 per step; then 2
               L+F+R steps (bf16 base), which must launch the int8 kernel
               0 times and RMSNorm 104 per step.
-14. timing  - the int8 kernel at the step's four shapes (M=8192): its body,
+14. timing  - the int8 kernel at the step's four shapes (M=8192), qwen's
+              and llama2-7b's: its body,
               time per launch beside its bound and its bound as built (the
               useful operations times the part products it runs), the
               plain version's time and the reference's route on the card,
@@ -281,13 +287,33 @@ imports nothing of the JAX package). Phases, one line each:
               128, N = 16 (B = 4, T = 1,024; the chunk step) against their
               plain versions (2e-5; the SSD limit) and timed by graph
               replay.
+24. slice   - the rest of one-device training, each part at 4 x 2048
+              tokens, printing step ms, tokens/s and peak memory: (a)
+              full-width llama2-7b QL+Q8+F+R (6.7 B weights, an int8
+              base, LoRA rank 64): the flash route against naive
+              attention at phase 7's limits and the int8 kernel route
+              against the reference's at phase 13's on one batch, 4 steps
+              through ``Trainer.run`` with the launches by kernel and the
+              frozen base bit-unchanged, then the adapters learning on one
+              fixed batch (the loss falls by 0.2 within 8 steps, warmup
+              0, no weight decay, the lr of ``LEARN_LR``); (b) qwen1.5-0.5b
+              Q8+F+R, then Q+F+R (nf4): the codes after each step those of
+              quantizing the updated view, bitwise, the 8-bit moments' bytes
+              against f32's, the loss falling; (c) mamba2-130m F+R (the
+              SSD reference under autograd), the loss falling; (d)
+              qwen3-moe-30b-a3b F+R at full width cut to 2 of its 48
+              layers (G = 8 flash backward), aux finite and positive, the
+              dropped assignments printed, the loss falling; (e) qwen
+              F+R+Z3: 2 steps, a blocking save, a new Trainer resuming to
+              step 4 with async saves, bitwise 4 straight steps.
 
 Any failed check raises. The last three lines of standard output are the
 kernels' JSON record, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``; the line before them gives the whole
 run's time. Each main path (the six engine runs, the training run, the
 two fine-tuning runs, the four speculative engine runs, the nine
-lifecycle bursts, phase 23's eight runs) is driven with every launch
+lifecycle bursts, phase 23's eight runs, phase 24's training runs) is
+driven with every launch
 count set to 0 just before it (after the engine's warmup, and in phase
 22 (a)/(b) after the warming request) and read just after; so is each
 eager twin. Without
@@ -321,6 +347,10 @@ BF16_ULPS = 2
 BF16_ULPS_G1_GRADS = 1             # dq/dk/dv at the training shape (G=1)
 BF16_ATOL = 1e-5
 TRAIN_SHAPE = dict(b=4, h=16, t=2048, d=64)   # qwen1.5-0.5b at 4 x 2048
+# phase 24's attention at 4 x 2048: llama2-7b (G = 1) and qwen3-moe-30b-a3b
+# (32 query heads over 4 KV heads, G = 8), both D = 128
+SLICE_FLASH = (("llama2-7b", dict(b=4, h=32, kv=32, t=2048, d=128)),
+               ("qwen3-moe-30b-a3b", dict(b=4, h=32, kv=4, t=2048, d=128)))
 LOSS_ATOL = 1e-4                   # flash vs naive loss, full width
 GRAD_NORM_RTOL = 0.01
 GRAD_COS = 0.999
@@ -353,7 +383,11 @@ QMM_CASES = (("test_kernels", 128, 256, 128, 1),
              ("decode", 1, 1024, 1024, 16), ("ragged", 7, 1000, 1040, 16),
              ("ragged", 7, 1000, 300, 1), ("ragged", 200, 130, 70, 1),
              ("q/k/v", 2048, 1024, 1024, 16), ("o", 2048, 1024, 1024, 1),
-             ("gate/up", 2048, 1024, 2816, 1), ("down", 2048, 2816, 1024, 1))
+             ("gate/up", 2048, 1024, 2816, 1), ("down", 2048, 2816, 1024, 1),
+             ("llama2-7b q/k/v", 2048, 4096, 4096, 32),
+             ("llama2-7b o", 2048, 4096, 4096, 1),
+             ("llama2-7b gate/up", 2048, 4096, 11008, 1),
+             ("llama2-7b down", 2048, 11008, 4096, 1))
 STEP_NAMES = ("q/k/v", "o", "gate/up", "down")
 # the fine-tuning step's projections at M = 4 x 2048 tokens: (name, K, N,
 # G, x type, out type, launches per layer per forward pass)
@@ -361,6 +395,11 @@ QMM_STEP = (("q/k/v", 1024, 1024, 16, "bf16", "f32", 3),
             ("o", 1024, 1024, 1, "bf16", "bf16", 1),
             ("gate/up", 1024, 2816, 1, "bf16", "f32", 2),
             ("down", 2816, 1024, 1, "f32", "f32", 1))
+# llama2-7b's (phase 24 (a)): wq/wk/wv over 32 heads, wo, w_gate/w_up, w_down
+QMM_STEP_LLAMA = (("q/k/v", 4096, 4096, 32, "bf16", "f32", 3),
+                  ("o", 4096, 4096, 1, "bf16", "bf16", 1),
+                  ("gate/up", 4096, 11008, 1, "bf16", "f32", 2),
+                  ("down", 11008, 4096, 1, "f32", "f32", 1))
 # the int8 kernel keeps each dequantized weight in f32 where the reference
 # route rounds it to bf16: the two routes' losses differ by that rounding
 # (measured on the CPU at reduced width, QL+Q8+F+R with B nonzero: 9.9e-5
@@ -450,11 +489,12 @@ def norms_per_forward(cfg) -> int:
 
 
 def norms_per_train_step(cfg, seq: int, remat: bool) -> int:
-    """RMSNorm launches of one dense training step: 2 norms a layer (again
-    when full remat recomputes the layer), and the final norm in each
-    512-token loss block, which is checkpointed (forward and
-    recompute)."""
-    return 2 * cfg.n_layers * (2 if remat else 1) + 2 * -(-seq // 512)
+    """RMSNorm launches of one training step: each layer's norms (those of
+    ``norms_per_forward``; again when full remat recomputes the layer),
+    and the final norm in each 512-token loss block, which is
+    checkpointed (forward and recompute)."""
+    return ((norms_per_forward(cfg) - 1) * (2 if remat else 1)
+            + 2 * -(-seq // 512))
 
 
 def count_rmsnorm(run: str, launches: int, want: int, what: str) -> str:
@@ -1664,6 +1704,32 @@ def phase_flash_vs_plain():
     train_errs, train_diff, train_ulps = flash_vs_plain(*flash_inputs(
         **train, dtype=torch.bfloat16, seed=99), True,
         grad_ulps=BF16_ULPS_G1_GRADS)
+    # phase 24's training shapes at B=1: D = 128, G = 1 and G = 8
+    slice_lines = []
+    for j, (name, sl) in enumerate(SLICE_FLASH):
+        shape = dict(b=1, h=sl["h"], kv=sl["kv"], t=sl["t"], s=sl["t"],
+                     d=sl["d"])
+        g_ulps = BF16_ULPS_G1_GRADS if sl["h"] == sl["kv"] else BF16_ULPS
+        e32, _, _ = flash_vs_plain(*flash_inputs(
+            **shape, dtype=torch.float32, seed=90 + j), True)
+        e16, d16, u16 = flash_vs_plain(*flash_inputs(
+            **shape, dtype=torch.bfloat16, seed=94 + j), True,
+            grad_ulps=g_ulps)
+        check(fa.fwd_body(torch.bfloat16, sl["d"]) ==
+              fa.bwd_body(torch.bfloat16, sl["d"]) == "mma",
+              f"flash bodies at {name}'s shape are not the tensor cores")
+        slice_lines.append(
+            f"{name} B=1 H={sl['h']} K={sl['kv']} T={sl['t']} D={sl['d']} "
+            f"(G={sl['h'] // sl['kv']}): f32 max |err| "
+            + ", ".join(f"{nm} {e:.3g}" for nm, e in e32.items())
+            + f"; bf16 (o within {BF16_ULPS} ulps, dq/dk/dv within "
+            f"{g_ulps}) max |err| "
+            + ", ".join(f"{nm} {e:.3g}" for nm, e in e16.items())
+            + ", max ulps beyond the floor "
+            + ", ".join(f"{nm} {u:g}" for nm, u in u16.items())
+            + ", elements that differ "
+            + ", ".join(f"{nm} {c}" for nm, c in d16.items()))
+    print("[flash] training slice shapes == plain: " + "; ".join(slice_lines))
     # the autograd wrapper end to end, f32, against naive attention
     g = torch.Generator(device="cuda").manual_seed(1)
     q = torch.randn((2, 256, 8, 64), generator=g, device="cuda")
@@ -1701,7 +1767,7 @@ def phase_flash_vs_plain():
                       sorted(bodies.items()))
           + f", training shape bf16 {fa.fwd_body(torch.bfloat16, sh['d'])}/"
           f"{fa.bwd_body(torch.bfloat16, sh['d'])}")
-    # planted in the kernel build: P's low half dropped from dV += P^T dO
+    # planted in the kernel build: P's lower parts dropped from dV += P^T dO
     caught, total = [], 0
     with fault_build(fa, FLASH_FAULT):
         for i, (b, h, kv, t, s, d, causal) in enumerate(cases):
@@ -1782,7 +1848,7 @@ def planted(module, attr, fault):
         setattr(module, attr, real)
 
 
-# a macro that builds the flash library with P's low half dropped from the
+# a macro that builds the flash library with P's lower parts dropped from the
 # dV product of the tensor-core backward (csrc/flash_attention.cu)
 FLASH_FAULT = ("FLASH_PLANT_P_HI_ONLY",)
 # and with P's low half dropped from the tensor-core forward's O += P V
@@ -1949,26 +2015,30 @@ def flash_bounds(*, b, h, kv, t, s, d, elt):
 
 def built_bounds(*, b, h, t, d):
     """Least time (ms) of the tensor-core kernels as built, at the bf16
-    tensor-core rate: P and dS split hi + lo double the products that take
-    them, so the forward runs 1 + 2 products of 2*D per causal pair (2 of
-    them useful), dK/dV 2 + 4, dQ 2 + 2, the whole backward 10 (5
-    useful)."""
+    tensor-core rate: a split operand multiplies once a part, so the
+    forward runs 1 + 2 products of 2*D per causal pair (P in two parts; 2
+    of them useful), dK/dV 2 + 6 (P and dS in three), dQ 2 + 2, the whole
+    backward 12 (5 useful)."""
     pairs = b * h * t * (t + 1) // 2
     return {name: 2.0 * d * pairs * n / PEAK_OPS["bf16"] * 1e3
-            for name, n in (("fwd", 3), ("bwd_dkv", 6), ("bwd_dq", 4),
-                            ("bwd", 10))}
+            for name, n in (("fwd", 3), ("bwd_dkv", 8), ("bwd_dq", 4),
+                            ("bwd", 12))}
 
 
-def phase_flash_timing():
+def phase_flash_timing(name: str = "qwen1.5-0.5b", sh=None):
+    """The flash kernels at one training shape (``sh``: b, h, kv, t, d;
+    default qwen's ``TRAIN_SHAPE``), beside their bounds, the plain
+    versions and SDPA (with grouped KV heads where kv < h)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
-    sh = TRAIN_SHAPE
-    q, k, v, do = flash_inputs(b=sh["b"], h=sh["h"], kv=sh["h"], t=sh["t"],
+    sh = sh or dict(TRAIN_SHAPE, kv=TRAIN_SHAPE["h"])
+    gqa = sh["kv"] != sh["h"]
+    g_ulps = BF16_ULPS if gqa else BF16_ULPS_G1_GRADS
+    q, k, v, do = flash_inputs(b=sh["b"], h=sh["h"], kv=sh["kv"], t=sh["t"],
                                s=sh["t"], d=sh["d"], dtype=torch.bfloat16,
                                seed=5)
-    errs, _, ulps = flash_vs_plain(q, k, v, do, True,
-                                   grad_ulps=BF16_ULPS_G1_GRADS)
+    errs, _, ulps = flash_vs_plain(q, k, v, do, True, grad_ulps=g_ulps)
     scale = 1.0 / math.sqrt(sh["d"])
     o, lse = fa._fwd_cuda(q, k, v, causal=True, sm_scale=None)
     delta = fa._delta(o, do)
@@ -1991,40 +2061,45 @@ def phase_flash_timing():
     plain = {"fwd": cuda_ms(lambda i: fa._flash_fwd_torch(q, k, v,
                                                           causal=True),
                             iters=5, warmup=1)}
-    for name, part in (("bwd_dkv", "dkv"), ("bwd_dq", "dq"), ("bwd", "all")):
-        plain[name] = cuda_ms(lambda i: fa._flash_bwd_torch(
+    for kernel, part in (("bwd_dkv", "dkv"), ("bwd_dq", "dq"),
+                         ("bwd", "all")):
+        plain[kernel] = cuda_ms(lambda i: fa._flash_bwd_torch(
             q, k, v, o, lse, do, causal=True, part=part), iters=5, warmup=1)
     lib_fwd = cuda_ms(lambda i: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True), iters=20)
+        q, k, v, is_causal=True, enable_gqa=gqa), iters=20)
     qg, kg, vg = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
-    out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                         enable_gqa=gqa)
     lib_bwd = cuda_ms(lambda i: torch.autograd.grad(
         out, (qg, kg, vg), do, retain_graph=True), iters=20)
     del out
 
     def sdpa_fwd_bwd(i):
-        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                             enable_gqa=gqa)
         torch.autograd.grad(out, (qg, kg, vg), do)
 
     lib_fb = cuda_ms(sdpa_fwd_bwd, iters=20)
-    bounds = flash_bounds(b=sh["b"], h=sh["h"], kv=sh["h"], t=sh["t"],
+    bounds = flash_bounds(b=sh["b"], h=sh["h"], kv=sh["kv"], t=sh["t"],
                           s=sh["t"], d=sh["d"], elt=2)
     built = built_bounds(b=sh["b"], h=sh["h"], t=sh["t"], d=sh["d"])
-    for name in ("fwd", "bwd_dkv", "bwd_dq", "bwd"):
-        bd, by = bounds[name]
-        body = (fa.fwd_body if name == "fwd" else fa.bwd_body)(
+    tag = (f"B={sh['b']} H={sh['h']} K={sh['kv']} T={sh['t']} D={sh['d']} "
+           f"causal bf16 ({name})")
+    for part in ("fwd", "bwd_dkv", "bwd_dq", "bwd"):
+        bd, by = bounds[part]
+        body = (fa.fwd_body if part == "fwd" else fa.bwd_body)(
             torch.bfloat16, sh["d"])
-        note = f"; {body} body, bound as built {built[name] * 1e3:.2f} us"
-        print(f"[timing] flash {name} B=4 H=16 T=2048 D=64 causal bf16: "
-              f"{ms[name] * 1e3:.1f} us (bound {bd * 1e3:.2f} us by {by}, "
-              f"{bd / ms[name] * 100:.2f}% of it{note}); {card_line()}")
-    print(f"[timing] flash plain fwd {plain['fwd'] * 1e3:.1f} us, plain "
+        note = f"; {body} body, bound as built {built[part] * 1e3:.2f} us"
+        print(f"[timing] flash {part} {tag}: "
+              f"{ms[part] * 1e3:.1f} us (bound {bd * 1e3:.2f} us by {by}, "
+              f"{bd / ms[part] * 100:.2f}% of it{note}); {card_line()}")
+    print(f"[timing] flash {tag} plain fwd {plain['fwd'] * 1e3:.1f} us, plain "
           f"dk/dv {plain['bwd_dkv'] * 1e3:.1f} us, plain dq "
           f"{plain['bwd_dq'] * 1e3:.1f} us, plain bwd (dq, dk, dv) "
           f"{plain['bwd'] * 1e3:.1f} us; sdpa fwd {lib_fwd * 1e3:.1f} us, "
           f"sdpa bwd {lib_bwd * 1e3:.1f} us, sdpa fwd+bwd "
           f"{lib_fb * 1e3:.1f} us; kernels == plain (o within {BF16_ULPS} "
-          f"ulps, dq/dk/dv within {BF16_ULPS_G1_GRADS}), max |err| "
+          f"ulps, dq/dk/dv within {g_ulps}), max |err| "
           + ", ".join(f"{nm} {e:.3g}" for nm, e in errs.items())
           + f", max ulps beyond the {BF16_ATOL} floor "
           + ", ".join(f"{nm} {u:g}" for nm, u in ulps.items()))
@@ -2780,7 +2855,7 @@ def phase_qmm_vs_plain():
         for xt, ot in QMM_TYPES:
             x, w_q, scale = qmm_case(m, k, n_, g, _dtype(xt), seed=i)
             body = qmm.qmm_body(x.dtype, m, n_, k, g)
-            if name in STEP_NAMES:
+            if name.removeprefix("llama2-7b ") in STEP_NAMES:
                 check(body.startswith("mma"), f"the step's {name} shape "
                       f"(x {xt}) runs the {body} body")
             err, ok = qmm_vs_plain(x, w_q, scale, _dtype(ot))
@@ -2804,7 +2879,8 @@ def phase_qmm_vs_plain():
     dx_ulps, dx_ok = bf16_ulp_check(grads[0], grads[1], 1)
     check(dx_ok, f"int8_matmul dx differs from autograd through the plain "
           f"version by {dx_ulps} bf16 ulps")
-    print(f"[qmm] {n} cases (10 shapes x x/out in bf16/f32) kernel == "
+    print(f"[qmm] {n} cases ({len(QMM_CASES)} shapes x x/out in "
+          f"bf16/f32) kernel == "
           f"plain: f32 out within rtol=atol=2e-5 (max |err| "
           f"{worst['f32']:.3g}), bf16 out within 1 ulp + {BF16_ATOL} (max "
           f"|err| {worst['bf16']:.3g}); dx of the autograd wrapper == "
@@ -3032,12 +3108,16 @@ def qmm_products(body: str, x_dtype) -> int:
     return 6 if body == "mma_w" and x_dtype == torch.float32 else 3
 
 
-def phase_qmm_timing(cfg):
+def phase_qmm_timing(cfg, table=QMM_STEP):
+    """The int8 kernel at the fine-tuning step's projections of ``cfg``
+    (``table``: qwen's ``QMM_STEP`` or llama2-7b's ``QMM_STEP_LLAMA``) at
+    M = 8192 tokens, beside its bounds, the plain version and the
+    reference's route."""
     import torch
     from repro_torch.kernels import quant_matmul as qmm
     m = TRAIN_SHAPE["b"] * TRAIN_SHAPE["t"]
     rows = {}
-    for i, (name, k, n, g, xt, ot, per_layer) in enumerate(QMM_STEP):
+    for i, (name, k, n, g, xt, ot, per_layer) in enumerate(table):
         x_dtype, out_dtype = _dtype(xt), _dtype(ot)
         x, w_q, scale = qmm_case(m, k, n, g, x_dtype, seed=100 + i)
         body = qmm.qmm_body(x_dtype, m, n, k, g)
@@ -3068,7 +3148,8 @@ def phase_qmm_timing(cfg):
                       "built_ms": built_ms, "max_abs_err": err,
                       "per_layer": per_layer}
         tflops = 2.0 * m * k * n / (ms * 1e-3) / 1e12
-        print(f"[timing] int8_matmul {name} M={m} K={k} N={n} G={g} x {xt} "
+        print(f"[timing] int8_matmul {cfg.name} {name} M={m} K={k} N={n} "
+              f"G={g} x {xt} "
               f"out {ot}, {body} body: {ms * 1e3:.1f} us ({tflops:.1f} "
               f"TFLOP/s; bound {bound_ms * 1e3:.2f} us by {bound_by}, "
               f"{bound_ms / ms * 100:.2f}% of it; as built ({parts} part "
@@ -3577,17 +3658,22 @@ def time_dense_decode(cfg, *, b, s, live):
 
 
 def phase_new_kernel_timing(cfg):
-    """The RMSNorm kernel at the training step's and a decode step's shape,
-    and the dense decode kernel at the draft model's shape, each beside
+    """The RMSNorm kernel at the training step's and a decode step's shape
+    (and at phase 24's training rows of 4096 and 2048), and the dense
+    decode kernel at the draft model's shape, each beside
     its bound, the plain version and one library call, all as device time
     per call of a CUDA-graph replay (``graph_ms``); the dense decode
     kernel again at B = 8, S = 4,096."""
     import torch.nn.functional as F
     from repro_torch.kernels import rmsnorm as rn
     rows_out = {}
-    for name, rows, xd in (("train", 8192, "bf16"), ("decode", 8, "bf16"),
-                           ("draft", 1, "bf16")):
-        d = cfg.d_model
+    for name, rows, d, xd in (
+            ("train", 8192, cfg.d_model, "bf16"),
+            ("decode", 8, cfg.d_model, "bf16"),
+            ("draft", 1, cfg.d_model, "bf16"),
+            # phase 24's training rows: llama2-7b's and qwen3-moe's widths
+            ("train 4096", 8192, 4096, "bf16"),
+            ("train 2048", 8192, 2048, "bf16")):
         # four inputs cycled, so the 16 MB training operand is not L2-hot
         ins = [rms_case(rows, d, xd, "bf16", seed=200 + j) for j in range(4)]
         err, ok = rms_vs_plain(*ins[0])
@@ -3925,6 +4011,481 @@ def phase_moe_hybrid():
             "ssd": sum(r["ssd"] for r in runs)}
 
 
+# --------------------------------------------------------------------------
+# phase 24: the training slice
+# --------------------------------------------------------------------------
+
+# every part trains at 4 x 2048 tokens
+SLICE_SHAPE = dict(b=4, t=2048)
+# the learning runs: on one fixed batch, with warmup 0 and no weight decay,
+# the loss must fall by LEARN_DROP (tests/test_system.py:72's margin)
+# within LEARN_STEPS steps; each run stops at the first step that gets
+# there. Learning rates, stated before the first run on the card:
+LEARN_STEPS = 8
+LEARN_DROP = 0.2
+LEARN_LR = {"llama2-7b": 1e-3, "Q8+F+R": 1e-3, "Q+F+R": 1e-3,
+            "mamba2-130m": 5e-3, "qwen3-moe-30b-a3b": 5e-3}
+# qwen3-moe-30b-a3b is cut to 2 of its 48 layers (widths untouched): 1.87 B
+# parameters, ~23 GB with bf16 grads and f32 moments
+MOE_TRAIN_LAYERS = 2
+# the flash-vs-naive and int8-kernel-vs-reference holds at llama2-7b's
+# width use phase 7's and phase 13's limits (LOSS_ATOL, GRAD_NORM_RTOL,
+# GRAD_COS; FT_LOSS_ATOL)
+CKPT_DIR = ROOT / "build" / "phase24_ckpt"
+
+
+def peak_gib() -> float:
+    import torch
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def slice_counts(reset: bool = False) -> dict:
+    """The launch counters of the kernels a training step runs (flash
+    forward and backward, the int8 matmul, RMSNorm); ``reset`` sets them
+    to 0 first."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import quant_matmul as qmm
+    from repro_torch.kernels import rmsnorm as rn
+    if reset:
+        for c in (fa.LAUNCHES, qmm.LAUNCHES, qmm.BODIES, rn.LAUNCHES):
+            c.clear()
+    return {"fwd": fa.LAUNCHES["fwd"], "bwd_dkv": fa.LAUNCHES["bwd_dkv"],
+            "bwd_dq": fa.LAUNCHES["bwd_dq"],
+            "int8_matmul": qmm.LAUNCHES["int8_matmul"],
+            "rmsnorm": rn.LAUNCHES["rmsnorm"]}
+
+
+def add_counts(total: dict, run: dict) -> None:
+    for k, v in run.items():
+        total[k] = total.get(k, 0) + v
+
+
+def fenced_steps(step_fn, state, batch):
+    """The learning run: ``step_fn`` on one fixed ``batch``, each step
+    fenced by a device sync, stopping at the first step whose loss is
+    LEARN_DROP below step 1's (at most LEARN_STEPS). Returns (losses, ms
+    per step, the first step's metrics)."""
+    import torch
+    losses, ms, first = [], [], {}
+    for i in range(LEARN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step_fn(state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(met["loss"]))
+        first = first or {k: float(v) for k, v in met.items()}
+        check(math.isfinite(losses[-1]) and math.isfinite(
+            float(met["grad_norm"])), f"step {i + 1}: loss {losses[-1]}, "
+            f"grad_norm {float(met['grad_norm'])}")
+        if losses[-1] <= losses[0] - LEARN_DROP:
+            break
+    return losses, ms, first
+
+
+def learn_line(losses, ms) -> str:
+    tokens = SLICE_SHAPE["b"] * SLICE_SHAPE["t"]
+    steady = ms[1:] or ms
+    mean = sum(steady) / len(steady)
+    return (f"losses " + ", ".join(f"{x:.4f}" for x in losses)
+            + f" (fell {losses[0] - min(losses):.4f} in {len(losses)} "
+            f"steps); {mean:.1f} ms/step over steps 2-{len(ms)} "
+            f"({tokens / mean * 1e3:.0f} tokens/s)")
+
+
+def check_learns(name, losses) -> None:
+    check(len(losses) <= LEARN_STEPS and
+          losses[-1] <= losses[0] - LEARN_DROP,
+          f"{name}: the loss did not fall by {LEARN_DROP} within "
+          f"{LEARN_STEPS} steps on a fixed batch: {losses}")
+
+
+def slice_trainer(cfg, label, opt_cfg, steps=4, **kw):
+    from repro_torch.core.config import ShapeSpec, technique_from_label
+    from repro_torch.core.trainer import Trainer, TrainerConfig
+    sh = SLICE_SHAPE
+    return Trainer(cfg, ShapeSpec("cli", sh["t"], sh["b"], "train"),
+                   technique_from_label(label),
+                   TrainerConfig(steps=steps, log_every=1, **kw), opt_cfg,
+                   device="cuda")
+
+
+def slice_llama():
+    """(a) llama2-7b QL+Q8+F+R at full width: the flash route against
+    naive attention and the int8 kernel route against the reference's
+    dequantize-first route on one batch (B seeded nonzero, then zeroed
+    again), 4 timed steps through ``Trainer.run`` with the launches read
+    by kernel and the frozen base held bitwise, then the learning run."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import quant_matmul as qmm
+    from repro_torch.launch.build import make_model
+    from repro_torch.models.params import tree_paths
+    from repro_torch.peft.lora import split_trainable
+    from repro_torch.train.optimizer import AdamWConfig
+    cfg = get_config("llama2-7b")
+    t0 = time.monotonic()
+    torch.cuda.reset_peak_memory_stats()
+    opt = AdamWConfig(lr=LEARN_LR["llama2-7b"], warmup=0, weight_decay=0.0)
+    trainer = slice_trainer(cfg, "QL+Q8+F+R", opt)
+    model, params = trainer.model, trainer.state["params"]
+    check((model.qmm_impl, model.attn_impl, model.remat) ==
+          ("kernel", "flash", "full"), "QL+Q8+F+R built another route")
+    torch.cuda.synchronize()
+    n_total = sum(t.numel() for p, t in tree_paths(params)
+                  if not p.endswith("/scale"))
+    trainable = tree_paths(split_trainable(params)[0])
+    n_train = sum(t.numel() for _, t in trainable)
+    base_gb = sum(t.numel() for _, t in tree_paths(params)
+                  if t.dtype == torch.int8) / 1e9
+    print(f"[slice] (a) llama2-7b QL+Q8+F+R: {n_total / 1e9:.3f} B weights, "
+          f"int8 base {base_gb:.2f} GB, LoRA rank "
+          f"{trainer.technique.lora_rank}: {n_train} trainable; built in "
+          f"{time.monotonic() - t0:.1f}s, peak {peak_gib():.2f} GiB")
+    batch = trainer._batch_for(0)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    with torch.no_grad():                # B = 0 at init: A's gradient is 0
+        for path, t in trainable:
+            if path.endswith("/b"):
+                t.copy_(torch.randn(t.shape, generator=g, device="cuda")
+                        * 0.02)
+    t0 = time.monotonic()
+    ref_loss, ref_grads = adapter_loss_and_grads(
+        make_model(cfg, trainer.technique, device="cuda", qmm_impl="ref"),
+        params, batch)
+    k_loss, k_grads = adapter_loss_and_grads(model, params, batch)
+    cos = min(float(torch.nn.functional.cosine_similarity(
+        a.float().flatten(), b.float().flatten(), dim=0))
+        for a, b in zip(k_grads, ref_grads))
+    del ref_grads
+    check(abs(k_loss - ref_loss) <= FT_LOSS_ATOL and cos >= GRAD_COS,
+          f"llama2-7b int8 kernel route vs reference route: loss {k_loss} "
+          f"vs {ref_loss} (limit {FT_LOSS_ATOL}), min adapter gradient "
+          f"cosine {cos} (limit {GRAD_COS})")
+    n_loss, n_grads = adapter_loss_and_grads(
+        make_model(cfg, dataclasses.replace(trainer.technique, flash=False),
+                   device="cuda"), params, batch)
+    norm = lambda gs: math.sqrt(sum(float(torch.sum(  # noqa: E731
+        torch.square(x.float()))) for x in gs))
+    k_norm, n_norm = norm(k_grads), norm(n_grads)
+    fcos = min(float(torch.nn.functional.cosine_similarity(
+        a.float().flatten(), b.float().flatten(), dim=0))
+        for a, b in zip(k_grads, n_grads))
+    del k_grads, n_grads
+    check(abs(k_loss - n_loss) <= LOSS_ATOL
+          and abs(k_norm - n_norm) <= GRAD_NORM_RTOL * n_norm
+          and fcos >= GRAD_COS,
+          f"llama2-7b flash vs naive: loss {k_loss} vs {n_loss} (limit "
+          f"{LOSS_ATOL}), adapter grad_norm {k_norm} vs {n_norm} (limit "
+          f"{GRAD_NORM_RTOL} relative), min cosine {fcos} (limit "
+          f"{GRAD_COS})")
+    print(f"[slice] (a) step-0 batch, B seeded nonzero: int8 kernel vs the "
+          f"reference's dequantize-first route: loss {k_loss:.6f} vs "
+          f"{ref_loss:.6f} (|diff| {abs(k_loss - ref_loss):.3g} <= "
+          f"{FT_LOSS_ATOL}), min adapter gradient cosine {cos:.6f} >= "
+          f"{GRAD_COS}; flash vs naive (int8 kernel both): loss "
+          f"{n_loss:.6f} (|diff| {abs(k_loss - n_loss):.3g} <= {LOSS_ATOL}), "
+          f"adapter grad_norm {k_norm:.6f} vs {n_norm:.6f} (rel "
+          f"{abs(k_norm - n_norm) / n_norm:.3g} <= {GRAD_NORM_RTOL}), min "
+          f"cosine {fcos:.6f} >= {GRAD_COS} ({time.monotonic() - t0:.1f}s)")
+    with torch.no_grad():
+        for path, t in trainable:
+            if path.endswith("/b"):
+                t.zero_()
+    free_card()
+    frozen = {p: t.clone() for p, t in tree_paths(params)
+              if not p.endswith(("/a", "/b"))}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    slice_counts(reset=True)
+    out = trainer.run()
+    torch.cuda.synchronize()
+    counts = slice_counts()
+    bodies = dict(qmm.BODIES)
+    steps = out["final_step"]
+    check(steps == 4, f"trainer ran {steps} of 4 steps")
+    # 7 base projections a layer, twice (R); the untied int8 head once in
+    # each 512-token loss block, twice (its checkpoint recomputes it)
+    blocks = -(-SLICE_SHAPE["t"] // 512)
+    per_step = {"fwd": 2 * cfg.n_layers, "bwd_dkv": cfg.n_layers,
+                "bwd_dq": cfg.n_layers,
+                "int8_matmul": cfg.n_layers * 7 * 2 + (
+                    0 if cfg.tie_embeddings else 2 * blocks),
+                "rmsnorm": norms_per_train_step(cfg, SLICE_SHAPE["t"],
+                                                remat=True)}
+    check(counts == {k: v * steps for k, v in per_step.items()},
+          f"llama2-7b launches {counts} != {per_step} x {steps}")
+    check(sum(bodies.values()) == counts["int8_matmul"]
+          and "simt" not in bodies, f"int8 bodies {bodies}")
+    now = dict(tree_paths(params))
+    moved = [p for p, t in frozen.items() if not torch.equal(now[p], t)]
+    check(not moved, f"llama2-7b frozen leaves changed: {moved[:5]}")
+    del frozen, now
+    hist = out["history"]
+    print(f"[slice] (a) llama2-7b full width, QL+Q8+F+R, batch "
+          f"{SLICE_SHAPE['b']} x {SLICE_SHAPE['t']}: {steps} steps through "
+          f"Trainer.run, losses " + ", ".join(f"{h['loss']:.4f}" for h in hist)
+          + f"; steps 2-{steps}: {out['step_ms']:.1f} ms/step, "
+          f"{out['tokens_per_s']:.0f} tokens/s; launches per step "
+          + ", ".join(f"{k} {v // steps}" for k, v in counts.items())
+          + f" (int8 by body {bodies}); frozen base bit-unchanged; peak "
+          f"{peak_gib():.2f} GiB; {card_line()}")
+    slice_counts(reset=True)
+    losses, ms, _ = fenced_steps(trainer.step_fn, trainer.state, batch)
+    learn = slice_counts()
+    check_learns("llama2-7b QL+Q8+F+R", losses)
+    print(f"[slice] (a) llama2-7b adapters learn (one fixed batch, lr "
+          f"{opt.lr}, warmup 0, no weight decay): {learn_line(losses, ms)}; "
+          f"peak {peak_gib():.2f} GiB")
+    add_counts(counts, learn)
+    del trainer, params, model
+    free_card()
+    return counts
+
+
+def slice_quant(cfg):
+    """(b) qwen1.5-0.5b Q8 then Q (nf4), each with F+R (naive attention
+    without recomputation would hold ~51 GB of f32 scores and
+    probabilities at 4 x 2048): 2 timed steps through
+    ``Trainer.run`` whose new codes are those of ``quantize_int8`` /
+    ``quantize_nf4`` of the updated view, bitwise, the 8-bit moments'
+    bytes against f32 moments', then the learning run from a fresh state
+    (the 8-bit second moment decodes to 0 where its block's absmax rounds
+    it away, and AdamW's step there grows without bound: the reference's
+    runs blow up within a few steps, so the learning run starts with
+    fresh moments)."""
+    import torch
+    from repro_torch.models.params import tree_paths
+    from repro_torch.quant.qtensor import QTensor, quantize_int8, quantize_nf4
+    from repro_torch.train import step as tstep
+    from repro_torch.train.optimizer import AdamWConfig, Opt8
+    counts = {}
+    is_q = lambda x: isinstance(x, QTensor)              # noqa: E731
+    for label in ("Q8+F+R", "Q+F+R"):
+        torch.cuda.reset_peak_memory_stats()
+        opt = AdamWConfig(lr=LEARN_LR[label], warmup=0, weight_decay=0.0,
+                          state_bits=8)
+        trainer = slice_trainer(cfg, label, opt, steps=2)
+        mismatched, calls = [], []
+        orig = tstep.requant_like
+
+        def checked(view, like):
+            orig(view, like)
+            calls.append(1)
+            new = dict(tree_paths(view))
+            for path, q in tree_paths(like, is_leaf=is_q):
+                if not is_q(q):
+                    continue
+                want = (quantize_int8(new[path]) if q.kind == "int8" else
+                        quantize_nf4(new[path], stacked=q.data.ndim == 2))
+                for (_, a), (_, b) in zip(tree_paths(q), tree_paths(want)):
+                    if not torch.equal(a, b):
+                        mismatched.append(path)
+
+        tstep.requant_like = checked
+        try:
+            slice_counts(reset=True)
+            out = trainer.run()
+        finally:
+            tstep.requant_like = orig
+        torch.cuda.synchronize()
+        add_counts(counts, slice_counts())
+        check(len(calls) == out["final_step"] and not mismatched,
+              f"{label}: {len(calls)} requantizations checked over "
+              f"{out['final_step']} steps; codes differing from quantizing "
+              f"the updated view: {mismatched[:5]}")
+        o8 = [v for name in ("m", "v") for _, v in tree_paths(
+            trainer.state["opt"][name], is_leaf=lambda x: isinstance(x, Opt8))]
+        check(o8 and all(isinstance(v, Opt8) for v in o8),
+              f"{label}: moments are not 8-bit")
+        b8 = sum(v.q.numel() + 4 * v.scale.numel() for v in o8)
+        b32 = sum(4 * math.prod(v.shape) for v in o8)
+        check(abs(b8 / b32 - (1 / 4 + 1 / 256)) < 0.01,
+              f"{label}: moment bytes {b8} over f32's {b32}")
+        kinds = {q.kind for _, q in tree_paths(trainer.state["params"],
+                                                is_leaf=is_q) if is_q(q)}
+        print(f"[slice] (b) qwen1.5-0.5b {label} ({'/'.join(sorted(kinds))} "
+              f"base, 8-bit moments), batch {SLICE_SHAPE['b']} x "
+              f"{SLICE_SHAPE['t']}: {out['final_step']} steps through "
+              f"Trainer.run, losses "
+              + ", ".join(f"{h['loss']:.4f}" for h in out["history"])
+              + f", step 2 {out['step_ms']:.1f} ms, {out['tokens_per_s']:.0f} "
+              f"tokens/s; the codes after each step == quantizing the "
+              f"updated view, bitwise; moments {b8 / 2**20:.1f} MiB against "
+              f"{b32 / 2**20:.1f} MiB in f32 ({b8 / b32:.5f}; 1/4 + 1/256 = "
+              f"{1 / 4 + 1 / 256:.5f}); peak {peak_gib():.2f} GiB")
+        del trainer
+        free_card()
+        trainer = slice_trainer(cfg, label, opt)
+        slice_counts(reset=True)
+        batch = trainer._batch_for(0)
+        losses, ms, _ = fenced_steps(trainer.step_fn, trainer.state, batch)
+        add_counts(counts, slice_counts())
+        check_learns(f"qwen1.5-0.5b {label}", losses)
+        print(f"[slice] (b) {label} learns (one fixed batch, lr {opt.lr}): "
+              f"{learn_line(losses, ms)}; peak {peak_gib():.2f} GiB; "
+              f"{card_line()}")
+        del trainer
+        free_card()
+    return counts
+
+
+def slice_learn(cfg, label, name, extra=None):
+    """(c), (d): ``label`` on ``cfg`` on one fixed batch, the learning run
+    (the first step's metrics read by ``extra``)."""
+    import torch
+    from repro_torch.train.optimizer import AdamWConfig
+    torch.cuda.reset_peak_memory_stats()
+    opt = AdamWConfig(lr=LEARN_LR[cfg.name], warmup=0, weight_decay=0.0)
+    trainer = slice_trainer(cfg, label, opt)
+    batch = trainer._batch_for(0)
+    slice_counts(reset=True)
+    losses, ms, first = fenced_steps(trainer.step_fn, trainer.state, batch)
+    counts = slice_counts()
+    check_learns(name, losses)
+    print(f"[slice] {name}, {label}, batch {SLICE_SHAPE['b']} x "
+          f"{SLICE_SHAPE['t']} (one fixed batch, lr {opt.lr}, warmup 0, no "
+          f"weight decay): {learn_line(losses, ms)}; step 1 ce "
+          f"{first['ce']:.4f} aux {first['aux']:.4f}; peak "
+          f"{peak_gib():.2f} GiB; {card_line()}")
+    if extra:
+        extra(trainer, batch, first)
+    del trainer
+    free_card()
+    return counts
+
+
+def moe_train_drops(trainer, batch, first):
+    """(d): aux finite and positive, and the assignments the capacity step
+    drops in one forward of the fixed batch (experts recorded from
+    ``blocks._route``, the capacity step in numpy)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import blocks as B
+    check(math.isfinite(first["aux"]) and first["aux"] > 0,
+          f"qwen3-moe aux {first['aux']}")
+    cfg = trainer.cfg
+    seen = []
+    orig = B._route
+
+    def recorded(h, w, c):
+        out = orig(h, w, c)
+        seen.append(out[1].cpu().numpy())
+        return out
+
+    B._route = recorded
+    try:
+        with torch.no_grad():
+            trainer.model.loss(trainer.state["params"], batch)
+    finally:
+        B._route = orig
+    n = SLICE_SHAPE["b"] * SLICE_SHAPE["t"]
+    cap = B.capacity(n, cfg, 1.0)
+    dropped = [int((~capacity_keep(e.reshape(n, -1), cap,
+                                   cfg.n_experts)).sum()) for e in seen]
+    used = [len(np.unique(e)) for e in seen]
+    print(f"[slice] (d) qwen3-moe-30b-a3b ({MOE_TRAIN_LAYERS} of 48 layers) "
+          f"step-1 aux {first['aux']:.4f} (finite, > 0); capacity {cap} rows "
+          f"an expert (factor {cfg.capacity_factor}, multiplier 1.0) for "
+          f"{n * cfg.top_k} assignments a layer: dropped "
+          + ", ".join(f"{d} ({d / (n * cfg.top_k) * 100:.2f}%)"
+                      for d in dropped)
+          + f" by layer; experts used {used} of {cfg.n_experts}")
+
+
+def slice_resume(cfg):
+    """(e) qwen1.5-0.5b F+R+Z3: 4 steps straight; 2 steps and a blocking
+    save, then a new Trainer resuming to step 4 with async saves every
+    step; params, moments and step counters bitwise the straight run's.
+    Prints the blocking save time and bytes and the step that overlaps
+    an async save."""
+    import shutil
+    import torch
+    from repro_torch.models.params import tree_paths
+    from repro_torch.train.optimizer import AdamWConfig
+    opt = AdamWConfig(lr=1e-3, warmup=1)
+    counts = {}
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    straight = slice_trainer(cfg, "F+R+Z3", opt)
+    slice_counts(reset=True)
+    straight.run()
+    add_counts(counts, slice_counts())
+    want = [(p, t.detach().clone()) for p, t in tree_paths(straight.state)]
+    del straight
+    free_card()
+    first = slice_trainer(cfg, "F+R+Z3", opt, steps=2,
+                          checkpoint_dir=str(CKPT_DIR), checkpoint_every=100)
+    slice_counts(reset=True)
+    first.run()
+    add_counts(counts, slice_counts())
+    t0 = time.perf_counter()
+    first.ckpt.save(2, first.state, blocking=True)
+    save_s = time.perf_counter() - t0
+    on_disk = sum(f.stat().st_size for f in (CKPT_DIR / "step_000000002")
+                  .iterdir())
+    del first
+    free_card()
+    t0 = time.perf_counter()
+    resumed = slice_trainer(cfg, "F+R+Z3", opt, checkpoint_dir=str(CKPT_DIR),
+                            checkpoint_every=1, resume="auto")
+    restore_s = time.perf_counter() - t0
+    check(resumed.start_step == 2, f"resumed at {resumed.start_step}")
+    slice_counts(reset=True)
+    out = resumed.run()
+    add_counts(counts, slice_counts())
+    steps_ms = [x * 1e3 for x in resumed.timer.records["step"]]
+    got = tree_paths(resumed.state)
+    check([p for p, _ in got] == [p for p, _ in want],
+          "resumed state has other leaves")
+    diff = [p for (p, a), (_, b) in zip(got, want)
+            if a.dtype != b.dtype or not torch.equal(a.detach(), b)]
+    check(not diff, f"resumed run differs from the straight run at "
+          f"{len(diff)} leaves: {diff[:6]}")
+    check(resumed.ckpt.all_steps() == [2, 3, 4],
+          f"checkpoints {resumed.ckpt.all_steps()}")
+    print(f"[slice] (e) qwen1.5-0.5b F+R+Z3 checkpoint and resume: 2 steps, "
+          f"a blocking save of {on_disk / 1e9:.3f} GB written ({len(want)} "
+          f"leaves) in {save_s:.2f} s ({on_disk / save_s / 1e9:.2f} GB/s), "
+          f"a new Trainer restored step "
+          f"2 in {restore_s:.2f} s (its init included) and ran to step "
+          f"{out['final_step']} saving every step asynchronously: step 3 "
+          f"{steps_ms[0]:.1f} ms, step 4 (overlapping step 3's async save) "
+          f"{steps_ms[1]:.1f} ms; params, moments and step counters bitwise "
+          f"those of 4 straight steps; peak {peak_gib():.2f} GiB; "
+          f"{card_line()}")
+    del resumed, want, got
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    free_card()
+    return counts
+
+
+def phase_training_slice() -> dict:
+    """Phase 24: (a)-(e). Returns the kernels' launches over its main-path
+    runs."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    t0 = time.monotonic()
+    total = {}
+    add_counts(total, slice_llama())
+    qwen = get_config("qwen1.5-0.5b")
+    add_counts(total, slice_quant(qwen))
+    add_counts(total, slice_learn(get_config("mamba2-130m"), "F+R",
+                                  "(c) mamba2-130m full width"))
+    moe = dataclasses.replace(get_config("qwen3-moe-30b-a3b"),
+                              n_layers=MOE_TRAIN_LAYERS)
+    add_counts(total, slice_learn(
+        moe, "F+R", f"(d) qwen3-moe-30b-a3b full width, {MOE_TRAIN_LAYERS} of "
+        f"48 layers", extra=moe_train_drops))
+    add_counts(total, slice_resume(qwen))
+    RMSNORM_RUNS["training slice (phase 24)"] = total["rmsnorm"]
+    print(f"[slice] phase 24 launches over its main-path runs: "
+          + ", ".join(f"{k} {v}" for k, v in total.items())
+          + f"; phase 24 took {time.monotonic() - t0:.1f}s")
+    return total
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -4030,6 +4591,8 @@ def main() -> None:
     phase_flash_vs_plain()
     train_launches, _ = phase_train(get_config("qwen1.5-0.5b"))
     ft = phase_flash_timing()
+    for name, sl in SLICE_FLASH:
+        phase_flash_timing(name, sl)
     flash_src = "src/repro_torch/kernels/csrc/flash_attention.cu"
     # bwd is the whole flash_attention_bwd (both kernels, one launch
     # each per call, so its launches are either kernel's count); no
@@ -4081,6 +4644,7 @@ def main() -> None:
     cfg = get_config("qwen1.5-0.5b")
     ft_launches, _ = phase_finetune(cfg)
     rows, _ = phase_qmm_timing(cfg)
+    phase_qmm_timing(get_config("llama2-7b"), QMM_STEP_LLAMA)
     gate = rows["gate/up"]
     record["kernels"].append({
         "name": "int8_matmul",
@@ -4113,11 +4677,18 @@ def main() -> None:
     rms_t, dec_t = phase_new_kernel_timing(cfg)
     life = phase_lifecycle()
     moe = phase_moe_hybrid()
+    trained = phase_training_slice()
+    slice_launches = {"flash_attention_fwd": trained["fwd"],
+                      "flash_attention_bwd_dkv": trained["bwd_dkv"],
+                      "flash_attention_bwd_dq": trained["bwd_dq"],
+                      "flash_attention_bwd": trained["bwd_dkv"],
+                      "int8_matmul": trained["int8_matmul"]}
     for entry in record["kernels"]:
         if entry["name"] == "paged_attention":
             entry["launches"] += life["paged"] + moe["paged"]
         if entry["name"] == "ssd_chunked_kernel":
             entry["launches"] += life["ssd"] + moe["ssd"]
+        entry["launches"] += slice_launches.get(entry["name"], 0)
     print(f"[spec] RMSNorm launches per run: " + ", ".join(
         f"{k} {v}" for k, v in RMSNORM_RUNS.items()))
     train = rms_t["train"]

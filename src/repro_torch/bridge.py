@@ -14,15 +14,17 @@ fields, without importing the JAX package) become the port's classes of
 the same fields and back, with the static fields kept (``kind``, the
 logical ``shape``, ``dtype_orig`` as a numpy dtype on the JAX side and a
 torch dtype on the port's, ``scaling``) and nf4's ``scale2`` pair as a
-tuple. ``None`` stays ``None``: a LoRA train state's ``m``/``v`` trees
+tuple. The reference's 8-bit moments (``Opt8``, a named tuple of codes,
+scales and the static logical shape) become the port's ``Opt8`` and
+back. ``None`` stays ``None``: a LoRA train state's ``m``/``v`` trees
 hold ``None`` at frozen leaves and ``QTensor``s of ``None`` fields at
 frozen quantized ones.
 
 A train state (``repro.train.step.init_train_state``) is
 ``{"params", "opt": {"m", "v", "step"[, "master"]}, "step"}`` on both
 sides; :func:`train_state_from_jax` also moves it to a device and marks
-the trainable params (all, or the LoRA adapters) as the leaves autograd
-differentiates.
+the trainable params (all, or the LoRA adapters; under quantized full
+training the float leaves) as the leaves autograd differentiates.
 """
 from __future__ import annotations
 
@@ -35,6 +37,7 @@ import torch
 from repro_torch.models.params import tree_map
 from repro_torch.peft.lora import LoRATensor, split_trainable
 from repro_torch.quant.qtensor import QTensor
+from repro_torch.train.optimizer import Opt8
 
 _NODE_TYPES = {"QTensor": QTensor, "LoRATensor": LoRATensor}
 
@@ -88,6 +91,9 @@ def from_jax_numpy(tree) -> Dict:
     cls = _NODE_TYPES.get(type(tree).__name__)
     if cls is not None and dataclasses.is_dataclass(tree):
         return _cross(tree, cls, from_jax_numpy, _torch_dtype)
+    if type(tree).__name__ == "Opt8" and hasattr(tree, "_fields"):
+        return Opt8(from_jax_numpy(tree.q), from_jax_numpy(tree.scale),
+                    tuple(int(d) for d in tree.shape))
     a = np.array(tree, copy=True, order="C")
     if _is_bf16(a):
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
@@ -103,6 +109,8 @@ def to_numpy(tree):
         return None
     if isinstance(tree, (QTensor, LoRATensor)):
         return _cross(tree, type(tree), to_numpy, _numpy_dtype)
+    if isinstance(tree, Opt8):
+        return Opt8(to_numpy(tree.q), to_numpy(tree.scale), tree.shape)
     t = tree.detach().cpu()
     if t.dtype == torch.bfloat16:
         import ml_dtypes     # numpy's bf16 dtype; needed only here
@@ -115,6 +123,8 @@ def train_state_from_jax(state, device) -> Dict:
     ``device``, with ``requires_grad`` set on every trainable param leaf
     (``split_trainable``)."""
     out = tree_map(lambda t: t.to(device), from_jax_numpy(state))
-    tree_map(lambda t: t.requires_grad_(True),
-             split_trainable(out["params"])[0])
+    tree_map(lambda t: None if isinstance(t, QTensor)
+             else t.requires_grad_(True),
+             split_trainable(out["params"])[0],
+             is_leaf=lambda t: isinstance(t, QTensor))
     return out

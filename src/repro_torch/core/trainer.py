@@ -1,10 +1,14 @@
 """End-to-end Trainer (the port of ``repro.core.trainer``): synthetic
-data -> train step -> metrics, on one device.
+data -> train step -> metrics -> checkpoint/restart, on one device.
 
 Each step is timed on the host clock and fenced by a device sync, so its
-time includes its device work. SIGTERM stops the loop at the next step
-boundary. Checkpointing (``checkpoint_dir``/``resume``) waits for the
-port of ``checkpoint/manager.py`` and raises until then.
+time includes its device work. With a ``checkpoint_dir`` the state is
+saved every ``checkpoint_every`` steps (in a background thread when
+``async_checkpoint``), ``resume="auto"`` restores the latest committed
+step and continues the data stream from it (``SyntheticLM.batch_at`` is
+a function of the step), and SIGTERM ends the loop at the next step
+boundary with a blocking emergency save. ``run()`` returns after the
+writer has finished.
 """
 from __future__ import annotations
 
@@ -14,6 +18,7 @@ from typing import Any, Dict, Optional, Union
 
 import torch
 
+from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.core.config import ArchConfig, ShapeSpec, Technique
 from repro_torch.core.perfscope import Timer
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
@@ -26,9 +31,11 @@ from repro_torch.train.step import init_train_state
 class TrainerConfig:
     steps: int = 100
     log_every: int = 10
-    checkpoint_dir: Optional[str] = None   # not ported yet: raises
-    resume: str = "none"           # none | auto (not ported yet: raises)
+    checkpoint_every: int = 50
+    checkpoint_dir: Optional[str] = None
+    resume: str = "none"           # none | auto
     seed: int = 0
+    async_checkpoint: bool = True
 
 
 class Trainer:
@@ -38,10 +45,8 @@ class Trainer:
                  technique: Technique, tcfg: TrainerConfig,
                  opt_cfg: Optional[AdamWConfig] = None, *,
                  device: Optional[Union[str, torch.device]] = None):
-        if tcfg.checkpoint_dir is not None or tcfg.resume != "none":
-            raise NotImplementedError(
-                "checkpointing is not ported yet (checkpoint/manager.py, "
-                "ROADMAP queue 1 item 5)")
+        if tcfg.resume not in ("none", "auto"):
+            raise ValueError(f"resume {tcfg.resume!r} not 'none' or 'auto'")
         self.cfg, self.shape, self.tcfg = cfg, shape, tcfg
         step_fn, self.technique, self.model, self.opt_cfg = build_train(
             cfg, technique, opt_cfg, device=device)
@@ -52,9 +57,15 @@ class Trainer:
         self.data = SyntheticLM(DataConfig(
             vocab_size=cfg.vocab_size, seq_len=shape.seq_len,
             global_batch=shape.global_batch, seed=tcfg.seed))
+        self.ckpt = (CheckpointManager(tcfg.checkpoint_dir)
+                     if tcfg.checkpoint_dir else None)
         self.timer = Timer()
+        self.start_step = 0
         self._interrupted = False
-        # SIGTERM (preemption) -> stop at the step boundary
+        if tcfg.resume == "auto" and self.ckpt and \
+                self.ckpt.latest_step() is not None:
+            self.state, self.start_step = self.ckpt.restore(self.state)
+        # SIGTERM (preemption) -> emergency checkpoint at the step boundary
         try:
             signal.signal(signal.SIGTERM, self._on_sigterm)
         except ValueError:
@@ -69,7 +80,7 @@ class Trainer:
 
     def run(self) -> Dict[str, Any]:
         history = []
-        step = 0
+        step = self.start_step
         fence = (None if self.device.type != "cuda" else
                  lambda: torch.cuda.synchronize(self.device))
         while step < self.tcfg.steps and not self._interrupted:
@@ -81,6 +92,13 @@ class Trainer:
                 m = {k: float(v) for k, v in metrics.items()}
                 m["step"] = step
                 history.append(m)
+            if self.ckpt and step % self.tcfg.checkpoint_every == 0:
+                self.ckpt.save(step, self.state,
+                               blocking=not self.tcfg.async_checkpoint)
+        if self._interrupted and self.ckpt:
+            self.ckpt.save(step, self.state, blocking=True)
+        if self.ckpt:
+            self.ckpt.wait()
         tokens_per_step = self.shape.global_batch * self.shape.seq_len
         times = self.timer.summary()
         step_ms = times.get("step", {}).get("mean_ms", 0.0)

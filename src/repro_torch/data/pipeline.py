@@ -1,14 +1,18 @@
-"""Synthetic data (numpy only; the port's copy of the numpy part of
-``repro.data.pipeline``): the serving prompts (random, repeated-pattern
-and shared-prefix), Poisson arrival offsets and the packed training
-batches. Same generators and draws as
-the reference, so the two packages see identical tokens for one seed."""
+"""Synthetic data (the port of ``repro.data.pipeline``): the serving
+prompts (random, repeated-pattern and shared-prefix), Poisson arrival
+offsets and the packed training batches, all numpy, with the same
+generators and draws as the reference, so the two packages see identical
+tokens for one seed; and the :class:`Prefetcher`, which overlaps batch
+synthesis and the host-to-device copy with the device's work."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+import queue
+import threading
+from typing import Dict, Iterator, Optional, Union
 
 import numpy as np
+import torch
 
 ALPACA_MEAN_LEN = 350
 SERVING_PROMPT_LEN = 512
@@ -65,6 +69,86 @@ class SyntheticLM:
         labels = rows[:, 1:].copy()
         labels[labels == cfg.pad_id] = -1          # masked in the loss
         return {"tokens": tokens, "labels": labels}
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        step = 0
+        while True:
+            yield self.batch_at(step)
+            step += 1
+
+
+class Prefetcher:
+    """Background-thread double buffering of an iterator of batches
+    (dicts of numpy arrays or tensors): a daemon thread fills a queue of
+    ``depth`` batches. With a ``device`` the worker also copies each
+    batch there, as the reference's ``device_put`` does: a CUDA copy goes
+    through pinned host memory, ``non_blocking`` on the worker's own
+    stream, and the consumer's stream waits on the copy's event before
+    the batch is handed over; a CPU device gets tensors."""
+
+    def __init__(self, it: Iterator, device: Optional[Union[
+            str, torch.device]] = None, depth: int = 2):
+        self.it = it
+        self.device = None if device is None else torch.device(device)
+        self.q: "queue.Queue" = queue.Queue(maxsize=depth)
+        self._stop = threading.Event()
+        self._stream = (torch.cuda.Stream(self.device)
+                        if self.device is not None
+                        and self.device.type == "cuda" else None)
+        self.t = threading.Thread(target=self._worker, daemon=True)
+        self.t.start()
+
+    def _to_device(self, batch):
+        out = {}
+        for k, v in batch.items():
+            t = torch.as_tensor(v)
+            if self._stream is not None:
+                t = t.pin_memory()
+                with torch.cuda.stream(self._stream):
+                    out[k] = t.to(self.device, non_blocking=True)
+            else:
+                out[k] = t.to(self.device)
+        if self._stream is None:
+            return out, None
+        event = torch.cuda.Event()
+        event.record(self._stream)
+        return out, event
+
+    def _worker(self):
+        for batch in self.it:
+            if self._stop.is_set():
+                return
+            item = (self._to_device(batch) if self.device is not None
+                    else (batch, None))
+            while not self._stop.is_set():
+                try:
+                    self.q.put(item, timeout=0.1)
+                    break
+                except queue.Full:
+                    continue
+            else:
+                return
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        batch, event = self.q.get()
+        if event is not None:
+            torch.cuda.current_stream(self.device).wait_event(event)
+            for t in batch.values():     # the copy's memory is the worker's
+                t.record_stream(torch.cuda.current_stream(self.device))
+        return batch
+
+    def stop(self):
+        """Stop the worker at its next batch and let it exit."""
+        self._stop.set()
+        try:
+            while True:
+                self.q.get_nowait()
+        except queue.Empty:
+            pass
+        self.t.join(timeout=5.0)
 
 
 def serving_requests(n: int, vocab: int, prompt_len: int = SERVING_PROMPT_LEN,

@@ -59,10 +59,13 @@
 // dP = dO V^T take the bf16 inputs as they are: exact products, f32 sums.
 // P = exp(S * scale - lse) and dS = P (dP - delta) scale stay f32, as in
 // the TPU bodies; rounding them to bf16 would be another function
-// (FlashAttention-2's), so each is split into hi = bf16(x) and
-// lo = bf16(x - hi) and multiplied twice (dV += P^T dO, dK += dS^T Q,
-// dQ += dS K): hi + lo is x to within 2^-16, far below a bf16 ulp of the
-// outputs. The dK/dV kernel computes S^T and dP^T (keys as rows), so the
+// (FlashAttention-2's), so each is split into bf16 parts and multiplied
+// once a part. dQ += dS K takes hi = bf16(x) and lo = bf16(x - hi): hi +
+// lo is x to within 2^-16, below a bf16 ulp of a sum over one head's keys.
+// dV += P^T dO and dK += dS^T Q sum over G heads' rows (16,384 at G = 8,
+// T = 2048), where 2^-16 a term left up to 24 bf16 ulps on outputs that
+// cancel; they take three parts (hi, mid = bf16(x - hi), lo = bf16(x - hi
+// - mid)), x to within 2^-24. The dK/dV kernel computes S^T and dP^T (keys as rows), so the
 // accumulator layout of P^T and dS^T is the A-operand layout of its two
 // products and P never leaves registers; the dQ kernel likewise for dS.
 // The two kernels stay separate, each recomputing S and dP, and dQ takes
@@ -74,8 +77,9 @@
 // 34.7 us at the 989 TFLOP/s bf16 tensor-core rate, above its 20 us of
 // q/k/v/o/lse traffic at 3.35 TB/s, so it is bound by operations; the
 // backward's five products are 2.5 times that, 86.8 us. As built, the
-// tensor-core backward issues ten products (P and dS take two each, and S
-// and dP are computed in both kernels): 174 us at that rate; the
+// tensor-core backward issues twelve products (P and dS take three each in
+// dK/dV and dS two in dQ, and S and dP are computed in both kernels): 209
+// us at that rate; the
 // tensor-core forward issues three (S, then P V twice): 52 us. The FMA
 // body runs on the FP32 pipes (67 TFLOP/s at best), one shared-memory load
 // per two FMAs, with no overlap of loads and math.
@@ -563,6 +567,19 @@ __device__ __forceinline__ void split_hi_lo(float x0, float x1,
                                     x1 - __high2float(h)));
 }
 
+// f32 x0, x1 -> bf16x2 hi, mid = bf16(x - hi), lo = bf16(x - hi - mid):
+// hi + mid + lo is x to within 2^-24 |x| (every remainder is exact)
+__device__ __forceinline__ void split_3(float x0, float x1, uint32_t& hi,
+                                        uint32_t& mid, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float r0 = x0 - __low2float(h), r1 = x1 - __high2float(h);
+  const __nv_bfloat162 m = __floats2bfloat162_rn(r0, r1);
+  hi = as_u32(h);
+  mid = as_u32(m);
+  lo = as_u32(__floats2bfloat162_rn(r0 - __low2float(m),
+                                    r1 - __high2float(m)));
+}
+
 // the A operand (16 rows x 16 k) of an f32 tile held as two n8 C-fragments
 // c0 (k 0-7) and c1 (k 8-15), split into hi and lo
 __device__ __forceinline__ void a_hi_lo(const float (&c0)[4],
@@ -573,6 +590,18 @@ __device__ __forceinline__ void a_hi_lo(const float (&c0)[4],
   split_hi_lo(c0[2], c0[3], hi[1], lo[1]);
   split_hi_lo(c1[0], c1[1], hi[2], lo[2]);
   split_hi_lo(c1[2], c1[3], hi[3], lo[3]);
+}
+
+// the same A operand split into three parts (split_3)
+__device__ __forceinline__ void a_split_3(const float (&c0)[4],
+                                          const float (&c1)[4],
+                                          uint32_t (&hi)[4],
+                                          uint32_t (&mid)[4],
+                                          uint32_t (&lo)[4]) {
+  split_3(c0[0], c0[1], hi[0], mid[0], lo[0]);
+  split_3(c0[2], c0[3], hi[1], mid[1], lo[1]);
+  split_3(c1[0], c1[1], hi[2], mid[2], lo[2]);
+  split_3(c1[2], c1[3], hi[3], mid[3], lo[3]);
 }
 
 // rows [r0, r0 + R) of an (n, D) bf16 matrix -> dst (row stride D + 8, so
@@ -605,9 +634,52 @@ __device__ __forceinline__ void vec_async(float* dst, const float* src,
 // Q, dO, lse and delta loaded by cp.async while this one is multiplied.
 // It computes S^T = K Q^T and dP^T = V dO^T (keys x queries, bf16 inputs
 // as they are: exact products, f32 sums), P^T and dS^T in f32 registers,
-// then dV += P^T dO and dK += dS^T Q with P^T and dS^T split into bf16 hi +
-// lo: the accumulator layout of S^T is the A-operand layout of those
-// products, so P never leaves registers.
+// then dV += P^T dO and dK += dS^T Q with P^T and dS^T split into three
+// bf16 parts: the accumulator layout of S^T is the A-operand layout of
+// those products, so P never leaves registers.
+//
+// The tensor cores add a product into an f32 accumulator with its low
+// bits truncated, not rounded: one running mma accumulator over all G
+// heads' rows (16,384 at G = 8, T = 2048) drifted 189 bf16 ulps from the
+// plain version where a sum cancels. So each k step's products go to a
+// fresh mma accumulator that one ordinary f32 add puts into dK/dV, and
+// with G > 1 each head's sums are formed as at G = 1: each thread adds
+// them into its own entries of the f32 scratch `acc` (2 x (B,K,S,D): dK
+// then dV) after each head but the last and restarts from zero; the last
+// head's sums are added to the scratch's as the result is written. No
+// two threads share an entry, so no atomics and no ordering.
+template <int D, int DT>
+__device__ __forceinline__ void dkv_flush(float (&dk_acc)[DT][4],
+                                          float (&dv_acc)[DT][4],
+                                          float* __restrict__ acc,
+                                          size_t plane, size_t row0,
+                                          int key_lo, int S, int lane,
+                                          bool first) {
+#pragma unroll
+  for (int j = 0; j < DT; ++j) {
+    const int col = j * 8 + 2 * (lane & 3);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int key = key_lo + half * 8;
+      if (key < S) {
+        float2* pk = reinterpret_cast<float2*>(acc + (row0 + key) * D + col);
+        float2* pv = reinterpret_cast<float2*>(acc + plane +
+                                               (row0 + key) * D + col);
+        float2 sk = first ? make_float2(0.f, 0.f) : *pk;
+        float2 sv = first ? make_float2(0.f, 0.f) : *pv;
+        sk.x += dk_acc[j][2 * half];
+        sk.y += dk_acc[j][2 * half + 1];
+        sv.x += dv_acc[j][2 * half];
+        sv.y += dv_acc[j][2 * half + 1];
+        *pk = sk;
+        *pv = sv;
+      }
+      dk_acc[j][2 * half] = dk_acc[j][2 * half + 1] = 0.f;
+      dv_acc[j][2 * half] = dv_acc[j][2 * half + 1] = 0.f;
+    }
+  }
+}
+
 template <int D, int BR>
 __global__ void __launch_bounds__(kMmaThreads, kMmaMinBlocks)
 bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
@@ -617,7 +689,8 @@ bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
                    const float* __restrict__ lse,
                    const float* __restrict__ delta,
                    __nv_bfloat16* __restrict__ dk,
-                   __nv_bfloat16* __restrict__ dv, int H, int KH, int Tn,
+                   __nv_bfloat16* __restrict__ dv,
+                   float* __restrict__ acc, int B, int H, int KH, int Tn,
                    int S, int causal, float scale) {
   constexpr int LD = D + 8;
   constexpr int NT = BR / 8;              // query n-tiles of S^T
@@ -716,31 +789,53 @@ bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
       }
 #pragma unroll
     for (int kk = 0; kk < BR / 16; ++kk) {
-      uint32_t ph[4], pl[4], sh[4], sl[4];
-      a_hi_lo(sT[2 * kk], sT[2 * kk + 1], ph, pl);
-      a_hi_lo(dpT[2 * kk], dpT[2 * kk + 1], sh, sl);
+      uint32_t ph[4], pm[4], pl[4], sh[4], sm[4], sl[4];
+      a_split_3(sT[2 * kk], sT[2 * kk + 1], ph, pm, pl);
+      a_split_3(dpT[2 * kk], dpT[2 * kk + 1], sh, sm, sl);
 #pragma unroll
       for (int dn = 0; dn < DT / 2; ++dn) {
         uint32_t ob[4], qb[4];
         const int at = (kk * 16 + t_row) * LD + dn * 16 + t_col;
         ldsm_x4_t(ob, dos + at);
         ldsm_x4_t(qb, qs + at);
-        mma_bf16(dv_acc[2 * dn], ph, ob[0], ob[1]);
-        mma_bf16(dv_acc[2 * dn + 1], ph, ob[2], ob[3]);
+        // this k step's products in fresh accumulators, then one f32 add
+        // each into dV and dK (see dkv_flush: a running mma accumulator
+        // truncates)
+        float v0[4] = {0.f, 0.f, 0.f, 0.f}, v1[4] = {0.f, 0.f, 0.f, 0.f};
+        float k0f[4] = {0.f, 0.f, 0.f, 0.f}, k1f[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_bf16(v0, ph, ob[0], ob[1]);
+        mma_bf16(v1, ph, ob[2], ob[3]);
 #ifndef FLASH_PLANT_P_HI_ONLY               // a planted fault's build only
-        mma_bf16(dv_acc[2 * dn], pl, ob[0], ob[1]);
-        mma_bf16(dv_acc[2 * dn + 1], pl, ob[2], ob[3]);
+        mma_bf16(v0, pm, ob[0], ob[1]);
+        mma_bf16(v1, pm, ob[2], ob[3]);
+        mma_bf16(v0, pl, ob[0], ob[1]);
+        mma_bf16(v1, pl, ob[2], ob[3]);
 #endif
-        mma_bf16(dk_acc[2 * dn], sh, qb[0], qb[1]);
-        mma_bf16(dk_acc[2 * dn], sl, qb[0], qb[1]);
-        mma_bf16(dk_acc[2 * dn + 1], sh, qb[2], qb[3]);
-        mma_bf16(dk_acc[2 * dn + 1], sl, qb[2], qb[3]);
+        mma_bf16(k0f, sh, qb[0], qb[1]);
+        mma_bf16(k0f, sm, qb[0], qb[1]);
+        mma_bf16(k0f, sl, qb[0], qb[1]);
+        mma_bf16(k1f, sh, qb[2], qb[3]);
+        mma_bf16(k1f, sm, qb[2], qb[3]);
+        mma_bf16(k1f, sl, qb[2], qb[3]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          dv_acc[2 * dn][e] += v0[e];
+          dv_acc[2 * dn + 1][e] += v1[e];
+          dk_acc[2 * dn][e] += k0f[e];
+          dk_acc[2 * dn + 1][e] += k1f[e];
+        }
       }
     }
     __syncthreads();                      // stage `st` is free again
+    if (acc != nullptr && (it + 1) % n_qt == 0 && it + 1 < n_it)
+      dkv_flush<D>(dk_acc, dv_acc, acc, (size_t)B * KH * S * D,
+                   (size_t)bkh * S, k0 + kw + (lane >> 2), S, lane,
+                   it + 1 == n_qt);
   }
   cp_async_wait<0>();
 
+  const bool carried = acc != nullptr && n_it > n_qt;
+  const size_t plane = (size_t)B * KH * S * D;
 #pragma unroll
   for (int j = 0; j < DT; ++j) {
     const int col = j * 8 + 2 * (lane & 3);
@@ -749,10 +844,21 @@ bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
       const int key = k0 + kw + (lane >> 2) + half * 8;
       if (key < S) {
         const size_t at = ((size_t)bkh * S + key) * D + col;
-        *reinterpret_cast<uint32_t*>(dk + at) = as_u32(__floats2bfloat162_rn(
-            dk_acc[j][2 * half], dk_acc[j][2 * half + 1]));
-        *reinterpret_cast<uint32_t*>(dv + at) = as_u32(__floats2bfloat162_rn(
-            dv_acc[j][2 * half], dv_acc[j][2 * half + 1]));
+        float k0v = dk_acc[j][2 * half], k1v = dk_acc[j][2 * half + 1];
+        float v0v = dv_acc[j][2 * half], v1v = dv_acc[j][2 * half + 1];
+        if (carried) {
+          const float2 sk = *reinterpret_cast<const float2*>(acc + at);
+          const float2 sv = *reinterpret_cast<const float2*>(acc + plane +
+                                                             at);
+          k0v = sk.x + k0v;
+          k1v = sk.y + k1v;
+          v0v = sv.x + v0v;
+          v1v = sv.y + v1v;
+        }
+        *reinterpret_cast<uint32_t*>(dk + at) =
+            as_u32(__floats2bfloat162_rn(k0v, k1v));
+        *reinterpret_cast<uint32_t*>(dv + at) =
+            as_u32(__floats2bfloat162_rn(v0v, v1v));
       }
     }
   }
@@ -1250,8 +1356,9 @@ int launch_fwd_mma(const void* q, const void* k, const void* v, void* o,
 template <int D>
 int launch_dkv_mma(const void* q, const void* k, const void* v,
                    const void* dout, const float* lse, const float* delta,
-                   void* dk, void* dv, int B, int H, int KH, int Tn, int S,
-                   int causal, float scale, cudaStream_t stream) {
+                   void* dk, void* dv, float* acc, int B, int H, int KH,
+                   int Tn, int S, int causal, float scale,
+                   cudaStream_t stream) {
   constexpr int BR = dkv_rows<D>();
   const size_t smem = dkv_mma_smem<D>();
   int rc = prepare(bwd_dkv_mma_kernel<D, BR>, smem);
@@ -1261,8 +1368,8 @@ int launch_dkv_mma(const void* q, const void* k, const void* v,
   bwd_dkv_mma_kernel<D, BR><<<grid, kMmaThreads, smem, stream>>>(
       static_cast<const bf*>(q), static_cast<const bf*>(k),
       static_cast<const bf*>(v), static_cast<const bf*>(dout), lse, delta,
-      static_cast<bf*>(dk), static_cast<bf*>(dv), H, KH, Tn, S, causal,
-      scale);
+      static_cast<bf*>(dk), static_cast<bf*>(dv), H > KH ? acc : nullptr,
+      B, H, KH, Tn, S, causal, scale);
   return (int)cudaGetLastError();
 }
 
@@ -1320,7 +1427,9 @@ bool bad_dims(int B, int H, int KH, int Tn, int S, int D) {
 // cudaGetLastError() after its launch. The dQ entry takes o: given (the
 // tensor-core body only), the dQ kernel computes delta = rowsum(dO * O)
 // itself and writes it for the dK/dV kernel, launched after it; null, it
-// reads delta.
+// reads delta. The dK/dV entry takes acc, an f32 scratch of 2 x (B,K,S,D)
+// that the tensor-core body sums the G heads in when G > 1 (null
+// otherwise; the other bodies never read it).
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, float* lse,
                                    int kind, int B, int H, int KH, int Tn,
@@ -1340,17 +1449,21 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
 extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
                                        const void* v, const void* dout,
                                        const float* lse, const float* delta,
-                                       void* dk, void* dv, int kind, int B,
-                                       int H, int KH, int Tn, int S, int D,
-                                       int causal, float scale,
-                                       void* stream) {
+                                       void* dk, void* dv, float* acc,
+                                       int kind, int B, int H, int KH,
+                                       int Tn, int S, int D, int causal,
+                                       float scale, void* stream) {
   if (bad_dims(B, H, KH, Tn, S, D)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (mma_body(kind, D))
-    return D == 64 ? launch_dkv_mma<64>(q, k, v, dout, lse, delta, dk, dv, B,
-                                        H, KH, Tn, S, causal, scale, st)
+  if (mma_body(kind, D)) {
+    if (H > KH && acc == nullptr) return (int)cudaErrorInvalidValue;
+    return D == 64 ? launch_dkv_mma<64>(q, k, v, dout, lse, delta, dk, dv,
+                                        acc, B, H, KH, Tn, S, causal, scale,
+                                        st)
                    : launch_dkv_mma<128>(q, k, v, dout, lse, delta, dk, dv,
-                                         B, H, KH, Tn, S, causal, scale, st);
+                                         acc, B, H, KH, Tn, S, causal, scale,
+                                         st);
+  }
   FA_DISPATCH(launch_dkv, q, k, v, dout, lse, delta, dk, dv, B, H, KH, Tn, S,
               D, causal, scale, st);
 }

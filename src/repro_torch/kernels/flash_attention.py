@@ -19,8 +19,9 @@ On CUDA tensors the wrappers launch the hand-written kernels of
 ``csrc/flash_attention.cu`` (they replace the TPU kernels ``_fwd_kernel``,
 ``_bwd_dkv_kernel`` and ``_bwd_dq_kernel``) or raise; they never fall
 back. The forward and the backward of bf16 inputs at head_dim 64 or 128
-run on the tensor cores with P (and dS) split into bf16 hi + lo
-(:func:`_flash_fwd_split_torch` and :func:`_flash_bwd_split_torch` repeat
+run on the tensor cores with P (and dS) split into bf16 parts, hi + lo
+(three parts for dK/dV, which sum over a group's heads;
+:func:`_flash_fwd_split_torch` and :func:`_flash_bwd_split_torch` repeat
 that arithmetic on the CPU); :func:`fwd_body` and :func:`bwd_body` say
 which body a case takes. On CPU tensors they run
 the plain versions :func:`_flash_fwd_torch` and :func:`_flash_bwd_torch`,
@@ -183,11 +184,12 @@ def _flash_bwd_split_torch(q, k, v, out, lse, do, *, causal: bool = True,
     """The tensor-core backward body's arithmetic, for bf16 inputs: S =
     q·k and dP = dO·v from the bf16 values (f32 sums), ``S·scale`` into
     ``p = exp(· - lse)`` and ``ds = p·(dp - delta)·scale`` in f32, then
-    ``p`` and ``ds`` split into bf16 hi + lo (:func:`split_bf16`) and
-    each half multiplied in f32, the two products summed: dv = p_hiᵀ·dO
-    + p_loᵀ·dO, dk = ds_hiᵀ·q + ds_loᵀ·q, dq = ds_hi·k + ds_lo·k. The
-    plain version's function to within 2^-16 relative per ``p`` and
-    ``ds`` element, before the one rounding to the inputs' type."""
+    split into bf16 parts (:func:`split_bf16`) and each part multiplied in
+    f32, the part products summed: dq = ds_hi·k + ds_lo·k (two parts,
+    2^-16 relative per ``ds`` element), dv = Σ p_iᵀ·dO and dk = Σ
+    ds_iᵀ·q over three parts (2^-24: these sum over the G heads of a K/V
+    head, where two parts' 2^-16 a term stayed visible), before the one
+    rounding to the inputs' type."""
     b, h, t, d = q.shape
     n_kv, s_len = k.shape[1], k.shape[2]
     g = h // n_kv
@@ -204,14 +206,12 @@ def _flash_bwd_split_torch(q, k, v, out, lse, do, *, causal: bool = True,
     delta = (out.to(f) * do.to(f)).sum(-1, keepdim=True)
     dp = torch.einsum("bkgtd,bksd->bkgts", dog, v.to(f))
     ds = p * (dp - delta.reshape(b, n_kv, g, t, 1)) * scale
-    p_hi, p_lo = (x.float() for x in split_bf16(p))
-    ds_hi, ds_lo = (x.float() for x in split_bf16(ds))
-    dq = (torch.einsum("bkgts,bksd->bkgtd", ds_hi, k.to(f))
-          + torch.einsum("bkgts,bksd->bkgtd", ds_lo, k.to(f)))
-    dk = (torch.einsum("bkgts,bkgtd->bksd", ds_hi, qg)
-          + torch.einsum("bkgts,bkgtd->bksd", ds_lo, qg))
-    dv = (torch.einsum("bkgts,bkgtd->bksd", p_hi, dog)
-          + torch.einsum("bkgts,bkgtd->bksd", p_lo, dog))
+    dq = sum(torch.einsum("bkgts,bksd->bkgtd", x.float(), k.to(f))
+             for x in split_bf16(ds))
+    dk = sum(torch.einsum("bkgts,bkgtd->bksd", x.float(), qg)
+             for x in split_bf16(ds, 3))
+    dv = sum(torch.einsum("bkgts,bkgtd->bksd", x.float(), dog)
+             for x in split_bf16(p, 3))
     return (dq.reshape(b, h, t, d).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))
 
@@ -238,7 +238,7 @@ def _entries(defines: Tuple[str, ...] = ()):
     fwd = lib.flash_attention_fwd
     fwd.argtypes = [vp] * 5 + dims + [ci, cf, vp]
     bwd_dkv = lib.flash_attention_bwd_dkv
-    bwd_dkv.argtypes = [vp] * 8 + dims + [ci, cf, vp]
+    bwd_dkv.argtypes = [vp] * 9 + dims + [ci, cf, vp]
     bwd_dq = lib.flash_attention_bwd_dq
     bwd_dq.argtypes = [vp] * 8 + dims + [ci, cf, vp]
     fwd_body = lib.flash_attention_fwd_body
@@ -332,12 +332,18 @@ def _bwd_dkv_cuda(q, k, v, do, lse, delta, *, causal: bool, scale: float):
     n_kv, s = k.shape[1], k.shape[2]
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
+    # the tensor-core body sums a group's G heads in f32 here (G > 1)
+    acc = (torch.empty((2, b, n_kv, s, d), dtype=torch.float32,
+                       device=q.device)
+           if h > n_kv and bwd_body(q.dtype, d) == "mma" else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         _launch("bwd_dkv", q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                dk.data_ptr(), dv.data_ptr(), _DTYPE_KIND[q.dtype], b, h,
-                n_kv, t, s, d, int(causal), scale, stream)
+                dk.data_ptr(), dv.data_ptr(),
+                None if acc is None else acc.data_ptr(),
+                _DTYPE_KIND[q.dtype], b, h, n_kv, t, s, d, int(causal),
+                scale, stream)
     return dk, dv
 
 

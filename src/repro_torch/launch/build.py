@@ -8,7 +8,10 @@ the stand-in it uses where Pallas cannot run; both compute the same
 function, and on the card the port has the kernel. ``qmm_impl`` routes
 the int8 projections of a quantized base (``models.layers.dense``): the
 int8 kernel by default, ``"ref"`` for the reference's dequantize-first
-product.
+product. No ``ssd_impl`` is passed, as the reference's ``make_model``
+passes none: an SSM layer trains through the ``LM`` default ``"ref"``
+(``models.ssd.ssd_chunked_ref`` under autograd), the reference's jnp
+training route; the SSD kernel, like the TPU kernel, has no backward.
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ import torch
 from repro_torch.core.config import ArchConfig, Technique
 from repro_torch.models.lm import LM
 from repro_torch.train.optimizer import AdamWConfig
-from repro_torch.train.step import build_train_step
+from repro_torch.train.step import build_train_step, default_opt_cfg
 
 
 def make_model(cfg: ArchConfig, technique: Technique, *,
@@ -37,10 +40,12 @@ def build_train(cfg: ArchConfig, technique: Technique,
                 ) -> Tuple:
     """``(train_step, technique, model, opt_cfg)`` for one device.
     ``grad_accum == 0`` (auto) resolves to 1, as the reference's
-    ``pick_grad_accum`` does without a mesh (where it needs no shape)."""
+    ``pick_grad_accum`` does without a mesh (where it needs no shape).
+    ``opt_cfg`` defaults to the reference's: 8-bit moments under quantized
+    full training (``Q``, ``Q8``), 32-bit otherwise."""
     if technique.grad_accum == 0:
         technique = dataclasses.replace(technique, grad_accum=1)
     model = make_model(cfg, technique, device=device)
-    opt_cfg = opt_cfg or AdamWConfig()
+    opt_cfg = opt_cfg or default_opt_cfg(technique)
     return build_train_step(model, technique, opt_cfg), technique, model, \
         opt_cfg

@@ -1,13 +1,16 @@
 """Where a training step's time goes on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_train [--steps 2] \
-        [--technique QL+Q8+F+R]
+        [--technique QL+Q8+F+R] [--arch llama2-7b] [--layers N]
 
-Trains full-width qwen1.5-0.5b (seeded random weights) with
+Trains ``--arch`` at full width (default qwen1.5-0.5b; seeded random
+weights; ``--layers`` cuts the depth, widths untouched) with
 ``--technique`` (default F+R: flash kernels, full recomputation;
 QL+Q8+F+R fine-tunes LoRA adapters on an int8 base through the int8
-kernel) at batch 4 x 2048 tokens, the shape of ``chip_smoke.py``'s
-training phases. After one warm-up step it times
+kernel; Q8 / Q train every weight of an int8 / nf4 base through its
+dequantized view, with 8-bit moments) at batch 4 x 2048 tokens, the
+shape of ``chip_smoke.py``'s training phases. After one warm-up step it
+times
 ``--steps`` steps three ways: on the host clock without a profiler (wall
 per step); split into its layers by the train step's own timed regions,
 each fenced by a device sync (forward: the loss; backward: the gradient;
@@ -19,6 +22,7 @@ device.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import subprocess
 import time
 from collections import defaultdict
@@ -31,6 +35,9 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq", type=int, default=2048)
     ap.add_argument("--technique", default="F+R")
+    ap.add_argument("--arch", default="qwen1.5-0.5b")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers (widths kept)")
     args = ap.parse_args(argv)
 
     import torch
@@ -42,18 +49,20 @@ def main(argv: Optional[List[str]] = None) -> None:
     from repro_torch.core.perfscope import Timer, format_classes, kernel_classes
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.launch.build import make_model
-    from repro_torch.train.optimizer import AdamWConfig
-    from repro_torch.train.step import build_train_step, init_train_state
+    from repro_torch.train.step import (build_train_step, default_opt_cfg,
+                                        init_train_state)
 
     dev = resolve_device("cuda")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
-    cfg = get_config("qwen1.5-0.5b")
+    cfg = get_config(args.arch)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     tech = technique_from_label(args.technique)
     model = make_model(cfg, tech, device=dev)
-    opt = AdamWConfig()
+    opt = default_opt_cfg(tech)
     state, _ = init_train_state(model, tech, 0, opt)
     step = build_train_step(model, tech, opt)
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
@@ -91,7 +100,9 @@ def main(argv: Optional[List[str]] = None) -> None:
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_name[e.name][0] += e.time_range.elapsed_us()
             by_name[e.name][1] += 1
-    print(f"[profile] {card} | qwen1.5-0.5b full width, {args.technique}, "
+    depth = (f", cut to {cfg.n_layers} layers" if args.layers else "")
+    print(f"[profile] {card} | {args.arch} full width{depth}, "
+          f"{args.technique}, "
           f"batch {args.batch} x {args.seq}, {args.steps} steps, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(f"[profile] layers (fenced, host clock): forward "

@@ -80,15 +80,15 @@ def dense_batched(x: torch.Tensor, w: torch.Tensor,
     (E, K, N), one product per leading index (the reference's ``einsum(
     "ecd,edf->ecf", preferred_element_type=f32)``), by the same routes:
     bf16 operands on the card to the tensor cores (``torch.bmm``; an f32
-    output through ``bmm.dtype``, exact products summed in f32), an f32
-    operand and every product on the CPU widened to f32. Forward only:
-    the MoE experts it serves are not trained yet."""
+    output through :class:`_BmmF32Out`, exact products summed in f32),
+    an f32 operand and every product on the CPU widened to f32. Every
+    route has its gradient (the MoE experts train)."""
     out_dt = out_dtype or torch.promote_types(x.dtype, w.dtype)
     # repro: allow[JIT-04] dispatch on where the tensor lives (host metadata), as dense does
     if x.is_cuda and tensor_core_route(x.dtype, w.dtype, out_dt):
         if out_dt == torch.bfloat16:
             return torch.bmm(x, w)
-        return torch.bmm(x, w, out_dtype=torch.float32)
+        return _BmmF32Out.apply(x, w)
     return _dense_f32(x, w, out_dt)
 
 
@@ -160,6 +160,34 @@ class _MatmulF32Out(torch.autograd.Function):
             da = _mm_f32([(p, b.t()) for p in parts]).to(a.dtype)
         if ctx.needs_input_grad[1]:
             db = _mm_f32([(a.t(), p) for p in parts]).to(b.dtype)
+        return da, db
+
+
+class _BmmF32Out(torch.autograd.Function):
+    """:class:`_MatmulF32Out` batched over a leading axis: ``a @ b`` of
+    bf16 (E, C, K) and (E, K, N) with an f32 output (``bmm.dtype``, which
+    has no derivative on the card). The backward splits the f32
+    cotangent into three bf16 parts and sums their exact products in
+    f32, as :class:`_MatmulF32Out` does."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.bmm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        parts = split_bf16(g.float(), 3)
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            bt = b.transpose(1, 2)
+            da = sum(torch.bmm(p, bt, out_dtype=torch.float32)
+                     for p in parts).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            at = a.transpose(1, 2)
+            db = sum(torch.bmm(at, p, out_dtype=torch.float32)
+                     for p in parts).to(b.dtype)
         return da, db
 
 

@@ -24,13 +24,15 @@ reference's ``dense``); see ``layers.dense``.
 ``prefill(max_len=)`` and ``decode_step`` decode the dense family against
 a dense (B, max_len, K, hd) cache, whose read is the dense decode kernel
 on the card (``blocks.attn_apply``'s decode branch). ``backbone`` and
-``loss`` are the training objective of the dense family (MoE and
-hybrid training raise: queue 1 item 5 of ROADMAP.md) and build the
-autograd graph, with each layer under ``train.remat.wrap_remat(...,
-remat)``. To train, make the stacked leaves ``requires_grad``
-(``train.step.init_train_state``): each layer then reads them through one
-``unbind``, so every layer's gradient lands in its slice of the stacked
-gradient.
+``loss`` are the training objective of every family (the causal-LM CE
+plus ``moe_aux_coef`` times the MoE load-balancing loss averaged over the
+layers, the reference's) and build the autograd graph, with each layer
+under ``train.remat.wrap_remat(..., remat)``. An SSM layer trains through
+``ssd_impl="ref"``, the reference's training route (the SSD kernel, like
+the TPU kernel, has no backward). To train, make the stacked leaves
+``requires_grad`` (``train.step.init_train_state``): each layer then
+reads them through one ``unbind``, so every layer's gradient lands in
+its slice of the stacked gradient.
 """
 from __future__ import annotations
 
@@ -75,12 +77,13 @@ class LM:
     """``device`` is the card unless the caller passes ``"cpu"``;
     ``attn_impl`` is a ``layers.attention`` mode, ``ssd_impl`` a
     ``models.ssd.ssd_chunked`` impl, ``qmm_impl`` a ``layers.dense`` route
-    for int8 weights and ``remat`` a ``train.remat`` policy (training
-    only)."""
+    for int8 weights, ``remat`` a ``train.remat`` policy (training
+    only) and ``moe_aux_coef`` the weight of the MoE load-balancing loss
+    in :meth:`loss`."""
 
     def __init__(self, cfg: ArchConfig, *, attn_impl: str = "naive",
                  ssd_impl: str = "ref", qmm_impl: str = "kernel",
-                 remat: str = "none",
+                 remat: str = "none", moe_aux_coef: float = 0.01,
                  device: Optional[Union[str, torch.device]] = None):
         if cfg.family not in FAMILIES:
             raise NotImplementedError(
@@ -102,6 +105,7 @@ class LM:
         self.ssd_impl = ssd_impl
         self.qmm_impl = qmm_impl
         self.remat = remat
+        self.moe_aux_coef = moe_aux_coef
         self.device = resolve_device(device)
         self.period = _period(cfg)
         self.n_periods = cfg.n_layers // self.period
@@ -289,28 +293,42 @@ class LM:
         return [per_pos[i % self.period][i // self.period]
                 for i in range(self.cfg.n_layers)]
 
-    def _layer(self, x, lp, positions):
-        x, _ = B.attn_apply(x, lp["mix"], self.cfg, positions=positions,
-                            attn_impl=self.attn_impl, qmm_impl=self.qmm_impl)
-        return B.ffn_apply(x, lp["ffn"], self.cfg, qmm_impl=self.qmm_impl)
+    def _layer(self, x, lp, positions, pos: int):
+        """One layer of the training stack at period position ``pos``:
+        returns (x, the MoE load-balancing loss or None)."""
+        cfg = self.cfg
+        if self.kinds[pos] == "attn":
+            x, _ = B.attn_apply(x, lp["mix"], cfg, positions=positions,
+                                attn_impl=self.attn_impl,
+                                qmm_impl=self.qmm_impl)
+        else:
+            x, _ = B.ssm_apply(x, lp["mix"], cfg, ssd_impl=self.ssd_impl)
+        if self.fkinds[pos] == "moe":
+            return B.moe_apply(x, lp["ffn"], cfg, CAPACITY_MULT["train"])
+        return B.ffn_apply(x, lp["ffn"], cfg, qmm_impl=self.qmm_impl), None
 
-    def backbone(self, params, batch) -> torch.Tensor:
-        """Everything before the LM head; returns final hidden states
-        (B, T, d_model). Each layer runs under ``wrap_remat(remat)``.
-        Dense family only: the reference's SSD kernel has no backward, and
-        training the ssm, moe and hybrid families is not ported."""
-        if "ssm" in self.kinds or self.cfg.is_moe:
+    def _backbone(self, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(final hidden states, the MoE load-balancing loss summed over
+        the layers in f32, 0 without MoE layers)."""
+        if "ssm" in self.kinds and self.ssd_impl != "ref":
             raise NotImplementedError(
-                f"training the {self.cfg.family} family is not ported "
-                f"(ROADMAP.md queue 1 item 5; the SSD kernel has no "
-                f"backward, and MoE training with its auxiliary loss is a "
-                f"later slice)")
+                f"training through ssd_impl={self.ssd_impl!r}: the SSD "
+                f"kernel has no backward (ROADMAP.md queue 1 item 5); "
+                f"train with ssd_impl='ref', as the reference does")
         x = self._embed_in(params, batch["tokens"])
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         body = wrap_remat(self._layer, self.remat)
-        for lp in self._unstacked_layers(params):
-            x = body(x, lp, positions)
-        return x
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i, lp in enumerate(self._unstacked_layers(params)):
+            x, a = body(x, lp, positions, i % self.period)
+            if a is not None:
+                aux = aux + a
+        return x, aux
+
+    def backbone(self, params, batch) -> torch.Tensor:
+        """Everything before the LM head; returns final hidden states
+        (B, T, d_model). Each layer runs under ``wrap_remat(remat)``."""
+        return self._backbone(params, batch)[0]
 
     def _block_ce(self, params, xb, lb):
         """(sum of masked CE, token count) of one block: logits in f32
@@ -327,9 +345,10 @@ class LM:
         """Causal-LM CE, computed block-wise over the sequence so the full
         (B, T, V) logits tensor is never materialized: each block applies
         the head + CE under checkpoint (recomputed in the backward).
-        Returns ``(loss, {"ce", "aux"})``; the dense family has no MoE
-        auxiliary loss, so ``aux`` is 0 and ``loss == ce``."""
-        x = self.backbone(params, batch)
+        Returns ``(ce + moe_aux_coef · aux / n_layers, {"ce", "aux"})``
+        with ``aux`` the MoE load-balancing loss summed over the layers
+        (0 without MoE layers, where the loss is the CE)."""
+        x, aux = self._backbone(params, batch)
         labels = batch["labels"]
         _, t, _ = x.shape
         tc = min(chunk_t, t)
@@ -344,5 +363,5 @@ class LM:
             ce_sum = ce_sum + s
             n_tok = n_tok + n
         ce = ce_sum / torch.clamp_min(n_tok, 1.0)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        return ce + aux, {"ce": ce, "aux": aux}
+        total = ce + self.moe_aux_coef * aux / max(self.cfg.n_layers, 1)
+        return total, {"ce": ce, "aux": aux}

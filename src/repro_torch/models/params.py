@@ -47,6 +47,11 @@ def register_node(cls, fields: Tuple[str, ...]) -> None:
     _NODES[cls] = tuple(fields)
 
 
+def node_fields(cls) -> Optional[Tuple[str, ...]]:
+    """The tensor fields of a registered node type, or None."""
+    return _NODES.get(cls)
+
+
 def _join(prefix: str, key) -> str:
     return f"{prefix}/{key}" if prefix else str(key)
 

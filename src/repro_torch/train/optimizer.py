@@ -1,23 +1,64 @@
-"""AdamW with 32-bit state and optional f32 master weights (the port of
-``repro.train.optimizer``).
+"""AdamW with 32-bit or 8-bit block-wise state and optional f32 master
+weights (the port of ``repro.train.optimizer``).
 
 State mirrors the trainable-param tree: ``{"m", "v", "step"[, "master"]}``
-with f32 moments and a 0-dim int32 step counter, all on the params'
-device. :func:`adamw_apply` updates params, moments, master weights and
-the counter IN PLACE under ``torch.no_grad()`` (the torch form of the
-reference's donated state), with the reference's arithmetic in f32. The
-8-bit block-wise moments (the reference's ``state_bits=8``, ``Opt8``)
-are not ported: the config has no such field yet.
+with a 0-dim int32 step counter, all on the params' device. The moments
+are f32 leaves (``state_bits=32``) or :class:`Opt8` nodes
+(``state_bits=8``, the paper's "Q" rows): int8 codes in blocks of
+``OPT8_BLOCK`` with one f32 absmax scale a block, decoded to f32 for the
+update and encoded again after it. :func:`adamw_apply` updates params,
+moments, master weights and the counter IN PLACE under
+``torch.no_grad()`` (the torch form of the reference's donated state),
+with the reference's arithmetic in f32.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
+import numpy as np
 import torch
 
-from repro_torch.models.params import tree_map, tree_paths
+from repro_torch.models.params import register_node, tree_map, tree_paths
+
+OPT8_BLOCK = 256
+# the reference divides the absmax by 127.0; the port multiplies by the f32
+# reciprocal (NUM-01), so a scale may sit one f32 ulp from the reference's
+_INV127 = float(np.float32(1.0 / 127.0))
+
+
+@dataclasses.dataclass
+class Opt8:
+    """Block-wise int8 moment storage: ``q`` int8 (n_blocks, OPT8_BLOCK),
+    the flat moment zero-padded to whole blocks; ``scale`` f32
+    (n_blocks,), each block's absmax / 127; ``shape`` the moment's
+    logical shape (static)."""
+    q: Any
+    scale: Any
+    shape: Tuple[int, ...]
+
+
+register_node(Opt8, ("q", "scale"))
+
+
+def _o8_encode(x: torch.Tensor) -> Opt8:
+    """``x`` as :class:`Opt8`: codes ``round(x / scale)`` (half to even)
+    clipped to +-127."""
+    flat = x.to(torch.float32).reshape(-1)
+    pad = (-flat.shape[0]) % OPT8_BLOCK
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    b = flat.reshape(-1, OPT8_BLOCK)
+    s = torch.clamp_min(b.abs().amax(dim=-1), 1e-12) * _INV127
+    q = torch.clamp(torch.round(b / s[:, None]), -127, 127).to(torch.int8)
+    return Opt8(q, s, tuple(x.shape))
+
+
+def _o8_decode(o: Opt8) -> torch.Tensor:
+    """The f32 moment an :class:`Opt8` holds, at its logical shape."""
+    flat = (o.q.to(torch.float32) * o.scale[:, None]).reshape(-1)
+    return flat[: math.prod(o.shape)].reshape(o.shape)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,6 +71,7 @@ class AdamWConfig:
     warmup: int = 100
     decay_steps: int = 10000
     min_lr_ratio: float = 0.1
+    state_bits: int = 32          # 32 | 8 (block-wise int8 m/v)
     master_fp32: bool = False     # keep fp32 master weights in opt state
 
 
@@ -45,8 +87,12 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def init_opt_state(cfg: AdamWConfig, trainable) -> Dict[str, Any]:
+    if cfg.state_bits not in (8, 32):
+        raise ValueError(f"state_bits {cfg.state_bits} not 8 or 32")
+
     def zeros32(x):
-        return torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        z = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        return _o8_encode(z) if cfg.state_bits == 8 else z
 
     dev = next(t for _, t in tree_paths(trainable)).device
     state = {
@@ -64,9 +110,10 @@ def init_opt_state(cfg: AdamWConfig, trainable) -> Dict[str, Any]:
 def adamw_apply(cfg: AdamWConfig, grads, opt_state, trainable) -> None:
     """One AdamW update from ``grads`` (same tree as ``trainable``, any
     float type), in place: ``trainable`` leaves, ``opt_state``'s
-    moments, master weights and step. Weight decay applies to leaves of
-    rank >= 2, counted on the stored (stacked) leaf as the reference
-    counts it."""
+    moments, master weights and step. 8-bit moments are decoded, updated
+    in f32 and encoded again into their ``Opt8`` fields. Weight decay
+    applies to leaves of rank >= 2, counted on the stored (stacked) leaf
+    as the reference counts it."""
     opt_state["step"].add_(1)
     step = opt_state["step"]
     lr = schedule(cfg, step)
@@ -75,19 +122,27 @@ def adamw_apply(cfg: AdamWConfig, grads, opt_state, trainable) -> None:
     bc2 = 1 - torch.pow(torch.tensor(cfg.b2, device=sf.device), sf)
     master = opt_state.get("master")
     b1, b2 = cfg.b1, cfg.b2
+    is8 = lambda x: isinstance(x, Opt8)                 # noqa: E731
     flat_g = tree_paths(grads)
-    flat_m = dict(tree_paths(opt_state["m"]))
-    flat_v = dict(tree_paths(opt_state["v"]))
+    flat_m = dict(tree_paths(opt_state["m"], is_leaf=is8))
+    flat_v = dict(tree_paths(opt_state["v"], is_leaf=is8))
     flat_p = dict(tree_paths(trainable))
     flat_mw = dict(tree_paths(master)) if master is not None else {}
     for path, g in flat_g:
         m, v, p = flat_m[path], flat_v[path], flat_p[path]
         mw = flat_mw.get(path)
         gf = g.to(torch.float32)
-        m.copy_(b1 * m + (1 - b1) * gf)
-        v.copy_(b2 * v + (1 - b2) * gf * gf)
-        mhat = m / bc1
-        vhat = v / bc2
+        mf = b1 * (_o8_decode(m) if is8(m) else m) + (1 - b1) * gf
+        vf = b2 * (_o8_decode(v) if is8(v) else v) + (1 - b2) * gf * gf
+        for state, new in ((m, mf), (v, vf)):
+            if is8(state):
+                enc = _o8_encode(new)
+                state.q.copy_(enc.q)
+                state.scale.copy_(enc.scale)
+            else:
+                state.copy_(new)
+        mhat = mf / bc1
+        vhat = vf / bc2
         base = (mw if mw is not None else p).to(torch.float32)
         decay = cfg.weight_decay if p.ndim >= 2 else 0.0
         new = base - lr * (mhat / (torch.sqrt(vhat) + cfg.eps)

@@ -16,8 +16,17 @@ LoRA fine-tuning (``peft`` "lora" or "qlora") follows the reference's
 ``apply_lora`` and split by ``split_trainable``; gradients, the optimizer
 state and ``grad_norm`` cover the adapters only, and the frozen base,
 norms and biases are never written. ``QL+Q8`` and ``L+Q8`` are the same
-technique, as in the reference. Techniques whose math the port does not
-have yet raise ``NotImplementedError`` naming their ROADMAP item.
+technique, as in the reference.
+
+Quantized full training (``quant`` "int8" or "nf4" without peft, the
+paper's "Q" rows) is the reference's dequant-train-requant cycle: the
+params hold ``QTensor``s; each step trains a bf16 dequantized view of
+them (:func:`dequant_tree`, the leaves autograd differentiates), updates
+the view with AdamW and requantizes it into the params' fields
+(:func:`requant_like`). The moments cover the view and default to 8-bit
+(``AdamWConfig.state_bits=8``, :func:`default_opt_cfg`). Techniques whose
+math the port does not have yet raise ``NotImplementedError`` naming
+their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -31,7 +40,8 @@ from repro_torch.core.perfscope import Timer
 from repro_torch.models.lm import LM
 from repro_torch.models.params import set_path, tree_map, tree_paths
 from repro_torch.peft.lora import apply_lora, split_trainable
-from repro_torch.quant.qtensor import quantize_tree
+from repro_torch.quant.qtensor import (QTensor, quantize_int8,
+                                       quantize_nf4, quantize_tree)
 from repro_torch.train.optimizer import (AdamWConfig, adamw_apply,
                                          init_opt_state)
 
@@ -51,10 +61,6 @@ def check_technique(technique: Technique) -> None:
                        f"reference's apply_lora misreads a stacked nf4 "
                        f"QTensor, repro/peft/lora.py:74-75; ROADMAP queue 1 "
                        f"item 5, queue 3)")
-    if technique.peft == "none" and technique.quant != "none":
-        waiting.append(f"quant={technique.quant!r} without peft (the "
-                       f"dequant-train-requant cycle with 8-bit Opt8 "
-                       f"moments, ROADMAP queue 1 item 5)")
     if technique.grad_compress:
         waiting.append("grad_compress (parallel/compression.py, ROADMAP "
                        "queue 1 item 7)")
@@ -69,15 +75,58 @@ def check_technique(technique: Technique) -> None:
             "not ported yet: " + "; ".join(waiting))
 
 
+def quant_full(technique: Technique) -> bool:
+    """Whether ``technique`` trains every weight of a quantized base."""
+    return technique.quant != "none" and technique.peft == "none"
+
+
+def default_opt_cfg(technique: Technique) -> AdamWConfig:
+    """The reference's default: 8-bit moments under quantized full
+    training, 32-bit otherwise."""
+    return AdamWConfig(state_bits=8 if quant_full(technique) else 32)
+
+
+def _is_q(x) -> bool:
+    return isinstance(x, QTensor)
+
+
+def dequant_tree(tree):
+    """``tree`` with every ``QTensor`` leaf dequantized to bf16 (a fresh
+    tensor) and every other leaf kept."""
+    return tree_map(lambda l: l.dequantize(torch.bfloat16) if _is_q(l)
+                    else l, tree, is_leaf=_is_q)
+
+
+@torch.no_grad()
+def requant_like(view, like) -> None:
+    """Quantize each leaf of ``view`` at a ``QTensor`` of ``like`` as that
+    leaf was quantized (``quantize_int8``, or ``quantize_nf4`` stacked
+    when its codes are), written IN PLACE into the QTensor's fields."""
+    new = dict(tree_paths(view))
+    for path, old in tree_paths(like, is_leaf=_is_q):
+        if not _is_q(old):
+            continue
+        q = (quantize_int8(new[path]) if old.kind == "int8" else
+             quantize_nf4(new[path], stacked=old.data.ndim == 2))
+        old.data.copy_(q.data)
+        old.scale.copy_(q.scale)
+        if old.scale2 is not None:
+            for dst, src in zip(old.scale2, q.scale2):
+                dst.copy_(src)
+
+
 def init_train_state(model: LM, technique: Technique, seed: int = 0,
                      opt_cfg: Optional[AdamWConfig] = None
                      ) -> Tuple[Dict[str, Any], AdamWConfig]:
     """Seeded params on the model's device, quantized and LoRA-wrapped as
     the technique says, with ``requires_grad`` set on the trainable leaves
-    (all of them without LoRA, the adapters with it) and optimizer state
-    for those. Returns ``(state, opt_cfg)`` as the reference does."""
+    (all of them without LoRA, the adapters with it; under quantized full
+    training the float leaves, the ``QTensor``s being retrained through
+    their dequantized view) and optimizer state for those (for the view
+    under quantized full training). Returns ``(state, opt_cfg)`` as the
+    reference does."""
     check_technique(technique)
-    opt_cfg = opt_cfg or AdamWConfig()
+    opt_cfg = opt_cfg or default_opt_cfg(technique)
     params = model.init(seed)
     if technique.quant != "none":
         params = quantize_tree(params, technique.quant)
@@ -86,8 +135,10 @@ def init_train_state(model: LM, technique: Technique, seed: int = 0,
             seed + LORA_SEED_OFFSET)
         params = apply_lora(params, gen, rank=technique.lora_rank)
     trainable, _ = split_trainable(params)
-    tree_map(lambda t: t.requires_grad_(True), trainable)
-    return {"params": params, "opt": init_opt_state(opt_cfg, trainable),
+    tree_map(lambda t: None if _is_q(t) else t.requires_grad_(True),
+             trainable, is_leaf=_is_q)
+    basis = dequant_tree(trainable) if quant_full(technique) else trainable
+    return {"params": params, "opt": init_opt_state(opt_cfg, basis),
             "step": torch.zeros((), dtype=torch.int32,
                                 device=model.device)}, opt_cfg
 
@@ -100,7 +151,9 @@ def build_train_step(model: LM, technique: Technique,
     updated in place and returned. Metrics (0-dim f32 tensors, nothing
     is read to the host): ``loss``, ``ce``, ``aux`` and ``grad_norm``,
     the f32 norm over all gradient leaves (the trainable ones:
-    ``split_trainable``). With ``grad_accum > 1`` the
+    ``split_trainable``; under quantized full training the dequantized
+    view's, which is requantized after the update). With ``grad_accum >
+    1`` the
     batch is split into that many micro-batches along its first axis;
     their gradients are summed in f32 and averaged, the loss is their
     mean and ``ce``/``aux`` are the last micro-batch's.
@@ -113,6 +166,7 @@ def build_train_step(model: LM, technique: Technique,
     one nothing is synced."""
     check_technique(technique)
     accum = max(technique.grad_accum, 1)
+    qfull = quant_full(technique)
 
     def fence():
         if model.device.type == "cuda":
@@ -134,6 +188,13 @@ def build_train_step(model: LM, technique: Technique,
     def train_step(state, batch):
         params = state["params"]
         trainable, _ = split_trainable(params)
+        if qfull:
+            # grads w.r.t. the bf16 dequantized view; requantized after
+            qt = trainable
+            with torch.no_grad():
+                trainable = dequant_tree(qt)
+            tree_map(lambda t: t.requires_grad_(True), trainable)
+            params = trainable
         paths = tree_paths(trainable)
         leaves = [t for _, t in paths]
         if accum > 1:
@@ -161,6 +222,8 @@ def build_train_step(model: LM, technique: Technique,
             set_path(grad_tree, path, g)
         with region("optimizer"):
             adamw_apply(opt_cfg, grad_tree, state["opt"], trainable)
+            if qfull:
+                requant_like(trainable, qt)
         state["step"].add_(1)
         metrics = dict(metrics)
         metrics["loss"] = loss

@@ -404,14 +404,35 @@ def test_three_steps_match_the_reference(ref_state, batch):
 
 @pytest.mark.parametrize("label", ["QL", "Q8", "Q", "L+Q"])
 def test_unported_quant_techniques_raise(label):
-    """LoRA on an nf4 base (the reference's apply_lora caveat) and
-    quantized full training (Opt8) raise, naming their ROADMAP item."""
+    """LoRA on an nf4 base (the reference's apply_lora caveat: ``QL``,
+    ``L+Q``) raises, naming its ROADMAP item. Quantized full training
+    (``Q8``, ``Q``) is ported: it builds 8-bit moments and takes a step
+    that moves codes (tests/test_torch_quant_train.py holds it against the
+    reference)."""
     model = make_model(port_config(ARCH, reduced=True), _ptech(label),
                        device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_train_state(model, _ptech(label))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_train_step(model, _ptech(label), topt.AdamWConfig())
+    if label in ("QL", "L+Q"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            init_train_state(model, _ptech(label))
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            build_train_step(model, _ptech(label), topt.AdamWConfig())
+        return
+    state, opt = init_train_state(model, _ptech(label))
+    assert opt.state_bits == 8
+    wq = state["params"]["blocks"]["pos0"]["mix"]["wq"]
+    assert isinstance(wq, QTensor) and wq.kind == (
+        "int8" if label == "Q8" else "nf4")
+    before = [t.clone() for _, t in tree_paths(state["params"])
+              if not t.is_floating_point()]
+    step = build_train_step(model, _ptech(label), topt.AdamWConfig(
+        lr=5e-3, warmup=0, state_bits=8))
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        1, 512, (2, 16), dtype=np.int32))
+    state, met = step(state, {"tokens": toks, "labels": toks})
+    assert np.isfinite(float(met["loss"]))
+    after = [t for _, t in tree_paths(state["params"])
+             if not t.is_floating_point()]
+    assert any(not torch.equal(a, b) for a, b in zip(after, before))
 
 
 def test_train_cli_fine_tunes_on_an_int8_base(capsys, keep_sigterm):

@@ -20,7 +20,12 @@ emulation, rows bitwise the single-token reads, the split counts at the
 engine's shapes, replay in a CUDA graph); and the engine's steps as CUDA
 graphs (replay bitwise the eager engine for decode, chunk and verify
 steps on qwen and mamba2, nothing captured after warmup, warmup leaving
-both pools as it found them, each replay adding its graph's launches).
+both pools as it found them, each replay adding its graph's launches);
+and the rest of one-device training (the flash kernels at the training
+slice's D = 128 shapes, G = 1 and G = 8, where the dK/dV kernel sums its
+group's heads outside the tensor cores' accumulators; the MoE experts'
+batched product's gradient; a step of every family and of quantized full
+training; the ``Prefetcher``'s copies to the card).
 
 These tests import neither ``jax`` nor the JAX package, so they also run
 on the GPU host: ``PYTHONPATH=src python -m pytest -m gpu
@@ -205,6 +210,32 @@ def test_flash_kernels_match_plain_at_training_shape(cuda, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("h,kv", [(32, 32), (32, 4)],
+                         ids=["llama2-7b", "qwen3-moe-30b-a3b"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_flash_kernels_match_plain_at_the_slice_training_shapes(cuda, h, kv,
+                                                                dtype):
+    """The training slice's attention at T=2048, D=128, causal, B=1:
+    llama2-7b (32 heads, G=1) and qwen3-moe-30b-a3b (32 query heads over
+    4 KV heads: dK/dV sum over a group's 8 query heads). f32 within 2e-5;
+    bf16 o within 2 ulps, dq/dk/dv within 1 at G=1 and 2 at G=8 (the
+    group's sum reorders f32 adds), as the kernel-test shapes hold G=8."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, do = _flash_case(cuda, 1, 2048, 2048, h, kv, 128, dtype)
+    assert fa.fwd_body(dtype, 128) == fa.bwd_body(dtype, 128) == (
+        "mma" if dtype == torch.bfloat16 else "simt")
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    o_ref, lse_ref = fa._flash_fwd_torch(q, k, v, causal=True)
+    _assert_flash_close(o, o_ref)
+    torch.testing.assert_close(lse, lse_ref, **TOL)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    want = fa._flash_bwd_torch(q, k, v, o, lse, do, causal=True)
+    for a, b in zip(got, want):
+        _assert_flash_close(a, b, ulps=1 if h == kv else BF16_ULPS)
+
+
+@pytest.mark.gpu
 def test_flash_gradient_matches_naive_autograd(cuda):
     """The autograd.Function through the kernels against autograd through
     the materialized-score attention, f32 (tests/test_kernels.py:65's
@@ -372,7 +403,10 @@ def test_mamba2_engine_runs_prefill_through_the_ssd_kernel(cuda,
 QMM_CASES = [(128, 256, 128, 1), (64, 512, 384, 1), (1, 1024, 1024, 16),
              (7, 1000, 1040, 16), (7, 1000, 300, 1), (200, 130, 70, 1),
              (512, 1024, 1024, 16), (512, 1024, 1024, 1),
-             (512, 1024, 2816, 1), (512, 2816, 1024, 1)]
+             (512, 1024, 2816, 1), (512, 2816, 1024, 1),
+             # llama2-7b's four fine-tuning projections (q/k/v over 32 heads)
+             (512, 4096, 4096, 32), (512, 4096, 4096, 1),
+             (512, 4096, 11008, 1), (512, 11008, 4096, 1)]
 
 
 def _qmm_case(dev, m, k, n, g, x_dtype, seed=0):
@@ -504,7 +538,8 @@ def _rms_case(dev, rows, d, xd, wd, seed=0):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("rows", [1, 8, 256, 333, 2048, 8192])
-@pytest.mark.parametrize("d", [128, 768, 1024, 1536, 2048, 1000, 999])
+@pytest.mark.parametrize("d", [128, 768, 1024, 1536, 2048, 4096, 1000,
+                               999])
 @pytest.mark.parametrize("xd,wd", [("bf16", "bf16"), ("bf16", "f32"),
                                    ("f32", "bf16"), ("f32", "f32")])
 def test_rmsnorm_kernel_matches_plain(cuda, rows, d, xd, wd):
@@ -513,7 +548,8 @@ def test_rmsnorm_kernel_matches_plain(cuda, rows, d, xd, wd):
     at ragged D: 1000 (the last vectors of a row fall to some threads
     only) and 999 (read element by element), and at the q/k norms' head
     width 128 (f32 rows: 256 a decode step of qwen3-moe, 2,048 a 64-token
-    chunk) and qwen3-moe's d_model 2048."""
+    chunk), qwen3-moe's d_model 2048 and llama2-7b's 4096 (8192 rows: the
+    training slice's)."""
     from repro_torch.kernels import rmsnorm as rn
     x, w = _rms_case(cuda, rows, d, xd, wd, seed=rows + d)
     before = rn.LAUNCHES["rmsnorm"]
@@ -1354,3 +1390,96 @@ def test_paged_row_read_is_the_same_at_any_table_width(cuda, quant):
     for got in outs[1:]:
         for a, b in zip(outs[0], got):
             assert torch.equal(a, b)
+
+
+# --------------------------------------------------------------------------
+# the rest of one-device training
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+def test_dense_batched_f32_output_gradient_matches_the_f32_route(cuda):
+    """The MoE experts' gate/up products on the card (bf16 operands, f32
+    output through ``bmm.dtype``, which has no derivative there) carry
+    ``_BmmF32Out``'s gradient: the output and both gradients against the
+    f32 route (both widened to f32), within the route's roundoff."""
+    from repro_torch.models import layers as L
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn((4, 96, 256), generator=g, device=cuda).bfloat16()
+    w = (torch.randn((4, 256, 160), generator=g, device=cuda) / 16
+         ).bfloat16()
+    dy = torch.randn((4, 96, 160), generator=g, device=cuda)
+    outs = []
+    for route in ("card", "f32"):
+        xs, ws = (t.clone().requires_grad_(True) for t in (x, w))
+        y = (L.dense_batched(xs, ws, out_dtype=torch.float32)
+             if route == "card" else
+             L._dense_f32(xs, ws, torch.float32))
+        outs.append((y.detach(), *torch.autograd.grad((y * dy).sum(),
+                                                      (xs, ws))))
+    assert outs[0][0].dtype == torch.float32
+    torch.testing.assert_close(outs[0][0], outs[1][0], rtol=1e-5, atol=1e-5)
+    for a, b in zip(outs[0][1:], outs[1][1:]):
+        assert a.dtype == torch.bfloat16
+        _assert_flash_close(a, b, ulps=1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,label", [
+    ("qwen3-moe-30b-a3b", "F+R"), ("mamba2-130m", "F+R"),
+    ("jamba-v0.1-52b", "F+R"), ("qwen1.5-0.5b", "Q8"),
+    ("qwen1.5-0.5b", "Q")])
+def test_train_steps_run_every_family_on_the_card(cuda, arch, label):
+    """Smoke configs on the card: two steps of every family and of
+    quantized full training, losses and gradient norms finite, the MoE
+    load-balancing loss positive where there are MoE layers, the flash
+    kernels launched by attention layers and the RMSNorm kernel by every
+    norm."""
+    from repro_torch.configs import get_config as cfg_of
+    from repro_torch.core.config import technique_from_label
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.launch.build import make_model
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.step import (build_train_step, default_opt_cfg,
+                                        init_train_state)
+    cfg = cfg_of(arch, reduced=True)
+    tech = technique_from_label(label)
+    model = make_model(cfg, tech, device=cuda)
+    opt = AdamWConfig(lr=1e-3, warmup=0,
+                      state_bits=default_opt_cfg(tech).state_bits)
+    state, _ = init_train_state(model, tech, 0, opt)
+    step = build_train_step(model, tech, opt)
+    g = torch.Generator().manual_seed(0)
+    batch = {k: torch.randint(0, cfg.vocab_size, (2, 64), generator=g,
+                              dtype=torch.int32).to(cuda)
+             for k in ("tokens", "labels")}
+    fa.LAUNCHES.clear()
+    rn.LAUNCHES.clear()
+    for _ in range(2):
+        state, met = step(state, batch)
+    torch.cuda.synchronize()
+    assert torch.isfinite(met["loss"]) and torch.isfinite(met["grad_norm"])
+    assert (float(met["aux"]) > 0) == cfg.is_moe
+    n_attn = sum(k == "attn" for k in cfg.layer_kinds())
+    assert fa.LAUNCHES["bwd_dq"] == (2 * n_attn if tech.flash else 0)
+    assert rn.LAUNCHES["rmsnorm"] > 0
+
+
+@pytest.mark.gpu
+def test_prefetcher_copies_batches_to_the_card(cuda):
+    """The worker copies each batch through pinned memory on its own
+    stream; the consumer's stream waits on the copy: every batch equals
+    ``batch_at`` of its step, in order."""
+    from repro_torch.data.pipeline import DataConfig, Prefetcher, SyntheticLM
+    ds = SyntheticLM(DataConfig(vocab_size=1000, seq_len=256,
+                                global_batch=4))
+    pf = Prefetcher(iter(ds), device=cuda, depth=2)
+    try:
+        for step in range(6):
+            got = next(pf)
+            for k, want in ds.batch_at(step).items():
+                assert got[k].is_cuda
+                assert torch.equal(got[k].cpu(), torch.from_numpy(want))
+    finally:
+        pf.stop()

@@ -301,11 +301,29 @@ def test_port_init_draws_stacked_leaves_per_layer():
 
 @pytest.mark.parametrize("arch", MOE_ARCHS)
 def test_training_moe_or_hybrid_raises(arch):
+    """Training the moe and hybrid families is ported: the loss is the CE
+    plus 0.01 x the load-balancing loss over the layers, and every leaf
+    gets a finite gradient (tests/test_torch_train_families.py holds them
+    against the reference). Only the SSD kernel route still raises."""
     port = PortLM(port_config(arch, reduced=True), device="cpu")
     params = port.init(0)
+    leaves = [t.requires_grad_(True) for _, t in tree_paths(params)]
     toks = torch.ones((1, 8), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        port.loss(params, {"tokens": toks, "labels": toks})
+    loss, met = port.loss(params, {"tokens": toks, "labels": toks})
+    n = port.cfg.n_layers
+    assert float(met["aux"]) > 0
+    assert float(loss) == pytest.approx(
+        float(met["ce"]) + 0.01 * float(met["aux"]) / n, rel=1e-6)
+    grads = torch.autograd.grad(loss, leaves)
+    assert all(bool(torch.isfinite(g.float()).all()) for g in grads)
+    router = [g for (p, _), g in zip(tree_paths(params), grads)
+              if p.endswith("router")]
+    assert router and all(bool(g.abs().sum() > 0) for g in router)
+    if "ssm" in port.kinds:
+        kernel = PortLM(port_config(arch, reduced=True), ssd_impl="kernel",
+                        device="cpu")
+        with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+            kernel.loss(params, {"tokens": toks, "labels": toks})
 
 
 def test_moe_decode_step_matches_reference():

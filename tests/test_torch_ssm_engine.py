@@ -33,6 +33,7 @@ from repro_torch.configs import get_config as port_config
 from repro_torch.kernels import ssd as tssdk
 from repro_torch.models import blocks as TB
 from repro_torch.models.lm import LM as PortLM
+from repro_torch.models.params import tree_paths
 from repro_torch.serving.engine import Engine, Request
 
 from test_torch_engine import _assert_streams_agree, _bf16_ulp
@@ -345,20 +346,27 @@ def test_decode_keeps_inactive_slots_state():
 
 
 def test_training_the_ssm_family_raises():
+    """Training the ssm family is ported through ``ssd_impl="ref"`` (the
+    reference's training route; tests/test_torch_train_families.py holds
+    it against the reference): the loss is finite and every leaf gets a
+    gradient, hybrid and MoE variants too. Only the SSD kernel route,
+    which has no backward, still raises; an unported family still
+    refuses to build."""
     cfg = port_config(ARCH, reduced=True)
-    model = PortLM(cfg, device="cpu")
-    params = model.init(0)
     toks = torch.zeros((1, 8), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ssm family"):
-        model.loss(params, {"tokens": toks, "labels": toks})
-    # hybrid and MoE models build since the MoE slice; training them
-    # raises (ROADMAP queue 1 item 5), and an unported family still
-    # refuses to build
-    for over in (dict(family="hybrid", attn_period=2),
+    for over in (dict(), dict(family="hybrid", attn_period=2),
                  dict(n_experts=4, top_k=2)):
-        other = PortLM(dataclasses.replace(cfg, **over), device="cpu")
-        with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-            other.loss(other.init(0), {"tokens": toks, "labels": toks})
+        model = PortLM(dataclasses.replace(cfg, **over), device="cpu")
+        params = model.init(0)
+        leaves = [t.requires_grad_(True) for _, t in tree_paths(params)]
+        loss, _ = model.loss(params, {"tokens": toks, "labels": toks})
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        assert bool(torch.isfinite(loss))
+        assert all(g is not None and bool(torch.isfinite(g.float()).all())
+                   for g in grads)
+    kernel = PortLM(cfg, ssd_impl="kernel", device="cpu")
+    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+        kernel.loss(kernel.init(0), {"tokens": toks, "labels": toks})
     with pytest.raises(NotImplementedError, match="not ported"):
         PortLM(dataclasses.replace(cfg, family="encdec"), device="cpu")
     with pytest.raises(ValueError, match="ssd_impl"):

@@ -369,14 +369,22 @@ def test_loss_decreases_over_steps(label):
 
 
 def test_unported_techniques_raise():
+    """LoRA on an nf4 base, gradient compression, sequence parallelism
+    and the attention modes still raise, naming their ROADMAP item;
+    quantized full training (``Q``) now builds its state and step
+    (tests/test_torch_quant_train.py holds it)."""
     model = LM(port_config(ARCH, reduced=True), device="cpu")
-    for tech in (technique_from_label("Q"), technique_from_label("QL"),
+    for tech in (technique_from_label("QL"),
                  Technique(grad_compress=True), Technique(sp=True),
                  Technique(attn_mode="seq")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             init_train_state(model, tech)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_train_step(model, tech, topt.AdamWConfig())
+    state, opt = init_train_state(model, technique_from_label("Q"))
+    assert opt.state_bits == 8
+    assert isinstance(state["opt"]["m"]["embed"], topt.Opt8)
+    build_train_step(model, technique_from_label("Q"), opt)
 
 
 # --------------------------------------------------------------------------
@@ -384,8 +392,10 @@ def test_unported_techniques_raise():
 # --------------------------------------------------------------------------
 
 
-def test_trainer_runs_the_technique_matrix_row(keep_sigterm):
-    """F+R+Z3 on one device: Z3 is a no-op, grad_accum 0 resolves to 1."""
+def test_trainer_runs_the_technique_matrix_row(keep_sigterm, tmp_path):
+    """F+R+Z3 on one device: Z3 is a no-op, grad_accum 0 resolves to 1;
+    with a checkpoint directory it saves every ``checkpoint_every`` steps
+    (tests/test_torch_checkpoint.py holds the checkpoints)."""
     cfg = port_config(ARCH, reduced=True)
     from repro_torch.core.config import ShapeSpec
     tech = dataclasses.replace(technique_from_label("F+R+Z3"), grad_accum=0)
@@ -400,9 +410,15 @@ def test_trainer_runs_the_technique_matrix_row(keep_sigterm):
         assert set(h) >= {"loss", "ce", "aux", "grad_norm"}
         assert np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
     assert out["step_ms"] > 0 and out["tokens_per_s"] > 0
-    with pytest.raises(NotImplementedError, match="checkpoint"):
+    ckpt = Trainer(cfg, ShapeSpec("cli", 32, 2, "train"), tech,
+                   TrainerConfig(steps=2, checkpoint_every=1,
+                                 checkpoint_dir=str(tmp_path)),
+                   device="cpu")
+    ckpt.run()
+    assert ckpt.ckpt.all_steps() == [1, 2]
+    with pytest.raises(ValueError, match="resume"):
         Trainer(cfg, ShapeSpec("cli", 32, 2, "train"), tech,
-                TrainerConfig(checkpoint_dir="ckpt"), device="cpu")
+                TrainerConfig(resume="latest"), device="cpu")
 
 
 def test_train_cli_runs_on_the_cpu(capsys, keep_sigterm):
