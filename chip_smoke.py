@@ -226,10 +226,12 @@ imports nothing of the JAX package). Phases, one line each:
               It prints, replayed and eager, decode tok/s, p50 TTFT and
               the wall per decode step (min/median/max), and the graphs.
 21. llama2  - full-width llama2-7b (seeded random weights, 6.7 B
-              parameters in bf16) serves phase 4's 16 requests through
+              parameters in bf16), then llama2-13b (13.0 B, 40 layers),
+              serve phase 4's 16 requests through
               the replayed steps, whole-prompt bf16 KV and chunked (64)
-              int8 KV, with phase 4's checks (paged launches 32 x steps,
-              RMSNorm 65 x forwards, tokens against a dense forward); it
+              int8 KV, with phase 4's checks (paged launches one a layer a
+              step, RMSNorm 2 x layers + 1 a forward, tokens against a
+              dense forward); it
               prints decode tok/s, the wall per decode step and the device
               time of a decode step with all 8 rows live (its graph
               replayed between two events) beside that step's byte bound
@@ -306,13 +308,56 @@ imports nothing of the JAX package). Phases, one line each:
               dropped assignments printed, the loss falling; (e) qwen
               F+R+Z3: 2 steps, a blocking save, a new Trainer resuming to
               step 4 with async saves, bitwise 4 straight steps.
+25. family  - the encoder-decoder and vision-language families at full
+              width (seeded weights), through ``LM``'s entry points with
+              ``attn_impl="flash"`` (the engine serves neither frontend):
+              seamless-m4t-large-v2 (2.03 B parameters) prefills 8
+              requests of 1,024 seeded frames and a 64-token prompt
+              (the encoder's non-causal flash forward) and decodes 64
+              greedy steps; internvl2-26b (19.86 B, 39.7 GB) 8 requests
+              of 256 patches and a 256-token prompt in a 576-position
+              cache, 64 steps (the dense decode read at G = 6, D = 128).
+              Launches held (flash forward one a layer of the prefill,
+              the encoder's included; dense decode one a decoder layer a
+              step; RMSNorm one a norm a forward), every token the
+              argmax of a teacher-forced forward or a 4-ulp near tie;
+              prefill ms, decode tok/s and peak memory printed. Each
+              then trains F+R through ``build_train``'s step on one
+              fixed batch of 4 x 1,024 positions (seamless 1,024 frames
+              and 1,024 tokens; internvl2 cut to 2 of 48 layers, 256
+              patches and 768 tokens): flash against naive |dloss|
+              (within 2e-3), 3 steps whose loss falls, launches per step.
+              The encoder's flash kernels (B=8, H=16, T=S=1,024, D=64,
+              non-causal), the dense decode read at both families'
+              shapes and RMSNorm at 6,144 against their plain versions,
+              timed beside bound, plain and library.
+26. ssm     - decoding the SSM families through the replayed steps:
+              mamba2-130m n-gram (depth 4, 16 repetitive 256-token
+              prompts, 64 new; its proposals are a reading: random
+              weights may never repeat a context token) and a self-draft
+              (4 requests, 32 new),
+              each spec-off then spec-on, streams equal up to 4-ulp near
+              ties, the self-draft's accept_rate > 0.6 and each
+              rejection an 8-ulp near tie, launches per verify step (0
+              SSD: the per-token scan; the draft's prefills launch it);
+              ``LM.prefill`` plus 64 ``decode_step``s on the n-gram
+              prompts against the engine's spec-off stream; a scripted
+              proposer (one good token, a garbage tail) whose slot
+              states after partial acceptance equal spec-off's at the
+              same length within 3e-2 of their scale; jamba-v0.1-52b over
+              one period, n-gram and the scripted run on 4 of its
+              prompts, with every MoE assignment kept (no drops: a
+              dropped token's output depends on its step's rows); the
+              paged read at jamba's widest verify window (T = 5, G = 4,
+              D = 128) against its plain version and timed.
 
 Any failed check raises. The last three lines of standard output are the
 kernels' JSON record, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``; the line before them gives the whole
-run's time. Each main path (the six engine runs, the training run, the
-two fine-tuning runs, the four speculative engine runs, the nine
-lifecycle bursts, phase 23's eight runs, phase 24's training runs) is
+run's time. Each main path (the engine runs, the training run, the
+two fine-tuning runs, the speculative engine runs, the nine
+lifecycle bursts, phase 23's eight runs, phase 24's training runs,
+phase 25's serving and training runs, phase 26's runs) is
 driven with every launch
 count set to 0 just before it (after the engine's warmup, and in phase
 22 (a)/(b) after the warming request) and read just after; so is each
@@ -1989,12 +2034,13 @@ def phase_train(cfg):
     return launches, out
 
 
-def flash_bounds(*, b, h, kv, t, s, d, elt):
+def flash_bounds(*, b, h, kv, t, s, d, elt, causal=True):
     """Least time (ms) of each kernel's function on this card: bytes of
     its inputs read once and outputs written once over HBM rate, against
-    its useful products (causal pairs only) over the bf16 tensor-core
-    rate. Returns {name: (bound_ms, bound_by)}."""
-    pairs = b * h * t * (t + 1) // 2 if t == s else b * h * t * s
+    its useful products (causal pairs only when ``causal``) over the bf16
+    tensor-core rate. Returns {name: (bound_ms, bound_by)}."""
+    pairs = (b * h * t * (t + 1) // 2 if causal and t == s
+             else b * h * t * s)
     qo = b * h * t * d * elt
     kv_bytes = b * kv * s * d * elt
     row = b * h * t * 4
@@ -2013,22 +2059,23 @@ def flash_bounds(*, b, h, kv, t, s, d, elt):
     return out
 
 
-def built_bounds(*, b, h, t, d):
+def built_bounds(*, b, h, t, d, causal=True):
     """Least time (ms) of the tensor-core kernels as built, at the bf16
     tensor-core rate: a split operand multiplies once a part, so the
-    forward runs 1 + 2 products of 2*D per causal pair (P in two parts; 2
-    of them useful), dK/dV 2 + 6 (P and dS in three), dQ 2 + 2, the whole
-    backward 12 (5 useful)."""
-    pairs = b * h * t * (t + 1) // 2
+    forward runs 1 + 2 products of 2*D per (causal) pair (P in two parts;
+    2 of them useful), dK/dV 2 + 6 (P and dS in three), dQ 2 + 2, the
+    whole backward 12 (5 useful)."""
+    pairs = b * h * t * (t + 1) // 2 if causal else b * h * t * t
     return {name: 2.0 * d * pairs * n / PEAK_OPS["bf16"] * 1e3
             for name, n in (("fwd", 3), ("bwd_dkv", 8), ("bwd_dq", 4),
                             ("bwd", 12))}
 
 
-def phase_flash_timing(name: str = "qwen1.5-0.5b", sh=None):
+def phase_flash_timing(name: str = "qwen1.5-0.5b", sh=None,
+                       causal: bool = True):
     """The flash kernels at one training shape (``sh``: b, h, kv, t, d;
-    default qwen's ``TRAIN_SHAPE``), beside their bounds, the plain
-    versions and SDPA (with grouped KV heads where kv < h)."""
+    default qwen's ``TRAIN_SHAPE``), causal or not, beside their bounds,
+    the plain versions and SDPA (with grouped KV heads where kv < h)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -2038,53 +2085,54 @@ def phase_flash_timing(name: str = "qwen1.5-0.5b", sh=None):
     q, k, v, do = flash_inputs(b=sh["b"], h=sh["h"], kv=sh["kv"], t=sh["t"],
                                s=sh["t"], d=sh["d"], dtype=torch.bfloat16,
                                seed=5)
-    errs, _, ulps = flash_vs_plain(q, k, v, do, True, grad_ulps=g_ulps)
+    errs, _, ulps = flash_vs_plain(q, k, v, do, causal, grad_ulps=g_ulps)
     scale = 1.0 / math.sqrt(sh["d"])
-    o, lse = fa._fwd_cuda(q, k, v, causal=True, sm_scale=None)
+    o, lse = fa._fwd_cuda(q, k, v, causal=causal, sm_scale=None)
     delta = fa._delta(o, do)
     # as the backward runs it: the tensor-core dQ kernel computes delta
     # itself (into a buffer the dK/dV kernel then reads)
     mma = fa.bwd_body(q.dtype, sh["d"]) == "mma"
     dq_delta = torch.empty_like(delta) if mma else delta
     ms = {
-        "fwd": cuda_ms(lambda i: fa._fwd_cuda(q, k, v, causal=True,
+        "fwd": cuda_ms(lambda i: fa._fwd_cuda(q, k, v, causal=causal,
                                               sm_scale=None), iters=20),
         "bwd_dkv": cuda_ms(lambda i: fa._bwd_dkv_cuda(
-            q, k, v, do, lse, delta, causal=True, scale=scale), iters=10),
+            q, k, v, do, lse, delta, causal=causal, scale=scale), iters=10),
         "bwd_dq": cuda_ms(lambda i: fa._bwd_dq_cuda(
-            q, k, v, do, lse, dq_delta, causal=True, scale=scale,
+            q, k, v, do, lse, dq_delta, causal=causal, scale=scale,
             out=o if mma else None), iters=10),
         "bwd": cuda_ms(lambda i: fa._bwd_cuda(q, k, v, o, lse, do,
-                                              causal=True, sm_scale=None),
+                                              causal=causal, sm_scale=None),
                        iters=10),
     }
     plain = {"fwd": cuda_ms(lambda i: fa._flash_fwd_torch(q, k, v,
-                                                          causal=True),
+                                                          causal=causal),
                             iters=5, warmup=1)}
     for kernel, part in (("bwd_dkv", "dkv"), ("bwd_dq", "dq"),
                          ("bwd", "all")):
         plain[kernel] = cuda_ms(lambda i: fa._flash_bwd_torch(
-            q, k, v, o, lse, do, causal=True, part=part), iters=5, warmup=1)
+            q, k, v, o, lse, do, causal=causal, part=part), iters=5, warmup=1)
     lib_fwd = cuda_ms(lambda i: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=gqa), iters=20)
+        q, k, v, is_causal=causal, enable_gqa=gqa), iters=20)
     qg, kg, vg = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
-    out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+    out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal,
                                          enable_gqa=gqa)
     lib_bwd = cuda_ms(lambda i: torch.autograd.grad(
         out, (qg, kg, vg), do, retain_graph=True), iters=20)
     del out
 
     def sdpa_fwd_bwd(i):
-        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal,
                                              enable_gqa=gqa)
         torch.autograd.grad(out, (qg, kg, vg), do)
 
     lib_fb = cuda_ms(sdpa_fwd_bwd, iters=20)
     bounds = flash_bounds(b=sh["b"], h=sh["h"], kv=sh["kv"], t=sh["t"],
-                          s=sh["t"], d=sh["d"], elt=2)
-    built = built_bounds(b=sh["b"], h=sh["h"], t=sh["t"], d=sh["d"])
+                          s=sh["t"], d=sh["d"], elt=2, causal=causal)
+    built = built_bounds(b=sh["b"], h=sh["h"], t=sh["t"], d=sh["d"],
+                         causal=causal)
     tag = (f"B={sh['b']} H={sh['h']} K={sh['kv']} T={sh['t']} D={sh['d']} "
-           f"causal bf16 ({name})")
+           f"{'causal' if causal else 'non-causal'} bf16 ({name})")
     for part in ("fwd", "bwd_dkv", "bwd_dq", "bwd"):
         bd, by = bounds[part]
         body = (fa.fwd_body if part == "fwd" else fa.bwd_body)(
@@ -3474,15 +3522,22 @@ def rejected_draft_gaps(model, params, prompts, final, rounds):
 
 
 def phase_spec_engine(cfg, params, *, name, prompts, max_new, draft,
-                      eager_twin=False):
+                      eager_twin=False, need_rounds=True):
     """Serve ``prompts`` spec-off, then spec-on (n-gram when ``draft`` is
     False, else a self-draft), with the launch counts of the spec-on run
-    held against its stats; with ``eager_twin`` the spec-on run again
-    eagerly, held bitwise to the replayed one (phase 20)."""
+    held against its stats (paged read once an attention layer a verify
+    step, the draft's dense decode read once an attention layer a draft
+    decode step, the SSD kernel once an SSM layer a prefill group or
+    draft prefill and never in a verify step); with ``eager_twin`` the
+    spec-on run again eagerly, held bitwise to the replayed one (phase
+    20). ``need_rounds=False``: a proposer silent through the whole run
+    (the n-gram one where random weights never repeat a context token)
+    is a reading, not a failure."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import ssd as ssdk
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.speculate import DraftModelProposer
     outs, stats, walls = {}, {}, {}
@@ -3521,53 +3576,67 @@ def phase_spec_engine(cfg, params, *, name, prompts, max_new, draft,
     paged = fd.LAUNCHES["paged_attention"]
     dense = fd.LAUNCHES["dense_decode"]
     norms = rn.LAUNCHES["rmsnorm"]
+    ssd = ssdk.LAUNCHES["ssd"]
+    kinds = cfg.layer_kinds()
+    n_attn, n_ssm = kinds.count("attn"), kinds.count("ssm")
     steps = st["decode_steps"] + st["chunk_steps"] + st["verify_steps"]
     check(st["decode_steps"] == 0 and st["verify_steps"] > 0 and
-          st["spec_rounds"] > 0,
+          (st["spec_rounds"] > 0 or not need_rounds),
           f"{name}: {st['verify_steps']} verify steps, {st['decode_steps']} "
           f"plain decode steps, {st['spec_rounds']} spec rounds")
-    check(paged == cfg.n_layers * steps,
-          f"{name}: paged launches {paged} != {cfg.n_layers} x {steps} steps")
+    check(paged == n_attn * steps,
+          f"{name}: paged launches {paged} != {n_attn} x {steps} steps")
     check(sum(fa.LAUNCHES.values()) == 0,
           f"{name}: the engine launched flash kernels: {dict(fa.LAUNCHES)}")
     n_pre, n_dec = ((proposer.n_prefills, proposer.n_decode_steps)
                     if draft else (0, 0))
-    check(dense == cfg.n_layers * n_dec,
-          f"{name}: dense decode launches {dense} != {cfg.n_layers} x "
+    check(dense == n_attn * n_dec,
+          f"{name}: dense decode launches {dense} != {n_attn} x "
           f"{n_dec} draft decode steps")
+    # the draft proposes inside the decode phase: its prefills are the
+    # SSD launches there; a verify step launches none
+    check(ssd == n_ssm * (st["prefill_groups"] + n_pre) and
+          sum(rec["ssd_in_decode"]) == n_ssm * n_pre,
+          f"{name}: SSD launches {ssd} != {n_ssm} x ({st['prefill_groups']}"
+          f" prefill groups + {n_pre} draft prefills), "
+          f"{sum(rec['ssd_in_decode'])} in the decode phase")
     tie_note = ""
     if draft:
-        check(dense > 0, f"{name}: the draft never decoded")
+        check(n_dec > 0, f"{name}: the draft never decoded")
         check(st["accept_rate"] > SELF_DRAFT_ACCEPT,
               f"{name}: self-draft accept_rate {st['accept_rate']:.4f} <= "
               f"{SELF_DRAFT_ACCEPT}")
         gaps = rejected_draft_gaps(eng.model, eng.params, prompts,
                                    outs["on"], rounds)
         check(all(g <= NEAR_TIE_ULPS for g in gaps),
-              f"{name}: rejected self-draft proposals {max(gaps):.1f} bf16 "
+              f"{name}: rejected self-draft proposals "
+              f"{max(gaps, default=0.0):.1f} bf16 "
               f"ulps below the top (margin {NEAR_TIE_ULPS})")
         tie_note = (f"; {len(gaps)} rejected proposals, each within "
                     f"{max(gaps, default=0.0):.1f} <= {NEAR_TIE_ULPS} bf16 "
                     f"ulps of the top of a dense forward")
     forwards = st["prefill_groups"] + steps + n_pre + n_dec
-    rms = count_rmsnorm(f"spec {name}", norms,
+    rms = count_rmsnorm(f"spec {cfg.name} {name}", norms,
                         norms_per_forward(cfg) * forwards,
                         f"{norms_per_forward(cfg)} x {forwards} forwards")
     splits = spec_splits(eng.model, eng.params, prompts, outs["off"],
                          outs["on"])
     off = stats["off"]
-    print(f"[spec] qwen1.5-0.5b full width, {name}: {len(prompts)}/"
+    print(f"[spec] {cfg.name} full width, {name}: {len(prompts)}/"
           f"{len(prompts)} finished x {max_new} tokens both ways; spec-on "
           f"== spec-off except {splits} split(s) at near ties; "
           f"accept_rate {st['accept_rate']:.4f} ({st['spec_accepted_tokens']}"
           f" of {st['spec_proposed_tokens']} in {st['spec_rounds']} rounds),"
           f" depth histogram {st['spec_depth_hist']}; {st['verify_steps']} "
           f"verify steps vs {off['decode_steps']} spec-off decode steps; "
-          f"paged launches {paged} = {cfg.n_layers} x {steps}, dense decode "
-          f"{dense} = {cfg.n_layers} x {n_dec} draft decode steps "
-          f"({n_pre} draft prefills){tie_note}; {rms}; decode tok/s spec-on "
-          f"{st['decode_tok_s']:.1f} vs spec-off {off['decode_tok_s']:.1f}; "
-          f"wall {walls['on']:.2f}s vs {walls['off']:.2f}s")
+          f"per verify step {n_attn} paged, {norms_per_forward(cfg)} "
+          f"RMSNorm, 0 SSD launches: paged launches {paged} = {n_attn} x "
+          f"{steps}, dense decode {dense} = {n_attn} x {n_dec} draft decode "
+          f"steps ({n_pre} draft prefills), SSD {ssd} = {n_ssm} x "
+          f"({st['prefill_groups']} + {n_pre}){tie_note}; {rms}; decode "
+          f"tok/s spec-on {st['decode_tok_s']:.1f} vs spec-off "
+          f"{off['decode_tok_s']:.1f}; wall {walls['on']:.2f}s vs "
+          f"{walls['off']:.2f}s; {card_line()}")
     if eager_twin:
         rep = dict(rec, pools=pool_bytes(eng, null_block=False))
         del eng
@@ -3580,7 +3649,8 @@ def phase_spec_engine(cfg, params, *, name, prompts, max_new, draft,
                        f"KV {mib(rep['pools'][0])} MiB")
         del twin, rep
         free_card()
-    return {"dense": dense, "st": st, "off": off}
+    return {"dense": dense, "paged": paged, "ssd": ssd, "st": st,
+            "off": off, "outs": outs}
 
 
 def rms_bound(rows, d, x_bytes, w_bytes):
@@ -3629,7 +3699,7 @@ def time_dense_decode(cfg, *, b, s, live):
         kc, vc = caches[i % n_l]
         return F.scaled_dot_product_attention(
             qd, kc.transpose(1, 2), vc.transpose(1, 2), attn_mask=mask,
-            scale=scale)
+            scale=scale, enable_gqa=h != kv)
 
     lib_ms = graph_ms(sdpa)
     o_p, _, l_p = fd._dense_decode_torch(*args(0), sm_scale=scale)
@@ -3657,6 +3727,31 @@ def time_dense_decode(cfg, *, b, s, live):
     return dec
 
 
+def time_rmsnorm(rows, d, xd="bf16"):
+    """The RMSNorm kernel at ``rows`` x ``d`` against its plain version,
+    then its time beside its bound, the plain version's and
+    ``F.rms_norm``'s, each by CUDA-graph replay over four inputs cycled
+    (so a 16 MB operand is not L2-hot)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import rmsnorm as rn
+    ins = [rms_case(rows, d, xd, "bf16", seed=200 + j) for j in range(4)]
+    err, ok = rms_vs_plain(*ins[0])
+    check(ok, f"RMSNorm kernel differs from plain at {rows} x {d}: {err}")
+    ms = graph_ms(lambda i: rn._rmsnorm_cuda(*ins[i % 4]))
+    plain_ms = graph_ms(lambda i: rn.rmsnorm_plain(*ins[i % 4]))
+    lib_ms = graph_ms(lambda i: F.rms_norm(ins[i % 4][0], (d,),
+                                           ins[i % 4][1], 1e-5))
+    bound_ms, bound_by = rms_bound(rows, d, 2, 2)
+    print(f"[timing] rmsnorm {rows} x {d} {xd} (w bf16, "
+          f"{rn.rows_per_block(rows, d, _dtype(xd))} rows a block): "
+          f"{ms * 1e3:.2f} us (bound {bound_ms * 1e3:.3f} us by "
+          f"{bound_by}, {bound_ms / ms * 100:.2f}% of it), plain "
+          f"{plain_ms * 1e3:.2f} us, F.rms_norm {lib_ms * 1e3:.2f} us; "
+          f"== plain, max |err| {err:.3g}; {card_line()}")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err}
+
+
 def phase_new_kernel_timing(cfg):
     """The RMSNorm kernel at the training step's and a decode step's shape
     (and at phase 24's training rows of 4096 and 2048), and the dense
@@ -3664,34 +3759,15 @@ def phase_new_kernel_timing(cfg):
     its bound, the plain version and one library call, all as device time
     per call of a CUDA-graph replay (``graph_ms``); the dense decode
     kernel again at B = 8, S = 4,096."""
-    import torch.nn.functional as F
-    from repro_torch.kernels import rmsnorm as rn
     rows_out = {}
-    for name, rows, d, xd in (
-            ("train", 8192, cfg.d_model, "bf16"),
-            ("decode", 8, cfg.d_model, "bf16"),
-            ("draft", 1, cfg.d_model, "bf16"),
+    for name, rows, d in (
+            ("train", 8192, cfg.d_model),
+            ("decode", 8, cfg.d_model),
+            ("draft", 1, cfg.d_model),
             # phase 24's training rows: llama2-7b's and qwen3-moe's widths
-            ("train 4096", 8192, 4096, "bf16"),
-            ("train 2048", 8192, 2048, "bf16")):
-        # four inputs cycled, so the 16 MB training operand is not L2-hot
-        ins = [rms_case(rows, d, xd, "bf16", seed=200 + j) for j in range(4)]
-        err, ok = rms_vs_plain(*ins[0])
-        check(ok, f"RMSNorm kernel differs from plain at {rows} x {d}: {err}")
-        ms = graph_ms(lambda i: rn._rmsnorm_cuda(*ins[i % 4]))
-        plain_ms = graph_ms(lambda i: rn.rmsnorm_plain(*ins[i % 4]))
-        lib_ms = graph_ms(lambda i: F.rms_norm(ins[i % 4][0], (d,),
-                                               ins[i % 4][1], 1e-5))
-        bound_ms, bound_by = rms_bound(rows, d, 2, 2)
-        rows_out[name] = {"ms": ms, "plain_ms": plain_ms,
-                          "library_ms": lib_ms, "bound_ms": bound_ms,
-                          "bound_by": bound_by, "max_abs_err": err}
-        print(f"[timing] rmsnorm {rows} x {d} {xd} (w bf16, "
-              f"{rn.rows_per_block(rows, d, _dtype(xd))} rows a block): "
-              f"{ms * 1e3:.2f} us (bound {bound_ms * 1e3:.3f} us by "
-              f"{bound_by}, {bound_ms / ms * 100:.2f}% of it), plain "
-              f"{plain_ms * 1e3:.2f} us, F.rms_norm {lib_ms * 1e3:.2f} us; "
-              f"== plain, max |err| {err:.3g}")
+            ("train 4096", 8192, 4096),
+            ("train 2048", 8192, 2048)):
+        rows_out[name] = time_rmsnorm(rows, d)
     # the draft's decode read: B=1, S = context + k, one cache per layer;
     # then a batch of 8 long rows, which the kernel splits 3 ways
     dec = time_dense_decode(cfg, b=1, s=1068, live=1064)
@@ -4486,6 +4562,522 @@ def phase_training_slice() -> dict:
     return total
 
 
+# --------------------------------------------------------------------------
+# phase 25: the encoder-decoder and vision-language families
+# --------------------------------------------------------------------------
+
+# 8 requests a family and 64 greedy decode steps each: seamless with 1,024
+# seeded frames and a 64-token prompt, internvl2 with 256 seeded patches
+# and a 256-token prompt, in caches of max_len positions (prompt, patches
+# included, and the new tokens: never the reference's clipping default)
+FAMILY_ROWS = 8
+FAMILY_NEW = 64
+FAMILY_PROMPT = {"seamless-m4t-large-v2": 64, "internvl2-26b": 256}
+FAMILY_MAX_LEN = {"seamless-m4t-large-v2": 128, "internvl2-26b": 576}
+# F+R training on one fixed batch of B = 4 and 1,024 positions: seamless
+# 1,024 frames for the encoder and 1,024 tokens, internvl2 256 patches and
+# 768 tokens; internvl2 cut to 2 of its 48 layers, widths untouched (48
+# layers of bf16 weights and gradients and f32 moments need ~318 GB).
+# Stated before the first run on the card: the loss falls within 3 steps
+# at lr 1e-3, warmup 0, no weight decay
+FAMILY_TRAIN = dict(b=4, t=1024)
+FAMILY_TRAIN_STEPS = 3
+FAMILY_LR = 1e-3
+# flash against naive attention on the same params and batch: the naive
+# read rounds its probabilities to bf16, the flash kernels do not
+# (tests/test_torch_train.py's loss limit; 2.3e-3 and 2.7e-3 at smoke
+# size on the CPU)
+FAMILY_LOSS_ATOL = 2e-3
+INTERNVL_TRAIN_LAYERS = 2
+# the seamless encoder's self-attention: 8 requests, 16 heads of 64 over
+# 1,024 frames, non-causal
+ENC_FLASH = dict(b=8, h=16, kv=16, t=1024, d=64)
+
+
+def family_norms(cfg, *, decode: bool) -> int:
+    """RMSNorm launches of one model-level forward of an encdec or vlm
+    config: two a decoder layer (three with cross-attention) and the final
+    norm; an encdec prefill or forward also runs the encoder (two a layer
+    and ``enc_final_ln``)."""
+    dec = cfg.n_layers * (3 if cfg.n_enc_layers else 2) + 1
+    if decode or not cfg.n_enc_layers:
+        return dec
+    return dec + 2 * cfg.n_enc_layers + 1
+
+
+def loss_blocks(t: int) -> int:
+    """The checkpointed loss blocks of ``LM.loss`` over ``t`` labels."""
+    tc = min(512, t)
+    while t % tc:
+        tc //= 2
+    return t // tc
+
+
+def draw_params(cfg, what):
+    """``cfg``'s seeded weights on the card, a layer slice at a time."""
+    import torch
+    from repro_torch.models.lm import LM
+    from repro_torch.models.params import tree_paths
+    t0 = time.monotonic()
+    torch.cuda.reset_peak_memory_stats()
+    params = LM(cfg, device="cuda").init(0)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for _, t in tree_paths(params))
+    print(f"[family] {what}: {n / 1e9:.2f} B parameters ({n * 2 / 2**30:.1f} "
+          f"GiB bf16) drawn in {time.monotonic() - t0:.1f}s, peak "
+          f"{peak_gib():.2f} GiB")
+    return params
+
+
+def family_serve(cfg, params, what):
+    """The family's serving main path through ``LM``'s entry points (the
+    engine serves neither frontend): ``prefill`` of 8 requests with their
+    seeded frontend embeddings, then 64 greedy ``decode_step``s, with the
+    launches of the run (flash forward once a layer of the prefill, the
+    encoder's included; the dense decode read once a decoder layer a step;
+    RMSNorm once a norm a forward) and a teacher-forced ``forward`` over
+    the prompt and the generated tokens holding each token to its argmax
+    or a bf16 near tie (``SPEC_NEAR_TIE_ULPS``) of it."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.launch.build import random_batch
+    from repro_torch.models.lm import LM
+    from repro_torch.serving import graphs
+    model = LM(cfg, attn_impl="flash", device="cuda")
+    t_prompt, max_len = FAMILY_PROMPT[cfg.name], FAMILY_MAX_LEN[cfg.name]
+    n_front = cfg.frontend_len if cfg.family == "vlm" else 0
+    batch = random_batch(cfg, FAMILY_ROWS, n_front + t_prompt, seed=25,
+                         with_labels=False, device="cuda")
+    toks, fe = batch["tokens"], batch["frontend_embeds"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in graphs.KERNEL_COUNTERS:       # count the main path's run only
+        c.clear()
+    t0 = time.perf_counter()
+    logits, cache, n = model.prefill(params, toks, max_len=max_len,
+                                     frontend_embeds=fe)
+    out = [logits.argmax(-1)]
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    for _ in range(FAMILY_NEW):
+        logits, cache = model.decode_step(params, cache,
+                                          out[-1][:, None].int(), n)
+        n = n + 1
+        out.append(logits.argmax(-1))
+    torch.cuda.synchronize()
+    dec_s = time.perf_counter() - t0
+    peak = peak_gib()
+    launches = {"fwd": fa.LAUNCHES["fwd"],
+                "bwd_dkv": fa.LAUNCHES["bwd_dkv"],
+                "dense_decode": fd.LAUNCHES["dense_decode"],
+                "paged_attention": fd.LAUNCHES["paged_attention"],
+                "rmsnorm": rn.LAUNCHES["rmsnorm"]}
+    check(launches["fwd"] == cfg.n_layers + cfg.n_enc_layers and
+          launches["bwd_dkv"] == 0 and launches["paged_attention"] == 0,
+          f"{what}: flash forward launches {launches['fwd']} != "
+          f"{cfg.n_layers} + {cfg.n_enc_layers} layers ({launches})")
+    check(launches["dense_decode"] == cfg.n_layers * FAMILY_NEW,
+          f"{what}: dense decode launches {launches['dense_decode']} != "
+          f"{cfg.n_layers} x {FAMILY_NEW} steps")
+    want = (family_norms(cfg, decode=False)
+            + FAMILY_NEW * family_norms(cfg, decode=True))
+    rms = count_rmsnorm(what, launches["rmsnorm"], want,
+                        f"{family_norms(cfg, decode=False)} + {FAMILY_NEW} x "
+                        f"{family_norms(cfg, decode=True)} forwards")
+    check(int(n[0]) == n_front + t_prompt + FAMILY_NEW and
+          int(n[0]) <= max_len, f"{what}: lengths {n.tolist()}")
+    gen = torch.stack(out, 1)                          # (B, 65)
+    seq = torch.cat([toks, gen[:, :FAMILY_NEW].int()], 1)
+    with torch.no_grad():
+        full = model.forward(params, seq, frontend_embeds=fe)
+    p0 = n_front + t_prompt - 1
+    rows = full[:, p0:p0 + FAMILY_NEW + 1].float()     # (B, 65, V)
+    check(bool(torch.isfinite(rows).all()), f"{what}: non-finite logits")
+    top, arg = rows.max(-1)
+    mine = rows.gather(-1, gen[..., None].long())[..., 0]
+    ulp = torch.exp2(torch.floor(torch.log2(top.abs().clamp_min(1e-30))) - 7)
+    gap = ((top - mine) / ulp)
+    share = float((arg == gen).float().mean())
+    worst = float(gap.max())
+    check(worst <= SPEC_NEAR_TIE_ULPS, f"{what}: a generated token is "
+          f"{worst:.1f} bf16 ulps below the teacher-forced argmax")
+    del full, rows, cache
+    tok_s = FAMILY_ROWS * FAMILY_NEW / dec_s
+    print(f"[family] {what}, flash: prefill of {FAMILY_ROWS} requests "
+          f"({n_front + t_prompt} positions each"
+          + (f", {cfg.frontend_len} frames through the encoder"
+             if cfg.n_enc_layers else "")
+          + f") {prefill_ms:.1f} ms, {FAMILY_NEW} decode steps "
+          f"{dec_s * 1e3:.1f} ms ({tok_s:.1f} tok/s), peak {peak:.2f} GiB; "
+          f"launches: flash forward {launches['fwd']} = {cfg.n_layers} + "
+          f"{cfg.n_enc_layers}, dense decode {launches['dense_decode']} = "
+          f"{cfg.n_layers} x {FAMILY_NEW} (G = {cfg.n_heads // cfg.n_kv_heads},"
+          f" D = {cfg.head_dim}), {rms}; teacher-forced argmax match "
+          f"{share:.4f}, others within {worst:.2f} <= {SPEC_NEAR_TIE_ULPS} "
+          f"bf16 ulps; {card_line()}")
+    return {"launches": launches, "prefill_ms": prefill_ms, "tok_s": tok_s,
+            "peak": peak}
+
+
+def family_train(cfg, what):
+    """F+R through ``build_train``'s step on one fixed seeded batch
+    (``FAMILY_TRAIN``, frontend embeddings included): the flash loss
+    against the naive one on the same params and batch (|Δloss| printed,
+    held to ``FAMILY_LOSS_ATOL``), then ``FAMILY_TRAIN_STEPS`` steps
+    whose losses must be finite and fall, with the flash and RMSNorm
+    launches per step (the encoder runs once a step, the decoder twice
+    under remat)."""
+    import torch
+    from repro_torch.core.config import technique_from_label
+    from repro_torch.launch.build import build_train, random_batch
+    from repro_torch.models.lm import LM
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.step import init_train_state
+    torch.cuda.reset_peak_memory_stats()
+    opt = AdamWConfig(lr=FAMILY_LR, warmup=0, weight_decay=0.0)
+    step, tech, model, opt = build_train(cfg, technique_from_label("F+R"),
+                                         opt, device="cuda")
+    state, _ = init_train_state(model, tech, 0, opt)
+    b, t = FAMILY_TRAIN["b"], FAMILY_TRAIN["t"]
+    batch = random_batch(cfg, b, t, seed=26, device="cuda")
+    with torch.no_grad():
+        lf = float(model.loss(state["params"], batch)[0])
+        ln = float(LM(cfg, attn_impl="naive", device="cuda").loss(
+            state["params"], batch)[0])
+    dloss = abs(lf - ln)
+    check(math.isfinite(lf) and dloss < FAMILY_LOSS_ATOL,
+          f"{what}: flash loss {lf} vs naive {ln}")
+    slice_counts(reset=True)
+    losses, ms = [], []
+    for i in range(FAMILY_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step(state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(met["loss"]))
+        check(math.isfinite(losses[-1]) and
+              math.isfinite(float(met["grad_norm"])),
+              f"{what}: step {i + 1} loss {losses[-1]}")
+    counts = slice_counts()
+    check(losses[-1] < losses[0], f"{what}: the loss did not fall on a "
+          f"fixed batch: {losses}")
+    n_enc, n_dec = cfg.n_enc_layers, cfg.n_layers
+    per = {"fwd": n_enc + 2 * n_dec, "bwd_dkv": n_enc + n_dec,
+           "bwd_dq": n_enc + n_dec}
+    for k, v in per.items():
+        check(counts[k] == v * FAMILY_TRAIN_STEPS, f"{what}: flash {k} "
+              f"launches {counts[k]} != {v} x {FAMILY_TRAIN_STEPS} steps")
+    t_lab = batch["labels"].shape[1]
+    norms = ((2 * n_enc + 1 if n_enc else 0)
+             + 2 * (family_norms(cfg, decode=True) - 1)
+             + 2 * loss_blocks(t_lab))
+    count_rmsnorm(f"{what} training", counts["rmsnorm"],
+                  norms * FAMILY_TRAIN_STEPS,
+                  f"{norms} x {FAMILY_TRAIN_STEPS} steps")
+    tokens = b * t_lab
+    mean = sum(ms[1:]) / max(len(ms) - 1, 1)
+    print(f"[family] {what} F+R, batch {b} x {t} positions "
+          + (f"({cfg.frontend_len} frames + {t_lab} tokens) "
+             if n_enc else f"({cfg.frontend_len} patches + {t_lab} tokens) ")
+          + f"(one fixed batch, lr {opt.lr}, warmup 0, no weight decay): "
+          f"flash vs naive |dloss| {dloss:.3g} (limit {FAMILY_LOSS_ATOL}); "
+          f"losses "
+          + ", ".join(f"{x:.4f}" for x in losses)
+          + f" (fell {losses[0] - min(losses):.4f}); step ms "
+          + ", ".join(f"{x:.1f}" for x in ms)
+          + f" ({tokens / mean * 1e3:.0f} tokens/s over steps 2-{len(ms)}); "
+          f"launches per step: flash fwd {per['fwd']}, dK/dV and dQ "
+          f"{per['bwd_dkv']} each, RMSNorm {norms}; peak {peak_gib():.2f} "
+          f"GiB; {card_line()}")
+    del state, step, model
+    free_card()
+    return counts
+
+
+def phase_families() -> dict:
+    """Phase 25: seamless-m4t-large-v2 and internvl2-26b at full width
+    (seeded weights): served through ``prefill`` and ``decode_step``,
+    trained F+R (internvl2 cut to 2 of 48 layers); the seamless encoder's
+    non-causal flash kernels, the dense decode read at both families' (G,
+    D) and RMSNorm at 6,144 against their plain versions and timed.
+    Returns the launches of its main-path runs and the timings."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    t0 = time.monotonic()
+    total = {}
+    seamless = get_config("seamless-m4t-large-v2")
+    params = draw_params(seamless, f"{seamless.name} full width")
+    run = family_serve(seamless, params, f"{seamless.name} full width")
+    add_counts(total, run["launches"])
+    del params
+    free_card()
+    enc = phase_flash_timing(f"{seamless.name} encoder", ENC_FLASH,
+                             causal=False)
+    free_card()
+    add_counts(total, family_train(seamless, f"{seamless.name} full width"))
+    dense_g1 = time_dense_decode(seamless, b=FAMILY_ROWS, s=128, live=128)
+    internvl = get_config("internvl2-26b")
+    params = draw_params(internvl, f"{internvl.name} full width")
+    run = family_serve(internvl, params, f"{internvl.name} full width")
+    add_counts(total, run["launches"])
+    del params
+    free_card()
+    cut = dataclasses.replace(internvl, n_layers=INTERNVL_TRAIN_LAYERS)
+    add_counts(total, family_train(
+        cut, f"{internvl.name} full width, {INTERNVL_TRAIN_LAYERS} of 48 "
+        f"layers"))
+    dense_g6 = time_dense_decode(internvl, b=FAMILY_ROWS, s=576, live=576)
+    rms = {rows: time_rmsnorm(rows, internvl.d_model)
+           for rows in (FAMILY_ROWS, FAMILY_ROWS * 512)}
+    free_card()
+    print(f"[family] phase 25 launches over its main-path runs: "
+          + ", ".join(f"{k} {v}" for k, v in total.items())
+          + f"; phase 25 took {time.monotonic() - t0:.1f}s")
+    return {"launches": total, "enc": enc, "dense_g1": dense_g1,
+            "dense_g6": dense_g6, "rms": rms}
+
+
+# --------------------------------------------------------------------------
+# phase 26: decoding the SSM families
+# --------------------------------------------------------------------------
+
+# the self-draft's 4 requests; the rollback run scripts one good proposal
+# then a garbage tail on them, so every round accepts some but not all
+SSM_DRAFT_NEW = 32
+SSM_ROLLBACK_SNAPS = 8
+# the SSM pool after a round with partial acceptance against spec-off's at
+# the same length: the verify step's projections sum B*T rows where decode
+# sums B, so the states differ by roundoff carried through bf16 residuals;
+# held to the bf16 bound of the CPU tests' caches (3e-2), relative to the
+# state's largest magnitude
+SSM_STATE_RTOL = 3e-2
+
+
+@contextlib.contextmanager
+def moe_keeps_every_assignment(cfg):
+    """Every MoE call of the model and the engine at the capacity that
+    drops nothing (``n_experts / capacity_factor`` times the mean load,
+    so each expert takes all of a call's assignments): without drops a
+    token's output does not depend on its step's other rows, and spec-on
+    verify steps (B x T rows) compare with spec-off decode steps (B
+    rows). With drops the comparison would test the routing, not
+    speculation (the reference's semantics make a dropped token's output
+    depend on its step)."""
+    from repro_torch.models import lm
+    from repro_torch.serving import engine
+    keep = cfg.n_experts / cfg.capacity_factor
+    old = dict(lm.CAPACITY_MULT), engine.MOE_CAPACITY_MULT
+    lm.CAPACITY_MULT.update({k: max(v, keep)
+                             for k, v in lm.CAPACITY_MULT.items()})
+    engine.MOE_CAPACITY_MULT = max(engine.MOE_CAPACITY_MULT, keep)
+    try:
+        yield keep
+    finally:
+        lm.CAPACITY_MULT.update(old[0])
+        engine.MOE_CAPACITY_MULT = old[1]
+
+
+def model_level_decode(cfg, params, prompts, engine_out, max_new):
+    """mamba2 through ``LM.prefill`` and ``max_new`` greedy
+    ``decode_step``s (the model-level SSM cache, stepped in place) on the
+    engine's prompts: its tokens against the engine's spec-off stream, a
+    split allowed only at a near tie (``spec_splits``)."""
+    import torch
+    from repro_torch.models.lm import LM
+    from repro_torch.serving import graphs
+    model = LM(cfg, ssd_impl="kernel", device="cuda")
+    toks = torch.tensor(prompts, dtype=torch.int32, device="cuda")
+    for c in graphs.KERNEL_COUNTERS:
+        c.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache, n = model.prefill(params, toks)
+    out = [logits.argmax(-1)]
+    for _ in range(max_new):
+        logits, cache = model.decode_step(params, cache,
+                                          out[-1][:, None].int(), n)
+        n = n + 1
+        out.append(logits.argmax(-1))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import ssd as ssdk
+    ssd, norms = ssdk.LAUNCHES["ssd"], rn.LAUNCHES["rmsnorm"]
+    check(ssd == cfg.n_layers, f"model-level decode: SSD launches {ssd} != "
+          f"{cfg.n_layers} (the prefill only)")
+    count_rmsnorm(f"{cfg.name} model-level decode", norms,
+                  norms_per_forward(cfg) * (1 + max_new),
+                  f"{norms_per_forward(cfg)} x {1 + max_new} forwards")
+    gen = torch.stack(out, 1).tolist()
+    got = {rid: row[:len(engine_out[rid])] for rid, row in enumerate(gen)}
+    splits = spec_splits(model, params, prompts, engine_out, got)
+    print(f"[ssm] {cfg.name} model-level prefill of {len(prompts)} x "
+          f"{len(prompts[0])} tokens and {max_new} decode_steps "
+          f"({len(prompts) * (1 + max_new) / wall:.1f} tok/s, eager): "
+          f"tokens == the engine's spec-off stream except {splits} "
+          f"split(s) at near ties; SSD launches {ssd} (prefill), 0 in "
+          f"decode; {card_line()}")
+
+
+def ssm_rollback(cfg, params, prompts, want, name):
+    """Spec-on with a scripted proposer (one good token from spec-off's
+    stream ``want``, then a garbage tail: every round accepts some but
+    not all; the stream equal to spec-off's up to a split at a near tie),
+    the SSM slot snapshot after each of the first rounds with partial
+    acceptance, then spec-off recording the same (request, length)
+    snapshots: each pair within ``SSM_STATE_RTOL`` (pairs past a split
+    are not compared: their tokens differ)."""
+    from repro_torch.models.lm import LM
+    from repro_torch.serving.engine import Engine, Request
+    from repro_torch.serving.scheduler import RUNNING
+
+    class Scripted:
+        def propose(self, req, k):
+            ref = want[req.rid]
+            i = len(req.output)
+            props = ref[i:i + 1]
+            return (props + [(ref[0] + 1) % cfg.vocab_size] * k)[:k]
+
+    max_new = len(want[0])
+
+    def serve(spec, keys):
+        eng = Engine(cfg, params, max_batch=8, n_blocks=1024, block_size=16,
+                     speculate=spec, spec_depth=4, device="cuda")
+        eng.warmup(max(map(len, prompts)) + max_new,
+                   prompt_lens=sorted({len(p) for p in prompts}))
+        partial, snaps = [], {}
+        if eng.spec is not None:
+            record = eng.spec.record
+
+            def noted(req, *, proposed, accepted):
+                if 0 < accepted < proposed:
+                    partial.append(req)
+                record(req, proposed=proposed, accepted=accepted)
+
+            eng.spec.record = noted
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, tokens=p, max_new_tokens=max_new))
+        while eng.waiting or any(r is not None for r in eng.running):
+            partial.clear()
+            eng.step()
+            live = [r for r in eng.running if r is not None]
+            for r in (partial if keys is None else live):
+                key = (r.rid, r.length - 1)
+                if r.state != RUNNING or key in snaps or (
+                        keys is not None and key not in keys) or (
+                        keys is None and len(snaps) >= SSM_ROLLBACK_SNAPS):
+                    continue
+                snaps[key] = {(pos, leaf): a[:, r.slot].clone()
+                              for pos, st in eng._ssm_states.items()
+                              for leaf, a in st.items()}
+        out = {r.rid: r.output for r in eng.finished}
+        st = eng.stats()
+        del eng
+        free_card()
+        return out, snaps, st
+
+    got, on, st = serve(Scripted(), None)
+    splits = spec_splits(LM(cfg, ssd_impl="kernel", device="cuda"), params,
+                         prompts, want, got)
+    # a snapshot after consuming output[:n] is comparable while the
+    # streams agree on output[:n]
+    agree = {rid: next((i for i, (a, b) in enumerate(zip(want[rid], out))
+                        if a != b), len(out)) for rid, out in got.items()}
+    on = {key: v for key, v in on.items()
+          if key[1] - len(prompts[key[0]]) < agree[key[0]]}
+    check(0.0 < st["accept_rate"] < 1.0 and on,
+          f"no comparable round with partial acceptance (accept_rate "
+          f"{st['accept_rate']})")
+    _, off, _ = serve(None, set(on))
+    check(set(off) == set(on), f"spec-off never reached {set(on) - set(off)}")
+    worst = 0.0
+    for key, snap in on.items():
+        for leaf, a in snap.items():
+            b = off[key][leaf]
+            rel = float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+            worst = max(worst, rel)
+    check(worst <= SSM_STATE_RTOL, f"the SSM pool after partial acceptance "
+          f"is {worst:.3g} of its scale from spec-off's")
+    print(f"[ssm] {cfg.name} {name} rollback: scripted proposer (1 good "
+          f"token, then garbage) on {len(prompts)} requests x {max_new} "
+          f"tokens, accept_rate "
+          f"{st['accept_rate']:.4f}, tokens == spec-off's except {splits} "
+          f"split(s) at near ties; after {len(on)} rounds with partial "
+          f"acceptance each slot's (conv, state) within {worst:.3g} "
+          f"(relative to its largest magnitude; limit {SSM_STATE_RTOL}) of "
+          f"spec-off's at the same length; {card_line()}")
+
+
+def phase_ssm_decoding() -> dict:
+    """Phase 26: mamba2's model-level decode against the engine's spec-off
+    stream; speculation through the replayed steps on mamba2 (n-gram on
+    16 repetitive prompts, a self-draft on 4 requests, the rollback after
+    partial acceptance) and on jamba-v0.1-52b over one period (n-gram, no
+    MoE drops: ``moe_keeps_every_assignment``); the paged read at jamba's
+    widest verify window against its plain version. Returns the runs'
+    launches."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import repetitive_requests, serving_requests
+    t0 = time.monotonic()
+    mamba = get_config("mamba2-130m")
+    params = draw_params(mamba, f"{mamba.name} full width")
+    rep = repetitive_requests(16, mamba.vocab_size, prompt_len=256)
+    ngram = phase_spec_engine(mamba, params,
+                              name="n-gram depth 4, 16 repetitive requests",
+                              prompts=rep, max_new=SERVE_NEW, draft=False,
+                              need_rounds=False)
+    model_level_decode(mamba, params, rep, ngram["outs"]["off"], SERVE_NEW)
+    four = serving_requests(4, mamba.vocab_size, prompt_lens=[64, 256],
+                            seed=1)
+    draft = phase_spec_engine(mamba, params,
+                              name="self-draft depth 4, 4 requests",
+                              prompts=four, max_new=SSM_DRAFT_NEW,
+                              draft=True)
+    ssm_rollback(mamba, params, four, draft["outs"]["off"], "self-draft's")
+    del params
+    free_card()
+    jamba = dataclasses.replace(get_config("jamba-v0.1-52b"),
+                                n_layers=JAMBA_LAYERS)
+    params = draw_params(jamba, f"{jamba.name} full width, {JAMBA_LAYERS} "
+                         f"of 32 layers")
+    with moe_keeps_every_assignment(jamba) as keep:
+        print(f"[ssm] {jamba.name}: MoE capacity multiplier {keep:g} in "
+              f"every call (no assignment dropped)")
+        rep = repetitive_requests(16, jamba.vocab_size, prompt_len=256)
+        jam = phase_spec_engine(
+            jamba, params, name="n-gram depth 4, 16 repetitive requests",
+            prompts=rep, max_new=SERVE_NEW, draft=False, need_rounds=False)
+        # windows wider than one token at full width: the n-gram
+        # proposer may stay silent on random weights
+        ssm_rollback(jamba, params, rep[:4],
+                     {i: jam["outs"]["off"][i] for i in range(4)},
+                     "n-gram prompts'")
+    del params
+    free_card()
+    wide = time_shape(jamba, b=8, t=5, lengths=[320] * 8, quant=False,
+                      mb=32, n_blocks=1025, n_layers=4)
+    print(f"[timing] paged_attention {jamba.name} verify B=8 T=5 H=32 K=8 "
+          f"(G=4) D=128 bf16, {wide['n_split']} column splits: "
+          f"{wide['ms'] * 1e3:.2f} us by graph replay (bound "
+          f"{wide['bound_ms'] * 1e3:.2f} us by {wide['bound_by']}, "
+          f"{wide['bound_ms'] / wide['ms'] * 100:.1f}% of it), == plain "
+          f"within rtol=atol=2e-5 (max |err| {wide['max_abs_err']:.3g}), "
+          f"plain {wide['plain_ms'] * 1e3:.1f} us, sdpa "
+          f"{wide['library_ms'] * 1e3:.2f} us by graph replay; "
+          f"{card_line()}")
+    free_card()
+    runs = (ngram, draft, jam)
+    print(f"[ssm] phase 26 took {time.monotonic() - t0:.1f}s")
+    return {"paged": sum(r["paged"] for r in runs),
+            "ssd": sum(r["ssd"] for r in runs),
+            "dense_decode": sum(r["dense"] for r in runs), "verify": wide}
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -4560,6 +5152,8 @@ def main() -> None:
           f"{st_b['p50_ttft_s'] * 1e3:.1f} ms")
     llama = get_config("llama2-7b")
     llama_runs = phase_full_width(llama, f"{llama.name} full width")
+    llama13 = get_config("llama2-13b")
+    llama_runs += phase_full_width(llama13, f"{llama13.name} full width")
     wide = time_shape(llama, b=8, t=1, lengths=[96, 288, 1032, 96, 288,
                                                 1032, 96, 288],
                       quant=False, mb=mb, n_blocks=1025, n_layers=32)
@@ -4678,16 +5272,20 @@ def main() -> None:
     life = phase_lifecycle()
     moe = phase_moe_hybrid()
     trained = phase_training_slice()
-    slice_launches = {"flash_attention_fwd": trained["fwd"],
-                      "flash_attention_bwd_dkv": trained["bwd_dkv"],
-                      "flash_attention_bwd_dq": trained["bwd_dq"],
-                      "flash_attention_bwd": trained["bwd_dkv"],
-                      "int8_matmul": trained["int8_matmul"]}
+    families = phase_families()
+    ssm = phase_ssm_decoding()
+    fam = families["launches"]
+    slice_launches = {
+        "flash_attention_fwd": trained["fwd"] + fam["fwd"],
+        "flash_attention_bwd_dkv": trained["bwd_dkv"] + fam["bwd_dkv"],
+        "flash_attention_bwd_dq": trained["bwd_dq"] + fam["bwd_dq"],
+        "flash_attention_bwd": trained["bwd_dkv"] + fam["bwd_dkv"],
+        "int8_matmul": trained["int8_matmul"]}
     for entry in record["kernels"]:
         if entry["name"] == "paged_attention":
-            entry["launches"] += life["paged"] + moe["paged"]
+            entry["launches"] += life["paged"] + moe["paged"] + ssm["paged"]
         if entry["name"] == "ssd_chunked_kernel":
-            entry["launches"] += life["ssd"] + moe["ssd"]
+            entry["launches"] += life["ssd"] + moe["ssd"] + ssm["ssd"]
         entry["launches"] += slice_launches.get(entry["name"], 0)
     print(f"[spec] RMSNorm launches per run: " + ", ".join(
         f"{k} {v}" for k, v in RMSNORM_RUNS.items()))
@@ -4710,7 +5308,8 @@ def main() -> None:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/dense_decode.cu",
         "replaces": "src/repro/kernels/flash_decode.py:93",
-        "launches": self_draft["dense"] + ngram["dense"],
+        "launches": (self_draft["dense"] + ngram["dense"]
+                     + fam["dense_decode"] + ssm["dense_decode"]),
         "max_abs_err": dec_t["max_abs_err"],
         "ms": dec_t["ms"],
         "plain_ms": dec_t["plain_ms"],

@@ -1,9 +1,9 @@
 """Architecture registry of the port.
 
 ``get_config(name)`` returns the full :class:`ArchConfig`;
-``get_config(name, reduced=True)`` the CPU-runnable smoke config. The
-dense, ssm, moe and hybrid archs of the reference are registered; the
-encoder-decoder and vision-language ones join with their slice.
+``get_config(name, reduced=True)`` the CPU-runnable smoke config. Every
+arch of the reference's registry is registered: the dense, ssm, moe,
+hybrid, encoder-decoder and vision-language families.
 """
 from __future__ import annotations
 
@@ -24,6 +24,8 @@ _ARCH_MODULES = [
     "qwen3_moe_30b_a3b",
     "dbrx_132b",
     "jamba_v0_1_52b",
+    "seamless_m4t_large_v2",
+    "internvl2_26b",
 ]
 
 _REGISTRY: Dict[str, ArchConfig] = {}

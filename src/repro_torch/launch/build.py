@@ -16,11 +16,12 @@ training route; the SSD kernel, like the TPU kernel, has no backward.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
 from repro_torch.core.config import ArchConfig, Technique
+from repro_torch.core.device import resolve_device
 from repro_torch.models.lm import LM
 from repro_torch.train.optimizer import AdamWConfig
 from repro_torch.train.step import build_train_step, default_opt_cfg
@@ -49,3 +50,45 @@ def build_train(cfg: ArchConfig, technique: Technique,
     opt_cfg = opt_cfg or default_opt_cfg(technique)
     return build_train_step(model, technique, opt_cfg), technique, model, \
         opt_cfg
+
+
+def batch_specs(cfg: ArchConfig, batch: int, seq_len: int,
+                with_labels: bool = True
+                ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """A training / prefill batch's entries as ``name -> (shape, dtype)``
+    (the reference's ``batch_specs`` without a mesh). A vlm batch holds
+    ``frontend_len`` patch embeddings and ``seq_len - frontend_len``
+    tokens (``seq_len`` positions in all); an encdec batch holds
+    ``frontend_len`` frame embeddings for the encoder and ``seq_len``
+    tokens; the other families ``seq_len`` tokens."""
+    n_tok = seq_len
+    out: Dict[str, Tuple[Tuple[int, ...], torch.dtype]] = {}
+    if cfg.family in ("vlm", "encdec"):
+        if cfg.family == "vlm":
+            n_tok = seq_len - cfg.frontend_len
+        out["frontend_embeds"] = ((batch, cfg.frontend_len, cfg.d_model),
+                                  torch.bfloat16)
+    out["tokens"] = ((batch, n_tok), torch.int32)
+    if with_labels:
+        out["labels"] = ((batch, n_tok), torch.int32)
+    return out
+
+
+def random_batch(cfg: ArchConfig, batch: int, seq_len: int, *,
+                 seed: int = 0, with_labels: bool = True,
+                 device: Optional[Union[str, torch.device]] = None
+                 ) -> Dict[str, torch.Tensor]:
+    """A seeded batch in :func:`batch_specs`' layout, drawn on ``device``
+    (the card unless the caller passes ``"cpu"``): tokens and labels
+    uniform over the vocabulary, frontend embeddings standard normal."""
+    dev = resolve_device(device)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    for name, (shape, dtype) in batch_specs(cfg, batch, seq_len,
+                                            with_labels).items():
+        if dtype.is_floating_point:
+            out[name] = torch.randn(shape, generator=g, device=dev).to(dtype)
+        else:
+            out[name] = torch.randint(0, cfg.vocab_size, shape, generator=g,
+                                      device=dev, dtype=dtype)
+    return out

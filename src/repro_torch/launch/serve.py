@@ -24,7 +24,9 @@ kernel (kernels/ssd) and decode advances the per-slot SSM states; on
 layer a period of 8. ``qwen3-moe-30b-a3b``, ``dbrx-132b`` and jamba run
 their MoE FFNs at the serving capacity multiplier (4.0).
 ``--speculate`` verifies proposed tokens through the same paged read
-(T = 1 + depth); ``draft:<config>`` drafts with that config's model,
+(T = 1 + depth), and on an SSM arch scans each window's tokens through
+the decode recurrence, keeping the state after each;
+``draft:<config>`` drafts with that config's model (an SSM one too),
 whose decode reads its dense cache through the dense decode kernel, and
 ``--repetitive`` serves repeated-pattern prompts, on which the n-gram
 proposer fires. ``--prefix-cache`` shares cached full blocks across

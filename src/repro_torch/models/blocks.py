@@ -1,16 +1,20 @@
 """Transformer, MoE and Mamba-2 blocks: param specs and apply functions.
 
-The decoder-only subset of ``repro.models.blocks``: the attention block
+The one-device part of ``repro.models.blocks``: the attention block
 (QKV bias, Qwen3's per-head q/k norms; whole-sequence and dense-cache
-decode branches), the SwiGLU FFN, the MoE FFN (top-k routing and the
-one-device capacity dispatch, ``_moe_local``) and the Mamba-2 (SSD)
-block with its three branches (whole sequence, chunk continue, T=1
-decode). No sharding context: the port serves on one card, so the
-reference's expert-parallel ``_moe_ep`` is not ported.
+decode branches), cross-attention for the encoder-decoder family, the
+SwiGLU FFN, the MoE FFN (top-k routing and the one-device capacity
+dispatch, ``_moe_local``) and the Mamba-2 (SSD) block with its three
+branches (whole sequence, chunk continue, T=1 decode) and its
+speculative-verify form (``ssm_apply_spec``). No sharding context: the
+port serves on one card, so the reference's expert-parallel ``_moe_ep``
+is not ported.
 
 Cache conventions (decode): attention ``{"k", "v"}`` as (B, S, K, hd)
-bf16 with the global ``lengths`` (B,); SSM (also chunked prefill)
-``{"conv": (B, W-1, C) f32, "state": (B, H, P, N) f32}``.
+(bf16, or the reference's unscaled int8) with the global ``lengths``
+(B,); SSM (also chunked prefill) ``{"conv": (B, W-1, C) f32, "state":
+(B, H, P, N) f32}``; cross-attention ``{"k", "v"}`` as (B, S_src, K, hd),
+computed once from the encoder output.
 """
 from __future__ import annotations
 
@@ -23,7 +27,8 @@ from repro_torch.core.config import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models.params import spec
 from repro_torch.quant.qtensor import QTensor
-from repro_torch.models.ssd import ssd_chunked, ssd_decode_step
+from repro_torch.models.ssd import (ssd_chunked, ssd_decode_scan,
+                                    ssd_decode_step)
 
 
 def attn_specs(cfg: ArchConfig, n_stack: int) -> Dict:
@@ -83,22 +88,21 @@ def attn_apply(x, p, cfg: ArchConfig, *, positions, attn_impl: str = "naive",
     cache with ``kv_len = lengths + 1`` through ``kernels.ops.
     flash_decode`` (the dense decode kernel on the card, its plain version
     on the CPU) whatever ``attn_impl`` is: the counterpart of the
-    reference's intended ``"pallas_decode"``. ``qmm_impl`` is a
-    :func:`layers.dense` route for int8 weights."""
+    reference's intended ``"pallas_decode"``. An integer cache stores k/v
+    as the reference's unscaled cast (:func:`cache_cast`) and is read
+    back in q's type. ``causal=False`` (the encoder) attends every
+    position. ``qmm_impl`` is a :func:`layers.dense` route for int8
+    weights."""
     h = L.rmsnorm(x, p["ln"], cfg.norm_eps)
     q, k, v = _qkv(h, p, cfg, positions, qmm_impl=qmm_impl)
     new_cache = None
     if cache is not None:
         from repro_torch.kernels import ops as kops
         kc, vc = cache["k"], cache["v"]
-        if not kc.dtype.is_floating_point:
-            raise NotImplementedError(
-                f"a {kc.dtype} dense cache is not ported (the reference "
-                f"casts k/v to it with no scale)")
         slot = torch.clamp(lengths.long(), 0, kc.shape[1] - 1)
         rows = torch.arange(kc.shape[0], device=kc.device)
-        kc[rows, slot] = k[:, 0].to(kc.dtype)
-        vc[rows, slot] = v[:, 0].to(vc.dtype)
+        kc[rows, slot] = cache_cast(k[:, 0], kc.dtype)
+        vc[rows, slot] = cache_cast(v[:, 0], vc.dtype)
         new_cache = {"k": kc, "v": vc}
         out = kops.flash_decode(q, kc.to(q.dtype), vc.to(q.dtype),
                                 (lengths + 1).int())
@@ -108,6 +112,46 @@ def attn_apply(x, p, cfg: ArchConfig, *, positions, attn_impl: str = "naive",
             new_cache = {"k": k, "v": v}
     y = L.dense(out, p["wo"], n_in=2, qmm_impl=qmm_impl)
     return x + y, new_cache
+
+
+def cache_cast(a: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``a`` stored into a cache of ``dtype`` as the reference's
+    ``astype`` does: a float type rounds; an integer type (the
+    reference's int8 dense cache, no scale) saturates to the type's range
+    and truncates toward zero. torch's cast wraps out-of-range values, so
+    they are clamped first."""
+    if dtype.is_floating_point:
+        return a.to(dtype)
+    info = torch.iinfo(dtype)
+    return torch.clamp(a, info.min, info.max).to(dtype)
+
+
+def cross_attn_specs(cfg: ArchConfig, n_stack: int) -> Dict:
+    p = attn_specs(cfg, n_stack)
+    p.pop("q_norm", None), p.pop("k_norm", None)
+    return p
+
+
+def cross_attn_apply(x, enc_kv, p, cfg: ArchConfig,
+                     qmm_impl: str = "kernel") -> torch.Tensor:
+    """Cross-attention residual block: q from the decoder stream (one
+    ``dense`` in x's type, no RoPE), k/v precomputed from the encoder
+    output (:func:`cross_kv`), read by naive attention over every source
+    position (no causal or length mask), as the reference reads it."""
+    h = L.rmsnorm(x, p["ln"], cfg.norm_eps)
+    q = L.dense(h, p["wq"], bias=p.get("bq"), qmm_impl=qmm_impl)
+    out = L.attention(q, enc_kv["k"], enc_kv["v"], mode="naive",
+                      causal=False)
+    return x + L.dense(out, p["wo"], n_in=2, qmm_impl=qmm_impl)
+
+
+def cross_kv(enc_out, p, cfg: ArchConfig,
+             qmm_impl: str = "kernel") -> Dict[str, torch.Tensor]:
+    """The encoder output's k/v for one decoder layer, in its type."""
+    return {"k": L.dense(enc_out, p["wk"], bias=p.get("bk"),
+                         qmm_impl=qmm_impl),
+            "v": L.dense(enc_out, p["wv"], bias=p.get("bv"),
+                         qmm_impl=qmm_impl)}
 
 
 def ffn_specs(cfg: ArchConfig, n_stack: int) -> Dict:
@@ -296,6 +340,29 @@ def _softplus(x):
     return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
 
 
+def _conv_step(conv_state, xbc, p):
+    """One token through the carried conv window: ``conv_state`` (B, W-1,
+    C) f32 and the token's conv input ``xbc`` (B, 1, C) f32 -> (the conv
+    output (B, 1, C), the window after the token (B, W-1, C))."""
+    buf = torch.cat([conv_state, xbc], dim=1)                  # (B, W, C)
+    y = (torch.einsum("bwc,wc->bc", buf, p["conv_w"].float())[:, None, :]
+         + p["conv_b"][None, None])
+    return y, buf[:, 1:]
+
+
+def _ssm_split(xbc, dt, p, cfg: ArchConfig):
+    """The conv output ``xbc`` (B, T, C) and the raw ``dt`` (B, T, H),
+    both f32 -> silu'd heads x (B, T, H, P), B and C (B, T, G, N), and dt
+    through softplus with its bias (B, T, H)."""
+    di, g, ns = cfg.d_inner, cfg.ssm_ngroups, cfg.ssm_state
+    b, t = xbc.shape[0], xbc.shape[1]
+    xbc = L.silu(xbc)
+    xs = xbc[..., :di].reshape(b, t, cfg.n_ssm_heads, cfg.ssm_headdim)
+    Bs = xbc[..., di: di + g * ns].reshape(b, t, g, ns)
+    Cs = xbc[..., di + g * ns:].reshape(b, t, g, ns)
+    return xs, Bs, Cs, _softplus(dt.float() + p["dt_bias"][None, None, :])
+
+
 def _ssm_pre(h, p, cfg: ArchConfig, conv_state=None, capture_tail=False,
              n_valid=None):
     """in_proj + causal conv + splits. Returns z, x, B, C, dt and the new
@@ -310,20 +377,15 @@ def _ssm_pre(h, p, cfg: ArchConfig, conv_state=None, capture_tail=False,
     The whole pre-pipeline (in_proj output, conv, silu, splits) runs in
     real f32 with no rounding between ops, and the conv history is f32,
     as in the reference."""
-    di, g, ns, nh = cfg.d_inner, cfg.ssm_ngroups, cfg.ssm_state, \
-        cfg.n_ssm_heads
+    di, g, ns = cfg.d_inner, cfg.ssm_ngroups, cfg.ssm_state
     zxbcdt = L.dense(h, p["in_proj"], out_dtype=torch.float32)
     z = zxbcdt[..., :di]
     xbc = zxbcdt[..., di: di + di + 2 * g * ns]
     dt = zxbcdt[..., di + di + 2 * g * ns:]
-    b, t = h.shape[0], h.shape[1]
+    t = h.shape[1]
     new_conv_state = None
     if conv_state is not None and t == 1:            # decode: T == 1
-        buf = torch.cat([conv_state, xbc], dim=1)              # (B, W, C)
-        w = p["conv_w"].float()
-        xbc = (torch.einsum("bwc,wc->bc", buf, w)[:, None, :]
-               + p["conv_b"][None, None])
-        new_conv_state = buf[:, 1:]
+        xbc, new_conv_state = _conv_step(conv_state, xbc, p)
     elif conv_state is not None:                     # chunk continue
         w1 = conv_state.shape[1]                               # W - 1
         buf = torch.cat([conv_state, xbc], dim=1)              # (B, W-1+T, C)
@@ -343,11 +405,7 @@ def _ssm_pre(h, p, cfg: ArchConfig, conv_state=None, capture_tail=False,
                 tail = torch.nn.functional.pad(tail, (0, 0, pad, 0))
             new_conv_state = tail
         xbc = _causal_conv(xbc, p["conv_w"], p["conv_b"])
-    xbc = L.silu(xbc)
-    xs = xbc[..., :di].reshape(b, t, nh, cfg.ssm_headdim)
-    Bs = xbc[..., di: di + g * ns].reshape(b, t, g, ns)
-    Cs = xbc[..., di + g * ns:].reshape(b, t, g, ns)
-    dt = _softplus(dt.float() + p["dt_bias"][None, None, :])
+    xs, Bs, Cs, dt = _ssm_split(xbc, dt, p, cfg)
     if n_valid is not None:
         # padded positions: dt=0 => decay exp(0)=1 and update x*dt=0, so
         # the SSD state is untouched past the valid prefix
@@ -395,6 +453,46 @@ def ssm_apply(x, p, cfg: ArchConfig, *, cache: Optional[Dict] = None,
     # f32 all the way through out_proj, ONE rounding into the residual type
     out = L.dense(y, p["out_proj"]).to(x.dtype)
     return x + out, new_cache
+
+
+def ssm_apply_spec(x, p, cfg: ArchConfig, *, cache: Dict,
+                   valid: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+    """Speculative-verify Mamba-2 block: T tokens through the decode
+    branch's math, with the (conv, state) after every token.
+
+    It is T decode calls of :func:`ssm_apply`, bit for bit: each token's
+    conv window step, silu, splits and softplus run on that token alone
+    at the decode branch's shapes (:func:`_conv_step`,
+    :func:`_ssm_split`), and the recurrence is
+    :func:`~repro_torch.models.ssd.ssd_decode_scan` (not the grouped
+    ``ssd_chunked``). The projections that do not depend on position
+    (``in_proj``, ``out_proj``) and the norms run once over the window.
+    ``valid`` (B, T) bool masks each row's right padding (and rows not
+    speculating): an invalid position keeps the prior (conv, state) and
+    its output is not to be read. Returns ``(x_out, {"conv": (T, B, W-1,
+    C), "state": (T, B, H, P, N)})``: the caller rolls each row back to
+    its accepted prefix by indexing the leading axis."""
+    di, g, ns = cfg.d_inner, cfg.ssm_ngroups, cfg.ssm_state
+    b, t = x.shape[0], x.shape[1]
+    h = L.rmsnorm(x, p["ln"], cfg.norm_eps)
+    a = -torch.exp(p["a_log"].float())
+    zxbcdt = L.dense(h, p["in_proj"], out_dtype=torch.float32)
+    z = zxbcdt[..., :di]
+    xbc = zxbcdt[..., di: di + di + 2 * g * ns]
+    dt = zxbcdt[..., di + di + 2 * g * ns:]
+    conv = cache["conv"]
+    convs, parts = [], []
+    for j in range(t):
+        y, new = _conv_step(conv, xbc[:, j:j + 1], p)
+        conv = torch.where(valid[:, j, None, None], new, conv)
+        convs.append(conv)
+        parts.append(_ssm_split(y, dt[:, j:j + 1], p, cfg))
+    xs, Bs, Cs, dts = (torch.cat(c, dim=1) for c in zip(*parts))
+    y, states = ssd_decode_scan(xs, Bs, Cs, dts, a, p["d_skip"],
+                                cache["state"], valid=valid)
+    y = L.rmsnorm(y.reshape(b, t, di) * L.silu(z), p["norm"], cfg.norm_eps)
+    out = L.dense(y, p["out_proj"]).to(x.dtype)
+    return x + out, {"conv": torch.stack(convs), "state": states}
 
 
 def ssm_init_cache(cfg: ArchConfig, batch: int, device=None) -> Dict:

@@ -1,17 +1,18 @@
-"""Decoder-only language model: embed -> layer stack -> tied head.
+"""Language model: embed -> layer stack -> head, for every family.
 
-The decoder-only subset of ``repro.models.lm.LM``: the dense, moe, ssm
-and hybrid families. Parameters are the reference's tree as a nested dict
-of tensors, with every block leaf stacked on a leading ``n_periods``
-axis; layer ``i`` reads the views ``leaf[i]``. Each period position mixes
-with attention or with a Mamba-2 (SSD) block, as ``cfg.layer_kinds()``
-says, and has a dense FFN (zero-width for mamba2-130m's ``d_ff=0``, a
-no-op on the residual, as in the reference) or an MoE FFN, as
-``cfg.ffn_kinds()`` says (jamba's period of 8: attention at offset 4, MoE
-at the odd offsets). An MoE FFN's expert capacity scales with the
-reference's ``capacity_mult`` of each entry point: 1.0 in ``forward``
-(its train mode), 4.0 in ``prefill``, 2.0 in ``decode_step``. Whole-sequence attention is ``layers.attention`` in
-the model's ``attn_impl`` mode: ``"naive"`` (the serving engine's) or
+The port of ``repro.models.lm.LM``: the dense, moe, ssm, hybrid,
+encoder-decoder (encdec) and vision-language (vlm) families. Parameters
+are the reference's tree as a nested dict of tensors, with every block
+leaf stacked on a leading ``n_periods`` axis; layer ``i`` reads the views
+``leaf[i]``. Each period position mixes with attention or with a Mamba-2
+(SSD) block, as ``cfg.layer_kinds()`` says, and has a dense FFN
+(zero-width for mamba2-130m's ``d_ff=0``, a no-op on the residual, as in
+the reference) or an MoE FFN, as ``cfg.ffn_kinds()`` says (jamba's period
+of 8: attention at offset 4, MoE at the odd offsets). An MoE FFN's expert
+capacity scales with the reference's ``capacity_mult`` of each entry
+point: 1.0 in ``forward`` (its train mode), 4.0 in ``prefill``, 2.0 in
+``decode_step``. Whole-sequence attention is ``layers.attention`` in the
+model's ``attn_impl`` mode: ``"naive"`` (the serving engine's) or
 ``"flash"`` (the flash kernels, for training). The SSD scan of an SSM
 layer is ``models.ssd.ssd_chunked`` in the model's ``ssd_impl``:
 ``"ref"`` (the plain chunked reference) or ``"kernel"`` (the SSD kernel,
@@ -20,18 +21,31 @@ projection runs in the model's ``qmm_impl``: ``"kernel"`` (the int8
 kernel) or ``"ref"`` (dequantize to the activation's type, the
 reference's ``dense``); see ``layers.dense``.
 
+**Frontends.** Both frontends are stubs, as in the reference: callers
+pass precomputed embeddings ``frontend_embeds`` (B, F, d_model), which
+``frontend_proj`` projects. The vlm family prepends them to the token
+embeddings (its positions run over patches and tokens; its loss counts
+the token span only). The encdec family runs them through the encoder
+(``enc_blocks``: non-causal self-attention in ``attn_impl``, RoPE at the
+frame positions, and an FFN, then ``enc_final_ln``); every decoder layer
+then adds cross-attention on the encoder output
+(``blocks.cross_attn_apply``), whose k/v the prefill cache carries.
+
 ``forward``/``prefill`` serve and run without autograd; ``init_cache``,
-``prefill(max_len=)`` and ``decode_step`` decode the dense family against
-a dense (B, max_len, K, hd) cache, whose read is the dense decode kernel
-on the card (``blocks.attn_apply``'s decode branch). ``backbone`` and
-``loss`` are the training objective of every family (the causal-LM CE
-plus ``moe_aux_coef`` times the MoE load-balancing loss averaged over the
-layers, the reference's) and build the autograd graph, with each layer
-under ``train.remat.wrap_remat(..., remat)``. An SSM layer trains through
-``ssd_impl="ref"``, the reference's training route (the SSD kernel, like
-the TPU kernel, has no backward). To train, make the stacked leaves
-``requires_grad`` (``train.step.init_train_state``): each layer then
-reads them through one ``unbind``, so every layer's gradient lands in
+``prefill(max_len=)`` and ``decode_step`` decode every family against a
+dense (B, max_len, K, hd) attention cache, whose read is the dense decode
+kernel on the card (``blocks.attn_apply``'s decode branch), and a
+per-layer (conv, state) SSM cache advanced by the single-token
+recurrence; both are updated in place. ``backbone`` and ``loss`` are the
+training objective of every family (the causal-LM CE plus
+``moe_aux_coef`` times the MoE load-balancing loss averaged over the
+layers, the reference's) and build the autograd graph, with each decoder
+layer under ``train.remat.wrap_remat(..., remat)`` (the encoder runs
+without it, as the reference's encoder scan does). An SSM layer trains
+through ``ssd_impl="ref"``, the reference's training route (the SSD
+kernel, like the TPU kernel, has no backward). To train, make the stacked
+leaves ``requires_grad`` (``train.step.init_train_state``): each layer
+then reads them through one ``unbind``, so every layer's gradient lands in
 its slice of the stacked gradient.
 """
 from __future__ import annotations
@@ -68,7 +82,7 @@ def _period(cfg: ArchConfig) -> int:
 
 
 ATTN_IMPLS = ("naive", "flash")
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 # the reference's MoE capacity multiplier of each mode (its lm.py)
 CAPACITY_MULT = {"train": 1.0, "prefill": 4.0, "decode": 2.0}
 
@@ -86,9 +100,7 @@ class LM:
                  remat: str = "none", moe_aux_coef: float = 0.01,
                  device: Optional[Union[str, torch.device]] = None):
         if cfg.family not in FAMILIES:
-            raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet; the port runs "
-                f"the {'/'.join(FAMILIES)} families")
+            raise ValueError(f"family {cfg.family!r} not one of {FAMILIES}")
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl {attn_impl!r} not one of "
                              f"{ATTN_IMPLS}")
@@ -117,21 +129,36 @@ class LM:
     # Parameters
     # ------------------------------------------------------------------
 
+    def _block_specs(self, cross: bool) -> Dict:
+        cfg, n_stack = self.cfg, self.n_periods
+        mix = {"attn": B.attn_specs, "ssm": B.ssm_specs}
+        ffn = {"dense": B.ffn_specs, "moe": B.moe_specs}
+        out = {}
+        for i in range(self.period):
+            pos = {"mix": mix[self.kinds[i]](cfg, n_stack)}
+            if cross:
+                pos["cross"] = B.cross_attn_specs(cfg, n_stack)
+            pos["ffn"] = ffn[self.fkinds[i]](cfg, n_stack)
+            out[f"pos{i}"] = pos
+        return out
+
     def param_specs(self) -> Dict:
         cfg = self.cfg
         d, v = cfg.d_model, self.vocab
-        mix = {"attn": B.attn_specs, "ssm": B.ssm_specs}
-        ffn = {"dense": B.ffn_specs, "moe": B.moe_specs}
-        blocks = {f"pos{i}": {"mix": mix[self.kinds[i]](cfg, self.n_periods),
-                              "ffn": ffn[self.fkinds[i]](cfg, self.n_periods)}
-                  for i in range(self.period)}
         p = {
             "embed": spec((v, d), ("vocab", "embed")),
             "final_ln": spec((d,), ("embed",), "ones"),
-            "blocks": blocks,
+            "blocks": self._block_specs(cross=bool(cfg.n_enc_layers)),
         }
         if not cfg.tie_embeddings:
             p["head"] = spec((d, v), ("embed", "vocab"))
+        if cfg.n_enc_layers:
+            p["enc_blocks"] = {"pos0": {
+                "mix": B.attn_specs(cfg, cfg.n_enc_layers),
+                "ffn": B.ffn_specs(cfg, cfg.n_enc_layers)}}
+            p["enc_final_ln"] = spec((d,), ("embed",), "ones")
+        if cfg.frontend != "none":
+            p["frontend_proj"] = spec((d, d), ("embed", "null"))
         return p
 
     def init(self, seed: int = 0) -> Dict:
@@ -149,11 +176,20 @@ class LM:
     # Embedding / head
     # ------------------------------------------------------------------
 
-    def _embed_in(self, params, tokens: torch.Tensor) -> torch.Tensor:
+    def _embed_in(self, params, tokens: torch.Tensor,
+                  frontend_embeds: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
+        """Token embeddings; the vlm family prepends ``frontend_proj`` of
+        ``frontend_embeds``, cast to the embeddings' type."""
         table = params["embed"]
         if isinstance(table, QTensor):
             table = table.dequantize(torch.bfloat16)
-        return table[tokens.long()]
+        x = table[tokens.long()]
+        if frontend_embeds is not None and self.cfg.family == "vlm":
+            fe = L.dense(frontend_embeds, params["frontend_proj"],
+                         qmm_impl=self.qmm_impl)
+            x = torch.cat([fe.to(x.dtype), x], dim=1)
+        return x
 
     def _head(self, params, x: torch.Tensor) -> torch.Tensor:
         """Logits over the padded vocabulary (tied: x @ embed.T). A
@@ -169,14 +205,46 @@ class LM:
         return L.dense(x, w.T)
 
     # ------------------------------------------------------------------
+    # Encoder (encdec)
+    # ------------------------------------------------------------------
+
+    def _encoder_in(self, params, frontend_embeds) -> Optional[torch.Tensor]:
+        """The encoder output for an encdec model, else None."""
+        if not self.cfg.n_enc_layers:
+            return None
+        if frontend_embeds is None:
+            raise ValueError(f"{self.cfg.name}: the encoder-decoder family "
+                             f"needs frontend_embeds")
+        return self._encode(params, frontend_embeds)
+
+    def _encode(self, params, frontend_embeds) -> torch.Tensor:
+        """``frontend_proj``, then ``n_enc_layers`` of non-causal
+        self-attention (``attn_impl``; RoPE at positions ``arange(F)``) and
+        the FFN, then ``enc_final_ln``. Each layer reads its slice of the
+        stacked ``enc_blocks`` through one ``unbind`` (differentiable)."""
+        cfg = self.cfg
+        x = L.dense(frontend_embeds, params["frontend_proj"],
+                    qmm_impl=self.qmm_impl)
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        for lp in tree_unstack(params["enc_blocks"]["pos0"],
+                               cfg.n_enc_layers):
+            x, _ = B.attn_apply(x, lp["mix"], cfg, positions=positions,
+                                attn_impl=self.attn_impl, causal=False,
+                                qmm_impl=self.qmm_impl)
+            x = B.ffn_apply(x, lp["ffn"], cfg, qmm_impl=self.qmm_impl)
+        return L.rmsnorm(x, params["enc_final_ln"], cfg.norm_eps)
+
+    # ------------------------------------------------------------------
     # Whole-sequence entry points
     # ------------------------------------------------------------------
 
-    def _stack(self, params, x, *, return_cache: bool, mode: str):
+    def _stack(self, params, x, *, return_cache: bool, mode: str,
+               enc_out: Optional[torch.Tensor] = None):
         """The layer stack over a whole sequence; with ``return_cache``
         also each layer's fresh k/v (attention) or resume state (SSM),
-        as per-position lists over the periods. ``mode`` sets the MoE
-        capacity (``CAPACITY_MULT``)."""
+        and for encdec its cross k/v, as per-position lists over the
+        periods (``{"self": ..., "cross": ...}`` with cross-attention).
+        ``mode`` sets the MoE capacity (``CAPACITY_MULT``)."""
         cfg = self.cfg
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         caches: Dict[int, list] = {pos: [] for pos in range(self.period)}
@@ -192,91 +260,139 @@ class LM:
                 x, c = B.ssm_apply(x, lp["mix"], cfg,
                                    ssd_impl=self.ssd_impl,
                                    return_state=return_cache)
+            if "cross" in lp:
+                ckv = B.cross_kv(enc_out, lp["cross"], cfg,
+                                 qmm_impl=self.qmm_impl)
+                x = B.cross_attn_apply(x, ckv, lp["cross"], cfg,
+                                       qmm_impl=self.qmm_impl)
+                c = {"self": c, "cross": ckv}
             caches[pos].append(c)
             x = B.ffn_or_moe(x, lp["ffn"], cfg, self.fkinds[pos],
                              CAPACITY_MULT[mode], qmm_impl=self.qmm_impl)
         return x, caches
 
     @torch.no_grad()
-    def forward(self, params, tokens: torch.Tensor) -> torch.Tensor:
-        """Full-sequence logits (B, T, padded_vocab) for tokens (B, T)."""
-        x = self._embed_in(params, tokens)
-        x, _ = self._stack(params, x, return_cache=False, mode="train")
+    def forward(self, params, tokens: torch.Tensor,
+                frontend_embeds: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        """Full-sequence logits (B, T', padded_vocab) for tokens (B, T)
+        and, for the encdec and vlm families, ``frontend_embeds`` (B, F,
+        d_model); T' = F + T for vlm, T otherwise."""
+        enc_out = self._encoder_in(params, frontend_embeds)
+        x = self._embed_in(params, tokens, frontend_embeds)
+        x, _ = self._stack(params, x, return_cache=False, mode="train",
+                           enc_out=enc_out)
         return self._head(params, x)
 
     @torch.no_grad()
     def prefill(self, params, tokens: torch.Tensor,
-                max_len: Optional[int] = None
+                max_len: Optional[int] = None,
+                frontend_embeds: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Dict, torch.Tensor]:
         """Run the prompt; returns (last_logits (B, V), cache, lengths).
         ``cache[f"pos{i}"]`` holds, stacked over the periods, k/v as
-        (n_periods, B, max_len, K, hd) for an attention position (the T
-        prompt positions, then zeros up to ``max_len``, default T: the
-        reference's ``_prefill_to_cache``) and ``{"conv": (n_periods, B,
-        W-1, C), "state": (n_periods, B, H, P, N)}`` for an SSM one: the
-        layout of the reference's prefill cache."""
+        (n_periods, B, S, K, hd) for an attention position and ``{"conv":
+        (n_periods, B, W-1, C), "state": (n_periods, B, H, P, N)}`` for an
+        SSM one: the layout of the reference's prefill cache. S is the
+        prompt's T' positions (F + T for vlm), then zeros up to
+        ``max_len`` (default T, the reference's: a vlm prompt then fills
+        its cache, and the decode writes that follow are clipped to the
+        last slot, as there). For encdec each position's entry is
+        ``{"self": ..., "cross": {"k", "v"}}``, the cross k/v (n_periods,
+        B, F, K, hd) from the encoder output. ``lengths`` (B,) is T'."""
         b, t = tokens.shape
-        x = self._embed_in(params, tokens)
+        enc_out = self._encoder_in(params, frontend_embeds)
+        x = self._embed_in(params, tokens, frontend_embeds)
         x, caches = self._stack(params, x, return_cache=True,
-                                mode="prefill")
-        pad = max(0, (max_len or t) - t)
+                                mode="prefill", enc_out=enc_out)
+        pad = max(0, (max_len or t) - x.shape[1])
+
+        def stack(cs, attn: bool):
+            out = {leaf: torch.stack([c[leaf] for c in cs])
+                   for leaf in cs[0]}
+            if attn and pad:                             # (.., T', K, hd)
+                out = {leaf: torch.nn.functional.pad(
+                    a, (0, 0, 0, 0, 0, pad)) for leaf, a in out.items()}
+            return out
+
         cache = {}
         for pos, cs in caches.items():
-            stacked = {leaf: torch.stack([c[leaf] for c in cs])
-                       for leaf in cs[0]}
-            if self.kinds[pos] == "attn" and pad:      # (.., T, K, hd)
-                stacked = {leaf: torch.nn.functional.pad(
-                    a, (0, 0, 0, 0, 0, pad)) for leaf, a in stacked.items()}
-            cache[f"pos{pos}"] = stacked
+            attn = self.kinds[pos] == "attn"
+            if self.cfg.n_enc_layers:
+                cache[f"pos{pos}"] = {
+                    "self": stack([c["self"] for c in cs], attn),
+                    "cross": stack([c["cross"] for c in cs], False)}
+            else:
+                cache[f"pos{pos}"] = stack(cs, attn)
         logits = self._head(params, x[:, -1:, :])[:, 0]
-        lengths = torch.full((b,), t, dtype=torch.int32, device=x.device)
+        lengths = torch.full((b,), x.shape[1], dtype=torch.int32,
+                             device=x.device)
         return logits, cache, lengths
 
-    def _require_dense(self, what: str) -> None:
-        if "ssm" in self.kinds:
-            raise NotImplementedError(
-                f"{what} of the ssm family is not ported (the reference's "
-                f"per-token ssd_decode_scan is a later slice)")
-
-    def init_cache(self, batch: int, max_len: int,
+    def init_cache(self, batch: int, max_len: int, src_len: int = 0,
                    dtype: torch.dtype = torch.bfloat16) -> Dict:
-        """Zero dense decode cache: per attention position, k and v as
-        (n_periods, batch, max_len, K, hd) (two tensors: decode writes
-        them in place). Only float caches: the reference's ``int8`` cache
-        casts k/v with no scale, which the port does not copy."""
-        self._require_dense("init_cache")
-        if not dtype.is_floating_point:
-            raise NotImplementedError(
-                f"a {dtype} dense cache is not ported (the reference casts "
-                f"k/v to it with no scale)")
+        """Zero decode cache in the layout of :meth:`prefill`'s: per
+        attention position k and v as (n_periods, batch, max_len, K, hd)
+        in ``dtype`` (two tensors: decode writes them in place; an
+        integer type is the reference's unscaled cast,
+        ``blocks.cache_cast``), per SSM position f32 conv and state
+        stacked over the periods, and for encdec zero cross k/v of
+        ``src_len`` source positions."""
         cfg = self.cfg
-        shape = (self.n_periods, batch, max_len, cfg.n_kv_heads,
-                 cfg.head_dim)
-        return {f"pos{i}": {leaf: torch.zeros(shape, dtype=dtype,
-                                              device=self.device)
-                            for leaf in ("k", "v")}
-                for i in range(self.period)}
+        kv_shape = (self.n_periods, batch, max_len, cfg.n_kv_heads,
+                    cfg.head_dim)
+        ssm = B.ssm_init_cache(cfg, batch) if "ssm" in self.kinds else {}
+
+        def zeros(shape, dt):
+            return torch.zeros(shape, dtype=dt, device=self.device)
+
+        cache: Dict = {}
+        for i in range(self.period):
+            if self.kinds[i] == "attn":
+                c = {leaf: zeros(kv_shape, dtype) for leaf in ("k", "v")}
+            else:
+                c = {leaf: zeros((self.n_periods,) + tuple(a.shape), a.dtype)
+                     for leaf, a in ssm.items()}
+            if cfg.n_enc_layers:
+                src = kv_shape[:2] + (src_len,) + kv_shape[3:]
+                c = {"self": c, "cross": {leaf: zeros(src, dtype)
+                                          for leaf in ("k", "v")}}
+            cache[f"pos{i}"] = c
+        return cache
 
     @torch.no_grad()
     def decode_step(self, params, cache: Dict, tokens: torch.Tensor,
                     lengths: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
         """One decode step: tokens (B, 1), lengths (B,) int32 current KV
-        lengths. Each layer writes its new k/v at ``lengths`` in ``cache``
-        (in place) and attends ``lengths + 1`` positions through the dense
-        decode read. Returns (logits (B, V), cache)."""
-        self._require_dense("decode_step")
+        lengths. Each attention layer writes its new k/v at ``lengths``
+        in ``cache`` (in place) and attends ``lengths + 1`` positions
+        through the dense decode read; each SSM layer advances its (conv,
+        state) by the token, in place; an encdec layer reads its cross
+        k/v. Returns (logits (B, V), cache)."""
         cfg = self.cfg
         x = self._embed_in(params, tokens)
         positions = lengths[:, None]
         for i in range(cfg.n_layers):
             lp = self.layer_params(params, i)
             per, pos = divmod(i, self.period)
-            c = cache[f"pos{pos}"]
-            x, _ = B.attn_apply(x, lp["mix"], cfg, positions=positions,
-                                attn_impl=self.attn_impl,
-                                qmm_impl=self.qmm_impl,
-                                cache={"k": c["k"][per], "v": c["v"][per]},
-                                lengths=lengths)
+            ci = cache[f"pos{pos}"]
+            c = ci["self"] if "cross" in lp else ci
+            if self.kinds[pos] == "attn":
+                x, _ = B.attn_apply(x, lp["mix"], cfg, positions=positions,
+                                    attn_impl=self.attn_impl,
+                                    qmm_impl=self.qmm_impl,
+                                    cache={"k": c["k"][per],
+                                           "v": c["v"][per]},
+                                    lengths=lengths)
+            else:
+                st = {leaf: a[per] for leaf, a in c.items()}
+                x, new = B.ssm_apply(x, lp["mix"], cfg, cache=st)
+                for leaf, a in new.items():
+                    st[leaf].copy_(a)
+            if "cross" in lp:
+                x = B.cross_attn_apply(
+                    x, {leaf: a[per] for leaf, a in ci["cross"].items()},
+                    lp["cross"], cfg, qmm_impl=self.qmm_impl)
             x = B.ffn_or_moe(x, lp["ffn"], cfg, self.fkinds[pos],
                              CAPACITY_MULT["decode"], qmm_impl=self.qmm_impl)
         return self._head(params, x)[:, 0], cache
@@ -293,9 +409,10 @@ class LM:
         return [per_pos[i % self.period][i // self.period]
                 for i in range(self.cfg.n_layers)]
 
-    def _layer(self, x, lp, positions, pos: int):
-        """One layer of the training stack at period position ``pos``:
-        returns (x, the MoE load-balancing loss or None)."""
+    def _layer(self, x, lp, positions, pos: int, enc_out=None):
+        """One layer of the training stack at period position ``pos``
+        (with cross-attention on ``enc_out`` for encdec): returns (x, the
+        MoE load-balancing loss or None)."""
         cfg = self.cfg
         if self.kinds[pos] == "attn":
             x, _ = B.attn_apply(x, lp["mix"], cfg, positions=positions,
@@ -303,6 +420,11 @@ class LM:
                                 qmm_impl=self.qmm_impl)
         else:
             x, _ = B.ssm_apply(x, lp["mix"], cfg, ssd_impl=self.ssd_impl)
+        if "cross" in lp:
+            ckv = B.cross_kv(enc_out, lp["cross"], cfg,
+                             qmm_impl=self.qmm_impl)
+            x = B.cross_attn_apply(x, ckv, lp["cross"], cfg,
+                                   qmm_impl=self.qmm_impl)
         if self.fkinds[pos] == "moe":
             return B.moe_apply(x, lp["ffn"], cfg, CAPACITY_MULT["train"])
         return B.ffn_apply(x, lp["ffn"], cfg, qmm_impl=self.qmm_impl), None
@@ -315,19 +437,23 @@ class LM:
                 f"training through ssd_impl={self.ssd_impl!r}: the SSD "
                 f"kernel has no backward (ROADMAP.md queue 1 item 5); "
                 f"train with ssd_impl='ref', as the reference does")
-        x = self._embed_in(params, batch["tokens"])
+        fe = batch.get("frontend_embeds")
+        enc_out = self._encoder_in(params, fe)
+        x = self._embed_in(params, batch["tokens"], fe)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         body = wrap_remat(self._layer, self.remat)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, lp in enumerate(self._unstacked_layers(params)):
-            x, a = body(x, lp, positions, i % self.period)
+            x, a = body(x, lp, positions, i % self.period, enc_out)
             if a is not None:
                 aux = aux + a
         return x, aux
 
     def backbone(self, params, batch) -> torch.Tensor:
         """Everything before the LM head; returns final hidden states
-        (B, T, d_model). Each layer runs under ``wrap_remat(remat)``."""
+        (B, T', d_model) (T' = F + T for vlm). ``batch`` holds ``tokens``
+        and, for encdec and vlm, ``frontend_embeds``. Each decoder layer
+        runs under ``wrap_remat(remat)``."""
         return self._backbone(params, batch)[0]
 
     def _block_ce(self, params, xb, lb):
@@ -347,9 +473,13 @@ class LM:
         the head + CE under checkpoint (recomputed in the backward).
         Returns ``(ce + moe_aux_coef · aux / n_layers, {"ce", "aux"})``
         with ``aux`` the MoE load-balancing loss summed over the layers
-        (0 without MoE layers, where the loss is the CE)."""
+        (0 without MoE layers, where the loss is the CE). For vlm the
+        labels cover the token span, after the F patches."""
         x, aux = self._backbone(params, batch)
         labels = batch["labels"]
+        n_front = x.shape[1] - labels.shape[1]
+        if n_front > 0:                     # vlm: the token span only
+            x = x[:, n_front:]
         _, t, _ = x.shape
         tc = min(chunk_t, t)
         while t % tc:

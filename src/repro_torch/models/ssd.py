@@ -1,5 +1,5 @@
 """Mamba-2 SSD (state-space duality): the chunked reference, the
-single-token recurrence and the router (the port of
+single-token recurrence, its per-token scan and the router (the port of
 ``repro.models.ssd``).
 
 The SSD form computes, per head, y = (L ∘ (C Bᵀ)) x with L the causal
@@ -144,3 +144,25 @@ def ssd_decode_step(x, B, C, dt, A, D, state
     y = torch.einsum("bgN,bghpN->bghp", Cf, s_new)
     y = y + xf * D.reshape(g, hg)[None, ..., None]
     return y.reshape(b, h, p).to(x.dtype), s_new.reshape(b, h, p, n)
+
+
+def ssd_decode_scan(x, B, C, dt, A, D, state, valid=None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """T :func:`ssd_decode_step` recurrences in one call, token by token,
+    so it is bitwise T separate decode steps (the property spec-on ==
+    spec-off greedy decoding rests on; ``ssd_chunked`` groups the sums).
+
+    x (B,T,H,P), B/C (B,T,G,N), dt (B,T,H) f32, state (B,H,P,N) f32.
+    Returns (y (B,T,H,P), states (T,B,H,P,N)): the state *after* every
+    token, so a verifier can roll a partially accepted window back to
+    any prefix. ``valid`` (B, T) bool: an invalid position keeps the
+    prior state (its y is not to be read)."""
+    ys, states = [], []
+    for j in range(x.shape[1]):
+        y, new = ssd_decode_step(x[:, j], B[:, j], C[:, j], dt[:, j], A, D,
+                                 state)
+        state = (new if valid is None else
+                 torch.where(valid[:, j, None, None, None], new, state))
+        ys.append(y)
+        states.append(state)
+    return torch.stack(ys, dim=1), torch.stack(states)

@@ -2,8 +2,9 @@
 prefill, speculative decoding, a cross-request prefix cache, the request
 lifecycle with fault injection, and telemetry over a paged KV cache (the
 port of ``repro.serving.engine``, ``mode="fused"`` and the
-``mode="legacy"`` oracle, dense, moe, ssm and hybrid families;
-speculation on the families without SSM layers).
+``mode="legacy"`` oracle, dense, moe, ssm, hybrid and vlm families,
+speculation included; the vlm family is served text-only, as in the
+reference, and the encoder-decoder family is refused).
 
 The engine owns a paged KV cache (serving/cache.py) and a
 :class:`~repro_torch.serving.scheduler.Scheduler` that makes every policy
@@ -62,8 +63,12 @@ the first disagreement. Rejected positions' KV appends route to the
 null-write sentinel, so rollback is exact. The window width is the
 largest row's, rounded up to a power of two and capped at depth + 1,
 as in the reference, so the products run at the reference's shapes.
-Speculation on an SSM arch (its per-token verify scan) is a later slice
-and raises.
+On an SSM arch each SSM layer of the verify step runs
+``blocks.ssm_apply_spec``: the window's tokens through the decode
+branch's math one at a time, keeping the (conv, state) after every
+token; each row then rolls back to the state after its accepted tokens
+(a device gather written into the slot pool in place), so a round with
+partial acceptance leaves the pool as spec-off decoding would.
 
 **Prefix cache** (``prefix_cache=True``; serving/prefix_cache.py).
 Every full block a chunk step pages out is registered in a radix trie
@@ -233,6 +238,13 @@ class Engine:
         if faults is not None and mode != "fused":
             raise ValueError("fault injection requires mode='fused' (the "
                              "NaN mask and finite flags ride the steps)")
+        if cfg.family == "encdec":
+            raise NotImplementedError(
+                f"{cfg.name}: the engine does not serve the encoder-decoder "
+                f"family. Its layer body applies no cross-attention (nor "
+                f"does the reference's, serving/engine.py:714-770), so it "
+                f"would decode without the encoder; serve it through "
+                f"LM.prefill and LM.decode_step")
         self.device = resolve_device(device)
         if self.device.type == "cuda" and ssd_impl != "kernel":
             raise ValueError(
@@ -254,11 +266,6 @@ class Engine:
                           if self.model.kinds[i] == "attn"]
         self._ssm_pos = [i for i in range(self.model.period)
                          if self.model.kinds[i] == "ssm"]
-        if self._ssm_pos and speculate not in (None, "off"):
-            raise NotImplementedError(
-                "speculative decoding on an SSM arch is not ported (the "
-                "verify step's per-token scan, ssm_apply_spec, is a later "
-                "slice)")
         self.spec = build_speculator(speculate, cfg, depth=spec_depth,
                                      device=self.device)
         if self.spec is not None and mode != "fused":
@@ -1015,7 +1022,8 @@ class Engine:
     # plain decode row. Accepted: the leading run of proposals equal to
     # the forward's own argmax; the argmax after it is the bonus token.
     # KV appends of rejected positions and inactive rows go to the null
-    # block, so nothing needs rolling back.
+    # block; SSM layers keep the state after every window token and each
+    # row's slot takes the one after its accepted tokens.
     # ------------------------------------------------------------------
 
     def _verify_step_impl(self, params, kv_state, ssm_state, tokens, ctx,
@@ -1040,11 +1048,14 @@ class Engine:
                                      self._enc_read(q, enc)])
             return out.to(q.dtype)
 
-        # no SSM layers: the engine refuses speculation on an SSM arch
+        def ssm_step(x, pp_mix, st):
+            return B.ssm_apply_spec(x, pp_mix, self.cfg, cache=st,
+                                    valid=valid_rows)
+
         body = self._make_stack_body(positions=positions,
-                                     attn_read=attn_read, ssm_step=None)
-        x, kv_ys, _ = self._run_stack(body, x, kv_state,
-                                      self._ssm_xs(ssm_state), inj)
+                                     attn_read=attn_read, ssm_step=ssm_step)
+        x, kv_ys, ssm_ys = self._run_stack(body, x, kv_state,
+                                           self._ssm_xs(ssm_state), inj)
 
         logits = model._head(params, x)                      # (B, T, V)
         greedy = logits.argmax(dim=-1).int()
@@ -1065,6 +1076,13 @@ class Engine:
                 table.repeat_interleave(cn, dim=0), positions.reshape(-1),
                 self.block_size, self.kv_cfg.n_blocks, accepted.reshape(-1))
             C.write_token_encoded(kv_state, enc, blk, off)
+        # roll each row back to the state after inputs 0..n_acc: a gather
+        # of the per-token states (T, B, ...), no host sync; an inactive
+        # row never advanced, so any index gives its carried state
+        rows = torch.arange(tokens.shape[0], device=dev)
+        self._write_ssm(ssm_state, [
+            {pos: {leaf: a[n_acc, rows] for leaf, a in leaves.items()}
+             for pos, leaves in new.items()} for new in ssm_ys])
         return greedy, n_acc, row_ok
 
     def _decode_spec(self, live: List[Request]) -> None:

@@ -11,10 +11,12 @@ round emits between 1 and K+1 tokens.
   * :class:`NGramProposer` — prompt lookup: the continuation of the most
     recent earlier occurrence of the context's tail n-gram.
   * :class:`DraftModelProposer` — a draft model decoded greedily for K
-    tokens: each round prefills the whole context into a dense cache
+    tokens: each round prefills the whole context into a decode cache
     (``LM.prefill(max_len=)``) and takes K-1 ``LM.decode_step`` steps,
-    whose attention read is the dense decode kernel on the card.
-    Stateless between rounds, so preemption needs no draft bookkeeping.
+    whose attention read is the dense decode kernel on the card and
+    whose SSM layers step their (conv, state) (an SSM draft's prefill
+    scans through the SSD kernel). Stateless between rounds, so
+    preemption needs no draft bookkeeping.
 
 Anything with ``.propose(request, k) -> list[int]`` plugs in. The
 :class:`Speculator` owns the per-request adaptive depth (a fully accepted
@@ -86,7 +88,7 @@ class DraftModelProposer:
                 f"{cfg.n_kv_heads} KV heads; the draft's dense decode "
                 f"kernel takes at most {_DENSE_MAX_G} query heads a KV head")
         self.cfg = cfg
-        self.model = LM(cfg, device=device)
+        self.model = LM(cfg, ssd_impl="kernel", device=device)
         self.params = (tree_map(lambda t: t.to(self.model.device), params)
                        if params is not None else self.model.init(seed))
         self.n_prefills = 0

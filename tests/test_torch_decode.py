@@ -3,7 +3,7 @@ and ``LM.decode_step`` of the port against the JAX package's
 (``attn_impl="naive"``) on the same bridged qwen1.5-0.5b smoke weights,
 one step and several; the decode branch against the port's own
 teacher-forced forward; ``naive_attention``'s ``q_offset``/``kv_len``
-against the reference's; and the parts not ported raising.
+against the reference's; and the reference's unscaled int8 dense cache.
 
 Limits: logits within the bf16 bound of the reference kernel tests
 (rtol = atol = 3e-2, tests/test_kernels.py:22): the two sides sum f32
@@ -22,6 +22,7 @@ from repro.models import layers as RL
 from repro.models.lm import LM
 from repro_torch.bridge import from_jax_numpy
 from repro_torch.configs import get_config as port_config
+from repro_torch.models import blocks as TB
 from repro_torch.models import layers as TL
 from repro_torch.models.lm import LM as PortLM
 
@@ -167,20 +168,43 @@ def test_flash_mode_refuses_offsets():
         TL.attention(x, x, x, mode="flash", kv_len=torch.ones(1))
 
 
-def test_unported_caches_raise(models):
-    _, _, port, tparams = models
-    with pytest.raises(NotImplementedError, match="int8"):
-        port.init_cache(1, 8, dtype=torch.int8)
-    ssm = PortLM(port_config("mamba2-130m", reduced=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="ssm"):
-        ssm.init_cache(1, 8)
-    with pytest.raises(NotImplementedError, match="ssm"):
-        ssm.decode_step(ssm.init(0), {},
-                        torch.zeros((1, 1), dtype=torch.int32),
-                        torch.zeros(1, dtype=torch.int32))
-    cache = port.init_cache(1, 8)
-    cache["pos0"] = {leaf: a.to(torch.int8) for leaf, a in
-                     cache["pos0"].items()}
-    with pytest.raises(NotImplementedError, match="int8"):
-        port.decode_step(tparams, cache, torch.ones((1, 1), dtype=torch.int32),
-                         torch.zeros(1, dtype=torch.int32))
+def test_int8_cache_cast_matches_reference():
+    """``blocks.cache_cast`` into int8 against the reference's
+    ``astype``: saturating at the type's range and truncating toward
+    zero (torch's own cast would wrap 200.7 to -55 and 127.9, which
+    rounds to 128 in bf16, to -128)."""
+    vals = np.asarray([200.7, 127.9, 127.4, -128.0, -128.6, -300.0, 1.5,
+                       -1.5, 0.99, -0.99, 0.0, 64.5], np.float32)
+    for dtype in (jnp.bfloat16, jnp.float32):
+        a = jnp.asarray(vals, dtype)
+        want = np.asarray(a.astype(jnp.int8))
+        got = TB.cache_cast(from_jax_numpy(np.asarray(a)), torch.int8)
+        assert got.dtype == torch.int8
+        assert got.numpy().tolist() == want.tolist()
+
+
+def test_int8_cache_decode_matches_reference(models):
+    """The reference's int8 dense cache (k/v cast with no scale, read
+    back in q's type): ``init_cache(dtype=int8)``, then four decode steps
+    from it on both sides: logits at the bf16 bound; the int8 codes at
+    most one apart, in under 1% of entries (read: 2 of 2,048 k codes,
+    where the two sides' bf16 k lie an ulp either side of an integer and
+    truncate apart)."""
+    model, params, port, tparams = models
+    cj = model.init_cache(2, 8, dtype=jnp.int8)
+    ct = port.init_cache(2, 8, dtype=torch.int8)
+    assert ct["pos0"]["k"].dtype == torch.int8
+    toks = np.random.default_rng(5).integers(1, 256, (2, 4)).astype(np.int32)
+    for j in range(4):
+        n = np.full((2,), j, np.int32)
+        lj, cj = model.decode_step(params, cj, jnp.asarray(toks[:, j:j + 1]),
+                                   jnp.asarray(n))
+        lt, ct = port.decode_step(tparams, ct,
+                                  torch.from_numpy(toks[:, j:j + 1]),
+                                  torch.from_numpy(n))
+        np.testing.assert_allclose(_f32(lt), _f32(lj), **BF16)
+    for pos in cj:
+        for leaf in ("k", "v"):
+            diff = np.abs(ct[pos][leaf].numpy().astype(np.int32)
+                          - np.asarray(cj[pos][leaf], np.int32))
+            assert diff.max() <= 1 and diff.mean() < 0.01

@@ -25,7 +25,10 @@ and the rest of one-device training (the flash kernels at the training
 slice's D = 128 shapes, G = 1 and G = 8, where the dK/dV kernel sums its
 group's heads outside the tensor cores' accumulators; the MoE experts'
 batched product's gradient; a step of every family and of quantized full
-training; the ``Prefetcher``'s copies to the card).
+training; the ``Prefetcher``'s copies to the card); and the
+encoder-decoder and vision-language families (prefill, decode and F+R
+steps through the kernels) and model-level decode of the SSM families,
+with verify steps of SSM layers among the replayed graphs.
 
 These tests import neither ``jax`` nor the JAX package, so they also run
 on the GPU host: ``PYTHONPATH=src python -m pytest -m gpu
@@ -1110,6 +1113,12 @@ GRAPH_CASES = {
         n_blocks=64, speculate="ngram", spec_depth=4), None),
     "jamba chunk=8": ("jamba-v0.1-52b", dict(n_blocks=64, prefill_chunk=8),
                       [6, 17, 40]),
+    # verify steps with SSM layers (the per-token scan and the rollback
+    # gather into the slot pool)
+    "mamba2 ngram": ("mamba2-130m", dict(n_blocks=64, speculate="ngram",
+                                         spec_depth=4), None),
+    "jamba ngram": ("jamba-v0.1-52b", dict(n_blocks=64, speculate="ngram",
+                                           spec_depth=4), None),
 }
 
 
@@ -1144,7 +1153,7 @@ def _graph_run(cuda, case, cuda_graphs):
     assert rn.LAUNCHES["rmsnorm"] == norms * forwards
     assert ssdk.LAUNCHES["ssd"] == kinds.count("ssm") * (
         st["prefill_groups"] + st["chunk_steps"])
-    if arch == "mamba2-130m":
+    if arch == "mamba2-130m" and "prefill_chunk" in kw:
         assert st["preemptions"] > 0
     assert len(done) == len(prompts)
     pools = ({k: v.clone() for k, v in eng.kv.pool().items()},
@@ -1483,3 +1492,92 @@ def test_prefetcher_copies_batches_to_the_card(cuda):
                 assert torch.equal(got[k].cpu(), torch.from_numpy(want))
     finally:
         pf.stop()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "internvl2-26b"])
+def test_encdec_and_vlm_on_the_card(cuda, arch):
+    """Smoke configs on the card: a flash prefill with frontend embeddings
+    and four greedy decode steps, each token the teacher-forced forward's
+    argmax or a 4-ulp near tie of it; the flash forward once a layer of
+    the prefill (the encoder's non-causal ones included), the dense decode
+    read once a decoder layer a step; two F+R steps through the train
+    step, finite, the flash backward once a layer a step."""
+    from repro_torch.core.config import technique_from_label
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.build import build_train, random_batch
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.step import init_train_state
+    cfg = get_config(arch, reduced=True)
+    model = LM(cfg, attn_impl="flash", device=cuda)
+    params = model.init(0)
+    n_front = cfg.frontend_len if cfg.family == "vlm" else 0
+    batch = random_batch(cfg, 2, n_front + 12, with_labels=False,
+                         device=cuda)
+    fa.LAUNCHES.clear()
+    fd.LAUNCHES.clear()
+    logits, cache, n = model.prefill(params, batch["tokens"], max_len=24,
+                                     frontend_embeds=batch["frontend_embeds"])
+    out = [logits.argmax(-1)]
+    for _ in range(4):
+        logits, cache = model.decode_step(params, cache,
+                                          out[-1][:, None].int(), n)
+        n = n + 1
+        out.append(logits.argmax(-1))
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["fwd"] == cfg.n_layers + cfg.n_enc_layers
+    assert fd.LAUNCHES["dense_decode"] == 4 * cfg.n_layers
+    gen = torch.stack(out, 1)
+    seq = torch.cat([batch["tokens"], gen[:, :4].int()], 1)
+    full = model.forward(params, seq,
+                         frontend_embeds=batch["frontend_embeds"]).float()
+    rows = full[:, n_front + 11:]
+    top = rows.max(-1).values
+    ulp = torch.exp2(torch.floor(torch.log2(top.abs())) - 7)
+    assert bool((rows.gather(-1, gen[..., None].long())[..., 0]
+                 >= top - 4 * ulp).all())
+    step, tech, tmodel, opt = build_train(
+        cfg, technique_from_label("F+R"), AdamWConfig(lr=1e-3, warmup=0),
+        device=cuda)
+    state, _ = init_train_state(tmodel, tech, 0, opt)
+    train = random_batch(cfg, 2, n_front + 32, device=cuda)
+    fa.LAUNCHES.clear()
+    for _ in range(2):
+        state, met = step(state, train)
+    torch.cuda.synchronize()
+    assert torch.isfinite(met["loss"]) and torch.isfinite(met["grad_norm"])
+    assert fa.LAUNCHES["bwd_dq"] == 2 * (cfg.n_layers + cfg.n_enc_layers)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mamba2-130m", "jamba-v0.1-52b"])
+def test_ssm_model_decode_on_the_card(cuda, arch):
+    """Smoke configs on the card: ``prefill`` (the SSD kernel) and six
+    greedy ``decode_step``s (the SSM cache stepped in place), each token
+    the teacher-forced forward's argmax or a 4-ulp near tie of it; the SSD
+    kernel launched by the prefill only."""
+    from repro_torch.kernels import ssd as ssdk
+    cfg = get_config(arch, reduced=True)
+    model = LM(cfg, ssd_impl="kernel", device=cuda)
+    params = model.init(0)
+    toks = torch.randint(1, cfg.vocab_size, (2, 20),
+                         generator=torch.Generator().manual_seed(0),
+                         dtype=torch.int32).to(cuda)
+    ssdk.LAUNCHES.clear()
+    logits, cache, n = model.prefill(params, toks, max_len=32)
+    out = [logits.argmax(-1)]
+    for _ in range(6):
+        logits, cache = model.decode_step(params, cache,
+                                          out[-1][:, None].int(), n)
+        n = n + 1
+        out.append(logits.argmax(-1))
+    torch.cuda.synchronize()
+    assert ssdk.LAUNCHES["ssd"] == cfg.layer_kinds().count("ssm")
+    gen = torch.stack(out, 1)
+    full = model.forward(params, torch.cat([toks, gen[:, :6].int()],
+                                           1)).float()
+    rows = full[:, 19:]
+    top = rows.max(-1).values
+    ulp = torch.exp2(torch.floor(torch.log2(top.abs())) - 7)
+    assert bool((rows.gather(-1, gen[..., None].long())[..., 0]
+                 >= top - 4 * ulp).all())

@@ -81,8 +81,6 @@ def test_hybrid_layout_of_the_pools():
     state = eng._ssm_states["pos0"]["state"]
     assert tuple(state.shape) == (2, 3, cfg.n_ssm_heads, cfg.ssm_headdim,
                                   cfg.ssm_state)
-    with pytest.raises(NotImplementedError, match="SSM"):
-        Engine(cfg, _weights()[3], speculate="ngram", device="cpu")
 
 
 def _run(tparams, prompts, *, prefix_cache):

@@ -4,7 +4,7 @@ models), the repetitive trace bit for bit, spec-on == spec-off greedy
 parity of the port's engine (n-gram, scripted and draft proposers; int8
 KV, chunked prefill, preemption), exact rollback of the paged pool, the
 port's spec tokens and accept counts against the reference engine's on
-the repetitive trace, and the parts not ported raising.
+the repetitive trace, and the CLI.
 
 Within the port, spec-on and spec-off must give equal tokens: both run
 the same kernels in the same order on the CPU (the verify window's rows
@@ -424,17 +424,8 @@ def test_spec_tokens_and_accepts_match_reference(weights):
 
 
 # ---------------------------------------------------------------------------
-# Not ported, and the CLI
+# The CLI
 # ---------------------------------------------------------------------------
-
-
-def test_ssm_arch_speculation_raises():
-    from repro_torch.models.lm import LM as PortLM
-    ssm = port_config("mamba2-130m", reduced=True)
-    params = PortLM(ssm, device="cpu").init(0)
-    with pytest.raises(NotImplementedError, match="SSM"):
-        Engine(ssm, params, speculate="ngram", device="cpu")
-    Engine(ssm, params, speculate="off", device="cpu")
 
 
 def test_serve_cli_speculates(capsys):

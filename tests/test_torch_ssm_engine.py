@@ -350,8 +350,7 @@ def test_training_the_ssm_family_raises():
     reference's training route; tests/test_torch_train_families.py holds
     it against the reference): the loss is finite and every leaf gets a
     gradient, hybrid and MoE variants too. Only the SSD kernel route,
-    which has no backward, still raises; an unported family still
-    refuses to build."""
+    which has no backward, still raises."""
     cfg = port_config(ARCH, reduced=True)
     toks = torch.zeros((1, 8), dtype=torch.int32)
     for over in (dict(), dict(family="hybrid", attn_period=2),
@@ -367,8 +366,6 @@ def test_training_the_ssm_family_raises():
     kernel = PortLM(cfg, ssd_impl="kernel", device="cpu")
     with pytest.raises(NotImplementedError, match="queue 1 item 5"):
         kernel.loss(kernel.init(0), {"tokens": toks, "labels": toks})
-    with pytest.raises(NotImplementedError, match="not ported"):
-        PortLM(dataclasses.replace(cfg, family="encdec"), device="cpu")
     with pytest.raises(ValueError, match="ssd_impl"):
         PortLM(cfg, ssd_impl="pallas", device="cpu")
 
