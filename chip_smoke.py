@@ -26,6 +26,13 @@ imports nothing of the JAX package). Phases, one line each:
               read of q[:, t] bit for bit; four planted faults (one split
               dropped, the merge without the rescale, each split's span one
               page short, the int8 scales skipped) must each break 2e-5.
+              The cases include phase 27's per-rank shapes (8 of qwen's
+              16 KV heads at D=64, decode and an int8 chunk; 16 of
+              llama2-7b's 32 at D=128), and a rank that holds every KV
+              head but reads one (chatglm3-6b at TP = 4: 8 q heads on 1
+              of the pool's 2 KV heads, D=128, decode bf16 and an int8
+              chunk): the read of that window of the pool, in place,
+              equals the read of a copy of it bit for bit.
 4. engine   - full-width qwen1.5-0.5b (seeded random weights) serves 16
               requests (prompts 64/256/1000, 64 new tokens each) twice:
               whole-prompt prefill with bf16 KV, and chunked prefill (64)
@@ -88,7 +95,9 @@ imports nothing of the JAX package). Phases, one line each:
               T=64 taken at its live length, a carried state), four
               chunks with a carried state, an odd one (G=2, T not a
               multiple of the chunk) and one the FMA body takes (N=4,
-              P=8); y and the final state within ``SSD_TOL``. It prints
+              P=8), and both mamba2 shapes at H=12, a rank's heads under
+              phase 27's TP = 2; y and the final state within
+              ``SSD_TOL``. It prints
               each case's body and CUDA kernels a call; both mamba2 shapes
               must run the tensor-core body, each within 2x the FMA body's
               max |err| on the same inputs (y and state each). Two faults
@@ -165,7 +174,16 @@ imports nothing of the JAX package). Phases, one line each:
               planted faults (eps dropped, the last block's rows skipped)
               must each break that limit; the autograd wrapper's dx and
               dw against autograd through the plain version at a training
-              shape (1 ulp).
+              shape (1 ulp). The norm of a row split over ranks (phase
+              27's mamba2 gated norm: the partial-sum pass, a sum over
+              the parts, the scale pass) at the per-rank widths 768 (TP
+              = 2) and 384 (TP = 4) of d_inner 1,536: one part against
+              ``rmsnorm_plain`` of it, the parts together against
+              ``rmsnorm_plain`` of the whole row, the partial sums
+              against their plain version; a planted fault (each part
+              scaled by its own sum) must break it; the partial-sum pass
+              timed beside its bound, its plain version and
+              ``torch.linalg.vecdot``.
 16. decode  - the dense-cache decode kernel against its plain version:
               tests/test_kernels.py:72-75's shapes, the draft model's
               shape (B=1, H=K=16, D=64, S in {65, 1068}), G=2, a
@@ -350,6 +368,35 @@ imports nothing of the JAX package). Phases, one line each:
               dropped token's output depends on its step's rows); the
               paged read at jamba's widest verify window (T = 5, G = 4,
               D = 128) against its plain version and timed.
+27. tp      - the serving engine sharded over two ranks that share card
+              0 (``launch.mesh.spawn_ranks``, gloo, the steps eager: a
+              CUDA graph cannot capture their collectives), at full
+              width: qwen1.5-0.5b chunked (64) with int8 KV, llama2-7b and
+              mamba2-130m whole-prompt, 8 requests (prompts 64/256, 32
+              new) each, first on one device in this process, then on
+              the two ranks. Both ranks' tokens must be equal, and equal
+              to the single-device run's up to splits at 4-ulp bf16 near
+              ties of its logits (counted and printed); every rank
+              launches the paged read once an attention layer a step on
+              its K/2 KV heads, the SSD scan once an SSM layer a prefill
+              group on its 12 heads, RMSNorm once a norm (the gated norm's
+              scale pass included) and its partial-sum pass once a gated
+              norm. Teacher forced: TP = 1's streams go through both
+              ranks' model, through TP = 1's and through TP = 1 with
+              TP = 2's order of sums (each row-parallel product as two
+              f32 halves added, the gated norm's squares summed by
+              halves, the column-parallel products on each rank's
+              columns, the paged read split as a rank's heads split it);
+              at every position the largest logit gap to TP = 1 must
+              stay within ``TP_FORCED_ULPS`` bf16 ulps of the row's top,
+              and TP = 2's logits must equal the emulated order's bit for
+              bit. The emulated order also serves the burst on one
+              device: its streams' splits from TP = 2's are printed
+              beside TP = 1's. It prints each rank's peak memory, decode
+              tok/s and the share of a decode step spent in collectives
+              (each timed between two synchronizes), beside the card's name
+              and power limit; with two or more cards it also runs nccl,
+              one card per rank, and otherwise says that it did not.
 
 Any failed check raises. The last three lines of standard output are the
 kernels' JSON record, the card's name and power limit, and
@@ -357,8 +404,8 @@ kernels' JSON record, the card's name and power limit, and
 run's time. Each main path (the engine runs, the training run, the
 two fine-tuning runs, the speculative engine runs, the nine
 lifecycle bursts, phase 23's eight runs, phase 24's training runs,
-phase 25's serving and training runs, phase 26's runs) is
-driven with every launch
+phase 25's serving and training runs, phase 26's runs, phase 27's
+single-device runs and each rank's run) is driven with every launch
 count set to 0 just before it (after the engine's warmup, and in phase
 22 (a)/(b) after the warming request) and read just after; so is each
 eager twin. Without
@@ -410,12 +457,16 @@ SSD_TOL = dict(rtol=2e-3, atol=2e-4)
 # (B, T, H, P, G, N, chunk, carried state)
 SSD_CASES = (("whole-prompt", 4, 1000, 24, 64, 1, 128, 256, False),
              ("chunk step", 1, 64, 24, 64, 1, 128, 256, True),
+             # a rank's 12 of mamba2's 24 heads at phase 27's TP = 2
+             ("TP=2 whole-prompt", 4, 1000, 12, 64, 1, 128, 256, False),
+             ("TP=2 chunk step", 1, 64, 12, 64, 1, 128, 256, True),
              ("4 chunks", 2, 1024, 24, 64, 1, 128, 256, True),
              ("odd", 2, 100, 6, 32, 2, 48, 32, True),
              ("fma", 3, 70, 2, 8, 1, 4, 32, True))
 # the two mamba2 shapes: the tensor-core body, within this factor of the
 # FMA body's max |err| against the plain version on the same inputs
-SSD_MAMBA2 = ("whole-prompt", "chunk step")
+SSD_MAMBA2 = ("whole-prompt", "chunk step", "TP=2 whole-prompt",
+              "TP=2 chunk step")
 SSD_FMA_FACTOR = 2.0
 # mamba2's chunked run: 16 requests on 8 slots with prompts of up to 1,000
 # tokens need more 16-token blocks than this at once, so it preempts
@@ -475,6 +526,11 @@ SPEC_NEAR_TIE_ULPS = 4             # the port's rule for spec-on vs spec-off
 # row counts and the q/k norms' rows (qwen3-moe's 32 query heads of a
 # decode step's 8 rows, and of a 64-token chunk)
 RMS_ROWS = (1, 8, 256, 333, 2048, 8192)
+# the gated norm split over ranks: mamba2's d_inner and its per-rank
+# widths at TP = 2 and 4; rows of a decode step (8), a 256-token prompt
+# (256) and a prefill group of 8 (2,048)
+RMS_SPLIT_WIDTH = 1536
+RMS_SPLIT_ROWS = (1, 8, 256, 2048)
 RMS_DIMS = (128, 768, 1024, 1536, 2048, 4096, 1000, 999)
 # dense decode kernel cases (B, S, H, K, D, lengths): tests/test_kernels.py
 # :72-75, the draft model's shape, G = 2, a zero-length row, a length past S
@@ -499,6 +555,21 @@ DENSE_SPLIT_CASES = ((1, 4096, 16, 16, 64, [4096]),
 # paged cases the kernel splits many ways (T, B, G, D, lengths, int8): up to
 # 4,096 positions on a 256-column table, a verify window, a chunk, whole
 # splits empty, a zero-length row
+# (T, B, K, D, lengths, int8): the paged read at the per-rank shapes of
+# phase 27's TP = 2 (qwen's 8 of 16 KV heads at D = 64, decode and an int8
+# chunk step; llama2-7b's 16 of 32 at D = 128), G = 1
+PAGED_SHARD_CASES = ((1, 8, 8, 64, [96, 288, 1032, 96, 288, 1032, 96, 288],
+                      False),
+                     (64, 1, 8, 64, [936], True),
+                     (1, 8, 16, 128, [96, 288, 1032, 96, 288, 1032, 96, 288],
+                      False))
+# (T, B, q heads, KV heads held, the window read, D, lengths, int8): a
+# rank that holds every KV head but reads those its q heads map to
+# (chatglm3-6b at TP = 4: 8 of 32 q heads, 1 of the 2 KV heads), read in
+# place from the pool
+PAGED_WINDOW_CASES = ((1, 8, 8, 2, (1, 2), 128,
+                       [96, 288, 1032, 96, 288, 1032, 96, 288], False),
+                      (64, 1, 8, 2, (0, 1), 128, [936], True))
 PAGED_SPLIT_CASES = ((1, 8, 1, 64, [4096, 1, 2048, 4095, 333, 64, 0, 4000],
                       False),
                      (5, 4, 2, 128, [4096, 17, 0, 2000], True),
@@ -766,6 +837,12 @@ def phase_kernel_vs_plain():
                     cases.append(dict(b=3, t=t, h=kv * gq, kv=kv, d=d, bs=bs,
                                       lengths=[mb * bs - 5, bs + 3, 0],
                                       mb=mb, n_blocks=40, quant=quant))
+    n_short = len(cases)
+    for t, b, kv, d, lengths, quant in PAGED_SHARD_CASES:
+        cases.append(dict(b=b, t=t, h=kv, kv=kv, d=d, bs=16,
+                          lengths=lengths, mb=128,
+                          n_blocks=sum(-(-x // 16) for x in lengths) + 2,
+                          quant=quant))
     # contexts the kernel splits many ways: up to 4,096 positions on a
     # 256-column table, B up to 8, G 1/2/4, whole splits empty
     for t, b, gq, d, lengths, quant in PAGED_SPLIT_CASES:
@@ -809,8 +886,11 @@ def phase_kernel_vs_plain():
           f"(max |err| of normalized output {worst:.3g}); T=1 decode read "
           f"== prefix read bitwise; row t of every T-wide read == the T=1 "
           f"read bitwise; zero-length rows empty; column splits per case "
-          f"{splits[0]} (the {n - len(long)} short cases), then {long} (up "
-          f"to 4,096 positions on a 256-column table)")
+          f"{splits[0]} (the {n_short} short cases), "
+          f"{splits[n_short:n_short + len(PAGED_SHARD_CASES)]} (the per-rank "
+          f"shapes of TP=2: K=8 D=64 decode and int8 chunk, K=16 D=128 "
+          f"decode), then {long} (up to 4,096 positions on a 256-column "
+          f"table)")
     for name, fault in PAGED_PLANTED:
         caught, total = [], 0
         for i, c in enumerate(cases):
@@ -831,6 +911,43 @@ def phase_kernel_vs_plain():
         print(f"[kernel] planted fault '{name}': caught at {len(caught)} of "
               f"{total} cases it applies to (max |err| "
               f"{min(caught):.3g}-{max(caught):.3g})")
+    paged_window_check()
+
+
+def paged_window_check():
+    """The paged read on a window of the pool's KV heads, read in place
+    (the pool's other heads stepped over), against the read of a copy of
+    the window (bit for bit) and the plain version (``KERNEL_TOL``)."""
+    import torch
+    from repro_torch.kernels import flash_decode as fd
+    worst = 0.0
+    for i, (t, b, h, kv, (lo, hi), d, lengths, quant) in enumerate(
+            PAGED_WINDOW_CASES):
+        q, k, v, ks, vs, table, lens = make_paged_case(
+            b=b, t=t, h=h, kv=kv, d=d, bs=16, lengths=lengths, mb=128,
+            n_blocks=sum(-(-x // 16) for x in lengths) + 2, quant=quant,
+            seed=500 + i)
+        win = [None if a is None else a[0][:, :, lo:hi]
+               for a in (k, v, ks, vs)]
+        check(not win[0].is_contiguous(), "the window is not a window")
+        args = (q, win[0], win[1], table, lens, win[2], win[3])
+        copy = (q, *(None if a is None else a.contiguous() for a in win[:2]),
+                table, lens,
+                *(None if a is None else a.contiguous() for a in win[2:]))
+        tag = (f"T={t} B={b} {h} q heads on KV heads [{lo}, {hi}) of {kv} "
+               f"D={d} {'int8' if quant else 'bf16'}")
+        got, want = fd._paged_mq_cuda(*args), fd._paged_mq_cuda(*copy)
+        check(all(torch.equal(a, c) for a, c in zip(got, want)),
+              f"paged read of a window in place != of its copy at {tag}")
+        err, ok = paged_vs_plain(args)
+        check(ok, f"paged read of a window differs from plain at {tag}: "
+              f"{err}")
+        worst = max(worst, err)
+    print(f"[kernel] paged read of a window of the pool's KV heads (a "
+          f"rank of chatglm3-6b at TP=4: 8 q heads on 1 of 2 KV heads, "
+          f"D=128, decode bf16 and an int8 chunk) in place == the read of "
+          f"its copy bitwise, == plain within rtol=atol=2e-5 (max |err| "
+          f"{worst:.3g})")
 
 
 def dense_reference_logits(model, params, tokens, kv_quant):
@@ -3326,6 +3443,102 @@ def phase_rmsnorm_vs_plain():
               f"{min(caught):.3g}-{max(caught):.3g})")
 
 
+def rms_split_run(x, w, parts: int, run=None, eps: float = 1e-5):
+    """The norm of rows ``x (rows, n)`` split into ``parts`` equal parts
+    as the ranks compute it: each part's partial sums (the kernel), their
+    sum in part order (what the ranks' all_reduce adds), then each part's
+    scale pass (``run``: a planted fault around the scale pass)."""
+    import torch
+    from repro_torch.kernels import rmsnorm as rn
+    n = x.shape[-1]
+    xs = [p.contiguous() for p in x.chunk(parts, -1)]
+    ws = [p.contiguous() for p in w.chunk(parts)]
+    sums = [rn._sumsq_cuda(p) for p in xs]
+    total = sums[0].clone()
+    for s_ in sums[1:]:
+        total += s_
+    scale = run or (lambda p, q, ss, own: rn._scaled_cuda(p, q, ss, n, eps))
+    return torch.cat([scale(p, q, total, own)
+                      for p, q, own in zip(xs, ws, sums)], -1)
+
+
+def phase_rmsnorm_split():
+    """The gated norm of a row split over ranks (the partial-sum pass, a
+    sum over the parts, the scale pass) against the plain version, at
+    mamba2's per-rank widths; a planted fault; the partial-sum pass
+    timed. Returns its record numbers."""
+    import torch
+    from repro_torch.kernels import rmsnorm as rn
+    n = RMS_SPLIT_WIDTH
+    worst = {"one": 0.0, "whole": 0.0, "sums": 0.0}
+    caught = []
+    cases = [(rows, parts, xd) for rows in RMS_SPLIT_ROWS
+             for parts in (2, 4) for xd in ("f32", "bf16")]
+    for i, (rows, parts, xd) in enumerate(cases):
+        x, w = rms_case(rows, n, xd, "bf16", seed=300 + i)
+        tol = (dict(rtol=2e-5, atol=2e-5) if xd == "f32" else None)
+        p0, w0 = x[:, :n // parts].contiguous(), w[:n // parts].contiguous()
+        tag = f"rows={rows} {parts} parts of {n} x {xd}"
+
+        def held(got, want, what):
+            err = max_err(got.float(), want.float())
+            ok = (allclose(got, want, **tol) if tol else
+                  bf16_ulp_check(got, want, 1)[1])
+            check(ok, f"split RMSNorm {what} differs from plain at {tag}: "
+                  f"{err}")
+            return err
+
+        worst["one"] = max(worst["one"], held(
+            rn.rmsnorm_split(p0, w0, n // parts, lambda t: t),
+            rn.rmsnorm_plain(p0, w0), "on one part"))
+        worst["whole"] = max(worst["whole"], held(
+            rms_split_run(x, w, parts), rn.rmsnorm_plain(x, w),
+            "over the parts"))
+        got_s, want_s = rn._sumsq_cuda(p0), rn.rmsnorm_sumsq_plain(p0)
+        check(allclose(got_s, want_s, **KERNEL_TOL), f"partial sums differ "
+              f"from plain at {tag}: {max_err(got_s, want_s)}")
+        worst["sums"] = max(worst["sums"], max_err(got_s, want_s) /
+                            float(want_s.abs().max()))
+        bad = rms_split_run(x, w, parts, run=lambda p, q, ss, own:
+                            rn._scaled_cuda(p, q, own, n))
+        err = max_err(bad.float(), rn.rmsnorm_plain(x, w).float())
+        if not (allclose(bad, rn.rmsnorm_plain(x, w), **tol) if tol else
+                bf16_ulp_check(bad, rn.rmsnorm_plain(x, w), 1)[1]):
+            caught.append(err)
+    check(len(caught) == len(cases), f"planted split-norm fault (each part "
+          f"scaled by its own sum) passes {len(cases) - len(caught)} cases")
+    # the partial-sum pass at a prefill group's per-rank shape (TP = 2)
+    rows, d = RMS_SPLIT_ROWS[-1], n // 2
+    ins = [rms_case(rows, d, "f32", "bf16", seed=400 + j)[0]
+           for j in range(4)]
+    err = max_err(rn._sumsq_cuda(ins[0]), rn.rmsnorm_sumsq_plain(ins[0]))
+    ms = graph_ms(lambda i: rn._sumsq_cuda(ins[i % 4]))
+    plain_ms = graph_ms(lambda i: rn.rmsnorm_sumsq_plain(ins[i % 4]))
+    lib_ms = graph_ms(lambda i: torch.linalg.vecdot(ins[i % 4], ins[i % 4]))
+    t_bytes = (rows * d * 4 + rows * 4) / HBM_BYTES_PER_S * 1e3
+    t_ops = 2.0 * rows * d / F32_FMA_OPS * 1e3
+    bound_ms = max(t_bytes, t_ops)
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    print(f"[rmsnorm] split over ranks, {len(cases)} cases (rows "
+          f"{RMS_SPLIT_ROWS} x 2 or 4 parts of {n} x x f32/bf16, w bf16): "
+          f"one part == rmsnorm_plain of it (max |err| {worst['one']:.3g}), "
+          f"the parts' partial sums added and each part scaled == "
+          f"rmsnorm_plain of the whole row (max |err| {worst['whole']:.3g}), "
+          f"f32 within rtol=atol=2e-5, bf16 within 1 ulp; partial sums == "
+          f"plain within 2e-5 (max relative {worst['sums']:.3g}); planted "
+          f"fault 'each part scaled by its own sum' caught at "
+          f"{len(caught)} of {len(cases)} (max |err| "
+          f"{min(caught):.3g}-{max(caught):.3g})")
+    print(f"[timing] rmsnorm_sumsq {rows} x {d} f32 (a prefill group's "
+          f"rank at TP = 2): {ms * 1e3:.2f} us (bound "
+          f"{bound_ms * 1e3:.3f} us by {bound_by}, "
+          f"{bound_ms / ms * 100:.2f}% of it), plain {plain_ms * 1e3:.2f} "
+          f"us, torch.linalg.vecdot {lib_ms * 1e3:.2f} us; == plain, max "
+          f"|err| {err:.3g}; {card_line()}")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err}
+
+
 def dense_case(b, s, h, kv, d, lengths, dtype, *, seed=0):
     import torch
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -3474,12 +3687,13 @@ def phase_dense_decode_vs_plain():
               f"{min(caught):.3g}-{max(caught):.3g})")
 
 
-def spec_splits(model, params, prompts, want, got):
+def spec_splits(model, params, prompts, want, got,
+                what: str = "spec-on splits from spec-off"):
     """Streams of a spec-on run against spec-off's: a stream may split only
     at a position where spec-off's own logits (a dense forward over the
     prompt and spec-off's tokens before the split) put the spec-on token
     within ``SPEC_NEAR_TIE_ULPS`` bf16 ulps of the top. Returns the split
-    count."""
+    count. (Phase 27 holds TP = 2 streams to TP = 1's by the same rule.)"""
     import torch
     splits = 0
     for rid, ref in want.items():
@@ -3495,7 +3709,7 @@ def spec_splits(model, params, prompts, want, got):
         top = float(row.max())
         ulp = 2.0 ** (math.floor(math.log2(max(abs(top), 1e-30))) - 7)
         check(float(row[out[j]]) >= top - SPEC_NEAR_TIE_ULPS * ulp,
-              f"rid {rid}: spec-on splits from spec-off at token {j} "
+              f"rid {rid}: {what} at token {j} "
               f"({out[j]} vs {ref[j]}), not a bf16 near tie")
     return splits
 
@@ -5078,6 +5292,385 @@ def phase_ssm_decoding() -> dict:
             "dense_decode": sum(r["dense"] for r in runs), "verify": wide}
 
 
+# --------------------------------------------------------------------------
+# phase 27: tensor-parallel serving, two ranks sharing the card
+# --------------------------------------------------------------------------
+
+TP_DEGREE = 2
+TP_LENS = [64, 256]                # prompts, cycled over 8 requests
+TP_REQUESTS = 8
+TP_NEW = 32
+# (config, engine arguments): qwen chunked with int8 KV, llama2-7b and
+# mamba2-130m whole-prompt with bf16 KV
+TP_RUNS = (("qwen1.5-0.5b", dict(prefill_chunk=64, kv_quant="int8")),
+           ("llama2-7b", dict(kv_quant="none")),
+           ("mamba2-130m", dict(kv_quant="none")))
+TP_POOL = dict(max_batch=8, n_blocks=1024, block_size=16)
+
+
+# the largest gap, at any position of a teacher-forced stream, between
+# TP = 2's logits and TP = 1's, in bf16 ulps of the row's top logit
+TP_FORCED_ULPS = 16
+
+
+@contextlib.contextmanager
+def tp2_sum_order():
+    """TP = 1 summing in TP = 2's order, on one device: each row-parallel
+    product (``layers.dense_row`` with no model axis) as two f32 halves
+    of its contraction added, then rounded once; the gated norm's squares
+    summed by halves (the split norm's two kernel passes); the
+    column-parallel products by each rank's columns (the q/k/v
+    projections by halves of their heads, mamba2's in_proj and conv by
+    ``sharding.fused_segments``: a product of few rows on a rank's
+    columns is not the whole product's columns); and the paged read
+    split over as many column spans as a rank's K/2 KV heads give it
+    (``paged_splits``); every other op as TP = 1's. Needs the heads,
+    the KV heads and the SSD heads even."""
+    from types import SimpleNamespace
+
+    import torch
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.models import blocks as B
+    from repro_torch.models import layers as L
+    from repro_torch.parallel import sharding as S
+    dense_row, gated, qkv = L.dense_row, B._gated_norm, B._qkv
+    ssm_pre, splits = B._ssm_pre, fd.paged_splits
+
+    def halves(x, w, ctx, n_in=1, out_dtype=None, qmm_impl="kernel"):
+        if ctx is not None or w.shape[0] < 2:     # mamba2's empty FFN
+            return dense_row(x, w, ctx, n_in, out_dtype, qmm_impl)
+        out_dt = out_dtype or torch.promote_types(x.dtype, w.dtype)
+        d, n = x.ndim - n_in, w.shape[0]
+        ys = [L.dense(a.contiguous(), b.contiguous(), n_in,
+                      out_dtype=torch.float32, qmm_impl=qmm_impl)
+              for a, b in zip(x.split(n // 2, d), w.split(n // 2, 0))]
+        return (ys[0] + ys[1]).to(out_dt)
+
+    def gated_halves(y, z, w, cfg, ctx):
+        if ctx is not None:
+            return gated(y, z, w, cfg, ctx)
+        g = y * L.silu(z)
+        return rms_split_run(g.reshape(-1, g.shape[-1]), w, 2,
+                             eps=cfg.norm_eps).reshape(g.shape)
+
+    def qkv_halves(x, p, cfg, positions, rope=True, qmm_impl="kernel"):
+        parts = []
+        for r in range(2):
+            pr = dict(p)
+            for n, keys in ((cfg.n_heads, ("wq", "bq")),
+                            (cfg.n_kv_heads, ("wk", "wv", "bk", "bv"))):
+                for key in keys:
+                    if key in p:
+                        w, h = p[key], n // 2
+                        pr[key] = w.narrow(w.ndim - 2, r * h, h).contiguous()
+            parts.append(qkv(x, pr, cfg, positions, rope, qmm_impl))
+        return tuple(torch.cat(t, dim=-2) for t in zip(*parts))
+
+    def rank_cut(t, name, cfg, r):
+        """A rank's cut of the last axis of ``t`` (in_proj columns, conv
+        channels), as ``sharding.shard_params`` cuts it."""
+        pieces, start = [], 0
+        for n, is_cut in S.fused_segments(name, cfg, t.shape[-1]):
+            seg = t.narrow(-1, start, n)
+            start += n
+            pieces.append(seg.narrow(-1, r * n // 2, n // 2) if is_cut
+                          else seg)
+        return torch.cat(pieces, -1).contiguous()
+
+    def ssm_pre_halves(h, p, cfg, conv_state=None, capture_tail=False,
+                       n_valid=None, ctx=None):
+        if ctx is not None:
+            return ssm_pre(h, p, cfg, conv_state, capture_tail, n_valid,
+                           ctx)
+        outs = []
+        for r in range(2):
+            pr = dict(p)
+            for key in ("in_proj", "conv_w", "conv_b"):
+                pr[key] = rank_cut(p[key], key, cfg, r)
+            cs_r = (None if conv_state is None
+                    else rank_cut(conv_state, "conv_w", cfg, r))
+            outs.append(ssm_pre(h, pr, cfg, cs_r, capture_tail, n_valid,
+                                S.ShardCtx(SimpleNamespace(
+                                    shape={S.MODEL: 2}, rank=r), cfg)))
+        (z0, x0, b0, c0, d0, t0), (z1, x1, _, _, d1, t1) = outs
+        tail = None
+        if t0 is not None:                # x of both ranks, B and C once
+            half = cfg.d_inner // 2
+            tail = torch.cat([t0[..., :half], t1[..., :half],
+                              t0[..., half:]], -1)
+        return (torch.cat([z0, z1], -1), torch.cat([x0, x1], 2), b0, c0,
+                torch.cat([d0, d1], -1), tail)
+
+    def rank_splits(b, n_kv, mb, n_sm):
+        return splits(b, max(n_kv // 2, 1), mb, n_sm)
+
+    L.dense_row, B._gated_norm, B._qkv = halves, gated_halves, qkv_halves
+    B._ssm_pre, fd.paged_splits = ssm_pre_halves, rank_splits
+    try:
+        yield
+    finally:
+        L.dense_row, B._gated_norm, B._qkv = dense_row, gated, qkv
+        B._ssm_pre, fd.paged_splits = ssm_pre, splits
+
+
+def tp_forced(eng, cfg, dev, prompts, streams):
+    """TP = 1's ``streams`` teacher forced through this rank's sharded
+    model (every rank: its collectives) and, on rank 0, through TP = 1's
+    model and TP = 1 in TP = 2's order of sums (:func:`tp2_sum_order`).
+    Returns, over every position, the largest logit gap of each pair in
+    bf16 ulps of the row's top TP = 1 logit, and the positions whose
+    argmax differs."""
+    import torch
+    from repro_torch.models.lm import LM
+    rank0 = eng._ctx.rank == 0
+    if rank0:
+        full = LM(cfg, device=dev).init(0)
+        one = LM(cfg, ssd_impl="kernel", device=dev)
+    gaps = {"tp": 0.0, "emu": 0.0, "tp_emu": 0.0}
+    flips = dict.fromkeys(gaps, 0)
+    positions = 0
+    v = cfg.vocab_size
+    for rid in sorted(streams):
+        toks = torch.tensor([prompts[rid] + streams[rid][:-1]],
+                            dtype=torch.int64, device=dev)
+        z2 = eng.model.forward(eng.params, toks)[0, :, :v].float()
+        if not rank0:
+            continue
+        z1 = one.forward(full, toks)[0, :, :v].float()
+        with tp2_sum_order():
+            ze = one.forward(full, toks)[0, :, :v].float()
+        top = z1.max(-1).values
+        ulp = torch.exp2(torch.floor(torch.log2(top.abs().clamp_min(
+            1e-30))) - 7)
+        for key, a, b in (("tp", z2, z1), ("emu", ze, z1),
+                          ("tp_emu", z2, ze)):
+            gaps[key] = max(gaps[key], float(
+                ((a - b).abs().max(-1).values / ulp).max()))
+            flips[key] += int((a.argmax(-1) != b.argmax(-1)).sum())
+        positions += toks.shape[1]
+    return {"gaps": gaps, "flips": flips, "positions": positions}
+
+
+def tp_serve(mesh, name, engine_kw, prompts, max_new, streams=None):
+    """One rank of phase 27 (``mesh=None``: the single-device run): the
+    full-width seeded weights drawn on the rank's card, the engine built
+    over its slice (``Engine(mesh=)``, steps eager), every launch count
+    set to 0, the burst served. Each collective is timed between two
+    synchronizes (what it adds on the host), and each decode step's
+    wall, so the record gives the decode steps' share spent in
+    collectives. Then, given TP = 1's ``streams``, :func:`tp_forced`.
+    Returns the record."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import ssd as ssdk
+    from repro_torch.models.lm import LM
+    from repro_torch.serving import graphs
+    from repro_torch.serving.engine import Engine, Request
+    cfg = get_config(name)
+    dev = mesh.device if mesh is not None else torch.device("cuda")
+    params = LM(cfg, device=dev).init(0)
+    eng = Engine(cfg, params, mesh=mesh, device=dev, cuda_graphs=False,
+                 **TP_POOL, **engine_kw)
+    del params
+    free_card()
+    torch.cuda.reset_peak_memory_stats(dev)
+    coll = {"s": 0.0, "n": 0}
+    dec = {"s": 0.0, "coll_s": 0.0, "coll_n": 0, "steps": 0}
+    if eng._ctx is not None:
+        reduce = eng._ctx.all_reduce
+
+        def timed_reduce(t):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            reduce(t)
+            torch.cuda.synchronize(dev)
+            coll["s"] += time.perf_counter() - t0
+            coll["n"] += 1
+            return t
+
+        eng._ctx.all_reduce = timed_reduce
+    decode = eng._decode_fused
+
+    def timed_decode(live):
+        if not live:
+            return decode(live)
+        s0, n0, t0 = coll["s"], coll["n"], time.perf_counter()
+        decode(live)
+        torch.cuda.synchronize(dev)
+        dec["s"] += time.perf_counter() - t0
+        dec["coll_s"] += coll["s"] - s0
+        dec["coll_n"] += coll["n"] - n0
+        dec["steps"] += 1
+
+    eng._decode_fused = timed_decode
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, tokens=p, max_new_tokens=max_new))
+    torch.cuda.synchronize(dev)
+    for c in graphs.KERNEL_COUNTERS:   # count the main path's run only
+        c.clear()
+    t0 = time.monotonic()
+    done = eng.run(max_steps=5000)
+    torch.cuda.synchronize(dev)
+    wall = time.monotonic() - t0
+    rec = {"out": {r.rid: list(r.output) for r in done},
+           "st": counters(eng.stats()),
+           "decode_tok_s": eng.stats()["decode_tok_s"], "wall": wall,
+           "paged": fd.LAUNCHES["paged_attention"],
+           "ssd": ssdk.LAUNCHES["ssd"], "rmsnorm": rn.LAUNCHES["rmsnorm"],
+           "sumsq": rn.LAUNCHES["rmsnorm_sumsq"],
+           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+           "pool_mib": eng.kv.hbm_bytes() / 2 ** 20, "dec": dec,
+           "kv_heads": eng.kv_cfg.n_kv_heads, "device": str(dev)}
+    if streams is not None:
+        rec["forced"] = tp_forced(eng, cfg, dev, prompts, streams)
+    return rec
+
+
+def tp_launches(cfg, rec, run: str) -> None:
+    """A rank's launches: the paged read once an attention layer a decode
+    and chunk step, the SSD scan once an SSM layer a prefill group and
+    chunk step, RMSNorm once a norm of a forward (a split gated norm's
+    scale pass included) and its partial-sum pass once an SSM layer a
+    forward where the model axis splits the SSD heads; each must have
+    run."""
+    st = rec["st"]
+    kinds = cfg.layer_kinds()
+    n_attn, n_ssm = kinds.count("attn"), kinds.count("ssm")
+    steps = st["decode_steps"] + st["chunk_steps"]
+    check(rec["paged"] == n_attn * steps,
+          f"{run}: paged launches {rec['paged']} != {n_attn} x {steps}")
+    check(rec["ssd"] == n_ssm * (st["prefill_groups"] + st["chunk_steps"]),
+          f"{run}: SSD launches {rec['ssd']} != {n_ssm} x (prefill groups "
+          f"+ chunk steps)")
+    forwards = st["prefill_groups"] + steps
+    count_rmsnorm(run, rec["rmsnorm"], norms_per_forward(cfg) * forwards,
+                  f"{norms_per_forward(cfg)} x {forwards} forwards")
+    split = bool(cfg.n_ssm_heads) and cfg.n_ssm_heads % TP_DEGREE == 0
+    want = n_ssm * forwards if split else 0
+    check(rec["sumsq"] == want, f"{run}: split-norm partial-sum launches "
+          f"{rec['sumsq']} != {want} ({n_ssm} x {forwards} forwards)")
+    check(rec["paged"] > 0 if n_attn else rec["ssd"] > 0,
+          f"{run}: the path's kernel never launched")
+
+
+def phase_tp() -> dict:
+    """Phase 27: the engine sharded over two ranks that share card 0
+    (gloo; the steps eager), at full width: qwen1.5-0.5b chunked with
+    int8 KV, llama2-7b and mamba2-130m whole-prompt. Each config is
+    served first on one device in this process, then on the two ranks;
+    every rank's tokens must equal the single-device run's up to a
+    counted split at a 4-ulp bf16 near tie of its logits, and every rank
+    must launch the paged read, the SSD scan, RMSNorm and the split
+    norm's partial-sum pass as its heads give them. TP = 1's streams,
+    teacher forced, hold TP = 2's logits within ``TP_FORCED_ULPS`` of TP
+    = 1's at every position and equal, bit for bit, to those of TP = 1
+    in TP = 2's order of sums (:func:`tp2_sum_order`); that order also
+    serves the burst on one device, its streams' splits from TP = 2's
+    printed.
+    Prints per-rank peak memory, decode tok/s and the share of a decode
+    step spent in collectives. With two or more cards it also runs nccl,
+    one card per rank. Returns the ranks' launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import serving_requests
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.models.lm import LM
+    t0 = time.monotonic()
+    total = {"paged": 0, "ssd": 0, "sumsq": 0}
+    outs = {}
+    card = card_line()
+    for name, kw in TP_RUNS:
+        cfg = get_config(name)
+        prompts = serving_requests(TP_REQUESTS, cfg.vocab_size,
+                                   prompt_lens=TP_LENS)
+        one = tp_serve(None, name, kw, prompts, TP_NEW)
+        free_card()
+        with tp2_sum_order():
+            emu = tp_serve(None, name, kw, prompts, TP_NEW)
+        free_card()
+        ranks = spawn_ranks(tp_serve, TP_DEGREE, backend="gloo",
+                            args=(name, kw, prompts, TP_NEW, one["out"]))
+        outs[name] = ranks[0]["out"]
+        what = f"{name} TP={TP_DEGREE} " + ", ".join(
+            f"{k}={v}" for k, v in kw.items())
+        for r, rec in enumerate(ranks):
+            check(rec["out"] == ranks[0]["out"],
+                  f"{what}: rank {r}'s tokens differ from rank 0's")
+            check(rec["st"]["finished"] == TP_REQUESTS,
+                  f"{what} rank {r}: {rec['st']['finished']} of "
+                  f"{TP_REQUESTS} finished")
+            tp_launches(cfg, rec, f"{what} rank {r}")
+            total["paged"] += rec["paged"]
+            total["ssd"] += rec["ssd"]
+            total["sumsq"] += rec["sumsq"]
+        splits = 0
+        if ranks[0]["out"] != one["out"]:      # the forward only where due
+            model = LM(cfg, device="cuda")
+            splits = spec_splits(model, model.init(0), prompts, one["out"],
+                                 ranks[0]["out"],
+                                 what="TP=2 splits from TP=1")
+            del model
+            free_card()
+        emu_splits = sum(emu["out"][rid] != out
+                         for rid, out in ranks[0]["out"].items())
+        fc = ranks[0]["forced"]
+        g, fl = fc["gaps"], fc["flips"]
+        check(g["tp"] <= TP_FORCED_ULPS, f"{what}: teacher forced, TP=2's "
+              f"logits are {g['tp']:.2f} bf16 ulps of the top from TP=1's "
+              f"(limit {TP_FORCED_ULPS})")
+        check(g["tp_emu"] == 0 and fl["tp_emu"] == 0, f"{what}: teacher "
+              f"forced, TP=2's logits are {g['tp_emu']:.3f} ulps from TP=1 "
+              f"in TP=2's order of sums ({fl['tp_emu']} argmax differing), "
+              f"not equal")
+        for r, rec in enumerate(ranks):
+            d = rec["dec"]
+            print(f"[tp] {what} rank {r} on {rec['device']}: "
+                  f"{rec['kv_heads']} KV heads a pool ({rec['pool_mib']:.0f} "
+                  f"MiB), peak {rec['peak_gib']:.2f} GiB, decode "
+                  f"{rec['decode_tok_s']:.1f} tok/s, {d['steps']} decode "
+                  f"steps, {d['coll_n'] / max(d['steps'], 1):.0f} "
+                  f"collectives a decode step taking "
+                  f"{d['coll_s'] / max(d['s'], 1e-9) * 100:.1f}% of its "
+                  f"wall ({d['coll_s'] / max(d['coll_n'], 1) * 1e3:.3f} ms "
+                  f"each, {d['s'] / max(d['steps'], 1) * 1e3:.2f} ms a "
+                  f"step); launches paged {rec['paged']}, SSD {rec['ssd']}, "
+                  f"RMSNorm {rec['rmsnorm']}; {card}")
+        print(f"[tp] {what}: teacher forced over TP=1's {len(prompts)} "
+              f"streams ({fc['positions']} positions), the largest logit "
+              f"gap in bf16 ulps of the row's top (argmax differing at): "
+              f"TP=2 vs TP=1 {g['tp']:.3f} ({fl['tp']}), TP=1 in TP=2's "
+              f"order of sums vs TP=1 {g['emu']:.3f} ({fl['emu']}), TP=2 "
+              f"vs TP=1 in TP=2's order {g['tp_emu']:.3f} "
+              f"({fl['tp_emu']}); served streams differing from TP=2's: "
+              f"TP=1 {splits}, TP=1 in TP=2's order {emu_splits} of "
+              f"{len(prompts)}; {card}")
+        print(f"[tp] {what}: tokens of both ranks == TP=1 with {splits} "
+              f"split(s) at a bf16 near tie (4 ulps); TP=1 on one device: "
+              f"peak {one['peak_gib']:.2f} GiB, decode "
+              f"{one['decode_tok_s']:.1f} tok/s ({one['dec']['steps']} decode "
+              f"steps, "
+              f"{one['dec']['s'] / max(one['dec']['steps'], 1) * 1e3:.2f} "
+              f"ms a step), eager; {card}")
+    if torch.cuda.device_count() >= TP_DEGREE:
+        name, kw = TP_RUNS[0]
+        cfg = get_config(name)
+        prompts = serving_requests(TP_REQUESTS, cfg.vocab_size,
+                                   prompt_lens=TP_LENS)
+        ranks = spawn_ranks(tp_serve, TP_DEGREE, backend="nccl",
+                            args=(name, kw, prompts, TP_NEW))
+        check(all(r["out"] == outs[name] for r in ranks),
+              "nccl ranks' tokens differ from the gloo ranks'")
+        print(f"[tp] {name} TP={TP_DEGREE} over nccl, one card per rank: "
+              f"decode {ranks[0]['decode_tok_s']:.1f} tok/s; {card}")
+    else:
+        print(f"[tp] nccl, one card per rank: not run "
+              f"({torch.cuda.device_count()} card on this machine)")
+    print(f"[tp] phase 27 took {time.monotonic() - t0:.1f}s")
+    return total
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -5255,6 +5848,7 @@ def main() -> None:
     })
 
     phase_rmsnorm_vs_plain()
+    rms_split = phase_rmsnorm_split()
     phase_dense_decode_vs_plain()
     from repro_torch.data.pipeline import repetitive_requests, serving_requests
     params = LM(cfg, device="cuda").init(0)
@@ -5274,6 +5868,7 @@ def main() -> None:
     trained = phase_training_slice()
     families = phase_families()
     ssm = phase_ssm_decoding()
+    tp = phase_tp()
     fam = families["launches"]
     slice_launches = {
         "flash_attention_fwd": trained["fwd"] + fam["fwd"],
@@ -5283,9 +5878,11 @@ def main() -> None:
         "int8_matmul": trained["int8_matmul"]}
     for entry in record["kernels"]:
         if entry["name"] == "paged_attention":
-            entry["launches"] += life["paged"] + moe["paged"] + ssm["paged"]
+            entry["launches"] += (life["paged"] + moe["paged"] + ssm["paged"]
+                                  + tp["paged"])
         if entry["name"] == "ssd_chunked_kernel":
-            entry["launches"] += life["ssd"] + moe["ssd"] + ssm["ssd"]
+            entry["launches"] += (life["ssd"] + moe["ssd"] + ssm["ssd"]
+                                  + tp["ssd"])
         entry["launches"] += slice_launches.get(entry["name"], 0)
     print(f"[spec] RMSNorm launches per run: " + ", ".join(
         f"{k} {v}" for k, v in RMSNORM_RUNS.items()))
@@ -5302,6 +5899,19 @@ def main() -> None:
         "bound_ms": train["bound_ms"],
         "bound_by": train["bound_by"],
         "library_ms": train["library_ms"],
+    })
+    record["kernels"].append({
+        "name": "rmsnorm_sumsq",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+        "replaces": "src/repro/kernels/rmsnorm.py:24",
+        "launches": tp["sumsq"],
+        "max_abs_err": rms_split["max_abs_err"],
+        "ms": rms_split["ms"],
+        "plain_ms": rms_split["plain_ms"],
+        "bound_ms": rms_split["bound_ms"],
+        "bound_by": rms_split["bound_by"],
+        "library_ms": rms_split["library_ms"],
     })
     record["kernels"].append({
         "name": "dense_decode",

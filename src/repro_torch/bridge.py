@@ -25,6 +25,10 @@ A train state (``repro.train.step.init_train_state``) is
 sides; :func:`train_state_from_jax` also moves it to a device and marks
 the trainable params (all, or the LoRA adapters; under quantized full
 training the float leaves) as the leaves autograd differentiates.
+
+Under tensor parallelism a rank holds its slice of the tree:
+:func:`shard_from_jax` carries the reference's numpy params to it
+(``from_jax_numpy``, then ``parallel.sharding.shard_params``).
 """
 from __future__ import annotations
 
@@ -98,6 +102,13 @@ def from_jax_numpy(tree) -> Dict:
     if _is_bf16(a):
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
     return torch.from_numpy(a)
+
+
+def shard_from_jax(tree, ctx) -> Dict:
+    """The reference's numpy params -> this rank's shard of them (``ctx``
+    a ``parallel.sharding.ShardCtx``), as CPU tensors."""
+    from repro_torch.parallel.sharding import shard_params
+    return shard_params(from_jax_numpy(tree), ctx)
 
 
 def to_numpy(tree):

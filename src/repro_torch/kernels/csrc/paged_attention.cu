@@ -41,7 +41,8 @@
 // row's spans depend on its own length only, never on the table bucket,
 // which the engine sizes by the batch's longest row.
 //   Loads: a head's K or V row of a page is D contiguous elements (128
-// bytes in bf16 at D = 64, 64 in int8), consecutive positions K * D apart.
+// bytes in bf16 at D = 64, 64 in int8), consecutive positions KS * D apart
+// (KS the pool's heads a position: K, or more for a window of its heads).
 // The block reads its span's block ids from the table once, then copies
 // its pages (K, V and, for int8, the scales) with 16-byte cp.async into a
 // ring of two granules in shared memory; a granule is up to 4 pages (64
@@ -217,8 +218,8 @@ paged_mq_kernel(const __nv_bfloat16* __restrict__ q,
                 const int* __restrict__ lengths, float* __restrict__ o,
                 float* __restrict__ m_out, float* __restrict__ l_out,
                 float* __restrict__ ws, int* __restrict__ counters, int T,
-                int H, int K, int D, int bs, int max_blocks, int n_split,
-                int rt, float sm_scale) {
+                int H, int K, int KS, int D, int bs, int max_blocks,
+                int n_split, int rt, float sm_scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int tbl_s[kTblCache];
   __shared__ int last_s;
@@ -301,7 +302,8 @@ paged_mq_kernel(const __nv_bfloat16* __restrict__ q,
         const long long blk = j < kTblCache
                                   ? tbl_s[j]
                                   : table[(long long)b * max_blocks + c0 + j];
-        const long long at = ((blk * bs + i) * K + kh) * D + c * (16 / sizeof(KT));
+        const long long at =
+            ((blk * bs + i) * KS + kh) * D + c * (16 / sizeof(KT));
         unsigned char* dst =
             smem + ((g & 1) * gpg + jj) * sbytes + i * pitch + c * 16;
         cp_async16(dst, k_pages + at);
@@ -320,7 +322,8 @@ paged_mq_kernel(const __nv_bfloat16* __restrict__ q,
                                   : table[(long long)b * max_blocks + c0 + j];
         float* sc = reinterpret_cast<float*>(
             smem + ((g & 1) * gpg + jj) * sbytes + 2 * bs * pitch);
-        cp_async4(sc + rest, (kv ? v_scale : k_scale) + (blk * bs + i) * K + kh);
+        cp_async4(sc + rest,
+                  (kv ? v_scale : k_scale) + (blk * bs + i) * KS + kh);
       }
     }
     cp_async_commit();
@@ -711,7 +714,7 @@ template <typename KT>
 int launch(const void* q, const void* k_pages, const void* v_pages,
            const float* k_scale, const float* v_scale, const int* table,
            const int* lengths, float* o, float* m, float* l, float* ws,
-           int* counters, int B, int T, int H, int K, int D, int bs,
+           int* counters, int B, int T, int H, int K, int KS, int D, int bs,
            int max_blocks, int n_split, int rt, float sm_scale,
            cudaStream_t stream) {
   const size_t smem =
@@ -725,7 +728,8 @@ int launch(const void* q, const void* k_pages, const void* v_pages,
   paged_mq_kernel<KT><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const KT*>(k_pages),
       static_cast<const KT*>(v_pages), k_scale, v_scale, table, lengths, o,
-      m, l, ws, counters, T, H, K, D, bs, max_blocks, n_split, rt, sm_scale);
+      m, l, ws, counters, T, H, K, KS, D, bs, max_blocks, n_split, rt,
+      sm_scale);
   return (int)cudaGetLastError();
 }
 
@@ -736,7 +740,11 @@ int tile_rows(int D) { return D <= 64 ? 64 : 32; }
 }  // namespace
 
 // q is bf16 (B,T,H,D). kv_kind: 0 = bf16 pages, 1 = int8 pages (then
-// k_scale/v_scale are (n_blocks, bs, K, 1) f32, else null). ws holds
+// k_scale/v_scale are (n_blocks, bs, K, 1) f32, else null). The pages
+// may be a window of K heads of a pool KS heads wide (KS >= K: a rank
+// that holds every KV head reads those its q heads map to, in place):
+// a position's heads KS * D elements apart, its scales KS apart, and the
+// pointers at the window's first head. ws holds
 // B * K * n_split * T * (H / K) * (D + 2) floats (unused when n_split ==
 // 1); counters B * K ints, zero before the first call (each call leaves
 // them zero). Pages are 16-byte aligned, D a multiple of 16, and n_split
@@ -747,11 +755,11 @@ extern "C" int paged_attention_partial(
     const void* q, const void* k_pages, const void* v_pages, int kv_kind,
     const float* k_scale, const float* v_scale, const int* table,
     const int* lengths, float* o, float* m, float* l, float* ws,
-    int* counters, int B, int T, int H, int K, int D, int bs, int max_blocks,
-    int n_split, float sm_scale, void* stream) {
+    int* counters, int B, int T, int H, int K, int KS, int D, int bs,
+    int max_blocks, int n_split, float sm_scale, void* stream) {
   if (B == 0 || T == 0) return 0;
-  if (B < 0 || B > 65535 || K <= 0 || K > 65535 || H % K != 0 || D <= 0 ||
-      D > kMaxD || D % 16 != 0 || bs <= 0 || max_blocks <= 0 ||
+  if (B < 0 || B > 65535 || K <= 0 || K > 65535 || KS < K || H % K != 0 ||
+      D <= 0 || D > kMaxD || D % 16 != 0 || bs <= 0 || max_blocks <= 0 ||
       n_split < 1 || n_split > kMaxSplits ||
       (kv_kind == 1) != (k_scale != nullptr))
     return (int)cudaErrorInvalidValue;
@@ -766,12 +774,12 @@ extern "C" int paged_attention_partial(
     case 0:
       return launch<__nv_bfloat16>(q, k_pages, v_pages, k_scale, v_scale,
                                    table, lengths, o, m, l, ws, counters, B,
-                                   T, H, K, D, bs, max_blocks, n_split, rt,
-                                   sm_scale, st);
+                                   T, H, K, KS, D, bs, max_blocks, n_split,
+                                   rt, sm_scale, st);
     case 1:
       return launch<int8_t>(q, k_pages, v_pages, k_scale, v_scale, table,
-                            lengths, o, m, l, ws, counters, B, T, H, K, D, bs,
-                            max_blocks, n_split, rt, sm_scale, st);
+                            lengths, o, m, l, ws, counters, B, T, H, K, KS, D,
+                            bs, max_blocks, n_split, rt, sm_scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

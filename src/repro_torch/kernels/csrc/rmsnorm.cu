@@ -33,6 +33,14 @@
 // Where D is not a multiple of the vector or a pointer is not 16-byte
 // aligned, the same threads read and write their elements one by one.
 //
+// A row split over ranks (tensor parallelism: the Mamba-2 gated norm over
+// d_inner, each rank holding its heads' channels) runs the same kernel
+// twice around a cross-rank sum: rmsnorm_sumsq writes each row's f32 sum
+// of squares of the part it holds (the loads and the sum above, nothing
+// stored but the sum), the caller all-reduces those sums, and
+// rmsnorm_scaled takes the summed row sums in place of its own and
+// divides by the whole row's width n, not the D it holds.
+//
 // Bound on an H100 SXM (700 W): bytes. Each x element is read once and
 // each output written once, plus w: at the training step's shape (8,192
 // rows of 1,024 bf16) 33.6 MB, 10.0 us at 3.35 TB/s, against 4 operations
@@ -101,7 +109,8 @@ template <typename TX, typename TW, int NV>
 __global__ void __launch_bounds__(NV == 4 ? 512 : 1024)
 rmsnorm_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
                TX* __restrict__ out, int rows, int D, float eps,
-               int tpr_log2, int vec) {
+               int tpr_log2, int vec, const float* __restrict__ ss_in,
+               float* __restrict__ ss_out, float n_mean) {
   constexpr int V = 16 / (int)sizeof(TX);
   __shared__ float red[32];
   const int tpr = 1 << tpr_log2;
@@ -124,28 +133,37 @@ rmsnorm_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
         v[i][j] = (live && e + j < D) ? to_f32(xr[e + j]) : 0.f;
     }
   }
-  float part[NV];
+  float ss;
+  if (ss_in != nullptr) {                   // the row's sum from outside
+    ss = live ? ss_in[row] : 0.f;
+  } else {
+    float part[NV];
 #pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    float sq[V];
+    for (int i = 0; i < NV; ++i) {
+      float sq[V];
 #pragma unroll
-    for (int j = 0; j < V; ++j) sq[j] = __fmul_rn(v[i][j], v[i][j]);
-    part[i] = tree_sum<V>(sq);
-  }
-  float ss = tree_sum<NV>(part);
+      for (int j = 0; j < V; ++j) sq[j] = __fmul_rn(v[i][j], v[i][j]);
+      part[i] = tree_sum<V>(sq);
+    }
+    ss = tree_sum<NV>(part);
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    ss += __shfl_xor_sync(0xffffffffu, ss, off);
-  if (tpr > 32) {                           // the warps of a row, in order
-    const int warps = tpr >> 5;
-    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = ss;
-    __syncthreads();
-    const float* r = red + row_in_block * warps;
-    ss = r[0];
-    for (int j = 1; j < warps; ++j) ss = __fadd_rn(ss, r[j]);
+    for (int off = 16; off > 0; off >>= 1)
+      ss += __shfl_xor_sync(0xffffffffu, ss, off);
+    if (tpr > 32) {                         // the warps of a row, in order
+      const int warps = tpr >> 5;
+      if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = ss;
+      __syncthreads();
+      const float* r = red + row_in_block * warps;
+      ss = r[0];
+      for (int j = 1; j < warps; ++j) ss = __fadd_rn(ss, r[j]);
+    }
+    if (ss_out != nullptr) {                // the partial-sum pass
+      if (live && t == 0) ss_out[row] = ss;
+      return;
+    }
   }
   if (!live) return;
-  const float rstd = 1.0f / sqrtf(ss / (float)D + eps);
+  const float rstd = 1.0f / sqrtf(ss / n_mean + eps);
   TX* outr = out + row * (long long)D;
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
@@ -185,29 +203,63 @@ Shape shape_for(int rows, int D, int x_kind) {
   return {log2, nv <= 1 ? 1 : (nv <= 2 ? 2 : 4), rpb};
 }
 
+// the row sums: ss_in (read instead of summing) or ss_out (the partial-sum
+// pass: written, nothing else), both null for the whole-row norm; n_mean
+// the width the sum is divided by
+struct Sums {
+  const float* in;
+  float* out;
+  float n_mean;
+};
+
 template <typename TX, typename TW, int NV>
 int launch_nv(const void* x, const void* w, void* out, int rows, int D,
-              float eps, Shape sh, int vec, cudaStream_t stream) {
+              float eps, Shape sh, int vec, Sums sums, cudaStream_t stream) {
   const int threads = (1 << sh.tpr_log2) * sh.rpb;
   const unsigned blocks = (unsigned)((rows + sh.rpb - 1) / sh.rpb);
   rmsnorm_kernel<TX, TW, NV><<<blocks, threads, 0, stream>>>(
       static_cast<const TX*>(x), static_cast<const TW*>(w),
-      static_cast<TX*>(out), rows, D, eps, sh.tpr_log2, vec);
+      static_cast<TX*>(out), rows, D, eps, sh.tpr_log2, vec, sums.in,
+      sums.out, sums.n_mean);
   return (int)cudaGetLastError();
 }
 
 template <typename TX, typename TW>
 int launch(const void* x, const void* w, void* out, int rows, int D,
-           float eps, Shape sh, int vec, cudaStream_t s) {
+           float eps, Shape sh, int vec, Sums sums, cudaStream_t s) {
   if (sh.nv == 1)
-    return launch_nv<TX, TW, 1>(x, w, out, rows, D, eps, sh, vec, s);
+    return launch_nv<TX, TW, 1>(x, w, out, rows, D, eps, sh, vec, sums, s);
   if (sh.nv == 2)
-    return launch_nv<TX, TW, 2>(x, w, out, rows, D, eps, sh, vec, s);
-  return launch_nv<TX, TW, 4>(x, w, out, rows, D, eps, sh, vec, s);
+    return launch_nv<TX, TW, 2>(x, w, out, rows, D, eps, sh, vec, sums, s);
+  return launch_nv<TX, TW, 4>(x, w, out, rows, D, eps, sh, vec, sums, s);
 }
 
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// the three entry points' launch: x_kind / w_kind 0 = f32, 1 = bf16
+int dispatch(const void* x, const void* w, void* out, int rows, int D,
+             float eps, int x_kind, int w_kind, Sums sums, void* stream) {
+  if (rows <= 0 || D <= 0 || D > kMaxD || x_kind < 0 || x_kind > 1 ||
+      w_kind < 0 || w_kind > 1 || !(sums.n_mean > 0.f))
+    return (int)cudaErrorInvalidValue;
+  const Shape sh = shape_for(rows, D, x_kind);
+  const int vec = D % (x_kind == 0 ? 4 : 8) == 0 && aligned16(x) &&
+                  (w == nullptr || aligned16(w)) &&
+                  (out == nullptr || aligned16(out));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (x_kind == 0)
+    return w_kind == 0
+               ? launch<float, float>(x, w, out, rows, D, eps, sh, vec, sums,
+                                      s)
+               : launch<float, __nv_bfloat16>(x, w, out, rows, D, eps, sh,
+                                              vec, sums, s);
+  return w_kind == 0
+             ? launch<__nv_bfloat16, float>(x, w, out, rows, D, eps, sh, vec,
+                                            sums, s)
+             : launch<__nv_bfloat16, __nv_bfloat16>(x, w, out, rows, D, eps,
+                                                    sh, vec, sums, s);
 }
 
 }  // namespace
@@ -226,21 +278,26 @@ extern "C" int rmsnorm_rows_per_block(int rows, int D, int x_kind) {
 extern "C" int rmsnorm(const void* x, const void* w, void* out, int rows,
                        int D, float eps, int x_kind, int w_kind,
                        void* stream) {
-  if (rows <= 0 || D <= 0 || D > kMaxD || x_kind < 0 || x_kind > 1 ||
-      w_kind < 0 || w_kind > 1)
-    return (int)cudaErrorInvalidValue;
-  const Shape sh = shape_for(rows, D, x_kind);
-  const int vec = D % (x_kind == 0 ? 4 : 8) == 0 && aligned16(x) &&
-                  aligned16(w) && aligned16(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_kind == 0)
-    return w_kind == 0
-               ? launch<float, float>(x, w, out, rows, D, eps, sh, vec, s)
-               : launch<float, __nv_bfloat16>(x, w, out, rows, D, eps, sh,
-                                              vec, s);
-  return w_kind == 0
-             ? launch<__nv_bfloat16, float>(x, w, out, rows, D, eps, sh, vec,
-                                            s)
-             : launch<__nv_bfloat16, __nv_bfloat16>(x, w, out, rows, D, eps,
-                                                    sh, vec, s);
+  return dispatch(x, w, out, rows, D, eps, x_kind, w_kind,
+                  {nullptr, nullptr, (float)D}, stream);
+}
+
+// The partial-sum pass of a split row: ss[r] = sum of x[r, :]^2 in f32 over
+// the D elements held, summed as the whole-row kernel sums them.
+extern "C" int rmsnorm_sumsq(const void* x, float* ss, int rows, int D,
+                             int x_kind, void* stream) {
+  if (ss == nullptr) return (int)cudaErrorInvalidValue;
+  return dispatch(x, nullptr, nullptr, rows, D, 0.f, x_kind, 0,
+                  {nullptr, ss, 1.f}, stream);
+}
+
+// The scale pass of a split row: out[r, :] = x[r, :] * rsqrt(ss[r] / n +
+// eps) * w, with ss the row sums over every rank's part and n the whole
+// row's width.
+extern "C" int rmsnorm_scaled(const void* x, const void* w, const float* ss,
+                              void* out, int rows, int D, int n, float eps,
+                              int x_kind, int w_kind, void* stream) {
+  if (ss == nullptr || n < D) return (int)cudaErrorInvalidValue;
+  return dispatch(x, w, out, rows, D, eps, x_kind, w_kind,
+                  {ss, nullptr, (float)n}, stream);
 }

@@ -176,7 +176,7 @@ def _entry():
     ctypes signature set once."""
     fn = _build.load("paged_attention").paged_attention_partial
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, vp, vp, ci] + [vp] * 9 + [ci] * 8 + [ctypes.c_float,
+    fn.argtypes = [vp, vp, vp, ci] + [vp] * 9 + [ci] * 9 + [ctypes.c_float,
                                                            vp]
     fn.restype = ci
     return fn
@@ -209,22 +209,44 @@ def paged_splits(b: int, n_kv: int, mb: int, n_sm: int) -> int:
     return max(1, min(want, mb // _PAGED_MIN_COLS, _PAGED_MAX_SPLITS))
 
 
+def _pool_heads(t: torch.Tensor) -> int:
+    """The heads a position of the pool that ``t`` (n_blocks, bs, K,
+    inner) views: K where ``t`` is contiguous, else the width of the
+    contiguous pool of which it is a window of K heads (a rank that holds
+    every KV head reads those its q heads map to, with no copy); 0 for
+    any other layout."""
+    # repro: allow[JIT-04] strides and contiguity are host metadata of the tensor, not device values
+    if t.is_contiguous():
+        return t.shape[2]
+    st, inner = t.stride(), t.shape[-1]
+    ks = st[1] // inner if inner else 0
+    window = (t.shape[1] * ks * inner, ks * inner, inner, 1)
+    # repro: allow[JIT-04] strides and contiguity are host metadata of the tensor, not device values
+    return ks if st == window and ks >= t.shape[2] else 0
+
+
 def _paged_mq_cuda(q, k_pages, v_pages, table, lengths, k_scale, v_scale,
                    *, sm_scale=None, n_split: Optional[int] = None):
     """One launch of the paged kernel over ``n_split`` column splits a
-    (b, kh) pair (default :func:`paged_splits` for this card)."""
+    (b, kh) pair (default :func:`paged_splits` for this card). The pages
+    (and scales) may be a window of the KV heads of a contiguous pool."""
     b, tq, h, d = q.shape
     nb, bs, n_kv, dk = k_pages.shape
     mb = table.shape[1]
     dev = q.device
-    tensors = [q, k_pages, v_pages, table, lengths]
     quant = k_scale is not None
-    if quant:
-        tensors += [k_scale, v_scale]
-    for t in tensors:
+    pages = [k_pages, v_pages] + ([k_scale, v_scale] if quant else [])
+    for t in [q, table, lengths] + pages:
         _check(t.device == dev, f"all tensors must be on {dev}, got "
                f"{t.device}")
-        _check(t.is_contiguous(), "tensors must be contiguous")
+    for t in (q, table, lengths):
+        _check(t.is_contiguous(), "q, table and lengths must be contiguous")
+    ks = _pool_heads(k_pages) if k_pages.ndim == 4 else 0
+    # repro: allow[JIT-04] strides and contiguity are host metadata of the tensor, not device values
+    _check(ks > 0 and all(t.ndim == 4 and _pool_heads(t) == ks
+                          for t in pages),
+           "pages and scales must be contiguous, or one window of the KV "
+           "heads of a contiguous pool")
     _check(q.dtype == torch.bfloat16, f"q dtype {q.dtype} is not bf16")
     _check(k_pages.dtype in _KV_KIND and v_pages.dtype == k_pages.dtype,
            f"page dtypes {k_pages.dtype}/{v_pages.dtype} not one of "
@@ -276,7 +298,7 @@ def _paged_mq_cuda(q, k_pages, v_pages, table, lengths, k_scale, v_scale,
                       table.data_ptr(), lengths.data_ptr(),
                       o.data_ptr(), m.data_ptr(), l.data_ptr(),
                       ws.data_ptr(), counters.data_ptr(),
-                      b, tq, h, n_kv, d, bs, mb, n_split,
+                      b, tq, h, n_kv, ks, d, bs, mb, n_split,
                       _scale(d, sm_scale), stream)
     # repro: allow[JIT-04] rc is the C int cudaGetLastError() returned to the host, not a device value
     if rc != 0:

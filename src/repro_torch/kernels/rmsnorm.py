@@ -11,6 +11,12 @@ raises; it never falls back. On CPU tensors it runs the plain version
 is also the kernel's oracle on the card. Every launch adds one to
 ``LAUNCHES["rmsnorm"]``; nothing else does.
 
+:func:`rmsnorm_split` is the norm of a row split over ranks (the Mamba-2
+gated norm under tensor parallelism): the kernel's partial-sum pass
+(``LAUNCHES["rmsnorm_sumsq"]``), the caller's sum over the ranks, then
+the kernel's scale pass (counted as ``rmsnorm``), with the plain
+versions :func:`rmsnorm_sumsq_plain` and :func:`rmsnorm_scaled_plain`.
+
 The JAX package has no backward kernel (XLA differentiates the jnp
 form); :func:`rmsnorm_backward` is the analytic gradient in plain torch
 ops, recomputing ``rstd`` from x.
@@ -46,6 +52,23 @@ def rmsnorm_plain(x: torch.Tensor, w: torch.Tensor,
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * w.to(xf.dtype)).to(x.dtype)
+
+
+def rmsnorm_sumsq_plain(x: torch.Tensor) -> torch.Tensor:
+    """The partial-sum pass in plain torch: each row's sum of squares,
+    ``(..., 1)`` in f32."""
+    xf = x.to(_acc(x.dtype))
+    return torch.sum(xf * xf, dim=-1, keepdim=True)
+
+
+def rmsnorm_scaled_plain(x: torch.Tensor, w: torch.Tensor,
+                         ss: torch.Tensor, n: int,
+                         eps: float = 1e-5) -> torch.Tensor:
+    """The scale pass in plain torch: ``x·rsqrt(ss/n + eps)·w`` with the
+    row sums ``ss (..., 1)`` of a row ``n`` wide, rounded once to x's
+    type."""
+    xf = x.to(_acc(x.dtype))
+    return (xf * torch.rsqrt(ss / n + eps) * w.to(xf.dtype)).to(x.dtype)
 
 
 def rmsnorm_backward(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
@@ -126,6 +149,111 @@ def _rmsnorm_cuda(x, w, eps: float = 1e-5) -> torch.Tensor:
         raise RuntimeError(f"rmsnorm launch failed: CUDA error {rc}")
     LAUNCHES["rmsnorm"] += 1
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def _sumsq_entry():
+    """The partial-sum pass's C entry point."""
+    fn = _build.load("rmsnorm").rmsnorm_sumsq
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp, vp, ci, ci, ci, vp]
+    fn.restype = ci
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _scaled_entry():
+    """The scale pass's C entry point."""
+    fn = _build.load("rmsnorm").rmsnorm_scaled
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, ctypes.c_float, ci, ci, vp]
+    fn.restype = ci
+    return fn
+
+
+def _split_checks(x, w=None, ss=None, n=None) -> None:
+    d = x.shape[-1] if x.ndim else 0
+    _check(x.ndim >= 1 and 0 < d <= MAX_D, f"x {tuple(x.shape)}: D={d} "
+           f"must be in [1, {MAX_D}]")
+    _check(x.dtype in _KINDS, f"x must be f32 or bf16, got {x.dtype}")
+    if w is not None:
+        _check(w.ndim == 1 and w.shape[0] == d and w.dtype in _KINDS,
+               f"w {tuple(w.shape)} {w.dtype} must be (D,) f32 or bf16")
+    if ss is not None:
+        _check(ss.dtype == torch.float32 and
+               tuple(ss.shape) == tuple(x.shape[:-1]) + (1,),
+               f"ss {tuple(ss.shape)} {ss.dtype} must be f32 "
+               f"{tuple(x.shape[:-1]) + (1,)}")
+    if n is not None:
+        _check(n >= d, f"the whole row's n={n} is narrower than the part "
+               f"held, D={d}")
+    dev = x.device
+    for t in (x, w, ss):
+        if t is not None:
+            _check(t.device == dev, f"all tensors must be on {dev}, got "
+                   f"{t.device}")
+            _check(t.is_contiguous(), "tensors must be contiguous")
+    _check(dev.type == "cuda", f"the kernel takes CUDA tensors, got {dev}")
+
+
+def _sumsq_cuda(x: torch.Tensor) -> torch.Tensor:
+    """The partial-sum pass: each row's f32 sum of squares, (..., 1)."""
+    _split_checks(x)
+    ss = torch.empty(x.shape[:-1] + (1,), dtype=torch.float32,
+                     device=x.device)
+    rows = x.numel() // x.shape[-1]
+    # repro: allow[JIT-04] the row count is host metadata (the tensor's shape), not a device value
+    if rows == 0:
+        return ss
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = _sumsq_entry()(x.data_ptr(), ss.data_ptr(), rows, x.shape[-1],
+                            _KINDS[x.dtype], stream)
+    # repro: allow[JIT-04] rc is the C int cudaGetLastError() returned to the host, not a device value
+    if rc != 0:
+        raise RuntimeError(f"rmsnorm_sumsq launch failed: CUDA error {rc}")
+    LAUNCHES["rmsnorm_sumsq"] += 1
+    return ss
+
+
+def _scaled_cuda(x: torch.Tensor, w: torch.Tensor, ss: torch.Tensor,
+                 n: int, eps: float = 1e-5) -> torch.Tensor:
+    """The scale pass: x normalised by the row sums ``ss`` of rows ``n``
+    wide."""
+    _split_checks(x, w, ss, n)
+    out = torch.empty_like(x)
+    rows = x.numel() // x.shape[-1]
+    # repro: allow[JIT-04] the row count is host metadata (the tensor's shape), not a device value
+    if rows == 0:
+        return out
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = _scaled_entry()(x.data_ptr(), w.data_ptr(), ss.data_ptr(),
+                             out.data_ptr(), rows, x.shape[-1], n, eps,
+                             _KINDS[x.dtype], _KINDS[w.dtype], stream)
+    # repro: allow[JIT-04] rc is the C int cudaGetLastError() returned to the host, not a device value
+    if rc != 0:
+        raise RuntimeError(f"rmsnorm scale pass failed: CUDA error {rc}")
+    LAUNCHES["rmsnorm"] += 1
+    return out
+
+
+def rmsnorm_split(x: torch.Tensor, w: torch.Tensor, n: int, all_reduce,
+                  eps: float = 1e-5) -> torch.Tensor:
+    """RMSNorm of rows split over ranks: ``x (..., D)`` is this rank's part
+    of rows ``n`` wide and ``w (D,)`` its part of the weight. The f32 row
+    sums of squares of each part are summed over the ranks by
+    ``all_reduce`` (in place), then each rank scales its part by the
+    whole row's rsqrt. CUDA tensors launch the kernel's two passes; CPU
+    tensors run their plain versions."""
+    # repro: allow[JIT-04] dispatch on where the tensor lives (host metadata): the card launches the kernel, host memory runs the plain version
+    if x.is_cuda:
+        ss = _sumsq_cuda(x)
+        all_reduce(ss)
+        return _scaled_cuda(x, w, ss, n, eps)
+    ss = rmsnorm_sumsq_plain(x)
+    all_reduce(ss)
+    return rmsnorm_scaled_plain(x, w, ss, n, eps)
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor,

@@ -15,6 +15,10 @@ synthetic burst, on the card by default.
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --prefix-cache --prefill-chunk 8 --chaos 0 \
         --trace-out build/trace.json           # prefix cache, faults, trace
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --model-parallel 2                     # TP over 2 gloo ranks
+    PYTHONPATH=src python -m repro_torch.launch.serve --model-parallel 2 \
+        --dist-backend gloo                    # 2 ranks sharing card 0
 
 Fused decode and chunked prefill read the KV cache through one paged
 multi-query attention kernel (kernels/flash_decode), at T=1 and T=chunk.
@@ -38,10 +42,20 @@ with random weights from seed 0; ``chip_smoke.py`` drives the full width.
 Before the burst it calls ``Engine.warmup`` for every table bucket the
 trace implies: on the card that captures each step's CUDA graph, which
 the burst then replays; it prints their count as ``fused_step_traces``.
+It prints each request's tokens. ``--model-parallel N`` shards the
+engine over N ranks it spawns (``launch.mesh.spawn_ranks``), each
+serving the same burst on its slice of the same seeded weights; rank 0's
+lines are printed, with ``model_parallel: N``. The ranks talk over
+``--dist-backend``: ``nccl`` (a card per rank) or ``gloo`` (the CPU, or
+ranks sharing a card; the only backend of the CPU, so the default
+there). Under TP the steps run eagerly (no CUDA graphs: they hold
+collectives), and deadlines and ``--chaos`` (whose storms arm deadlines)
+are refused: each rank would read its own clock.
 """
 from __future__ import annotations
 
 import argparse
+import os
 from typing import List, Optional
 
 
@@ -125,27 +139,28 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; cpu runs the plain "
                          "PyTorch path)")
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="shard the engine over N ranks (paged KV pool on "
+                         "its KV heads, SSM pools on their heads, "
+                         "row-parallel seams); greedy output equals N=1's")
+    ap.add_argument("--dist-backend", choices=("nccl", "gloo"),
+                    default=None,
+                    help="the ranks' backend: nccl (one card per rank) or "
+                         "gloo (the CPU, or ranks sharing a card); "
+                         "required on the card with --model-parallel")
     args = ap.parse_args(argv)
 
-    from repro_torch.configs import get_config, list_archs
-    from repro_torch.data.pipeline import (repetitive_requests,
-                                           serving_requests)
-    from repro_torch.models.lm import LM
-    from repro_torch.serving.engine import Engine, Rejected, Request
-    from repro_torch.serving.faults import FaultInjector
-    from repro_torch.serving.telemetry import Telemetry
+    from repro_torch.configs import list_archs
+    from repro_torch.launch.mesh import spawn_ranks
 
     if args.arch not in list_archs():
         ap.error(f"unknown --arch {args.arch!r} (choose from "
                  f"{', '.join(list_archs())})")
     try:
-        lens = parse_mixed_lens(args.mixed_lens)
+        parse_mixed_lens(args.mixed_lens)
     except ValueError as e:
         ap.error(str(e))
-    faults = (FaultInjector.from_seed(args.chaos,
-                                      rids=range(args.requests))
-              if args.chaos is not None else None)
-    if faults is not None and args.mode != "fused":
+    if args.chaos is not None and args.mode != "fused":
         ap.error("--chaos requires the fused engine (drop --legacy)")
     if args.prefix_cache and not args.prefill_chunk:
         ap.error("--prefix-cache requires --prefill-chunk N: a cache hit "
@@ -156,8 +171,50 @@ def main(argv: Optional[List[str]] = None) -> None:
         ap.error("--prefix-cache requires the fused engine (drop --legacy)")
     if args.trace_fenced and not args.trace_out:
         ap.error("--trace-fenced requires --trace-out PATH")
+    if args.model_parallel < 1:
+        ap.error("--model-parallel must be >= 1")
+    if args.model_parallel == 1:
+        for line in _serve(None, args):
+            print(line)
+        return
+    if args.mode != "fused":
+        ap.error("--model-parallel requires the fused engine (drop --legacy)")
+    if args.deadline_s or args.chaos is not None:
+        ap.error("--deadline-s and --chaos are refused with "
+                 "--model-parallel: each rank would read its own clock")
+    cpu = args.device is not None and args.device.startswith("cpu")
+    backend = args.dist_backend or ("gloo" if cpu else None)
+    if backend is None:
+        ap.error("--model-parallel on the card needs --dist-backend: nccl "
+                 "(one card per rank) or gloo (ranks sharing a card)")
+    # CPU ranks share the host's cores evenly
+    threads = max(1, (os.cpu_count() or 1) // args.model_parallel)
+    lines = spawn_ranks(_serve, args.model_parallel, backend=backend,
+                        device="cpu" if cpu else None, args=(args,),
+                        threads=threads if cpu else None)[0]
+    for line in lines:
+        print(line)
+
+
+def _serve(mesh, args) -> List[str]:
+    """Serve the CLI's burst, alone (``mesh=None``) or as one rank of
+    ``mesh``; returns the lines to print."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import (repetitive_requests,
+                                           serving_requests)
+    from repro_torch.launch.mesh import mesh_layout
+    from repro_torch.models.lm import LM
+    from repro_torch.serving.engine import Engine, Rejected, Request
+    from repro_torch.serving.faults import FaultInjector
+    from repro_torch.serving.telemetry import Telemetry
+
+    lens = parse_mixed_lens(args.mixed_lens)
+    faults = (FaultInjector.from_seed(args.chaos,
+                                      rids=range(args.requests))
+              if args.chaos is not None else None)
     cfg = get_config(args.arch, reduced=True)
-    model = LM(cfg, device=args.device)
+    device = mesh.device if mesh is not None else args.device
+    model = LM(cfg, device=device)
     params = model.init(0)
     telemetry = Telemetry(enabled=bool(args.trace_out),
                           fenced=args.trace_fenced)
@@ -169,7 +226,10 @@ def main(argv: Optional[List[str]] = None) -> None:
                  queue_cap=args.queue_cap or None,
                  default_deadline_s=args.deadline_s or None,
                  faults=faults, prefix_cache=args.prefix_cache,
-                 telemetry=telemetry, device=model.device)
+                 telemetry=telemetry, device=model.device, mesh=mesh,
+                 cuda_graphs=mesh is None)
+    del params
+    out: List[str] = []
     if args.repetitive:
         prompts = repetitive_requests(args.requests, cfg.vocab_size,
                                       prompt_len=args.prompt_len)
@@ -186,25 +246,33 @@ def main(argv: Optional[List[str]] = None) -> None:
                                max_new_tokens=args.max_new))
         except Rejected as e:
             # load shedding is a reported outcome, not a launcher crash
-            print(f"{'rejected':>20s}: rid={i} ({e.reason})")
+            out.append(f"{'rejected':>20s}: rid={i} ({e.reason})")
     eng.run()
     if faults is not None:
         faults.release_all(eng)     # return any still-squeezed blocks
         for step, action, detail in eng.telemetry.chaos_actions:
-            print(f"{'chaos':>20s}: step {step:>3d} {action} {detail}")
-    print(f"{'device':>20s}: {model.device}")
-    print(f"{'mode':>20s}: {args.mode}")
+            out.append(f"{'chaos':>20s}: step {step:>3d} {action} {detail}")
+    out.append(f"{'device':>20s}: {model.device}")
+    if mesh is not None:
+        out.append(f"{'mesh':>20s}: {mesh_layout(mesh)}")
+    out.append(f"{'mode':>20s}: {args.mode}")
     for k, v in eng.stats().items():
-        print(f"{k:>20s}: {v:.4f}" if isinstance(v, float) else
-              f"{k:>20s}: {v}")
-    print(f"{'fused_step_traces':>20s}: {sum(eng.trace_counts.values())}")
-    if args.trace_out:
+        out.append(f"{k:>20s}: {v:.4f}" if isinstance(v, float) else
+                   f"{k:>20s}: {v}")
+    out.append(f"{'fused_step_traces':>20s}: "
+               f"{sum(eng.trace_counts.values())}")
+    for r in sorted(eng.finished, key=lambda r: r.rid):
+        out.append(f"{'tokens':>20s}: rid={r.rid} "
+                   + " ".join(str(t) for t in r.output))
+    if args.trace_out and (mesh is None or mesh.rank == 0):
         trace = eng.telemetry.export_chrome(
             args.trace_out,
             metadata={"arch": args.arch, "mode": args.mode,
-                      "chaos_seed": args.chaos})
-        print(f"{'trace_out':>20s}: {args.trace_out} "
-              f"({len(trace['traceEvents'])} events)")
+                      "chaos_seed": args.chaos,
+                      "model_parallel": eng.tp_degree})
+        out.append(f"{'trace_out':>20s}: {args.trace_out} "
+                   f"({len(trace['traceEvents'])} events)")
+    return out
 
 
 if __name__ == "__main__":

@@ -6,9 +6,22 @@ decode branches), cross-attention for the encoder-decoder family, the
 SwiGLU FFN, the MoE FFN (top-k routing and the one-device capacity
 dispatch, ``_moe_local``) and the Mamba-2 (SSD) block with its three
 branches (whole sequence, chunk continue, T=1 decode) and its
-speculative-verify form (``ssm_apply_spec``). No sharding context: the
-port serves on one card, so the reference's expert-parallel ``_moe_ep``
-is not ported.
+speculative-verify form (``ssm_apply_spec``).
+
+**Tensor parallelism.** The attention, FFN and Mamba-2 blocks take a
+``ctx`` (a ``parallel.sharding.ShardCtx``, ``None`` on one device: the
+path as it was, bit for bit) and this rank's slice of their weights
+(``sharding.shard_params``). Attention runs on the rank's q heads and KV
+heads (where the model axis does not divide the KV heads, every rank
+holds all of them and reads those its q heads map to, h // G:
+:func:`kv_heads_read`), the FFN on its part of the MLP width, the
+Mamba-2 block on its SSD heads (z, x, dt and the conv on their
+channels, B and C whole); ``wo``, the MLP down projection and
+``out_proj`` are row-parallel (``layers.dense_row``: f32 partials summed
+over the model axis, one rounding), and the gated RMSNorm over the whole
+``d_inner`` sums its squares over the model axis before the rsqrt.
+Expert parallelism (the reference's ``_moe_ep``, an all-to-all) is not
+ported: ``make_serving_ctx`` refuses MoE archs under TP.
 
 Cache conventions (decode): attention ``{"k", "v"}`` as (B, S, K, hd)
 (bf16, or the reference's unscaled int8) with the global ``lengths``
@@ -24,6 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.config import ArchConfig
+from repro_torch.kernels import rmsnorm as rn
 from repro_torch.models import layers as L
 from repro_torch.models.params import spec
 from repro_torch.quant.qtensor import QTensor
@@ -73,10 +87,28 @@ def _qkv(x, p, cfg: ArchConfig, positions, rope: bool = True,
     return q.to(x.dtype), k.to(x.dtype), v.to(x.dtype)
 
 
+def tp_seam(ctx, n: int):
+    """``ctx`` where its model axis cuts an axis of ``n`` entries (the
+    contraction of a row-parallel seam is split), else ``None``."""
+    return ctx if ctx is not None and ctx.splits(n) else None
+
+
+def kv_heads_read(k, v, cfg: ArchConfig, ctx):
+    """k/v (..., K held, hd) narrowed to the KV heads this rank's q heads
+    read: a view of every head held unless the model axis splits the q
+    heads and not the KV heads; then the rank holds all K and reads
+    ``ShardCtx.kv_part``."""
+    if (ctx is None or not ctx.splits(cfg.n_heads)
+            or ctx.splits(cfg.n_kv_heads)):
+        return k, v
+    lo, hi = ctx.kv_part(cfg)
+    return k[..., lo:hi, :], v[..., lo:hi, :]
+
+
 def attn_apply(x, p, cfg: ArchConfig, *, positions, attn_impl: str = "naive",
                causal: bool = True, return_kv: bool = False,
                qmm_impl: str = "kernel", cache: Optional[Dict] = None,
-               lengths: Optional[torch.Tensor] = None
+               lengths: Optional[torch.Tensor] = None, ctx=None
                ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Self-attention residual block.
 
@@ -92,7 +124,9 @@ def attn_apply(x, p, cfg: ArchConfig, *, positions, attn_impl: str = "naive",
     as the reference's unscaled cast (:func:`cache_cast`) and is read
     back in q's type. ``causal=False`` (the encoder) attends every
     position. ``qmm_impl`` is a :func:`layers.dense` route for int8
-    weights."""
+    weights. Under ``ctx`` the rank's heads attend (the cache and the
+    returned k/v hold the KV heads it stores) and ``wo`` is
+    row-parallel."""
     h = L.rmsnorm(x, p["ln"], cfg.norm_eps)
     q, k, v = _qkv(h, p, cfg, positions, qmm_impl=qmm_impl)
     new_cache = None
@@ -104,13 +138,16 @@ def attn_apply(x, p, cfg: ArchConfig, *, positions, attn_impl: str = "naive",
         kc[rows, slot] = cache_cast(k[:, 0], kc.dtype)
         vc[rows, slot] = cache_cast(v[:, 0], vc.dtype)
         new_cache = {"k": kc, "v": vc}
-        out = kops.flash_decode(q, kc.to(q.dtype), vc.to(q.dtype),
+        kr, vr = kv_heads_read(kc, vc, cfg, ctx)
+        out = kops.flash_decode(q, kr.to(q.dtype), vr.to(q.dtype),
                                 (lengths + 1).int())
     else:
-        out = L.attention(q, k, v, mode=attn_impl, causal=causal)
+        out = L.attention(q, *kv_heads_read(k, v, cfg, ctx), mode=attn_impl,
+                          causal=causal)
         if return_kv:
             new_cache = {"k": k, "v": v}
-    y = L.dense(out, p["wo"], n_in=2, qmm_impl=qmm_impl)
+    y = L.dense_row(out, p["wo"], tp_seam(ctx, cfg.n_heads), n_in=2,
+                    qmm_impl=qmm_impl)
     return x + y, new_cache
 
 
@@ -165,11 +202,11 @@ def ffn_specs(cfg: ArchConfig, n_stack: int) -> Dict:
     }
 
 
-def ffn_apply(x, p, cfg: ArchConfig, qmm_impl: str = "kernel"
+def ffn_apply(x, p, cfg: ArchConfig, qmm_impl: str = "kernel", ctx=None
               ) -> torch.Tensor:
     h = L.rmsnorm(x, p["ln"], cfg.norm_eps)
     return x + L.swiglu(h, p["w_gate"], p["w_up"], p["w_down"],
-                        qmm_impl=qmm_impl)
+                        qmm_impl=qmm_impl, ctx=tp_seam(ctx, cfg.d_ff))
 
 
 # ==========================================================================
@@ -281,20 +318,20 @@ def moe_apply(x, p, cfg: ArchConfig, capacity_mult: float = 1.0
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """MoE residual block: RMSNorm, then :func:`_moe_local`. Returns
     (x + y, the load-balancing loss). The expert-parallel dispatch of
-    the reference (``_moe_ep``) is not ported: the port runs one card."""
+    the reference (``_moe_ep``) is not ported (ROADMAP queue 1 item 7)."""
     h = L.rmsnorm(x, p["ln"], cfg.norm_eps)
     y, aux = _moe_local(h, p, cfg, capacity_mult)
     return x + y, aux
 
 
 def ffn_or_moe(x, p, cfg: ArchConfig, kind: str, capacity_mult: float,
-               qmm_impl: str = "kernel") -> torch.Tensor:
+               qmm_impl: str = "kernel", ctx=None) -> torch.Tensor:
     """The FFN of a layer of ``kind`` (``cfg.ffn_kinds()``): the dense
     SwiGLU, or the MoE FFN at ``capacity_mult`` (its loss dropped: the
-    serving and inference paths)."""
+    serving and inference paths; one device only)."""
     if kind == "moe":
         return moe_apply(x, p, cfg, capacity_mult)[0]
-    return ffn_apply(x, p, cfg, qmm_impl=qmm_impl)
+    return ffn_apply(x, p, cfg, qmm_impl=qmm_impl, ctx=ctx)
 
 
 # ==========================================================================
@@ -350,21 +387,54 @@ def _conv_step(conv_state, xbc, p):
     return y, buf[:, 1:]
 
 
-def _ssm_split(xbc, dt, p, cfg: ArchConfig):
+def ssm_heads(cfg: ArchConfig, ctx=None) -> Tuple[int, int]:
+    """``[lo, hi)`` of the SSD heads this rank computes: its H/tp where
+    the model axis divides the heads, else all of them. Their channels
+    (``(hi - lo) · headdim``) are its part of ``d_inner``."""
+    if ctx is None:
+        return 0, cfg.n_ssm_heads
+    return ctx.part(cfg.n_ssm_heads)
+
+
+def _head_vecs(p, cfg: ArchConfig, ctx):
+    """``a_log``, ``d_skip`` and ``dt_bias`` at this rank's heads (they
+    are replicated, as the reference places ``ssm_heads`` vectors)."""
+    if ctx is None:
+        return p["a_log"], p["d_skip"], p["dt_bias"]
+    lo, hi = ssm_heads(cfg, ctx)
+    return p["a_log"][lo:hi], p["d_skip"][lo:hi], p["dt_bias"][lo:hi]
+
+
+def _ssm_split(xbc, dt, dt_bias, cfg: ArchConfig, nh: int):
     """The conv output ``xbc`` (B, T, C) and the raw ``dt`` (B, T, H),
     both f32 -> silu'd heads x (B, T, H, P), B and C (B, T, G, N), and dt
-    through softplus with its bias (B, T, H)."""
-    di, g, ns = cfg.d_inner, cfg.ssm_ngroups, cfg.ssm_state
+    through softplus with its bias (B, T, H); ``nh`` heads (this rank's
+    H/tp under TP)."""
+    di, g, ns = nh * cfg.ssm_headdim, cfg.ssm_ngroups, cfg.ssm_state
     b, t = xbc.shape[0], xbc.shape[1]
     xbc = L.silu(xbc)
-    xs = xbc[..., :di].reshape(b, t, cfg.n_ssm_heads, cfg.ssm_headdim)
+    xs = xbc[..., :di].reshape(b, t, nh, cfg.ssm_headdim)
     Bs = xbc[..., di: di + g * ns].reshape(b, t, g, ns)
     Cs = xbc[..., di + g * ns:].reshape(b, t, g, ns)
-    return xs, Bs, Cs, _softplus(dt.float() + p["dt_bias"][None, None, :])
+    return xs, Bs, Cs, _softplus(dt.float() + dt_bias[None, None, :])
+
+
+def _gated_norm(y, z, w, cfg: ArchConfig, ctx):
+    """The gated RMSNorm ``rmsnorm(y · silu(z))`` over the whole
+    ``d_inner``. Where the model axis splits the heads, each rank holds
+    its channels: their f32 sum of squares is summed over the model axis
+    before the rsqrt (``kernels.rmsnorm.rmsnorm_split``: the kernel's two
+    passes on the card, their plain versions on the CPU)."""
+    g = y * L.silu(z)
+    seam = tp_seam(ctx, cfg.n_ssm_heads)
+    if seam is None:
+        return L.rmsnorm(g, w, cfg.norm_eps)
+    return rn.rmsnorm_split(g.contiguous(), w.contiguous(), cfg.d_inner,
+                            seam.all_reduce, cfg.norm_eps)
 
 
 def _ssm_pre(h, p, cfg: ArchConfig, conv_state=None, capture_tail=False,
-             n_valid=None):
+             n_valid=None, ctx=None):
     """in_proj + causal conv + splits. Returns z, x, B, C, dt and the new
     conv state (decode, chunk continue) or the conv-input tail (whole
     sequence with ``capture_tail``).
@@ -376,8 +446,11 @@ def _ssm_pre(h, p, cfg: ArchConfig, conv_state=None, capture_tail=False,
 
     The whole pre-pipeline (in_proj output, conv, silu, splits) runs in
     real f32 with no rounding between ops, and the conv history is f32,
-    as in the reference."""
-    di, g, ns = cfg.d_inner, cfg.ssm_ngroups, cfg.ssm_state
+    as in the reference. Under ``ctx`` it runs on this rank's heads (its
+    ``in_proj`` columns are z | x | B | C | dt of them, B and C whole)."""
+    lo, hi = ssm_heads(cfg, ctx)
+    nh = hi - lo
+    di, g, ns = nh * cfg.ssm_headdim, cfg.ssm_ngroups, cfg.ssm_state
     zxbcdt = L.dense(h, p["in_proj"], out_dtype=torch.float32)
     z = zxbcdt[..., :di]
     xbc = zxbcdt[..., di: di + di + 2 * g * ns]
@@ -405,7 +478,7 @@ def _ssm_pre(h, p, cfg: ArchConfig, conv_state=None, capture_tail=False,
                 tail = torch.nn.functional.pad(tail, (0, 0, pad, 0))
             new_conv_state = tail
         xbc = _causal_conv(xbc, p["conv_w"], p["conv_b"])
-    xs, Bs, Cs, dt = _ssm_split(xbc, dt, p, cfg)
+    xs, Bs, Cs, dt = _ssm_split(xbc, dt, _head_vecs(p, cfg, ctx)[2], cfg, nh)
     if n_valid is not None:
         # padded positions: dt=0 => decay exp(0)=1 and update x*dt=0, so
         # the SSD state is untouched past the valid prefix
@@ -417,46 +490,51 @@ def _ssm_pre(h, p, cfg: ArchConfig, conv_state=None, capture_tail=False,
 
 def ssm_apply(x, p, cfg: ArchConfig, *, cache: Optional[Dict] = None,
               ssd_impl: str = "ref", return_state: bool = False,
-              n_valid=None) -> Tuple[torch.Tensor, Any]:
+              n_valid=None, ctx=None) -> Tuple[torch.Tensor, Any]:
     """Mamba-2 residual block. ``cache=None``: a whole sequence (prefill;
     ``return_state`` also returns ``{"conv", "state"}`` to resume from).
     A cache and T == 1: one decode step. A cache and T > 1: a chunk of
     chunked prefill continuing from the carried (conv, state), with
     ``n_valid`` marking the valid prefix of a right-padded chunk.
-    ``ssd_impl`` is ``models.ssd.ssd_chunked``'s ``impl``."""
+    ``ssd_impl`` is ``models.ssd.ssd_chunked``'s ``impl``. Under ``ctx``
+    the rank's heads (and its part of the cache) only; ``out_proj`` is
+    row-parallel."""
     h = L.rmsnorm(x, p["ln"], cfg.norm_eps)
-    a = -torch.exp(p["a_log"].float())                         # (H,)
+    a_log, d_skip, _ = _head_vecs(p, cfg, ctx)
+    a = -torch.exp(a_log.float())                              # (H,)
     if cache is not None and x.shape[1] == 1:
-        z, xs, Bs, Cs, dt, conv_state = _ssm_pre(h, p, cfg, cache["conv"])
+        z, xs, Bs, Cs, dt, conv_state = _ssm_pre(h, p, cfg, cache["conv"],
+                                                 ctx=ctx)
         y, new_state = ssd_decode_step(
-            xs[:, 0], Bs[:, 0], Cs[:, 0], dt[:, 0], a, p["d_skip"],
+            xs[:, 0], Bs[:, 0], Cs[:, 0], dt[:, 0], a, d_skip,
             cache["state"])
         y = y[:, None]
         new_cache = {"conv": conv_state, "state": new_state}
     elif cache is not None:
         z, xs, Bs, Cs, dt, conv_state = _ssm_pre(h, p, cfg, cache["conv"],
-                                                 n_valid=n_valid)
-        y, final_state = ssd_chunked(xs, Bs, Cs, dt, a, p["d_skip"],
+                                                 n_valid=n_valid, ctx=ctx)
+        y, final_state = ssd_chunked(xs, Bs, Cs, dt, a, d_skip,
                                      chunk=cfg.ssm_chunk, impl=ssd_impl,
                                      init_state=cache["state"])
         new_cache = {"conv": conv_state, "state": final_state}
     else:
         z, xs, Bs, Cs, dt, conv_tail = _ssm_pre(
-            h, p, cfg, capture_tail=return_state)
-        y, final_state = ssd_chunked(xs, Bs, Cs, dt, a, p["d_skip"],
+            h, p, cfg, capture_tail=return_state, ctx=ctx)
+        y, final_state = ssd_chunked(xs, Bs, Cs, dt, a, d_skip,
                                      chunk=cfg.ssm_chunk, impl=ssd_impl)
         new_cache = ({"conv": conv_tail, "state": final_state}
                      if return_state else None)
     b, t = h.shape[0], h.shape[1]
-    y = y.reshape(b, t, cfg.d_inner)
-    y = L.rmsnorm(y * L.silu(z), p["norm"], cfg.norm_eps)
+    y = _gated_norm(y.reshape(b, t, z.shape[-1]), z, p["norm"], cfg, ctx)
     # f32 all the way through out_proj, ONE rounding into the residual type
-    out = L.dense(y, p["out_proj"]).to(x.dtype)
+    out = L.dense_row(y, p["out_proj"],
+                      tp_seam(ctx, cfg.n_ssm_heads)).to(x.dtype)
     return x + out, new_cache
 
 
 def ssm_apply_spec(x, p, cfg: ArchConfig, *, cache: Dict,
-                   valid: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+                   valid: torch.Tensor, ctx=None
+                   ) -> Tuple[torch.Tensor, Dict]:
     """Speculative-verify Mamba-2 block: T tokens through the decode
     branch's math, with the (conv, state) after every token.
 
@@ -471,11 +549,15 @@ def ssm_apply_spec(x, p, cfg: ArchConfig, *, cache: Dict,
     speculating): an invalid position keeps the prior (conv, state) and
     its output is not to be read. Returns ``(x_out, {"conv": (T, B, W-1,
     C), "state": (T, B, H, P, N)})``: the caller rolls each row back to
-    its accepted prefix by indexing the leading axis."""
-    di, g, ns = cfg.d_inner, cfg.ssm_ngroups, cfg.ssm_state
+    its accepted prefix by indexing the leading axis. Under ``ctx`` the
+    rank's heads, as :func:`ssm_apply`."""
+    lo, hi = ssm_heads(cfg, ctx)
+    nh = hi - lo
+    di, g, ns = nh * cfg.ssm_headdim, cfg.ssm_ngroups, cfg.ssm_state
     b, t = x.shape[0], x.shape[1]
     h = L.rmsnorm(x, p["ln"], cfg.norm_eps)
-    a = -torch.exp(p["a_log"].float())
+    a_log, d_skip, dt_bias = _head_vecs(p, cfg, ctx)
+    a = -torch.exp(a_log.float())
     zxbcdt = L.dense(h, p["in_proj"], out_dtype=torch.float32)
     z = zxbcdt[..., :di]
     xbc = zxbcdt[..., di: di + di + 2 * g * ns]
@@ -486,25 +568,29 @@ def ssm_apply_spec(x, p, cfg: ArchConfig, *, cache: Dict,
         y, new = _conv_step(conv, xbc[:, j:j + 1], p)
         conv = torch.where(valid[:, j, None, None], new, conv)
         convs.append(conv)
-        parts.append(_ssm_split(y, dt[:, j:j + 1], p, cfg))
+        parts.append(_ssm_split(y, dt[:, j:j + 1], dt_bias, cfg, nh))
     xs, Bs, Cs, dts = (torch.cat(c, dim=1) for c in zip(*parts))
-    y, states = ssd_decode_scan(xs, Bs, Cs, dts, a, p["d_skip"],
+    y, states = ssd_decode_scan(xs, Bs, Cs, dts, a, d_skip,
                                 cache["state"], valid=valid)
-    y = L.rmsnorm(y.reshape(b, t, di) * L.silu(z), p["norm"], cfg.norm_eps)
-    out = L.dense(y, p["out_proj"]).to(x.dtype)
+    y = _gated_norm(y.reshape(b, t, di), z, p["norm"], cfg, ctx)
+    out = L.dense_row(y, p["out_proj"],
+                      tp_seam(ctx, cfg.n_ssm_heads)).to(x.dtype)
     return x + out, {"conv": torch.stack(convs), "state": states}
 
 
-def ssm_init_cache(cfg: ArchConfig, batch: int, device=None) -> Dict:
+def ssm_init_cache(cfg: ArchConfig, batch: int, device=None,
+                   ctx=None) -> Dict:
     """Zero (conv, state) for ``batch`` rows. Both leaves are f32: the SSD
     state always is, and the conv history keeps the f32 pre-pipeline
     values unrounded, so a chunk-continued conv equals the whole-prompt
-    one at chunk boundaries."""
-    conv_ch = cfg.d_inner + 2 * cfg.ssm_ngroups * cfg.ssm_state
+    one at chunk boundaries. Under ``ctx``: this rank's heads and their
+    conv channels (x of its heads, B and C whole)."""
+    lo, hi = ssm_heads(cfg, ctx)
+    conv_ch = (hi - lo) * cfg.ssm_headdim + 2 * cfg.ssm_ngroups * cfg.ssm_state
     return {
         "conv": torch.zeros((batch, cfg.ssm_conv - 1, conv_ch),
                             dtype=torch.float32, device=device),
-        "state": torch.zeros((batch, cfg.n_ssm_heads, cfg.ssm_headdim,
+        "state": torch.zeros((batch, hi - lo, cfg.ssm_headdim,
                               cfg.ssm_state), dtype=torch.float32,
                              device=device),
     }

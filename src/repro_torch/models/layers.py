@@ -235,13 +235,36 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)
 
 
-def swiglu(x, w_gate, w_up, w_down, qmm_impl: str = "kernel"
+def dense_row(x: torch.Tensor, w, ctx, n_in: int = 1,
+              out_dtype: Optional[torch.dtype] = None,
+              qmm_impl: str = "kernel") -> torch.Tensor:
+    """Row-parallel :func:`dense`: the contracted dims of ``x`` and the
+    leading ones of ``w`` are this rank's part of an axis the model axis
+    of ``ctx`` (a ``parallel.sharding.ShardCtx``) splits. The local
+    partial stays f32 (``out_dtype=float32``), is summed in f32 over the
+    model axis and rounded ONCE to ``out_dtype`` (default: the promoted
+    input type): rounding each partial first would round twice. With no
+    ``ctx`` (or one rank) it is :func:`dense`. A zero-length contraction
+    sums zeros on every rank, so it takes no collective."""
+    if ctx is None or ctx.size == 1:
+        return dense(x, w, n_in, out_dtype=out_dtype, qmm_impl=qmm_impl)
+    out_dt = out_dtype or torch.promote_types(x.dtype, w.dtype)
+    y = dense(x, w, n_in, out_dtype=torch.float32, qmm_impl=qmm_impl)
+    if int(np.prod(x.shape[-n_in:])):
+        ctx.all_reduce(y)
+    return y.to(out_dt)
+
+
+def swiglu(x, w_gate, w_up, w_down, qmm_impl: str = "kernel", ctx=None
            ) -> torch.Tensor:
-    """The gate chain is real f32 with one rounding at the end."""
+    """The gate chain is real f32 with one rounding at the end. Under
+    ``ctx`` the gate and up projections are column-parallel (this rank's
+    part of the MLP width) and the down projection row-parallel
+    (:func:`dense_row`)."""
     g = dense(x, w_gate, out_dtype=torch.float32, qmm_impl=qmm_impl)
     u = dense(x, w_up, out_dtype=torch.float32, qmm_impl=qmm_impl)
     h = silu(g) * u
-    return dense(h, w_down, qmm_impl=qmm_impl).to(x.dtype)
+    return dense_row(h, w_down, ctx, qmm_impl=qmm_impl).to(x.dtype)
 
 
 def rope_frequencies(head_dim: int, fraction: float, theta: float):

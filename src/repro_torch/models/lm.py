@@ -47,6 +47,16 @@ kernel, like the TPU kernel, has no backward). To train, make the stacked
 leaves ``requires_grad`` (``train.step.init_train_state``): each layer
 then reads them through one ``unbind``, so every layer's gradient lands in
 its slice of the stacked gradient.
+
+**Tensor parallelism.** ``LM(cfg, ctx=)`` (a ``parallel.sharding.
+ShardCtx``) serves this rank's part of a model sharded over the model
+axis: ``params`` is its slice of the tree (``sharding.shard_params``),
+``forward``, ``prefill`` and ``decode_step`` run the blocks on its heads
+and MLP width with the row-parallel seams summed over the axis, the
+embedding is whole on every rank, and the head's vocab-sharded logits
+are gathered, so every rank returns the whole logits. ``init_cache`` and
+``prefill``'s cache hold the KV heads and SSM heads the rank stores.
+Training across ranks is not ported (ROADMAP queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -98,7 +108,8 @@ class LM:
     def __init__(self, cfg: ArchConfig, *, attn_impl: str = "naive",
                  ssd_impl: str = "ref", qmm_impl: str = "kernel",
                  remat: str = "none", moe_aux_coef: float = 0.01,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 ctx=None):
         if cfg.family not in FAMILIES:
             raise ValueError(f"family {cfg.family!r} not one of {FAMILIES}")
         if attn_impl not in ATTN_IMPLS:
@@ -118,6 +129,7 @@ class LM:
         self.qmm_impl = qmm_impl
         self.remat = remat
         self.moe_aux_coef = moe_aux_coef
+        self.ctx = ctx
         self.device = resolve_device(device)
         self.period = _period(cfg)
         self.n_periods = cfg.n_layers // self.period
@@ -198,7 +210,10 @@ class LM:
         kernel's K rows."""
         x = L.rmsnorm(x, params["final_ln"], self.cfg.norm_eps)
         if not self.cfg.tie_embeddings:
-            return L.dense(x, params["head"], qmm_impl=self.qmm_impl)
+            logits = L.dense(x, params["head"], qmm_impl=self.qmm_impl)
+            if self.ctx is None:
+                return logits
+            return self.ctx.gather_last(logits, self.vocab)
         w = params["embed"]
         if isinstance(w, QTensor):
             w = w.dequantize(x.dtype)
@@ -255,11 +270,11 @@ class LM:
                 x, c = B.attn_apply(x, lp["mix"], cfg, positions=positions,
                                     attn_impl=self.attn_impl,
                                     return_kv=return_cache,
-                                    qmm_impl=self.qmm_impl)
+                                    qmm_impl=self.qmm_impl, ctx=self.ctx)
             else:
                 x, c = B.ssm_apply(x, lp["mix"], cfg,
                                    ssd_impl=self.ssd_impl,
-                                   return_state=return_cache)
+                                   return_state=return_cache, ctx=self.ctx)
             if "cross" in lp:
                 ckv = B.cross_kv(enc_out, lp["cross"], cfg,
                                  qmm_impl=self.qmm_impl)
@@ -268,7 +283,8 @@ class LM:
                 c = {"self": c, "cross": ckv}
             caches[pos].append(c)
             x = B.ffn_or_moe(x, lp["ffn"], cfg, self.fkinds[pos],
-                             CAPACITY_MULT[mode], qmm_impl=self.qmm_impl)
+                             CAPACITY_MULT[mode], qmm_impl=self.qmm_impl,
+                             ctx=self.ctx)
         return x, caches
 
     @torch.no_grad()
@@ -339,9 +355,10 @@ class LM:
         stacked over the periods, and for encdec zero cross k/v of
         ``src_len`` source positions."""
         cfg = self.cfg
-        kv_shape = (self.n_periods, batch, max_len, cfg.n_kv_heads,
+        kv_shape = (self.n_periods, batch, max_len, self.kv_heads_held(),
                     cfg.head_dim)
-        ssm = B.ssm_init_cache(cfg, batch) if "ssm" in self.kinds else {}
+        ssm = (B.ssm_init_cache(cfg, batch, ctx=self.ctx)
+               if "ssm" in self.kinds else {})
 
         def zeros(shape, dt):
             return torch.zeros(shape, dtype=dt, device=self.device)
@@ -359,6 +376,15 @@ class LM:
                                           for leaf in ("k", "v")}}
             cache[f"pos{i}"] = c
         return cache
+
+    def kv_heads_held(self) -> int:
+        """KV heads of this rank's attention caches: K/tp where the model
+        axis divides them, else all K."""
+        k = self.cfg.n_kv_heads
+        if self.ctx is None:
+            return k
+        lo, hi = self.ctx.part(k)
+        return hi - lo
 
     @torch.no_grad()
     def decode_step(self, params, cache: Dict, tokens: torch.Tensor,
@@ -383,10 +409,11 @@ class LM:
                                     qmm_impl=self.qmm_impl,
                                     cache={"k": c["k"][per],
                                            "v": c["v"][per]},
-                                    lengths=lengths)
+                                    lengths=lengths, ctx=self.ctx)
             else:
                 st = {leaf: a[per] for leaf, a in c.items()}
-                x, new = B.ssm_apply(x, lp["mix"], cfg, cache=st)
+                x, new = B.ssm_apply(x, lp["mix"], cfg, cache=st,
+                                     ctx=self.ctx)
                 for leaf, a in new.items():
                     st[leaf].copy_(a)
             if "cross" in lp:
@@ -394,7 +421,8 @@ class LM:
                     x, {leaf: a[per] for leaf, a in ci["cross"].items()},
                     lp["cross"], cfg, qmm_impl=self.qmm_impl)
             x = B.ffn_or_moe(x, lp["ffn"], cfg, self.fkinds[pos],
-                             CAPACITY_MULT["decode"], qmm_impl=self.qmm_impl)
+                             CAPACITY_MULT["decode"], qmm_impl=self.qmm_impl,
+                             ctx=self.ctx)
         return self._head(params, x)[:, 0], cache
 
     # ------------------------------------------------------------------
@@ -432,6 +460,10 @@ class LM:
     def _backbone(self, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
         """(final hidden states, the MoE load-balancing loss summed over
         the layers in f32, 0 without MoE layers)."""
+        if self.ctx is not None and self.ctx.size > 1:
+            raise NotImplementedError(
+                "training across ranks (DP/ZeRO, TP with its backward) is "
+                "not ported: ROADMAP queue 1 item 7")
         if "ssm" in self.kinds and self.ssd_impl != "ref":
             raise NotImplementedError(
                 f"training through ssd_impl={self.ssd_impl!r}: the SSD "

@@ -391,6 +391,8 @@ class PagedKVCache:
 
     def hbm_bytes(self) -> int:
         """Bytes of the pool proper (k, v and int8 scales; the null
-        block aside), as the reference counts its storage."""
+        block aside), as the reference counts its storage. Under tensor
+        parallelism the engine's config holds the rank's KV heads, so
+        this is the rank's own pool."""
         return sum(v.numel() * v.element_size()
                    for v in self.pool().values())

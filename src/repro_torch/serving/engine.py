@@ -136,6 +136,24 @@ eagerly on the card too, for that comparison; a capture or replay that
 fails raises. Whole-prompt prefill, the draft model's decode and the
 preemption scrubs stay eager.
 
+**Tensor parallelism** (``mesh=``, a ``launch.mesh.Mesh`` of
+``torch.distributed`` ranks; one engine per rank). Every rank runs the
+same engine over its slice of the weights (``sharding.shard_params``):
+the paged pool holds its K/tp KV heads (all K where the degree does not
+divide them), the SSM slot pool its conv channels and SSD heads, and the
+steps sum f32 partials over the model axis at the row-parallel seams
+(``wo``, the MLP down projection, mamba2's ``out_proj``) and gather the
+vocab-sharded logits, so every rank picks the same greedy tokens. The
+scheduler, block tables and allocator are host-global and every host
+decision comes out the same on every rank: a request's arrival is rank
+0's clock (broadcast at ``submit``), and deadlines, the one other clock
+input, are refused under TP > 1. The paged read runs its kernel per
+rank on the rank's heads (the reference's mesh falls back to its XLA
+read). TP requires ``mode="fused"``; MoE archs are refused (expert
+parallelism is not ported), and so is CUDA-graph capture: the steps
+hold collectives (``cuda_graphs=False`` on the card). ``model_parallel``
+in ``stats()`` is the degree.
+
 **Failure semantics.** Every request ends in exactly one terminal state
 (``FINISHED``, ``TIMED_OUT``, ``CANCELLED``, ``REJECTED``, ``FAILED``),
 every eviction through the scheduler's scrub -> release path. A row whose
@@ -161,6 +179,7 @@ from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models.lm import LM
 from repro_torch.models.params import tree_map
+from repro_torch.parallel.sharding import make_serving_ctx, shard_params
 from repro_torch.quant.qtensor import QTensor
 from repro_torch.serving import cache as C
 from repro_torch.serving.cache import PagedKVCache, PagedKVConfig
@@ -205,7 +224,9 @@ class Engine:
     caller passes ``"cpu"``; params are moved there if needed). On the
     card the steps replay CUDA graphs unless ``cuda_graphs=False``.
     The lifecycle, prefix-cache, fault and telemetry arguments are the
-    reference's, with its validation."""
+    reference's, with its validation. ``mesh`` shards the engine over a
+    model axis of ranks (this rank's device is the mesh's); ``params``
+    is then the full tree, which the engine slices."""
 
     def __init__(self, cfg: ArchConfig, params, *, max_batch: int = 8,
                  n_blocks: int = 64, block_size: int = 16,
@@ -218,7 +239,7 @@ class Engine:
                  faults=None, stall_limit: int = 200,
                  prefix_cache: bool = False, telemetry=None,
                  device: Optional[Union[str, torch.device]] = None,
-                 cuda_graphs: bool = True):
+                 cuda_graphs: bool = True, mesh=None):
         if kv_quant not in ("none", "int8"):
             raise ValueError(f"kv_quant must be 'none' or 'int8', got "
                              f"{kv_quant!r}")
@@ -245,6 +266,31 @@ class Engine:
                 f"does the reference's, serving/engine.py:714-770), so it "
                 f"would decode without the encoder; serve it through "
                 f"LM.prefill and LM.decode_step")
+        if mesh is not None and mode != "fused":
+            raise ValueError("model-parallel serving requires mode='fused' "
+                             "(the legacy per-layer loop stays the "
+                             "single-device parity oracle)")
+        self._ctx = make_serving_ctx(cfg, mesh)
+        self.tp_degree = self._ctx.size if self._ctx is not None else 1
+        if mesh is not None:
+            want = torch.device(device) if device is not None else None
+            if want is not None and (
+                    want.type != mesh.device.type or want.index not in (
+                        None, mesh.device.index)):
+                raise ValueError(f"device {device!r} is not the mesh rank's "
+                                 f"device {mesh.device}")
+            device = mesh.device
+        if self.tp_degree > 1:
+            if cuda_graphs and mesh.device.type == "cuda":
+                raise ValueError(
+                    f"cuda_graphs=True under tensor parallelism: the steps "
+                    f"hold {mesh.backend} collectives, which a CUDA graph "
+                    f"cannot capture here (gloo stages them through the "
+                    f"host; capture under nccl waits for a machine with a "
+                    f"card per rank, ROADMAP queue 1 item 7); pass "
+                    f"cuda_graphs=False")
+            if default_deadline_s is not None:
+                raise ValueError(self._DEADLINES_UNDER_TP)
         self.device = resolve_device(device)
         if self.device.type == "cuda" and ssd_impl != "kernel":
             raise ValueError(
@@ -252,8 +298,10 @@ class Engine:
                 f"runs the kernel; the plain paths are for the CPU")
         self.cfg = cfg
         self.mode = mode
-        self.model_parallel = 1
-        self.model = LM(cfg, ssd_impl=ssd_impl, device=self.device)
+        self.model = LM(cfg, ssd_impl=ssd_impl, device=self.device,
+                        ctx=self._ctx)
+        if self._ctx is not None:
+            params = shard_params(params, self._ctx)
         self.params = tree_map(lambda t: t.to(self.device), params)
         # per-layer views into the stacked block tree, built once
         self._layers = [self.model.layer_params(self.params, i)
@@ -275,7 +323,8 @@ class Engine:
         # scheduler still accounts blocks per token), as the reference does
         n_attn = len(self._attn_pos) * self.model.n_periods
         self.kv_cfg = PagedKVConfig(
-            n_layers=max(n_attn, 1), n_kv_heads=max(cfg.n_kv_heads, 1),
+            n_layers=max(n_attn, 1),
+            n_kv_heads=max(self.model.kv_heads_held(), 1),
             head_dim=max(cfg.head_dim, 1), n_blocks=n_blocks,
             block_size=block_size, kv_quant=kv_quant)
         self.kv = PagedKVCache(self.kv_cfg, device=self.device)
@@ -496,7 +545,8 @@ class Engine:
     # ------------------------------------------------------------------
 
     def _init_ssm_states(self) -> Dict[str, Dict[str, torch.Tensor]]:
-        base = B.ssm_init_cache(self.cfg, self.max_batch, self.device)
+        base = B.ssm_init_cache(self.cfg, self.max_batch, self.device,
+                                self._ctx)
         return {f"pos{pos}": {leaf: torch.zeros(
                     (self.model.n_periods,) + tuple(a.shape), dtype=a.dtype,
                     device=self.device) for leaf, a in base.items()}
@@ -569,11 +619,13 @@ class Engine:
         """Enqueue a request, or raise :class:`Rejected` (validation or
         load shedding, see ``Scheduler.submit``), counted per reason in
         ``stats()`` before it propagates."""
-        req.arrival = req.arrival or self.clock()
+        if not req.arrival:
+            req.arrival = (self._ctx.broadcast_float(self.clock())
+                           if self.tp_degree > 1 else self.clock())
         if req.deadline_s is None:
             req.deadline_s = self.default_deadline_s
         if req.deadline_s is not None:
-            self._deadlines_armed = True
+            self.arm_deadlines()
         try:
             self.sched.submit(req)
         except Rejected as e:
@@ -612,9 +664,16 @@ class Engine:
                              f"[0, {self.model.n_periods})")
         self._nan_plan = (rid, period)
 
+    _DEADLINES_UNDER_TP = (
+        "deadlines under tensor parallelism: the sweep reads each rank's "
+        "own clock, so ranks could evict different requests")
+
     def arm_deadlines(self) -> None:
         """Enable the per-step deadline sweep (after deadlines are stamped
-        onto requests already submitted, e.g. a deadline storm)."""
+        onto requests already submitted, e.g. a deadline storm). Refused
+        under TP > 1."""
+        if self.tp_degree > 1:
+            raise ValueError(self._DEADLINES_UNDER_TP)
         self._deadlines_armed = True
 
     def _evict_terminal(self, req: Request, state: str) -> None:
@@ -773,6 +832,7 @@ class Engine:
         quant = self.kv_cfg.kv_quant
         period = self.model.period
         kinds, fkinds = self.model.kinds, self.model.fkinds
+        wo_seam = B.tp_seam(self._ctx, cfg.n_heads)
 
         def body(x, per, kv_slice, ssm_slice, inj):
             x = torch.where(inj[:, None, None], self._nan, x)
@@ -790,7 +850,8 @@ class Engine:
                     kq, ks = C.quant_encode(k, quant)
                     vq, vs = C.quant_encode(v, quant)
                     out = attn_read(q, (kq, ks, vq, vs), kv_slice, r)
-                    x = x + L.dense(out, pp["mix"]["wo"], n_in=2)
+                    x = x + L.dense_row(out, pp["mix"]["wo"], wo_seam,
+                                        n_in=2)
                     new_kv.setdefault("k", []).append(kq)
                     new_kv.setdefault("v", []).append(vq)
                     if ks is not None:
@@ -798,7 +859,7 @@ class Engine:
                         new_kv.setdefault("v_scale", []).append(vs)
                     r += 1
                 x = B.ffn_or_moe(x, pp["ffn"], cfg, fkinds[pos],
-                                 MOE_CAPACITY_MULT)
+                                 MOE_CAPACITY_MULT, ctx=self._ctx)
             return (x, {kk: torch.stack(vv) for kk, vv in new_kv.items()},
                     new_ssm)
 
@@ -831,17 +892,28 @@ class Engine:
         return 1.0 / float(np.sqrt(max(self.cfg.head_dim, 1)))
 
     def _enc_read(self, q, enc):
-        """The fresh window's causal partial, read as stored."""
+        """The fresh window's causal partial, read as stored (on the KV
+        heads this rank's q heads read)."""
         kq, ks, vq, vs = enc
         ka = C.quant_decode(kq, ks, torch.float32)
         va = C.quant_decode(vq, vs, torch.float32)
+        ka, va = B.kv_heads_read(ka, va, self.cfg, self._ctx)
         return fd.causal_self_partial(q, ka, va, sm_scale=self._sm_scale())
 
-    def _page_kwargs(self, kv_slice, r) -> Dict:
-        if self.kv_cfg.kv_quant != "int8":
-            return {}
-        return {"k_scale": kv_slice["k_scale"][r],
-                "v_scale": kv_slice["v_scale"][r]}
+    def _pages(self, kv_slice, r) -> Dict:
+        """Layer ``r``'s pages (and int8 scales) as the paged read takes
+        them: the KV heads this rank's q heads read (where every rank
+        holds all K heads but reads some, a window of them, no copy: the
+        kernel steps over the pool's other heads)."""
+        def read(a, b):
+            return B.kv_heads_read(a[r], b[r], self.cfg, self._ctx)
+
+        out = dict(zip(("k_pages", "v_pages"),
+                       read(kv_slice["k"], kv_slice["v"])))
+        if self.kv_cfg.kv_quant == "int8":
+            out.update(zip(("k_scale", "v_scale"), read(
+                kv_slice["k_scale"], kv_slice["v_scale"])))
+        return out
 
     # ------------------------------------------------------------------
     # Chunked prefill: one step pages ``prefill_chunk`` context tokens of
@@ -867,15 +939,16 @@ class Engine:
 
         def attn_read(q, enc, kv_slice, r):
             o_c, m_c, l_c = fd.paged_flash_prefix_partial(
-                q, kv_slice["k"][r], kv_slice["v"][r], table, ctx,
-                sm_scale=sm_scale, **self._page_kwargs(kv_slice, r))
+                q, table=table, lengths=ctx, sm_scale=sm_scale,
+                **self._pages(kv_slice, r))
             out = fd.merge_partials([(o_c, m_c, l_c),
                                      self._enc_read(q, enc)])
             return out.to(q.dtype)
 
         def ssm_step(x, pp_mix, st):
             return B.ssm_apply(x, pp_mix, self.cfg, cache=st,
-                               ssd_impl=model.ssd_impl, n_valid=n_valid)
+                               ssd_impl=model.ssd_impl, n_valid=n_valid,
+                               ctx=self._ctx)
 
         body = self._make_stack_body(positions=positions,
                                      attn_read=attn_read, ssm_step=ssm_step)
@@ -952,8 +1025,8 @@ class Engine:
 
         def attn_read(q, enc, kv_slice, r):
             o_c, m_c, l_c = fd.paged_flash_decode_partial(
-                q[:, 0], kv_slice["k"][r], kv_slice["v"][r], table, lengths,
-                sm_scale=sm_scale, **self._page_kwargs(kv_slice, r))
+                q[:, 0], table=table, lengths=lengths, sm_scale=sm_scale,
+                **self._pages(kv_slice, r))
             # the fresh token attends to itself as the cache will store
             # it; its KV lands in the pages after the stack
             out = fd.merge_partials(
@@ -962,7 +1035,7 @@ class Engine:
             return out.to(q.dtype)
 
         def ssm_step(x, pp_mix, st):
-            x, nc = B.ssm_apply(x, pp_mix, self.cfg, cache=st)
+            x, nc = B.ssm_apply(x, pp_mix, self.cfg, cache=st, ctx=self._ctx)
             # inactive slots keep their state: a slot mid-way through
             # chunked prefill must not be advanced by the running batch's
             # decode (the SSM analogue of the null block for KV appends)
@@ -1042,15 +1115,15 @@ class Engine:
 
         def attn_read(q, enc, kv_slice, r):
             o_c, m_c, l_c = fd.paged_flash_prefix_partial(
-                q, kv_slice["k"][r], kv_slice["v"][r], table, ctx,
-                sm_scale=sm_scale, **self._page_kwargs(kv_slice, r))
+                q, table=table, lengths=ctx, sm_scale=sm_scale,
+                **self._pages(kv_slice, r))
             out = fd.merge_partials([(o_c, m_c, l_c),
                                      self._enc_read(q, enc)])
             return out.to(q.dtype)
 
         def ssm_step(x, pp_mix, st):
             return B.ssm_apply_spec(x, pp_mix, self.cfg, cache=st,
-                                    valid=valid_rows)
+                                    valid=valid_rows, ctx=self._ctx)
 
         body = self._make_stack_body(positions=positions,
                                      attn_read=attn_read, ssm_step=ssm_step)
@@ -1393,7 +1466,7 @@ class Engine:
                 "steps": self.steps,
                 "mode": self.mode,
                 "prefill_chunk": self.prefill_chunk or 0,
-                "model_parallel": self.model_parallel,
+                "model_parallel": self.tp_degree,
                 "decode_steps": self.step_counts["decode"],
                 "verify_steps": self.step_counts["verify"],
                 "chunk_steps": self.step_counts["chunk"],

@@ -18,6 +18,12 @@ round emits between 1 and K+1 tokens.
     scans through the SSD kernel). Stateless between rounds, so
     preemption needs no draft bookkeeping.
 
+Under tensor parallelism (``Engine(mesh=)``) every rank runs the same
+proposer: the n-gram proposer reads the host-global request, and a draft
+model runs whole on every rank (an ``LM`` without a sharding context, as
+the reference builds its ``LM(cfg)``), so a self-draft takes the full
+tree, not a rank's shard.
+
 Anything with ``.propose(request, k) -> list[int]`` plugs in. The
 :class:`Speculator` owns the per-request adaptive depth (a fully accepted
 round grows it toward the cap, a fully rejected one halves it, a partial

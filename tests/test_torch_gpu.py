@@ -565,6 +565,34 @@ def test_rmsnorm_kernel_matches_plain(cuda, rows, d, xd, wd):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("rows", [1, 8, 2048])
+@pytest.mark.parametrize("parts", [2, 4])
+@pytest.mark.parametrize("xd", ["bf16", "f32"])
+def test_rmsnorm_split_kernel_matches_plain(cuda, rows, parts, xd):
+    """The norm of mamba2's d_inner rows split into ``parts``: each
+    part's partial sums (the kernel's first pass), added over the parts,
+    then each part's scale pass, against the plain norm of the whole row
+    (f32 within 2e-5, bf16 within one ulp); each pass counts one launch."""
+    from repro_torch.kernels import rmsnorm as rn
+    n = 1536
+    x, w = _rms_case(cuda, rows, n, xd, "bf16", seed=rows + parts)
+    xs = [p.contiguous() for p in x.chunk(parts, -1)]
+    ws = [p.contiguous() for p in w.chunk(parts)]
+    before = dict(rn.LAUNCHES)
+    sums = [rn._sumsq_cuda(p) for p in xs]
+    for p, ss in zip(xs, sums):
+        torch.testing.assert_close(ss, rn.rmsnorm_sumsq_plain(p), **TOL)
+    total = torch.stack(sums).sum(0)
+    got = torch.cat([rn._scaled_cuda(p, q, total, n)
+                     for p, q in zip(xs, ws)], -1)
+    torch.cuda.synchronize()
+    assert rn.LAUNCHES["rmsnorm_sumsq"] == before.get("rmsnorm_sumsq",
+                                                      0) + parts
+    assert rn.LAUNCHES["rmsnorm"] == before.get("rmsnorm", 0) + parts
+    _assert_flash_close(got, rn.rmsnorm_plain(x, w), ulps=1)
+
+
+@pytest.mark.gpu
 def test_rmsnorm_rows_per_block(cuda):
     """One row a block below 1,024 rows; above, as many rows as a
     256-thread block holds at up to four 16-byte vectors a thread."""
@@ -1016,6 +1044,28 @@ def _paged_split_case(dev, b, t, h, kv, d, lengths, mb, quant, seed=0):
         used += nb
     lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
     return q, k, v, table, lens, ks, vs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t,quant", [(1, False), (64, True)])
+def test_paged_read_of_a_head_window_is_the_copy_read(cuda, t, quant):
+    """A rank holding both of a pool's KV heads that reads one (chatglm3
+    at TP = 4: 8 q heads on KV head 1 of 2, D = 128) reads the window in
+    place: bit for bit the read of its copy, and within 2e-5 of plain."""
+    q, k, v, table, lens, ks, vs = _paged_split_case(
+        cuda, 8 if t == 1 else 1, t, 8, 2, 128,
+        [96, 288, 1032, 96, 288, 1032, 96, 288] if t == 1 else [936], 128,
+        quant)
+    win = [None if a is None else a[:, :, 1:2] for a in (k, v, ks, vs)]
+    args = (q, win[0], win[1], table, lens, win[2], win[3])
+    copy = tuple(a if a is None or a.is_contiguous() else a.contiguous()
+                 for a in args)
+    got, want = fd._paged_mq_cuda(*args), fd._paged_mq_cuda(*copy)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    plain = fd._paged_prefix_torch(*args)
+    torch.testing.assert_close(got[0] / got[2].clamp_min(1e-30),
+                               plain[0] / plain[2].clamp_min(1e-30), **TOL)
 
 
 @pytest.mark.gpu
