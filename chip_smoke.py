@@ -397,6 +397,30 @@ imports nothing of the JAX package). Phases, one line each:
               (each timed between two synchronizes), beside the card's name
               and power limit; with two or more cards it also runs nccl,
               one card per rank, and otherwise says that it did not.
+28. dp      - training over a data axis of two ranks that share card 0
+              (gloo): qwen1.5-0.5b at full width, F+R, global batch 4 x
+              2048 (phase 24's), 3 steps. The one-device oracle
+              (grad_accum 2, the ranks' rows as its two micro-batches)
+              runs in this process; then one spawn runs Z0, Z1, Z2, Z3
+              and Z3+O in turn, each from fresh seeded state, and
+              mamba2-130m F+R+Z3 for 2 steps against its own oracle.
+              Every stage's per-step loss must equal the oracle's bit for
+              bit, its grad_norm within rtol 1e-6, and its final params
+              and moments must too (two linear per-leaf hashes of the
+              gathered bytes, taken on the card, and the sha256 of each
+              rank's piece of every leaf against that of the same piece of
+              the oracle's), on both ranks; each rank launches the
+              flash forward twice an attention layer a step (R), each
+              backward kernel once, and RMSNorm as phase 7 counts for its
+              micro-batch. The state at rest on the card (params,
+              moments, the persistent gradient buffer) must fall from Z0
+              to Z1 to Z2 to Z3 to Z3+O. Prints each stage's per-rank
+              peak memory, state at rest on the card and in pinned host
+              memory, step ms and the share of a step spent in
+              collectives (each timed between two synchronizes), beside
+              the card's name and power limit; with two or more cards it
+              also runs Z3 over nccl, one card per rank, and otherwise
+              says that it did not.
 
 Any failed check raises. The last three lines of standard output are the
 kernels' JSON record, the card's name and power limit, and
@@ -405,7 +429,8 @@ run's time. Each main path (the engine runs, the training run, the
 two fine-tuning runs, the speculative engine runs, the nine
 lifecycle bursts, phase 23's eight runs, phase 24's training runs,
 phase 25's serving and training runs, phase 26's runs, phase 27's
-single-device runs and each rank's run) is driven with every launch
+single-device runs and each rank's run, and each of phase 28's runs on
+each rank and one device) is driven with every launch
 count set to 0 just before it (after the engine's warmup, and in phase
 22 (a)/(b) after the warming request) and read just after; so is each
 eager twin. Without
@@ -5671,6 +5696,351 @@ def phase_tp() -> dict:
     return total
 
 
+# --------------------------------------------------------------------------
+# phase 28: data-parallel training over two ranks sharing the card
+# --------------------------------------------------------------------------
+
+DP_DEGREE = 2
+DP_SHAPE = dict(b=4, t=2048)        # phase 24's global batch
+# the stages, each from fresh seeded state, in one spawn: Z0 (F+R), Z1,
+# Z2, Z3 and Z3+O on qwen1.5-0.5b for 3 steps, then mamba2-130m F+R+Z3
+# for 2; a rank runs one micro-batch of its 2 rows, and the one-device
+# oracle (grad_accum = 2) runs the same rows as its two micro-batches
+DP_RUNS = (("qwen1.5-0.5b", "F+R", 3), ("qwen1.5-0.5b", "F+R+Z1", 3),
+           ("qwen1.5-0.5b", "F+R+Z2", 3), ("qwen1.5-0.5b", "F+R+Z3", 3),
+           ("qwen1.5-0.5b", "F+R+Z3+O", 3), ("mamba2-130m", "F+R+Z3", 2))
+DP_LR = 1e-3                        # warmup 0: every step moves the params
+
+
+def dp_batches(cfg, steps: int):
+    """The global batches of ``steps`` steps (``SyntheticLM``, packed: every
+    row holds as many labels, so a rank's loss is its micro-batch mean)."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=DP_SHAPE["t"],
+                                  global_batch=DP_SHAPE["b"], seed=0))
+    return [data.batch_at(i) for i in range(steps)]
+
+
+def leaf_sums(state, lay=None) -> dict:
+    """Per-leaf hashes of the whole state's bytes, taken on the card: two
+    sums over the leaf's elements' bits (bf16 as int16, f32 and int32 as
+    int32), plain and weighted by the element's flat index + 1 in the
+    whole leaf, each mod 2^64. Both are linear in the elements, so the
+    hash of a sharded leaf's gathered bytes is the sum of every rank's
+    sum over its piece at the piece's indices in the whole leaf
+    (:func:`gathered_sums`), and no byte has to move. Returns ``{path:
+    (sharded, h1, h2)}``; with ``lay`` (a rank's ``DPLayout``) a sharded
+    leaf's sums are this rank's part."""
+    import torch
+    from repro_torch.models.params import keystr_paths
+    bits = {torch.bfloat16: torch.int16, torch.float32: torch.int32,
+            torch.int32: torch.int32}
+    out = {}
+    for path, t in keystr_paths(state):
+        t = t.detach().to("cuda")
+        cut = lay.state_cut(path) if lay is not None else None
+        sharded = cut is not None and cut.dim is not None
+        shape = list(t.shape)
+        if sharded:
+            shape[cut.dim] *= cut.parts
+        idx = torch.arange(1, math.prod(shape) + 1,
+                           device=t.device).view(shape)
+        if sharded:
+            lo, hi = cut.bounds(shape[cut.dim])
+            idx = idx.narrow(cut.dim, lo, hi - lo)
+        w = t.contiguous().view(bits[t.dtype]).to(torch.int64)
+        out[path] = (sharded, int(w.sum()) % 2**64,
+                     int((w * idx).sum()) % 2**64)
+    return out
+
+
+SHA_THREADS = 4                     # hashlib releases the GIL on big buffers
+
+
+def piece_sha(state, lay=None) -> dict:
+    """sha256 of each leaf's bytes as this rank holds them: ``{path: (dim,
+    lo, hi, digest)}``, ``dim`` the dim the data axis cuts and ``[lo,
+    hi)`` this rank's piece of the whole leaf along it (``dim`` None: the
+    whole leaf); with ``lay`` None every leaf is whole."""
+    from repro_torch.models.params import keystr_paths
+    where, host = {}, {}
+    for path, t in keystr_paths(state):
+        cut = lay.state_cut(path) if lay is not None else None
+        if cut is None or cut.dim is None:
+            where[path] = (None, None, None)
+        else:
+            where[path] = (cut.dim,) + cut.bounds(t.shape[cut.dim] *
+                                                  cut.parts)
+        host[path] = t.detach().cpu()
+    digest = sha_all(host)
+    return {p: where[p] + (digest[p],) for p in where}
+
+
+def sha_all(tensors: dict) -> dict:
+    """sha256 of each host tensor's bytes in row-major order, hashed in
+    ``SHA_THREADS`` threads."""
+    import hashlib
+    from concurrent.futures import ThreadPoolExecutor
+    import torch
+
+    def one(t):
+        b = t.contiguous().reshape(-1).view(torch.uint8)
+        return hashlib.sha256(b.numpy()).hexdigest()
+
+    with ThreadPoolExecutor(SHA_THREADS) as ex:
+        return dict(zip(tensors, ex.map(one, tensors.values())))
+
+
+def sha_mismatches(whole: dict, pieces: dict) -> list:
+    """The leaves whose piece sha256 in ``pieces`` (a rank's
+    :func:`piece_sha`) is not that of the same piece of ``whole`` (the
+    one-device run's final state on the host, ``{path: tensor}``)."""
+    mine = {}
+    for path, (dim, lo, hi, _) in pieces.items():
+        if path in whole:
+            w = whole[path]
+            mine[path] = w if dim is None else w.narrow(dim, lo, hi - lo)
+    digest = sha_all(mine)
+    return ([p for p, v in pieces.items() if digest.get(p) != v[3]]
+            + [p for p in whole if p not in pieces])
+
+
+def gathered_sums(ranks_sums: list) -> list:
+    """Each rank's view of the whole state's hashes: a sharded leaf's
+    partial sums added over the ranks (mod 2^64), a whole leaf's the
+    rank's own."""
+    out = []
+    for mine in ranks_sums:
+        got = {}
+        for path, (sharded, h1, h2) in mine.items():
+            if sharded:
+                h1 = sum(r[path][1] for r in ranks_sums) % 2**64
+                h2 = sum(r[path][2] for r in ranks_sums) % 2**64
+            got[path] = (h1, h2)
+        out.append(got)
+    return out
+
+
+def state_bytes(state, extra=()) -> dict:
+    """Bytes of a state's tensors (and ``extra`` tensors) by where they
+    live: the card, pinned host memory, pageable host memory."""
+    from repro_torch.models.params import keystr_paths
+    out = {"card": 0, "pinned": 0, "host": 0}
+    for t in [t for _, t in keystr_paths(state)] + list(extra):
+        n = t.numel() * t.element_size()
+        out["card" if t.is_cuda else "pinned" if t.is_pinned()
+            else "host"] += n
+    return out
+
+
+def dp_run(mesh, name, label, batches, accum=1):
+    """One run of phase 28: the seeded full-width state on this rank's
+    card (one device when ``mesh`` is None, ``grad_accum`` ``accum``), the
+    kernels' launch counts set to 0, the steps fenced one by one, each
+    data-axis collective timed between two synchronizes. Returns the
+    losses (bits and values), grad_norms, step ms, the collectives' count
+    and seconds, the launches, peak memory over the steps, the state's
+    bytes at rest (with the persistent gradient buffer) and the per-leaf
+    linear hashes of the whole final state; and the sha256 of each of the
+    rank's pieces (:func:`piece_sha`), or on one device the final state
+    itself on the host."""
+    import dataclasses
+    import struct
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.config import technique_from_label
+    from repro_torch.core.perfscope import Timer
+    from repro_torch.launch.build import make_model
+    from repro_torch.models.params import keystr_paths
+    from repro_torch.parallel.sharding import make_shard_ctx
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.step import (DPLayout, build_train_step,
+                                        init_train_state)
+    cfg = get_config(name)
+    tech = dataclasses.replace(technique_from_label(label), grad_accum=accum)
+    ctx = make_shard_ctx(cfg, tech, mesh) if mesh is not None else None
+    dev = mesh.device if mesh is not None else torch.device("cuda")
+    model = make_model(cfg, tech, device=dev, ctx=ctx)
+    opt = AdamWConfig(lr=DP_LR, warmup=0)
+    state, _ = init_train_state(model, tech, 0, opt, ctx=ctx)
+    step = build_train_step(model, tech, opt, ctx=ctx)
+    timer = Timer()
+    if ctx is not None:
+        ctx.comm_timer = timer
+    free_card()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    slice_counts(reset=True)
+    rec = {"loss": [], "loss_f": [], "grad_norm": [], "ms": [], "coll": []}
+    for b in batches:
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+        if ctx is not None:
+            lo, hi = ctx.batch_sharding(DP_SHAPE["b"])
+            batch = {k: v[lo:hi] for k, v in batch.items()}
+        n0, s0 = len(timer.records["collective"]), \
+            sum(timer.records["collective"])
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        state, met = step(state, batch)
+        torch.cuda.synchronize(dev)
+        rec["ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["coll"].append((len(timer.records["collective"]) - n0,
+                            sum(timer.records["collective"]) - s0))
+        loss = float(met["loss"])
+        rec["loss"].append(struct.unpack("<I", struct.pack("<f", loss))[0])
+        rec["loss_f"].append(loss)
+        rec["grad_norm"].append(float(met["grad_norm"]))
+    rec["launches"] = slice_counts()
+    rec["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    if ctx is not None:
+        ctx.comm_timer = None
+    buf = getattr(step, "grad_buffer", {})
+    rec["at_rest"] = state_bytes(state, buf.values())
+    rec["grad_buffer"] = sum(t.numel() * 4 for t in buf.values())
+    rec["allocated_gib"] = torch.cuda.memory_allocated(dev) / 2**30
+    lay = DPLayout(model, tech, ctx) if ctx is not None else None
+    rec["sums"] = leaf_sums(state, lay)
+    if ctx is None:                     # the oracle: its whole final state
+        rec["whole"] = {p: t.detach().cpu() for p, t in keystr_paths(state)}
+    else:
+        rec["sha"] = piece_sha(state, lay)
+    rec["device"] = str(dev)
+    del state, step, model
+    free_card()
+    return rec
+
+
+def dp_rank_runs(mesh, runs):
+    """Every run of phase 28 in turn on one set of ranks."""
+    return [dp_run(mesh, name, label, batches)
+            for name, label, batches in runs]
+
+
+def phase_dp() -> dict:
+    """Phase 28: training over a data axis of two ranks that share card
+    0 (gloo). qwen1.5-0.5b at full width, F+R at 4 x 2048, 3 steps: the
+    one-device oracle (grad_accum 2) in this process, then, in one
+    spawn, Z0, Z1, Z2, Z3 and Z3+O in turn from fresh seeded state, then
+    mamba2-130m F+R+Z3 for 2 steps against its own oracle. Every stage's
+    per-step loss must equal the oracle's bit for bit, and so must its
+    final params and moments (per-leaf linear hashes of the gathered
+    bytes, and the sha256 of each rank's pieces), on both ranks; every
+    rank must launch the flash kernels and RMSNorm as
+    its micro-batch gives them. Prints each stage's per-rank peak memory,
+    state bytes at rest on the card and in pinned host memory, step ms
+    and the share of a step spent in collectives. With two or more cards
+    it also runs Z3 over nccl, one card per rank. Returns the ranks'
+    launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import spawn_ranks
+    t0 = time.monotonic()
+    card = card_line()
+    runs, oracles = [], {}
+    for name, label, steps in DP_RUNS:
+        cfg = get_config(name)
+        batches = dp_batches(cfg, steps)
+        if name not in oracles:
+            oracles[name] = dp_run(None, name, "F+R", batches,
+                                   accum=DP_DEGREE)
+            o = oracles[name]
+            print(f"[dp] {name} one device, grad_accum {DP_DEGREE}, "
+                  f"{steps} steps of {DP_SHAPE['b']} x {DP_SHAPE['t']}: "
+                  f"losses " + ", ".join(f"{x:.6f}" for x in o["loss_f"])
+                  + f"; {sum(o['ms'][1:]) / max(len(o['ms']) - 1, 1):.1f} "
+                  f"ms a step after the first; peak {o['peak_gib']:.2f} "
+                  f"GiB; state at rest {o['at_rest']['card'] / 1e9:.3f} GB "
+                  f"on the card; {card}")
+        runs.append((name, label, batches))
+    t1 = time.monotonic()
+    ranks = spawn_ranks(dp_rank_runs, 1, data=DP_DEGREE, backend="gloo",
+                        args=(runs,))
+    total = {}
+    rest = {}
+    for i, (name, label, batches) in enumerate(runs):
+        cfg = get_config(name)
+        want = oracles[name]
+        sums = {p: v[1:] for p, v in want["sums"].items()}
+        for rec, got in zip([recs[i] for recs in ranks], gathered_sums(
+                [recs[i]["sums"] for recs in ranks])):
+            rec["whole_sums"] = got
+        norms = norms_per_train_step(cfg, DP_SHAPE["t"], remat=True)
+        n_attn = cfg.layer_kinds().count("attn")
+        for r, recs in enumerate(ranks):
+            rec = recs[i]
+            what = f"{name} {label} dp={DP_DEGREE} rank {r}"
+            check(rec["loss"] == want["loss"], f"{what}: losses "
+                  f"{rec['loss_f']} != the one-device grad_accum "
+                  f"{DP_DEGREE} run's {want['loss_f']} (bit for bit)")
+            bad = [p for p in sums if rec["whole_sums"].get(p) != sums[p]]
+            check(not bad and set(rec["whole_sums"]) == set(sums),
+                  f"{what}: final state differs from the one-device run's "
+                  f"at {bad[:4]}")
+            bad = sha_mismatches(want["whole"], rec["sha"])
+            check(not bad, f"{what}: the sha256 of this rank's pieces "
+                  f"differs from that of the one-device run's at {bad[:4]}")
+            check(all(math.isclose(a, b, rel_tol=1e-6) for a, b in
+                      zip(rec["grad_norm"], want["grad_norm"])),
+                  f"{what}: grad_norm {rec['grad_norm']} vs "
+                  f"{want['grad_norm']} beyond rtol 1e-6")
+            la, n = rec["launches"], len(batches)
+            check(la["fwd"] == 2 * n_attn * n and la["bwd_dkv"] == n_attn * n
+                  and la["bwd_dq"] == n_attn * n,
+                  f"{what}: flash launches {la} != {2 * n_attn}/{n_attn}/"
+                  f"{n_attn} a step")
+            check(la["rmsnorm"] == norms * n, f"{what}: RMSNorm launches "
+                  f"{la['rmsnorm']} != {norms} a step x {n}")
+            check(la["rmsnorm"] > 0 and (la["fwd"] > 0 or not n_attn),
+                  f"{what}: the path's kernels never launched")
+            add_counts(total, la)
+            cn = sum(c[0] for c in rec["coll"][1:])
+            cs = sum(c[1] for c in rec["coll"][1:])
+            ms = sum(rec["ms"][1:])
+            ar = rec["at_rest"]
+            rest[(name, label, r)] = ar
+            print(f"[dp] {what} on {rec['device']}: losses == one device "
+                  f"bit for bit, final params and moments == one device "
+                  f"(per-leaf linear hashes of the gathered bytes, and the "
+                  f"sha256 of each of this rank's pieces); peak {rec['peak_gib']:.2f} GiB; "
+                  f"state at rest {ar['card'] / 1e9:.3f} GB on the card "
+                  f"(of which the gradient buffer "
+                  f"{rec['grad_buffer'] / 1e9:.3f}), "
+                  f"{ar['pinned'] / 1e9:.3f} GB pinned host; allocated at "
+                  f"rest {rec['allocated_gib']:.2f} GiB; "
+                  f"{ms / max(n - 1, 1):.1f} ms a step after the first, "
+                  f"{cn / max(n - 1, 1):.0f} collectives a step taking "
+                  f"{cs * 1e3 / max(ms, 1e-9) * 100:.1f}% of it "
+                  f"({cs * 1e3 / max(cn, 1):.2f} ms each); launches fwd "
+                  f"{la['fwd']}, bwd {la['bwd_dkv']} + {la['bwd_dq']}, "
+                  f"RMSNorm {la['rmsnorm']}; {card}")
+    order = [lb for n, lb, _ in DP_RUNS if n == "qwen1.5-0.5b"]
+    for r in range(DP_DEGREE):
+        card_bytes = [rest[("qwen1.5-0.5b", lb, r)]["card"] for lb in order]
+        check(all(a > b for a, b in zip(card_bytes, card_bytes[1:])),
+              f"qwen rank {r}: state at rest on the card does not fall "
+              f"Z0 > Z1 > Z2 > Z3 > Z3+O: {card_bytes}")
+    for o in oracles.values():
+        del o["whole"]
+    RMSNORM_RUNS["data-parallel ranks (phase 28)"] = total["rmsnorm"]
+    if torch.cuda.device_count() >= DP_DEGREE:
+        name, label, batches = runs[3]
+        got = spawn_ranks(dp_rank_runs, 1, data=DP_DEGREE, backend="nccl",
+                          args=([(name, label, batches)],))
+        check(all(g[0]["loss"] == oracles[name]["loss"] for g in got),
+              "nccl ranks' losses differ from the one-device run's")
+        print(f"[dp] {name} {label} over nccl, one card per rank: "
+              f"{sum(got[0][0]['ms'][1:]) / 2:.1f} ms a step; {card}")
+    else:
+        print(f"[dp] nccl, one card per rank: not run "
+              f"({torch.cuda.device_count()} card on this machine)")
+    print(f"[dp] phase 28 launches over the ranks' runs: " + ", ".join(
+        f"{k} {v}" for k, v in total.items()) + f"; the ranks took "
+        f"{time.monotonic() - t1:.1f}s; phase 28 took "
+        f"{time.monotonic() - t0:.1f}s")
+    return total
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -5869,12 +6239,16 @@ def main() -> None:
     families = phase_families()
     ssm = phase_ssm_decoding()
     tp = phase_tp()
+    dp = phase_dp()
     fam = families["launches"]
     slice_launches = {
-        "flash_attention_fwd": trained["fwd"] + fam["fwd"],
-        "flash_attention_bwd_dkv": trained["bwd_dkv"] + fam["bwd_dkv"],
-        "flash_attention_bwd_dq": trained["bwd_dq"] + fam["bwd_dq"],
-        "flash_attention_bwd": trained["bwd_dkv"] + fam["bwd_dkv"],
+        "flash_attention_fwd": trained["fwd"] + fam["fwd"] + dp["fwd"],
+        "flash_attention_bwd_dkv": (trained["bwd_dkv"] + fam["bwd_dkv"]
+                                    + dp["bwd_dkv"]),
+        "flash_attention_bwd_dq": (trained["bwd_dq"] + fam["bwd_dq"]
+                                   + dp["bwd_dq"]),
+        "flash_attention_bwd": (trained["bwd_dkv"] + fam["bwd_dkv"]
+                                + dp["bwd_dkv"]),
         "int8_matmul": trained["int8_matmul"]}
     for entry in record["kernels"]:
         if entry["name"] == "paged_attention":

@@ -20,76 +20,25 @@ package reads the other's checkpoints.
 ``save`` snapshots the state to host memory first (on a card: pinned
 buffers filled on the current stream, then ONE sync), so training may
 update the state in place while a background thread writes the
-snapshot; one save is in flight at a time.
+snapshot; one save is in flight at a time. A data-parallel run saves
+its logical (whole) state, and ``restore(piece=)`` cuts each stored leaf
+to the part a rank holds.
 """
 from __future__ import annotations
 
-import dataclasses
 import json
 import os
 import shutil
 import threading
 import time
-from typing import Any, List, Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.models.params import node_fields
-from repro_torch.train.optimizer import Opt8
+from repro_torch.models.params import keystr_map, keystr_paths
 
 COMMIT_MARKER = "COMMITTED"
-
-
-def _field_key(node, field: str, i: int) -> str:
-    """The reference's key string of a node's field: ``Opt8`` registers
-    its children without keys (flat indices), the others by attribute."""
-    if isinstance(node, Opt8):
-        return f"[<flat index {i}>]"
-    return f".{field}"
-
-
-def _flat_with_paths(tree, prefix: str = "") -> List[Tuple[str, Any]]:
-    """(key string, tensor) pairs in the reference's flatten order."""
-    if tree is None:
-        return []
-    if isinstance(tree, dict):
-        out: List[Tuple[str, Any]] = []
-        for k in sorted(tree):
-            out += _flat_with_paths(tree[k], f"{prefix}[{k!r}]")
-        return out
-    if isinstance(tree, tuple):
-        out = []
-        for i, e in enumerate(tree):
-            out += _flat_with_paths(e, f"{prefix}[{i}]")
-        return out
-    fields = node_fields(type(tree))
-    if fields is None:
-        return [(prefix, tree)]
-    out = []
-    for i, f in enumerate(fields):
-        out += _flat_with_paths(getattr(tree, f),
-                                prefix + _field_key(tree, f, i))
-    return out
-
-
-def _map_with_paths(fn, tree, prefix: str = ""):
-    """``tree`` rebuilt with ``fn(key string, tensor)`` at each leaf."""
-    if tree is None:
-        return None
-    if isinstance(tree, dict):
-        return {k: _map_with_paths(fn, v, f"{prefix}[{k!r}]")
-                for k, v in tree.items()}
-    if isinstance(tree, tuple):
-        return tuple(_map_with_paths(fn, e, f"{prefix}[{i}]")
-                     for i, e in enumerate(tree))
-    fields = node_fields(type(tree))
-    if fields is None:
-        return fn(prefix, tree)
-    return dataclasses.replace(tree, **{
-        f: _map_with_paths(fn, getattr(tree, f),
-                           prefix + _field_key(tree, f, i))
-        for i, f in enumerate(fields)})
 
 
 def _dtype_name(dt: torch.dtype) -> str:
@@ -116,7 +65,7 @@ def snapshot(tree) -> List[Tuple[str, torch.Tensor]]:
     pinned buffers, all copies queued on the current stream, then one
     sync; host leaves are cloned (the step updates them in place)."""
     out, cuda = [], False
-    for path, t in _flat_with_paths(tree):
+    for path, t in keystr_paths(tree):
         t = t.detach()
         if t.is_cuda:
             host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
@@ -199,11 +148,15 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, state_like, step: Optional[int] = None):
+    def restore(self, state_like, step: Optional[int] = None, *,
+                piece=None):
         """``(state, step)``: a new tree of ``state_like``'s structure with
         each leaf read from the checkpoint of ``step`` (default: the
-        latest committed) onto that leaf's device, ``requires_grad`` as
-        the leaf has it."""
+        latest committed) onto that leaf's device (pinned where the leaf
+        is), ``requires_grad`` as the leaf has it. ``piece(path, whole)``,
+        where given, cuts each stored (logical, whole) leaf to the part
+        ``state_like`` holds, before the shapes are checked: a rank of a
+        data-parallel run restores its shards from any run's save."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no committed checkpoint in {self.dir}")
@@ -216,11 +169,16 @@ class CheckpointManager:
             meta = by_path[path]
             arr = np.load(os.path.join(d, meta["file"] + ".npy"))
             t = _from_numpy(arr, meta["dtype"])
+            if piece is not None:
+                t = piece(path, t)
             if tuple(t.shape) != tuple(like.shape) or t.dtype != like.dtype:
                 raise ValueError(
                     f"{path}: checkpoint holds {meta['dtype']} "
                     f"{tuple(t.shape)}, the state {like.dtype} "
                     f"{tuple(like.shape)}")
-            return t.to(like.device).requires_grad_(like.requires_grad)
+            t = t.to(like.device)
+            if like.device.type == "cpu" and like.is_pinned():
+                t = t.pin_memory()
+            return t.requires_grad_(like.requires_grad)
 
-        return _map_with_paths(load, state_like), step
+        return keystr_map(load, state_like), step

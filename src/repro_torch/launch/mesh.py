@@ -2,18 +2,20 @@
 ``repro.launch.mesh``).
 
 The reference builds a jax ``Mesh`` over the devices of one process. The
-port runs one process per rank: :func:`spawn_ranks` starts ``n`` of them
-with the ``spawn`` start method (CUDA cannot fork), each joins one
-process group through a ``file://`` rendezvous in a fresh temporary
-directory (parallel test workers never race for a TCP port) and calls
-:func:`make_local_mesh`, which returns the :class:`Mesh` the serving
-engine takes. The backend is always the caller's: ``nccl`` needs one card
-per rank and raises where ranks would share one; ``gloo`` runs the CPU
-tests and ranks that share card 0 (on CUDA tensors gloo stages each
-collective through the host). Rank ``r`` computes on ``cuda:(r %
-device_count)`` or, when the caller says so, on the CPU
-(``core.device.rank_device``); the launcher prints the mapping before it
-starts the ranks.
+port runs one process per rank: :func:`spawn_ranks` starts ``data x
+model`` of them with the ``spawn`` start method (CUDA cannot fork), each
+joins one process group through a ``file://`` rendezvous in a fresh
+temporary directory (parallel test workers never race for a TCP port)
+and calls :func:`make_local_mesh`, which returns the :class:`Mesh` the
+serving engine (a model axis) or the trainer (a data axis) takes. Ranks
+lie as ``jax.make_mesh((data, model), ("data", "model"))`` lays devices
+out: global rank ``d * model + m`` (:func:`mesh_groups`). The backend is
+always the caller's: ``nccl`` needs one card per rank and raises where
+ranks would share one; ``gloo`` runs the CPU tests and ranks that share
+card 0 (on CUDA tensors gloo stages each collective through the host).
+Rank ``r`` computes on ``cuda:(r % device_count)`` or, when the caller
+says so, on the CPU (``core.device.rank_device``); the launcher prints
+the mapping before it starts the ranks.
 """
 from __future__ import annotations
 
@@ -41,9 +43,11 @@ RANK_TIMEOUT_S = 1800
 class Mesh:
     """A ``data`` x ``model`` mesh of ranks, seen from one of them:
     ``rank`` is its index on the model axis, ``ranks`` the global ranks of
-    its model group ``group``, ``device`` where it computes and
-    ``comm_device`` where host values travel for a collective (the CPU
-    under gloo, its card under nccl)."""
+    its model group ``group``; ``data_rank``, ``data_ranks`` and
+    ``data_group`` are the same on the data axis; ``device`` is where it
+    computes and ``comm_device`` where host values travel for a
+    collective (the CPU under gloo, its card under nccl). An axis of one
+    rank has no group (``None``)."""
     shape: Dict[str, int]
     axis_names: Tuple[str, ...]
     rank: int
@@ -52,21 +56,36 @@ class Mesh:
     backend: str
     device: torch.device
     comm_device: torch.device
+    data_rank: int = 0
+    data_ranks: Tuple[int, ...] = (0,)
+    data_group: object = None
+
+
+def mesh_groups(model: int, data: int
+                ) -> Tuple[List[List[int]], List[List[int]]]:
+    """``(model rows, data columns)``: the global ranks of each model
+    group (row ``d``: ``d * model + m`` over ``m``) and of each data group
+    (column ``m``: ``d * model + m`` over ``d``)."""
+    rows = [[d * model + m for m in range(model)] for d in range(data)]
+    cols = [[d * model + m for d in range(data)] for m in range(model)]
+    return rows, cols
 
 
 def make_local_mesh(model: int = 1, data: int = 1, *, backend: str,
                     rank: int, init_method: str,
                     device: Optional[Union[str, torch.device]] = None
                     ) -> Mesh:
-    """Join the process group of ``model * data`` ranks as ``rank`` (at
-    ``init_method``, unless this process has joined already) and return
-    its mesh. The serving engine takes ``data=1``: a pure model-parallel
-    mesh whose model group is the whole world; a data axis is training's
-    (ROADMAP queue 1 item 7) and raises here."""
-    if data != 1:
+    """Join the process group of ``model * data`` ranks as global rank
+    ``rank`` (at ``init_method``, unless this process has joined already)
+    and return its mesh. The serving engine takes ``data=1``: a pure
+    model-parallel mesh whose model group is the whole world; the trainer
+    takes ``model=1``: a data axis over the whole world. Both axes above
+    1 (tensor-parallel training) raise before any group is joined."""
+    if model > 1 and data > 1:
         raise NotImplementedError(
-            "a data axis (DP/ZeRO training across ranks) is not ported "
-            "yet: ROADMAP queue 1 item 7")
+            f"a data axis together with a model axis ({data} x {model}: "
+            f"training with tensor parallelism, the backward of the "
+            f"row-parallel seams) is not ported: ROADMAP queue 1 item 7.6")
     world = model * data
     dev = rank_device(rank, world, backend, device)
     if dev.type == "cuda":
@@ -78,11 +97,18 @@ def make_local_mesh(model: int = 1, data: int = 1, *, backend: str,
     if dist.get_world_size() != world:
         raise ValueError(f"the process group has {dist.get_world_size()} "
                          f"ranks, the mesh {world}")
+    g = dist.get_rank()
+    rows, cols = mesh_groups(model, data)
+    d, m = divmod(g, model)
+    world_group = dist.group.WORLD
     return Mesh(shape={"data": data, "model": model},
-                axis_names=("data", "model"), rank=dist.get_rank(),
-                ranks=tuple(range(world)), group=dist.group.WORLD,
+                axis_names=("data", "model"), rank=m,
+                ranks=tuple(rows[d]),
+                group=world_group if model > 1 else None,
                 backend=backend, device=dev,
-                comm_device=dev if backend == "nccl" else torch.device("cpu"))
+                comm_device=dev if backend == "nccl" else torch.device("cpu"),
+                data_rank=d, data_ranks=tuple(cols[m]),
+                data_group=world_group if data > 1 else None)
 
 
 def mesh_layout(mesh: Mesh) -> dict:
@@ -90,16 +116,17 @@ def mesh_layout(mesh: Mesh) -> dict:
             "devices": int(mesh.shape["data"] * mesh.shape["model"])}
 
 
-def _rank_main(rank: int, n: int, backend: str, init_method: str, device,
-               threads: Optional[int], fn: Callable, args: Sequence,
-               results) -> None:
+def _rank_main(rank: int, model: int, data: int, backend: str,
+               init_method: str, device, threads: Optional[int],
+               fn: Callable, args: Sequence, results) -> None:
     """One rank: join the mesh, run ``fn(mesh, *args)``, report its
     result (or its traceback) to the launcher."""
     try:
         if threads is not None:
             torch.set_num_threads(threads)
-        mesh = make_local_mesh(model=n, backend=backend, rank=rank,
-                               init_method=init_method, device=device)
+        mesh = make_local_mesh(model=model, data=data, backend=backend,
+                               rank=rank, init_method=init_method,
+                               device=device)
         out = fn(mesh, *args)
         dist.destroy_process_group()
     except Exception:
@@ -108,20 +135,24 @@ def _rank_main(rank: int, n: int, backend: str, init_method: str, device,
     results.put((rank, True, out))
 
 
-def spawn_ranks(fn: Callable, n: int, *, backend: str,
+def spawn_ranks(fn: Callable, model: int = 1, *, data: int = 1,
+                backend: str,
                 device: Optional[Union[str, torch.device]] = None,
                 args: Sequence = (), threads: Optional[int] = None) -> List:
-    """Run ``fn(mesh, *args)`` on ``n`` ranks, one process each, and
-    return their results in rank order. ``fn`` and ``args`` cross to the
-    ranks by pickling (``fn`` by import path). On the card the CUDA
-    kernels are built here first, once, so no two ranks build into the
-    build directory at once. A rank that raises or dies fails the run:
-    the others are terminated and the error names the rank, with its
-    traceback. ``threads`` sets each rank's intra-op thread count. The
-    device and backend checks of ``rank_device`` run here first."""
+    """Run ``fn(mesh, *args)`` on the ``data x model`` ranks of a mesh of
+    that shape, one process each, and return their results in global
+    rank order. ``fn`` and ``args`` cross to the ranks by pickling
+    (``fn`` by import path). On the card the CUDA kernels are built here
+    first, once, so no two ranks build into the build directory at once.
+    A rank that raises or dies fails the run: the others are terminated
+    and the error names the rank, with its traceback. ``threads`` sets
+    each rank's intra-op thread count. The device and backend checks of
+    ``rank_device`` run here first."""
+    n = model * data
     devs = [rank_device(r, n, backend, device) for r in range(n)]
-    print(f"[mesh] {n} ranks, backend {backend}: " + ", ".join(
-        f"rank {r} -> {d}" for r, d in enumerate(devs)), flush=True)
+    print(f"[mesh] {n} ranks ({data} data x {model} model), backend "
+          f"{backend}: " + ", ".join(
+              f"rank {r} -> {d}" for r, d in enumerate(devs)), flush=True)
     if devs[0].type == "cuda":
         from repro_torch.kernels import _build
         _build.build_all()
@@ -130,8 +161,8 @@ def spawn_ranks(fn: Callable, n: int, *, backend: str,
     with tempfile.TemporaryDirectory(prefix="repro_mesh_") as tmp:
         init = f"file://{tmp}/rendezvous"
         procs = [ctx.Process(target=_rank_main, args=(
-                     r, n, backend, init, device, threads, fn, tuple(args),
-                     results)) for r in range(n)]
+                     r, model, data, backend, init, device, threads, fn,
+                     tuple(args), results)) for r in range(n)]
         for p in procs:
             p.start()
         got: Dict[int, object] = {}

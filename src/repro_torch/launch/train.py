@@ -10,9 +10,17 @@ weight of an int8/nf4 base with 8-bit moments; the trainable and total
 parameter counts are printed first. ``--checkpoint-dir DIR`` saves every
 50 steps (and on SIGTERM) and ``--resume auto`` continues from the
 latest committed step there.
+
+``--data-parallel N`` trains over a data axis of N ranks
+(``launch.mesh.spawn_ranks``; ZeRO stages and offload as the technique
+says), ``--dist-backend`` gloo (the CPU, or ranks sharing a card) or
+nccl (one card per rank); rank 0's lines are printed after the rank
+mapping. ``Q``, ``Q8``, LoRA and MoE archs refuse a data axis.
 """
 import argparse
 import math
+import os
+from typing import List
 
 from repro_torch.configs import get_config, list_archs
 from repro_torch.core.config import SHAPES, ShapeSpec, technique_from_label
@@ -56,8 +64,38 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card; 'cpu' runs the "
                          "kernels' plain versions)")
+    ap.add_argument("--data-parallel", type=int, default=1,
+                    help="ranks on the data axis (ZeRO stages and offload "
+                         "as --technique says)")
+    ap.add_argument("--dist-backend", default=None, choices=["gloo", "nccl"],
+                    help="the ranks' backend: gloo (the CPU, or ranks "
+                         "sharing a card) or nccl (one card per rank); "
+                         "required on the card with --data-parallel")
     args = ap.parse_args(argv)
+    if args.data_parallel < 1:
+        ap.error("--data-parallel must be >= 1")
+    if args.data_parallel == 1:
+        for line in _train(None, args):
+            print(line)
+        return
+    from repro_torch.launch.mesh import spawn_ranks
+    cpu = args.device is not None and args.device.startswith("cpu")
+    backend = args.dist_backend or ("gloo" if cpu else None)
+    if backend is None:
+        ap.error("--data-parallel on the card needs --dist-backend: nccl "
+                 "(one card per rank) or gloo (ranks sharing a card)")
+    # CPU ranks share the host's cores evenly
+    threads = max(1, (os.cpu_count() or 1) // args.data_parallel)
+    lines = spawn_ranks(_train, 1, data=args.data_parallel, backend=backend,
+                        device="cpu" if cpu else None, args=(args,),
+                        threads=threads if cpu else None)[0]
+    for line in lines:
+        print(line)
 
+
+def _train(mesh, args) -> List[str]:
+    """Train as the CLI says, alone (``mesh=None``) or as one rank of
+    ``mesh``; returns the lines to print (rank 0's are printed)."""
     cfg = get_config(args.arch, reduced=args.reduced)
     shape = (SHAPES[args.shape] if args.shape
              else ShapeSpec("cli", args.seq, args.batch, "train"))
@@ -66,16 +104,27 @@ def main(argv=None):
                       TrainerConfig(steps=args.steps,
                                     checkpoint_dir=args.checkpoint_dir,
                                     resume=args.resume),
-                      device=args.device)
+                      device=args.device if mesh is None else None,
+                      mesh=mesh)
     params = trainer.state["params"]
-    print(f"{args.technique}: {n_weights(split_trainable(params)[0])} "
-          f"trainable of {n_weights(params)} parameters")
+    out: List[str] = []
+    if mesh is None:
+        out.append(f"{args.technique}: "
+                   f"{n_weights(split_trainable(params)[0])} trainable of "
+                   f"{n_weights(params)} parameters")
+    else:
+        n = sum(math.prod(s) for s in trainer.layout.shapes.values())
+        out.append(f"{args.technique}: {n} trainable of {n} parameters, "
+                   f"{trainer.ctx.dp_size} data-parallel ranks, "
+                   f"grad_accum {trainer.technique.grad_accum} a rank")
     if trainer.start_step:
-        print(f"resumed at step {trainer.start_step}")
-    out = trainer.run()
-    for h in out["history"]:
-        print(f"step {h['step']:>6d}  loss {h['loss']:.4f}")
-    print(f"{out['tokens_per_s']:.0f} tokens/s, {out['step_ms']:.1f} ms/step")
+        out.append(f"resumed at step {trainer.start_step}")
+    res = trainer.run()
+    for h in res["history"]:
+        out.append(f"step {h['step']:>6d}  loss {h['loss']:.4f}")
+    out.append(f"{res['tokens_per_s']:.0f} tokens/s, "
+               f"{res['step_ms']:.1f} ms/step")
+    return out
 
 
 if __name__ == "__main__":

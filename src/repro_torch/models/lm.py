@@ -56,7 +56,16 @@ and MLP width with the row-parallel seams summed over the axis, the
 embedding is whole on every rank, and the head's vocab-sharded logits
 are gathered, so every rank returns the whole logits. ``init_cache`` and
 ``prefill``'s cache hold the KV heads and SSM heads the rank stores.
-Training across ranks is not ported (ROADMAP queue 1 item 7).
+Training with a model axis is not ported (ROADMAP queue 1 item 7.6).
+
+**ZeRO-3.** Training over a data axis (``train.step``) passes ``loss``
+and ``backbone`` a tree whose leaves may be ``parallel.zero.Shard``s,
+this rank's pieces of the parameters. Each decoder or encoder layer
+gathers its leaves (one exact collective, ``zero.gather_used``) inside
+the body its remat policy wraps, so the forward frees them and the
+recomputation gathers them again; the embedding, final norm, head and
+frontend/encoder norms are gathered once a micro-batch
+(``zero.gather_top``). With plain tensors both are no-ops.
 """
 from __future__ import annotations
 
@@ -69,9 +78,9 @@ from repro_torch.core.config import ArchConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
-from repro_torch.models.params import (materialize, spec, tree_map,
-                                       tree_unstack)
+from repro_torch.models.params import materialize, spec, tree_map
 from repro_torch.models.ssd import SSD_IMPLS
+from repro_torch.parallel import zero as Z
 from repro_torch.quant.qtensor import QTensor
 from repro_torch.train.remat import REMAT_MODES, wrap_remat
 
@@ -241,8 +250,8 @@ class LM:
         x = L.dense(frontend_embeds, params["frontend_proj"],
                     qmm_impl=self.qmm_impl)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
-        for lp in tree_unstack(params["enc_blocks"]["pos0"],
-                               cfg.n_enc_layers):
+        for lp in Z.unstack(params["enc_blocks"]["pos0"], cfg.n_enc_layers):
+            lp = Z.gather_used(lp)
             x, _ = B.attn_apply(x, lp["mix"], cfg, positions=positions,
                                 attn_impl=self.attn_impl, causal=False,
                                 qmm_impl=self.qmm_impl)
@@ -432,7 +441,7 @@ class LM:
     def _unstacked_layers(self, params) -> List[Dict]:
         """Per-layer parameter trees from ONE ``unbind`` of each stacked
         leaf (``params.tree_unstack``)."""
-        per_pos = [tree_unstack(params["blocks"][f"pos{p}"], self.n_periods)
+        per_pos = [Z.unstack(params["blocks"][f"pos{p}"], self.n_periods)
                    for p in range(self.period)]
         return [per_pos[i % self.period][i // self.period]
                 for i in range(self.cfg.n_layers)]
@@ -440,8 +449,10 @@ class LM:
     def _layer(self, x, lp, positions, pos: int, enc_out=None):
         """One layer of the training stack at period position ``pos``
         (with cross-attention on ``enc_out`` for encdec): returns (x, the
-        MoE load-balancing loss or None)."""
+        MoE load-balancing loss or None). Under ZeRO-3 ``lp`` holds
+        Shards, gathered here, inside the remat body."""
         cfg = self.cfg
+        lp = Z.gather_used(lp)
         if self.kinds[pos] == "attn":
             x, _ = B.attn_apply(x, lp["mix"], cfg, positions=positions,
                                 attn_impl=self.attn_impl,
@@ -459,11 +470,13 @@ class LM:
 
     def _backbone(self, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
         """(final hidden states, the MoE load-balancing loss summed over
-        the layers in f32, 0 without MoE layers)."""
+        the layers in f32, 0 without MoE layers). ``params``' top-level
+        leaves are whole (``zero.gather_top``)."""
         if self.ctx is not None and self.ctx.size > 1:
             raise NotImplementedError(
-                "training across ranks (DP/ZeRO, TP with its backward) is "
-                "not ported: ROADMAP queue 1 item 7")
+                "training with a model axis (TP with the backward of its "
+                "row-parallel seams) is not ported: ROADMAP queue 1 item "
+                "7.6")
         if "ssm" in self.kinds and self.ssd_impl != "ref":
             raise NotImplementedError(
                 f"training through ssd_impl={self.ssd_impl!r}: the SSD "
@@ -486,7 +499,7 @@ class LM:
         (B, T', d_model) (T' = F + T for vlm). ``batch`` holds ``tokens``
         and, for encdec and vlm, ``frontend_embeds``. Each decoder layer
         runs under ``wrap_remat(remat)``."""
-        return self._backbone(params, batch)[0]
+        return self._backbone(Z.gather_top(params), batch)[0]
 
     def _block_ce(self, params, xb, lb):
         """(sum of masked CE, token count) of one block: logits in f32
@@ -498,7 +511,8 @@ class LM:
         mask = (lb >= 0).float()
         return ((lse - label_logit) * mask).sum(), mask.sum()
 
-    def loss(self, params, batch, chunk_t: int = 512
+    def loss(self, params, batch, chunk_t: int = 512,
+             n_tok: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Causal-LM CE, computed block-wise over the sequence so the full
         (B, T, V) logits tensor is never materialized: each block applies
@@ -506,7 +520,10 @@ class LM:
         Returns ``(ce + moe_aux_coef · aux / n_layers, {"ce", "aux"})``
         with ``aux`` the MoE load-balancing loss summed over the layers
         (0 without MoE layers, where the loss is the CE). For vlm the
-        labels cover the token span, after the F patches."""
+        labels cover the token span, after the F patches. ``n_tok``, where
+        given, replaces the batch's own label count as the CE's divisor
+        (a data-parallel rank's share of the global count)."""
+        params = Z.gather_top(params)
         x, aux = self._backbone(params, batch)
         labels = batch["labels"]
         n_front = x.shape[1] - labels.shape[1]
@@ -517,13 +534,14 @@ class LM:
         while t % tc:
             tc //= 2
         ce_sum = torch.zeros((), dtype=torch.float32, device=x.device)
-        n_tok = torch.zeros((), dtype=torch.float32, device=x.device)
+        n_count = torch.zeros((), dtype=torch.float32, device=x.device)
         for c0 in range(0, t, tc):
             s, n = checkpoint(self._block_ce, params, x[:, c0:c0 + tc],
                               labels[:, c0:c0 + tc], use_reentrant=False,
                               preserve_rng_state=False)
             ce_sum = ce_sum + s
-            n_tok = n_tok + n
-        ce = ce_sum / torch.clamp_min(n_tok, 1.0)
+            n_count = n_count + n
+        ce = ce_sum / (torch.clamp_min(n_count, 1.0) if n_tok is None
+                       else n_tok)
         total = ce + self.moe_aux_coef * aux / max(self.cfg.n_layers, 1)
         return total, {"ce": ce, "aux": aux}

@@ -41,15 +41,75 @@ def spec(shape, logical, init="normal", dtype=torch.bfloat16,
 # registers the names of its tensor fields; a field may hold ``None`` or
 # a tuple of tensors (nf4's ``scale2``).
 _NODES: Dict[type, Tuple[str, ...]] = {}
+# node types the reference registers without keys (``Opt8``): their
+# fields' key strings are flat indices, not attribute names
+_UNKEYED: set = set()
 
 
-def register_node(cls, fields: Tuple[str, ...]) -> None:
+def register_node(cls, fields: Tuple[str, ...], keyed: bool = True) -> None:
     _NODES[cls] = tuple(fields)
+    if not keyed:
+        _UNKEYED.add(cls)
 
 
 def node_fields(cls) -> Optional[Tuple[str, ...]]:
     """The tensor fields of a registered node type, or None."""
     return _NODES.get(cls)
+
+
+def _field_key(node, field: str, i: int) -> str:
+    """The reference's key string of a node's field: by attribute, or by
+    flat index for a node it registers without keys."""
+    if type(node) in _UNKEYED:
+        return f"[<flat index {i}>]"
+    return f".{field}"
+
+
+def keystr_paths(tree, prefix: str = "") -> List[Tuple[str, Any]]:
+    """(key string, leaf) pairs in the reference's flatten order, named
+    as ``jax.tree_util.keystr`` names them: ``['blocks']['pos0']['mix']
+    ['wq']``, a ``QTensor``'s fields ``.data``/``.scale``/``.scale2[0]``,
+    a ``LoRATensor``'s ``.base``/``.a``/``.b``, an ``Opt8``'s ``[<flat
+    index 0>]`` (codes) and ``[<flat index 1>]`` (scales)."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        out: List[Tuple[str, Any]] = []
+        for k in sorted(tree):
+            out += keystr_paths(tree[k], f"{prefix}[{k!r}]")
+        return out
+    if isinstance(tree, tuple):
+        out = []
+        for i, e in enumerate(tree):
+            out += keystr_paths(e, f"{prefix}[{i}]")
+        return out
+    fields = _NODES.get(type(tree))
+    if fields is None:
+        return [(prefix, tree)]
+    out = []
+    for i, f in enumerate(fields):
+        out += keystr_paths(getattr(tree, f),
+                            prefix + _field_key(tree, f, i))
+    return out
+
+
+def keystr_map(fn, tree, prefix: str = ""):
+    """``tree`` rebuilt with ``fn(key string, leaf)`` at each leaf of
+    :func:`keystr_paths`."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: keystr_map(fn, v, f"{prefix}[{k!r}]")
+                for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(keystr_map(fn, e, f"{prefix}[{i}]")
+                     for i, e in enumerate(tree))
+    fields = _NODES.get(type(tree))
+    if fields is None:
+        return fn(prefix, tree)
+    return dataclasses.replace(tree, **{
+        f: keystr_map(fn, getattr(tree, f), prefix + _field_key(tree, f, i))
+        for i, f in enumerate(fields)})
 
 
 def _join(prefix: str, key) -> str:

@@ -1,5 +1,6 @@
-"""Model-axis sharding of the serving engine: the serving half of
-``repro.parallel.sharding``.
+"""Sharding over the mesh's axes (the port of
+``repro.parallel.sharding``): the model axis of the serving engine and
+the data axis of training (ZeRO stages and offload).
 
 The reference states placement as PartitionSpecs over a jax ``Mesh`` and
 lets GSPMD partition each jitted step. The port runs one process per
@@ -7,19 +8,33 @@ rank of a ``torch.distributed`` group (``launch.mesh``) and each rank
 computes with what it holds, so placement and computation are stated
 here explicitly:
 
-* :class:`ShardCtx` — the model axis over a process group: its size and
-  this rank's index, the part of an axis this rank holds (``part``; the
-  KV heads its attention reads, ``kv_part``: the one statement of where
-  a rank's pools and activations are cut) and the collectives of the
-  row-parallel seams (``all_reduce`` of f32 partials, ``gather_last`` of
-  the vocab-sharded logits).
-* :func:`resolve_spec` — the training-side resolver the serving engine
-  places parameters with (``_tp_entry``, ``_TP_PRIORITY``): which dim of
-  a leaf the model axis splits (one entry per dim, ``None`` or
-  ``"model"``, as a PartitionSpec's), at most one; an axis the degree
-  does not divide stays whole (replication, never an error). Attention
-  is in head mode, as the reference's ``make_serving_ctx`` pins it.
-* :func:`shard_params` — this rank's slice of a full parameter tree.
+* :class:`ShardCtx` — the mesh's axes over process groups: the model
+  axis (its size and this rank's index, the part of an axis this rank
+  holds, ``part``; the KV heads its attention reads, ``kv_part``; the
+  collectives of the row-parallel seams, ``all_reduce`` of f32 partials
+  and ``gather_last`` of the vocab-sharded logits) and the data axes
+  (the reference's ``dp_axes``, ``dp_size``, ``dp_spec_entry``, ``_dp``
+  and ``batch_sharding``, and the data-axis collectives, built from
+  ``all_reduce`` only, as gloo offers nothing else on CUDA tensors:
+  ``dp_all_reduce`` of f32 gradients, ``dp_gather_bytes`` for an exact
+  gather of the bytes each rank holds, ``dp_reduce_scatter``, an f32
+  all-reduce of which each rank keeps its slice).
+* :func:`make_shard_ctx` — the training context: the data axis, and a
+  model axis that a technique without TP folds into it.
+* :func:`resolve_spec` — the reference's resolver: which dim of a leaf
+  the model axis splits (``_tp_entry``, ``_TP_PRIORITY``; one entry per
+  dim, ``None``, an axis name or a tuple of them, as a PartitionSpec's)
+  and, for ZeRO, which dim the data axes split (``_zero_overlay``). An
+  axis the degree does not divide stays whole (replication, never an
+  error).
+* :func:`state_shardings` / :func:`train_state_shardings` — a
+  :class:`Placement` (spec, and whether ``+O`` puts the leaf in pinned
+  host memory) for every leaf of params, gradients or optimizer state,
+  named by the reference's key strings (``_normalize_path`` gives the
+  moments, master weights, LoRA, nf4, int8 and ``Opt8`` leaves the
+  reference's placement, quirks included).
+* :func:`shard_params` — a model-axis rank's slice of a full parameter
+  tree (serving).
 
 **Fused axes.** mamba2's ``in_proj`` columns are z | x | B | C | dt and
 its conv channels x | B | C, each one logical ``ssm_inner`` axis. GSPMD
@@ -32,47 +47,128 @@ whole on every rank. A rank's ``in_proj`` is then ``2·di/tp + 2·G·N +
 H/tp`` columns wide, not ``proj_out/tp``, and its conv channels
 ``di/tp + 2·G·N``; the dense SSM slot pool's conv leaf follows the same
 cut. Where the resolver splits one SSM leaf but the SSD heads do not
-divide (or the other way round), :func:`shard_params` raises.
+divide (or the other way round), :func:`shard_params` raises. The data
+axis needs no such cut: ZeRO shards state, and every rank computes with
+whole gathered leaves.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+import math
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.distributed as dist
 
-from repro_torch.core.config import ArchConfig
-from repro_torch.models.params import ParamSpec, tree_map_with_path, \
-    tree_paths
+from repro_torch.core.config import ArchConfig, Technique
+from repro_torch.models.params import (ParamSpec, keystr_map,
+                                       tree_map_with_path, tree_paths)
 
-Spec = Tuple[Optional[str], ...]
+Entry = Union[None, str, Tuple[str, ...]]
+Spec = Tuple[Entry, ...]
 
 
 MODEL = "model"     # the mesh axis the serving engine shards over
+DATA = "data"
 
 
 @dataclasses.dataclass
 class ShardCtx:
-    """The model axis of ``mesh`` (a ``launch.mesh.Mesh``: ``shape``,
-    ``axis_names``, this rank's ``rank`` on the model axis, its process
-    ``group`` and the ``comm_device`` host values travel on). Attention
-    is in head mode (the reference's sequence-parallel ``attn_mode`` is
-    not ported: ROADMAP queue 1 item 7)."""
+    """The axes of ``mesh`` (a ``launch.mesh.Mesh``: ``shape``,
+    ``axis_names``, this rank's ``rank`` on the model axis and its
+    process ``group``, its ``data_rank`` and ``data_group`` on the data
+    axis, and the ``comm_device`` host values travel on). ``dp_axes`` are
+    the axes the batch and ZeRO state split over, ``model_axis`` the one
+    TP uses (``None`` where the technique folds it into ``dp_axes``).
+    Attention is in head mode (the reference's sequence mode is ROADMAP
+    queue 1 item 7.3). ``comm_timer``, where set (a
+    ``core.perfscope.Timer``), times each data-axis collective between two
+    synchronizes as ``"collective"``."""
     mesh: object
     cfg: Optional[ArchConfig] = None
+    dp_axes: Tuple[str, ...] = ()
+    model_axis: Optional[str] = MODEL
+    technique: Technique = Technique()
+    comm_timer: object = None
+
+    def axis_size(self, name: Optional[str]) -> int:
+        if name is None or self.mesh is None:
+            return 1
+        return int(self.mesh.shape[name])
 
     @property
     def size(self) -> int:
-        return int(self.mesh.shape[MODEL]) if self.mesh is not None else 1
+        """The model axis's size (1 without one)."""
+        return self.axis_size(self.model_axis)
 
     @property
     def rank(self) -> int:
         return int(self.mesh.rank) if self.mesh is not None else 0
 
+    # -- the data axes --
+    @property
+    def dp_size(self) -> int:
+        return math.prod(self.axis_size(a) for a in self.dp_axes)
+
+    @property
+    def dp_spec_entry(self) -> Entry:
+        return self.dp_axes if len(self.dp_axes) > 1 else (
+            self.dp_axes[0] if self.dp_axes else None)
+
+    def _axis_index(self, name: str) -> int:
+        if name == MODEL:
+            return self.rank
+        return int(getattr(self.mesh, "data_rank", 0))
+
+    @property
+    def dp_rank(self) -> int:
+        """This rank's index over the data axes, the first the major
+        (row-major, as a PartitionSpec's tuple entry splits a dim)."""
+        idx = 0
+        for a in self.dp_axes:
+            idx = idx * self.axis_size(a) + self._axis_index(a)
+        return idx
+
+    def _dp(self, dim: int) -> Entry:
+        """Largest dp prefix that divides ``dim``."""
+        axes = list(self.dp_axes)
+        while axes and dim % math.prod(self.axis_size(a) for a in axes):
+            axes.pop()
+        if not axes:
+            return None
+        return tuple(axes) if len(axes) > 1 else axes[0]
+
+    def batch_sharding(self, rows: int) -> Tuple[int, int]:
+        """This rank's rows ``[r·B/dp, (r+1)·B/dp)`` of a batch of
+        ``rows``, as ``P(dp, None)`` places them."""
+        dp = self.dp_size
+        if rows % dp:
+            raise ValueError(f"a batch of {rows} rows does not split over "
+                             f"{dp} data-parallel ranks")
+        w = rows // dp
+        return self.dp_rank * w, (self.dp_rank + 1) * w
+
+    def entry_parts(self, entry: Entry) -> Tuple[int, int]:
+        """``(parts, this rank's part)`` of a dim whose spec entry is
+        ``entry``: the product of its axes' sizes, and this rank's index
+        over them (the first axis the major)."""
+        axes = () if entry is None else (
+            (entry,) if isinstance(entry, str) else tuple(entry))
+        n, idx = 1, 0
+        for a in axes:
+            n *= self.axis_size(a)
+            idx = idx * self.axis_size(a) + self._axis_index(a)
+        return n, idx
+
+    # -- the model axis --
     def _mdl(self, dim: int) -> Optional[str]:
-        """The model axis where it divides ``dim``, else ``None``."""
-        return None if dim % self.size else MODEL
+        """The model axis where TP uses it and it divides ``dim``, else
+        ``None``."""
+        m = self.model_axis
+        if m is None or not self.technique.tp or dim % self.axis_size(m):
+            return None
+        return m
 
     def splits(self, n: int) -> bool:
         """Whether the model axis cuts an axis of ``n`` entries."""
@@ -136,6 +232,80 @@ class ShardCtx:
         dist.broadcast(t, src=self.mesh.ranks[0], group=self.mesh.group)
         return float(t.cpu()[0])
 
+    # -- data-axis collectives (all_reduce only) --
+    def _timed(self, t: torch.Tensor):
+        if self.comm_timer is None:
+            return contextlib.nullcontext()
+        fence = ((lambda: torch.cuda.synchronize(t.device)) if t.is_cuda
+                 else None)
+        if fence is not None:
+            fence()
+        return self.comm_timer.region("collective", fence=fence)
+
+    def dp_all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum ``t`` over the data axes, in place; returns it. A no-op on
+        one rank. Gradients travel in f32 (the callers cast first), so
+        the sum is the f32 sum the one-device accumulation makes."""
+        if self.dp_size > 1:
+            with self._timed(t):
+                dist.all_reduce(t, group=self.mesh.data_group)
+        return t
+
+    def dp_gather_bytes(self, buf: torch.Tensor) -> torch.Tensor:
+        """The exact gather of an int32 buffer in which each rank has
+        written the bytes it holds and left zeros elsewhere: an integer
+        sum of disjoint bit patterns is their union (no carries), so
+        every value arrives bit for bit, -0.0 and NaN payloads included
+        (an f32 sum would turn -0.0 into +0.0). gloo takes int32, not
+        int16, so a bf16 leaf travels as the int32 view of its padded
+        bytes."""
+        if buf.dtype != torch.int32:
+            raise TypeError(f"dp_gather_bytes takes int32, not {buf.dtype}")
+        return self.dp_all_reduce(buf)
+
+    def dp_reduce_scatter(self, g: torch.Tensor, dim: Optional[int],
+                          parts: int, idx: int) -> torch.Tensor:
+        """This rank's slice ``idx`` of ``parts`` along ``dim`` of the f32
+        sum of ``g`` over the data axes (``g`` is summed in place); the
+        whole sum where ``dim`` is ``None``. The reduce-scatter as an f32
+        all-reduce and a slice: under gloo it moves what an all-reduce
+        moves."""
+        self.dp_all_reduce(g)
+        if dim is None:
+            return g
+        w = g.shape[dim] // parts
+        return g.narrow(dim, idx * w, w)
+
+    def dp_barrier(self) -> None:
+        if self.dp_size > 1:
+            dist.barrier(group=self.mesh.data_group)
+
+
+def make_shard_ctx(cfg: ArchConfig, technique: Technique, mesh
+                   ) -> ShardCtx:
+    """The training context of ``technique`` on ``mesh`` (the
+    reference's): the data axes are ``pod`` and ``data`` where the mesh
+    has them; a config with ``dp_over_model`` (mamba2), or a technique
+    without TP, folds the model axis into them. Where the model axis
+    stays and does not divide the heads, the reference turns to sequence
+    mode, which is not ported: that raises (ROADMAP queue 1 item 7.3)."""
+    if mesh is None:
+        return ShardCtx(None, cfg, (), None, technique)
+    names = list(mesh.axis_names)
+    model_axis = MODEL if MODEL in names else None
+    dp = tuple(a for a in ("pod", DATA) if a in names)
+    if model_axis and (cfg.dp_over_model or not technique.tp):
+        dp = dp + (model_axis,)             # fold the unused model axis
+        model_axis = None
+    msize = int(mesh.shape[model_axis]) if model_axis else 1
+    if technique.attn_mode == "seq" or (technique.attn_mode == "auto" and
+                                        cfg.n_heads % msize):
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.n_heads} heads over a model axis of {msize} "
+            f"put the reference's attention in sequence mode, which is not "
+            f"ported: ROADMAP queue 1 item 7.3")
+    return ShardCtx(mesh, cfg, dp, model_axis, technique)
+
 
 def make_serving_ctx(cfg: ArchConfig, mesh) -> Optional[ShardCtx]:
     """Model-axis context of the serving engine: no data axis (the batch,
@@ -164,8 +334,8 @@ def make_serving_ctx(cfg: ArchConfig, mesh) -> Optional[ShardCtx]:
 
 
 # ==========================================================================
-# Parameter sharding resolution (the reference's, without the ZeRO
-# overlay: the serving engine has no data axis)
+# Parameter / gradient / optimizer-state placement (the reference's
+# resolver)
 # ==========================================================================
 
 # logical axis -> model-axis eligibility under TP
@@ -176,34 +346,151 @@ _TP_PRIORITY = {"experts": 0, "q_heads": 1, "kv_heads": 1, "mlp": 2,
 
 
 def _tp_entry(ctx: ShardCtx, name: Optional[str], dim: int, path: str):
-    if name is None or dim % ctx.size:
+    if name is None or ctx.model_axis is None or not ctx.technique.tp:
+        return None
+    m, msz = ctx.model_axis, ctx.axis_size(ctx.model_axis)
+    if dim % msz:
         return None
     if name in _TP_AXES:
         if name == "ssm_heads":
             return None  # small vectors (A, D, dt_bias): replicate
-        return MODEL
+        return m
     if name in _TP_AXES_COND:
-        return MODEL if (ctx.cfg and ctx.cfg.n_kv_heads % ctx.size == 0) \
-            else None
+        return m if (ctx.cfg and ctx.cfg.n_kv_heads % msz == 0) else None
     if name == "vocab" and "head" in path:
-        return MODEL
+        return m
     return None
 
 
+def _zero_overlay(entries: List[Entry], shape: Tuple[int, ...],
+                  logical, ctx: ShardCtx) -> List[Entry]:
+    """Add the DP axes to the best unsharded dim (FSDP/ZeRO sharding):
+    the largest dim the data axes (or a prefix of them) divide, a
+    non-``layers`` dim before a ``layers`` one."""
+    order = sorted(range(len(shape)), key=lambda i: -shape[i])
+    order = [i for i in order if logical[i] != "layers"] + \
+            [i for i in order if logical[i] == "layers"]
+    for i in order:
+        if entries[i] is not None:
+            continue
+        dp = ctx._dp(shape[i])
+        if dp is not None:
+            entries[i] = dp
+            return entries
+    return entries
+
+
 def resolve_spec(ctx: ShardCtx, path: str, shape: Tuple[int, ...],
-                 logical: Tuple[Optional[str], ...]) -> Spec:
-    """Which dim of the leaf at ``path`` the model axis splits: of the
-    dims whose logical axis is eligible and divisible, the one of lowest
-    ``_TP_PRIORITY`` (the first on a tie)."""
-    entries: List[Optional[str]] = [None] * len(shape)
+                 logical: Tuple[Optional[str], ...], *,
+                 zero: bool = False) -> Spec:
+    """The spec of the leaf at ``path``: the model axis on the dim whose
+    logical axis is eligible and divisible with the lowest
+    ``_TP_PRIORITY`` (the first on a tie), at most one; with ``zero``
+    the data axes on another dim (:func:`_zero_overlay`)."""
+    entries: List[Entry] = [None] * len(shape)
     candidates = []
     for i, (name, dim) in enumerate(zip(logical, shape)):
         if _tp_entry(ctx, name, dim, path) is not None:
             candidates.append((_TP_PRIORITY.get(name, 9), i))
     if candidates:  # the model axis may shard at most one dim
         _, best = min(candidates)
-        entries[best] = MODEL
+        entries[best] = ctx.model_axis
+    if zero:
+        entries = _zero_overlay(entries, shape, logical, ctx)
     return tuple(entries)
+
+
+@dataclasses.dataclass(frozen=True)
+class Placement:
+    """Where a state leaf lives: its ``spec`` (one entry a dim) and
+    whether ``+O`` puts it in pinned host memory."""
+    spec: Spec
+    host: bool
+
+
+_STATE_PREFIXES = ("['m']", "['v']", "['master']", "['params']")
+_SUFFIXES = (".a", ".b", ".base", ".data", ".scale2", ".scale", ".q")
+
+
+def _normalize_path(path: str) -> Tuple[str, str]:
+    """Split a state key string into (base param key string, special
+    suffix), stripping one optimizer-tree prefix so m/v/master leaves
+    inherit the weight's spec. The reference's tests, in its order: the
+    first token found anywhere in the path wins (``.b`` before ``.base``,
+    so a LoRA base reads as suffix ``b``); ``Opt8`` fields are flat
+    indices, which match no token."""
+    for prefix in _STATE_PREFIXES:
+        if path.startswith(prefix):
+            path = path[len(prefix):]
+            break
+    for tok in _SUFFIXES:
+        if tok in path:
+            base, _, _ = path.partition(tok)
+            return base, tok[1:]
+    return path, ""
+
+
+def state_shardings(ctx: ShardCtx, state_tree,
+                    logical_by_path: Dict[str, tuple], *, component: str):
+    """A :class:`Placement` for every leaf of ``state_tree`` (params /
+    grads / the optimizer state), in its structure (``None`` stays
+    ``None``); ``logical_by_path`` maps the reference's key strings of
+    the param leaves to their logical axes (:func:`logical_by_keystr_of`).
+
+    component: ``"params"`` | ``"grads"`` | ``"opt"``. The ZeRO overlay
+    applies to params at stage >= 3, grads at >= 2, opt at >= 1. Offload
+    (``+O``) puts opt state (and ZeRO-3 params) in pinned host memory."""
+    t = ctx.technique
+    stage = t.zero_stage
+    zero = {"params": stage >= 3, "grads": stage >= 2,
+            "opt": stage >= 1}[component]
+    host = bool(t.offload) and (
+        component == "opt" or (component == "params" and stage >= 3))
+
+    def resolve(pstr, leaf):
+        base, suffix = _normalize_path(pstr)
+        logical = logical_by_path.get(base)
+        shape = tuple(leaf.shape)
+        if suffix in ("a", "b") or logical is None:
+            entries: List[Entry] = [None] * len(shape)
+            if zero:
+                entries = _zero_overlay(entries, shape, ("?",) * len(shape),
+                                        ctx)
+            spec = tuple(entries)
+        elif suffix in ("scale", "scale2"):
+            spec = (None,) * len(shape)
+        elif suffix == "data" and len(shape) != len(logical):
+            # nf4-packed flat storage: dp overlay only
+            entries = [None] * len(shape)
+            if zero:
+                entries = _zero_overlay(entries, shape, ("?",) * len(shape),
+                                        ctx)
+            spec = tuple(entries)
+        else:
+            spec = resolve_spec(ctx, base, shape, logical, zero=zero)
+        return Placement(spec, host)
+
+    return keystr_map(resolve, state_tree)
+
+
+def logical_by_keystr_of(spec_tree) -> Dict[str, tuple]:
+    """``{key string: logical axes}`` of a ``ParamSpec`` tree, keyed as
+    the reference's ``logical_by_path_of`` keys it (``['blocks']['pos0']
+    ['mix']['wq']``)."""
+    return {"".join(f"[{k!r}]" for k in path.split("/")): logical
+            for path, logical in logical_by_path_of(spec_tree).items()}
+
+
+def train_state_shardings(state, model, ctx: ShardCtx) -> Dict:
+    """The placement tree of ``init_train_state``'s output: params, the
+    optimizer state and the replicated step counter."""
+    logical = logical_by_keystr_of(model.param_specs())
+    return {
+        "params": state_shardings(ctx, state["params"], logical,
+                                  component="params"),
+        "opt": state_shardings(ctx, state["opt"], logical, component="opt"),
+        "step": Placement((), False),
+    }
 
 
 def logical_by_path_of(spec_tree) -> Dict[str, tuple]:

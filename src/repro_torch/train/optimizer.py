@@ -39,7 +39,7 @@ class Opt8:
     shape: Tuple[int, ...]
 
 
-register_node(Opt8, ("q", "scale"))
+register_node(Opt8, ("q", "scale"), keyed=False)
 
 
 def _o8_encode(x: torch.Tensor) -> Opt8:

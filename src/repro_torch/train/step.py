@@ -11,6 +11,49 @@ On one device the reference's ZeRO stages, offload, tensor parallelism
 and ``zero3_gather_once`` are no-ops (its placement helpers return the
 tree unchanged without a mesh), and so they are here: ``F+R+Z3`` runs.
 
+**Over a data axis** (a ``parallel.sharding.ShardCtx`` with ``dp_size >
+1``: ``init_train_state(..., ctx=)``, ``build_train_step(..., ctx=)``)
+each rank steps on its rows of the batch and the state lies where the
+reference's resolver places it (``sharding.train_state_shardings``;
+:class:`DPLayout`). Every rank draws the whole tree from the seed and
+keeps its pieces (``parallel.zero.take``), so each piece is bit for bit
+the one-device state's slice. The stages (``build_train_step``):
+
+* Z0 — params and moments replicated; each rank's gradients are added
+  in f32 into an f32 buffer, summed over the ranks (one all-reduce a
+  leaf) and divided by ``dp x grad_accum``: the one-device
+  accumulation's sum.
+* Z1 — the moments (and f32 master weights) sharded; each rank updates
+  the slice whose moments it holds, and the slices are gathered, bit for
+  bit, into the replicated params.
+* Z2 — as Z1, but each leaf's local gradient is reduce-scattered as soon
+  as autograd returns (an f32 all-reduce of which the rank keeps its
+  slice) and freed; the buffer holds only the rank's slices.
+* Z3 — the params sharded too, gathered where the model uses them
+  (``parallel.zero``); their gradients arrive reduced and sliced in the
+  buffer, outside autograd. ``zero3_gather_once`` gathers the whole tree
+  once a step instead of once a micro-batch.
+* ``+O`` — the sharded moments (and under Z3 the params) live in pinned
+  host memory, copied to the card for the step or the update and back.
+
+One step serves the float techniques on one device and over a data
+axis (:func:`_float_step`; on one device it is the case ``dp = 1`` with
+no stage). Over a data axis the gradient buffer persists from step to
+step (its bytes are state at rest: full under Z0/Z1, this rank's slices
+under Z2/Z3). Each micro-batch's CE is normalized by its global label
+count (the count summed over the ranks; each rank divides its CE sum by
+``1/dp`` of it, and the reduced gradient by ``dp x grad_accum``): the
+reference's mean over the global micro-batch, the loss the mean of the
+micro-batches' means as in the reference's accumulation. Where every
+rank holds as many labels, each rank's loss is its micro-batch mean and
+the step equals the one-device step with ``grad_accum = dp`` bit for
+bit. ``grad_norm`` sums each rank's squares of the slices it holds, then
+adds the partial sums over the ranks: only its order of sums differs.
+Metrics are global and equal on every rank; ``ce`` and ``aux`` are the
+last global micro-batch's, as in the reference. ``Technique.grad_compress``
+is inert, as in the reference's step (``parallel.compression`` is the
+compressor).
+
 LoRA fine-tuning (``peft`` "lora" or "qlora") follows the reference's
 ``init_train_state``: the base is quantized (``quant="int8"``), wrapped by
 ``apply_lora`` and split by ``split_trainable``; gradients, the optimizer
@@ -31,14 +74,19 @@ their ROADMAP item.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.core.config import Technique
+from repro_torch.core.config import ArchConfig, Technique
 from repro_torch.core.perfscope import Timer
 from repro_torch.models.lm import LM
-from repro_torch.models.params import set_path, tree_map, tree_paths
+from repro_torch.models.params import (ParamSpec, keystr_map, keystr_paths,
+                                       set_path, tree_map, tree_paths)
+from repro_torch.parallel import zero as Z
+from repro_torch.parallel.sharding import (logical_by_keystr_of,
+                                           make_shard_ctx, state_shardings)
 from repro_torch.peft.lora import apply_lora, split_trainable
 from repro_torch.quant.qtensor import (QTensor, quantize_int8,
                                        quantize_nf4, quantize_tree)
@@ -61,9 +109,6 @@ def check_technique(technique: Technique) -> None:
                        f"reference's apply_lora misreads a stacked nf4 "
                        f"QTensor, repro/peft/lora.py:74-75; ROADMAP queue 1 "
                        f"item 5, queue 3)")
-    if technique.grad_compress:
-        waiting.append("grad_compress (parallel/compression.py, ROADMAP "
-                       "queue 1 item 7)")
     if technique.sp:
         waiting.append("sp (sequence parallelism needs a mesh, ROADMAP "
                        "queue 1 item 7)")
@@ -73,6 +118,123 @@ def check_technique(technique: Technique) -> None:
     if waiting:
         raise NotImplementedError(
             "not ported yet: " + "; ".join(waiting))
+
+
+def data_parallel(ctx) -> bool:
+    """Whether ``ctx`` (a ``ShardCtx`` or None) trains over a data axis
+    of more than one rank."""
+    return ctx is not None and ctx.mesh is not None and ctx.dp_size > 1
+
+
+def check_dp(cfg: ArchConfig, technique: Technique, ctx) -> None:
+    """Raise where ``ctx``'s mesh asks for what training across ranks
+    cannot do yet, naming the ROADMAP item: a model axis (TP training),
+    and under a data axis quantized full training, LoRA and MoE archs."""
+    if ctx is None or ctx.mesh is None:
+        return
+    shape = ctx.mesh.shape
+    if int(shape.get("model", 1)) > 1:
+        raise NotImplementedError(
+            f"training over a model axis ({dict(shape)}: tensor "
+            f"parallelism with the backward of its row-parallel seams, "
+            f"alone or beside a data axis) is not ported: ROADMAP queue 1 "
+            f"item 7.6")
+    if not data_parallel(ctx):
+        return
+    if technique.quant != "none" or technique.peft != "none":
+        raise NotImplementedError(
+            f"{technique.label()} over a data axis: quantized full "
+            f"training and LoRA are not ported there (8-bit moments' "
+            f"blocks run over a moment's global flattening, which a "
+            f"rank's slice does not hold): ROADMAP queue 1 item 7.8")
+    if cfg.is_moe:
+        raise NotImplementedError(
+            f"{cfg.name} over a data axis: an MoE layer's router "
+            f"statistics, load-balancing loss and capacity come from the "
+            f"global batch, which no rank holds (with expert parallelism, "
+            f"item 7.2): ROADMAP queue 1 item 7.7")
+
+
+class DPLayout:
+    """Where each param leaf's state lies on this rank over a data axis:
+    the :class:`parallel.zero.Cut` of the param, of its gradient and of
+    its optimizer state (moments and master weights), keyed by the
+    leaf's key string, from the reference's resolver; and whether ``+O``
+    puts the params and the optimizer state in host memory."""
+
+    def __init__(self, model: LM, technique: Technique, ctx):
+        logical = logical_by_keystr_of(model.param_specs())
+        tree: Dict = {}
+        for path, ps in tree_paths(model.param_specs(),
+                                   is_leaf=lambda x: isinstance(x, ParamSpec)):
+            set_path(tree, path, torch.empty(ps.shape, dtype=ps.dtype,
+                                             device="meta"))
+        place = {c: dict(keystr_paths(state_shardings(
+            ctx, tree, logical, component=c)))
+            for c in ("params", "grads", "opt")}
+        self.shapes = {p: tuple(t.shape) for p, t in keystr_paths(tree)}
+        self.param = {p: Z.dp_cut(ctx, pl.spec)
+                      for p, pl in place["params"].items()}
+        self.grad = {p: Z.dp_cut(ctx, pl.spec)
+                     for p, pl in place["grads"].items()}
+        self.opt = {p: Z.dp_cut(ctx, pl.spec)
+                    for p, pl in place["opt"].items()}
+        self.params_host = any(pl.host for pl in place["params"].values())
+        self.opt_host = any(pl.host for pl in place["opt"].values())
+        if technique.zero_stage >= 2:
+            assert self.grad == self.opt, "grads and moments cut alike"
+
+    def state_cut(self, path: str) -> Z.Cut:
+        """The cut of a leaf of the whole train state by its key string
+        (``['params']...``, ``['opt']['m']...``, ``['step']``)."""
+        for prefix, table in (("['params']", self.param),
+                              ("['opt']['m']", self.opt),
+                              ("['opt']['v']", self.opt),
+                              ("['opt']['master']", self.opt)):
+            if path.startswith(prefix):
+                return table[path[len(prefix):]]
+        return Z.WHOLE
+
+
+def logical_train_state(state, lay: DPLayout, ctx, device):
+    """The whole (logical) train state from every rank's part, as host
+    tensors: each sharded leaf gathered exactly (a collective every rank
+    makes), every other leaf copied; what the one-device run would hold,
+    bit for bit. A checkpoint stores this (the reference's elastic
+    layout)."""
+    def whole(path, t):
+        t = t.detach()
+        cut = lay.state_cut(path)
+        if cut.dim is not None:
+            shape = list(t.shape)
+            shape[cut.dim] *= cut.parts
+            t = Z.gather_leaf(ctx, t.to(device), shape, cut)
+        return t.cpu().clone()
+
+    return keystr_map(whole, state)
+
+
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in host memory: pinned on a card, as it is on the CPU."""
+    if t.device.type == "cpu":
+        return t
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t)
+    return host
+
+
+def _to_device(tree, device):
+    """Device copies of a host tree's leaves (``+O``: the step's working
+    copies; on the CPU a copy all the same)."""
+    return tree_map(lambda t: t.to(device, copy=True, non_blocking=True),
+                    tree)
+
+
+@torch.no_grad()
+def _copy_back(host_tree, dev_tree) -> None:
+    """Write the device copies back into their host leaves."""
+    for (_, h), (_, d) in zip(tree_paths(host_tree), tree_paths(dev_tree)):
+        h.copy_(d)
 
 
 def quant_full(technique: Technique) -> bool:
@@ -116,7 +278,7 @@ def requant_like(view, like) -> None:
 
 
 def init_train_state(model: LM, technique: Technique, seed: int = 0,
-                     opt_cfg: Optional[AdamWConfig] = None
+                     opt_cfg: Optional[AdamWConfig] = None, *, ctx=None
                      ) -> Tuple[Dict[str, Any], AdamWConfig]:
     """Seeded params on the model's device, quantized and LoRA-wrapped as
     the technique says, with ``requires_grad`` set on the trainable leaves
@@ -124,9 +286,14 @@ def init_train_state(model: LM, technique: Technique, seed: int = 0,
     training the float leaves, the ``QTensor``s being retrained through
     their dequantized view) and optimizer state for those (for the view
     under quantized full training). Returns ``(state, opt_cfg)`` as the
-    reference does."""
+    reference does. Over a data axis (``ctx``, default the model's) the
+    state is this rank's part of that state (:func:`_init_dp_state`)."""
     check_technique(technique)
+    ctx = model.ctx if ctx is None else ctx
+    check_dp(model.cfg, technique, ctx)
     opt_cfg = opt_cfg or default_opt_cfg(technique)
+    if data_parallel(ctx):
+        return _init_dp_state(model, technique, seed, opt_cfg, ctx), opt_cfg
     params = model.init(seed)
     if technique.quant != "none":
         params = quantize_tree(params, technique.quant)
@@ -143,9 +310,68 @@ def init_train_state(model: LM, technique: Technique, seed: int = 0,
                                 device=model.device)}, opt_cfg
 
 
+def _init_dp_state(model: LM, technique: Technique, seed: int,
+                   opt_cfg: AdamWConfig, ctx) -> Dict[str, Any]:
+    """This rank's part of the one-device state: the whole params drawn
+    from ``seed`` on the rank's device, cut to the rank's pieces
+    (Z3; whole under Z0-Z2, with ``requires_grad``), zero moments at the
+    optimizer state's pieces, f32 master weights from the params' pieces
+    where ``opt_cfg`` keeps them; ``+O`` moves what it places on the host
+    there."""
+    lay = DPLayout(model, technique, ctx)
+    full = model.init(seed)
+    stage3 = technique.zero_stage >= 3
+    dev = model.device
+
+    def zeros(p, t):
+        return torch.zeros(Z.piece_shape(t.shape, lay.opt[p]),
+                           dtype=torch.float32, device=dev)
+
+    opt = {"m": keystr_map(zeros, full), "v": keystr_map(zeros, full),
+           "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    if opt_cfg.master_fp32:
+        opt["master"] = keystr_map(
+            lambda p, t: Z.piece_view(t, lay.opt[p]).detach().to(
+                torch.float32).clone(), full)
+    params = full
+    if stage3:
+        params = keystr_map(lambda p, t: Z.take(t, lay.param[p]), full)
+    del full
+    return _placed({"params": params, "opt": opt,
+                    "step": torch.zeros((), dtype=torch.int32, device=dev)},
+                   lay, stage3)
+
+
+def _placed(state, lay: DPLayout, stage3: bool):
+    """``state`` with ``requires_grad`` on whole params (Z0-Z2) and what
+    ``+O`` places on the host moved there."""
+    if not stage3:
+        tree_map(lambda t: t.requires_grad_(True), state["params"])
+    if lay.params_host:
+        state["params"] = tree_map(_to_host, state["params"])
+    if lay.opt_host:
+        state["opt"] = tree_map(_to_host, state["opt"])
+    return state
+
+
+def shard_train_state(whole, model: LM, technique: Technique, ctx):
+    """This rank's part of a whole (logical) train state ``whole`` (a
+    one-device state: bridged from the reference, or restored), placed as
+    :func:`init_train_state` places its own. Every leaf is a copy: the
+    step updates its state in place."""
+    lay = DPLayout(model, technique, ctx)
+
+    def piece(path, t):
+        cut, t = lay.state_cut(path), t.detach().to(model.device)
+        return t.clone() if cut.dim is None else Z.take(t, cut)
+
+    part = keystr_map(piece, whole)
+    return _placed(part, lay, technique.zero_stage >= 3)
+
+
 def build_train_step(model: LM, technique: Technique,
                      opt_cfg: AdamWConfig, *,
-                     timer: Optional[Timer] = None) -> Callable:
+                     timer: Optional[Timer] = None, ctx=None) -> Callable:
     """``train_step(state, batch) -> (state, metrics)``: ``batch`` holds
     ``tokens`` and ``labels`` (B, T) on the model's device; ``state`` is
     updated in place and returned. Metrics (0-dim f32 tensors, nothing
@@ -153,20 +379,26 @@ def build_train_step(model: LM, technique: Technique,
     the f32 norm over all gradient leaves (the trainable ones:
     ``split_trainable``; under quantized full training the dequantized
     view's, which is requantized after the update). With ``grad_accum >
-    1`` the
-    batch is split into that many micro-batches along its first axis;
-    their gradients are summed in f32 and averaged, the loss is their
-    mean and ``ce``/``aux`` are the last micro-batch's.
+    1`` the batch is split into that many micro-batches along its first
+    axis; their gradients are summed in f32 and averaged, the loss is
+    their mean and ``ce``/``aux`` are the last micro-batch's.
 
     With a ``timer``, the step's layers are timed into its regions
     ``forward`` (the loss), ``backward`` (the gradients, recomputation
     included) and ``optimizer`` (the AdamW update), one record per
     micro-batch for the first two; each region ends with a device sync
     on a CUDA device, so it is charged with its device work. Without
-    one nothing is synced."""
+    one nothing is synced.
+
+    Float techniques take :func:`_float_step`, on one device as over a
+    data axis (``ctx``, default the model's; see the module's notes:
+    ``batch`` is then this rank's rows, ``state`` this rank's part, from
+    :func:`init_train_state` with the same ``ctx``, and each rank runs
+    ``grad_accum`` micro-batches of its rows). Quantized full training
+    and LoRA, which a data axis refuses, take :func:`_adapted_step`."""
     check_technique(technique)
-    accum = max(technique.grad_accum, 1)
-    qfull = quant_full(technique)
+    ctx = model.ctx if ctx is None else ctx
+    check_dp(model.cfg, technique, ctx)
 
     def fence():
         if model.device.type == "cuda":
@@ -176,6 +408,19 @@ def build_train_step(model: LM, technique: Technique,
         if timer is None:
             return contextlib.nullcontext()
         return timer.region(name, fence=fence)
+
+    if technique.quant == "none" and technique.peft == "none":
+        return _float_step(model, technique, opt_cfg, ctx, region)
+    return _adapted_step(model, technique, opt_cfg, region)
+
+
+def _adapted_step(model: LM, technique: Technique, opt_cfg: AdamWConfig,
+                  region) -> Callable:
+    """The one-device step of quantized full training and LoRA: the
+    gradients of the trainable leaves (the adapters, or the bf16
+    dequantized view, requantized after the update)."""
+    accum = max(technique.grad_accum, 1)
+    qfull = quant_full(technique)
 
     def _grads(leaves, params, batch):
         with region("forward"):
@@ -198,11 +443,7 @@ def build_train_step(model: LM, technique: Technique,
         paths = tree_paths(trainable)
         leaves = [t for _, t in paths]
         if accum > 1:
-            n = batch["tokens"].shape[0]
-            if n % accum:
-                raise ValueError(f"batch {n} does not split into {accum} "
-                                 f"micro-batches")
-            mb = n // accum
+            mb = _micro_rows(batch, accum)
             gsum = [torch.zeros(t.shape, dtype=torch.float32,
                                 device=t.device) for t in leaves]
             lsum = torch.zeros((), dtype=torch.float32,
@@ -233,4 +474,149 @@ def build_train_step(model: LM, technique: Technique,
         metrics["grad_norm"] = torch.sqrt(norm_sq)
         return state, metrics
 
+    return train_step
+
+
+def _micro_rows(batch, accum: int) -> int:
+    """The rows of each of ``accum`` micro-batches of ``batch``."""
+    rows = batch["tokens"].shape[0]
+    if rows % accum:
+        raise ValueError(f"{rows} rows do not split into {accum} "
+                         f"micro-batches")
+    return rows // accum
+
+
+def _float_step(model: LM, technique: Technique, opt_cfg: AdamWConfig, ctx,
+                region) -> Callable:
+    """The step of a float technique, on one device or as one rank over a
+    data axis (the module's notes). On one device the stages and offload
+    are no-ops, and the f32 gradient buffer is made from the first
+    micro-batch's gradients and dropped after the update; over a data
+    axis it persists (its bytes are state at rest)."""
+    persist = data_parallel(ctx)
+    if not persist:
+        technique = dataclasses.replace(technique, zero_stage=0,
+                                        offload=False)
+        ctx = make_shard_ctx(model.cfg, technique, None)
+    lay = DPLayout(model, technique, ctx)
+    stage = technique.zero_stage
+    accum = max(technique.grad_accum, 1)
+    dp = ctx.dp_size
+    k = dp * accum                             # micro-batches in all
+    dev = model.device
+    once = stage >= 3 and technique.zero3_gather_once
+    acc: Dict[str, torch.Tensor] = {}
+    f32 = torch.float32
+
+    def shards(params, comm):
+        return keystr_map(lambda p, t: Z.Shard.of(
+            t, lay.shapes[p], lay.param[p], acc[p], comm), params)
+
+    def train_step(state, batch):
+        params = state["params"]
+        if persist and not acc:
+            for p, t in keystr_paths(params):
+                acc[p] = torch.zeros(Z.piece_shape(lay.shapes[p],
+                                                   lay.grad[p]),
+                                     dtype=f32, device=dev)
+        for a in acc.values():
+            a.zero_()
+        work = (_to_device(params, dev) if stage >= 3 and lay.params_host
+                else params)
+        mb = _micro_rows(batch, accum)
+        # each micro-batch's label count over the ranks: its CE is the
+        # global micro-batch's mean, each rank dividing its sum by 1/dp
+        # of that count
+        n_mb = ctx.dp_all_reduce(torch.stack([
+            (batch["labels"][i * mb:(i + 1) * mb] >= 0).sum()
+            for i in range(accum)]).to(f32))
+        denom = torch.clamp_min(n_mb, 1.0) / dp
+        sums = torch.zeros(3, dtype=f32, device=dev)   # loss, ce, aux
+        if once:                       # the whole tree, once for the step
+            anchor = torch.zeros((), dtype=f32, device=dev,
+                                 requires_grad=True)
+            gathered = Z.gather_used(shards(work, Z.ZeroComm(ctx, dev,
+                                                             anchor)))
+        for i in range(accum):
+            part = {kk: v[i * mb:(i + 1) * mb] for kk, v in batch.items()}
+            if stage >= 3:
+                if once:
+                    view = gathered
+                else:
+                    anchor = torch.zeros((), dtype=f32, device=dev,
+                                         requires_grad=True)
+                    view = shards(work, Z.ZeroComm(ctx, dev, anchor))
+                with region("forward"):
+                    loss, metrics = model.loss(view, part, n_tok=denom[i])
+                with region("backward"):
+                    torch.autograd.grad(loss, [anchor])
+            else:
+                paths = keystr_paths(params)
+                with region("forward"):
+                    loss, metrics = model.loss(params, part, n_tok=denom[i])
+                with region("backward"):
+                    grads = list(torch.autograd.grad(
+                        loss, [t for _, t in paths]))
+                    for j, (p, _) in enumerate(paths):
+                        g, grads[j] = grads[j].to(f32), None
+                        if stage >= 2:
+                            c = lay.grad[p]
+                            g = ctx.dp_reduce_scatter(g, c.dim, c.parts,
+                                                      c.idx)
+                        if p in acc:
+                            acc[p].add_(g)
+                        else:
+                            acc[p] = g
+                        del g
+            # the graph goes with its last reference, before the next
+            # micro-batch's forward
+            loss, metrics = loss.detach(), {kk: v.detach()
+                                            for kk, v in metrics.items()}
+            sums[0] += loss
+        sums[1] = metrics["ce"]                   # the last micro-batch's
+        sums[2] = metrics["aux"]
+        view = gathered = None          # the gathered tree goes before
+        if stage <= 1:                  # the update
+            for a in acc.values():
+                ctx.dp_all_reduce(a)
+        for a in acc.values():
+            a.div_(k)
+        norm_sq = torch.zeros((), dtype=f32, device=dev)
+        for p, a in acc.items():
+            if stage <= 1 or lay.grad[p].dim is not None or \
+                    ctx.dp_rank == 0:
+                norm_sq = norm_sq + torch.sum(torch.square(a))
+        if stage >= 2:
+            ctx.dp_all_reduce(norm_sq.reshape(1))
+        with region("optimizer"):
+            opt = state["opt"]
+            dev_opt = _to_device(opt, dev) if lay.opt_host else opt
+            if stage >= 2:
+                grads = keystr_map(lambda p, _: acc[p], work)
+            else:
+                grads = keystr_map(
+                    lambda p, _: Z.piece_view(acc[p], lay.opt[p]), work)
+            pieces = work if stage >= 3 else keystr_map(
+                lambda p, t: Z.piece_view(t, lay.opt[p]), params)
+            adamw_apply(opt_cfg, grads, dev_opt, pieces)
+            with torch.no_grad():
+                if stage in (1, 2):
+                    for p, t in keystr_paths(params):
+                        c = lay.opt[p]
+                        if c.dim is not None:
+                            t.copy_(Z.gather_leaf(
+                                ctx, Z.piece_view(t, c), t.shape, c))
+            if lay.opt_host:
+                _copy_back(opt, dev_opt)
+            if work is not params:
+                _copy_back(params, work)
+        if not persist:
+            acc.clear()
+        state["step"].add_(1)
+        sums = ctx.dp_all_reduce(sums) / torch.tensor(
+            [k, dp, dp], dtype=f32, device=dev)
+        return state, {"loss": sums[0], "ce": sums[1], "aux": sums[2],
+                       "grad_norm": torch.sqrt(norm_sq)}
+
+    train_step.grad_buffer = acc       # over a data axis, state at rest
     return train_step

@@ -1,0 +1,475 @@
+"""Data-parallel training of the port on the CPU: ZeRO stages 1-3 and
+offload over a data axis of gloo ranks (``launch.mesh.spawn_ranks``),
+held against the one-device step and the reference's.
+
+The reference says ZeRO placement changes no math (GSPMD partitions one
+global program); the port holds itself to that bit for bit. Every rank
+holds as many labels, so ``dp = 2`` with one micro-batch a rank is the
+one-device step with ``grad_accum = 2``: the loss, the updated params
+and both moments after 3 steps, in every stage, on qwen and mamba2
+smoke; only ``grad_norm`` (each rank's squares, then the sum over the
+ranks) may differ in its order of sums. The ranks start once per degree
+and run every case in turn (tests/torch_dp_worker.py, which imports no
+JAX), one intra-op thread each; each oracle runs inside rank 0 under the
+same setting (the CPU's thread pool changes vectorized remainders)."""
+import dataclasses
+import re
+from types import SimpleNamespace
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as ref_config
+from repro.core.config import technique_from_label as jtech
+from repro.models.lm import LM as JLM
+from repro.parallel.sharding import make_shard_ctx as jctx
+from repro.train import optimizer as jopt
+from repro.train.step import build_train_step as jbuild
+from repro.train.step import init_train_state as jinit
+from repro_torch.bridge import train_state_from_jax
+from repro_torch.configs import get_config
+from repro_torch.core.config import ShapeSpec, technique_from_label
+from repro_torch.core.trainer import Trainer, TrainerConfig
+from repro_torch.launch import train as train_cli
+from repro_torch.launch.build import build_train
+from repro_torch.launch.mesh import spawn_ranks
+from repro_torch.models.lm import LM
+from repro_torch.models.params import tree_map, tree_paths
+from repro_torch.parallel import compression as C
+from repro_torch.parallel.sharding import make_shard_ctx
+from repro_torch.train.step import build_train_step, init_train_state
+
+import torch_dp_worker as worker
+
+ARCHS = ("qwen1.5-0.5b", "mamba2-130m")
+STAGES = ("F+R", "F+R+Z1", "F+R+Z2", "F+R+Z3", "F+R+Z3+O", "F+R+Z3:once")
+B, T, STEPS = 4, 32, 3
+PSUM_N = 2 * C.BLOCK + 300           # not a whole number of blocks
+# test_torch_train.py::test_three_steps_match_the_reference's limits
+LOSS_ATOL = 2e-3
+
+
+def _batches(vocab: int, seed: int, masked: int = 0):
+    """STEPS seeded global batches; ``masked`` labels of row 0 set to -1
+    (rank 0 of two then holds fewer labels than rank 1)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(STEPS):
+        tok = rng.integers(0, vocab, (B, T), dtype=np.int32)
+        lab = rng.integers(0, vocab, (B, T), dtype=np.int32)
+        lab[0, :masked] = -1
+        out.append({"tokens": tok, "labels": lab})
+    return out
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """torch on the calling thread, as in the ranks: the one-device runs
+    here are held bit for bit to runs there."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _three_steps_batch():
+    """test_torch_train.py's ``jax_setup`` batch (2 x 64, five labels of
+    row 0 masked), the batch its three-step comparison runs on."""
+    vocab = get_config(ARCHS[0], reduced=True).vocab_size
+    rng = np.random.default_rng(0)
+    tok = rng.integers(1, vocab, (2, 64), dtype=np.int32)
+    lab = rng.integers(0, vocab, (2, 64), dtype=np.int32)
+    lab[0, :5] = -1
+    return [{"tokens": tok, "labels": lab}] * STEPS
+
+
+@pytest.fixture(scope="module")
+def reference():
+    """The reference's seeded state on qwen smoke and three of its F+R
+    steps (one device, the whole batch) on :func:`_three_steps_batch`,
+    as test_torch_train.py::test_three_steps_match_the_reference runs
+    them."""
+    cfg = ref_config(ARCHS[0], reduced=True)
+    tech = jtech("F+R")
+    jm = JLM(cfg, attn_impl="pallas", remat=tech.remat)
+    jcfg = jopt.AdamWConfig(lr=5e-3, warmup=0)
+    state, _ = jinit(jm, tech, jax.random.PRNGKey(0), jcfg)
+    start = jax.device_get(state)
+    step = jax.jit(jbuild(jm, tech, jctx(cfg, tech, None), jcfg))
+    mets = []
+    for b in _three_steps_batch():
+        state, m = step(state, jax.tree_util.tree_map(jnp.asarray, b))
+        mets.append({k: float(v) for k, v in m.items()})
+    return start, mets, jax.device_get(state["params"])
+
+
+@pytest.fixture(scope="module")
+def dp2(reference, tmp_path_factory):
+    """Every two-rank case, on one set of ranks."""
+    vocab = get_config(ARCHS[0], reduced=True).vocab_size
+    start = tree_map(lambda t: t.detach(),
+                     train_state_from_jax(reference[0], "cpu"))
+    ckpt = str(tmp_path_factory.mktemp("dp_ckpt"))
+    plan = []
+    for arch in ARCHS:
+        bs = _batches(get_config(arch, reduced=True).vocab_size, 1)
+        plan.append((f"{arch}/oracle", "train", dict(
+            arch=arch, label="F+R", batches=bs, accum=2, oracle=True)))
+        plan += [(f"{arch}/{s}", "train", dict(arch=arch, label=s,
+                                               batches=bs, count=True))
+                 for s in STAGES]
+    bs = _batches(vocab, 1)
+    plan += [
+        ("remat/F+RS+Z3", "train", dict(arch=ARCHS[0], label="F+RS+Z3",
+                                        batches=bs, count=True)),
+        ("remat/F+Z3", "train", dict(arch=ARCHS[0], label="F+Z3",
+                                     batches=bs, count=True)),
+        ("compress", "train", dict(arch=ARCHS[0], label="F+R+Z3",
+                                   batches=bs, grad_compress=True)),
+        ("masked/one", "train", dict(arch=ARCHS[0], label="F+R",
+                                     batches=_batches(vocab, 3, 21),
+                                     oracle=True)),
+        ("masked/accum", "train", dict(arch=ARCHS[0], label="F+R",
+                                       batches=_batches(vocab, 3, 21),
+                                       accum=2, oracle=True)),
+        ("masked/dp", "train", dict(arch=ARCHS[0], label="F+R+Z3",
+                                    batches=_batches(vocab, 3, 21))),
+        ("bridged", "train", dict(arch=ARCHS[0], label="F+R+Z3",
+                                  batches=_three_steps_batch(),
+                                  start=start)),
+        ("psum", "psum", dict(n=PSUM_N)),
+        ("gather", "gather", dict()),
+        ("save", "save", dict(arch=ARCHS[0], label="F+R+Z3", steps=2,
+                              directory=ckpt)),
+    ]
+    ranks = spawn_ranks(worker.run_all, 1, data=2, backend="gloo",
+                        device="cpu", args=(plan,), threads=1)
+    return ranks, ckpt
+
+
+@pytest.fixture(scope="module")
+def dp4():
+    bs = _batches(get_config(ARCHS[0], reduced=True).vocab_size, 1)
+    plan = [("oracle", "train", dict(arch=ARCHS[0], label="F+R",
+                                     batches=bs, accum=4, oracle=True)),
+            ("z3", "train", dict(arch=ARCHS[0], label="F+R+Z3",
+                                 batches=bs))]
+    return spawn_ranks(worker.run_all, 1, data=4, backend="gloo",
+                       device="cpu", args=(plan,), threads=1)
+
+
+def _float(bits: np.ndarray) -> np.ndarray:
+    """Values of a leaf's bits (int16: bf16, int32: f32)."""
+    t = torch.from_numpy(bits)
+    t = t.view(torch.bfloat16) if bits.dtype == np.int16 else \
+        t.view(torch.float32)
+    return t.float().numpy()
+
+
+def _same_run(got, want, what):
+    """Loss and whole state bit for bit; grad_norm within 1e-6."""
+    assert got["loss"] == want["loss"], what
+    np.testing.assert_allclose(got["grad_norm"], want["grad_norm"],
+                               rtol=1e-6, err_msg=what)
+    assert set(got["state"]) == set(want["state"]), what
+    bad = [p for p in want["state"]
+           if not np.array_equal(got["state"][p], want["state"][p])]
+    assert not bad, (what, bad[:4])
+
+
+@pytest.mark.parametrize("arch,stage", [(a, s) for a in ARCHS
+                                        for s in STAGES])
+def test_stage_is_the_one_device_accum_step_bitwise(dp2, arch, stage):
+    """Z0 (``F+R``), Z1, Z2, Z3, Z3+O and Z3 with ``zero3_gather_once``
+    at dp 2: loss, params, m and v after 3 steps equal the one-device
+    ``grad_accum = 2`` step's bit for bit, on both ranks (so the stages
+    equal each other too)."""
+    ranks, _ = dp2
+    want = ranks[0][f"{arch}/oracle"]
+    for r, out in enumerate(ranks):
+        got = out[f"{arch}/{stage}"]
+        _same_run(got, want, f"{arch} {stage} rank {r}")
+        assert got["hash"] == ranks[0][f"{arch}/{stage}"]["hash"]
+
+
+def test_gathers_run_again_in_the_recomputation(dp2):
+    """Under Z3 each layer gathers its leaves inside the remat body: with
+    ``R`` and with ``RS`` (selective) the backward's recomputation gathers
+    again (nothing gathered is saved), without remat it does not; the
+    math is the same in all three. Collectives a step on qwen smoke (L
+    layers): the label count, the top leaves' gather and reduce, L layer
+    gathers (2L with recomputation) and L reduces, grad_norm's partial
+    sums and the metrics."""
+    ranks, _ = dp2
+    layers = get_config(ARCHS[0], reduced=True).n_layers
+    want = ranks[0][f"{ARCHS[0]}/oracle"]
+    runs = {"F+R+Z3": ranks[0][f"{ARCHS[0]}/F+R+Z3"],
+            "F+RS+Z3": ranks[0]["remat/F+RS+Z3"],
+            "F+Z3": ranks[0]["remat/F+Z3"]}
+    for label, got in runs.items():
+        _same_run(got, want, label)
+        n = 3 + 2 + (2 if "R" in label.split("+") or "RS" in label
+                     else 1) * layers + layers
+        assert got["collectives"] == [n] * STEPS, (label, got["collectives"])
+
+
+def test_grad_compress_is_inert_bitwise(dp2):
+    """The reference's step never reads ``grad_compress``; the port's
+    step with it equals the step without it bit for bit."""
+    ranks, _ = dp2
+    _same_run(ranks[0]["compress"], ranks[0][f"{ARCHS[0]}/F+R+Z3"],
+              "grad_compress")
+
+
+def test_unequal_labels_take_the_global_mean(dp2):
+    """Rank 0 holds 21 fewer labels than rank 1: the loss is the
+    whole-batch mean (the reference's mean over the global batch, not a
+    mean of the ranks' means) and the gradient the whole batch's, up to
+    the order of sums."""
+    ranks, _ = dp2
+    one, dp = ranks[0]["masked/one"], ranks[0]["masked/dp"]
+    np.testing.assert_allclose(dp["loss_f"][0], one["loss_f"][0], rtol=1e-6)
+    np.testing.assert_allclose(dp["grad_norm"][0], one["grad_norm"][0],
+                               rtol=1e-5)
+    # the mean of the two halves' means (one device, grad_accum 2) is
+    # another number
+    means = ranks[0]["masked/accum"]["loss_f"][0]
+    assert abs(means - one["loss_f"][0]) > 100 * abs(dp["loss_f"][0]
+                                                      - one["loss_f"][0])
+
+
+def test_rank0_matches_the_reference_step(dp2, reference):
+    """From the reference's bridged state, rank 0's F+R+Z3 steps at dp 2
+    (one row a rank: 59 and 64 labels) against the reference's
+    one-device steps on the whole batch (the global mean both), on the
+    batch and at the limits of
+    test_torch_train.py::test_three_steps_match_the_reference:
+    step 1's loss within LOSS_ATOL and grad_norm within 1%, later steps
+    1e-2 and 3%, the params after step 3 within half of each leaf's own
+    update and along it (cosine >= 0.9). (On seed-7 4 x 32 batches bk
+    misses the cosine, in the one-device step too:
+    :func:`test_seed7_bk_gap_is_the_one_device_steps_adam_signs`.)"""
+    ranks, _ = dp2
+    start, mets, final = reference
+    got = ranks[0]["bridged"]
+    for i, m in enumerate(mets):
+        loss_tol, norm_tol = (LOSS_ATOL, 0.01) if i == 0 else (1e-2, 0.03)
+        assert abs(got["loss_f"][i] - m["loss"]) < loss_tol, i
+        assert got["grad_norm"][i] == pytest.approx(m["grad_norm"],
+                                                    rel=norm_tol), i
+    p0 = dict(tree_paths(start["params"]))
+    want = dict(tree_paths(final))
+    for key, bits in got["state"].items():
+        keys = re.findall(r"\['([^']+)'\]", key)
+        if keys[0] != "params":
+            continue
+        path = "/".join(keys[1:])
+        g = _float(bits)
+        w = np.asarray(want[path], np.float32)
+        upd = w - np.asarray(p0[path], np.float32)
+        if not upd.any():
+            assert np.array_equal(g, w), path
+            continue
+        assert np.linalg.norm(g - w) < 0.5 * np.linalg.norm(upd), path
+        d = (g - np.asarray(p0[path], np.float32)).ravel()
+        cos = float(d @ upd.ravel() / (np.linalg.norm(d) *
+                                       np.linalg.norm(upd)))
+        assert cos >= 0.9, path
+
+
+def _cosines(p0, want, got):
+    """Per-leaf (cosine of the port's update with the reference's, the
+    difference's norm over the update's) of the params after the steps;
+    leaves neither run moves are left out."""
+    out = {}
+    for path, g in got.items():
+        w = np.asarray(want[path], np.float32)
+        base = np.asarray(p0[path], np.float32)
+        upd = w - base
+        if not upd.any():
+            continue
+        d = (g - base).ravel()
+        out[path] = (float(d @ upd.ravel() / (np.linalg.norm(d) *
+                                              np.linalg.norm(upd))),
+                     float(np.linalg.norm(g - w) / np.linalg.norm(upd)))
+    return out
+
+
+def test_seed7_bk_gap_is_the_one_device_steps_adam_signs():
+    """The reading that moved the reference comparison off seed-7 4 x 32
+    batches: there ``blocks/pos0/mix/bk`` misses the cosine limit of
+    test_rank0_matches_the_reference_step. The witness, with no data
+    axis: the port's ONE-DEVICE step (whole batch, as the reference's)
+    has the same gap; its step-1 gradients agree with the reference's
+    within 2% on every leaf, but bk has the largest share of elements
+    whose gradient sits within that difference of zero and so takes
+    Adam's first step (about +-lr) the other way; every other leaf stays
+    within the limits after 3 steps. ``-s`` prints the readings."""
+    cfg = ref_config(ARCHS[0], reduced=True)
+    bs = _batches(cfg.vocab_size, 7)
+    tech = jtech("F+R")
+    jm = JLM(cfg, attn_impl="pallas", remat=tech.remat)
+    jcfg = jopt.AdamWConfig(lr=5e-3, warmup=0)
+    state, _ = jinit(jm, tech, jax.random.PRNGKey(0), jcfg)
+    start = jax.device_get(state)
+    jb = [jax.tree_util.tree_map(jnp.asarray, b) for b in bs]
+    jgrad = dict(tree_paths(jax.device_get(jax.jit(jax.grad(
+        lambda p: jm.loss(p, jb[0])[0]))(start["params"]))))
+    step = jax.jit(jbuild(jm, tech, jctx(cfg, tech, None), jcfg))
+    for b in jb:
+        state, _ = step(state, b)
+    want = dict(tree_paths(jax.device_get(state["params"])))
+    ptech = technique_from_label("F+R")
+    model = LM(get_config(ARCHS[0], reduced=True), attn_impl="flash",
+               remat=ptech.remat, device="cpu")
+    pstate = tree_map(lambda t: t.detach().clone(),
+                      train_state_from_jax(start, "cpu"))
+    paths = tree_paths(pstate["params"])
+    leaves = [t.requires_grad_(True) for _, t in paths]
+    loss, _ = model.loss(pstate["params"],
+                         {k: torch.from_numpy(v.copy())
+                          for k, v in bs[0].items()})
+    grads = torch.autograd.grad(loss, leaves)
+    flips = {}
+    for (path, _), g in zip(paths, grads):
+        g, w = g.float().numpy(), np.asarray(jgrad[path], np.float32)
+        rel = np.linalg.norm(g - w) / np.linalg.norm(w)
+        assert rel <= 0.02, (path, rel)
+        flips[path] = float(np.mean(np.sign(g) != np.sign(w)))
+    pstep = build_train_step(model, ptech, worker.OPT)
+    for b in bs:
+        pstate, _ = pstep(pstate, {k: torch.from_numpy(v.copy())
+                                   for k, v in b.items()})
+    got = {p: t.detach().float().numpy()
+           for p, t in tree_paths(pstate["params"])}
+    cos = _cosines(dict(tree_paths(start["params"])), want, got)
+    bk = "blocks/pos0/mix/bk"
+    print(f"\n{bk}: step-1 sign flips {flips[bk]:.4f} (next largest "
+          f"{sorted(flips.values())[-2]:.4f}); after 3 steps cosine "
+          f"{cos[bk][0]:.4f}, |port - ref| / |update| {cos[bk][1]:.4f}")
+    assert max(flips, key=flips.get) == bk and flips[bk] >= 0.05
+    assert all(c >= 0.9 and r < 0.5 for p, (c, r) in cos.items()
+               if p != bk), cos
+    assert cos[bk][0] < 0.9
+
+
+def test_compressed_psum_sums_the_dequantized_codes(dp2):
+    """``compressed_psum`` over two ranks equals the f32 sum of each
+    rank's dequantized codes, on every rank, bit for bit."""
+    ranks, _ = dp2
+    parts = [C.decompress_grad(torch.from_numpy(r["psum"]["q"]),
+                               torch.from_numpy(r["psum"]["s"]), (PSUM_N,))
+             for r in ranks]
+    want = (parts[0] + parts[1]).numpy()
+    for r in ranks:
+        assert np.array_equal(r["psum"]["sum"].view(np.int32),
+                              want.view(np.int32))
+    assert not np.array_equal(ranks[0]["psum"]["err"],
+                              ranks[1]["psum"]["err"])
+
+
+def test_gather_carries_every_bit_pattern(dp2):
+    """The exact gather (an int32 all-reduce of zero-padded bytes): -0.0,
+    NaN payloads, infinities and subnormals arrive bit for bit, in f32
+    rows and in bf16 columns whose pieces share int32 words (an f32 sum
+    would turn -0.0 + 0.0 into +0.0)."""
+    ranks, _ = dp2
+    want = [worker.host(t) for t, _ in worker.special_leaves()]
+    for r in ranks:
+        for got, w in zip(r["gather"], want):
+            assert got.dtype == w.dtype and np.array_equal(got, w)
+
+
+def test_elastic_checkpoint_resumes_on_one_device(dp2):
+    """A checkpoint saved at dp 2 under Z3 holds the whole state (rank 0
+    wrote it); one device resumes it with grad_accum 2, and its next step
+    equals the uninterrupted one-device run's bit for bit."""
+    ranks, ckpt = dp2
+    cfg = get_config(ARCHS[0], reduced=True)
+    tech = dataclasses.replace(technique_from_label("F+R+Z3"), grad_accum=2)
+
+    def trainer(steps, directory, resume):
+        return Trainer(cfg, ShapeSpec("cli", 32, 4, "train"), tech,
+                       TrainerConfig(steps=steps, log_every=1,
+                                     checkpoint_dir=directory,
+                                     resume=resume), worker.OPT,
+                       device="cpu")
+
+    resumed = trainer(3, ckpt, "auto")
+    assert resumed.start_step == 2
+    got = resumed.run()["history"]
+    whole = trainer(3, None, "none")
+    want = whole.run()["history"]
+    assert [h["loss"] for h in ranks[0]["save"]] == \
+        [h["loss"] for h in want[:2]]
+    assert got[-1]["loss"] == want[-1]["loss"]
+    for (p, a), (q, b) in zip(tree_paths(resumed.state),
+                              tree_paths(whole.state)):
+        assert p == q and torch.equal(a.detach().view(torch.uint8)
+                                      if a.dtype == torch.bfloat16 else a,
+                                      b.detach().view(torch.uint8)
+                                      if b.dtype == torch.bfloat16 else b), p
+
+
+def test_dp4_z3_matches_within_the_order_of_sums(dp4):
+    """Four ranks sum the gradients in another order than one device's
+    four micro-batches: the loss and grad_norm stay within f32 rounding
+    of that order after 3 steps, and the params and moments differ at
+    few elements, by at most the Adam steps a flipped sign moves."""
+    want = dp4[0]["oracle"]
+    for r, out in enumerate(dp4):
+        got = out["z3"]
+        assert got["hash"] == dp4[0]["z3"]["hash"]
+        np.testing.assert_allclose(got["loss_f"], want["loss_f"], rtol=1e-6)
+        np.testing.assert_allclose(got["grad_norm"], want["grad_norm"],
+                                   rtol=1e-5)
+    # an element whose summed gradient sits at 0 may take Adam's step
+    # (about lr) the other way: at most 2 lr a step, on few elements
+    for p, w in want["state"].items():
+        gf, wf = _float(got["state"][p]), _float(w)
+        if p.startswith("['params']"):
+            assert np.max(np.abs(gf - wf)) <= 2 * worker.OPT.lr * STEPS, p
+        assert np.mean(gf != wf) <= 0.01, p
+
+
+def _stand_in(data, model):
+    return SimpleNamespace(shape={"data": data, "model": model},
+                           axis_names=("data", "model"), rank=0, data_rank=0,
+                           device=torch.device("cpu"))
+
+
+@pytest.mark.parametrize("arch,label,mesh,item", [
+    ("qwen1.5-0.5b", "Q8+F+R", (2, 1), "7.8"),
+    ("qwen1.5-0.5b", "Q", (2, 1), "7.8"),
+    ("qwen1.5-0.5b", "L+F+R", (2, 1), "7.8"),
+    ("qwen3-moe-30b-a3b", "F+R+Z3", (2, 1), "7.7"),
+    ("qwen1.5-0.5b", "F+R+Z3", (2, 2), "7.6"),
+    ("qwen1.5-0.5b", "F+R", (1, 2), "7.6"),
+])
+def test_refusals_name_their_roadmap_items(arch, label, mesh, item):
+    """What a data axis cannot train yet raises, naming its item."""
+    with pytest.raises(NotImplementedError, match=f"item {item}"):
+        build_train(get_config(arch, reduced=True),
+                    technique_from_label(label), device="cpu",
+                    mesh=_stand_in(*mesh))
+    if mesh == (2, 1):
+        ctx = make_shard_ctx(get_config(arch, reduced=True),
+                             technique_from_label(label), _stand_in(*mesh))
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
+            init_train_state(LM(get_config(arch, reduced=True),
+                                device="cpu", ctx=ctx),
+                             technique_from_label(label), ctx=ctx)
+
+
+def test_cli_data_parallel_runs_on_the_cpu(capsys):
+    """``--data-parallel 2``: the rank mapping, then rank 0's lines."""
+    train_cli.main(["--reduced", "--device", "cpu", "--steps", "2",
+                    "--batch", "4", "--seq", "32", "--technique", "F+R+Z3",
+                    "--data-parallel", "2", "--dist-backend", "gloo"])
+    out = capsys.readouterr().out
+    assert "[mesh] 2 ranks (2 data x 1 model), backend gloo" in out
+    assert "2 data-parallel ranks" in out
+    assert "step      2  loss" in out and "tokens/s" in out

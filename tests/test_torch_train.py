@@ -369,13 +369,14 @@ def test_loss_decreases_over_steps(label):
 
 
 def test_unported_techniques_raise():
-    """LoRA on an nf4 base, gradient compression, sequence parallelism
-    and the attention modes still raise, naming their ROADMAP item;
-    quantized full training (``Q``) now builds its state and step
-    (tests/test_torch_quant_train.py holds it)."""
+    """LoRA on an nf4 base, sequence parallelism and the attention modes
+    still raise, naming their ROADMAP item; quantized full training
+    (``Q``) now builds its state and step (tests/test_torch_quant_train.py
+    holds it), and gradient compression is inert, as in the reference's
+    step (tests/test_torch_dp_train.py holds the step with it bit for bit
+    to the step without it)."""
     model = LM(port_config(ARCH, reduced=True), device="cpu")
-    for tech in (technique_from_label("QL"),
-                 Technique(grad_compress=True), Technique(sp=True),
+    for tech in (technique_from_label("QL"), Technique(sp=True),
                  Technique(attn_mode="seq")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             init_train_state(model, tech)

@@ -1,0 +1,277 @@
+"""The port's ZeRO placement and gradient compressor against the
+reference's (``repro.parallel.sharding``, ``repro.train.step``,
+``repro.parallel.compression``), with no processes.
+
+The reference's resolver answers on a one-device CPU when its
+``ShardCtx`` holds a stand-in mesh (``shape`` and ``axis_names``); its
+``NamedSharding`` is patched to hand back the bare spec and whether the
+sharding's memory kind is pinned host memory. For every leaf of the
+train state of all 13 configs, smoke and full width (the reference's
+abstract state from ``jax.eval_shape``, the port's from its own specs),
+under Naive, Z1, Z2, Z3 and Z3+O, and Q8+Z3 and L+Z3 at smoke size, on
+the meshes (data, model) = (2, 1), (4, 1) and (2, 2), the port places
+params, gradients and optimizer state (spec and host flag) where the
+reference does. The reference's own ZeRO claim holds on the port, and
+the int8 compressor equals the reference's bit for bit."""
+import dataclasses
+import functools
+from types import SimpleNamespace
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.parallel.sharding as ref_sharding
+from repro.configs import get_config as ref_config
+from repro.configs import list_archs
+from repro.core.config import ShapeSpec as RefShapeSpec
+from repro.core.config import technique_from_label as jtech
+from repro.launch.build import pick_grad_accum as ref_pick_grad_accum
+from repro.models.lm import LM as RefLM
+from repro.parallel import compression as RC
+from repro.train.step import init_train_state as ref_init
+from repro.train.step import train_state_shardings as ref_train_shardings
+from repro_torch.configs import get_config
+from repro_torch.core.config import ShapeSpec, technique_from_label
+from repro_torch.launch.build import pick_grad_accum
+from repro_torch.launch.mesh import make_local_mesh, mesh_groups
+from repro_torch.models.lm import LM
+from repro_torch.models.params import ParamSpec, keystr_paths, set_path, \
+    tree_paths
+from repro_torch.parallel import compression as C
+from repro_torch.parallel import sharding as S
+from repro_torch.train.step import init_train_state
+
+ARCHS = list_archs()
+MESHES = ((2, 1), (4, 1), (2, 2))
+FLOAT = ("Naive", "Z1", "Z2", "Z3", "Z3+O")
+CASES = ([pytest.param(a, r, t, id=f"{a}-{'smoke' if r else 'full'}-{t}")
+          for a in ARCHS for r in (True, False) for t in FLOAT]
+         + [pytest.param(a, True, t, id=f"{a}-smoke-{t}")
+            for a in ARCHS for t in ("Q8+Z3", "L+Z3")])
+
+
+class _Pl:
+    """The patched reference NamedSharding: spec and host flag."""
+
+    def __init__(self, mesh, spec, **kw):
+        self.value = (tuple(spec), kw.get("memory_kind") == "pinned_host")
+
+
+@pytest.fixture
+def bare_specs(monkeypatch):
+    monkeypatch.setattr(ref_sharding, "NamedSharding", _Pl)
+    monkeypatch.setattr(jax.sharding, "NamedSharding", _Pl)
+
+
+def _mesh(data, model):
+    return SimpleNamespace(shape={"data": data, "model": model},
+                           axis_names=("data", "model"), rank=0, data_rank=0)
+
+
+@functools.lru_cache(maxsize=None)
+def _ref_state(arch, reduced, kind):
+    """The reference's abstract train state (``kind``: "float" for the
+    techniques whose state is the bf16 params and f32 moments)."""
+    cfg = ref_config(arch, reduced=reduced)
+    model = RefLM(cfg)
+    tech = jtech("Naive" if kind == "float" else kind)
+    state = jax.eval_shape(lambda r: ref_init(model, tech, r)[0],
+                           jax.random.PRNGKey(0))
+    return cfg, model, state
+
+
+def _port_state(arch, reduced, label):
+    """The port's train state: real at smoke size for the quantized and
+    LoRA techniques; for the float ones (every width) its structure on
+    the meta device, as ``init_train_state`` builds it (bf16 params, f32
+    moments, int32 counters)."""
+    cfg = get_config(arch, reduced=reduced)
+    model = LM(cfg, device="cpu")
+    if label not in FLOAT:
+        return cfg, model, init_train_state(
+            model, technique_from_label(label))[0]
+    params, m = {}, {}
+    for path, ps in tree_paths(model.param_specs(),
+                               is_leaf=lambda x: isinstance(x, ParamSpec)):
+        set_path(params, path, torch.empty(ps.shape, dtype=ps.dtype,
+                                           device="meta"))
+        set_path(m, path, torch.empty(ps.shape, device="meta"))
+    step = torch.empty((), dtype=torch.int32, device="meta")
+    return cfg, model, {"params": params, "opt": {"m": m, "v": m,
+                                                  "step": step},
+                        "step": step}
+
+
+def _ref_flat(tree):
+    flat, _ = jax.tree_util.tree_flatten_with_path(
+        tree, is_leaf=lambda x: isinstance(x, _Pl))
+    return {jax.tree_util.keystr(p): pl.value for p, pl in flat}
+
+
+def _port_flat(tree):
+    return {p: (pl.spec, pl.host) for p, pl in keystr_paths(tree)}
+
+
+@pytest.mark.parametrize("arch,reduced,label", CASES)
+def test_zero_placements_match_reference(arch, reduced, label, bare_specs):
+    """params, grads and optimizer state: every leaf's spec and host flag
+    equal the reference's ``train_state_shardings`` /
+    ``state_shardings(component="grads")``, on each mesh."""
+    kind = label if label not in FLOAT else "float"
+    rcfg, rmodel, rstate = _ref_state(arch, reduced, kind)
+    cfg, model, pstate = _port_state(arch, reduced, label)
+    rlogical = ref_sharding.logical_by_path_of(rmodel.param_specs())
+    logical = S.logical_by_keystr_of(model.param_specs())
+    assert logical == rlogical
+    for data, mdl in MESHES:
+        rtech, tech = jtech(label), technique_from_label(label)
+        rctx = ref_sharding.make_shard_ctx(rcfg, rtech, _mesh(data, mdl))
+        ctx = S.make_shard_ctx(cfg, tech, _mesh(data, mdl))
+        assert rctx.attn_mode == "head"
+        assert (ctx.dp_axes, ctx.model_axis, ctx.dp_size) \
+            == (rctx.dp_axes, rctx.model_axis, rctx.dp_size)
+        want = _ref_flat(ref_train_shardings(rstate, rmodel, rctx))
+        want.update({"grads" + p: v for p, v in _ref_flat(
+            ref_sharding.state_shardings(rctx, rstate["params"], rlogical,
+                                         component="grads")).items()})
+        got = _port_flat(S.train_state_shardings(pstate, model, ctx))
+        got.update({"grads" + p: v for p, v in _port_flat(
+            S.state_shardings(ctx, pstate["params"], logical,
+                              component="grads")).items()})
+        assert set(got) == set(want), (data, mdl,
+                                       sorted(set(got) ^ set(want))[:4])
+        bad = {p: (got[p], want[p]) for p in want if got[p] != want[p]}
+        assert not bad, (data, mdl, list(bad.items())[:3])
+        if label in ("Z3", "Z3+O") and mdl == 1:
+            # ZeRO-3 splits every leaf some dim of which the ranks divide
+            assert any("data" in str(s) for s, _ in got.values())
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "llama2-7b"])
+def test_sequence_mode_raises(arch):
+    """A model axis of 3 divides neither model's heads, where the
+    reference turns to sequence mode, which the port has not: the
+    context raises, naming its ROADMAP item."""
+    with pytest.raises(NotImplementedError, match="item 7.3"):
+        S.make_shard_ctx(get_config(arch), technique_from_label("Z3"),
+                         _mesh(2, 3))
+    assert ref_sharding.make_shard_ctx(ref_config(arch), jtech("Z3"),
+                                       _mesh(2, 3)).attn_mode == "seq"
+
+
+def test_claim2_zero_stage_changes_param_sharding_on_the_port():
+    """tests/test_paper_claims.py:104 on the port's resolver: Z3 shards
+    parameters over DP, Z2 leaves them replicated."""
+    cfg = get_config("granite-3-2b")
+    for stage, expect_dp in ((2, False), (3, True)):
+        ctx = S.make_shard_ctx(cfg, dataclasses.replace(
+            technique_from_label("Naive"), zero_stage=stage),
+            _mesh(16, 16))
+        spec = S.resolve_spec(ctx, "w_up", (40, 2048, 8192),
+                              ("layers", "embed", "mlp"),
+                              zero=(stage >= 3))
+        has_dp = "data" in jax.tree_util.tree_leaves(tuple(spec))
+        assert has_dp == expect_dp, (stage, spec)
+
+
+@pytest.mark.parametrize("data,rows", [(2, 4), (4, 8), (2, 2)])
+def test_batch_rows_follow_the_batch_spec(data, rows):
+    """Rank r holds rows [r B/dp, (r+1) B/dp): P(dp, None) over a batch."""
+    cfg = get_config("qwen1.5-0.5b", reduced=True)
+    got = []
+    for r in range(data):
+        mesh = SimpleNamespace(shape={"data": data, "model": 1},
+                               axis_names=("data", "model"), rank=0,
+                               data_rank=r)
+        ctx = S.make_shard_ctx(cfg, technique_from_label("Z3"), mesh)
+        assert ctx.dp_spec_entry == "data"
+        got.append(ctx.batch_sharding(rows))
+    w = rows // data
+    assert got == [(r * w, (r + 1) * w) for r in range(data)]
+
+
+@pytest.mark.parametrize("arch,batch,seq,data", [
+    ("qwen1.5-0.5b", 4, 2048, 2), ("qwen1.5-0.5b", 256, 4096, 4),
+    ("llama2-7b", 8, 4096, 2), ("mamba2-130m", 16, 1024, 8)])
+def test_pick_grad_accum_matches_reference(arch, batch, seq, data):
+    rcfg, cfg = ref_config(arch), get_config(arch)
+    tech = technique_from_label("F+R+Z3")
+    rctx = ref_sharding.make_shard_ctx(rcfg, jtech("F+R+Z3"),
+                                       _mesh(data, 1))
+    ctx = S.make_shard_ctx(cfg, tech, _mesh(data, 1))
+    assert pick_grad_accum(cfg, ShapeSpec("t", seq, batch, "train"), ctx) \
+        == ref_pick_grad_accum(rcfg, RefShapeSpec("t", seq, batch, "train"),
+                               rctx)
+    assert pick_grad_accum(cfg, ShapeSpec("t", seq, batch, "train"),
+                           None) == 1
+
+
+def test_pick_grad_accum_divides_a_ranks_rows():
+    """12 rows over 4 ranks: the reference picks 2 micro-batches of 6
+    global rows (GSPMD places them); a rank's 3 rows do not split in
+    two, so the port halves the count to 1."""
+    rcfg, cfg = ref_config("qwen1.5-0.5b"), get_config("qwen1.5-0.5b")
+    rctx = ref_sharding.make_shard_ctx(rcfg, jtech("F+R+Z3"), _mesh(4, 1))
+    ctx = S.make_shard_ctx(cfg, technique_from_label("F+R+Z3"), _mesh(4, 1))
+    assert ref_pick_grad_accum(rcfg, RefShapeSpec("t", 2048, 12, "train"),
+                               rctx) == 2
+    assert pick_grad_accum(cfg, ShapeSpec("t", 2048, 12, "train"), ctx) == 1
+
+
+def test_mesh_layout_and_two_axes_refused():
+    """Global rank d * model + m, as jax.make_mesh((data, model)) lays
+    devices out; both axes above 1 (TP training) refuse before joining."""
+    rows, cols = mesh_groups(model=3, data=2)
+    assert rows == [[0, 1, 2], [3, 4, 5]]
+    assert cols == [[0, 3], [1, 4], [2, 5]]
+    want = np.arange(6).reshape(2, 3)
+    assert rows == want.tolist() and cols == want.T.tolist()
+    with pytest.raises(NotImplementedError, match="item 7.6"):
+        make_local_mesh(model=2, data=2, backend="gloo", rank=0,
+                        init_method="file:///nonexistent", device="cpu")
+
+
+def _bits(x) -> np.ndarray:
+    a = np.asarray(x)
+    return a.view(np.int32) if a.dtype == np.float32 else a
+
+
+@pytest.mark.parametrize("n", [512, C.BLOCK, 2 * C.BLOCK + 300, 5000])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_compressor_matches_reference_bitwise(n, dtype):
+    """``compress_grad`` (codes, scales, the new error carry) and
+    ``decompress_grad`` equal the reference's bit for bit, on a seeded
+    gradient (f32 or bf16) with a seeded f32 error carry, also where the
+    length is not a whole number of blocks."""
+    rng = np.random.default_rng(n)
+    g32 = (rng.standard_normal(n) * rng.uniform(1e-3, 10, n)).astype(
+        np.float32)
+    err = (rng.standard_normal(n) * 1e-2).astype(np.float32)
+    jg = jnp.asarray(g32).astype(dtype)
+    tg = torch.from_numpy(g32).to(getattr(torch, dtype))
+    rq, rs, rerr = RC.compress_grad(jg, jnp.asarray(err))
+    q, s, new_err = C.compress_grad(tg, torch.from_numpy(err))
+    assert np.array_equal(np.asarray(rq), q.numpy())
+    assert np.array_equal(_bits(rs), _bits(s.numpy()))
+    assert np.array_equal(_bits(rerr), _bits(new_err.numpy()))
+    rd = RC.decompress_grad(rq, rs, (n,))
+    d = C.decompress_grad(q, s, (n,))
+    assert np.array_equal(_bits(rd), _bits(d.numpy()))
+
+
+def test_grad_compression_error_feedback_converges():
+    """tests/test_substrate.py:185 on the port: the accumulated
+    reconstruction tracks the accumulated gradient (the bias does not
+    build up)."""
+    g = torch.from_numpy(np.asarray(
+        jax.random.normal(jax.random.PRNGKey(0), (512,), jnp.float32)))
+    err = torch.zeros_like(g)
+    total = torch.zeros_like(g)
+    for _ in range(8):
+        q, s, err = C.compress_grad(g, err)
+        total += C.decompress_grad(q, s, g.shape)
+    rel = float(torch.linalg.norm(total - 8 * g) / torch.linalg.norm(8 * g))
+    assert rel < 0.01, rel
