@@ -4163,6 +4163,10 @@ def phase_dense(cfg):
 # offset 4, an MoE FFN at the odd offsets, SSD mixers elsewhere): its
 # 104 GB of bf16 weights do not fit one 80 GB card, one period's 27 do
 JAMBA_LAYERS = 8
+# qwen3-moe-30b-a3b serves cut to 8 of its 48 layers (widths untouched):
+# at 48 layers (30.5 B parameters) phase 23 took ~230 s, and the script
+# must leave room for phase 29 within its time limit
+MOE_SERVE_LAYERS = 8
 
 
 def routed_experts(eng, inputs):
@@ -4286,17 +4290,19 @@ def phase_full_width(cfg, what: str, eager_twin: bool = False):
 
 
 def phase_moe_hybrid():
-    """Phase 23: qwen3-moe-30b-a3b at full width (48 layers, 128 experts
-    top-8, q/k norms) and jamba-v0.1-52b at full width over one period (8
-    of its 32 layers) through the engine's captured steps, then the paged
+    """Phase 23: qwen3-moe-30b-a3b at full width (128 experts top-8, q/k
+    norms) cut to ``MOE_SERVE_LAYERS`` of its 48 layers and
+    jamba-v0.1-52b at full width over one period (8 of its 32 layers) through the engine's captured steps, then the paged
     read and the SSD scan at the shapes these models give them, each
     against its plain version. Returns the runs' paged and SSD launches."""
     import dataclasses
     from repro_torch.configs import get_config
-    qwen3 = get_config("qwen3-moe-30b-a3b")
+    qwen3 = dataclasses.replace(get_config("qwen3-moe-30b-a3b"),
+                                n_layers=MOE_SERVE_LAYERS)
     jamba = dataclasses.replace(get_config("jamba-v0.1-52b"),
                                 n_layers=JAMBA_LAYERS)
-    runs = phase_full_width(qwen3, f"{qwen3.name} full width",
+    runs = phase_full_width(qwen3, f"{qwen3.name} full width, "
+                            f"{MOE_SERVE_LAYERS} of 48 layers",
                             eager_twin=True)
     runs += phase_full_width(jamba, f"{jamba.name} full width, "
                              f"{JAMBA_LAYERS} of 32 layers (one period)")
@@ -5331,6 +5337,17 @@ TP_RUNS = (("qwen1.5-0.5b", dict(prefill_chunk=64, kv_quant="int8")),
            ("llama2-7b", dict(kv_quant="none")),
            ("mamba2-130m", dict(kv_quant="none")))
 TP_POOL = dict(max_batch=8, n_blocks=1024, block_size=16)
+# llama2-7b serves cut to 16 of its 32 layers (widths untouched) since
+# the script needed room for phase 29
+TP_LAYERS = {"llama2-7b": 16}
+
+
+def tp_config(name):
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(name)
+    return dataclasses.replace(cfg, n_layers=TP_LAYERS.get(name,
+                                                           cfg.n_layers))
 
 
 # the largest gap, at any position of a teacher-forced stream, between
@@ -5493,7 +5510,7 @@ def tp_serve(mesh, name, engine_kw, prompts, max_new, streams=None):
     from repro_torch.models.lm import LM
     from repro_torch.serving import graphs
     from repro_torch.serving.engine import Engine, Request
-    cfg = get_config(name)
+    cfg = tp_config(name)
     dev = mesh.device if mesh is not None else torch.device("cuda")
     params = LM(cfg, device=dev).init(0)
     eng = Engine(cfg, params, mesh=mesh, device=dev, cuda_graphs=False,
@@ -5607,7 +5624,7 @@ def phase_tp() -> dict:
     outs = {}
     card = card_line()
     for name, kw in TP_RUNS:
-        cfg = get_config(name)
+        cfg = tp_config(name)
         prompts = serving_requests(TP_REQUESTS, cfg.vocab_size,
                                    prompt_lens=TP_LENS)
         one = tp_serve(None, name, kw, prompts, TP_NEW)
@@ -5618,7 +5635,9 @@ def phase_tp() -> dict:
         ranks = spawn_ranks(tp_serve, TP_DEGREE, backend="gloo",
                             args=(name, kw, prompts, TP_NEW, one["out"]))
         outs[name] = ranks[0]["out"]
-        what = f"{name} TP={TP_DEGREE} " + ", ".join(
+        cut = (f" ({cfg.n_layers} of {get_config(name).n_layers} layers)"
+               if name in TP_LAYERS else "")
+        what = f"{name}{cut} TP={TP_DEGREE} " + ", ".join(
             f"{k}={v}" for k, v in kw.items())
         for r, rec in enumerate(ranks):
             check(rec["out"] == ranks[0]["out"],
@@ -5680,7 +5699,7 @@ def phase_tp() -> dict:
               f"ms a step), eager; {card}")
     if torch.cuda.device_count() >= TP_DEGREE:
         name, kw = TP_RUNS[0]
-        cfg = get_config(name)
+        cfg = tp_config(name)
         prompts = serving_requests(TP_REQUESTS, cfg.vocab_size,
                                    prompt_lens=TP_LENS)
         ranks = spawn_ranks(tp_serve, TP_DEGREE, backend="nccl",
@@ -5703,12 +5722,13 @@ def phase_tp() -> dict:
 DP_DEGREE = 2
 DP_SHAPE = dict(b=4, t=2048)        # phase 24's global batch
 # the stages, each from fresh seeded state, in one spawn: Z0 (F+R), Z1,
-# Z2, Z3 and Z3+O on qwen1.5-0.5b for 3 steps, then mamba2-130m F+R+Z3
-# for 2; a rank runs one micro-batch of its 2 rows, and the one-device
-# oracle (grad_accum = 2) runs the same rows as its two micro-batches
-DP_RUNS = (("qwen1.5-0.5b", "F+R", 3), ("qwen1.5-0.5b", "F+R+Z1", 3),
-           ("qwen1.5-0.5b", "F+R+Z2", 3), ("qwen1.5-0.5b", "F+R+Z3", 3),
-           ("qwen1.5-0.5b", "F+R+Z3+O", 3), ("mamba2-130m", "F+R+Z3", 2))
+# Z2, Z3 and Z3+O on qwen1.5-0.5b, then mamba2-130m F+R+Z3, 2 steps each
+# (qwen's 3 until the script needed room for phase 29); a rank runs one
+# micro-batch of its 2 rows, and the one-device oracle (grad_accum = 2)
+# runs the same rows as its two micro-batches
+DP_RUNS = (("qwen1.5-0.5b", "F+R", 2), ("qwen1.5-0.5b", "F+R+Z1", 2),
+           ("qwen1.5-0.5b", "F+R+Z2", 2), ("qwen1.5-0.5b", "F+R+Z3", 2),
+           ("qwen1.5-0.5b", "F+R+Z3+O", 2), ("mamba2-130m", "F+R+Z3", 2))
 DP_LR = 1e-3                        # warmup 0: every step moves the params
 
 
@@ -6041,6 +6061,695 @@ def phase_dp() -> dict:
     return total
 
 
+# --------------------------------------------------------------------------
+# phase 29: MoE over ranks (expert-parallel serving, MoE under a data axis)
+# --------------------------------------------------------------------------
+
+EP_DEGREE = 2
+# qwen3-moe-30b-a3b cut to 4 of its 48 layers (widths untouched: d 2048,
+# 128 experts top-8, expert d_ff 768, 32/4 heads of 128); jamba over one
+# period (8 of 32 layers), its 16 experts split 8 a rank
+EP_QWEN_LAYERS = 4
+EP_RUNS = (("qwen3-moe-30b-a3b", EP_QWEN_LAYERS),
+           ("jamba-v0.1-52b", JAMBA_LAYERS))
+EP_ENGINE = dict(prefill_chunk=64, kv_quant="int8")
+EP_NEW = 16
+# (B): qwen3-moe cut to 2 of 48 layers, F+R+Z3 at dp 2 on phase 28's 4 x
+# 2048 global batch, 2 steps from the seed, against the one-device step on
+# the whole batch (grad_accum 1)
+MOE_DP_STEPS = 2
+MOE_DP_LR = 1e-3
+SKETCH_K = 16          # projections of a leaf (linear: pieces add up)
+# the limits of (B), per leaf of the state after step 1, on the sketched
+# distances (a JL estimate of |a - b| / |b|, its error ~18% at K = 16):
+# the first moments within 2^-5 of their norm, the second within 2^-4.
+# Each rank's bf16 gradient rounds once and the whole batch's once (the
+# CPU tests hold 2^-8 and 2^-7 there, where a product's rows do not
+# depend on its row count); on the card every product of the two sides
+# has another row count, so cuBLAS sums in other orders throughout, and
+# a leaf whose gradient is a cancelling sum over all tokens (a norm's
+# weight) reads several times that (0.87% on an MoE layer's norm on the
+# H100 against 2^-8 x 1.5). The params within half of their own
+# update (the reference comparison's limit: Adam's first step moves an
+# element about lr x sign(g), so an element whose gradient sits near 0
+# may move the other way)
+MOE_DP_M_REL = 2.0 ** -5
+MOE_DP_V_REL = 2.0 ** -4
+MOE_DP_P_REL = 0.5
+# after step 2 the moments carry step 2's gradients, taken at params that
+# Adam's first step left apart where a gradient sat near 0 (up to 2 lr an
+# element): only the params' limit holds there, the moments are printed.
+# Per step, relative: loss and aux within f32 rounding of the order of
+# sums at step 1, grad_norm within the ranks' bf16 roundings; step 2's
+# after those params
+MOE_DP_STEP_RTOL = {"loss": (1e-5, 1e-3), "aux": (1e-5, 1e-3),
+                    "grad_norm": (1e-3, 1e-2)}
+
+
+def ep_config(name, layers):
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(name), n_layers=layers)
+
+
+def ep_emulated_moe(moe_local, h, p, cfg, capacity_mult, ctx=None):
+    """``blocks._moe_ep`` at degree ``EP_DEGREE`` on one device, op for op
+    at the ranks' shapes: each virtual rank routes its slice of t (or
+    every token), sorts into its (E·cap + 1) buffer, the blocks are
+    regrouped as the all-to-all regroups them, each virtual rank's
+    experts (its E/2 contiguous ones) run over ``(E/2, 2·cap, D)``, the
+    rows go back and each combines its tokens; the t slices are
+    concatenated. A call under a context is the one-device dispatch."""
+    import torch
+    from repro_torch.models import blocks as B
+    if ctx is not None or cfg.n_experts % EP_DEGREE:
+        return (moe_local(h, p, cfg, capacity_mult) if ctx is None else
+                moe_local(h, p, cfg, capacity_mult, ctx))
+    m = EP_DEGREE
+    wg, wu, wd = B._expert_weights(p, h.dtype)
+    d, e, k = cfg.d_model, cfg.n_experts, cfg.top_k
+    e_loc = e // m
+    t = h.shape[1]
+    split_t = t % m == 0 and t > 1
+    sends, tails = [], []
+    for r in range(m):
+        hh = h.narrow(1, r * (t // m), t // m) if split_t else h
+        x = hh.reshape(-1, d)
+        n = x.shape[0]
+        top_w, top_e, _ = B._route(x, p["router"], cfg)
+        cap = B.capacity(n, cfg, capacity_mult)
+        slot, keep = B._slots(top_e, e, cap)
+        sends.append(B._dispatch(x, slot, k, e * cap).reshape(
+            m, e_loc * cap, d))
+        tails.append((hh.shape, slot, keep, top_w, n))
+    ys = []
+    for j in range(m):
+        recv = torch.stack([sends[i][j] for i in range(m)])
+        xs = recv.reshape(m, e_loc, cap, d).transpose(0, 1).reshape(
+            e_loc, m * cap, d)
+        lo, hi = j * e_loc, (j + 1) * e_loc
+        y = B._expert_ffn(xs, wg[lo:hi], wu[lo:hi], wd[lo:hi])
+        ys.append(y.reshape(e_loc, m, cap, d).transpose(0, 1).reshape(
+            m, e_loc * cap, d))
+    outs = []
+    for i, (shape, slot, keep, top_w, n) in enumerate(tails):
+        back = torch.stack([ys[j][i] for j in range(m)])
+        outs.append(B._combine(back.reshape(e * cap, d), slot, keep, top_w,
+                               n, k, h.dtype).reshape(shape))
+    y = torch.cat(outs, dim=1) if split_t else outs[0]
+    return y, torch.zeros((), device=h.device)
+
+
+@contextlib.contextmanager
+def ep2_sum_order():
+    """TP = 1 in TP = 2's order of sums (:func:`tp2_sum_order`) with the
+    MoE FFN as :func:`ep_emulated_moe`."""
+    from repro_torch.models import blocks as B
+    moe_local = B._moe_local
+    B._moe_local = (lambda *a, **kw: ep_emulated_moe(moe_local, *a, **kw))
+    try:
+        with tp2_sum_order():
+            yield
+    finally:
+        B._moe_local = moe_local
+
+
+class DropCount:
+    """The dropped and all (token, choice) assignments of every MoE
+    dispatch, added on the card (no sync) by a wrapper around
+    ``blocks._slots``: under expert parallelism each rank's own shard's
+    (a decode step routes every row on every rank)."""
+
+    def __init__(self, device):
+        import torch
+        self.dropped = torch.zeros((), dtype=torch.int64, device=device)
+        self.total = 0
+
+    def __enter__(self):
+        from repro_torch.models import blocks as B
+        self.saved = slots = B._slots
+
+        def counted(top_e, e, cap, ctx=None):
+            slot, keep = (slots(top_e, e, cap) if ctx is None else
+                          slots(top_e, e, cap, ctx))
+            self.dropped += (~keep).sum()
+            self.total += keep.numel()
+            return slot, keep
+
+        B._slots = counted
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import blocks as B
+        B._slots = self.saved
+
+
+def ep_serve(mesh, name, layers, prompts, max_new, streams=None):
+    """One rank of phase 29 (A) (``mesh=None``: TP = 1 on one device):
+    the config cut to ``layers``, its seeded weights drawn on the card
+    (a rank draws its own pieces, a layer slice at a time: the whole
+    tree is never on the card twice), the engine (steps eager), every
+    launch count set to 0, the burst served with the dropped assignments
+    counted and each exchange of the expert-parallel dispatch timed
+    between two synchronizes. Given TP = 1's ``streams``, each stream
+    teacher forced through this rank's model: the sha256 of its logits'
+    bytes. Returns the record."""
+    import hashlib
+    import torch
+    from repro_torch.core.perfscope import Timer
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import ssd as ssdk
+    from repro_torch.models.lm import LM
+    from repro_torch.models.params import tree_paths
+    from repro_torch.parallel.sharding import make_serving_ctx
+    from repro_torch.serving import graphs
+    from repro_torch.serving.engine import Engine, Request
+    cfg = ep_config(name, layers)
+    dev = mesh.device if mesh is not None else torch.device("cuda")
+    t0 = time.monotonic()
+    params = LM(cfg, device=dev, ctx=make_serving_ctx(cfg, mesh)).init(
+        0, pieces=True)
+    torch.cuda.synchronize(dev)
+    drawn_s = time.monotonic() - t0
+    eng = Engine(cfg, params, mesh=mesh, device=dev, cuda_graphs=False,
+                 **TP_POOL, **EP_ENGINE)
+    del params
+    free_card()
+    torch.cuda.reset_peak_memory_stats(dev)
+    timer = Timer()
+    if eng._ctx is not None:
+        eng._ctx.comm_timer = timer
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, tokens=p, max_new_tokens=max_new))
+    torch.cuda.synchronize(dev)
+    for c in graphs.KERNEL_COUNTERS:   # count the main path's run only
+        c.clear()
+    t0 = time.monotonic()
+    with DropCount(dev) as drops:
+        done = eng.run(max_steps=5000)
+        torch.cuda.synchronize(dev)
+    wall = time.monotonic() - t0
+    st = eng.stats()
+    rec = {"out": {r.rid: list(r.output) for r in done},
+           "st": counters(st), "decode_tok_s": st["decode_tok_s"],
+           "wall": wall, "drawn_s": drawn_s,
+           "paged": fd.LAUNCHES["paged_attention"],
+           "ssd": ssdk.LAUNCHES["ssd"], "rmsnorm": rn.LAUNCHES["rmsnorm"],
+           "sumsq": rn.LAUNCHES["rmsnorm_sumsq"],
+           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+           "dropped": int(drops.dropped), "assignments": drops.total,
+           "exchange_n": len(timer.records["exchange"]),
+           "exchange_s": sum(timer.records["exchange"]),
+           "exchange_bytes": (eng._ctx.exchange_bytes
+                              if eng._ctx is not None else 0),
+           "weights_gib": sum(t.numel() * t.element_size() for _, t in
+                              tree_paths(eng.params)) / 2 ** 30,
+           "device": str(dev)}
+    if eng._ctx is not None:
+        eng._ctx.comm_timer = None
+    if streams is not None:
+        v = cfg.vocab_size
+        rec["forced"] = {}
+        with torch.no_grad():
+            for rid in sorted(streams):
+                toks = torch.tensor([prompts[rid] + streams[rid][:-1]],
+                                    dtype=torch.int64, device=dev)
+                z = eng.model.forward(eng.params, toks)[0, :, :v]
+                rec["forced"][rid] = hashlib.sha256(
+                    z.contiguous().cpu().view(torch.uint8).numpy()
+                ).hexdigest()
+    del eng
+    free_card()
+    return rec
+
+
+def ep_forced_one(cfg, prompts, streams):
+    """On one device, after the ranks have exited: TP = 1's seeded model
+    and each of TP = 1's ``streams`` teacher forced through it as it is
+    and in TP = 2's order of sums (:func:`ep2_sum_order`). Returns the
+    sha256 of each stream's logits in TP = 2's order, the largest gap of
+    the two in bf16 ulps of the row's top TP = 1 logit, and the positions
+    whose argmax differs."""
+    import hashlib
+    import torch
+    from repro_torch.models.lm import LM
+    model = LM(cfg, ssd_impl="kernel", device="cuda")
+    params = model.init(0)
+    v = cfg.vocab_size
+    out = {"sha": {}, "gap": 0.0, "flips": 0, "positions": 0}
+    with torch.no_grad():
+        for rid in sorted(streams):
+            toks = torch.tensor([prompts[rid] + streams[rid][:-1]],
+                                dtype=torch.int64, device="cuda")
+            z1 = model.forward(params, toks)[0, :, :v]
+            with ep2_sum_order():
+                ze = model.forward(params, toks)[0, :, :v]
+            out["sha"][rid] = hashlib.sha256(
+                ze.contiguous().cpu().view(torch.uint8).numpy()).hexdigest()
+            z1, ze = z1.float(), ze.float()
+            top = z1.max(-1).values
+            ulp = torch.exp2(torch.floor(torch.log2(top.abs().clamp_min(
+                1e-30))) - 7)
+            out["gap"] = max(out["gap"], float(
+                ((ze - z1).abs().max(-1).values / ulp).max()))
+            out["flips"] += int((ze.argmax(-1) != z1.argmax(-1)).sum())
+            out["positions"] += toks.shape[1]
+    del model, params
+    free_card()
+    return out
+
+
+def leaf_sketch(state, lay=None, device="cuda") -> dict:
+    """``{path: (sharded, (SKETCH_K,) float64)}``: each leaf's values (as f32)
+    projected onto SKETCH_K pseudo-random vectors whose entries are a
+    hash of the element's flat index in the whole leaf (uniform in
+    [-0.5, 0.5)), on the card. Linear, so a sharded leaf's projection is
+    the sum over the ranks of each rank's over its piece (with ``lay``,
+    a rank's ``DPLayout``), and no byte moves; the RMS of two runs'
+    projections' differences estimates the distance of the leaves
+    (Johnson-Lindenstrauss) up to the same factor as their RMS estimates
+    a leaf's norm."""
+    import torch
+    from repro_torch.models.params import keystr_paths
+    prime = 2 ** 31 - 1
+    seeds = torch.tensor([(0x9E3779B1 * (j + 1)) % prime
+                          for j in range(SKETCH_K)], dtype=torch.int64,
+                         device=device)
+
+    def hashed(i):                     # two multiply-mod-xorshift rounds
+        h = (i + seeds) % prime
+        h = (h * 0x2545F491) % prime
+        h = h ^ (h >> 15)
+        h = (h * 0x5851F42D) % prime
+        return h ^ (h >> 13)
+    out = {}
+    for path, t in keystr_paths(state):
+        t = t.detach().to(device).float()
+        cut = lay.state_cut(path) if lay is not None else None
+        shape = list(t.shape)
+        sharded = cut is not None and cut.dim is not None
+        if sharded:
+            shape[cut.dim] *= cut.parts
+        idx = torch.arange(math.prod(shape), device=device).view(shape)
+        if sharded:
+            lo, hi = cut.bounds(shape[cut.dim])
+            idx = idx.narrow(cut.dim, lo, hi - lo)
+        vals, idx = t.reshape(-1), idx.reshape(-1)
+        acc = torch.zeros(SKETCH_K, dtype=torch.float64, device=device)
+        step = 1 << 22
+        for c0 in range(0, vals.numel(), step):
+            i = idx[c0:c0 + step, None]
+            r = hashed(i).float() * 2.0 ** -31 - 0.5
+            acc += (vals[c0:c0 + step] @ r).double()
+        out[path] = (sharded, acc.cpu().numpy())
+    return out
+
+
+def whole_sketch(ranks_sketches: list) -> dict:
+    """The whole state's sketches from every rank's: a sharded leaf's
+    projections added over the ranks, a whole leaf's rank 0's."""
+    return {p: (sum(r[p][1] for r in ranks_sketches) if sh else v)
+            for p, (sh, v) in ranks_sketches[0].items()}
+
+
+@contextlib.contextmanager
+def recorded_routes(calls: list):
+    """``blocks._route`` with a copy of each call's experts appended to
+    ``calls`` (on the device: no sync)."""
+    from repro_torch.models import blocks as B
+    orig = B._route
+
+    def recorded(h, w, cfg, ctx=None):
+        out = orig(h, w, cfg) if ctx is None else orig(h, w, cfg, ctx)
+        calls.append(out[1].reshape(-1, cfg.top_k).clone())
+        return out
+
+    B._route = recorded
+    try:
+        yield
+    finally:
+        B._route = orig
+
+
+@contextlib.contextmanager
+def forced_routes(routes: list, flips: list):
+    """``blocks._route`` on one device taking the experts of ``routes``
+    (each MoE layer's (tokens, k) on the whole batch): each call takes
+    the layer route that agrees most with its own choice (the forward
+    and the recomputation call each layer), with its gates gathered at
+    those experts and renormalised and the load-balancing loss recomputed
+    from them; ``flips`` gains the tokens whose expert set it changed."""
+    import torch
+    from repro_torch.models import blocks as B
+    from repro_torch.models import layers as L
+    orig = B._route
+
+    def forced(h, w, cfg):
+        top_w, top_e, _ = orig(h, w, cfg)
+        e, k = cfg.n_experts, cfg.top_k
+        own = top_e.reshape(-1, k)
+        cands = [torch.from_numpy(r).to(own.device) for r in routes]
+        want = max(cands, key=lambda c: int((c == own).all(-1).sum()))
+        flips.append(int((want.sort(-1)[0] != own.sort(-1)[0]).any(-1)
+                         .sum()))
+        gates = torch.softmax(L.dense(h.float(), w).float(), -1).reshape(
+            -1, e)
+        tw = gates.gather(-1, want)
+        tw = tw / torch.clamp_min(tw.sum(-1, keepdim=True), 1e-9)
+        first = (want[:, :1] == torch.arange(e, device=want.device)).float()
+        aux = e * (gates.mean(0) * first.mean(0)).sum()
+        return tw.reshape(top_w.shape), want.reshape(top_e.shape), aux
+
+    B._route = forced
+    try:
+        yield
+    finally:
+        B._route = orig
+
+
+def moe_dp_run(mesh, layers, batches, routes=None):
+    """One run of phase 29 (B): qwen3-moe cut to ``layers``, F+R+Z3 over
+    this rank's rows (``mesh=None``: F+R on one device, the whole batch,
+    grad_accum 1), from the seed; the kernels' launch counts set to 0,
+    each step fenced, each data-axis collective timed between two
+    synchronizes. Returns the per-step loss, ce, aux and grad_norm, step
+    ms, the collectives, launches, peak memory, the state at rest, the
+    sketches of the whole state after each step (:func:`leaf_sketch`; a
+    rank's: its pieces' part) and, on one device, of the initial params
+    (the ranks draw the same tree and keep their pieces). A rank
+    records each step's experts of each MoE layer (its rows); the one
+    device takes ``routes`` (the ranks' records joined, a list a step)
+    and forces them (:func:`forced_routes`): the two sides' products sum
+    in other orders (another number of rows), so a near tie of two gates
+    may flip an expert, and the comparison holds what remains."""
+    import torch
+    from repro_torch.core.config import technique_from_label
+    from repro_torch.core.perfscope import Timer
+    from repro_torch.launch.build import make_model
+    from repro_torch.parallel.sharding import make_shard_ctx
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.step import (DPLayout, build_train_step,
+                                        init_train_state)
+    cfg = ep_config("qwen3-moe-30b-a3b", layers)
+    tech = technique_from_label("F+R+Z3" if mesh is not None else "F+R")
+    ctx = make_shard_ctx(cfg, tech, mesh) if mesh is not None else None
+    dev = mesh.device if mesh is not None else torch.device("cuda")
+    model = make_model(cfg, tech, device=dev, ctx=ctx)
+    opt = AdamWConfig(lr=MOE_DP_LR, warmup=0)
+    state, _ = init_train_state(model, tech, 0, opt, ctx=ctx)
+    lay = DPLayout(model, tech, ctx) if ctx is not None else None
+    rec = {"init": leaf_sketch(state["params"]) if ctx is None else None}
+    step = build_train_step(model, tech, opt, ctx=ctx)
+    timer = Timer()
+    if ctx is not None:
+        ctx.comm_timer = timer
+    free_card()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    slice_counts(reset=True)
+    for key in ("loss", "ce", "aux", "grad_norm", "ms", "coll"):
+        rec[key] = []
+    rec["routes"], rec["flips"] = [], []
+    n_moe = sum(k == "moe" for k in cfg.ffn_kinds())
+    for i, b in enumerate(batches):
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+        if ctx is not None:
+            lo, hi = ctx.batch_sharding(DP_SHAPE["b"])
+            batch = {k: v[lo:hi] for k, v in batch.items()}
+        n0, s0 = len(timer.records["collective"]), \
+            sum(timer.records["collective"])
+        calls, flips = [], []
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        with (recorded_routes(calls) if routes is None else
+              forced_routes(routes[i], flips)):
+            state, met = step(state, batch)
+        torch.cuda.synchronize(dev)
+        rec["routes"].append([c.cpu().numpy() for c in calls[:n_moe]])
+        rec["flips"].append(sum(flips))
+        rec["ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["coll"].append((len(timer.records["collective"]) - n0,
+                            sum(timer.records["collective"]) - s0))
+        for key in ("loss", "ce", "aux", "grad_norm"):
+            rec[key].append(float(met[key]))
+        rec.setdefault("state", []).append(leaf_sketch(state, lay))
+    rec["launches"] = slice_counts()
+    rec["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    if ctx is not None:
+        ctx.comm_timer = None
+    buf = getattr(step, "grad_buffer", {})
+    rec["at_rest"] = state_bytes(state, buf.values())
+    rec["device"] = str(dev)
+    del state, step, model
+    free_card()
+    return rec
+
+
+def ep_rank_runs(mesh, serve_runs, dp_args):
+    """Phase 29 on one rank: the (A) runs in turn on the model axis,
+    then (B) on the same two processes seen as a data axis."""
+    import dataclasses
+    t0 = time.monotonic()
+    out = [ep_serve(mesh, *run) for run in serve_runs]
+    t1 = time.monotonic()
+    data = dataclasses.replace(
+        mesh, shape={"data": EP_DEGREE, "model": 1}, rank=0,
+        ranks=(mesh.ranks[mesh.rank],), group=None, data_rank=mesh.rank,
+        data_ranks=mesh.ranks, data_group=mesh.group)
+    dp = moe_dp_run(data, *dp_args)
+    dp["part_s"] = (t1 - t0, time.monotonic() - t1)
+    return out, dp
+
+
+def sketch_rel(a, b):
+    """The sketched distance of two runs' leaf over the sketched norm of
+    the second (``b``)."""
+    import numpy as np
+    return float(np.sqrt(np.mean((a - b) ** 2)) /
+                 max(np.sqrt(np.mean(b ** 2)), 1e-300))
+
+
+def phase_moe_ranks() -> dict:
+    """Phase 29: MoE over two ranks that share card 0 (gloo). (A)
+    expert-parallel serving: qwen3-moe-30b-a3b at full width cut to
+    ``EP_QWEN_LAYERS`` layers and jamba-v0.1-52b over one period, 8
+    requests chunked (64) with int8 KV, TP = 1 first on one device, then
+    both ranks (each drawing its own pieces); every rank's tokens equal
+    rank 0's, the served streams that split from TP = 1 are counted, and
+    TP = 1's streams teacher forced through each rank's model give, bit
+    for bit, TP = 1's logits in TP = 2's order of sums
+    (:func:`ep2_sum_order`, computed after the ranks exit). (B) qwen3-moe
+    cut to 2 layers, F+R+Z3 at dp 2 (the same two processes as a data
+    axis), 2 steps of the 4 x 2048 global batch, against the one-device
+    F+R step on the whole batch: loss, ce, aux and grad_norm per step,
+    and the final params and moments by sketches. Prints the dropped
+    assignments on both sides, per-rank peak memory, the exchange's
+    bytes and ms a step (host-staged) and each rank's decode tok/s.
+    Returns the ranks' launches."""
+    import numpy as np
+    import torch
+    from repro_torch.data.pipeline import serving_requests
+    from repro_torch.launch.mesh import spawn_ranks
+    t0 = time.monotonic()
+    card = card_line()
+    serve_runs, ones = [], {}
+    for name, layers in EP_RUNS:
+        cfg = ep_config(name, layers)
+        prompts = serving_requests(TP_REQUESTS, cfg.vocab_size,
+                                   prompt_lens=TP_LENS)
+        ones[name] = ep_serve(None, name, layers, prompts, EP_NEW)
+        serve_runs.append((name, layers, prompts, EP_NEW,
+                           ones[name]["out"]))
+    dp_cfg = ep_config("qwen3-moe-30b-a3b", MOE_TRAIN_LAYERS)
+    batches = dp_batches(dp_cfg, MOE_DP_STEPS)
+    t1 = time.monotonic()
+    ranks = spawn_ranks(ep_rank_runs, EP_DEGREE, backend="gloo",
+                        args=(serve_runs, (MOE_TRAIN_LAYERS, batches)))
+    t_ranks = time.monotonic() - t1
+    total = {"paged": 0, "ssd": 0, "sumsq": 0, "rmsnorm": 0}
+    for i, (name, layers, prompts, _, streams) in enumerate(serve_runs):
+        cfg = ep_config(name, layers)
+        one = ones[name]
+        recs = [r[0][i] for r in ranks]
+        what = (f"{name} ({layers} of {get_cfg_layers(name)} layers) "
+                f"TP={EP_DEGREE} EP, chunk 64, int8 KV")
+        for r, rec in enumerate(recs):
+            check(rec["out"] == recs[0]["out"],
+                  f"{what}: rank {r}'s tokens differ from rank 0's")
+            check(rec["st"]["finished"] == TP_REQUESTS,
+                  f"{what} rank {r}: {rec['st']['finished']} of "
+                  f"{TP_REQUESTS} finished")
+            tp_launches(cfg, rec, f"{what} rank {r}")
+            check(rec["exchange_n"] > 0 and rec["exchange_bytes"] > 0,
+                  f"{what} rank {r}: the expert-parallel exchange never ran")
+            for key in ("paged", "ssd", "sumsq"):
+                total[key] += rec[key]
+        forced = ep_forced_one(cfg, prompts, streams)
+        for r, rec in enumerate(recs):
+            bad = [rid for rid in streams
+                   if rec["forced"][rid] != forced["sha"][rid]]
+            check(not bad, f"{what} rank {r}: teacher forced, the logits "
+                  f"of streams {bad} differ from TP=1's in TP=2's order of "
+                  f"sums (sha256 of the bytes)")
+        splits = sum(recs[0]["out"][rid] != out
+                     for rid, out in one["out"].items())
+        for r, rec in enumerate(recs):
+            steps = rec["st"]["decode_steps"] + rec["st"]["chunk_steps"]
+            print(f"[ep] {what} rank {r} on {rec['device']}: weights "
+                  f"{rec['weights_gib']:.2f} GiB drawn as pieces in "
+                  f"{rec['drawn_s']:.1f}s, peak {rec['peak_gib']:.2f} GiB "
+                  f"(TP=1 {one['peak_gib']:.2f}); decode "
+                  f"{rec['decode_tok_s']:.1f} tok/s (TP=1 "
+                  f"{one['decode_tok_s']:.1f}); {steps} steps "
+                  f"({rec['st']['decode_steps']} decode, "
+                  f"{rec['st']['chunk_steps']} chunk), wall "
+                  f"{rec['wall']:.1f}s (TP=1 {one['wall']:.1f}s); the "
+                  f"exchange (host-staged gloo all_reduce of int32 words) "
+                  f"{rec['exchange_n'] / max(steps, 1):.1f} a step, "
+                  f"{rec['exchange_bytes'] / max(steps, 1) / 2**20:.2f} MiB "
+                  f"and {rec['exchange_s'] * 1e3 / max(steps, 1):.2f} ms a "
+                  f"step ({rec['exchange_s'] * 1e3 / rec['exchange_n']:.3f} "
+                  f"ms, {rec['exchange_bytes'] / max(rec['exchange_s'], 1e-9) / 1e9:.3f} "
+                  f"GB/s each); dropped {rec['dropped']} of "
+                  f"{rec['assignments']} assignments of its shards (TP=1: "
+                  f"{one['dropped']} of {one['assignments']}); launches "
+                  f"paged {rec['paged']}, SSD {rec['ssd']}, RMSNorm "
+                  f"{rec['rmsnorm']}, split-norm partial sums "
+                  f"{rec['sumsq']}; {card}")
+        print(f"[ep] {what}: teacher forced over TP=1's {len(streams)} "
+              f"streams ({forced['positions']} positions), both ranks' "
+              f"logits == TP=1's in TP=2's order of sums bit for bit "
+              f"(sha256); that order against TP=1: largest gap "
+              f"{forced['gap']:.3f} bf16 ulps of the row's top, argmax "
+              f"differing at {forced['flips']}; served streams of TP=2 "
+              f"splitting from TP=1's: {splits} of {len(streams)}; {card}")
+    t_a = time.monotonic() - t0
+    # (B): the one-device oracle after the ranks have exited, routed as
+    # the ranks routed
+    t2 = time.monotonic()
+    recs = [r[1] for r in ranks]
+    import numpy as np
+    joined = [[np.concatenate([r["routes"][s_i][j] for r in recs])
+               for j in range(len(recs[0]["routes"][s_i]))]
+              for s_i in range(len(batches))]
+    oracle = moe_dp_run(None, MOE_TRAIN_LAYERS, batches, routes=joined)
+    check_moe_dp(recs, oracle, len(batches), dp_cfg, card, total)
+    RMSNORM_RUNS["MoE over ranks (phase 29)"] = total["rmsnorm"]
+    print(f"[ep] phase 29 launches over the ranks' runs: " + ", ".join(
+        f"{k} {v}" for k, v in total.items()) + f"; the ranks took "
+        f"{t_ranks:.1f}s (rank 0: (A) {recs[0]['part_s'][0]:.1f}s, (B) "
+        f"{recs[0]['part_s'][1]:.1f}s), (A)'s one-device runs and checks "
+        f"{t_a - t_ranks:.1f}s, (B)'s one-device run and checks "
+        f"{time.monotonic() - t2:.1f}s; phase 29 took "
+        f"{time.monotonic() - t0:.1f}s")
+    return total
+
+
+def _moe_dp_limit(key, s_i):
+    if key in MOE_DP_STEP_RTOL:
+        return f"{MOE_DP_STEP_RTOL[key][s_i]:g}"
+    if key == "params":
+        return f"{MOE_DP_P_REL:g}"
+    lim = MOE_DP_M_REL if key == "m" else MOE_DP_V_REL
+    return f"{lim:.3g}" if s_i == 0 else "not held"
+
+
+def check_moe_dp(recs, oracle, n_steps, dp_cfg, card, total) -> None:
+    """Phase 29 (B)'s holds and prints: the ranks' records ``recs``
+    against the one-device ``oracle`` (:func:`moe_dp_run`): per step
+    loss, aux and grad_norm within ``MOE_DP_STEP_RTOL`` and aux equal on
+    the ranks; the launches; the state after each step by sketches
+    (params within ``MOE_DP_P_REL`` of their update, moments after step
+    1 within ``MOE_DP_M_REL`` / ``MOE_DP_V_REL`` of their norm; every
+    other leaf equal). Adds the launches to ``total``."""
+    import numpy as np
+    what = (f"qwen3-moe-30b-a3b ({MOE_TRAIN_LAYERS} of 48 layers) F+R+Z3 "
+            f"dp={EP_DEGREE}, {DP_SHAPE['b']} x {DP_SHAPE['t']} global")
+    n_attn = MOE_TRAIN_LAYERS
+    norms = norms_per_train_step(dp_cfg, DP_SHAPE["t"], remat=True)
+    worst = {}
+    for r, rec in enumerate(recs):
+        check(rec["aux"] == recs[0]["aux"], f"{what}: aux differs between "
+              f"ranks: {rec['aux']} vs {recs[0]['aux']}")
+        for key, tols in MOE_DP_STEP_RTOL.items():
+            for s_i, (a, b, tol) in enumerate(zip(rec[key], oracle[key],
+                                                  tols)):
+                rel = abs(a - b) / abs(b)
+                worst[(key, s_i)] = max(worst.get((key, s_i), 0.0), rel)
+                check(rel <= tol, f"{what} rank {r}: step {s_i + 1} {key} "
+                      f"{a} vs one device {b} (rel {rel:.3g} > {tol})")
+        la, n = rec["launches"], n_steps
+        check(la["fwd"] == 2 * n_attn * n and la["bwd_dkv"] == n_attn * n
+              and la["bwd_dq"] == n_attn * n and la["rmsnorm"] == norms * n,
+              f"{what} rank {r}: launches {la} != flash {2 * n_attn}/"
+              f"{n_attn}/{n_attn} and RMSNorm {norms} a step")
+        total["rmsnorm"] += la["rmsnorm"]
+        for k in ("fwd", "bwd_dkv", "bwd_dq"):
+            total[k] = total.get(k, 0) + la[k]
+    for s_i in range(n_steps):
+        got = whole_sketch([r["state"][s_i] for r in recs])
+        for p, (_, w) in oracle["state"][s_i].items():
+            if p.startswith("['params']"):
+                key, tol = "params", MOE_DP_P_REL
+                base = oracle["init"][p[len("['params']"):]][1]
+                if not np.any(w != base):
+                    continue
+                rel = (float(np.sqrt(np.mean((got[p] - w) ** 2))) /
+                       float(np.sqrt(np.mean((w - base) ** 2))))
+            elif p.startswith(("['opt']['m']", "['opt']['v']")):
+                key = "m" if p.startswith("['opt']['m']") else "v"
+                tol = (MOE_DP_M_REL if key == "m" else MOE_DP_V_REL) \
+                    if s_i == 0 else None
+                rel = sketch_rel(got[p], w)
+            else:
+                check(np.array_equal(got[p], w), f"{what}: {p} after step "
+                      f"{s_i + 1} differs from one device's")
+                continue
+            worst[(key, s_i)] = max(worst.get((key, s_i), 0.0), rel)
+            check(tol is None or rel <= tol, f"{what}: {p} after step "
+                  f"{s_i + 1}: sketched distance {rel:.3g} of its "
+                  f"{'update' if key == 'params' else 'norm'} > {tol}")
+    for r, rec in enumerate(recs):
+        cn = sum(c[0] for c in rec["coll"])
+        cs = sum(c[1] for c in rec["coll"])
+        print(f"[ep] {what} rank {r} on {rec['device']}: loss "
+              + ", ".join(f"{x:.6f}" for x in rec["loss"])
+              + f" (one device " + ", ".join(f"{x:.6f}" for x in
+                                             oracle["loss"])
+              + f"), aux " + ", ".join(f"{x:.6f}" for x in rec["aux"])
+              + f" on both ranks (one device " + ", ".join(
+                  f"{x:.6f}" for x in oracle["aux"]) + f"); peak "
+              f"{rec['peak_gib']:.2f} GiB (one device "
+              f"{oracle['peak_gib']:.2f}); state at rest "
+              f"{rec['at_rest']['card'] / 1e9:.3f} GB on the card (one "
+              f"device {oracle['at_rest']['card'] / 1e9:.3f}); step ms "
+              + ", ".join(f"{x:.1f}" for x in rec["ms"])
+              + f" (one device " + ", ".join(f"{x:.1f}" for x in
+                                             oracle["ms"])
+              + f"), {cn / len(rec['ms']):.0f} collectives a step taking "
+              f"{cs * 1e3 / max(sum(rec['ms']), 1e-9) * 100:.1f}% of it; "
+              f"launches {rec['launches']}; {card}")
+    print(f"[ep] {what}: against the one-device step on the whole batch, "
+          f"worst reading (limit) by step: " + "; ".join(
+              f"{k} step {s_i + 1} {v:.3g} ({_moe_dp_limit(k, s_i)})"
+              for (k, s_i), v in sorted(worst.items()))
+          + f" (moments: sketched distance over norm, params: over their "
+          f"own update; {SKETCH_K}-projection sketches of every leaf); the "
+          f"one device routed as the ranks did: its own router would have "
+          f"chosen another expert set for "
+          + ", ".join(str(f) for f in oracle["flips"])
+          + f" (token, call) pairs by step, of "
+          f"{DP_SHAPE['b'] * DP_SHAPE['t'] * MOE_TRAIN_LAYERS} a forward "
+          f"(each layer called twice a step: forward and recomputation); "
+          f"{card}")
+
+
+def get_cfg_layers(name) -> int:
+    from repro_torch.configs import get_config
+    return get_config(name).n_layers
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -6052,6 +6761,11 @@ def main() -> None:
         sys.exit(2)
     sys.path.insert(0, str(SRC))
     t_start = time.monotonic()
+
+    def mark(what):
+        print(f"[time] {what} ended {time.monotonic() - t_start:.1f}s "
+              f"after the start")
+
     card = card_line()
     print(f"[device] {card} | {torch.cuda.get_device_name(0)} x "
           f"{torch.cuda.device_count()} | torch {torch.__version__} "
@@ -6080,10 +6794,12 @@ def main() -> None:
     record = {"kernels": []}
     phase_dense(get_config("qwen1.5-0.5b"))
     phase_kernel_vs_plain()
+    mark("dense products and the paged read against plain")
 
     cfg = get_config("qwen1.5-0.5b")
     params = LM(cfg, device="cuda").init(0)
     run_a, run_b = phase_graphs_dense(cfg, params)
+    mark("qwen serving")
     st_a, st_b = run_a["st"], run_b["st"]
     del params
     free_card()
@@ -6117,6 +6833,7 @@ def main() -> None:
     llama_runs = phase_full_width(llama, f"{llama.name} full width")
     llama13 = get_config("llama2-13b")
     llama_runs += phase_full_width(llama13, f"{llama13.name} full width")
+    mark("llama2 serving")
     wide = time_shape(llama, b=8, t=1, lengths=[96, 288, 1032, 96, 288,
                                                 1032, 96, 288],
                       quant=False, mb=mb, n_blocks=1025, n_layers=32)
@@ -6146,7 +6863,9 @@ def main() -> None:
     })
 
     phase_flash_vs_plain()
+    mark("flash against plain")
     train_launches, _ = phase_train(get_config("qwen1.5-0.5b"))
+    mark("qwen training")
     ft = phase_flash_timing()
     for name, sl in SLICE_FLASH:
         phase_flash_timing(name, sl)
@@ -6180,6 +6899,7 @@ def main() -> None:
     cfg = get_config("mamba2-130m")
     params = LM(cfg, device="cuda").init(0)
     ssd_launches = phase_graphs_ssm(cfg, params)
+    mark("mamba2 serving")
     del params
     free_card()
     sd = phase_ssd_timing()
@@ -6200,6 +6920,7 @@ def main() -> None:
     phase_qmm_vs_plain()
     cfg = get_config("qwen1.5-0.5b")
     ft_launches, _ = phase_finetune(cfg)
+    mark("fine-tuning")
     rows, _ = phase_qmm_timing(cfg)
     phase_qmm_timing(get_config("llama2-7b"), QMM_STEP_LLAMA)
     gate = rows["gate/up"]
@@ -6233,30 +6954,41 @@ def main() -> None:
         max_new=32, draft=True)
     del params
     rms_t, dec_t = phase_new_kernel_timing(cfg)
+    mark("rmsnorm, dense decode, speculation")
     life = phase_lifecycle()
+    mark("phase 22 lifecycle")
     moe = phase_moe_hybrid()
+    mark("phase 23 MoE and hybrid")
     trained = phase_training_slice()
+    mark("phase 24 training slice")
     families = phase_families()
+    mark("phase 25 families")
     ssm = phase_ssm_decoding()
+    mark("phase 26 SSM decoding")
     tp = phase_tp()
+    mark("phase 27 TP")
     dp = phase_dp()
+    mark("phase 28 DP")
+    ep = phase_moe_ranks()
+    mark("phase 29 MoE over ranks")
     fam = families["launches"]
     slice_launches = {
-        "flash_attention_fwd": trained["fwd"] + fam["fwd"] + dp["fwd"],
+        "flash_attention_fwd": (trained["fwd"] + fam["fwd"] + dp["fwd"]
+                                + ep["fwd"]),
         "flash_attention_bwd_dkv": (trained["bwd_dkv"] + fam["bwd_dkv"]
-                                    + dp["bwd_dkv"]),
+                                    + dp["bwd_dkv"] + ep["bwd_dkv"]),
         "flash_attention_bwd_dq": (trained["bwd_dq"] + fam["bwd_dq"]
-                                   + dp["bwd_dq"]),
+                                   + dp["bwd_dq"] + ep["bwd_dq"]),
         "flash_attention_bwd": (trained["bwd_dkv"] + fam["bwd_dkv"]
-                                + dp["bwd_dkv"]),
+                                + dp["bwd_dkv"] + ep["bwd_dkv"]),
         "int8_matmul": trained["int8_matmul"]}
     for entry in record["kernels"]:
         if entry["name"] == "paged_attention":
             entry["launches"] += (life["paged"] + moe["paged"] + ssm["paged"]
-                                  + tp["paged"])
+                                  + tp["paged"] + ep["paged"])
         if entry["name"] == "ssd_chunked_kernel":
             entry["launches"] += (life["ssd"] + moe["ssd"] + ssm["ssd"]
-                                  + tp["ssd"])
+                                  + tp["ssd"] + ep["ssd"])
         entry["launches"] += slice_launches.get(entry["name"], 0)
     print(f"[spec] RMSNorm launches per run: " + ", ".join(
         f"{k} {v}" for k, v in RMSNORM_RUNS.items()))
@@ -6279,7 +7011,7 @@ def main() -> None:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
         "replaces": "src/repro/kernels/rmsnorm.py:24",
-        "launches": tp["sumsq"],
+        "launches": tp["sumsq"] + ep["sumsq"],
         "max_abs_err": rms_split["max_abs_err"],
         "ms": rms_split["ms"],
         "plain_ms": rms_split["plain_ms"],

@@ -17,7 +17,8 @@ rank) and ``tokens_per_s`` counts the global batch. A checkpoint holds
 the logical (whole) state, gathered from every rank's part and written
 by rank 0 (``train.step.logical_train_state``); a restore cuts it to the
 placement of the run that reads it, on any number of ranks or on one
-device. The ranks agree on a SIGTERM at each step boundary.
+device. The ranks agree on a SIGTERM at each step boundary. The SIGTERM
+handler is ``run()``'s only.
 """
 from __future__ import annotations
 
@@ -83,11 +84,6 @@ class Trainer:
                 self.ckpt.latest_step() is not None:
             self.state, self.start_step = self.ckpt.restore(
                 self.state, piece=self._piece if self.dp else None)
-        # SIGTERM (preemption) -> emergency checkpoint at the step boundary
-        try:
-            signal.signal(signal.SIGTERM, self._on_sigterm)
-        except ValueError:
-            pass  # not in main thread (tests)
 
     def _on_sigterm(self, *_):
         self._interrupted = True
@@ -124,6 +120,23 @@ class Trainer:
             self.ckpt.save(step, whole, blocking=blocking)
 
     def run(self) -> Dict[str, Any]:
+        """The steps from ``start_step``. SIGTERM (preemption) during the
+        run ends it at the next step boundary with an emergency
+        checkpoint: the handler is installed here and the previous one
+        restored on return, so no handler keeps a dropped ``Trainer``
+        (and its state on the card) alive."""
+        try:
+            previous = signal.signal(signal.SIGTERM, self._on_sigterm)
+        except ValueError:
+            return self._run()      # not the main thread: no handler
+        try:
+            return self._run()
+        finally:
+            # None: a handler not set from Python, which cannot be put back
+            signal.signal(signal.SIGTERM, signal.SIG_DFL
+                          if previous is None else previous)
+
+    def _run(self) -> Dict[str, Any]:
         history = []
         step = self.start_step
         fence = (None if self.device.type != "cuda" else

@@ -19,6 +19,9 @@ synthetic burst, on the card by default.
         --model-parallel 2                     # TP over 2 gloo ranks
     PYTHONPATH=src python -m repro_torch.launch.serve --model-parallel 2 \
         --dist-backend gloo                    # 2 ranks sharing card 0
+    PYTHONPATH=src python -m repro_torch.launch.serve --model-parallel 2 \
+        --arch qwen3-moe-30b-a3b --reduced --device cpu \
+        --dist-backend gloo                    # expert parallelism
 
 Fused decode and chunked prefill read the KV cache through one paged
 multi-query attention kernel (kernels/flash_decode), at T=1 and T=chunk.
@@ -50,7 +53,10 @@ lines are printed, with ``model_parallel: N``. The ranks talk over
 ranks sharing a card; the only backend of the CPU, so the default
 there). Under TP the steps run eagerly (no CUDA graphs: they hold
 collectives), and deadlines and ``--chaos`` (whose storms arm deadlines)
-are refused: each rank would read its own clock.
+are refused: each rank would read its own clock. On MoE archs the
+ranks split the experts where N divides them (expert parallelism, the
+tokens exchanged with each expert's rank), else the experts' MLP width.
+``--reduced`` names the default: the CLI serves smoke configs only.
 """
 from __future__ import annotations
 
@@ -142,7 +148,11 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--model-parallel", type=int, default=1,
                     help="shard the engine over N ranks (paged KV pool on "
                          "its KV heads, SSM pools on their heads, "
-                         "row-parallel seams); greedy output equals N=1's")
+                         "row-parallel seams, MoE experts over the ranks); "
+                         "greedy output equals N=1's")
+    ap.add_argument("--reduced", action="store_true",
+                    help="the arch's smoke config (the default, and the "
+                         "only config this CLI serves)")
     ap.add_argument("--dist-backend", choices=("nccl", "gloo"),
                     default=None,
                     help="the ranks' backend: nccl (one card per rank) or "

@@ -15,7 +15,10 @@ latest committed step there.
 (``launch.mesh.spawn_ranks``; ZeRO stages and offload as the technique
 says), ``--dist-backend`` gloo (the CPU, or ranks sharing a card) or
 nccl (one card per rank); rank 0's lines are printed after the rank
-mapping. ``Q``, ``Q8``, LoRA and MoE archs refuse a data axis.
+mapping. ``Q``, ``Q8`` and LoRA refuse a data axis. MoE archs
+(``--arch qwen3-moe-30b-a3b``, ``jamba-v0.1-52b``) train over it with
+one micro-batch a rank, routed with the global batch's statistics, order
+and capacity, as the reference's GSPMD step routes the global batch.
 """
 import argparse
 import math

@@ -20,8 +20,12 @@ channels, B and C whole); ``wo``, the MLP down projection and
 ``out_proj`` are row-parallel (``layers.dense_row``: f32 partials summed
 over the model axis, one rounding), and the gated RMSNorm over the whole
 ``d_inner`` sums its squares over the model axis before the rsqrt.
-Expert parallelism (the reference's ``_moe_ep``, an all-to-all) is not
-ported: ``make_serving_ctx`` refuses MoE archs under TP.
+The MoE FFN takes ``ctx`` too (:func:`moe_apply`): expert parallelism
+(the reference's ``_moe_ep``: tokens exchanged with the experts' ranks
+by ``ShardCtx.all_to_all``) where the degree divides the experts, else
+the one-device dispatch with the experts cut on their MLP width; over a
+data axis (training) the one-device dispatch routes with the global
+batch's statistics, order and capacity.
 
 Cache conventions (decode): attention ``{"k", "v"}`` as (B, S, K, hd)
 (bf16, or the reference's unscaled int8) with the global ``lengths``
@@ -210,7 +214,7 @@ def ffn_apply(x, p, cfg: ArchConfig, qmm_impl: str = "kernel", ctx=None
 
 
 # ==========================================================================
-# MoE FFN: top-k routing, token-choice dispatch with capacity (one device)
+# MoE FFN: top-k routing, token-choice dispatch with capacity
 # ==========================================================================
 
 def moe_specs(cfg: ArchConfig, n_stack: int) -> Dict:
@@ -228,35 +232,61 @@ def moe_specs(cfg: ArchConfig, n_stack: int) -> Dict:
     }
 
 
-def _route(h, router_w, cfg: ArchConfig):
+def _route(h, router_w, cfg: ArchConfig, ctx=None):
     """Router: f32 logits of h, softmax gates, the top-k experts (the
     lower index first on ties, as ``lax.top_k``: a stable descending
     sort) with their gates renormalised, and the Switch-style load
     balancing loss. Returns (top_w (..., k) f32, top_e (..., k) int64,
-    aux)."""
+    aux).
+
+    Over a data axis (``ctx`` with ``dp_size > 1``: ``h`` is this rank's
+    rows of the global batch) both statistics of the loss are the global
+    batch's, as the reference's GSPMD program computes them: one
+    all-reduce of the gates' sums, the first choices' counts and the
+    token count. Their value is the global one on every rank; their
+    gradient flows into this rank's own gates only, so the ranks'
+    gradients sum to the global loss's."""
     logits = L.dense(h.float(), router_w).float()
     gates = torch.softmax(logits, dim=-1)                       # (..., E)
     vals, idx = torch.sort(gates, dim=-1, descending=True, stable=True)
     top_w, top_e = vals[..., :cfg.top_k], idx[..., :cfg.top_k]
     top_w = top_w / torch.clamp_min(top_w.sum(-1, keepdim=True), 1e-9)
     lead = tuple(range(gates.ndim - 1))
-    me = gates.mean(dim=lead)
     # one_hot of the first choice, by comparison: F.one_hot checks its
     # input's range on the host, a device sync
-    experts = torch.arange(cfg.n_experts, device=top_e.device)
-    ce = (top_e[..., :1] == experts).float().mean(dim=lead)
-    aux = cfg.n_experts * (me * ce).sum()
+    e = cfg.n_experts
+    first = (top_e[..., :1] == torch.arange(e, device=top_e.device)).float()
+    if ctx is None or ctx.dp_size == 1:
+        me, ce = gates.mean(dim=lead), first.mean(dim=lead)
+    else:
+        n = gates.new_full((1,), gates.numel() // e)
+        local = torch.cat([gates.sum(dim=lead), first.sum(dim=lead), n])
+        total = ctx.dp_all_reduce(local.detach().clone())
+        total = total + (local - local.detach())    # global value, local grad
+        me, ce = total[:e] / total[-1], total[e:2 * e] / total[-1]
+    aux = e * (me * ce).sum()
     return top_w, top_e, aux
 
 
-def _expert_ffn(xs, wg, wu, wd):
+def _expert_weights(p, dtype):
+    return tuple(p[w].dequantize(dtype) if isinstance(p[w], QTensor)
+                 else p[w] for w in ("w_gate", "w_up", "w_down"))
+
+
+def _expert_ffn(xs, wg, wu, wd, ctx=None):
     """xs (E, C, D); weights (E, D, F) / (E, F, D): every expert's SwiGLU
     over its C rows, each product batched over the experts
     (``layers.dense_batched``). The gate chain is real f32 into the down
-    projection, rounded once at the end, as ``layers.swiglu``."""
+    projection, rounded once at the end, as ``layers.swiglu``. Under
+    ``ctx`` the weights are this rank's part of the MLP width and the
+    down projection is a row-parallel seam (its f32 partials summed over
+    the model axis, then rounded once, as ``layers.dense_row``)."""
     g = L.dense_batched(xs, wg, out_dtype=torch.float32)
     u = L.dense_batched(xs, wu, out_dtype=torch.float32)
-    return L.dense_batched(L.silu(g) * u, wd).to(xs.dtype)
+    if ctx is None:
+        return L.dense_batched(L.silu(g) * u, wd).to(xs.dtype)
+    y = L.dense_batched(L.silu(g) * u, wd, out_dtype=torch.float32)
+    return ctx.all_reduce(y).to(xs.dtype)
 
 
 def capacity(n: int, cfg: ArchConfig, capacity_mult: float) -> int:
@@ -267,60 +297,168 @@ def capacity(n: int, cfg: ArchConfig, capacity_mult: float) -> int:
     return min(max(cap, 4), k * n)
 
 
-def _moe_local(h, p, cfg: ArchConfig, capacity_mult: float
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One-device token-choice dispatch with capacity, sort-based.
+def _slots(top_e, e: int, cap: int, ctx=None):
+    """Each (token, choice) assignment's row in the (E·cap + 1) dispatch
+    buffer: the next of its expert's ``cap`` rows in (token, choice)
+    order (a stable sort by expert; the counts an integer
+    ``scatter_add_``, no host sync); past ``cap`` the pad row ``E·cap``
+    (written, never read). Returns (slot, keep) over the flattened
+    assignments.
 
-    Every (token, choice) assignment takes the next row of its expert's
-    ``cap`` rows in (token, choice) order (a stable sort by expert);
-    past ``cap`` it is dropped to a pad row and adds nothing. Each expert
-    runs its SwiGLU over all its ``cap`` rows, filled or not. No host
-    sync (the per-expert counts are an integer ``scatter_add_``) and no
-    order-dependent float atomics: a token's k gate-weighted outputs are
-    added in f32 in choice order, starting from zeros, as the
-    reference's scatter-add does, then rounded once."""
-    wg, wu, wd = (p[w].dequantize(h.dtype) if isinstance(p[w], QTensor)
-                  else p[w] for w in ("w_gate", "w_up", "w_down"))
-    d, e, k = cfg.d_model, cfg.n_experts, cfg.top_k
-    x = h.reshape(-1, d)
-    n = x.shape[0]
-    dev = x.device
-    top_w, top_e, aux = _route(x, p["router"], cfg)
-    cap = capacity(n, cfg, capacity_mult)
+    Over a data axis (``ctx`` with ``dp_size > 1``) the order is the
+    global batch's, whose rows lie rank after rank: an assignment's
+    position is its position here plus its expert's assignments on every
+    lower rank (an exclusive prefix over the ranks of the per-expert
+    counts, from one all-reduce of a (dp, E) int32 table), and ``cap``
+    is the global batch's. Its row here stays its local position, below
+    ``cap`` wherever it is kept."""
     flat_e = top_e.reshape(-1)                                  # (n*k,)
-    flat_t = torch.arange(n * k, device=dev) // k               # its token
+    dev = flat_e.device
     order = torch.argsort(flat_e, stable=True)
     sorted_e = flat_e[order]
     counts = torch.zeros(e, dtype=torch.int64, device=dev).scatter_add_(
         0, sorted_e, torch.ones_like(sorted_e))
     starts = torch.cumsum(counts, 0) - counts
-    pos_sorted = torch.arange(n * k, device=dev) - starts[sorted_e]
+    pos_sorted = torch.arange(flat_e.numel(), device=dev) - starts[sorted_e]
     pos = torch.empty_like(pos_sorted).scatter_(0, order, pos_sorted)
-    keep = pos < cap
-    # a dropped assignment goes to the pad row e * cap (written, never read)
+    if ctx is None or ctx.dp_size == 1:
+        keep = pos < cap
+    else:
+        table = torch.zeros((ctx.dp_size, e), dtype=torch.int32, device=dev)
+        table[ctx.dp_rank] = counts.to(torch.int32)
+        ctx.dp_all_reduce(table)
+        below = table[:ctx.dp_rank].sum(0)
+        keep = pos + below[flat_e] < cap
     slot = torch.where(keep, flat_e * cap + pos,
                        torch.full_like(pos, e * cap))
-    buf = torch.zeros((e * cap + 1, d), dtype=h.dtype, device=dev)
+    return slot, keep
+
+
+def _dispatch(x, slot, k: int, rows: int):
+    """The (rows, D) dispatch buffer: each (token, choice) assignment's
+    token row of ``x`` (n, D) at its ``slot`` (a dropped one at the pad
+    row ``rows``, cut off), zeros elsewhere."""
+    flat_t = torch.arange(slot.numel(), device=x.device) // k   # its token
+    buf = torch.zeros((rows + 1, x.shape[-1]), dtype=x.dtype,
+                      device=x.device)
     buf.index_copy_(0, slot, x[flat_t])
-    ys = _expert_ffn(buf[:-1].reshape(e, cap, d), wg, wu, wd)
-    ys = torch.cat([ys.reshape(e * cap, d),
-                    torch.zeros((1, d), dtype=h.dtype, device=dev)])
+    return buf[:-1]
+
+
+def _combine(ys, slot, keep, top_w, n: int, k: int, dtype):
+    """Each token's k gate-weighted expert outputs added in f32 in choice
+    order from zeros (as the reference's scatter-add; no order-dependent
+    float atomics), a dropped assignment adding nothing, rounded once.
+    ``ys`` (E·cap, D) the expert rows; returns (n, D) in ``dtype``."""
+    d, dev = ys.shape[-1], ys.device
+    ys = torch.cat([ys, torch.zeros((1, d), dtype=ys.dtype, device=dev)])
     gathered = ys[slot].float() * top_w.reshape(-1)[:, None]    # (n*k, D)
     gathered = torch.where(keep[:, None], gathered,
                            torch.zeros((), device=dev)).reshape(n, k, d)
     out = torch.zeros((n, d), dtype=torch.float32, device=dev)
     for j in range(k):
         out = out + gathered[:, j]
-    return out.to(h.dtype).reshape(h.shape), aux
+    return out.to(dtype)
 
 
-def moe_apply(x, p, cfg: ArchConfig, capacity_mult: float = 1.0
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """MoE residual block: RMSNorm, then :func:`_moe_local`. Returns
-    (x + y, the load-balancing loss). The expert-parallel dispatch of
-    the reference (``_moe_ep``) is not ported (ROADMAP queue 1 item 7)."""
+def _moe_local(h, p, cfg: ArchConfig, capacity_mult: float, ctx=None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Token-choice dispatch with capacity, sort-based, over the whole
+    of ``h`` (:func:`_slots`): each expert runs its SwiGLU over all its
+    ``cap`` rows, filled or not, and :func:`_combine` adds a token's
+    outputs.
+
+    ``ctx`` where given: under a model axis that cuts the experts' MLP
+    width (the degree does not divide the experts), the experts' down
+    projection is row-parallel (:func:`_expert_ffn`); over a data axis,
+    the routing statistics, the assignment order and the capacity are the
+    global batch's (:func:`_route`, :func:`_slots`), so the drops are the
+    reference's on its global batch, token for token."""
+    wg, wu, wd = _expert_weights(p, h.dtype)
+    d, e, k = cfg.d_model, cfg.n_experts, cfg.top_k
+    x = h.reshape(-1, d)
+    n = x.shape[0]
+    dp = ctx if ctx is not None and ctx.dp_size > 1 else None
+    # without a data axis the calls keep the reference's arguments (the
+    # routing probes wrap them)
+    top_w, top_e, aux = (_route(x, p["router"], cfg) if dp is None else
+                         _route(x, p["router"], cfg, dp))
+    cap = capacity(n * (dp.dp_size if dp is not None else 1), cfg,
+                   capacity_mult)
+    slot, keep = _slots(top_e, e, cap, dp)
+    buf = _dispatch(x, slot, k, e * cap).reshape(e, cap, d)
+    ys = _expert_ffn(buf, wg, wu, wd, tp_seam(ctx, cfg.d_ff))
+    out = _combine(ys.reshape(e * cap, d), slot, keep, top_w, n, k, h.dtype)
+    return out.reshape(h.shape), aux
+
+
+def _moe_ep(h, p, cfg: ArchConfig, ctx, capacity_mult: float,
+            with_aux: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expert-parallel dispatch (the reference's ``_moe_ep``): this
+    rank's ``p`` holds its E/size experts. Where ``t`` splits (``t %
+    size == 0`` and ``t > 1``) each rank routes its slice of ``t``, else
+    every rank routes every token (a decode step: each expert's rank then
+    receives ``size`` copies of its rows, as in the reference). The
+    capacity is the shard's own (``cap`` from its ``n``). Each rank
+    routes and sorts its tokens as :func:`_moe_local`, sends each
+    expert's ``cap`` rows to the expert's rank (``ShardCtx.all_to_all``),
+    runs its experts' SwiGLU over ``(E/size, size·cap, D)``, sends the
+    rows back and combines in f32, rounded once, as the tail of
+    :func:`_moe_local`; the ``t`` slices are gathered
+    (``ShardCtx.gather_t``), so every rank holds the whole output. The
+    loss is averaged over the model axis (one more all-reduce), unless
+    ``with_aux`` is false (serving drops it)."""
+    wg, wu, wd = _expert_weights(p, h.dtype)
+    d, e, k = cfg.d_model, cfg.n_experts, cfg.top_k
+    m = ctx.size
+    e_loc = e // m
+    t = h.shape[1]
+    split_t = t % m == 0 and t > 1
+    hh = h.narrow(1, ctx.rank * (t // m), t // m) if split_t else h
+    x = hh.reshape(-1, d)
+    n = x.shape[0]
+    top_w, top_e, aux = _route(x, p["router"], cfg)
+    cap = capacity(n, cfg, capacity_mult)
+    slot, keep = _slots(top_e, e, cap)
+    recv = ctx.all_to_all(_dispatch(x, slot, k, e * cap).reshape(
+        m, e_loc * cap, d))
+    xs = recv.reshape(m, e_loc, cap, d).transpose(0, 1).reshape(
+        e_loc, m * cap, d)
+    ys = _expert_ffn(xs, wg, wu, wd)
+    ys = ys.reshape(e_loc, m, cap, d).transpose(0, 1).reshape(
+        m, e_loc * cap, d)
+    back = ctx.all_to_all(ys)
+    out = _combine(back.reshape(e * cap, d), slot, keep, top_w, n, k,
+                   h.dtype).reshape(hh.shape)
+    if split_t:
+        out = ctx.gather_t(out, t)
+    if with_aux:
+        aux = ctx.all_reduce(aux.reshape(1).clone())[0] / m
+    return out, aux
+
+
+def uses_ep(cfg: ArchConfig, ctx) -> bool:
+    """Whether the MoE FFN runs the expert-parallel dispatch under
+    ``ctx``: a model axis of more than one rank that TP uses and that
+    divides the experts (the reference's choice in ``moe_apply``)."""
+    return ctx is not None and ctx.splits(cfg.n_experts)
+
+
+def moe_apply(x, p, cfg: ArchConfig, capacity_mult: float = 1.0, ctx=None,
+              with_aux: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """MoE residual block: RMSNorm, then the dispatch the reference's
+    ``moe_apply`` chooses: :func:`_moe_ep` where the model axis of
+    ``ctx`` divides the experts, else :func:`_moe_local` (on one device;
+    under a model axis with the experts cut on their MLP width where the
+    degree divides it, or whole; over a data axis on the global batch).
+    Returns (x + y, the load-balancing loss)."""
     h = L.rmsnorm(x, p["ln"], cfg.norm_eps)
-    y, aux = _moe_local(h, p, cfg, capacity_mult)
+    if uses_ep(cfg, ctx):
+        y, aux = _moe_ep(h, p, cfg, ctx, capacity_mult, with_aux)
+    elif ctx is None:
+        y, aux = _moe_local(h, p, cfg, capacity_mult)
+    else:
+        y, aux = _moe_local(h, p, cfg, capacity_mult, ctx)
     return x + y, aux
 
 
@@ -328,9 +466,9 @@ def ffn_or_moe(x, p, cfg: ArchConfig, kind: str, capacity_mult: float,
                qmm_impl: str = "kernel", ctx=None) -> torch.Tensor:
     """The FFN of a layer of ``kind`` (``cfg.ffn_kinds()``): the dense
     SwiGLU, or the MoE FFN at ``capacity_mult`` (its loss dropped: the
-    serving and inference paths; one device only)."""
+    serving and inference paths), each under ``ctx``."""
     if kind == "moe":
-        return moe_apply(x, p, cfg, capacity_mult)[0]
+        return moe_apply(x, p, cfg, capacity_mult, ctx, with_aux=False)[0]
     return ffn_apply(x, p, cfg, qmm_impl=qmm_impl, ctx=ctx)
 
 

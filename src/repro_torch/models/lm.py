@@ -52,11 +52,14 @@ its slice of the stacked gradient.
 ShardCtx``) serves this rank's part of a model sharded over the model
 axis: ``params`` is its slice of the tree (``sharding.shard_params``),
 ``forward``, ``prefill`` and ``decode_step`` run the blocks on its heads
-and MLP width with the row-parallel seams summed over the axis, the
+and MLP width with the row-parallel seams summed over the axis (an MoE
+FFN on its experts, expert-parallel: ``blocks.moe_apply``), the
 embedding is whole on every rank, and the head's vocab-sharded logits
 are gathered, so every rank returns the whole logits. ``init_cache`` and
 ``prefill``'s cache hold the KV heads and SSM heads the rank stores.
-Training with a model axis is not ported (ROADMAP queue 1 item 7.6).
+Training with a model axis is not ported (ROADMAP queue 1 item 7.6);
+over a data axis (``ctx`` with ``dp_size > 1``) an MoE layer routes with
+the global batch's statistics, order and capacity.
 
 **ZeRO-3.** Training over a data axis (``train.step``) passes ``loss``
 and ``backbone`` a tree whose leaves may be ``parallel.zero.Shard``s,
@@ -182,10 +185,21 @@ class LM:
             p["frontend_proj"] = spec((d, d), ("embed", "null"))
         return p
 
-    def init(self, seed: int = 0) -> Dict:
-        """Seeded random init on ``self.device`` (fan-in-scaled normal)."""
+    def init(self, seed: int = 0, pieces: bool = False) -> Dict:
+        """Seeded random init on ``self.device`` (fan-in-scaled normal).
+        With ``pieces`` under a model axis of more than one rank, this
+        rank's pieces of that tree (``sharding.param_piece``), drawn a
+        layer slice at a time: the whole tree is never held."""
         g = torch.Generator(device=self.device).manual_seed(seed)
-        return materialize(self.param_specs(), g, self.device)
+        piece = None
+        if pieces and self.ctx is not None and self.ctx.size > 1:
+            from repro_torch.parallel.sharding import (logical_by_path_of,
+                                                       param_piece)
+            table = logical_by_path_of(self.param_specs())
+
+            def piece(path, t):
+                return param_piece(self.ctx, path, t, table[path])
+        return materialize(self.param_specs(), g, self.device, piece)
 
     def layer_params(self, params, i: int) -> Dict:
         """Views of layer ``i``'s parameters in the stacked block tree
@@ -465,7 +479,8 @@ class LM:
             x = B.cross_attn_apply(x, ckv, lp["cross"], cfg,
                                    qmm_impl=self.qmm_impl)
         if self.fkinds[pos] == "moe":
-            return B.moe_apply(x, lp["ffn"], cfg, CAPACITY_MULT["train"])
+            return B.moe_apply(x, lp["ffn"], cfg, CAPACITY_MULT["train"],
+                               self.ctx)
         return B.ffn_apply(x, lp["ffn"], cfg, qmm_impl=self.qmm_impl), None
 
     def _backbone(self, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -512,7 +527,7 @@ class LM:
         return ((lse - label_logit) * mask).sum(), mask.sum()
 
     def loss(self, params, batch, chunk_t: int = 512,
-             n_tok: Optional[torch.Tensor] = None
+             n_tok: Optional[torch.Tensor] = None, aux_grad_scale: int = 1
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Causal-LM CE, computed block-wise over the sequence so the full
         (B, T, V) logits tensor is never materialized: each block applies
@@ -522,7 +537,12 @@ class LM:
         (0 without MoE layers, where the loss is the CE). For vlm the
         labels cover the token span, after the F patches. ``n_tok``, where
         given, replaces the batch's own label count as the CE's divisor
-        (a data-parallel rank's share of the global count)."""
+        (a data-parallel rank's share of the global count).
+        ``aux_grad_scale`` multiplies the load-balancing term's gradient,
+        not its value: over ``dp`` data-parallel ranks ``aux`` is the
+        global batch's on every rank but carries only this rank's part of
+        its gradient, and the step divides the ranks' summed gradients by
+        ``dp``, so the step passes ``dp``."""
         params = Z.gather_top(params)
         x, aux = self._backbone(params, batch)
         labels = batch["labels"]
@@ -543,5 +563,20 @@ class LM:
             n_count = n_count + n
         ce = ce_sum / (torch.clamp_min(n_count, 1.0) if n_tok is None
                        else n_tok)
-        total = ce + self.moe_aux_coef * aux / max(self.cfg.n_layers, 1)
+        weighted = aux if aux_grad_scale == 1 else _GradScale.apply(
+            aux, float(aux_grad_scale))
+        total = ce + self.moe_aux_coef * weighted / max(self.cfg.n_layers, 1)
         return total, {"ce": ce, "aux": aux}
+
+
+class _GradScale(torch.autograd.Function):
+    """The identity, whose backward multiplies the gradient by ``s``."""
+
+    @staticmethod
+    def forward(ctx, x, s):
+        ctx.s = s
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.s, None

@@ -217,22 +217,33 @@ def _draw(ps: ParamSpec, shape, generator, device) -> torch.Tensor:
 
 
 def materialize(specs, generator: torch.Generator,
-                device: torch.device) -> Dict:
+                device: torch.device, piece=None) -> Dict:
     """Initialize real parameters on ``device`` from ``generator`` (which
     must live on the same device type). A leaf stacked on a leading
     ``layers`` axis is drawn one layer slice at a time, each slice cast
     into the leaf before the next is drawn, so the f32 scratch is one
-    slice (qwen3-moe's stacked experts: 0.8 GB, not 38.6 GB)."""
+    slice (qwen3-moe's stacked experts: 0.8 GB, not 38.6 GB).
+    ``piece(path, t)``, where given, keeps a part of each drawn leaf (of
+    each layer slice, with its ``layers`` dim kept at size 1): every
+    value is drawn in the same order, so the parts are the whole tree's
+    parts bit for bit, and no whole stacked leaf is ever held."""
+    keep = piece or (lambda _, t: t)
     out: Dict = {}
     for path, ps in tree_paths(specs):
         if ps.init in ("zeros", "ones"):
             fill = torch.zeros if ps.init == "zeros" else torch.ones
-            t = fill(ps.shape, dtype=ps.dtype, device=device)
+            t = keep(path, fill(ps.shape, dtype=ps.dtype, device=device))
         elif ps.logical and ps.logical[0] == "layers":
-            t = torch.empty(ps.shape, dtype=ps.dtype, device=device)
+            t = None
             for i in range(ps.shape[0]):
-                t[i] = _draw(ps, ps.shape[1:], generator, device)
+                part = keep(path, _draw(ps, ps.shape[1:], generator,
+                                        device).to(ps.dtype)[None])
+                if t is None:
+                    t = torch.empty((ps.shape[0],) + tuple(part.shape[1:]),
+                                    dtype=ps.dtype, device=device)
+                t[i] = part[0]
         else:
-            t = _draw(ps, ps.shape, generator, device).to(ps.dtype)
-        set_path(out, path, t)
+            t = keep(path, _draw(ps, ps.shape, generator, device).to(
+                ps.dtype))
+        set_path(out, path, t.contiguous() if piece else t)
     return out

@@ -18,7 +18,10 @@ here explicitly:
   ``all_reduce`` only, as gloo offers nothing else on CUDA tensors:
   ``dp_all_reduce`` of f32 gradients, ``dp_gather_bytes`` for an exact
   gather of the bytes each rank holds, ``dp_reduce_scatter``, an f32
-  all-reduce of which each rank keeps its slice).
+  all-reduce of which each rank keeps its slice), and the model axis's
+  exchange of expert parallelism (``gather_bytes``, the model-axis
+  counterpart of ``dp_gather_bytes``; ``all_to_all`` and ``gather_t``,
+  the token slices along ``t``, built on it).
 * :func:`make_shard_ctx` — the training context: the data axis, and a
   model axis that a technique without TP folds into it.
 * :func:`resolve_spec` — the reference's resolver: which dim of a leaf
@@ -84,13 +87,16 @@ class ShardCtx:
     Attention is in head mode (the reference's sequence mode is ROADMAP
     queue 1 item 7.3). ``comm_timer``, where set (a
     ``core.perfscope.Timer``), times each data-axis collective between two
-    synchronizes as ``"collective"``."""
+    synchronizes as ``"collective"``, and each model-axis exchange as
+    ``"exchange"``; ``exchange_bytes`` counts the bytes the exchanges'
+    buffers carried (read from shapes: no sync)."""
     mesh: object
     cfg: Optional[ArchConfig] = None
     dp_axes: Tuple[str, ...] = ()
     model_axis: Optional[str] = MODEL
     technique: Technique = Technique()
     comm_timer: object = None
+    exchange_bytes: int = 0
 
     def axis_size(self, name: Optional[str]) -> int:
         if name is None or self.mesh is None:
@@ -232,15 +238,65 @@ class ShardCtx:
         dist.broadcast(t, src=self.mesh.ranks[0], group=self.mesh.group)
         return float(t.cpu()[0])
 
+    # -- the model axis's exchange (expert parallelism; all_reduce only) --
+    def gather_bytes(self, buf: torch.Tensor) -> torch.Tensor:
+        """The model-axis counterpart of :meth:`dp_gather_bytes`: the
+        exact gather of an int32 buffer in which each rank has written
+        its words and left zeros elsewhere, as one ``all_reduce`` over
+        the model axis (in place; returned). A no-op on one rank."""
+        if buf.dtype != torch.int32:
+            raise TypeError(f"gather_bytes takes int32, not {buf.dtype}")
+        if self.size > 1:
+            self.exchange_bytes += buf.numel() * 4
+            with self._timed(buf, "exchange"):
+                dist.all_reduce(buf, group=self.mesh.group)
+        return buf
+
+    def all_to_all(self, send: torch.Tensor) -> torch.Tensor:
+        """``jax.lax.all_to_all(send, model, 0, 0, tiled=False)``: block
+        ``j`` of ``send`` (``size`` blocks on its first axis) goes to rank
+        ``j``; block ``i`` of the result came from rank ``i``. Every value
+        arrives bit for bit: each rank writes its blocks' bytes (an int32
+        view: gloo takes no int16) into its row of a zero (size, size,
+        words) buffer, :meth:`gather_bytes` sums the rows, and each rank
+        reads its column. The buffer is ``size`` times ``send``: an
+        all-to-all built from the one collective gloo offers on CUDA
+        tensors."""
+        m = self.size
+        if m == 1:
+            return send
+        words = _words(send).view(m, -1)
+        buf = words.new_zeros((m, m, words.shape[1]))
+        buf[self.rank] = words
+        self.gather_bytes(buf)
+        return _from_words(buf[:, self.rank], send.dtype, send.shape)
+
+    def gather_t(self, y: torch.Tensor, t: int) -> torch.Tensor:
+        """The whole (B, t, ...) from each rank's slice ``y`` (B, t/size,
+        ...) of its second axis (rank ``r`` holds ``[r·t/size,
+        (r+1)·t/size)``), bit for bit, through :meth:`gather_bytes`: the
+        reference's ``_constrain(ctx, y, "hidden")`` after an
+        expert-parallel FFN whose tokens were split along ``t``."""
+        m = self.size
+        if m == 1:
+            return y
+        words = _words(y)
+        buf = words.new_zeros((m, words.numel()))
+        buf[self.rank] = words
+        self.gather_bytes(buf)
+        parts = _from_words(buf, y.dtype, (m,) + tuple(y.shape))
+        return parts.movedim(0, 1).reshape(
+            (y.shape[0], t) + tuple(y.shape[2:]))
+
     # -- data-axis collectives (all_reduce only) --
-    def _timed(self, t: torch.Tensor):
+    def _timed(self, t: torch.Tensor, name: str = "collective"):
         if self.comm_timer is None:
             return contextlib.nullcontext()
         fence = ((lambda: torch.cuda.synchronize(t.device)) if t.is_cuda
                  else None)
         if fence is not None:
             fence()
-        return self.comm_timer.region("collective", fence=fence)
+        return self.comm_timer.region(name, fence=fence)
 
     def dp_all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         """Sum ``t`` over the data axes, in place; returns it. A no-op on
@@ -281,6 +337,24 @@ class ShardCtx:
             dist.barrier(group=self.mesh.data_group)
 
 
+def _words(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s bytes as a flat int32 tensor (a copy only where ``t`` is
+    not contiguous)."""
+    flat = t.contiguous().view(-1)
+    if flat.numel() * flat.element_size() % 4:
+        raise ValueError(f"{tuple(t.shape)} {t.dtype}: not a whole number "
+                         f"of 4-byte words")
+    return flat.view(torch.uint8).view(torch.int32)
+
+
+def _from_words(words: torch.Tensor, dtype: torch.dtype,
+                shape) -> torch.Tensor:
+    """The inverse of :func:`_words`: ``words``' bytes as ``dtype`` in
+    ``shape``."""
+    return words.contiguous().view(-1).view(torch.uint8).view(
+        dtype).reshape(shape)
+
+
 def make_shard_ctx(cfg: ArchConfig, technique: Technique, mesh
                    ) -> ShardCtx:
     """The training context of ``technique`` on ``mesh`` (the
@@ -312,20 +386,17 @@ def make_serving_ctx(cfg: ArchConfig, mesh) -> Optional[ShardCtx]:
     scheduler, block tables and allocator are host-global, every rank
     makes the same decisions), attention in head mode (the paged pool
     split on its KV-head axis, each rank's (o, m, l) partials merged
-    locally), collectives only at the row-parallel seams (``wo``, the MLP
-    down projection, mamba2's ``out_proj``) and the logits. Axes the
+    locally), collectives at the row-parallel seams (``wo``, the MLP
+    down projection, mamba2's ``out_proj``), the logits and, on MoE
+    archs, the expert-parallel exchange (``blocks._moe_ep``: the experts
+    split over the ranks where the degree divides them, else
+    ``_moe_local`` with the experts cut on their MLP width). Axes the
     degree does not divide stay whole on every rank."""
     if mesh is None:
         return None
     if "model" not in mesh.axis_names:
         raise ValueError(f"serving mesh needs a 'model' axis, got "
                          f"{mesh.axis_names}")
-    if int(mesh.shape["model"]) > 1 and cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers under tensor parallelism need expert "
-            f"parallelism, the reference's _moe_ep, whose all-to-all "
-            f"dispatch is not ported (ROADMAP queue 1 item 7; gloo has no "
-            f"all-to-all)")
     if int(mesh.shape["model"]) > 1 and cfg.n_enc_layers:
         raise NotImplementedError(
             f"{cfg.name}: the encoder-decoder family is not sharded "
@@ -534,40 +605,66 @@ def _ssm_plan_errors(ctx: ShardCtx, table: Dict[str, tuple],
     return bad
 
 
+def param_piece(ctx: ShardCtx, path: str, leaf: torch.Tensor,
+                logical: tuple) -> torch.Tensor:
+    """This rank's piece of the whole leaf ``leaf`` at ``path`` (its
+    logical axes ``logical``): cut along the dim :func:`resolve_spec`
+    names, component by component (:func:`fused_segments`); the leaf
+    itself where the model axis does not split it. ``leaf`` may be one
+    layer slice of a stacked leaf with its ``layers`` dim kept (size 1):
+    no dim of that axis is ever split."""
+    spec = resolve_spec(ctx, path, tuple(leaf.shape), logical)
+    if ctx.size == 1 or MODEL not in spec:
+        return leaf
+    dim = spec.index(MODEL)
+    pieces, start = [], 0
+    for n, is_cut in fused_segments(path.rsplit("/", 1)[-1], ctx.cfg,
+                                    leaf.shape[dim]):
+        seg = leaf.narrow(dim, start, n)
+        start += n
+        if is_cut:
+            lo, hi = ctx.part(n)
+            seg = seg.narrow(dim, lo, hi - lo)
+        pieces.append(seg)
+    return torch.cat(pieces, dim)
+
+
 def shard_params(params, ctx: ShardCtx):
     """This rank's slice of the full tree ``params`` (plain tensors, the
-    tree of ``LM(ctx.cfg).param_specs()``): each leaf cut along the dim
-    :func:`resolve_spec` names, component by component
-    (:func:`fused_segments`), copied out so the full tree can be freed;
-    a leaf the model axis does not split is this rank's as it is."""
+    tree of ``LM(ctx.cfg).param_specs()``): each leaf cut by
+    :func:`param_piece`, copied out so the full tree can be freed. A
+    leaf already at this rank's piece shape (a tree of pieces drawn by
+    ``LM.init(seed, pieces=True)``) is kept as it is."""
     from repro_torch.models.lm import LM
-    cfg = ctx.cfg
-    table = logical_by_path_of(LM(cfg, device="cpu").param_specs())
-    bad = _ssm_plan_errors(ctx, table, params)
+    specs = dict(tree_paths(LM(ctx.cfg, device="cpu").param_specs(),
+                            is_leaf=lambda x: isinstance(x, ParamSpec)))
+    table = {p: ps.logical for p, ps in specs.items()}
+    full = tree_map_with_path(
+        lambda p, t: torch.empty(specs[p].shape, device="meta")
+        if isinstance(t, torch.Tensor) else t, params,
+        is_leaf=lambda t: not isinstance(t, dict))
+    bad = _ssm_plan_errors(ctx, table, full)
     if bad and ctx.size > 1:
         raise NotImplementedError(
-            f"{cfg.name} at tp={ctx.size}: the resolver's split of {bad} "
-            f"disagrees with the cut of {cfg.n_ssm_heads} SSD heads")
+            f"{ctx.cfg.name} at tp={ctx.size}: the resolver's split of "
+            f"{bad} disagrees with the cut of {ctx.cfg.n_ssm_heads} SSD "
+            f"heads")
 
     def cut(path, leaf):
         if not isinstance(leaf, torch.Tensor):
             raise NotImplementedError(
                 f"{path}: model-parallel serving takes plain tensors, not "
                 f"{type(leaf).__name__} (quantized or LoRA weights)")
-        spec = resolve_spec(ctx, path, tuple(leaf.shape), table[path])
-        if ctx.size == 1 or MODEL not in spec:
-            return leaf
-        dim = spec.index(MODEL)
-        pieces, start = [], 0
-        for n, is_cut in fused_segments(path.rsplit("/", 1)[-1], cfg,
-                                        leaf.shape[dim]):
-            seg = leaf.narrow(dim, start, n)
-            start += n
-            if is_cut:
-                lo, hi = ctx.part(n)
-                seg = seg.narrow(dim, lo, hi - lo)
-            pieces.append(seg)
-        return torch.cat(pieces, dim)
+        whole = tuple(specs[path].shape)
+        if tuple(leaf.shape) == whole:
+            return param_piece(ctx, path, leaf, table[path])
+        piece = tuple(param_piece(ctx, path, torch.empty(
+            whole, device="meta"), table[path]).shape)
+        if tuple(leaf.shape) != piece:
+            raise ValueError(f"{path}: {tuple(leaf.shape)} is neither the "
+                             f"whole leaf {whole} nor rank {ctx.rank}'s "
+                             f"piece {piece}")
+        return leaf
 
     return tree_map_with_path(cut, params,
                               is_leaf=lambda t: not isinstance(t, dict))

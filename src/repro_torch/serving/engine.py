@@ -149,10 +149,16 @@ decision comes out the same on every rank: a request's arrival is rank
 0's clock (broadcast at ``submit``), and deadlines, the one other clock
 input, are refused under TP > 1. The paged read runs its kernel per
 rank on the rank's heads (the reference's mesh falls back to its XLA
-read). TP requires ``mode="fused"``; MoE archs are refused (expert
-parallelism is not ported), and so is CUDA-graph capture: the steps
-hold collectives (``cuda_graphs=False`` on the card). ``model_parallel``
-in ``stats()`` is the degree.
+read). MoE FFNs run the reference's dispatch under the engine's ctx at
+``MOE_CAPACITY_MULT`` (``blocks.moe_apply``): expert parallelism where
+the degree divides the experts (each rank holds E/tp of them; a chunk
+or verify window whose length the degree divides is split along ``t``,
+each rank routing its slice at its own capacity; a decode step routes
+every row on every rank), else the experts cut on their MLP width.
+TP requires ``mode="fused"`` (the legacy loop stays one-device, as the
+reference's), and CUDA-graph capture is refused: the steps hold
+collectives (``cuda_graphs=False`` on the card). ``model_parallel`` in
+``stats()`` is the degree.
 
 **Failure semantics.** Every request ends in exactly one terminal state
 (``FINISHED``, ``TIMED_OUT``, ``CANCELLED``, ``REJECTED``, ``FAILED``),
@@ -226,7 +232,8 @@ class Engine:
     The lifecycle, prefix-cache, fault and telemetry arguments are the
     reference's, with its validation. ``mesh`` shards the engine over a
     model axis of ranks (this rank's device is the mesh's); ``params``
-    is then the full tree, which the engine slices."""
+    is then the full tree, which the engine slices, or this rank's
+    pieces of it (``LM(cfg, ctx=).init(seed, pieces=True)``)."""
 
     def __init__(self, cfg: ArchConfig, params, *, max_batch: int = 8,
                  n_blocks: int = 64, block_size: int = 16,

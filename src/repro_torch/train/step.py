@@ -50,7 +50,12 @@ the step equals the one-device step with ``grad_accum = dp`` bit for
 bit. ``grad_norm`` sums each rank's squares of the slices it holds, then
 adds the partial sums over the ranks: only its order of sums differs.
 Metrics are global and equal on every rank; ``ce`` and ``aux`` are the
-last global micro-batch's, as in the reference. ``Technique.grad_compress``
+last global micro-batch's, as in the reference. An MoE layer routes
+with the global batch's statistics, order and capacity
+(``models.blocks._moe_local`` over a data axis), so ``aux`` is global on
+every rank; its gradient is this rank's part of the global loss's, and
+``LM.loss(aux_grad_scale=dp)`` undoes the step's division by ``dp``
+for it. MoE archs take one micro-batch a rank (:func:`check_dp`). ``Technique.grad_compress``
 is inert, as in the reference's step (``parallel.compression`` is the
 compressor).
 
@@ -129,7 +134,8 @@ def data_parallel(ctx) -> bool:
 def check_dp(cfg: ArchConfig, technique: Technique, ctx) -> None:
     """Raise where ``ctx``'s mesh asks for what training across ranks
     cannot do yet, naming the ROADMAP item: a model axis (TP training),
-    and under a data axis quantized full training, LoRA and MoE archs."""
+    and under a data axis quantized full training, LoRA, and MoE archs
+    with more than one micro-batch."""
     if ctx is None or ctx.mesh is None:
         return
     shape = ctx.mesh.shape
@@ -147,12 +153,14 @@ def check_dp(cfg: ArchConfig, technique: Technique, ctx) -> None:
             f"training and LoRA are not ported there (8-bit moments' "
             f"blocks run over a moment's global flattening, which a "
             f"rank's slice does not hold): ROADMAP queue 1 item 7.8")
-    if cfg.is_moe:
+    if cfg.is_moe and technique.grad_accum > 1:
         raise NotImplementedError(
-            f"{cfg.name} over a data axis: an MoE layer's router "
-            f"statistics, load-balancing loss and capacity come from the "
-            f"global batch, which no rank holds (with expert parallelism, "
-            f"item 7.2): ROADMAP queue 1 item 7.7")
+            f"{cfg.name} over a data axis with grad_accum="
+            f"{technique.grad_accum}: the reference's micro-batch i is the "
+            f"global rows [i·B/accum, (i+1)·B/accum), which decide the "
+            f"tokens that compete for an expert's capacity, and a rank's "
+            f"micro-batches are cut from its own rows: ROADMAP queue 1 "
+            f"item 7.9")
 
 
 class DPLayout:
@@ -531,7 +539,7 @@ def _float_step(model: LM, technique: Technique, opt_cfg: AdamWConfig, ctx,
             (batch["labels"][i * mb:(i + 1) * mb] >= 0).sum()
             for i in range(accum)]).to(f32))
         denom = torch.clamp_min(n_mb, 1.0) / dp
-        sums = torch.zeros(3, dtype=f32, device=dev)   # loss, ce, aux
+        sums = torch.zeros(2, dtype=f32, device=dev)   # loss, ce
         if once:                       # the whole tree, once for the step
             anchor = torch.zeros((), dtype=f32, device=dev,
                                  requires_grad=True)
@@ -547,13 +555,15 @@ def _float_step(model: LM, technique: Technique, opt_cfg: AdamWConfig, ctx,
                                          requires_grad=True)
                     view = shards(work, Z.ZeroComm(ctx, dev, anchor))
                 with region("forward"):
-                    loss, metrics = model.loss(view, part, n_tok=denom[i])
+                    loss, metrics = model.loss(view, part, n_tok=denom[i],
+                                               aux_grad_scale=dp)
                 with region("backward"):
                     torch.autograd.grad(loss, [anchor])
             else:
                 paths = keystr_paths(params)
                 with region("forward"):
-                    loss, metrics = model.loss(params, part, n_tok=denom[i])
+                    loss, metrics = model.loss(params, part, n_tok=denom[i],
+                                               aux_grad_scale=dp)
                 with region("backward"):
                     grads = list(torch.autograd.grad(
                         loss, [t for _, t in paths]))
@@ -574,7 +584,6 @@ def _float_step(model: LM, technique: Technique, opt_cfg: AdamWConfig, ctx,
                                             for kk, v in metrics.items()}
             sums[0] += loss
         sums[1] = metrics["ce"]                   # the last micro-batch's
-        sums[2] = metrics["aux"]
         view = gathered = None          # the gathered tree goes before
         if stage <= 1:                  # the update
             for a in acc.values():
@@ -614,8 +623,9 @@ def _float_step(model: LM, technique: Technique, opt_cfg: AdamWConfig, ctx,
             acc.clear()
         state["step"].add_(1)
         sums = ctx.dp_all_reduce(sums) / torch.tensor(
-            [k, dp, dp], dtype=f32, device=dev)
-        return state, {"loss": sums[0], "ce": sums[1], "aux": sums[2],
+            [k, dp], dtype=f32, device=dev)
+        # aux is the global micro-batch's on every rank already
+        return state, {"loss": sums[0], "ce": sums[1], "aux": metrics["aux"],
                        "grad_norm": torch.sqrt(norm_sq)}
 
     train_step.grad_buffer = acc       # over a data axis, state at rest

@@ -244,6 +244,26 @@ def test_sigterm_ends_in_an_emergency_save(tmp_path, keep_sigterm):  # noqa: F81
     _same_tree(restored, tr.state)
 
 
+def test_a_dropped_trainer_is_collected(tmp_path,
+                                       keep_sigterm):  # noqa: F811
+    """The SIGTERM handler is ``run()``'s only: before and after a run the
+    process's previous handler is in place, so nothing outside keeps a
+    dropped ``Trainer`` (and its state) alive."""
+    import gc
+    import weakref
+    before = signal.getsignal(signal.SIGTERM)
+    tr = Trainer(port_config(ARCH, reduced=True), SHAPE,
+                 technique_from_label("F+R"),
+                 TrainerConfig(steps=1, log_every=1), device="cpu")
+    assert signal.getsignal(signal.SIGTERM) is before
+    assert tr.run()["final_step"] == 1
+    assert signal.getsignal(signal.SIGTERM) is before
+    ref = weakref.ref(tr)
+    del tr
+    gc.collect()
+    assert ref() is None
+
+
 # --------------------------------------------------------------------------
 # the prefetcher and the CLI
 # --------------------------------------------------------------------------

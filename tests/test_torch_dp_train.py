@@ -24,6 +24,7 @@ import torch
 
 from repro.configs import get_config as ref_config
 from repro.core.config import technique_from_label as jtech
+from repro.models import blocks as RB
 from repro.models.lm import LM as JLM
 from repro.parallel.sharding import make_shard_ctx as jctx
 from repro.train import optimizer as jopt
@@ -45,6 +46,13 @@ from repro_torch.train.step import build_train_step, init_train_state
 import torch_dp_worker as worker
 
 ARCHS = ("qwen1.5-0.5b", "mamba2-130m")
+MOE_ARCHS = ("qwen3-moe-30b-a3b", "jamba-v0.1-52b")
+# jamba smoke cut to one period (8 of its 16 layers: 4 MoE FFNs, one
+# attention layer), as tests/test_torch_ssm_decode.py cuts it, on both sides
+MOE_CFG = {"jamba-v0.1-52b": {"n_layers": 8}}
+MOE_STAGES = ("F+R", "F+R+Z3")
+MOE_GRAD_COS = 0.995      # tests/test_torch_train_families.py's, a leaf
+MOE_AUX_ATOL = 2e-4       # tests/test_torch_train_families.py's AUX_ATOL
 STAGES = ("F+R", "F+R+Z1", "F+R+Z2", "F+R+Z3", "F+R+Z3+O", "F+R+Z3:once")
 B, T, STEPS = 4, 32, 3
 PSUM_N = 2 * C.BLOCK + 300           # not a whole number of blocks
@@ -106,8 +114,56 @@ def reference():
     return start, mets, jax.device_get(state["params"])
 
 
+def _moe_batch(arch):
+    """One global batch of :func:`_batches` for ``arch``'s smoke vocab."""
+    return _batches(get_config(arch, reduced=True).vocab_size, 1)[:1]
+
+
 @pytest.fixture(scope="module")
-def dp2(reference, tmp_path_factory):
+def moe_reference():
+    """The reference's seeded state of each MoE smoke arch, one of its
+    F+R steps on the whole of :func:`_moe_batch` (its GSPMD program's
+    routing: the global batch's statistics, order and capacity; compiled
+    without excess precision, as tests/test_torch_train_families.py
+    compiles it) and the experts its router chose in each MoE layer's
+    forward, recorded through a debug callback."""
+    out = {}
+    tech = jtech("F+R")
+    jcfg = jopt.AdamWConfig(lr=5e-3, warmup=0)
+    orig = RB._route
+    for arch in MOE_ARCHS:
+        cfg = dataclasses.replace(ref_config(arch, reduced=True),
+                                  **MOE_CFG.get(arch, {}))
+        routes = []
+
+        def recorded(h, w, c):
+            res = orig(h, w, c)
+            jax.debug.callback(lambda e: routes.append(np.asarray(e)),
+                               res[1], ordered=True)
+            return res
+
+        jm = JLM(cfg, attn_impl="pallas", remat=tech.remat)
+        state, _ = jinit(jm, tech, jax.random.PRNGKey(0), jcfg)
+        start = jax.device_get(state)
+        batch = jax.tree_util.tree_map(jnp.asarray, _moe_batch(arch)[0])
+        RB._route = recorded
+        try:
+            step = jax.jit(jbuild(jm, tech, jctx(cfg, tech, None),
+                                  jcfg)).lower(state, batch).compile(
+                compiler_options={"xla_allow_excess_precision": False})
+            state, m = step(state, batch)
+            jax.effects_barrier()
+        finally:
+            RB._route = orig
+        n_moe = sum(k == "moe" for k in cfg.ffn_kinds())
+        out[arch] = (start, {k: float(v) for k, v in m.items()},
+                     jax.device_get(state["params"]), routes[:n_moe],
+                     dict(tree_paths(jax.device_get(state["opt"]["m"]))))
+    return out
+
+
+@pytest.fixture(scope="module")
+def dp2(reference, moe_reference, tmp_path_factory):
     """Every two-rank case, on one set of ranks."""
     vocab = get_config(ARCHS[0], reduced=True).vocab_size
     start = tree_map(lambda t: t.detach(),
@@ -141,6 +197,18 @@ def dp2(reference, tmp_path_factory):
                                   batches=_three_steps_batch(),
                                   start=start)),
         ("psum", "psum", dict(n=PSUM_N)),
+    ]
+    for arch in MOE_ARCHS:
+        st = tree_map(lambda t: t.detach(),
+                      train_state_from_jax(moe_reference[arch][0], "cpu"))
+        common = dict(arch=arch, batches=_moe_batch(arch), start=st,
+                      routes=moe_reference[arch][3],
+                      cfg_kw=MOE_CFG.get(arch))
+        plan.append((f"moe/{arch}/oracle", "train",
+                     dict(label="F+R", oracle=True, **common)))
+        plan += [(f"moe/{arch}/{s}", "train", dict(label=s, **common))
+                 for s in MOE_STAGES]
+    plan += [
         ("gather", "gather", dict()),
         ("save", "save", dict(arch=ARCHS[0], label="F+R+Z3", steps=2,
                               directory=ckpt)),
@@ -435,6 +503,117 @@ def test_dp4_z3_matches_within_the_order_of_sums(dp4):
         assert np.mean(gf != wf) <= 0.01, p
 
 
+def _adam_close(got, want, what):
+    """One step from one state, the gradients equal up to the ranks'
+    bf16 roundings of their parts (each rank's gradient of a bf16 leaf
+    rounds once, the whole batch's once): each leaf's first moment (0.1
+    x the gradient) within 2^-8 of its norm, the second within 2^-7;
+    Adam's first step moves a param about lr x sign(g), so an element
+    whose summed gradient sits near 0 may move up to 2 lr the other
+    way: none more, and at most 1% of a leaf's elements (one of a
+    smaller leaf) by more than lr / 100."""
+    lr = worker.OPT.lr
+    for p, w in want["state"].items():
+        gf, wf = _float(got["state"][p]), _float(w)
+        if p.startswith("['params']"):
+            d = np.abs(gf - wf)
+            assert d.max() <= 2 * lr, (what, p, d.max())
+            assert np.sum(d > lr / 100) <= max(1, 0.01 * d.size), (what, p)
+        elif p.startswith(("['opt']['m']", "['opt']['v']")):
+            bound = 2.0 ** -8 if p.startswith("['opt']['m']") else 2.0 ** -7
+            assert np.linalg.norm(gf - wf) <= bound * np.linalg.norm(wf), \
+                (what, p)
+        else:
+            np.testing.assert_array_equal(gf, wf, err_msg=f"{what} {p}")
+
+
+@pytest.mark.parametrize("arch,stage", [(a, s) for a in MOE_ARCHS
+                                        for s in MOE_STAGES])
+def test_moe_step_is_the_one_device_whole_batch_step(dp2, arch, stage):
+    """qwen3-moe and jamba smoke (one period) at dp 2, one row pair a
+    rank, one step from the reference's bridged state, the experts the
+    reference chose
+    forced on both sides (``worker.forced_route``): the router's
+    statistics, the
+    assignment order and the capacity are the global batch's, so the
+    step is the one-device step on the whole batch (grad_accum 1), not
+    the grad_accum 2 step the dense archs equal: the loss and
+    grad_norm within f32 rounding of the order of sums, ``aux`` equal on
+    both ranks and to the one device's within that rounding, and the
+    state within :func:`_adam_close`; both ranks hold the same state."""
+    ranks, _ = dp2
+    want = ranks[0][f"moe/{arch}/oracle"]
+    for r, out in enumerate(ranks):
+        got = out[f"moe/{arch}/{stage}"]
+        what = f"{arch} {stage} rank {r}"
+        assert got["hash"] == ranks[0][f"moe/{arch}/{stage}"]["hash"]
+        np.testing.assert_allclose(got["loss_f"], want["loss_f"], rtol=1e-6,
+                                   err_msg=what)
+        np.testing.assert_allclose(got["grad_norm"], want["grad_norm"],
+                                   rtol=1e-4, err_msg=what)
+        assert got["aux"] == ranks[0][f"moe/{arch}/{stage}"]["aux"]
+        assert got["aux"][0] > 0
+        np.testing.assert_allclose(got["aux"], want["aux"], rtol=1e-6,
+                                   err_msg=what)
+        _adam_close(got, want, what)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_rank0_matches_the_reference_step(dp2, moe_reference, arch):
+    """Rank 0's F+R+Z3 step at dp 2 against the reference's one-device
+    step on the whole batch, from the same bridged state, routed as the
+    reference routed (a near tie of two gates flips a choice between
+    XLA's and torch's sums: 4 of jamba's 512 (token, layer) pairs here;
+    forced as tests/test_torch_train_families.py forces them), at
+    :func:`test_rank0_matches_the_reference_step`'s step-1 limits: the
+    loss within LOSS_ATOL, grad_norm within 1%, the load-balancing loss
+    within the families' AUX_ATOL, each leaf's gradient (its first
+    moment) at the families' cosine, the params within half of each
+    leaf's own update and along it (cosine >= 0.9). Adam's first step
+    moves an element about lr x sign(g), so an element whose gradient
+    sits within the two gradients' difference of zero may move the
+    other way (here up to 1.6% of a leaf's elements, their gradients at
+    most 1.2% of the leaf's largest, inside differences of 0.2-3.8%;
+    the witness
+    :func:`test_seed7_bk_gap_is_the_one_device_steps_adam_signs`): such
+    an element must be one, and the limits hold on the others."""
+    ranks, _ = dp2
+    start, m, final, _, mref = moe_reference[arch]
+    got = ranks[0][f"moe/{arch}/F+R+Z3"]
+    assert abs(got["loss_f"][0] - m["loss"]) < LOSS_ATOL
+    assert got["grad_norm"][0] == pytest.approx(m["grad_norm"], rel=0.01)
+    assert abs(got["aux"][0] - m["aux"]) < MOE_AUX_ATOL
+    leaves = {}
+    for k, b in got["state"].items():
+        keys = re.findall(r"\['([^']+)'\]", k)
+        if keys[0] == "params" or keys[:2] == ["opt", "m"]:
+            leaves[(keys[0], "/".join(keys[2 if keys[0] == "opt" else 1:]))] \
+                = _float(b)
+    p0, want = dict(tree_paths(start["params"])), dict(tree_paths(final))
+    for path, w in want.items():
+        g, gm = leaves[("params", path)], leaves[("opt", path)]
+        wm = np.asarray(mref[path], np.float32)
+        assert _cos(gm, wm) >= MOE_GRAD_COS, (path, _cos(gm, wm))
+        base = np.asarray(p0[path], np.float32)
+        upd, d = np.asarray(w, np.float32) - base, g - base
+        if not upd.any():
+            assert np.array_equal(g, np.asarray(w, np.float32)), path
+            continue
+        flip = np.sign(d) != np.sign(upd)
+        if flip.any():
+            assert np.abs(wm[flip]).max() <= np.abs(gm - wm).max(), path
+        keep = ~flip
+        assert np.linalg.norm((g - w)[keep]) < 0.5 * np.linalg.norm(
+            upd[keep]), path
+        assert _cos(d[keep], upd[keep]) >= 0.9, path
+
+
+def _cos(a, b):
+    a, b = np.asarray(a, np.float64).ravel(), np.asarray(b, np.float64).ravel()
+    n = np.linalg.norm(a) * np.linalg.norm(b)
+    return float(a @ b / n) if n else float(not a.any() and not b.any())
+
+
 def _stand_in(data, model):
     return SimpleNamespace(shape={"data": data, "model": model},
                            axis_names=("data", "model"), rank=0, data_rank=0,
@@ -445,23 +624,26 @@ def _stand_in(data, model):
     ("qwen1.5-0.5b", "Q8+F+R", (2, 1), "7.8"),
     ("qwen1.5-0.5b", "Q", (2, 1), "7.8"),
     ("qwen1.5-0.5b", "L+F+R", (2, 1), "7.8"),
-    ("qwen3-moe-30b-a3b", "F+R+Z3", (2, 1), "7.7"),
+    ("qwen3-moe-30b-a3b", "F+R+Z3", (2, 2), "7.6"),
+    ("qwen3-moe-30b-a3b", "F+R+Z3:accum2", (2, 1), "7.9"),
     ("qwen1.5-0.5b", "F+R+Z3", (2, 2), "7.6"),
     ("qwen1.5-0.5b", "F+R", (1, 2), "7.6"),
 ])
 def test_refusals_name_their_roadmap_items(arch, label, mesh, item):
-    """What a data axis cannot train yet raises, naming its item."""
+    """What a data axis cannot train yet raises, naming its item (an MoE
+    arch with more than one micro-batch a rank: item 7.9)."""
+    label, _, accum = label.partition(":accum")
+    tech = dataclasses.replace(technique_from_label(label),
+                               grad_accum=int(accum or 1))
     with pytest.raises(NotImplementedError, match=f"item {item}"):
-        build_train(get_config(arch, reduced=True),
-                    technique_from_label(label), device="cpu",
+        build_train(get_config(arch, reduced=True), tech, device="cpu",
                     mesh=_stand_in(*mesh))
     if mesh == (2, 1):
-        ctx = make_shard_ctx(get_config(arch, reduced=True),
-                             technique_from_label(label), _stand_in(*mesh))
+        ctx = make_shard_ctx(get_config(arch, reduced=True), tech,
+                             _stand_in(*mesh))
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             init_train_state(LM(get_config(arch, reduced=True),
-                                device="cpu", ctx=ctx),
-                             technique_from_label(label), ctx=ctx)
+                                device="cpu", ctx=ctx), tech, ctx=ctx)
 
 
 def test_cli_data_parallel_runs_on_the_cpu(capsys):

@@ -8,8 +8,9 @@ of all 13 configs, smoke and full width, at tp 2, 4 and 8, the port
 splits the dim the reference splits; the paged pool and the SSM slot
 pool it allocates are cut on the axis of the reference's specs.
 ``shard_params`` over all ranks reassembles the full tree bit for bit,
-and the model-parallel engine refuses what it does not serve: MoE
-archs, the legacy mode, nccl ranks sharing a card, CUDA-graph capture
+the expert leaves of an MoE arch are cut on the experts axis, or on
+their MLP width where the degree does not divide the experts, and the
+model-parallel engine refuses what it does not serve: the legacy mode, nccl ranks sharing a card, CUDA-graph capture
 of steps that hold collectives, deadlines. The RMSNorm of a row
 split over ranks (the gated norm's partial sums added over the parts)
 equals the reference's norm of the whole row, and the paged read's CUDA
@@ -206,11 +207,52 @@ def qwen():
     return cfg, LM(cfg, device="cpu").init(0)
 
 
-def test_moe_refused_under_tp():
-    cfg = get_config("qwen3-moe-30b-a3b", reduced=True)
+@pytest.mark.parametrize("n_experts,tp", [(4, 2), (6, 4)])
+def test_moe_refused_under_tp(n_experts, tp):
+    """Named for the refusal it held until expert parallelism was
+    ported: the model-parallel engine now takes MoE archs. qwen3-moe
+    smoke's expert leaves at degree 2 are cut on the experts axis (each
+    rank its E/tp experts, whole); with 6 experts at degree 4, which
+    does not divide them, on the MLP axis (every expert, d_ff/tp wide),
+    as the reference's resolver ranks the axes; the router stays
+    whole. Every rank's pieces, put back together, are the tree; drawn
+    directly (``LM.init(seed, pieces=True)``) they are the same
+    pieces."""
+    cfg = dataclasses.replace(get_config("qwen3-moe-30b-a3b", reduced=True),
+                              n_experts=n_experts)
+    rcfg = dataclasses.replace(ref_config("qwen3-moe-30b-a3b", reduced=True),
+                               n_experts=n_experts)
     params = LM(cfg, device="cpu").init(0)
-    with pytest.raises(NotImplementedError, match="_moe_ep"):
-        Engine(cfg, params, mesh=_fake_mesh())
+    ffn = params["blocks"]["pos0"]["ffn"]
+    e, d, f = n_experts, cfg.d_model, cfg.d_ff
+    ep = e % tp == 0
+    ref = ref_sharding.resolve_spec(_ref_ctx(rcfg, tp), "w_gate",
+                                    tuple(ffn["w_gate"].shape),
+                                    ("layers", "experts", "embed", "mlp"),
+                                    zero=False)
+    assert tuple(ref) == ((None, "model", None, None) if ep else
+                          (None, None, None, "model"))
+    pieces = []
+    for rank in range(tp):
+        ctx = _port_ctx(cfg, tp, rank=rank)
+        assert PB.uses_ep(cfg, ctx) == ep
+        local = S.shard_params(params, ctx)["blocks"]["pos0"]["ffn"]
+        assert local["router"].shape == ffn["router"].shape
+        n = cfg.n_layers // LM(cfg, device="cpu").period
+        want = (n, e // tp, d, f) if ep else (n, e, d, f // tp)
+        assert tuple(local["w_gate"].shape) == want
+        assert tuple(local["w_down"].shape) == (
+            (n, e // tp, f, d) if ep else (n, e, f // tp, d))
+        drawn = LM(cfg, device="cpu", ctx=ctx).init(0, pieces=True)
+        for (pa, a), (pb, b) in zip(tree_paths(S.shard_params(params, ctx)),
+                                    tree_paths(drawn)):
+            assert pa == pb and torch.equal(a, b), pa
+        pieces.append(local)
+        Engine(cfg, params, mesh=ctx.mesh, max_batch=2, n_blocks=8)
+    for key in ("w_gate", "w_up", "w_down"):
+        dim = 1 if ep else (3 if key != "w_down" else 2)
+        assert torch.equal(torch.cat([p[key] for p in pieces], dim),
+                           ffn[key])
 
 
 def test_mesh_requires_fused_mode(qwen):

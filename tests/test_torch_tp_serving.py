@@ -12,7 +12,16 @@ only at a bf16 near tie of the logits; the splits are counted and must
 be 0 on these configs. The ranks start once per degree and serve every
 scenario of that degree in turn (tests/torch_tp_worker.py, which imports
 no JAX), one intra-op thread each.
+
+The MoE archs (qwen3-moe and jamba smoke: 4 experts, top-2) run the
+reference's expert parallelism (``_moe_ep``: each rank holds E/tp
+experts, tokens exchanged with their ranks; a chunk of 4 split along t,
+a decode step routed whole on every rank) and, with 6 experts at tp 4,
+the dispatch with the experts cut on their MLP width; the reference's
+own contract (tests/test_sharded_serving.py:93-105) holds them: tokens
+equal to the single-device engine's, with no near-tie split either.
 """
+import dataclasses
 import functools
 
 import jax
@@ -34,7 +43,10 @@ import torch_tp_worker as worker
 NEAR_TIE_ULPS = 4
 FULL_STACK = dict(kv_quant="int8", prefill_chunk=4, speculate="ngram",
                   spec_depth=4, max_batch=4, n_blocks=64, block_size=8)
-# name -> (arch, prompt lengths, new tokens, engine arguments)
+MOE_STACK = dict(kv_quant="int8", prefill_chunk=4, max_batch=4,
+                 block_size=8)
+# name -> (arch, prompt lengths, new tokens, engine arguments[, the
+# config's fields replaced])
 SCENARIOS = {
     "full_stack": ("qwen1.5-0.5b", (12, 12, 10, 12), 8, FULL_STACK),
     "preemption": ("qwen1.5-0.5b", (8, 8, 8, 8), 6,
@@ -50,9 +62,21 @@ SCENARIOS = {
     "indivisible": ("granite-3-2b", (12, 12, 10, 12), 8,
                     dict(kv_quant="int8", prefill_chunk=4, max_batch=4,
                          block_size=8)),
+    "moe_ep": ("qwen3-moe-30b-a3b", (12, 12, 10, 12), 8, MOE_STACK),
+    # jamba smoke is ~10x qwen3-moe's cost a step: two streams
+    "hybrid_ep": ("jamba-v0.1-52b", (12, 10), 4, MOE_STACK),
+    # 6 experts at tp 4: the experts whole on every rank, cut on their
+    # MLP width (the down projection a row-parallel seam)
+    "moe_mlp": ("qwen3-moe-30b-a3b", (12, 12, 10, 12), 8, MOE_STACK,
+                {"n_experts": 6}),
 }
-BY_DEGREE = {2: ("full_stack", "preemption", "ssm_whole", "ssm_chunk"),
-             4: ("full_stack", "indivisible")}
+# streams of the port's TP = 1 engine that split from the reference's at
+# a near tie: with 6 experts, three repetitive prompts reach one context
+# whose top two logits (3.203125, 3.171875) are 2 bf16 ulps apart
+ONE_DEVICE_SPLITS = {"moe_mlp": 3}
+BY_DEGREE = {2: ("full_stack", "preemption", "ssm_whole", "ssm_chunk",
+                 "moe_ep", "hybrid_ep"),
+             4: ("full_stack", "indivisible", "moe_ep", "moe_mlp")}
 
 
 @pytest.fixture(autouse=True)
@@ -66,11 +90,23 @@ def one_thread():
     torch.set_num_threads(n)
 
 
+def _scenario(name):
+    """(arch, lens, max_new, engine arguments, config fields replaced)."""
+    arch, lens, max_new, kw, *cfg_kw = SCENARIOS[name]
+    return arch, lens, max_new, kw, (cfg_kw or [{}])[0]
+
+
 @functools.lru_cache(maxsize=None)
-def _weights(arch):
-    cfg = get_config(arch, reduced=True)
+def _weights(arch, cfg_items=()):
+    cfg = dataclasses.replace(get_config(arch, reduced=True),
+                              **dict(cfg_items))
     params = LM(cfg).init(jax.random.PRNGKey(0))
     return cfg, params, from_jax_numpy(jax.device_get(params))
+
+
+def _scenario_weights(name):
+    arch, _, _, _, cfg_kw = _scenario(name)
+    return _weights(arch, tuple(sorted(cfg_kw.items())))
 
 
 def _prompts(cfg, lens):
@@ -81,15 +117,15 @@ def _prompts(cfg, lens):
 
 
 def _run_args(name):
-    arch, lens, max_new, kw = SCENARIOS[name]
-    cfg, _, tparams = _weights(arch)
-    return arch, tparams, _prompts(cfg, lens), max_new, kw
+    arch, lens, max_new, kw, cfg_kw = _scenario(name)
+    cfg, _, tparams = _scenario_weights(name)
+    return arch, tparams, _prompts(cfg, lens), max_new, kw, cfg_kw
 
 
 @functools.lru_cache(maxsize=None)
 def _reference(name):
-    arch, lens, max_new, kw = SCENARIOS[name]
-    cfg, params, _ = _weights(arch)
+    _, lens, max_new, kw, _ = _scenario(name)
+    cfg, params, _ = _scenario_weights(name)
     eng = JaxEngine(cfg, params, **kw)
     for rid, p in enumerate(_prompts(cfg, lens)):
         eng.submit(JaxRequest(rid=rid, tokens=list(p),
@@ -124,21 +160,29 @@ def _bf16_ulp(x: float) -> float:
     return 2.0 ** (np.floor(np.log2(max(abs(x), 1e-30))) - 7)
 
 
+@functools.lru_cache(maxsize=None)
+def _reference_row(name, rid, j):
+    """The reference's logits after stream ``rid``'s prompt and its first
+    ``j`` tokens (its dense forward, teacher forced)."""
+    lens = _scenario(name)[1]
+    cfg, params, _ = _scenario_weights(name)
+    want, _ = _reference(name)
+    seq = np.asarray([list(_prompts(cfg, lens)[rid]) + want[rid][:j]],
+                     np.int32)
+    return np.asarray(LM(cfg).forward(params, {"tokens": seq})[0, -1],
+                      np.float32)
+
+
 def _near_ties(name, got):
     """Hold a stream set against the reference's: where one splits, the
     port's token must be within ``NEAR_TIE_ULPS`` bf16 ulps of the top of
     the reference's own logits there (its dense forward, teacher-forced
     on its stream), the port's rule against the reference
     (tests/test_torch_engine.py). Returns the splits."""
-    arch, lens, _, _ = SCENARIOS[name]
-    cfg, params, _ = _weights(arch)
-    prompts = _prompts(cfg, lens)
     want, _ = _reference(name)
     splits = _splits(want, got)
     for rid, j in splits:
-        seq = np.asarray([list(prompts[rid]) + want[rid][:j]], np.int32)
-        row = np.asarray(LM(cfg).forward(params, {"tokens": seq})[0, -1],
-                         np.float32)
+        row = _reference_row(name, rid, j)
         top = float(row.max())
         tok = got[rid][j]
         assert row[tok] >= top - NEAR_TIE_ULPS * _bf16_ulp(top), (
@@ -252,6 +296,32 @@ def test_tp_trace_counts_match(tp):
         for rec in _sharded(tp)[name]:
             assert rec["trace_counts"] == base["trace_counts"], name
         assert all(v == 1 for v in base["trace_counts"].values())
+
+
+@pytest.mark.parametrize("name,tp", [("moe_ep", 2), ("hybrid_ep", 2),
+                                     ("moe_ep", 4), ("moe_mlp", 4)])
+def test_tp_parity_moe(name, tp):
+    """The MoE archs under TP, chunked (4) with int8 KV: each rank's
+    tokens equal TP = 1's and the reference's single-device engine's
+    with no split at all (near tie or not; the 6-expert config's
+    one-device engine splits from the reference at a 2-ulp near tie,
+    ``ONE_DEVICE_SPLITS``, and TP's tokens are that engine's). Where the
+    degree divides the
+    experts each rank holds E/tp of them (expert parallelism); with 6
+    experts at tp 4 every rank holds all 6, cut on their MLP width."""
+    base, recs = _hold(name, tp)
+    assert len(_near_ties(name, base["out"])) == ONE_DEVICE_SPLITS.get(
+        name, 0)
+    cfg, _, _ = _scenario_weights(name)
+    e, f = cfg.n_experts, cfg.d_ff
+    want = ((e // tp, cfg.d_model, f) if e % tp == 0 else
+            (e, cfg.d_model, f // tp))
+    for rec in recs:
+        moe = [k for k, v in rec["ffn_shapes"].items()
+               if k.endswith("/w_gate") and len(v) == 4]
+        assert moe
+        for key in moe:
+            assert rec["ffn_shapes"][key][1:] == want, (key, want)
 
 
 def test_serve_cli_model_parallel(capsys):

@@ -18,6 +18,8 @@ from repro_torch.core.config import ShapeSpec, technique_from_label
 from repro_torch.core.perfscope import Timer
 from repro_torch.core.trainer import Trainer, TrainerConfig
 from repro_torch.launch.build import make_model
+from repro_torch.models import blocks as B
+from repro_torch.models import layers as L
 from repro_torch.models.params import keystr_paths, tree_map
 from repro_torch.parallel import compression as C
 from repro_torch.parallel import zero as Z
@@ -48,16 +50,57 @@ def technique(label: str, accum: int, **kw):
         zero3_gather_once=once, **kw)
 
 
+def forced_route(routes, rows: slice):
+    """``models.blocks._route`` that takes the reference's experts:
+    ``routes`` holds each MoE layer's (tokens, k) experts on the global
+    batch; each call takes, of the layer route that agrees most with its
+    own choice, the token ``rows`` this call routes (a near tie of the
+    k-th and (k+1)-th gates flips a choice between XLA's and torch's
+    sums), with the gates gathered at those experts and renormalised and
+    the load-balancing loss recomputed from them, over a data axis with
+    the global statistics (every call, so every rank makes the same
+    collectives)."""
+    orig = B._route
+
+    def forced(h, w, cfg, ctx=None):
+        top_w, top_e, _ = (orig(h, w, cfg) if ctx is None else
+                           orig(h, w, cfg, ctx))
+        e, k = cfg.n_experts, cfg.top_k
+        own = top_e.reshape(-1, k)
+        want = max((torch.from_numpy(r.reshape(-1, k)[rows]).long()
+                    for r in routes),
+                   key=lambda c: int((c == own).all(-1).sum()))
+        gates = torch.softmax(L.dense(h.float(), w).float(), -1).reshape(
+            -1, e)
+        tw = gates.gather(-1, want)
+        tw = tw / torch.clamp_min(tw.sum(-1, keepdim=True), 1e-9)
+        first = (want[:, :1] == torch.arange(e)).float()
+        local = torch.cat([gates.sum(0), first.sum(0),
+                           gates.new_full((1,), gates.shape[0])])
+        if ctx is not None and ctx.dp_size > 1:
+            total = ctx.dp_all_reduce(local.detach().clone())
+            local = total + (local - local.detach())
+        me, ce = local[:e] / local[-1], local[e:2 * e] / local[-1]
+        return (tw.reshape(top_w.shape), want.reshape(top_e.shape),
+                e * (me * ce).sum())
+
+    return forced
+
+
 def train(mesh, arch, label, batches, *, accum=1, start=None, opt=OPT,
-          count=False, **kw):
+          count=False, routes=None, cfg_kw=None, **kw):
     """Steps of ``label`` on the reduced ``arch`` over ``batches`` (whole
     global batches as numpy), one device when ``mesh`` is None (the
     whole batch in ``accum`` micro-batches) or this rank's rows. The
     state starts from the seed, or from ``start`` (a whole one-device
-    state). Returns each step's loss bits and float, ``grad_norm``, the
-    whole final state's bits, and with ``count`` the collectives of each
-    step (by ``ShardCtx.comm_timer``)."""
-    cfg = get_config(arch, reduced=True)
+    state). Returns each step's loss bits and float, ``grad_norm``,
+    ``aux``, the whole final state's bits, and with ``count`` the collectives of each
+    step (by ``ShardCtx.comm_timer``). With ``routes`` (one global
+    batch's, each MoE layer's experts) the MoE layers route as the
+    reference did (:func:`forced_route`). ``cfg_kw`` replaces fields of
+    the reduced config."""
+    cfg = dataclasses.replace(get_config(arch, reduced=True),
+                              **(cfg_kw or {}))
     tech = technique(label, accum, **kw)
     ctx = make_shard_ctx(cfg, tech, mesh) if mesh is not None else None
     model = make_model(cfg, tech, device="cpu", ctx=ctx)
@@ -72,18 +115,29 @@ def train(mesh, arch, label, batches, *, accum=1, start=None, opt=OPT,
     timer = Timer()
     if ctx is not None and count:
         ctx.comm_timer = timer
-    out = {"loss": [], "loss_f": [], "grad_norm": [], "collectives": []}
-    for b in batches:
-        batch = {k: torch.from_numpy(v.copy()) for k, v in b.items()}
-        if ctx is not None:
-            lo, hi = ctx.batch_sharding(batch["tokens"].shape[0])
-            batch = {k: v[lo:hi] for k, v in batch.items()}
-        n0 = len(timer.records["collective"])
-        state, met = step(state, batch)
-        out["collectives"].append(len(timer.records["collective"]) - n0)
-        out["loss"].append(int(host(met["loss"])))
-        out["loss_f"].append(float(met["loss"]))
-        out["grad_norm"].append(float(met["grad_norm"]))
+    out = {"loss": [], "loss_f": [], "grad_norm": [], "aux": [],
+           "collectives": []}
+    route = B._route
+    if routes is not None:
+        rows = batches[0]["tokens"].shape[0]
+        lo, hi = (0, rows) if ctx is None else ctx.batch_sharding(rows)
+        t = batches[0]["tokens"].shape[1]
+        B._route = forced_route(routes, slice(lo * t, hi * t))
+    try:
+        for b in batches:
+            batch = {k: torch.from_numpy(v.copy()) for k, v in b.items()}
+            if ctx is not None:
+                lo, hi = ctx.batch_sharding(batch["tokens"].shape[0])
+                batch = {k: v[lo:hi] for k, v in batch.items()}
+            n0 = len(timer.records["collective"])
+            state, met = step(state, batch)
+            out["collectives"].append(len(timer.records["collective"]) - n0)
+            out["loss"].append(int(host(met["loss"])))
+            out["loss_f"].append(float(met["loss"]))
+            out["grad_norm"].append(float(met["grad_norm"]))
+            out["aux"].append(float(met["aux"]))
+    finally:
+        B._route = route
     if ctx is not None:
         state = logical_train_state(state, DPLayout(model, tech, ctx), ctx,
                                     model.device)
