@@ -422,6 +422,33 @@ imports nothing of the JAX package). Phases, one line each:
               also runs Z3 over nccl, one card per rank, and otherwise
               says that it did not.
 
+30. tp-train - tensor-parallel training on card 0, ranks over gloo: (A)
+              qwen1.5-0.5b at full width, F+R, 2 steps of 4 x 2048 at TP =
+              2 with sequence parallelism off, then on, in one spawn,
+              against the one-device F+R run on the same batches: step
+              1's loss and ce within 1e-5 relative, grad_norm within
+              1e-3 (step 2: 1e-2 and 3%), after step 1 each param
+              within half of its update at cosine >= 0.9 and each first
+              moment within 2^-5 of its norm from one device's (linear
+              sketches of every leaf, each rank's pieces at their
+              indices in the whole; beside them how far each run lies
+              from the f32 step's, and a control: how far apart two
+              one-device bf16 steps, grad_accum 1 and 2, lie);
+              teacher forced, step 1's loss equals the one-device
+              forward in TP = 2's order of sums bit for bit. (B) the
+              (2 data x 2 model) mesh, 4 ranks, F+R+Z3 with sequence
+              parallelism, qwen cut to 4 of 24 layers, against one
+              device at grad_accum 2. Each rank launches the flash
+              kernels on its H/2 heads and RMSNorm as one device does;
+              it prints per rank peak memory and state at rest against
+              one device, the seams' and the step's collectives a step,
+              ms each and their share of the step (host-staged). For
+              its room the script cuts earlier paths' depth (widths
+              untouched): phase 21's llama2-7b / 13b to 16 / 20 layers,
+              23's qwen3-moe to 2, 24 (a)'s llama2-7b to 16, 26's
+              mamba2 to 12, 27's qwen and mamba2 to 6 and llama2-7b to
+              8, 28's qwen to 6, 29's qwen3-moe to 2 ((A)) and 1 ((B)).
+
 Any failed check raises. The last three lines of standard output are the
 kernels' JSON record, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``; the line before them gives the whole
@@ -429,8 +456,8 @@ run's time. Each main path (the engine runs, the training run, the
 two fine-tuning runs, the speculative engine runs, the nine
 lifecycle bursts, phase 23's eight runs, phase 24's training runs,
 phase 25's serving and training runs, phase 26's runs, phase 27's
-single-device runs and each rank's run, and each of phase 28's runs on
-each rank and one device) is driven with every launch
+single-device runs and each rank's run, each of phase 28's runs on
+each rank and one device, and each of phase 30's) is driven with every launch
 count set to 0 just before it (after the engine's warmup, and in phase
 22 (a)/(b) after the warming request) and read just after; so is each
 eager twin. Without
@@ -4163,10 +4190,11 @@ def phase_dense(cfg):
 # offset 4, an MoE FFN at the odd offsets, SSD mixers elsewhere): its
 # 104 GB of bf16 weights do not fit one 80 GB card, one period's 27 do
 JAMBA_LAYERS = 8
-# qwen3-moe-30b-a3b serves cut to 8 of its 48 layers (widths untouched):
+# qwen3-moe-30b-a3b serves cut to 2 of its 48 layers (widths untouched):
 # at 48 layers (30.5 B parameters) phase 23 took ~230 s, and the script
-# must leave room for phase 29 within its time limit
-MOE_SERVE_LAYERS = 8
+# must leave room for phases 29 and 30 within its time limit (8 layers
+# for phase 29's room, 2 for phase 30's)
+MOE_SERVE_LAYERS = 2
 
 
 def routed_experts(eng, inputs):
@@ -4445,7 +4473,8 @@ def slice_llama():
     from repro_torch.models.params import tree_paths
     from repro_torch.peft.lora import split_trainable
     from repro_torch.train.optimizer import AdamWConfig
-    cfg = get_config("llama2-7b")
+    cfg = dataclasses.replace(get_config("llama2-7b"),
+                              n_layers=LLAMA7_LAYERS)
     t0 = time.monotonic()
     torch.cuda.reset_peak_memory_stats()
     opt = AdamWConfig(lr=LEARN_LR["llama2-7b"], warmup=0, weight_decay=0.0)
@@ -4460,7 +4489,8 @@ def slice_llama():
     n_train = sum(t.numel() for _, t in trainable)
     base_gb = sum(t.numel() for _, t in tree_paths(params)
                   if t.dtype == torch.int8) / 1e9
-    print(f"[slice] (a) llama2-7b QL+Q8+F+R: {n_total / 1e9:.3f} B weights, "
+    print(f"[slice] (a) llama2-7b ({cfg.n_layers} of 32 layers) QL+Q8+F+R: "
+          f"{n_total / 1e9:.3f} B weights, "
           f"int8 base {base_gb:.2f} GB, LoRA rank "
           f"{trainer.technique.lora_rank}: {n_train} trainable; built in "
           f"{time.monotonic() - t0:.1f}s, peak {peak_gib():.2f} GiB")
@@ -4544,7 +4574,8 @@ def slice_llama():
     check(not moved, f"llama2-7b frozen leaves changed: {moved[:5]}")
     del frozen, now
     hist = out["history"]
-    print(f"[slice] (a) llama2-7b full width, QL+Q8+F+R, batch "
+    print(f"[slice] (a) llama2-7b full width, {cfg.n_layers} of 32 layers, "
+          f"QL+Q8+F+R, batch "
           f"{SLICE_SHAPE['b']} x {SLICE_SHAPE['t']}: {steps} steps through "
           f"Trainer.run, losses " + ", ".join(f"{h['loss']:.4f}" for h in hist)
           + f"; steps 2-{steps}: {out['step_ms']:.1f} ms/step, "
@@ -5257,6 +5288,11 @@ def ssm_rollback(cfg, params, prompts, want, name):
           f"spec-off's at the same length; {card_line()}")
 
 
+# phase 26's mamba2-130m runs cut to 12 of its 24 layers (widths untouched)
+# since the script needed room for phase 30
+SSM_SPEC_LAYERS = 12
+
+
 def phase_ssm_decoding() -> dict:
     """Phase 26: mamba2's model-level decode against the engine's spec-off
     stream; speculation through the replayed steps on mamba2 (n-gram on
@@ -5269,8 +5305,10 @@ def phase_ssm_decoding() -> dict:
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import repetitive_requests, serving_requests
     t0 = time.monotonic()
-    mamba = get_config("mamba2-130m")
-    params = draw_params(mamba, f"{mamba.name} full width")
+    mamba = dataclasses.replace(get_config("mamba2-130m"),
+                                n_layers=SSM_SPEC_LAYERS)
+    params = draw_params(mamba, f"{mamba.name} full width, "
+                         f"{SSM_SPEC_LAYERS} of 24 layers")
     rep = repetitive_requests(16, mamba.vocab_size, prompt_len=256)
     ngram = phase_spec_engine(mamba, params,
                               name="n-gram depth 4, 16 repetitive requests",
@@ -5338,8 +5376,9 @@ TP_RUNS = (("qwen1.5-0.5b", dict(prefill_chunk=64, kv_quant="int8")),
            ("mamba2-130m", dict(kv_quant="none")))
 TP_POOL = dict(max_batch=8, n_blocks=1024, block_size=16)
 # llama2-7b serves cut to 16 of its 32 layers (widths untouched) since
-# the script needed room for phase 29
-TP_LAYERS = {"llama2-7b": 16}
+# the script needed room for phase 29; since phase 30 llama2-7b to 8, and
+# qwen1.5-0.5b and mamba2-130m to 6 of their 24
+TP_LAYERS = {"llama2-7b": 8, "qwen1.5-0.5b": 6, "mamba2-130m": 6}
 
 
 def tp_config(name):
@@ -5395,7 +5434,10 @@ def tp2_sum_order():
         return rms_split_run(g.reshape(-1, g.shape[-1]), w, 2,
                              eps=cfg.norm_eps).reshape(g.shape)
 
-    def qkv_halves(x, p, cfg, positions, rope=True, qmm_impl="kernel"):
+    def qkv_halves(x, p, cfg, positions, rope=True, qmm_impl="kernel",
+                   ctx=None):
+        if ctx is not None:
+            return qkv(x, p, cfg, positions, rope, qmm_impl, ctx)
         parts = []
         for r in range(2):
             pr = dict(p)
@@ -5730,6 +5772,17 @@ DP_RUNS = (("qwen1.5-0.5b", "F+R", 2), ("qwen1.5-0.5b", "F+R+Z1", 2),
            ("qwen1.5-0.5b", "F+R+Z2", 2), ("qwen1.5-0.5b", "F+R+Z3", 2),
            ("qwen1.5-0.5b", "F+R+Z3+O", 2), ("mamba2-130m", "F+R+Z3", 2))
 DP_LR = 1e-3                        # warmup 0: every step moves the params
+# qwen's stages run cut to 6 of its 24 layers (widths untouched) since the
+# script needed room for phase 30
+DP_LAYERS = {"qwen1.5-0.5b": 6}
+
+
+def dp_config(name):
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(name)
+    return dataclasses.replace(cfg, n_layers=DP_LAYERS.get(name,
+                                                           cfg.n_layers))
 
 
 def dp_batches(cfg, steps: int):
@@ -5877,7 +5930,7 @@ def dp_run(mesh, name, label, batches, accum=1):
     from repro_torch.train.optimizer import AdamWConfig
     from repro_torch.train.step import (DPLayout, build_train_step,
                                         init_train_state)
-    cfg = get_config(name)
+    cfg = dp_config(name)
     tech = dataclasses.replace(technique_from_label(label), grad_accum=accum)
     ctx = make_shard_ctx(cfg, tech, mesh) if mesh is not None else None
     dev = mesh.device if mesh is not None else torch.device("cuda")
@@ -5959,13 +6012,14 @@ def phase_dp() -> dict:
     card = card_line()
     runs, oracles = [], {}
     for name, label, steps in DP_RUNS:
-        cfg = get_config(name)
+        cfg = dp_config(name)
         batches = dp_batches(cfg, steps)
         if name not in oracles:
             oracles[name] = dp_run(None, name, "F+R", batches,
                                    accum=DP_DEGREE)
             o = oracles[name]
-            print(f"[dp] {name} one device, grad_accum {DP_DEGREE}, "
+            print(f"[dp] {name} ({cfg.n_layers} layers) one device, "
+                  f"grad_accum {DP_DEGREE}, "
                   f"{steps} steps of {DP_SHAPE['b']} x {DP_SHAPE['t']}: "
                   f"losses " + ", ".join(f"{x:.6f}" for x in o["loss_f"])
                   + f"; {sum(o['ms'][1:]) / max(len(o['ms']) - 1, 1):.1f} "
@@ -5979,7 +6033,7 @@ def phase_dp() -> dict:
     total = {}
     rest = {}
     for i, (name, label, batches) in enumerate(runs):
-        cfg = get_config(name)
+        cfg = dp_config(name)
         want = oracles[name]
         sums = {p: v[1:] for p, v in want["sums"].items()}
         for rec, got in zip([recs[i] for recs in ranks], gathered_sums(
@@ -6066,15 +6120,18 @@ def phase_dp() -> dict:
 # --------------------------------------------------------------------------
 
 EP_DEGREE = 2
-# qwen3-moe-30b-a3b cut to 4 of its 48 layers (widths untouched: d 2048,
-# 128 experts top-8, expert d_ff 768, 32/4 heads of 128); jamba over one
-# period (8 of 32 layers), its 16 experts split 8 a rank
-EP_QWEN_LAYERS = 4
+# qwen3-moe-30b-a3b cut to 2 of its 48 layers (widths untouched: d 2048,
+# 128 experts top-8, expert d_ff 768, 32/4 heads of 128; 4 layers until
+# the script needed room for phase 30); jamba over one period (8 of 32
+# layers), its 16 experts split 8 a rank
+EP_QWEN_LAYERS = 2
+# (B)'s qwen3-moe depth: 2 layers until the script needed room for phase 30
+EP_DP_LAYERS = 1
 EP_RUNS = (("qwen3-moe-30b-a3b", EP_QWEN_LAYERS),
            ("jamba-v0.1-52b", JAMBA_LAYERS))
 EP_ENGINE = dict(prefill_chunk=64, kv_quant="int8")
 EP_NEW = 16
-# (B): qwen3-moe cut to 2 of 48 layers, F+R+Z3 at dp 2 on phase 28's 4 x
+# (B): qwen3-moe cut to EP_DP_LAYERS of 48, F+R+Z3 at dp 2 on phase 28's 4 x
 # 2048 global batch, 2 steps from the seed, against the one-device step on
 # the whole batch (grad_accum 1)
 MOE_DP_STEPS = 2
@@ -6320,13 +6377,16 @@ def ep_forced_one(cfg, prompts, streams):
     return out
 
 
-def leaf_sketch(state, lay=None, device="cuda") -> dict:
-    """``{path: (sharded, (SKETCH_K,) float64)}``: each leaf's values (as f32)
+def leaf_sketch(state, lay=None, ctx=None, device="cuda") -> dict:
+    """``{path: (own, (SKETCH_K,) float64)}``: each leaf's values (as f32)
     projected onto SKETCH_K pseudo-random vectors whose entries are a
     hash of the element's flat index in the whole leaf (uniform in
     [-0.5, 0.5)), on the card. Linear, so a sharded leaf's projection is
-    the sum over the ranks of each rank's over its piece (with ``lay``,
-    a rank's ``DPLayout``), and no byte moves; the RMS of two runs'
+    the sum over the ranks of each rank's over its piece (with ``lay``
+    and ``ctx``, a rank's ``DPLayout`` and context: its TP cut, then its
+    ZeRO cut) and no byte moves; ``own`` says whether this rank's piece
+    enters that sum (a piece an axis repeats is counted on that axis's
+    rank 0 only; one device: every leaf, own). The RMS of two runs'
     projections' differences estimates the distance of the leaves
     (Johnson-Lindenstrauss) up to the same factor as their RMS estimates
     a leaf's norm."""
@@ -6337,40 +6397,45 @@ def leaf_sketch(state, lay=None, device="cuda") -> dict:
                           for j in range(SKETCH_K)], dtype=torch.int64,
                          device=device)
 
-    def hashed(i):                     # two multiply-mod-xorshift rounds
+    def hashed(i):
         h = (i + seeds) % prime
         h = (h * 0x2545F491) % prime
         h = h ^ (h >> 15)
         h = (h * 0x5851F42D) % prime
         return h ^ (h >> 13)
+
     out = {}
     for path, t in keystr_paths(state):
-        t = t.detach().to(device).float()
-        cut = lay.state_cut(path) if lay is not None else None
+        if lay is None:
+            cuts, own = (), True
+        else:
+            tc, zc = lay.state_cut(path, tp=True), lay.state_cut(path)
+            cuts = tuple(c for c in (tc, zc) if c.dim is not None)
+            own = ((tc.dim is not None or ctx.rank == 0) and
+                   (zc.dim is not None or ctx.mesh.data_rank == 0))
         shape = list(t.shape)
-        sharded = cut is not None and cut.dim is not None
-        if sharded:
-            shape[cut.dim] *= cut.parts
+        for c in reversed(cuts):
+            shape[c.dim] *= c.parts
         idx = torch.arange(math.prod(shape), device=device).view(shape)
-        if sharded:
-            lo, hi = cut.bounds(shape[cut.dim])
-            idx = idx.narrow(cut.dim, lo, hi - lo)
-        vals, idx = t.reshape(-1), idx.reshape(-1)
+        for c in cuts:
+            lo, hi = c.bounds(idx.shape[c.dim])
+            idx = idx.narrow(c.dim, lo, hi - lo)
+        vals = t.detach().to(device).float().reshape(-1)
+        idx = idx.reshape(-1)
         acc = torch.zeros(SKETCH_K, dtype=torch.float64, device=device)
         step = 1 << 22
         for c0 in range(0, vals.numel(), step):
-            i = idx[c0:c0 + step, None]
-            r = hashed(i).float() * 2.0 ** -31 - 0.5
+            r = hashed(idx[c0:c0 + step, None]).float() * 2.0 ** -31 - 0.5
             acc += (vals[c0:c0 + step] @ r).double()
-        out[path] = (sharded, acc.cpu().numpy())
+        out[path] = (own, acc.cpu().numpy())
     return out
 
 
 def whole_sketch(ranks_sketches: list) -> dict:
-    """The whole state's sketches from every rank's: a sharded leaf's
-    projections added over the ranks, a whole leaf's rank 0's."""
-    return {p: (sum(r[p][1] for r in ranks_sketches) if sh else v)
-            for p, (sh, v) in ranks_sketches[0].items()}
+    """The whole state's sketches: each leaf's owned pieces' projections
+    added over the ranks."""
+    return {p: sum(r[p][1] for r in ranks_sketches if r[p][0])
+            for p in ranks_sketches[0]}
 
 
 @contextlib.contextmanager
@@ -6493,7 +6558,7 @@ def moe_dp_run(mesh, layers, batches, routes=None):
                             sum(timer.records["collective"]) - s0))
         for key in ("loss", "ce", "aux", "grad_norm"):
             rec[key].append(float(met[key]))
-        rec.setdefault("state", []).append(leaf_sketch(state, lay))
+        rec.setdefault("state", []).append(leaf_sketch(state, lay, ctx))
     rec["launches"] = slice_counts()
     rec["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     if ctx is not None:
@@ -6540,7 +6605,7 @@ def phase_moe_ranks() -> dict:
     TP = 1's streams teacher forced through each rank's model give, bit
     for bit, TP = 1's logits in TP = 2's order of sums
     (:func:`ep2_sum_order`, computed after the ranks exit). (B) qwen3-moe
-    cut to 2 layers, F+R+Z3 at dp 2 (the same two processes as a data
+    cut to ``EP_DP_LAYERS``, F+R+Z3 at dp 2 (the same two processes as a data
     axis), 2 steps of the 4 x 2048 global batch, against the one-device
     F+R step on the whole batch: loss, ce, aux and grad_norm per step,
     and the final params and moments by sketches. Prints the dropped
@@ -6561,11 +6626,11 @@ def phase_moe_ranks() -> dict:
         ones[name] = ep_serve(None, name, layers, prompts, EP_NEW)
         serve_runs.append((name, layers, prompts, EP_NEW,
                            ones[name]["out"]))
-    dp_cfg = ep_config("qwen3-moe-30b-a3b", MOE_TRAIN_LAYERS)
+    dp_cfg = ep_config("qwen3-moe-30b-a3b", EP_DP_LAYERS)
     batches = dp_batches(dp_cfg, MOE_DP_STEPS)
     t1 = time.monotonic()
     ranks = spawn_ranks(ep_rank_runs, EP_DEGREE, backend="gloo",
-                        args=(serve_runs, (MOE_TRAIN_LAYERS, batches)))
+                        args=(serve_runs, (EP_DP_LAYERS, batches)))
     t_ranks = time.monotonic() - t1
     total = {"paged": 0, "ssd": 0, "sumsq": 0, "rmsnorm": 0}
     for i, (name, layers, prompts, _, streams) in enumerate(serve_runs):
@@ -6633,7 +6698,7 @@ def phase_moe_ranks() -> dict:
     joined = [[np.concatenate([r["routes"][s_i][j] for r in recs])
                for j in range(len(recs[0]["routes"][s_i]))]
               for s_i in range(len(batches))]
-    oracle = moe_dp_run(None, MOE_TRAIN_LAYERS, batches, routes=joined)
+    oracle = moe_dp_run(None, EP_DP_LAYERS, batches, routes=joined)
     check_moe_dp(recs, oracle, len(batches), dp_cfg, card, total)
     RMSNORM_RUNS["MoE over ranks (phase 29)"] = total["rmsnorm"]
     print(f"[ep] phase 29 launches over the ranks' runs: " + ", ".join(
@@ -6664,9 +6729,9 @@ def check_moe_dp(recs, oracle, n_steps, dp_cfg, card, total) -> None:
     1 within ``MOE_DP_M_REL`` / ``MOE_DP_V_REL`` of their norm; every
     other leaf equal). Adds the launches to ``total``."""
     import numpy as np
-    what = (f"qwen3-moe-30b-a3b ({MOE_TRAIN_LAYERS} of 48 layers) F+R+Z3 "
+    what = (f"qwen3-moe-30b-a3b ({EP_DP_LAYERS} of 48 layers) F+R+Z3 "
             f"dp={EP_DEGREE}, {DP_SHAPE['b']} x {DP_SHAPE['t']} global")
-    n_attn = MOE_TRAIN_LAYERS
+    n_attn = EP_DP_LAYERS
     norms = norms_per_train_step(dp_cfg, DP_SHAPE["t"], remat=True)
     worst = {}
     for r, rec in enumerate(recs):
@@ -6745,12 +6810,466 @@ def check_moe_dp(recs, oracle, n_steps, dp_cfg, card, total) -> None:
           f"{card}")
 
 
+# --------------------------------------------------------------------------
+# phase 30: tensor-parallel training (Megatron TP and sequence parallelism
+# over a model axis; the 2-D data x model mesh under ZeRO)
+# --------------------------------------------------------------------------
+
+TPT_DEGREE = 2
+TPT_STEPS = 2
+# (A): qwen1.5-0.5b at full width, F+R on phase 28's 4 x 2048 global batch
+# at TP = 2, sequence parallelism off then on; (B): the (2, 2) mesh, F+R+Z3
+# with sequence parallelism, qwen cut to 4 of its 24 layers (widths
+# untouched), against one device at grad_accum 2
+TPT_MESH_LAYERS = 4
+# the CPU cases' limits (tests/test_torch_tp_train.py): step 1's loss and
+# ce relative, grad_norm relative; later steps' loss (absolute) and
+# grad_norm; after step 1 each first moment's distance over its norm and
+# each param's over its own update (sketched: a JL estimate, ~18% error at
+# K = 16), and the update's cosine. Beside them the phase prints how far
+# each run lies from the f32 step's (the same seeded params in f32) and
+# how far apart two one-device bf16 steps lie (grad_accum 1 and 2)
+TPT_LOSS_RTOL = 1e-5
+TPT_NORM_RTOL = 1e-3
+TPT_LATER = (1e-2, 0.03)
+TPT_M_REL = 2.0 ** -5
+TPT_P_REL = 0.5
+TPT_P_COS = 0.9
+
+
+@contextlib.contextmanager
+def tp_train_order(cfg, tp: int, sp: bool):
+    """One device computing the dense family's training forward as ``tp``
+    model ranks do, every op at a rank's shapes: each attention block and
+    FFN once a rank on its heads and MLP columns (under sequence
+    parallelism each norm on a rank's rows of T), the row-parallel f32
+    partials added in rank order and rounded once; each loss block's
+    logits a rank's vocab slice at a time, the max over the slices, each
+    slice's sum of exponentials and label logit added in rank order
+    (``models.lm.vocab_parallel_ce``'s arithmetic). Two ranks add as
+    gloo's all-reduce adds them. tests/torch_tp_train_worker.py's
+    ``tp_order`` on the card."""
+    import torch
+    from repro_torch.models import blocks as B
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm as LMmod
+    attn, ffn, block_ce = B.attn_apply, B.ffn_apply, LMmod.LM._block_ce
+    h_, k_, f_ = cfg.n_heads // tp, cfg.n_kv_heads // tp, cfg.d_ff // tp
+
+    def cut(w, dim, n, r):
+        return w.narrow(dim, r * n, n).contiguous()
+
+    def norm(x, w):
+        if not sp:
+            return L.rmsnorm(x, w, cfg.norm_eps)
+        t = x.shape[1]
+        return torch.cat([L.rmsnorm(x[:, r * t // tp:(r + 1) * t // tp]
+                                    .contiguous(), w, cfg.norm_eps)
+                          for r in range(tp)], 1)
+
+    def attn_tp(x, p, c, *, positions, attn_impl="naive", qmm_impl="kernel",
+                **kw):
+        h = norm(x, p["ln"])
+        y = None
+        for r in range(tp):
+            pr = dict(p)
+            for key, n in (("wq", h_), ("wk", k_), ("wv", k_)):
+                pr[key] = cut(p[key], 1, n, r)
+            for key, n in (("bq", h_), ("bk", k_), ("bv", k_)):
+                if key in p:
+                    pr[key] = cut(p[key], 0, n, r)
+            q, k, v = B._qkv(h, pr, c, positions)
+            o = L.attention(q, k, v, mode=attn_impl, causal=True)
+            part = L.dense(o, cut(p["wo"], 0, h_, r), 2,
+                           out_dtype=torch.float32)
+            y = part if y is None else y + part
+        return x + y.to(x.dtype), None
+
+    def ffn_tp(x, p, c, qmm_impl="kernel", ctx=None):
+        h = norm(x, p["ln"])
+        y = None
+        for r in range(tp):
+            g = L.dense(h, cut(p["w_gate"], 1, f_, r),
+                        out_dtype=torch.float32)
+            u = L.dense(h, cut(p["w_up"], 1, f_, r), out_dtype=torch.float32)
+            part = L.dense(L.silu(g) * u, cut(p["w_down"], 0, f_, r),
+                           out_dtype=torch.float32)
+            y = part if y is None else y + part
+        return x + y.to(x.dtype)
+
+    def block_ce_tp(self, params, xb, lb):
+        x = L.rmsnorm(xb, params["final_ln"], cfg.norm_eps)
+        v = self.vocab // tp
+        logits = [L.dense(x, params["embed"][r * v:(r + 1) * v].T
+                          if cfg.tie_embeddings else
+                          cut(params["head"], 1, v, r)).float()
+                  for r in range(tp)]
+        m = torch.stack([lg.amax(-1) for lg in logits]).amax(0)
+        s = lab = None
+        for r, lg in enumerate(logits):
+            idx = lb.long() - r * v
+            own = (idx >= 0) & (idx < v)
+            got = lg.gather(-1, idx.clamp(0, v - 1)[..., None])[..., 0]
+            sr = torch.exp(lg - m[..., None]).sum(-1)
+            lr = torch.where(own, got, torch.zeros((), device=got.device))
+            s, lab = (sr, lr) if s is None else (s + sr, lab + lr)
+        mask = (lb >= 0).float()
+        return ((m + torch.log(s) - lab) * mask).sum(), mask.sum()
+
+    B.attn_apply, B.ffn_apply, LMmod.LM._block_ce = attn_tp, ffn_tp, \
+        block_ce_tp
+    try:
+        yield
+    finally:
+        B.attn_apply, B.ffn_apply, LMmod.LM._block_ce = attn, ffn, block_ce
+
+
+def tpt_run(mesh, label, sp, batches, accum=1, layers=None):
+    """One run of phase 30: qwen1.5-0.5b (``layers`` of them) seeded on
+    this rank's card (one device when ``mesh`` is None, ``grad_accum``
+    ``accum``), the kernels' launch counts set to 0, the steps fenced one
+    by one, each seam and step collective timed between two
+    synchronizes. Returns the losses (bits and values), ce, grad_norms,
+    step ms, the seams' and collectives' counts and seconds, the
+    launches, peak memory, the state's bytes at rest (with the gradient
+    buffer), and the sketches of the params before step 1 and of the
+    params and first moments after it."""
+    import dataclasses
+    import struct
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.config import technique_from_label
+    from repro_torch.core.perfscope import Timer
+    from repro_torch.launch.build import make_model
+    from repro_torch.parallel.sharding import make_shard_ctx
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.step import (DPLayout, build_train_step,
+                                        init_train_state)
+    cfg = get_config("qwen1.5-0.5b")
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    tech = dataclasses.replace(technique_from_label(label), grad_accum=accum,
+                               sp=sp)
+    ctx = make_shard_ctx(cfg, tech, mesh) if mesh is not None else None
+    dev = mesh.device if mesh is not None else torch.device("cuda")
+    model = make_model(cfg, tech, device=dev, ctx=ctx)
+    opt = AdamWConfig(lr=DP_LR, warmup=0)
+    state, _ = init_train_state(model, tech, 0, opt, ctx=ctx)
+    lay = DPLayout(model, tech, ctx) if ctx is not None else None
+
+    def bits(x):
+        return struct.unpack("<I", struct.pack("<f", float(x)))[0]
+
+    rec = {"loss": [], "loss_f": [], "ce": [], "grad_norm": [], "ms": [],
+           "seam": [], "coll": []}
+    rec["sk0"] = leaf_sketch({"params": state["params"]}, lay, ctx, dev)
+    step = build_train_step(model, tech, opt, ctx=ctx)
+    timer = Timer()
+    if ctx is not None:
+        ctx.comm_timer = timer
+    free_card()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    slice_counts(reset=True)
+    for i, b in enumerate(batches):
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+        if ctx is not None:
+            lo, hi = ctx.batch_sharding(DP_SHAPE["b"])
+            batch = {k: v[lo:hi] for k, v in batch.items()}
+        n0 = {k: (len(timer.records[k]), sum(timer.records[k]))
+              for k in ("seam", "collective")}
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        state, met = step(state, batch)
+        torch.cuda.synchronize(dev)
+        rec["ms"].append((time.perf_counter() - t0) * 1e3)
+        for k, key in (("seam", "seam"), ("collective", "coll")):
+            rec[key].append((len(timer.records[k]) - n0[k][0],
+                             sum(timer.records[k]) - n0[k][1]))
+        rec["loss"].append(bits(met["loss"]))
+        rec["loss_f"].append(float(met["loss"]))
+        rec["ce"].append(float(met["ce"]))
+        rec["grad_norm"].append(float(met["grad_norm"]))
+        if i == 0:
+            rec["sk1"] = leaf_sketch({"params": state["params"],
+                                    "opt": {"m": state["opt"]["m"]}},
+                                   lay, ctx, dev)
+    rec["launches"] = slice_counts()
+    rec["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    if ctx is not None:
+        ctx.comm_timer = None
+        rec["seam_bytes"] = ctx.seam_bytes
+    buf = getattr(step, "grad_buffer", {})
+    rec["at_rest"] = state_bytes(state, buf.values())
+    rec["device"] = str(dev)
+    del state, step, model
+    free_card()
+    return rec
+
+
+def tpt_rank_runs(mesh, runs):
+    """Every run of phase 30 (A) or (B) in turn on one set of ranks."""
+    return [tpt_run(mesh, *run) for run in runs]
+
+
+def tpt_refs(batches, layers=None, emulate: bool = True) -> dict:
+    """The one-device references of phase 30 from qwen1.5-0.5b's seeded
+    params (``layers`` of them) on the first of ``batches``: with
+    ``emulate`` the loss bits of the forward in TP = 2's order of sums
+    (:func:`tp_train_order`) without and with sequence parallelism
+    (``"emulated"``: {sp: bits}); and the sketches of 0.1 x the f32
+    gradient of those params (Adam's first moment after one step, taken
+    in f32; ``"truth"``), keyed as a state's first moments, and that
+    gradient's norm (``"norm"``)."""
+    import dataclasses
+    import struct
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.config import technique_from_label
+    from repro_torch.launch.build import make_model
+    from repro_torch.models.params import keystr_map, keystr_paths
+    cfg = get_config("qwen1.5-0.5b")
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    model = make_model(cfg, technique_from_label("F+R"), device="cuda")
+    params = model.init(0)
+    b = {k: torch.from_numpy(v).to("cuda") for k, v in batches[0].items()}
+    out = {"emulated": {}}
+    for sp in ((False, True) if emulate else ()):
+        with torch.no_grad(), tp_train_order(cfg, TPT_DEGREE, sp):
+            loss = float(model.loss(params, b)[0])
+        out["emulated"][sp] = struct.unpack("<I", struct.pack("<f", loss))[0]
+    params = keystr_map(lambda p, t: t.float().requires_grad_(True), params)
+    loss, _ = model.loss(params, b)
+    paths = keystr_paths(params)
+    grads = dict(zip([p for p, _ in paths], torch.autograd.grad(
+        loss, [t for _, t in paths])))
+    m = keystr_map(lambda p, t: grads[p] * 0.1, params)
+    out["truth"] = {p: v for p, (_, v) in
+                    leaf_sketch({"opt": {"m": m}}).items()}
+    out["norm"] = float(torch.sqrt(sum(torch.sum(torch.square(g))
+                                       for g in grads.values())))
+    del params, grads, m, model, loss
+    free_card()
+    return out
+
+
+def tpt_check(what, rec, want, n_layers, truth, ce=True):
+    """One TP run against its one-device oracle at the CPU cases' limits
+    (the state after step 1 by its sketches); returns the readings, with
+    each first moment's distance from the f32 step's (``truth``) beside
+    the one-device step's."""
+    import numpy as np
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
+    check(rel(rec["loss_f"][0], want["loss_f"][0]) <= TPT_LOSS_RTOL,
+          f"{what}: step-1 loss {rec['loss_f'][0]} vs one device "
+          f"{want['loss_f'][0]} beyond rtol {TPT_LOSS_RTOL}")
+    if ce:
+        check(rel(rec["ce"][0], want["ce"][0]) <= TPT_LOSS_RTOL,
+              f"{what}: step-1 ce {rec['ce'][0]} vs {want['ce'][0]}")
+    check(rel(rec["grad_norm"][0], want["grad_norm"][0]) <= TPT_NORM_RTOL,
+          f"{what}: step-1 grad_norm {rec['grad_norm'][0]} vs "
+          f"{want['grad_norm'][0]} beyond rtol {TPT_NORM_RTOL}")
+    for a, b, g, h in zip(rec["loss_f"][1:], want["loss_f"][1:],
+                          rec["grad_norm"][1:], want["grad_norm"][1:]):
+        check(abs(a - b) <= TPT_LATER[0] and rel(g, h) <= TPT_LATER[1],
+              f"{what}: a later step's loss {a} / grad_norm {g} vs "
+              f"{b} / {h} beyond {TPT_LATER}")
+    sk0, sk1, w0, w1 = rec["whole0"], rec["whole1"], want["whole0"], \
+        want["whole1"]
+    worst = {"m": 0.0, "p": 0.0, "cos": 1.0, "f32": (0.0, ""),
+             "ratio": (0.0, ""), "one": (0.0, "")}
+    for path, wv in w1.items():
+        if path.startswith("['opt']['m']"):
+            r = sketch_rel(sk1[path], wv)
+            worst["m"] = max(worst["m"], r)
+            check(r <= TPT_M_REL, f"{what}: first moment {path} {r:.4f} "
+                  f"of its norm from one device's (> {TPT_M_REL})")
+            mine, one = (sketch_rel(x, truth[path]) for x in (sk1[path], wv))
+            worst["f32"] = max(worst["f32"], (mine, path))
+            worst["ratio"] = max(worst["ratio"], (mine / max(one, 1e-30),
+                                                  path))
+            worst["one"] = max(worst["one"], (one, path))
+        else:
+            upd = wv - w0[path]
+            if not np.any(upd):
+                continue
+            d = sk1[path] - sk0[path]
+            r = float(np.sqrt(np.mean((sk1[path] - wv) ** 2)) /
+                      np.sqrt(np.mean(upd ** 2)))
+            cos = float(d @ upd / (np.linalg.norm(d) * np.linalg.norm(upd)))
+            worst["p"], worst["cos"] = max(worst["p"], r), min(worst["cos"],
+                                                               cos)
+            check(r < TPT_P_REL and cos >= TPT_P_COS, f"{what}: param {path} "
+                  f"{r:.4f} of its update from one device's (limit "
+                  f"{TPT_P_REL}), cosine {cos:.4f} (limit {TPT_P_COS})")
+    la, n = rec["launches"], len(rec["ms"])
+    check(la["fwd"] == 2 * n_layers * n and la["bwd_dkv"] == n_layers * n
+          and la["bwd_dq"] == n_layers * n,
+          f"{what}: flash launches {la} != {2 * n_layers}/{n_layers}/"
+          f"{n_layers} a step")
+    return worst
+
+
+def _tpt_wholes(recs: list) -> None:
+    """Each run's whole sketches (before and after step 1) from its ranks'
+    (or the one device's) pieces, set on every record."""
+    w0 = whole_sketch([r["sk0"] for r in recs])
+    w1 = whole_sketch([r["sk1"] for r in recs])
+    for r in recs:
+        r["whole0"], r["whole1"] = w0, w1
+
+
+def tpt_control_line(one, two, truth, card) -> str:
+    """How far apart two one-device bf16 F+R steps lie after step 1 (the
+    whole batch, and grad_accum 2: the same function, other roundings),
+    by their first moments' sketches, and each from the f32 step's."""
+    far = lambda a, b: max((sketch_rel(a[p], b[p]), p) for p in truth)
+    apart, path = far(two["whole1"], one["whole1"])
+    return (f"[tp-train] control: two one-device bf16 F+R steps (grad_accum "
+            f"1 and 2) lie up to {apart:.4f} of a first moment's norm apart "
+            f"after step 1 ({path}); from the f32 step's up to "
+            f"{far(one['whole1'], truth)[0]:.4f} and "
+            f"{far(two['whole1'], truth)[0]:.4f} (sketched); {card}")
+
+
+def _tpt_line(what, rec, want, worst, f32_norm, card) -> str:
+    n = len(rec["ms"])
+    ms = sum(rec["ms"][1:])
+    sn, ss = (sum(c[i] for c in rec["seam"][1:]) for i in (0, 1))
+    cn, cs = (sum(c[i] for c in rec["coll"][1:]) for i in (0, 1))
+    la = rec["launches"]
+    f32 = (f"from the f32 step's up to {worst['f32'][0]:.4f} "
+           f"({worst['f32'][1]}), at most {worst['ratio'][0]:.2f}x the "
+           f"one-device bf16 step's distance ({worst['ratio'][1]}), that "
+           f"step's own largest {worst['one'][0]:.4f} ({worst['one'][1]})")
+    return (f"[tp-train] {what} on {rec['device']}: step-1 loss "
+            f"{rec['loss_f'][0]:.6f} (one device {want['loss_f'][0]:.6f}), "
+            f"grad_norm {rec['grad_norm'][0]:.6f} (one device "
+            f"{want['grad_norm'][0]:.6f}, the f32 step's {f32_norm:.6f}"
+            f"); after step 1 first moments within {worst['m']:.4f} of "
+            f"one device's ({f32}), params within {worst['p']:.4f} of their "
+            f"update "
+            f"(cosine >= {worst['cos']:.4f}) (sketched); peak "
+            f"{rec['peak_gib']:.2f} GiB (one device {want['peak_gib']:.2f}); "
+            f"state at rest {rec['at_rest']['card'] / 1e9:.3f} GB on the "
+            f"card (one device {want['at_rest']['card'] / 1e9:.3f}); "
+            f"{ms / max(n - 1, 1):.1f} ms a step after the first (one "
+            f"device {sum(want['ms'][1:]) / max(n - 1, 1):.1f}), "
+            f"{sn / max(n - 1, 1):.0f} seam collectives a step "
+            f"({ss * 1e3 / max(sn, 1):.2f} ms each, "
+            f"{ss * 1e3 / max(ms, 1e-9) * 100:.1f}% of the step) and "
+            f"{cn / max(n - 1, 1):.0f} step collectives "
+            f"({cs * 1e3 / max(cn, 1):.2f} ms each, "
+            f"{cs * 1e3 / max(ms, 1e-9) * 100:.1f}%), host-staged (gloo); "
+            f"launches fwd {la['fwd']}, bwd {la['bwd_dkv']} + "
+            f"{la['bwd_dq']}, RMSNorm {la['rmsnorm']}; {card}")
+
+
+def phase_tp_train() -> dict:
+    """Phase 30: tensor-parallel training on card 0, ranks over gloo.
+    (A) qwen1.5-0.5b at full width, F+R, 2 steps of 4 x 2048 at TP = 2,
+    sequence parallelism off then on, in one spawn, against the
+    one-device F+R run on the same batches (this process) at the CPU
+    cases' limits (beside them each run's distance from the f32 step's,
+    and a control, one device at grad_accum 2: how far two one-device
+    bf16 steps lie apart); teacher forced, each mode's
+    step-1 loss must equal the one-device forward in TP = 2's order of
+    sums bit for bit. (B) the
+    (2, 2) mesh, 4 ranks, F+R+Z3 with sequence parallelism, qwen cut to
+    4 of its 24 layers, against one device at grad_accum 2. Every rank
+    must launch the flash kernels (on its H/2 heads) twice and once an
+    attention layer a step and RMSNorm as the one-device step does.
+    Prints per rank peak memory and state at rest against one device,
+    the seams' and the step's collectives a step, ms each and their share
+    of the step (host-staged), and the launches. Returns the ranks'
+    launches."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import spawn_ranks
+    t0 = time.monotonic()
+    card = card_line()
+    cfg = get_config("qwen1.5-0.5b")
+    batches = dp_batches(cfg, TPT_STEPS)
+    refs = tpt_refs(batches)
+    emulated, truth = refs["emulated"], refs["truth"]
+    oracle = tpt_run(None, "F+R", False, batches)
+    accum2 = tpt_run(None, "F+R", False, batches, 2)
+    _tpt_wholes([oracle])
+    _tpt_wholes([accum2])
+    print(tpt_control_line(oracle, accum2, truth, card))
+    del accum2
+    total = {}
+    ranks = spawn_ranks(tpt_rank_runs, TPT_DEGREE, backend="gloo",
+                        args=([("F+R", sp, batches) for sp in (False,
+                                                               True)],))
+    norms = norms_per_train_step(cfg, DP_SHAPE["t"], remat=True)
+    for i, sp in enumerate((False, True)):
+        recs = [rr[i] for rr in ranks]
+        _tpt_wholes(recs)
+        for r, rec in enumerate(recs):
+            what = (f"qwen1.5-0.5b F+R{' +sp' if sp else ''} at TP = "
+                    f"{TPT_DEGREE}, rank {r}")
+            check(rec["loss"] == recs[0]["loss"],
+                  f"{what}: losses differ between the ranks")
+            check(rec["loss"][0] == emulated[sp],
+                  f"{what}: step-1 loss {rec['loss_f'][0]!r} != the one-"
+                  f"device forward in TP = 2's order of sums (bits "
+                  f"{rec['loss'][0]:#x} vs {emulated[sp]:#x})")
+            worst = tpt_check(what, rec, oracle, cfg.n_layers, truth)
+            check(rec["launches"]["rmsnorm"] == norms * TPT_STEPS,
+                  f"{what}: RMSNorm launches {rec['launches']['rmsnorm']} "
+                  f"!= {norms} a step")
+            add_counts(total, rec["launches"])
+            print(_tpt_line(what, rec, oracle, worst, refs["norm"], card) +
+                  "; step-1 loss == the one-device forward in TP = 2's "
+                  "order of sums bit for bit")
+    t1 = time.monotonic()
+    small = dataclasses.replace(cfg, n_layers=TPT_MESH_LAYERS)
+    refs_b = tpt_refs(batches, TPT_MESH_LAYERS, emulate=False)
+    oracle_b = tpt_run(None, "F+R", False, batches, 2, TPT_MESH_LAYERS)
+    _tpt_wholes([oracle_b])
+    ranks = spawn_ranks(tpt_rank_runs, TPT_DEGREE, data=2, backend="gloo",
+                        args=([("F+R+Z3", True, batches, 1,
+                                TPT_MESH_LAYERS)],))
+    recs = [rr[0] for rr in ranks]
+    _tpt_wholes(recs)
+    norms = norms_per_train_step(small, DP_SHAPE["t"], remat=True)
+    for g, rec in enumerate(recs):
+        what = (f"qwen1.5-0.5b ({TPT_MESH_LAYERS} of 24 layers) F+R+Z3 +sp "
+                f"on the (2 data x 2 model) mesh, rank {g}")
+        check(rec["loss"] == recs[0]["loss"],
+              f"{what}: losses differ between the ranks")
+        worst = tpt_check(what, rec, oracle_b, TPT_MESH_LAYERS,
+                          refs_b["truth"], ce=False)
+        check(rec["launches"]["rmsnorm"] == norms * TPT_STEPS,
+              f"{what}: RMSNorm launches {rec['launches']['rmsnorm']} != "
+              f"{norms} a step")
+        add_counts(total, rec["launches"])
+        print(_tpt_line(what, rec, oracle_b, worst, refs_b["norm"], card) +
+              " (one device: grad_accum 2)")
+    RMSNORM_RUNS["tensor-parallel ranks (phase 30)"] = total["rmsnorm"]
+    print(f"[tp-train] phase 30 launches over the ranks' runs: " + ", ".join(
+        f"{k} {v}" for k, v in total.items()) + f"; (A) took "
+        f"{t1 - t0:.1f}s, (B) {time.monotonic() - t1:.1f}s; phase 30 took "
+        f"{time.monotonic() - t0:.1f}s")
+    return total
+
+
+# llama2-7b and llama2-13b serve at full width cut to 16 of their 32 and
+# 20 of their 40 layers since the script needed room for phase 30; the
+# training slice's llama2-7b (phase 24 (a)) trains 16 of its 32
+LLAMA7_LAYERS = 16
+LLAMA13_LAYERS = 20
+
+
 def get_cfg_layers(name) -> int:
     from repro_torch.configs import get_config
     return get_config(name).n_layers
 
 
 def main() -> None:
+    import dataclasses
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -6829,10 +7348,14 @@ def main() -> None:
           f"{st_a['p50_ttft_s'] * 1e3:.1f} ms; chunk=64 int8 decode "
           f"{st_b['decode_tok_s']:.1f} tok/s, p50 TTFT "
           f"{st_b['p50_ttft_s'] * 1e3:.1f} ms")
-    llama = get_config("llama2-7b")
-    llama_runs = phase_full_width(llama, f"{llama.name} full width")
-    llama13 = get_config("llama2-13b")
-    llama_runs += phase_full_width(llama13, f"{llama13.name} full width")
+    llama = dataclasses.replace(get_config("llama2-7b"),
+                                n_layers=LLAMA7_LAYERS)
+    llama_runs = phase_full_width(llama, f"{llama.name} full width, "
+                                  f"{LLAMA7_LAYERS} of 32 layers")
+    llama13 = dataclasses.replace(get_config("llama2-13b"),
+                                  n_layers=LLAMA13_LAYERS)
+    llama_runs += phase_full_width(llama13, f"{llama13.name} full width, "
+                                   f"{LLAMA13_LAYERS} of 40 layers")
     mark("llama2 serving")
     wide = time_shape(llama, b=8, t=1, lengths=[96, 288, 1032, 96, 288,
                                                 1032, 96, 288],
@@ -6971,16 +7494,21 @@ def main() -> None:
     mark("phase 28 DP")
     ep = phase_moe_ranks()
     mark("phase 29 MoE over ranks")
+    tpt = phase_tp_train()
+    mark("phase 30 TP training")
     fam = families["launches"]
     slice_launches = {
         "flash_attention_fwd": (trained["fwd"] + fam["fwd"] + dp["fwd"]
-                                + ep["fwd"]),
+                                + ep["fwd"] + tpt["fwd"]),
         "flash_attention_bwd_dkv": (trained["bwd_dkv"] + fam["bwd_dkv"]
-                                    + dp["bwd_dkv"] + ep["bwd_dkv"]),
+                                    + dp["bwd_dkv"] + ep["bwd_dkv"]
+                                    + tpt["bwd_dkv"]),
         "flash_attention_bwd_dq": (trained["bwd_dq"] + fam["bwd_dq"]
-                                   + dp["bwd_dq"] + ep["bwd_dq"]),
+                                   + dp["bwd_dq"] + ep["bwd_dq"]
+                                   + tpt["bwd_dq"]),
         "flash_attention_bwd": (trained["bwd_dkv"] + fam["bwd_dkv"]
-                                + dp["bwd_dkv"] + ep["bwd_dkv"]),
+                                + dp["bwd_dkv"] + ep["bwd_dkv"]
+                                + tpt["bwd_dkv"]),
         "int8_matmul": trained["int8_matmul"]}
     for entry in record["kernels"]:
         if entry["name"] == "paged_attention":

@@ -1,6 +1,7 @@
 """End-to-end Trainer (the port of ``repro.core.trainer``): synthetic
 data -> train step -> metrics -> checkpoint/restart, on one device or as
-one rank of a data axis (``mesh=``, a ``launch.mesh.Mesh``).
+one rank of a mesh (``mesh=``, a ``launch.mesh.Mesh``: a data axis, a
+model axis, or both).
 
 Each step is timed on the host clock and fenced by a device sync, so its
 time includes its device work. With a ``checkpoint_dir`` the state is
@@ -18,7 +19,9 @@ the logical (whole) state, gathered from every rank's part and written
 by rank 0 (``train.step.logical_train_state``); a restore cuts it to the
 placement of the run that reads it, on any number of ranks or on one
 device. The ranks agree on a SIGTERM at each step boundary. The SIGTERM
-handler is ``run()``'s only.
+handler is ``run()``'s only. Over a model axis each rank of a model row
+steps on the same rows; checkpoints there raise (ROADMAP queue 1 item
+7.12).
 """
 from __future__ import annotations
 
@@ -33,9 +36,8 @@ from repro_torch.core.config import ArchConfig, ShapeSpec, Technique
 from repro_torch.core.perfscope import Timer
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.launch.build import build_train
-from repro_torch.parallel import zero as Z
 from repro_torch.train.optimizer import AdamWConfig
-from repro_torch.train.step import (DPLayout, data_parallel,
+from repro_torch.train.step import (DPLayout, distributed,
                                     init_train_state, logical_train_state)
 
 
@@ -66,7 +68,13 @@ class Trainer:
             cfg, technique, opt_cfg, device=device, mesh=mesh, shape=shape)
         self.device = self.model.device
         self.ctx = self.model.ctx
-        self.dp = data_parallel(self.ctx)
+        self.dp = distributed(self.ctx)
+        if tcfg.checkpoint_dir and self.ctx is not None and \
+                self.ctx.size > 1:
+            raise NotImplementedError(
+                "checkpoints under a model axis (the TP pieces gathered "
+                "into the logical state and cut again on restore) are not "
+                "ported: ROADMAP queue 1 item 7.12")
         self.layout = (DPLayout(self.model, self.technique, self.ctx)
                        if self.dp else None)
         self.step_fn = step_fn
@@ -90,7 +98,7 @@ class Trainer:
 
     def _piece(self, path: str, whole: torch.Tensor) -> torch.Tensor:
         """This rank's piece of a stored whole leaf."""
-        return Z.take(whole, self.layout.state_cut(path))
+        return self.layout.piece(path, whole)
 
     def _batch_for(self, step: int) -> Dict[str, torch.Tensor]:
         batch = self.data.batch_at(step)

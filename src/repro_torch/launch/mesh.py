@@ -7,9 +7,11 @@ model`` of them with the ``spawn`` start method (CUDA cannot fork), each
 joins one process group through a ``file://`` rendezvous in a fresh
 temporary directory (parallel test workers never race for a TCP port)
 and calls :func:`make_local_mesh`, which returns the :class:`Mesh` the
-serving engine (a model axis) or the trainer (a data axis) takes. Ranks
-lie as ``jax.make_mesh((data, model), ("data", "model"))`` lays devices
-out: global rank ``d * model + m`` (:func:`mesh_groups`). The backend is
+serving engine (a model axis) or the trainer (a data axis, a model axis
+or both) takes. Ranks lie as ``jax.make_mesh((data, model), ("data",
+"model"))`` lays devices out: global rank ``d * model + m``
+(:func:`mesh_groups`); on a 2-D mesh each model row and each data column
+is a process group of its own. The backend is
 always the caller's: ``nccl`` needs one card per rank and raises where
 ranks would share one; ``gloo`` runs the CPU tests and ranks that share
 card 0 (on CUDA tensors gloo stages each collective through the host).
@@ -43,11 +45,12 @@ RANK_TIMEOUT_S = 1800
 class Mesh:
     """A ``data`` x ``model`` mesh of ranks, seen from one of them:
     ``rank`` is its index on the model axis, ``ranks`` the global ranks of
-    its model group ``group``; ``data_rank``, ``data_ranks`` and
-    ``data_group`` are the same on the data axis; ``device`` is where it
-    computes and ``comm_device`` where host values travel for a
-    collective (the CPU under gloo, its card under nccl). An axis of one
-    rank has no group (``None``)."""
+    its model group ``group`` (its row of the mesh); ``data_rank``,
+    ``data_ranks`` and ``data_group`` are the same on the data axis (its
+    column); ``device`` is where it computes and ``comm_device`` where
+    host values travel for a collective (the CPU under gloo, its card
+    under nccl). An axis of one rank has no group (``None``); an axis
+    that spans the world uses the world's group."""
     shape: Dict[str, int]
     axis_names: Tuple[str, ...]
     rank: int
@@ -79,13 +82,10 @@ def make_local_mesh(model: int = 1, data: int = 1, *, backend: str,
     ``rank`` (at ``init_method``, unless this process has joined already)
     and return its mesh. The serving engine takes ``data=1``: a pure
     model-parallel mesh whose model group is the whole world; the trainer
-    takes ``model=1``: a data axis over the whole world. Both axes above
-    1 (tensor-parallel training) raise before any group is joined."""
-    if model > 1 and data > 1:
-        raise NotImplementedError(
-            f"a data axis together with a model axis ({data} x {model}: "
-            f"training with tensor parallelism, the backward of the "
-            f"row-parallel seams) is not ported: ROADMAP queue 1 item 7.6")
+    takes either axis or both. With both above 1 every rank makes one
+    group per model row and one per data column (:func:`mesh_groups`),
+    all in the same order, as ``new_group`` requires, and keeps its own
+    row and column."""
     world = model * data
     dev = rank_device(rank, world, backend, device)
     if dev.type == "cuda":
@@ -100,20 +100,28 @@ def make_local_mesh(model: int = 1, data: int = 1, *, backend: str,
     g = dist.get_rank()
     rows, cols = mesh_groups(model, data)
     d, m = divmod(g, model)
-    world_group = dist.group.WORLD
+    row_group = col_group = dist.group.WORLD
+    if model > 1 and data > 1:
+        row_groups = [dist.new_group(r) for r in rows]
+        col_groups = [dist.new_group(c) for c in cols]
+        row_group, col_group = row_groups[d], col_groups[m]
     return Mesh(shape={"data": data, "model": model},
                 axis_names=("data", "model"), rank=m,
                 ranks=tuple(rows[d]),
-                group=world_group if model > 1 else None,
+                group=row_group if model > 1 else None,
                 backend=backend, device=dev,
                 comm_device=dev if backend == "nccl" else torch.device("cpu"),
                 data_rank=d, data_ranks=tuple(cols[m]),
-                data_group=world_group if data > 1 else None)
+                data_group=col_group if data > 1 else None)
 
 
 def mesh_layout(mesh: Mesh) -> dict:
+    """The mesh's shape and axes, its device count, and this rank's place
+    on both axes: its model row and data column, by global rank."""
     return {"shape": dict(mesh.shape), "axes": list(mesh.axis_names),
-            "devices": int(mesh.shape["data"] * mesh.shape["model"])}
+            "devices": int(mesh.shape["data"] * mesh.shape["model"]),
+            "model_rank": mesh.rank, "data_rank": mesh.data_rank,
+            "row": list(mesh.ranks), "column": list(mesh.data_ranks)}
 
 
 def _rank_main(rank: int, model: int, data: int, backend: str,

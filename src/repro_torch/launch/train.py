@@ -15,7 +15,11 @@ latest committed step there.
 (``launch.mesh.spawn_ranks``; ZeRO stages and offload as the technique
 says), ``--dist-backend`` gloo (the CPU, or ranks sharing a card) or
 nccl (one card per rank); rank 0's lines are printed after the rank
-mapping. ``Q``, ``Q8`` and LoRA refuse a data axis. MoE archs
+mapping. ``--model-parallel N`` trains the dense family over a model
+axis of N ranks (Megatron-style tensor parallelism; ``--sp`` adds
+sequence parallelism), alone or beside ``--data-parallel
+M`` (a 2-D mesh of M x N ranks under any ZeRO stage); each rank prints
+its trainable count. ``Q``, ``Q8`` and LoRA refuse both axes. MoE archs
 (``--arch qwen3-moe-30b-a3b``, ``jamba-v0.1-52b``) train over it with
 one micro-batch a rank, routed with the global batch's statistics, order
 and capacity, as the reference's GSPMD step routes the global batch.
@@ -28,7 +32,7 @@ from typing import List
 from repro_torch.configs import get_config, list_archs
 from repro_torch.core.config import SHAPES, ShapeSpec, technique_from_label
 from repro_torch.core.trainer import Trainer, TrainerConfig
-from repro_torch.models.params import tree_paths
+from repro_torch.models.params import ParamSpec, tree_paths
 from repro_torch.peft.lora import split_trainable
 from repro_torch.quant.qtensor import QTensor
 
@@ -70,14 +74,21 @@ def main(argv=None):
     ap.add_argument("--data-parallel", type=int, default=1,
                     help="ranks on the data axis (ZeRO stages and offload "
                          "as --technique says)")
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="ranks on the model axis (tensor parallelism of "
+                         "the dense family)")
+    ap.add_argument("--sp", action="store_true",
+                    help="sequence parallelism over the model axis")
     ap.add_argument("--dist-backend", default=None, choices=["gloo", "nccl"],
                     help="the ranks' backend: gloo (the CPU, or ranks "
                          "sharing a card) or nccl (one card per rank); "
-                         "required on the card with --data-parallel")
+                         "required on the card with --data-parallel or "
+                         "--model-parallel")
     args = ap.parse_args(argv)
-    if args.data_parallel < 1:
-        ap.error("--data-parallel must be >= 1")
-    if args.data_parallel == 1:
+    if args.data_parallel < 1 or args.model_parallel < 1:
+        ap.error("--data-parallel and --model-parallel must be >= 1")
+    n = args.data_parallel * args.model_parallel
+    if n == 1:
         for line in _train(None, args):
             print(line)
         return
@@ -85,15 +96,18 @@ def main(argv=None):
     cpu = args.device is not None and args.device.startswith("cpu")
     backend = args.dist_backend or ("gloo" if cpu else None)
     if backend is None:
-        ap.error("--data-parallel on the card needs --dist-backend: nccl "
-                 "(one card per rank) or gloo (ranks sharing a card)")
+        ap.error("--data-parallel or --model-parallel on the card needs "
+                 "--dist-backend: nccl (one card per rank) or gloo (ranks "
+                 "sharing a card)")
     # CPU ranks share the host's cores evenly
-    threads = max(1, (os.cpu_count() or 1) // args.data_parallel)
-    lines = spawn_ranks(_train, 1, data=args.data_parallel, backend=backend,
-                        device="cpu" if cpu else None, args=(args,),
-                        threads=threads if cpu else None)[0]
-    for line in lines:
+    threads = max(1, (os.cpu_count() or 1) // n)
+    ranks = spawn_ranks(_train, args.model_parallel, data=args.data_parallel,
+                        backend=backend, device="cpu" if cpu else None,
+                        args=(args,), threads=threads if cpu else None)
+    for line in ranks[0]:
         print(line)
+    for r, lines in enumerate(ranks[1:], 1):
+        print(f"rank {r}: {lines[0]}")
 
 
 def _train(mesh, args) -> List[str]:
@@ -102,7 +116,7 @@ def _train(mesh, args) -> List[str]:
     cfg = get_config(args.arch, reduced=args.reduced)
     shape = (SHAPES[args.shape] if args.shape
              else ShapeSpec("cli", args.seq, args.batch, "train"))
-    technique = technique_from_label(args.technique)
+    technique = technique_from_label(args.technique, sp=args.sp)
     trainer = Trainer(cfg, shape, technique,
                       TrainerConfig(steps=args.steps,
                                     checkpoint_dir=args.checkpoint_dir,
@@ -116,10 +130,16 @@ def _train(mesh, args) -> List[str]:
                    f"{n_weights(split_trainable(params)[0])} trainable of "
                    f"{n_weights(params)} parameters")
     else:
+        ctx = trainer.ctx
         n = sum(math.prod(s) for s in trainer.layout.shapes.values())
-        out.append(f"{args.technique}: {n} trainable of {n} parameters, "
-                   f"{trainer.ctx.dp_size} data-parallel ranks, "
-                   f"grad_accum {trainer.technique.grad_accum} a rank")
+        total = sum(math.prod(ps.shape) for _, ps in tree_paths(
+            trainer.model.param_specs(),
+            is_leaf=lambda x: isinstance(x, ParamSpec)))
+        out.append(f"{args.technique}: {n} trainable on this rank (its "
+                   f"model-axis pieces) of {total} parameters, "
+                   f"{ctx.dp_size} data-parallel ranks x {ctx.size} "
+                   f"model-parallel, grad_accum "
+                   f"{trainer.technique.grad_accum} a rank")
     if trainer.start_step:
         out.append(f"resumed at step {trainer.start_step}")
     res = trainer.run()

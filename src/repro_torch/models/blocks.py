@@ -72,16 +72,18 @@ def attn_specs(cfg: ArchConfig, n_stack: int) -> Dict:
 
 
 def _qkv(x, p, cfg: ArchConfig, positions, rope: bool = True,
-         qmm_impl: str = "kernel"
+         qmm_impl: str = "kernel", ctx=None
          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Projection -> per-head q/k norms (``qk_norm``) -> RoPE as real f32
     tensors, ONE rounding at the end: q/k/v feed the int8 KV encode in the
     serving engine, where a one-ulp input flip moves a whole vector's
-    scale."""
+    scale. Under ``ctx`` the projections are column-parallel
+    (``layers.dense_column``); each bias is added after its product, in
+    f32, as :func:`layers.dense` adds it."""
     f32 = torch.float32
-    q = L.dense(x, p["wq"], bias=p.get("bq"), out_dtype=f32, qmm_impl=qmm_impl)
-    k = L.dense(x, p["wk"], bias=p.get("bk"), out_dtype=f32, qmm_impl=qmm_impl)
-    v = L.dense(x, p["wv"], bias=p.get("bv"), out_dtype=f32, qmm_impl=qmm_impl)
+    q, k, v = (y if p.get(b) is None else y + p[b] for y, b in zip(
+        L.dense_column(x, [p["wq"], p["wk"], p["wv"]], ctx, out_dtype=f32,
+                       qmm_impl=qmm_impl), ("bq", "bk", "bv")))
     if cfg.qk_norm:
         q = L.qk_headnorm(q, p["q_norm"], cfg.norm_eps)
         k = L.qk_headnorm(k, p["k_norm"], cfg.norm_eps)
@@ -130,9 +132,13 @@ def attn_apply(x, p, cfg: ArchConfig, *, positions, attn_impl: str = "naive",
     position. ``qmm_impl`` is a :func:`layers.dense` route for int8
     weights. Under ``ctx`` the rank's heads attend (the cache and the
     returned k/v hold the KV heads it stores) and ``wo`` is
-    row-parallel."""
+    row-parallel. In training (a training ``ctx`` under autograd) the
+    normed input enters the q/k/v projections through Megatron's f, or
+    under sequence parallelism through the all-gather of T (x is then
+    this rank's rows and so is the result; ``layers.dense_column``), and
+    ``wo``'s seam is g or the reduce-scatter (``ShardCtx.exit_block``)."""
     h = L.rmsnorm(x, p["ln"], cfg.norm_eps)
-    q, k, v = _qkv(h, p, cfg, positions, qmm_impl=qmm_impl)
+    q, k, v = _qkv(h, p, cfg, positions, qmm_impl=qmm_impl, ctx=ctx)
     new_cache = None
     if cache is not None:
         from repro_torch.kernels import ops as kops
@@ -208,6 +214,8 @@ def ffn_specs(cfg: ArchConfig, n_stack: int) -> Dict:
 
 def ffn_apply(x, p, cfg: ArchConfig, qmm_impl: str = "kernel", ctx=None
               ) -> torch.Tensor:
+    """The SwiGLU residual block; under ``ctx`` on this rank's part of
+    the MLP width, entered and left as :func:`attn_apply` is."""
     h = L.rmsnorm(x, p["ln"], cfg.norm_eps)
     return x + L.swiglu(h, p["w_gate"], p["w_up"], p["w_down"],
                         qmm_impl=qmm_impl, ctx=tp_seam(ctx, cfg.d_ff))

@@ -10,7 +10,7 @@ dispatched inside :func:`dense`, as in the reference.
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -243,26 +243,101 @@ def dense_row(x: torch.Tensor, w, ctx, n_in: int = 1,
     of ``ctx`` (a ``parallel.sharding.ShardCtx``) splits. The local
     partial stays f32 (``out_dtype=float32``), is summed in f32 over the
     model axis and rounded ONCE to ``out_dtype`` (default: the promoted
-    input type): rounding each partial first would round twice. With no
-    ``ctx`` (or one rank) it is :func:`dense`. A zero-length contraction
-    sums zeros on every rank, so it takes no collective."""
+    input type): rounding each partial first would round twice. The sum
+    is ``ctx.exit_block``: in place while serving; under autograd
+    Megatron's g, or under sequence parallelism the reduce-scatter to
+    this rank's rows of T (the second axis of ``x``). With no ``ctx`` (or
+    one rank) it is :func:`dense`. A zero-length contraction sums zeros
+    on every rank, so it takes no collective."""
     if ctx is None or ctx.size == 1:
         return dense(x, w, n_in, out_dtype=out_dtype, qmm_impl=qmm_impl)
     out_dt = out_dtype or torch.promote_types(x.dtype, w.dtype)
     y = dense(x, w, n_in, out_dtype=torch.float32, qmm_impl=qmm_impl)
     if int(np.prod(x.shape[-n_in:])):
-        ctx.all_reduce(y)
+        y = ctx.exit_block(y)
     return y.to(out_dt)
+
+
+def dense_column(x: torch.Tensor, ws, ctx,
+                 out_dtype: Optional[torch.dtype] = None,
+                 qmm_impl: str = "kernel", gather: bool = True
+                 ) -> List[torch.Tensor]:
+    """Column-parallel :func:`dense` of ``x`` (B, T, K) by each of ``ws``
+    (this rank's columns of weights a model axis of ``ctx`` splits on
+    their outputs), each as :func:`dense` computes it. In training
+    (autograd, or under sequence parallelism) the products read ``x``
+    through Megatron's f, or with ``gather`` under sequence parallelism
+    through the all-gather of T (``x`` is then this rank's rows), and
+    their input cotangent is one f32 sum: every product's f32 partial
+    and every rank's, rounded ONCE to ``x``'s type
+    (:class:`_ColumnParallel`). Serving's and one rank's products are
+    plain :func:`dense` calls."""
+    tp = ctx is not None and ctx.size > 1
+    seq = tp and gather and ctx.sp
+    # repro: allow[JIT-04] autograd's mode and requires_grad are host metadata of the tensor, not device values
+    if seq or tp and torch.is_grad_enabled() and x.requires_grad:
+        return list(_ColumnParallel.apply(x, ctx, out_dtype, seq, *ws))
+    return [dense(x, w, out_dtype=out_dtype, qmm_impl=qmm_impl) for w in ws]
+
+
+class _ColumnParallel(torch.autograd.Function):
+    """The products of :func:`dense_column` behind Megatron's f (or the
+    sequence all-gather): forward, ``dense(x, w, out_dtype)`` for each
+    weight on the whole sequence; backward, each weight's gradient as
+    :func:`dense`'s own backward makes it, and the input's as f32
+    partials (on the card each cotangent split into three bf16 parts, as
+    :class:`_MatmulF32Out` splits it, every product exact and summed in
+    f32; on the CPU f32 products) summed over the weights and over the
+    model axis (``ShardCtx.sum_column_grad``), then rounded once."""
+
+    @staticmethod
+    def forward(fctx, x, ctx, out_dtype, seq, *ws):
+        h = ctx.seq_gather(x) if seq else x
+        fctx.ctx, fctx.seq = ctx, seq
+        fctx.save_for_backward(h, *ws)
+        return tuple(dense(h, w, out_dtype=out_dtype) for w in ws)
+
+    @staticmethod
+    def backward(fctx, *gs):
+        h, *ws = fctx.saved_tensors
+        h2 = h.reshape(-1, h.shape[-1])
+        tc = h2.is_cuda and tensor_core_route(h2.dtype, ws[0].dtype,
+                                              gs[0].dtype)
+        pairs, dws = [], []
+        for w, g in zip(ws, gs):
+            w2 = w.reshape(h2.shape[1], -1)
+            g2 = g.reshape(-1, w2.shape[1])
+            parts = (split_bf16(g2.float(), 3)
+                     if tc and g2.dtype != torch.bfloat16 else (g2,))
+            dws.append(_products_f32([(h2.t(), p) for p in parts], tc)
+                       .to(w.dtype).reshape(w.shape))
+            pairs += [(p, w2.t()) for p in parts]
+        dx = fctx.ctx.sum_column_grad(
+            _products_f32(pairs, tc).reshape(h.shape), fctx.seq)
+        return (dx.to(h.dtype), None, None, None, *dws)
+
+
+def _products_f32(pairs, tensor_cores: bool) -> torch.Tensor:
+    """The f32 sum of ``a @ b`` over ``pairs``: on the tensor cores
+    (:func:`_mm_f32`), else each product widened to f32, as
+    :func:`_dense_f32` multiplies."""
+    if tensor_cores:
+        return _mm_f32(pairs)
+    out = None
+    for a, b in pairs:
+        y = a.float() @ b.float()
+        out = y if out is None else out + y
+    return out
 
 
 def swiglu(x, w_gate, w_up, w_down, qmm_impl: str = "kernel", ctx=None
            ) -> torch.Tensor:
     """The gate chain is real f32 with one rounding at the end. Under
     ``ctx`` the gate and up projections are column-parallel (this rank's
-    part of the MLP width) and the down projection row-parallel
-    (:func:`dense_row`)."""
-    g = dense(x, w_gate, out_dtype=torch.float32, qmm_impl=qmm_impl)
-    u = dense(x, w_up, out_dtype=torch.float32, qmm_impl=qmm_impl)
+    part of the MLP width, :func:`dense_column`) and the down projection
+    row-parallel (:func:`dense_row`, whose sum is ``ctx.exit_block``)."""
+    g, u = dense_column(x, [w_gate, w_up], ctx, out_dtype=torch.float32,
+                        qmm_impl=qmm_impl)
     h = silu(g) * u
     return dense_row(h, w_down, ctx, qmm_impl=qmm_impl).to(x.dtype)
 

@@ -57,9 +57,28 @@ FFN on its experts, expert-parallel: ``blocks.moe_apply``), the
 embedding is whole on every rank, and the head's vocab-sharded logits
 are gathered, so every rank returns the whole logits. ``init_cache`` and
 ``prefill``'s cache hold the KV heads and SSM heads the rank stores.
-Training with a model axis is not ported (ROADMAP queue 1 item 7.6);
-over a data axis (``ctx`` with ``dp_size > 1``) an MoE layer routes with
+Over a data axis (``ctx`` with ``dp_size > 1``) an MoE layer routes with
 the global batch's statistics, order and capacity.
+
+**Training over a model axis** (the dense family; Megatron-style, the
+reference's GSPMD program): ``loss`` and ``backbone`` run each layer on
+the rank's heads and MLP columns, entered through Megatron's f
+(``layers.dense_column``: the products' input cotangent summed over the
+axis in f32, rounded once) and left through g (``ShardCtx.exit_block``).
+Under sequence parallelism (``Technique.sp``) the residual stream holds
+this rank's rows of T (``ShardCtx.own_rows``): the norms run on them,
+each block gathers T on entry and reduce-scatters its row-parallel
+partials on exit.
+Without it the stream is whole on every rank, and only the rank's rows
+of the embedding output carry its gradient, so the ranks' embedding
+gradients add up to the whole (:meth:`LM.model_summed`). The loss is a
+vocab-parallel cross-entropy (:func:`vocab_parallel_ce`): each rank's
+logits block holds its ``V/tp`` columns of the padded vocabulary (the
+untied ``head`` is cut so; the tied ``embed`` stays whole and is sliced
+at use, as the reference constrains ``w.T`` to ``"head"``), and the max,
+the sum of exponentials and the label's logit are summed over the axis
+in f32. Other families raise under a model axis (ROADMAP queue 1 item
+7.10).
 
 **ZeRO-3.** Training over a data axis (``train.step``) passes ``loss``
 and ``backbone`` a tree whose leaves may be ``parallel.zero.Shard``s,
@@ -460,17 +479,61 @@ class LM:
         return [per_pos[i % self.period][i // self.period]
                 for i in range(self.cfg.n_layers)]
 
+    def _tp(self) -> bool:
+        """Whether this model trains over a model axis of more than one
+        rank."""
+        return self.ctx is not None and self.ctx.size > 1
+
+    def model_summed(self) -> List[str]:
+        """Key paths (``tree_paths``' spelling) of the leaves each rank
+        holds whole but whose gradient it computes only in part under a
+        model axis, so the step sums them over the axis: the embedding
+        (the rank's rows of the lookup, and for a tied table the rank's
+        vocab slice of the head), the block norms under sequence
+        parallelism (the rank's rows), and wk/wv and their biases where
+        the degree does not divide the KV heads (the heads its q heads
+        read). Empty without a model axis."""
+        if not self._tp():
+            return []
+        ctx, cfg = self.ctx, self.cfg
+        out = ["embed"]
+        for pos in range(self.period):
+            blk = f"blocks/pos{pos}"
+            if ctx.sp:
+                out += [f"{blk}/mix/ln", f"{blk}/ffn/ln"]
+            if not ctx.splits(cfg.n_kv_heads):
+                out += [f"{blk}/mix/{w}" for w in ("wk", "wv", "bk", "bv")
+                        if w in ("wk", "wv") or cfg.qkv_bias]
+        return out
+
+    def _split_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """The embedding output as the layers take it over a model axis:
+        under sequence parallelism this rank's rows of T; else the whole
+        sequence, of which only this rank's rows pass their gradient back
+        (the same values; each rank's lookup gradient covers its rows)."""
+        if not self._tp():
+            return x
+        if self.ctx.sp:
+            lo, hi = self.ctx.own_rows(x.shape[1])
+            return x[:, lo:hi]
+        t, n, r = x.shape[1], self.ctx.size, self.ctx.rank
+        lo, hi = r * t // n, (r + 1) * t // n
+        return torch.cat([x[:, :lo].detach(), x[:, lo:hi],
+                          x[:, hi:].detach()], dim=1)
+
     def _layer(self, x, lp, positions, pos: int, enc_out=None):
         """One layer of the training stack at period position ``pos``
         (with cross-attention on ``enc_out`` for encdec): returns (x, the
         MoE load-balancing loss or None). Under ZeRO-3 ``lp`` holds
-        Shards, gathered here, inside the remat body."""
+        Shards, gathered here, inside the remat body. Over a model axis
+        the blocks run on this rank's heads and MLP columns."""
         cfg = self.cfg
         lp = Z.gather_used(lp)
+        tp = self.ctx if self._tp() else None
         if self.kinds[pos] == "attn":
             x, _ = B.attn_apply(x, lp["mix"], cfg, positions=positions,
                                 attn_impl=self.attn_impl,
-                                qmm_impl=self.qmm_impl)
+                                qmm_impl=self.qmm_impl, ctx=tp)
         else:
             x, _ = B.ssm_apply(x, lp["mix"], cfg, ssd_impl=self.ssd_impl)
         if "cross" in lp:
@@ -481,17 +544,19 @@ class LM:
         if self.fkinds[pos] == "moe":
             return B.moe_apply(x, lp["ffn"], cfg, CAPACITY_MULT["train"],
                                self.ctx)
-        return B.ffn_apply(x, lp["ffn"], cfg, qmm_impl=self.qmm_impl), None
+        return B.ffn_apply(x, lp["ffn"], cfg, qmm_impl=self.qmm_impl,
+                           ctx=tp), None
 
     def _backbone(self, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
         """(final hidden states, the MoE load-balancing loss summed over
         the layers in f32, 0 without MoE layers). ``params``' top-level
-        leaves are whole (``zero.gather_top``)."""
-        if self.ctx is not None and self.ctx.size > 1:
+        leaves are whole (``zero.gather_top``). Over a model axis under
+        sequence parallelism the hidden states are this rank's rows."""
+        if self._tp() and self.cfg.family != "dense":
             raise NotImplementedError(
-                "training with a model axis (TP with the backward of its "
-                "row-parallel seams) is not ported: ROADMAP queue 1 item "
-                "7.6")
+                f"{self.cfg.name}: training the {self.cfg.family} family "
+                f"over a model axis (expert parallelism's backward first) "
+                f"is not ported: ROADMAP queue 1 item 7.10")
         if "ssm" in self.kinds and self.ssd_impl != "ref":
             raise NotImplementedError(
                 f"training through ssd_impl={self.ssd_impl!r}: the SSD "
@@ -501,6 +566,7 @@ class LM:
         enc_out = self._encoder_in(params, fe)
         x = self._embed_in(params, batch["tokens"], fe)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        x = self._split_rows(x)
         body = wrap_remat(self._layer, self.remat)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, lp in enumerate(self._unstacked_layers(params)):
@@ -511,14 +577,25 @@ class LM:
 
     def backbone(self, params, batch) -> torch.Tensor:
         """Everything before the LM head; returns final hidden states
-        (B, T', d_model) (T' = F + T for vlm). ``batch`` holds ``tokens``
-        and, for encdec and vlm, ``frontend_embeds``. Each decoder layer
-        runs under ``wrap_remat(remat)``."""
+        (B, T', d_model) (T' = F + T for vlm; over a model axis under
+        sequence parallelism this rank's T/tp rows). ``batch`` holds
+        ``tokens`` and, for encdec and vlm, ``frontend_embeds``. Each
+        decoder layer runs under ``wrap_remat(remat)``."""
         return self._backbone(Z.gather_top(params), batch)[0]
 
     def _block_ce(self, params, xb, lb):
         """(sum of masked CE, token count) of one block: logits in f32
-        over the whole padded vocabulary, labels < 0 masked."""
+        over the whole padded vocabulary, labels < 0 masked. Over a model
+        axis the logits block is this rank's vocab slice
+        (:func:`vocab_parallel_ce`)."""
+        if self._tp():
+            ctx = self.ctx
+            x = L.rmsnorm(xb, params["final_ln"], self.cfg.norm_eps)
+            lo, hi = ctx.part(self.vocab)
+            w = (params["embed"][lo:hi].T if self.cfg.tie_embeddings
+                 else params["head"])
+            logits, = L.dense_column(x, [w], ctx, gather=False)
+            return vocab_parallel_ce(logits.float(), lb, lo, ctx)
         logits = self._head(params, xb).float()
         lse = torch.logsumexp(logits, dim=-1)
         label_logit = logits.gather(
@@ -545,6 +622,8 @@ class LM:
         ``dp``, so the step passes ``dp``."""
         params = Z.gather_top(params)
         x, aux = self._backbone(params, batch)
+        if self._tp():
+            x = self.ctx.gather_rows(x)
         labels = batch["labels"]
         n_front = x.shape[1] - labels.shape[1]
         if n_front > 0:                     # vlm: the token span only
@@ -567,6 +646,26 @@ class LM:
             aux, float(aux_grad_scale))
         total = ce + self.moe_aux_coef * weighted / max(self.cfg.n_layers, 1)
         return total, {"ce": ce, "aux": aux}
+
+
+def vocab_parallel_ce(logits: torch.Tensor, labels: torch.Tensor, lo: int,
+                      ctx) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sum of masked CE, token count) from this rank's f32 logits block
+    (B, tc, V/tp), its columns ``[lo, lo + V/tp)`` of the padded
+    vocabulary, labels < 0 masked: the row max over the model axis (no
+    gradient, as logsumexp's max), then one f32 all-reduce of each row's
+    sum of exponentials and its label's logit (g: the rank whose columns
+    hold the label gives it, the others 0). No rank holds the whole
+    vocabulary's logits."""
+    m = ctx.model_max(logits.detach().amax(-1))
+    s = torch.exp(logits - m[..., None]).sum(-1)
+    idx = labels.long() - lo
+    own = (idx >= 0) & (idx < logits.shape[-1])
+    lab = logits.gather(-1, idx.clamp(0, logits.shape[-1] - 1)[..., None])
+    lab = torch.where(own, lab[..., 0], torch.zeros((), device=lab.device))
+    s, lab = ctx.reduce_from_model(torch.stack([s, lab]))
+    mask = (labels >= 0).float()
+    return ((m + torch.log(s) - lab) * mask).sum(), mask.sum()
 
 
 class _GradScale(torch.autograd.Function):

@@ -12,7 +12,13 @@ here explicitly:
   axis (its size and this rank's index, the part of an axis this rank
   holds, ``part``; the KV heads its attention reads, ``kv_part``; the
   collectives of the row-parallel seams, ``all_reduce`` of f32 partials
-  and ``gather_last`` of the vocab-sharded logits) and the data axes
+  and ``gather_last`` of the vocab-sharded logits, in place for serving;
+  for training Megatron's seam operators: ``exit_block`` (g, or under
+  ``sp`` the sequence reduce-scatter) as autograd functions, and the f32
+  sum of a column-parallel input's cotangent, ``sum_column_grad`` (f's
+  backward, or under ``sp`` the all-gather's, for
+  ``layers.dense_column``), with the rows a rank holds under ``sp``,
+  ``own_rows``) and the data axes
   (the reference's ``dp_axes``, ``dp_size``, ``dp_spec_entry``, ``_dp``
   and ``batch_sharding``, and the data-axis collectives, built from
   ``all_reduce`` only, as gloo offers nothing else on CUDA tensors:
@@ -23,7 +29,9 @@ here explicitly:
   counterpart of ``dp_gather_bytes``; ``all_to_all`` and ``gather_t``,
   the token slices along ``t``, built on it).
 * :func:`make_shard_ctx` — the training context: the data axis, and a
-  model axis that a technique without TP folds into it.
+  model axis that a technique without TP (or mamba2's ``dp_over_model``)
+  folds into it; the data-axis collectives then run over the group of
+  every axis folded in.
 * :func:`resolve_spec` — the reference's resolver: which dim of a leaf
   the model axis splits (``_tp_entry``, ``_TP_PRIORITY``; one entry per
   dim, ``None``, an axis name or a tuple of them, as a PartitionSpec's)
@@ -87,9 +95,11 @@ class ShardCtx:
     Attention is in head mode (the reference's sequence mode is ROADMAP
     queue 1 item 7.3). ``comm_timer``, where set (a
     ``core.perfscope.Timer``), times each data-axis collective between two
-    synchronizes as ``"collective"``, and each model-axis exchange as
-    ``"exchange"``; ``exchange_bytes`` counts the bytes the exchanges'
-    buffers carried (read from shapes: no sync)."""
+    synchronizes as ``"collective"``, each model-axis exchange as
+    ``"exchange"`` and each training seam's collective as ``"seam"``;
+    ``exchange_bytes`` counts the bytes the exchanges' buffers carried
+    and ``seam_bytes`` those of the seams' buffers (read from shapes: no
+    sync)."""
     mesh: object
     cfg: Optional[ArchConfig] = None
     dp_axes: Tuple[str, ...] = ()
@@ -97,6 +107,7 @@ class ShardCtx:
     technique: Technique = Technique()
     comm_timer: object = None
     exchange_bytes: int = 0
+    seam_bytes: int = 0
 
     def axis_size(self, name: Optional[str]) -> int:
         if name is None or self.mesh is None:
@@ -208,11 +219,20 @@ class ShardCtx:
                 f"read KV heads [{lo}, {hi}) unevenly at tp={self.size}")
         return lo, hi
 
-    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+    def all_reduce(self, t: torch.Tensor,
+                   region: Optional[str] = None) -> torch.Tensor:
         """Sum ``t`` over the model axis, in place (a row-parallel
-        seam's f32 partials); returns it. A no-op on one rank."""
+        seam's f32 partials, an f32 gradient); returns it. A no-op on one
+        rank. Where ``region`` is given, ``comm_timer`` times the sum
+        under it (a training seam's, ``"seam"``, also counts its bytes in
+        ``seam_bytes``; the step's sums of gradients are
+        ``"collective"``); serving's seams are not timed."""
         if self.size > 1:
-            dist.all_reduce(t, group=self.mesh.group)
+            if region == "seam":
+                self.seam_bytes += t.numel() * t.element_size()
+            with (self._timed(t, region) if region else
+                  contextlib.nullcontext()):
+                dist.all_reduce(t, group=self.mesh.group)
         return t
 
     def gather_last(self, t: torch.Tensor, n: int) -> torch.Tensor:
@@ -248,9 +268,7 @@ class ShardCtx:
             raise TypeError(f"gather_bytes takes int32, not {buf.dtype}")
         if self.size > 1:
             self.exchange_bytes += buf.numel() * 4
-            with self._timed(buf, "exchange"):
-                dist.all_reduce(buf, group=self.mesh.group)
-        return buf
+        return self.all_reduce(buf, "exchange")
 
     def all_to_all(self, send: torch.Tensor) -> torch.Tensor:
         """``jax.lax.all_to_all(send, model, 0, 0, tiled=False)``: block
@@ -277,16 +295,21 @@ class ShardCtx:
         (r+1)·t/size)``), bit for bit, through :meth:`gather_bytes`: the
         reference's ``_constrain(ctx, y, "hidden")`` after an
         expert-parallel FFN whose tokens were split along ``t``."""
-        m = self.size
-        if m == 1:
+        if self.size == 1:
             return y
+        return self._gather_rows(y, self.gather_bytes)
+
+    def _gather_rows(self, y: torch.Tensor, total) -> torch.Tensor:
+        """The whole (B, T, ...) from each rank's rows ``y`` (B, T/size,
+        ...), bit for bit: this rank's bytes in its row of a zero int32
+        buffer, summed over the model axis by ``total``."""
         words = _words(y)
-        buf = words.new_zeros((m, words.numel()))
+        buf = words.new_zeros((self.size, words.numel()))
         buf[self.rank] = words
-        self.gather_bytes(buf)
-        parts = _from_words(buf, y.dtype, (m,) + tuple(y.shape))
+        total(buf)
+        parts = _from_words(buf, y.dtype, (self.size,) + tuple(y.shape))
         return parts.movedim(0, 1).reshape(
-            (y.shape[0], t) + tuple(y.shape[2:]))
+            (y.shape[0], y.shape[1] * self.size) + tuple(y.shape[2:]))
 
     # -- data-axis collectives (all_reduce only) --
     def _timed(self, t: torch.Tensor, name: str = "collective"):
@@ -298,13 +321,24 @@ class ShardCtx:
             fence()
         return self.comm_timer.region(name, fence=fence)
 
+    @property
+    def dp_group(self):
+        """The process group of the data axes: the mesh's data column,
+        or where the model axis is folded in, the group of every rank of
+        both axes (the model row where the data axis has one rank)."""
+        if MODEL not in self.dp_axes or self.axis_size(MODEL) == 1:
+            return self.mesh.data_group
+        if self.axis_size(DATA) == 1:
+            return self.mesh.group
+        return dist.group.WORLD
+
     def dp_all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         """Sum ``t`` over the data axes, in place; returns it. A no-op on
         one rank. Gradients travel in f32 (the callers cast first), so
         the sum is the f32 sum the one-device accumulation makes."""
         if self.dp_size > 1:
             with self._timed(t):
-                dist.all_reduce(t, group=self.mesh.data_group)
+                dist.all_reduce(t, group=self.dp_group)
         return t
 
     def dp_gather_bytes(self, buf: torch.Tensor) -> torch.Tensor:
@@ -334,7 +368,130 @@ class ShardCtx:
 
     def dp_barrier(self) -> None:
         if self.dp_size > 1:
-            dist.barrier(group=self.mesh.data_group)
+            dist.barrier(group=self.dp_group)
+
+    # -- the model axis in training: Megatron's seams (all_reduce only) --
+    @property
+    def sp(self) -> bool:
+        """Whether the residual stream is split on T over the model axis
+        (Megatron sequence parallelism, ``Technique.sp``): the
+        reference's ``"hidden"`` constraint, which splits T where the
+        degree divides it (the model checks that it does)."""
+        return self.size > 1 and self.technique.tp and self.technique.sp
+
+    def own_rows(self, t: int) -> Tuple[int, int]:
+        """This rank's rows ``[r·t/tp, (r+1)·t/tp)`` of a sequence of
+        ``t`` positions (the rows it holds under ``sp``)."""
+        if t % self.size:
+            raise ValueError(f"sequence parallelism splits T={t} over a "
+                             f"model axis of {self.size}: T must divide")
+        w = t // self.size
+        return self.rank * w, (self.rank + 1) * w
+
+    def exit_block(self, y: torch.Tensor) -> torch.Tensor:
+        """A row-parallel seam's f32 partials (B, T, ...) summed over the
+        model axis: under ``sp`` reduce-scattered to this rank's rows
+        (backward: the cotangents' all-gather); else Megatron's g under
+        autograd (all-reduce, backward: identity), and the serving
+        path's in-place all-reduce without it."""
+        if self.size == 1:
+            return y
+        if self.sp:
+            return _ScatterSeq.apply(y, self)
+        if torch.is_grad_enabled() and y.requires_grad:
+            return _ReduceFromModel.apply(y, self)
+        return self.all_reduce(y)
+
+    def sum_column_grad(self, g: torch.Tensor, seq: bool) -> torch.Tensor:
+        """The f32 partials ``g`` (B, T, ...) of a column-parallel
+        input's cotangent summed over the model axis (Megatron's f
+        backward), in f32: with ``seq`` reduce-scattered to this rank's
+        rows (the backward of the sequence all-gather); the caller rounds
+        once."""
+        if seq:
+            return self.seq_reduce_scatter(g)
+        return self.all_reduce(g, "seam")
+
+    def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """Under ``sp``, the whole sequence from each rank's rows of the
+        final hidden states, whose cotangent is whole on every rank (the
+        loss's f sums it): backward takes this rank's rows, no sum."""
+        if not self.sp:
+            return x
+        return _GatherSeq.apply(x, self)
+
+    def reduce_from_model(self, t: torch.Tensor) -> torch.Tensor:
+        """Megatron's g alone (the vocab-parallel loss's f32 partial
+        sums): all-reduce; backward identity."""
+        return t if self.size == 1 else _ReduceFromModel.apply(t, self)
+
+    def model_max(self, t: torch.Tensor) -> torch.Tensor:
+        """The elementwise max of ``t`` (f32) over the model axis: each
+        rank's values written into its row of a zero buffer, summed
+        (exact: x + 0 is x) and reduced locally; no gradient."""
+        if self.size == 1:
+            return t
+        buf = t.new_zeros((self.size,) + tuple(t.shape), dtype=torch.float32)
+        buf[self.rank] = t
+        return self.all_reduce(buf, "seam").amax(0)
+
+    def seq_gather(self, y: torch.Tensor) -> torch.Tensor:
+        """The whole (B, T, ...) from each rank's rows ``y`` (B, T/tp,
+        ...), bit for bit, timed as a seam."""
+        return self._gather_rows(y, lambda b: self.all_reduce(b, "seam"))
+
+    def seq_reduce_scatter(self, y: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of the f32 sum over the model axis of ``y``
+        (B, T, ...), in ``y``'s type: an f32 all-reduce and a slice."""
+        total = self.all_reduce(y.to(torch.float32, copy=True), "seam")
+        lo, hi = self.own_rows(y.shape[1])
+        return total[:, lo:hi].to(y.dtype)
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Megatron's g: forward, the partials summed over the model axis in
+    f32 (a fresh tensor), rounded once to their type; backward identity
+    (the sum's cotangent is each part's)."""
+
+    @staticmethod
+    def forward(fctx, y, ctx):
+        return ctx.all_reduce(y.to(torch.float32, copy=True),
+                              "seam").to(y.dtype)
+
+    @staticmethod
+    def backward(fctx, g):
+        return g, None
+
+
+class _GatherSeq(torch.autograd.Function):
+    """The whole T of the final hidden states from each rank's rows, bit
+    for bit; backward takes this rank's rows of the cotangent, which the
+    loss's column-parallel head has already summed over the axis."""
+
+    @staticmethod
+    def forward(fctx, x, ctx):
+        fctx.ctx = ctx
+        return ctx.seq_gather(x)
+
+    @staticmethod
+    def backward(fctx, g):
+        lo, hi = fctx.ctx.own_rows(g.shape[1])
+        return g[:, lo:hi].contiguous(), None
+
+
+class _ScatterSeq(torch.autograd.Function):
+    """Megatron's sequence reduce-scatter: this rank's rows of the f32
+    partials' sum over the model axis; backward, the cotangent's rows
+    gathered from every rank, bit for bit."""
+
+    @staticmethod
+    def forward(fctx, y, ctx):
+        fctx.ctx = ctx
+        return ctx.seq_reduce_scatter(y)
+
+    @staticmethod
+    def backward(fctx, g):
+        return fctx.ctx.seq_gather(g.contiguous()), None
 
 
 def _words(t: torch.Tensor) -> torch.Tensor:
@@ -362,7 +519,9 @@ def make_shard_ctx(cfg: ArchConfig, technique: Technique, mesh
     has them; a config with ``dp_over_model`` (mamba2), or a technique
     without TP, folds the model axis into them. Where the model axis
     stays and does not divide the heads, the reference turns to sequence
-    mode, which is not ported: that raises (ROADMAP queue 1 item 7.3)."""
+    mode, as it does for ``attn_mode="seq"``; neither is ported: both
+    raise (ROADMAP queue 1 item 7.3). ``attn_mode="head"`` is the head
+    mode the port runs."""
     if mesh is None:
         return ShardCtx(None, cfg, (), None, technique)
     names = list(mesh.axis_names)
@@ -372,11 +531,11 @@ def make_shard_ctx(cfg: ArchConfig, technique: Technique, mesh
         dp = dp + (model_axis,)             # fold the unused model axis
         model_axis = None
     msize = int(mesh.shape[model_axis]) if model_axis else 1
-    if technique.attn_mode == "seq" or (technique.attn_mode == "auto" and
-                                        cfg.n_heads % msize):
+    if technique.attn_mode == "seq" or cfg.n_heads % msize:
         raise NotImplementedError(
             f"{cfg.name}: {cfg.n_heads} heads over a model axis of {msize} "
-            f"put the reference's attention in sequence mode, which is not "
+            f"(attn_mode={technique.attn_mode!r}) need the reference's "
+            f"sequence (context-parallel) attention mode, which is not "
             f"ported: ROADMAP queue 1 item 7.3")
     return ShardCtx(mesh, cfg, dp, model_axis, technique)
 

@@ -5,7 +5,9 @@ parameters where they are used.
 A placement (``sharding.state_shardings``) names at most one dim of a
 leaf that the data axes split (:func:`dp_cut`); a rank holds the
 contiguous ``1/parts`` of that dim at its index (:func:`take`), the
-whole leaf where no dim is split. Every piece is a plain tensor of the
+whole leaf where no dim is split. Under a model axis the "leaf" is the
+rank's TP piece (:func:`model_cut`, cut along another dim): the data
+axis's gathers, reductions and ``+O`` act on that piece only. Every piece is a plain tensor of the
 leaf's rank (cut along a dim, never flattened, so weight decay's
 ``ndim >= 2`` test reads the leaf's rank).
 
@@ -51,10 +53,16 @@ ALIGN = 512        # bytes: where each leaf starts in a gather buffer
 @dataclasses.dataclass(frozen=True)
 class Cut:
     """This rank's part of a leaf: ``parts`` contiguous pieces along
-    ``dim``, piece ``idx`` here; ``dim`` None: the whole leaf."""
+    ``dim``, piece ``idx`` here; ``dim`` None: the whole leaf. ``writes``:
+    whether this rank is the first of the ranks that hold this piece,
+    the one that writes it into an exact gather's buffer and counts it in
+    a sum over the ranks (where the data axes hold a model axis folded
+    in, a dim the model axis does not divide is cut over the data axis
+    alone, and each data column's model ranks hold the same piece)."""
     dim: Optional[int]
     parts: int = 1
     idx: int = 0
+    writes: bool = True
 
     def bounds(self, n: int) -> Tuple[int, int]:
         w = n // self.parts
@@ -66,14 +74,30 @@ WHOLE = Cut(None)
 
 def dp_cut(ctx, spec) -> Cut:
     """The :class:`Cut` a spec gives this rank: the dim whose entry holds
-    a data axis, split into the product of its axes' sizes."""
+    a data axis, split into the product of its axes' sizes; this rank
+    writes its piece where its index is 0 on every data axis the entry
+    leaves out (on all of them for a leaf no data axis splits)."""
+    used: Tuple[str, ...] = ()
+    cut = WHOLE
     for i, entry in enumerate(spec):
         axes = (() if entry is None else
                 (entry,) if isinstance(entry, str) else tuple(entry))
         if any(a in ctx.dp_axes for a in axes):
             parts, idx = ctx.entry_parts(entry)
-            return Cut(i, parts, idx) if parts > 1 else WHOLE
-    return WHOLE
+            used, cut = axes, Cut(i, parts, idx) if parts > 1 else WHOLE
+            break
+    writes = all(ctx._axis_index(a) == 0 for a in ctx.dp_axes
+                 if a not in used and ctx.axis_size(a) > 1)
+    return cut if writes else dataclasses.replace(cut, writes=False)
+
+
+def model_cut(ctx, spec) -> Cut:
+    """The :class:`Cut` the model axis makes of a leaf whose spec is
+    ``spec`` (its TP piece: the ZeRO cuts act on that piece); whole
+    without a model axis of more than one rank."""
+    if ctx.model_axis is None or ctx.size == 1 or ctx.model_axis not in spec:
+        return WHOLE
+    return Cut(spec.index(ctx.model_axis), ctx.size, ctx.rank)
 
 
 def take(t: torch.Tensor, cut: Cut) -> torch.Tensor:
@@ -105,11 +129,14 @@ def _padded(nbytes: int) -> int:
     return -(-nbytes // ALIGN) * ALIGN
 
 
-def gather_pieces(ctx, items, device) -> List[torch.Tensor]:
+def gather_pieces(ctx, items, device, sum_bytes=None) -> List[torch.Tensor]:
     """The whole leaves of ``items`` — ``(piece or None, whole shape,
-    dtype, Cut, writes)`` each, ``writes`` whether this rank writes its
-    piece — from every rank's pieces, through one exact all-reduce of an int32
-    buffer. Returns views of that buffer, each starting ``ALIGN``-byte
+    dtype, Cut, writes)`` each, this rank writing its piece where
+    ``writes`` and the cut's own ``writes`` say so — from every rank's
+    pieces, through one exact all-reduce of an int32 buffer
+    (``sum_bytes``: the data axes' ``ctx.dp_gather_bytes`` unless
+    given).
+    Returns views of that buffer, each starting ``ALIGN``-byte
     aligned."""
     offs, total = [], 0
     for _, shape, dtype, _, _ in items:
@@ -121,10 +148,10 @@ def gather_pieces(ctx, items, device) -> List[torch.Tensor]:
     for (piece, shape, dtype, cut, writes), off in zip(items, offs):
         n = math.prod(shape) * _itemsize(dtype)
         whole = raw[off:off + n].view(dtype).view(shape)
-        if writes:
+        if writes and cut.writes:
             piece_view(whole, cut).copy_(piece)
         out.append(whole)
-    ctx.dp_gather_bytes(buf)
+    (sum_bytes or ctx.dp_gather_bytes)(buf)
     return out
 
 
@@ -133,13 +160,16 @@ def _itemsize(dtype: torch.dtype) -> int:
 
 
 def gather_leaf(ctx, piece: torch.Tensor, shape, cut: Cut,
-                device=None) -> torch.Tensor:
-    """The whole leaf of ``shape`` from every rank's ``piece`` (exact);
-    a leaf no dim splits is every rank's already."""
+                device=None, sum_bytes=None) -> torch.Tensor:
+    """The whole leaf of ``shape`` from every rank's ``piece`` (exact;
+    over the data axes unless ``sum_bytes`` names another sum, as
+    :func:`gather_pieces`); a leaf no dim splits is every rank's
+    already."""
     if cut.dim is None:
         return piece
     return gather_pieces(ctx, [(piece, tuple(shape), piece.dtype, cut,
-                                True)], device or piece.device)[0]
+                                True)], device or piece.device,
+                         sum_bytes)[0]
 
 
 # --------------------------------------------------------------------------
@@ -172,15 +202,16 @@ class Shard:
         """Layer ``i`` of a leaf stacked on its first dim."""
         c, acc = self.cut, self.acc
         if self.kind == "replicated" or c.dim > 0:
-            sub = WHOLE if c.dim is None else Cut(c.dim - 1, c.parts, c.idx)
+            sub = c if c.dim is None else dataclasses.replace(c,
+                                                              dim=c.dim - 1)
             return Shard(self.piece[i], self.shape[1:], self.dtype, sub,
                          self.kind, None if acc is None else acc[i],
                          self.comm)
         lo, hi = c.bounds(self.shape[0])       # the layers dim is cut
         if lo <= i < hi:
             return Shard(self.piece[i - lo], self.shape[1:], self.dtype,
-                         WHOLE, "owner", None if acc is None else acc[i - lo],
-                         self.comm)
+                         Cut(None, writes=c.writes), "owner",
+                         None if acc is None else acc[i - lo], self.comm)
         return Shard(None, self.shape[1:], self.dtype, WHOLE, "absent",
                      None, self.comm)
 

@@ -36,8 +36,21 @@ the one-device state's slice. The stages (``build_train_step``):
 * ``+O`` — the sharded moments (and under Z3 the params) live in pinned
   host memory, copied to the card for the step or the update and back.
 
-One step serves the float techniques on one device and over a data
-axis (:func:`_float_step`; on one device it is the case ``dp = 1`` with
+**Over a model axis** (the dense family: Megatron-style tensor
+parallelism, with ``Technique.sp`` sequence parallelism; alone or beside
+a data axis, a 2-D ``data x model`` mesh) each rank holds its TP piece
+of every leaf the resolver cuts on the model axis, and ZeRO cuts that
+piece over the data axis (:class:`DPLayout`: the TP cut first, then the
+ZeRO overlay's). The model runs the rank's heads and MLP columns (see
+``models.lm``); the leaves each rank holds whole but uses in part
+(``LM.model_summed``) have their gradients summed over the model axis
+once a step, after the data axis's reduction; ``grad_norm`` sums the
+squares of cut leaves over both axes and counts each replicated leaf
+once. Quantized full training, LoRA and every family but the dense one
+raise under a model axis (ROADMAP queue 1 items 7.10, 7.11).
+
+One step serves the float techniques on one device and over the mesh's
+axes (:func:`_float_step`; on one device it is the case ``dp = 1`` with
 no stage). Over a data axis the gradient buffer persists from step to
 step (its bytes are state at rest: full under Z0/Z1, this rank's slices
 under Z2/Z3). Each micro-batch's CE is normalized by its global label
@@ -104,7 +117,9 @@ LORA_SEED_OFFSET = 7 << 32
 
 
 def check_technique(technique: Technique) -> None:
-    """Raise on a technique the port cannot run yet."""
+    """Raise on a technique the port cannot run yet. ``sp`` and
+    ``attn_mode="head"`` act over a model axis and are no-ops without
+    one, as in the reference."""
     waiting = []
     base = technique.quant
     if technique.peft == "qlora" and base == "none":
@@ -114,12 +129,10 @@ def check_technique(technique: Technique) -> None:
                        f"reference's apply_lora misreads a stacked nf4 "
                        f"QTensor, repro/peft/lora.py:74-75; ROADMAP queue 1 "
                        f"item 5, queue 3)")
-    if technique.sp:
-        waiting.append("sp (sequence parallelism needs a mesh, ROADMAP "
-                       "queue 1 item 7)")
-    if technique.attn_mode != "auto":
-        waiting.append(f"attn_mode={technique.attn_mode!r} (needs a mesh, "
-                       f"ROADMAP queue 1 item 7)")
+    if technique.attn_mode not in ("auto", "head"):
+        waiting.append(f"attn_mode={technique.attn_mode!r} (the "
+                       f"reference's context-parallel attention, ROADMAP "
+                       f"queue 1 item 7.3)")
     if waiting:
         raise NotImplementedError(
             "not ported yet: " + "; ".join(waiting))
@@ -131,20 +144,35 @@ def data_parallel(ctx) -> bool:
     return ctx is not None and ctx.mesh is not None and ctx.dp_size > 1
 
 
+def distributed(ctx) -> bool:
+    """Whether ``ctx`` trains across ranks: over a data axis or a model
+    axis of more than one rank."""
+    return ctx is not None and ctx.mesh is not None and (
+        ctx.dp_size > 1 or ctx.size > 1)
+
+
 def check_dp(cfg: ArchConfig, technique: Technique, ctx) -> None:
     """Raise where ``ctx``'s mesh asks for what training across ranks
-    cannot do yet, naming the ROADMAP item: a model axis (TP training),
-    and under a data axis quantized full training, LoRA, and MoE archs
-    with more than one micro-batch."""
+    cannot do yet, naming the ROADMAP item: under a model axis (the
+    context's, after the folding of ``make_shard_ctx``) every family but
+    the dense one, an MLP width the degree does not divide, quantized
+    full training and LoRA; under a data axis quantized full training,
+    LoRA, and MoE archs with more than one micro-batch."""
     if ctx is None or ctx.mesh is None:
         return
-    shape = ctx.mesh.shape
-    if int(shape.get("model", 1)) > 1:
-        raise NotImplementedError(
-            f"training over a model axis ({dict(shape)}: tensor "
-            f"parallelism with the backward of its row-parallel seams, "
-            f"alone or beside a data axis) is not ported: ROADMAP queue 1 "
-            f"item 7.6")
+    if ctx.size > 1:
+        if cfg.family != "dense" or cfg.d_ff % ctx.size:
+            raise NotImplementedError(
+                f"{cfg.name} ({cfg.family}, d_ff {cfg.d_ff}) over a model "
+                f"axis of {ctx.size}: tensor-parallel training runs the "
+                f"dense family with its MLP width cut evenly; the other "
+                f"families (expert parallelism's backward first) are "
+                f"ROADMAP queue 1 item 7.10")
+        if technique.quant != "none" or technique.peft != "none":
+            raise NotImplementedError(
+                f"{technique.label()} over a model axis: quantized full "
+                f"training and LoRA under tensor parallelism are not "
+                f"ported: ROADMAP queue 1 item 7.11")
     if not data_parallel(ctx):
         return
     if technique.quant != "none" or technique.peft != "none":
@@ -164,11 +192,15 @@ def check_dp(cfg: ArchConfig, technique: Technique, ctx) -> None:
 
 
 class DPLayout:
-    """Where each param leaf's state lies on this rank over a data axis:
-    the :class:`parallel.zero.Cut` of the param, of its gradient and of
-    its optimizer state (moments and master weights), keyed by the
-    leaf's key string, from the reference's resolver; and whether ``+O``
-    puts the params and the optimizer state in host memory."""
+    """Where each param leaf's state lies on this rank across ranks: its
+    TP piece (``tp``: the :class:`parallel.zero.Cut` the model axis makes,
+    ``shapes``: the piece's shape, the whole leaf's without a model axis)
+    and, of that piece, the ZeRO cut of the param, of its gradient and of
+    its optimizer state (moments and master weights), keyed by the leaf's
+    key string, from the reference's resolver; whether ``+O`` puts the
+    params and the optimizer state in host memory; and ``summed``, the
+    leaves whose gradients the step sums over the model axis
+    (``LM.model_summed``)."""
 
     def __init__(self, model: LM, technique: Technique, ctx):
         logical = logical_by_keystr_of(model.param_specs())
@@ -180,7 +212,12 @@ class DPLayout:
         place = {c: dict(keystr_paths(state_shardings(
             ctx, tree, logical, component=c)))
             for c in ("params", "grads", "opt")}
-        self.shapes = {p: tuple(t.shape) for p, t in keystr_paths(tree)}
+        self.tp = {p: Z.model_cut(ctx, pl.spec)
+                   for p, pl in place["params"].items()}
+        self.shapes = {p: Z.piece_shape(t.shape, self.tp[p])
+                       for p, t in keystr_paths(tree)}
+        self.summed = ["".join(f"[{k!r}]" for k in path.split("/"))
+                       for path in model.model_summed()]
         self.param = {p: Z.dp_cut(ctx, pl.spec)
                       for p, pl in place["params"].items()}
         self.grad = {p: Z.dp_cut(ctx, pl.spec)
@@ -192,24 +229,32 @@ class DPLayout:
         if technique.zero_stage >= 2:
             assert self.grad == self.opt, "grads and moments cut alike"
 
-    def state_cut(self, path: str) -> Z.Cut:
-        """The cut of a leaf of the whole train state by its key string
-        (``['params']...``, ``['opt']['m']...``, ``['step']``)."""
+    def state_cut(self, path: str, tp: bool = False) -> Z.Cut:
+        """The ZeRO cut of a leaf of the whole train state by its key
+        string (``['params']...``, ``['opt']['m']...``, ``['step']``), or
+        with ``tp`` its TP cut."""
         for prefix, table in (("['params']", self.param),
                               ("['opt']['m']", self.opt),
                               ("['opt']['v']", self.opt),
                               ("['opt']['master']", self.opt)):
             if path.startswith(prefix):
-                return table[path[len(prefix):]]
+                return (self.tp if tp else table)[path[len(prefix):]]
         return Z.WHOLE
+
+    def piece(self, path: str, whole: torch.Tensor) -> torch.Tensor:
+        """This rank's piece (a tensor of its own) of the whole state
+        leaf ``whole`` at ``path``: its TP piece's ZeRO piece."""
+        t = Z.piece_view(whole, self.state_cut(path, tp=True))
+        cut = self.state_cut(path)
+        return t.clone() if cut.dim is None else Z.take(t, cut)
 
 
 def logical_train_state(state, lay: DPLayout, ctx, device):
     """The whole (logical) train state from every rank's part, as host
-    tensors: each sharded leaf gathered exactly (a collective every rank
-    makes), every other leaf copied; what the one-device run would hold,
-    bit for bit. A checkpoint stores this (the reference's elastic
-    layout)."""
+    tensors: each sharded leaf gathered exactly (collectives every rank
+    makes: the data axis's, then the model axis's), every other leaf
+    copied; what a one-device run holding those values would hold. A
+    checkpoint stores this (the reference's elastic layout)."""
     def whole(path, t):
         t = t.detach()
         cut = lay.state_cut(path)
@@ -217,6 +262,12 @@ def logical_train_state(state, lay: DPLayout, ctx, device):
             shape = list(t.shape)
             shape[cut.dim] *= cut.parts
             t = Z.gather_leaf(ctx, t.to(device), shape, cut)
+        tc = lay.state_cut(path, tp=True)
+        if tc.dim is not None:
+            shape = list(t.shape)
+            shape[tc.dim] *= tc.parts
+            t = Z.gather_leaf(ctx, t.to(device), shape, tc,
+                              sum_bytes=ctx.gather_bytes)
         return t.cpu().clone()
 
     return keystr_map(whole, state)
@@ -294,13 +345,13 @@ def init_train_state(model: LM, technique: Technique, seed: int = 0,
     training the float leaves, the ``QTensor``s being retrained through
     their dequantized view) and optimizer state for those (for the view
     under quantized full training). Returns ``(state, opt_cfg)`` as the
-    reference does. Over a data axis (``ctx``, default the model's) the
+    reference does. Across ranks (``ctx``, default the model's) the
     state is this rank's part of that state (:func:`_init_dp_state`)."""
     check_technique(technique)
     ctx = model.ctx if ctx is None else ctx
     check_dp(model.cfg, technique, ctx)
     opt_cfg = opt_cfg or default_opt_cfg(technique)
-    if data_parallel(ctx):
+    if distributed(ctx):
         return _init_dp_state(model, technique, seed, opt_cfg, ctx), opt_cfg
     params = model.init(seed)
     if technique.quant != "none":
@@ -320,14 +371,15 @@ def init_train_state(model: LM, technique: Technique, seed: int = 0,
 
 def _init_dp_state(model: LM, technique: Technique, seed: int,
                    opt_cfg: AdamWConfig, ctx) -> Dict[str, Any]:
-    """This rank's part of the one-device state: the whole params drawn
-    from ``seed`` on the rank's device, cut to the rank's pieces
-    (Z3; whole under Z0-Z2, with ``requires_grad``), zero moments at the
-    optimizer state's pieces, f32 master weights from the params' pieces
-    where ``opt_cfg`` keeps them; ``+O`` moves what it places on the host
+    """This rank's part of the one-device state: the params drawn from
+    ``seed`` on the rank's device (over a model axis its TP pieces,
+    ``LM.init(pieces=True)``), cut to the rank's ZeRO pieces (Z3; whole
+    under Z0-Z2, with ``requires_grad``), zero moments at the optimizer
+    state's pieces, f32 master weights from the params' pieces where
+    ``opt_cfg`` keeps them; ``+O`` moves what it places on the host
     there."""
     lay = DPLayout(model, technique, ctx)
-    full = model.init(seed)
+    full = model.init(seed, pieces=True)
     stage3 = technique.zero_stage >= 3
     dev = model.device
 
@@ -368,12 +420,8 @@ def shard_train_state(whole, model: LM, technique: Technique, ctx):
     :func:`init_train_state` places its own. Every leaf is a copy: the
     step updates its state in place."""
     lay = DPLayout(model, technique, ctx)
-
-    def piece(path, t):
-        cut, t = lay.state_cut(path), t.detach().to(model.device)
-        return t.clone() if cut.dim is None else Z.take(t, cut)
-
-    part = keystr_map(piece, whole)
+    part = keystr_map(lambda p, t: lay.piece(p, t.detach().to(
+        model.device)), whole)
     return _placed(part, lay, technique.zero_stage >= 3)
 
 
@@ -399,11 +447,13 @@ def build_train_step(model: LM, technique: Technique,
     one nothing is synced.
 
     Float techniques take :func:`_float_step`, on one device as over a
-    data axis (``ctx``, default the model's; see the module's notes:
-    ``batch`` is then this rank's rows, ``state`` this rank's part, from
-    :func:`init_train_state` with the same ``ctx``, and each rank runs
-    ``grad_accum`` micro-batches of its rows). Quantized full training
-    and LoRA, which a data axis refuses, take :func:`_adapted_step`."""
+    data axis, a model axis or both (``ctx``, default the model's; see
+    the module's notes: ``batch`` is then this rank's rows of the data
+    axis, whole on every rank of a model row, ``state`` this rank's part,
+    from :func:`init_train_state` with the same ``ctx``, and each rank
+    runs ``grad_accum`` micro-batches of its rows). Quantized full
+    training and LoRA, which both axes refuse, take
+    :func:`_adapted_step`."""
     check_technique(technique)
     ctx = model.ctx if ctx is None else ctx
     check_dp(model.cfg, technique, ctx)
@@ -496,12 +546,12 @@ def _micro_rows(batch, accum: int) -> int:
 
 def _float_step(model: LM, technique: Technique, opt_cfg: AdamWConfig, ctx,
                 region) -> Callable:
-    """The step of a float technique, on one device or as one rank over a
-    data axis (the module's notes). On one device the stages and offload
+    """The step of a float technique, on one device or as one rank of a
+    mesh (the module's notes). On one device the stages and offload
     are no-ops, and the f32 gradient buffer is made from the first
-    micro-batch's gradients and dropped after the update; over a data
-    axis it persists (its bytes are state at rest)."""
-    persist = data_parallel(ctx)
+    micro-batch's gradients and dropped after the update; across ranks
+    it persists (its bytes are state at rest)."""
+    persist = distributed(ctx)
     if not persist:
         technique = dataclasses.replace(technique, zero_stage=0,
                                         offload=False)
@@ -588,15 +638,20 @@ def _float_step(model: LM, technique: Technique, opt_cfg: AdamWConfig, ctx,
         if stage <= 1:                  # the update
             for a in acc.values():
                 ctx.dp_all_reduce(a)
+        for p in lay.summed:            # used in part on each model rank
+            ctx.all_reduce(acc[p], "collective")
         for a in acc.values():
             a.div_(k)
         norm_sq = torch.zeros((), dtype=f32, device=dev)
-        for p, a in acc.items():
-            if stage <= 1 or lay.grad[p].dim is not None or \
-                    ctx.dp_rank == 0:
+        for p, a in acc.items():        # each piece counted once
+            if (stage <= 1 or lay.grad[p].writes) and (
+                    ctx.size == 1 or lay.tp[p].dim is not None or
+                    ctx.rank == 0):
                 norm_sq = norm_sq + torch.sum(torch.square(a))
         if stage >= 2:
             ctx.dp_all_reduce(norm_sq.reshape(1))
+        if ctx.size > 1:
+            ctx.all_reduce(norm_sq.reshape(1), "collective")
         with region("optimizer"):
             opt = state["opt"]
             dev_opt = _to_device(opt, dev) if lay.opt_host else opt

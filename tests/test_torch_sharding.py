@@ -292,9 +292,11 @@ def test_nccl_refuses_ranks_sharing_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     with pytest.raises(RuntimeError, match="one card per rank"):
         rank_device(0, 2, "nccl")
-    with pytest.raises(NotImplementedError, match="data axis"):
-        make_local_mesh(model=2, data=2, backend="gloo", rank=0,
-                        init_method="file:///nonexistent", device="cpu")
+    # a 2-D mesh (TP training) is refused only for what nccl refuses:
+    # its four ranks on one card, before any group is joined
+    with pytest.raises(RuntimeError, match="one card per rank"):
+        make_local_mesh(model=2, data=2, backend="nccl", rank=0,
+                        init_method="file:///nonexistent")
 
 
 def test_single_rank_shard_is_the_tree(qwen):

@@ -23,6 +23,7 @@ equal to the single-device engine's, with no near-tie split either.
 """
 import dataclasses
 import functools
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import numpy as np
@@ -140,13 +141,29 @@ def _single(name):
     return worker.serve(None, *_run_args(name))
 
 
+_POOL = ThreadPoolExecutor(1)
+_SPAWNS = {}
+
+
+def _start_spawns():
+    """Queue every degree's ranks, one spawn after the other in a thread
+    of this process (the weights drawn here first), so they serve while
+    this process runs the reference's and the one-device engines."""
+    for tp, names in BY_DEGREE.items():
+        if tp not in _SPAWNS:
+            args = [_run_args(n) for n in names]
+            _SPAWNS[tp] = _POOL.submit(
+                spawn_ranks, worker.serve_all, tp, backend="gloo",
+                device="cpu", args=(args,), threads=1)
+
+
 @functools.lru_cache(maxsize=None)
 def _sharded(tp):
     """Every scenario of degree ``tp``, each rank's record, by name."""
-    names = BY_DEGREE[tp]
-    ranks = spawn_ranks(worker.serve_all, tp, backend="gloo", device="cpu",
-                        args=([_run_args(n) for n in names],), threads=1)
-    return {n: [recs[i] for recs in ranks] for i, n in enumerate(names)}
+    _start_spawns()
+    ranks = _SPAWNS[tp].result()
+    return {n: [recs[i] for recs in ranks]
+            for i, n in enumerate(BY_DEGREE[tp])}
 
 
 def _splits(want, got):
@@ -196,6 +213,7 @@ def _hold(name, tp):
     reference's single-device run (equal up to the port's near-tie rule;
     the sharded run splits where TP = 1 does); returns the ranks'
     records."""
+    _start_spawns()
     base = _single(name)
     ref_splits = _near_ties(name, base["out"])
     recs = _sharded(tp)[name]

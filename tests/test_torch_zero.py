@@ -36,13 +36,13 @@ from repro.train.step import train_state_shardings as ref_train_shardings
 from repro_torch.configs import get_config
 from repro_torch.core.config import ShapeSpec, technique_from_label
 from repro_torch.launch.build import pick_grad_accum
-from repro_torch.launch.mesh import make_local_mesh, mesh_groups
+from repro_torch.launch.mesh import mesh_groups
 from repro_torch.models.lm import LM
 from repro_torch.models.params import ParamSpec, keystr_paths, set_path, \
     tree_paths
 from repro_torch.parallel import compression as C
 from repro_torch.parallel import sharding as S
-from repro_torch.train.step import init_train_state
+from repro_torch.train.step import check_dp, init_train_state
 
 ARCHS = list_archs()
 MESHES = ((2, 1), (4, 1), (2, 2))
@@ -223,15 +223,150 @@ def test_pick_grad_accum_divides_a_ranks_rows():
 
 def test_mesh_layout_and_two_axes_refused():
     """Global rank d * model + m, as jax.make_mesh((data, model)) lays
-    devices out; both axes above 1 (TP training) refuse before joining."""
+    devices out (each model row and data column a group of the mesh).
+    Both axes above 1 now train the dense family (tests/
+    test_torch_tp_train.py); on such a mesh the context keeps the model
+    axis for TP and the data axis for ZeRO, folds the model axis into the
+    data axes without TP (their collectives over every rank), and the
+    families and techniques TP training has not reached refuse, naming
+    their items."""
     rows, cols = mesh_groups(model=3, data=2)
     assert rows == [[0, 1, 2], [3, 4, 5]]
     assert cols == [[0, 3], [1, 4], [2, 5]]
     want = np.arange(6).reshape(2, 3)
     assert rows == want.tolist() and cols == want.T.tolist()
-    with pytest.raises(NotImplementedError, match="item 7.6"):
-        make_local_mesh(model=2, data=2, backend="gloo", rank=0,
-                        init_method="file:///nonexistent", device="cpu")
+    mesh = _mesh(2, 2)
+    ctx = S.make_shard_ctx(get_config("qwen1.5-0.5b"),
+                           technique_from_label("F+R+Z3"), mesh)
+    assert (ctx.dp_axes, ctx.model_axis, ctx.size, ctx.dp_size) == (
+        ("data",), "model", 2, 2)
+    no_tp = dataclasses.replace(technique_from_label("F+R"), tp=False)
+    for arch, tech in (("qwen1.5-0.5b", no_tp),
+                       ("mamba2-130m", technique_from_label("F+R+Z3"))):
+        fold = S.make_shard_ctx(get_config(arch), tech, mesh)
+        assert (fold.dp_axes, fold.model_axis, fold.size,
+                fold.dp_size) == (("data", "model"), None, 1, 4)
+    for arch, label, item in (("qwen3-moe-30b-a3b", "F+R", "7.10"),
+                              ("jamba-v0.1-52b", "F+R+Z2", "7.10"),
+                              ("qwen1.5-0.5b", "L+F+R", "7.11")):
+        cfg = get_config(arch)
+        tech = technique_from_label(label)
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
+            check_dp(cfg, tech, S.make_shard_ctx(cfg, tech, mesh))
+
+
+def _folded_ranks(arch, reduced, label, data=2, model=3):
+    """Every rank of a (data x model) mesh as mamba2 trains on it (its
+    ``dp_over_model`` folds the model axis into the data axes): each
+    rank's context and :class:`train.step.DPLayout`, global rank order."""
+    from repro_torch.launch.build import make_model
+    from repro_torch.train.step import DPLayout
+    cfg = get_config(arch, reduced=reduced)
+    tech = technique_from_label(label)
+    out = []
+    for d in range(data):
+        for m in range(model):
+            mesh = SimpleNamespace(shape={"data": data, "model": model},
+                                   axis_names=("data", "model"), rank=m,
+                                   data_rank=d)
+            ctx = S.make_shard_ctx(cfg, tech, mesh)
+            out.append((ctx, DPLayout(make_model(cfg, tech, device="cpu",
+                                                 ctx=ctx), tech, ctx)))
+    return out
+
+
+@pytest.mark.parametrize("label", ["F+R+Z1", "F+R+Z3"])
+def test_folded_2d_mesh_writes_each_piece_once(label):
+    """mamba2-130m on a (2 x 3) mesh: its data axes are (data, model), and
+    the leaves whose largest dim 6 does not divide but 2 does (in_proj's
+    3,352, the conv's 1,792) are cut over the data axis alone, so the
+    three model ranks of a data column hold the same piece. Of the ranks
+    that hold a piece exactly one writes it into an exact gather and
+    counts it in the gradient's norm: for params, gradients and moments
+    the writers' pieces of every leaf tile it once."""
+    ranks = _folded_ranks("mamba2-130m", False, label)
+    ctx0, lay0 = ranks[0]
+    assert ctx0.dp_axes == ("data", "model") and ctx0.dp_size == 6
+    prefix = [p for p, c in lay0.opt.items() if c.dim is not None
+              and c.parts == 2]
+    assert any("in_proj" in p for p in prefix), prefix
+    for table in ("param", "grad", "opt"):
+        for path, shape in lay0.shapes.items():
+            spans = []
+            for _, lay in ranks:
+                c = getattr(lay, table)[path]
+                if c.writes:
+                    n = 1 if c.dim is None else shape[c.dim]
+                    spans.append(c.bounds(n) if c.dim is not None
+                                 else (0, n))
+            n = spans[0][1] if len(spans) == 1 else shape[
+                getattr(lay0, table)[path].dim]
+            assert sorted(spans) == [(i * n // len(spans),
+                                      (i + 1) * n // len(spans))
+                                     for i in range(len(spans))], (
+                table, path, spans)
+
+
+def _sum_calls(bufs) -> None:
+    """Each collective call's buffers (one list a rank, in the order the
+    rank called) summed as an int32 all-reduce sums them, in place."""
+    for call in zip(*bufs):
+        total = torch.stack(call).sum(0, dtype=torch.int32)
+        for b in call:
+            b.copy_(total)
+
+
+@pytest.mark.parametrize("label", ["F+R+Z1", "F+R+Z3"])
+def test_folded_2d_mesh_gathers_are_exact(label):
+    """The gathers of the reduced mamba2 on a (2 x 3) mesh (296-wide
+    in_proj and 160-wide conv cut over the data axis alone), emulated in
+    one process: each of the six ranks writes its pieces into its zero
+    int32 buffer, the buffers are summed as the all-reduce sums them, and
+    every rank reads every leaf back bit for bit, both as a whole
+    (``zero.gather_leaf``: the ZeRO-1/2 param gather and the checkpoint's)
+    and a layer at a time as ZeRO-3 gathers at use
+    (``zero.gather_used``)."""
+    from repro_torch.parallel import zero as Z
+    ranks = _folded_ranks("mamba2-130m", True, label)
+    assert any(c.parts == 2 for c in ranks[0][1].opt.values()
+               if c.dim is not None)
+    gen = torch.Generator().manual_seed(0)
+    whole = {p: torch.randn(s, generator=gen).to(torch.bfloat16)
+             for p, s in ranks[0][1].shapes.items()}
+    tables = ("opt", "param") if label == "F+R+Z3" else ("opt",)
+    for table in tables:
+        bufs, got = [], []
+        for ctx, lay in ranks:
+            bufs.append([])
+            ctx.dp_gather_bytes = bufs[-1].append
+            cuts = getattr(lay, table)
+            got.append({p: Z.gather_leaf(ctx, Z.take(w, cuts[p]), w.shape,
+                                         cuts[p])
+                        for p, w in whole.items()})
+        _sum_calls(bufs)
+        for g in got:
+            for p, w in whole.items():
+                assert torch.equal(g[p].view(torch.int16),
+                                   w.view(torch.int16)), (table, p)
+    if label == "F+R+Z3":
+        stacked = {p: w for p, w in whole.items() if "blocks" in p}
+        bufs, got = [], []
+        for ctx, lay in ranks:
+            bufs.append([])
+            ctx.dp_gather_bytes = bufs[-1].append
+            comm = Z.ZeroComm(ctx, torch.device("cpu"), torch.zeros(
+                (), requires_grad=True))
+            tree = {p: Z.Shard.of(Z.take(w, lay.param[p]), w.shape,
+                                  lay.param[p], None, comm)
+                    for p, w in stacked.items()}
+            n = next(iter(stacked.values())).shape[0]
+            got.append([Z.gather_used(t) for t in Z.unstack(tree, n)])
+        _sum_calls(bufs)
+        for g in got:
+            for i, layer in enumerate(g):
+                for p, w in stacked.items():
+                    assert torch.equal(layer[p].view(torch.int16),
+                                       w[i].view(torch.int16)), (p, i)
 
 
 def _bits(x) -> np.ndarray:
