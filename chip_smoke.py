@@ -64,7 +64,15 @@ imports nothing of the JAX package). Phases, one line each:
               lo; f32: the FMA body), and counts the tensor-core cases at
               which each planted build (P rounded to bf16, no low half, in
               the backward's dV and in the forward's O) breaks a limit:
-              readings, not checks.
+              readings, not checks. Then the causal ``q_offset`` cases
+              (``FLASH_OFFSET_CASES``: T = 1,024 rows at q_offset 1,024
+              over 2,048 keys, at 0 over 2,048 keys, at 1,000 over 2,024,
+              D = 64 with G = 1 and D = 128 with G = 8, bf16 and f32)
+              against the plain versions at the same limits; the dK/dV
+              kernel's f32 output rounded must be its bf16 output bit
+              for bit and keys no row reaches zero; and a T = 2,048
+              sequence split over 2 ranks must give the whole run's o,
+              lse and dq rows bit for bit and, summed in f32, its dK/dV.
 7. train    - full-width qwen1.5-0.5b (seeded random weights) trains
               through ``Trainer`` with technique F+R+Z3 at batch 4 x
               2048 tokens. First one loss + backward through the flash
@@ -88,7 +96,11 @@ imports nothing of the JAX package). Phases, one line each:
               each kernel's body and bound as built (the forward 3
               products, the backward 12: P and dS take three parts in
               dK/dV, dS two in dQ) beside
-              the useful work's.
+              the useful work's. Then the q_offset forms at phase 30's
+              sequence-mode ranks (B=4, H=K=16, D=64, 1,024 rows at
+              q_offset 0 over 1,024 keys and at 1,024 over 2,048, dK/dV
+              in f32) beside their bounds on the live (row, key) pairs,
+              the plain versions and SDPA with the explicit mask.
 9. ssd      - the SSD kernel against its plain version on the card, f32,
               at mamba2-130m's whole-prompt shape (B=4, T=1000 padded to
               1024, H=24, P=64, N=128, chunk 256), its chunk step's (B=1,
@@ -402,7 +414,8 @@ imports nothing of the JAX package). Phases, one line each:
               2048 (phase 24's), 3 steps. The one-device oracle
               (grad_accum 2, the ranks' rows as its two micro-batches)
               runs in this process; then one spawn runs Z0, Z1, Z2, Z3
-              and Z3+O in turn, each from fresh seeded state, and
+              and Z3+O in turn, each from fresh seeded state (qwen cut
+              to 4 of 24 layers, widths untouched), and
               mamba2-130m F+R+Z3 for 2 steps against its own oracle.
               Every stage's per-step loss must equal the oracle's bit for
               bit, its grad_norm within rtol 1e-6, and its final params
@@ -424,8 +437,10 @@ imports nothing of the JAX package). Phases, one line each:
 
 30. tp-train - tensor-parallel training on card 0, ranks over gloo: (A)
               qwen1.5-0.5b at full width, F+R, 2 steps of 4 x 2048 at TP =
-              2 with sequence parallelism off, then on, in one spawn,
-              against the one-device F+R run on the same batches: step
+              2 with sequence parallelism off, then on, then with the
+              attention in sequence (context-parallel) mode, sp off, in
+              one spawn, against the one-device F+R run on the same
+              batches: step
               1's loss and ce within 1e-5 relative, grad_norm within
               1e-3 (step 2: 1e-2 and 3%), after step 1 each param
               within half of its update at cosine >= 0.9 and each first
@@ -434,20 +449,33 @@ imports nothing of the JAX package). Phases, one line each:
               indices in the whole; beside them how far each run lies
               from the f32 step's, and a control: how far apart two
               one-device bf16 steps, grad_accum 1 and 2, lie);
-              teacher forced, step 1's loss equals the one-device
-              forward in TP = 2's order of sums bit for bit. (B) the
-              (2 data x 2 model) mesh, 4 ranks, F+R+Z3 with sequence
-              parallelism, qwen cut to 4 of 24 layers, against one
-              device at grad_accum 2. Each rank launches the flash
-              kernels on its H/2 heads and RMSNorm as one device does;
+              teacher forced, each head-mode run's step 1 loss equals
+              the one-device forward in TP = 2's order of sums bit for
+              bit. In sequence mode every rank launches the flash
+              kernels on all 16 heads at its own q_offset (0, 1,024),
+              gathers k/v once a forward and sums their f32 cotangents
+              once a backward an attention layer, and times its own
+              flash kernels while the others wait. (B) the (2 data x 2
+              model) mesh, 4 ranks, F+R+Z3 with sequence parallelism,
+              in head mode and then in sequence mode, qwen cut to 2 of
+              24 layers, against one device at grad_accum 2. In head mode each rank launches the flash
+              kernels on its H/2 heads; RMSNorm as one device does;
               it prints per rank peak memory and state at rest against
-              one device, the seams' and the step's collectives a step,
+              one device, the seams', k/v and step collectives a step,
               ms each and their share of the step (host-staged). For
               its room the script cuts earlier paths' depth (widths
               untouched): phase 21's llama2-7b / 13b to 16 / 20 layers,
               23's qwen3-moe to 2, 24 (a)'s llama2-7b to 16, 26's
-              mamba2 to 12, 27's qwen and mamba2 to 6 and llama2-7b to
-              8, 28's qwen to 6, 29's qwen3-moe to 2 ((A)) and 1 ((B)).
+              mamba2 to 12, 27's qwen and mamba2 to 4 and llama2-7b to
+              8, 28's qwen to 4, 29's qwen3-moe to 2 ((A)) and 1 ((B)).
+31. pipeline - the GPipe pipeline (``parallel.pipeline``) on card 0, two
+              ranks over gloo: qwen1.5-0.5b's 24 layers at full width as
+              2 stages of 12, forward only, 8 microbatches of 1 x 2048.
+              Both ranks' outputs must equal the one-device forward of
+              the same layers bit for bit; each rank launches the flash
+              forward (q_offset 0) and 2 RMSNorms a layer a tick over the
+              9 ticks. Prints the bubble fraction, ms a tick and a ring
+              shift, and the forward's ms against one device's.
 
 Any failed check raises. The last three lines of standard output are the
 kernels' JSON record, the card's name and power limit, and
@@ -457,7 +485,8 @@ two fine-tuning runs, the speculative engine runs, the nine
 lifecycle bursts, phase 23's eight runs, phase 24's training runs,
 phase 25's serving and training runs, phase 26's runs, phase 27's
 single-device runs and each rank's run, each of phase 28's runs on
-each rank and one device, and each of phase 30's) is driven with every launch
+each rank and one device, each of phase 30's, and phase 31's on each
+rank) is driven with every launch
 count set to 0 just before it (after the engine's warmup, and in phase
 22 (a)/(b) after the warming request) and read just after; so is each
 eager twin. Without
@@ -495,6 +524,15 @@ TRAIN_SHAPE = dict(b=4, h=16, t=2048, d=64)   # qwen1.5-0.5b at 4 x 2048
 # (32 query heads over 4 KV heads, G = 8), both D = 128
 SLICE_FLASH = (("llama2-7b", dict(b=4, h=32, kv=32, t=2048, d=128)),
                ("qwen3-moe-30b-a3b", dict(b=4, h=32, kv=4, t=2048, d=128)))
+# phase 8's causal q_offset cases (B, H, K, T, S, D, q_offset): phase 30's
+# two sequence-mode ranks (rank 1's rows over every gathered key, rank 0's
+# over keys past its reach, which get zero dK/dV) and an offset off the
+# 64-row tile, at D = 64 with G = 1 (qwen) and D = 128 with G = 8
+FLASH_OFFSET_CASES = tuple(
+    (1, h, kv, 1024, s, d, off) for h, kv, d in ((16, 16, 64), (32, 4, 128))
+    for s, off in ((2048, 1024), (2048, 0), (2024, 1000)))
+# phase 30's sequence-mode ranks at TP = 2, timed: (rank, S, q_offset)
+FLASH_OFFSET_TIMED = ((0, 1024, 0), (1, 2048, 1024))
 LOSS_ATOL = 1e-4                   # flash vs naive loss, full width
 GRAD_NORM_RTOL = 0.01
 GRAD_COS = 0.999
@@ -1838,24 +1876,30 @@ def bf16_ulp_check(a, b, n: int, atol: float = BF16_ATOL):
     return worst, bool((diff <= atol + n * ulp).all())
 
 
-def flash_vs_plain(q, k, v, do, causal, grad_ulps=BF16_ULPS, strict=True):
+def flash_vs_plain(q, k, v, do, causal, grad_ulps=BF16_ULPS, strict=True,
+                   q_offset=0):
     """Forward and backward kernels against the plain versions on the
-    same inputs: f32 outputs and lse within ``KERNEL_TOL``, bf16 outputs
-    within ``BF16_ULPS`` (o) and ``grad_ulps`` (dq, dk, dv) bf16 ulps.
-    Returns the worst |err| of (o, lse, dq, dk, dv), how many elements of
-    each differ at all, and the worst bf16 ulps of the bf16 outputs; with
+    same inputs (the causal mask's query offset ``q_offset``): f32
+    outputs and lse within ``KERNEL_TOL``, bf16 outputs within
+    ``BF16_ULPS`` (o) and ``grad_ulps`` (dq, dk, dv) bf16 ulps. Returns
+    the worst |err| of (o, lse, dq, dk, dv), how many elements of each
+    differ at all, and the worst bf16 ulps of the bf16 outputs; with
     ``strict=False`` the outputs whose limit broke instead of failing."""
     import torch
     from repro_torch.kernels import flash_attention as fa
-    o, lse = fa._fwd_cuda(q, k, v, causal=causal, sm_scale=None)
-    o_ref, lse_ref = fa._flash_fwd_torch(q, k, v, causal=causal)
-    grads = fa._bwd_cuda(q, k, v, o, lse, do, causal=causal, sm_scale=None)
-    want = fa._flash_bwd_torch(q, k, v, o, lse, do, causal=causal)
+    o, lse = fa._fwd_cuda(q, k, v, causal=causal, sm_scale=None,
+                          q_offset=q_offset)
+    o_ref, lse_ref = fa._flash_fwd_torch(q, k, v, causal=causal,
+                                         q_offset=q_offset)
+    grads = fa._bwd_cuda(q, k, v, o, lse, do, causal=causal, sm_scale=None,
+                         q_offset=q_offset)
+    want = fa._flash_bwd_torch(q, k, v, o, lse, do, causal=causal,
+                               q_offset=q_offset)
     torch.cuda.synchronize()
     dims = (q.shape[0], q.shape[1], k.shape[1], q.shape[2], k.shape[2],
             q.shape[3])
     tag = (f"B,H,K,T,S,D={dims} {q.dtype} "
-           f"{'causal' if causal else 'full'}")
+           f"{'causal' if causal else 'full'} q_offset={q_offset}")
     errs, n_diff, ulps, broken = {}, {}, {}, []
     for name, a, b, n_ulps in (("o", o, o_ref, BF16_ULPS),
                                ("lse", lse, lse_ref, None),
@@ -2032,6 +2076,164 @@ def phase_flash_vs_plain():
              " (o moves by under a bf16 ulp; a finding, not a check)"))
 
 
+def phase_flash_offset():
+    """Phase 8's causal ``q_offset`` cases (``FLASH_OFFSET_CASES``), bf16
+    (the tensor-core bodies) and f32 (the FMA bodies): every kernel
+    against its plain version at the phase's limits; the dK/dV kernel's
+    f32 output (``kv_f32``) equal, rounded, to its bf16 output bit for bit
+    (the sums before that rounding), dQ unchanged, and keys no row reaches
+    zero. Then a sequence split over two ranks at T = 2048 against the
+    whole sequence: each rank's rows with its offset over the keys it
+    reaches give the whole run's o, lse and dq bit for bit, and the two
+    ranks' f32 dK/dV partials, summed and rounded once, the whole run's
+    dK/dV within the phase's ulps."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    worst_ulps, n = 0.0, 0
+    for dtype in (torch.bfloat16, torch.float32):
+        for i, (b, h, kv, t, s, d, off) in enumerate(FLASH_OFFSET_CASES):
+            q, k, v, do = flash_inputs(b=b, h=h, kv=kv, t=t, s=s, d=d,
+                                       dtype=dtype, seed=60 + i)
+            g_ulps = BF16_ULPS_G1_GRADS if h == kv else BF16_ULPS
+            errs, _, ulps = flash_vs_plain(q, k, v, do, True,
+                                           grad_ulps=g_ulps, q_offset=off)
+            worst[dtype] = max(worst[dtype], *errs.values())
+            worst_ulps = max(worst_ulps, *ulps.values(), 0.0)
+            o, lse = fa._fwd_cuda(q, k, v, causal=True, sm_scale=None,
+                                  q_offset=off)
+            dq, dk, dv = fa._bwd_cuda(q, k, v, o, lse, do, causal=True,
+                                      sm_scale=None, q_offset=off)
+            dq2, dk32, dv32 = fa._bwd_cuda(q, k, v, o, lse, do, causal=True,
+                                           sm_scale=None, q_offset=off,
+                                           kv_f32=True)
+            tag = f"{(b, h, kv, t, s, d)} {dtype} q_offset={off}"
+            bad = [f"{nm}: {int((x != y).sum())} elements differ, at keys "
+                   f"{sorted(set((x != y).nonzero()[:, 2].tolist()))[:8]}"
+                   for nm, x, y in (("dk", dk32.to(dtype), dk),
+                                    ("dv", dv32.to(dtype), dv),
+                                    ("dq", dq2, dq))
+                   if not torch.equal(x, y)]
+            check(dk32.dtype == dv32.dtype == torch.float32 and not bad,
+                  f"flash dK/dV in f32 at {tag}: not the rounded output's "
+                  f"sums ({'; '.join(bad)})")
+            reach = t - 1 + off           # the last key a row sees
+            if reach + 1 < s:
+                check(not bool(dk32[:, :, reach + 1:].any()) and
+                      not bool(dv32[:, :, reach + 1:].any()),
+                      f"flash dK/dV at {tag}: keys past {reach} not zero")
+            n += 1
+    split = []
+    for h, kv, d in ((16, 16, 64), (32, 4, 128)):
+        t = 2048
+        g_ulps = BF16_ULPS_G1_GRADS if h == kv else BF16_ULPS
+        q, k, v, do = flash_inputs(b=1, h=h, kv=kv, t=t, s=t, d=d,
+                                   dtype=torch.bfloat16, seed=70)
+        o, lse = fa._fwd_cuda(q, k, v, causal=True, sm_scale=None)
+        dq, dk, dv = fa._bwd_cuda(q, k, v, o, lse, do, causal=True,
+                                  sm_scale=None)
+        dk_sum = torch.zeros(dk.shape, dtype=torch.float32, device="cuda")
+        dv_sum = torch.zeros_like(dk_sum)
+        for r in range(2):
+            lo, hi = r * t // 2, (r + 1) * t // 2
+            rows = [x[:, :, lo:hi].contiguous() for x in (q, do)]
+            keys = [x[:, :, :hi].contiguous() for x in (k, v)]
+            o_r, lse_r = fa._fwd_cuda(rows[0], *keys, causal=True,
+                                      sm_scale=None, q_offset=lo)
+            dq_r, dk_r, dv_r = fa._bwd_cuda(
+                rows[0], *keys, o_r, lse_r, rows[1], causal=True,
+                sm_scale=None, q_offset=lo, kv_f32=True)
+            check(torch.equal(o_r, o[:, :, lo:hi]) and
+                  torch.equal(lse_r, lse[:, :, lo:hi]) and
+                  torch.equal(dq_r, dq[:, :, lo:hi]),
+                  f"flash rank {r} of 2 (H={h} K={kv} D={d}, q_offset "
+                  f"{lo}): o/lse/dq differ from the whole sequence's rows")
+            dk_sum[:, :, :hi] += dk_r
+            dv_sum[:, :, :hi] += dv_r
+        uk, ok_k = bf16_ulp_check(dk_sum.to(torch.bfloat16), dk, g_ulps)
+        uv, ok_v = bf16_ulp_check(dv_sum.to(torch.bfloat16), dv, g_ulps)
+        check(ok_k and ok_v, f"flash sequence split H={h} K={kv} D={d}: "
+              f"summed dK/dV {uk}/{uv} bf16 ulps from the whole run's "
+              f"(> {g_ulps})")
+        split.append(f"H={h} K={kv} D={d}: dK/dV within {max(uk, uv):g} "
+                     f"ulps beyond the floor")
+    print(f"[flash] q_offset: {n} cases fwd+bwd kernels == plain (f32 "
+          f"within rtol=atol=2e-5, max |err| {worst[torch.float32]:.3g}; "
+          f"bf16 within the phase's ulps, max |err| "
+          f"{worst[torch.bfloat16]:.3g}, max {worst_ulps:g} ulps beyond the "
+          f"floor), dK/dV in f32 == the rounded output's sums bit for bit, "
+          f"keys no row reaches zero; a T = 2048 sequence split over 2 "
+          f"ranks: each rank's o, lse and dq == the whole run's rows bit "
+          f"for bit, the ranks' f32 dK/dV summed and rounded once == the "
+          f"whole run's (" + "; ".join(split) + f"); {card_line()}")
+
+
+def flash_offset_timing():
+    """The flash kernels at phase 30's sequence-mode ranks (B = 4, H = K =
+    16, D = 64, each rank's 1024 rows of T = 2048: rank 0 over the keys
+    [0, 1024) at q_offset 0, rank 1 over [0, 2048) at q_offset 1024),
+    beside their bounds counted on the live (row, key) pairs, the plain
+    versions and SDPA with the equivalent explicit boolean mask. The
+    backward's dK/dV leaves in f32, as sequence mode runs it."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    b, h, t, d = 4, 16, 1024, 64
+    out = {}
+    for rank, s, off in FLASH_OFFSET_TIMED:
+        q, k, v, do = flash_inputs(b=b, h=h, kv=h, t=t, s=s, d=d,
+                                   dtype=torch.bfloat16, seed=80 + rank)
+        errs, _, _ = flash_vs_plain(q, k, v, do, True,
+                                    grad_ulps=BF16_ULPS_G1_GRADS,
+                                    q_offset=off)
+        o, lse = fa._fwd_cuda(q, k, v, causal=True, sm_scale=None,
+                              q_offset=off)
+        ms = {"fwd": cuda_ms(lambda i: fa._fwd_cuda(
+                  q, k, v, causal=True, sm_scale=None, q_offset=off),
+                  iters=20),
+              "bwd": cuda_ms(lambda i: fa._bwd_cuda(
+                  q, k, v, o, lse, do, causal=True, sm_scale=None,
+                  q_offset=off, kv_f32=True), iters=10)}
+        plain = {"fwd": cuda_ms(lambda i: fa._flash_fwd_torch(
+                     q, k, v, causal=True, q_offset=off), iters=5, warmup=1),
+                 "bwd": cuda_ms(lambda i: fa._flash_bwd_torch(
+                     q, k, v, o, lse, do, causal=True, q_offset=off,
+                     kv_f32=True), iters=5, warmup=1)}
+        keep = fa._causal_keep(t, s, off, q.device)
+        lib_fwd = cuda_ms(lambda i: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=keep), iters=20)
+        qg, kg, vg = (x.detach().clone().requires_grad_(True)
+                      for x in (q, k, v))
+        res = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=keep)
+        lib_bwd = cuda_ms(lambda i: torch.autograd.grad(
+            res, (qg, kg, vg), do, retain_graph=True), iters=10)
+        del res
+        pairs = b * h * sum(min(s, i + off + 1) for i in range(t))
+        bounds = flash_bounds(b=b, h=h, kv=h, t=t, s=s, d=d, elt=2,
+                              pairs=pairs)
+        out[rank] = {"ms": ms, "plain": plain, "lib_fwd": lib_fwd,
+                     "lib_bwd": lib_bwd, "bounds": bounds, "errs": errs,
+                     "pairs": pairs}
+        print(f"[timing] flash q_offset={off} (rank {rank} of phase 30's "
+              f"TP = 2) B={b} H=K={h} T={t} S={s} D={d} bf16, "
+              f"{pairs} live (row, key) pairs: fwd {ms['fwd'] * 1e3:.1f} us "
+              f"(bound {bounds['fwd'][0] * 1e3:.2f} us by "
+              f"{bounds['fwd'][1]}), bwd with f32 dK/dV "
+              f"{ms['bwd'] * 1e3:.1f} us (bound {bounds['bwd'][0] * 1e3:.2f} "
+              f"us by {bounds['bwd'][1]}); plain fwd "
+              f"{plain['fwd'] * 1e3:.1f} us, bwd {plain['bwd'] * 1e3:.1f} us; "
+              f"sdpa with the explicit mask fwd {lib_fwd * 1e3:.1f} us, bwd "
+              f"{lib_bwd * 1e3:.1f} us; == plain, max |err| "
+              + ", ".join(f"{nm} {e:.3g}" for nm, e in errs.items())
+              + f"; {card_line()}")
+    print(f"[timing] flash q_offset: rank 1's fwd+bwd "
+          f"{(out[1]['ms']['fwd'] + out[1]['ms']['bwd']) * 1e3:.1f} us is "
+          f"{(out[1]['ms']['fwd'] + out[1]['ms']['bwd']) / (out[0]['ms']['fwd'] + out[0]['ms']['bwd']):.2f}x "
+          f"rank 0's {(out[0]['ms']['fwd'] + out[0]['ms']['bwd']) * 1e3:.1f} "
+          f"us ({out[1]['pairs'] / out[0]['pairs']:.2f}x the live pairs)")
+    return out
+
+
 def _zero_output(fwd):
     def run(*args, **kw):
         o, lse = fwd(*args, **kw)
@@ -2203,13 +2405,15 @@ def phase_train(cfg):
     return launches, out
 
 
-def flash_bounds(*, b, h, kv, t, s, d, elt, causal=True):
+def flash_bounds(*, b, h, kv, t, s, d, elt, causal=True, pairs=None):
     """Least time (ms) of each kernel's function on this card: bytes of
     its inputs read once and outputs written once over HBM rate, against
-    its useful products (causal pairs only when ``causal``) over the bf16
-    tensor-core rate. Returns {name: (bound_ms, bound_by)}."""
-    pairs = (b * h * t * (t + 1) // 2 if causal and t == s
-             else b * h * t * s)
+    its useful products (causal pairs only when ``causal``, or the live
+    (row, key) ``pairs`` given) over the bf16 tensor-core rate. Returns
+    {name: (bound_ms, bound_by)}."""
+    if pairs is None:
+        pairs = (b * h * t * (t + 1) // 2 if causal and t == s
+                 else b * h * t * s)
     qo = b * h * t * d * elt
     kv_bytes = b * kv * s * d * elt
     row = b * h * t * 4
@@ -4396,7 +4600,8 @@ def slice_counts(reset: bool = False) -> dict:
     from repro_torch.kernels import quant_matmul as qmm
     from repro_torch.kernels import rmsnorm as rn
     if reset:
-        for c in (fa.LAUNCHES, qmm.LAUNCHES, qmm.BODIES, rn.LAUNCHES):
+        for c in (fa.LAUNCHES, fa.OFFSETS, qmm.LAUNCHES, qmm.BODIES,
+                  rn.LAUNCHES):
             c.clear()
     return {"fwd": fa.LAUNCHES["fwd"], "bwd_dkv": fa.LAUNCHES["bwd_dkv"],
             "bwd_dq": fa.LAUNCHES["bwd_dq"],
@@ -5377,8 +5582,9 @@ TP_RUNS = (("qwen1.5-0.5b", dict(prefill_chunk=64, kv_quant="int8")),
 TP_POOL = dict(max_batch=8, n_blocks=1024, block_size=16)
 # llama2-7b serves cut to 16 of its 32 layers (widths untouched) since
 # the script needed room for phase 29; since phase 30 llama2-7b to 8, and
-# qwen1.5-0.5b and mamba2-130m to 6 of their 24
-TP_LAYERS = {"llama2-7b": 8, "qwen1.5-0.5b": 6, "mamba2-130m": 6}
+# qwen1.5-0.5b and mamba2-130m to 6 of their 24; since phase 31 those two
+# to 4
+TP_LAYERS = {"llama2-7b": 8, "qwen1.5-0.5b": 4, "mamba2-130m": 4}
 
 
 def tp_config(name):
@@ -5773,8 +5979,8 @@ DP_RUNS = (("qwen1.5-0.5b", "F+R", 2), ("qwen1.5-0.5b", "F+R+Z1", 2),
            ("qwen1.5-0.5b", "F+R+Z3+O", 2), ("mamba2-130m", "F+R+Z3", 2))
 DP_LR = 1e-3                        # warmup 0: every step moves the params
 # qwen's stages run cut to 6 of its 24 layers (widths untouched) since the
-# script needed room for phase 30
-DP_LAYERS = {"qwen1.5-0.5b": 6}
+# script needed room for phase 30, to 4 since phase 31
+DP_LAYERS = {"qwen1.5-0.5b": 4}
 
 
 def dp_config(name):
@@ -6818,10 +7024,12 @@ def check_moe_dp(recs, oracle, n_steps, dp_cfg, card, total) -> None:
 TPT_DEGREE = 2
 TPT_STEPS = 2
 # (A): qwen1.5-0.5b at full width, F+R on phase 28's 4 x 2048 global batch
-# at TP = 2, sequence parallelism off then on; (B): the (2, 2) mesh, F+R+Z3
-# with sequence parallelism, qwen cut to 4 of its 24 layers (widths
-# untouched), against one device at grad_accum 2
-TPT_MESH_LAYERS = 4
+# at TP = 2, sequence parallelism off then on, then sequence (context-
+# parallel) attention; (B): the (2, 2) mesh, F+R+Z3 with sequence
+# parallelism, in head mode then in sequence mode, qwen cut to 2 of its 24
+# layers (4 before phase 31; widths untouched), against one device at
+# grad_accum 2
+TPT_MESH_LAYERS = 2
 # the CPU cases' limits (tests/test_torch_tp_train.py): step 1's loss and
 # ce relative, grad_norm relative; later steps' loss (absolute) and
 # grad_norm; after step 1 each first moment's distance over its norm and
@@ -6924,16 +7132,19 @@ def tp_train_order(cfg, tp: int, sp: bool):
         B.attn_apply, B.ffn_apply, LMmod.LM._block_ce = attn, ffn, block_ce
 
 
-def tpt_run(mesh, label, sp, batches, accum=1, layers=None):
+def tpt_run(mesh, label, sp, batches, accum=1, layers=None, mode="auto"):
     """One run of phase 30: qwen1.5-0.5b (``layers`` of them) seeded on
     this rank's card (one device when ``mesh`` is None, ``grad_accum``
-    ``accum``), the kernels' launch counts set to 0, the steps fenced one
-    by one, each seam and step collective timed between two
-    synchronizes. Returns the losses (bits and values), ce, grad_norms,
-    step ms, the seams' and collectives' counts and seconds, the
-    launches, peak memory, the state's bytes at rest (with the gradient
-    buffer), and the sketches of the params before step 1 and of the
-    params and first moments after it."""
+    ``accum``; attention mode ``mode`` over the model axis), the
+    kernels' launch counts set to 0, the steps fenced one by one, each
+    seam, k/v and step collective timed between two synchronizes.
+    Returns the losses (bits and values), ce, grad_norms, step ms, the
+    seams', k/v collectives' and step collectives' counts and seconds,
+    the launches (and the flash launches by q_offset), peak memory, the
+    state's bytes at rest (with the gradient buffer), the sketches of the
+    params before step 1 and of the params and first moments after it,
+    and in sequence mode this rank's flash fwd and bwd at its shape
+    (:func:`seq_flash_us`)."""
     import dataclasses
     import struct
     import torch
@@ -6949,7 +7160,7 @@ def tpt_run(mesh, label, sp, batches, accum=1, layers=None):
     if layers:
         cfg = dataclasses.replace(cfg, n_layers=layers)
     tech = dataclasses.replace(technique_from_label(label), grad_accum=accum,
-                               sp=sp)
+                               sp=sp, attn_mode=mode)
     ctx = make_shard_ctx(cfg, tech, mesh) if mesh is not None else None
     dev = mesh.device if mesh is not None else torch.device("cuda")
     model = make_model(cfg, tech, device=dev, ctx=ctx)
@@ -6961,7 +7172,8 @@ def tpt_run(mesh, label, sp, batches, accum=1, layers=None):
         return struct.unpack("<I", struct.pack("<f", float(x)))[0]
 
     rec = {"loss": [], "loss_f": [], "ce": [], "grad_norm": [], "ms": [],
-           "seam": [], "coll": []}
+           "seam": [], "coll": [], "kv": [],
+           "mode": ctx.attn_mode if ctx is not None else None}
     rec["sk0"] = leaf_sketch({"params": state["params"]}, lay, ctx, dev)
     step = build_train_step(model, tech, opt, ctx=ctx)
     timer = Timer()
@@ -6977,13 +7189,14 @@ def tpt_run(mesh, label, sp, batches, accum=1, layers=None):
             lo, hi = ctx.batch_sharding(DP_SHAPE["b"])
             batch = {k: v[lo:hi] for k, v in batch.items()}
         n0 = {k: (len(timer.records[k]), sum(timer.records[k]))
-              for k in ("seam", "collective")}
+              for k in ("seam", "collective", "kv")}
         torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
         state, met = step(state, batch)
         torch.cuda.synchronize(dev)
         rec["ms"].append((time.perf_counter() - t0) * 1e3)
-        for k, key in (("seam", "seam"), ("collective", "coll")):
+        for k, key in (("seam", "seam"), ("collective", "coll"),
+                       ("kv", "kv")):
             rec[key].append((len(timer.records[k]) - n0[k][0],
                              sum(timer.records[k]) - n0[k][1]))
         rec["loss"].append(bits(met["loss"]))
@@ -6995,7 +7208,11 @@ def tpt_run(mesh, label, sp, batches, accum=1, layers=None):
                                     "opt": {"m": state["opt"]["m"]}},
                                    lay, ctx, dev)
     rec["launches"] = slice_counts()
+    from repro_torch.kernels import flash_attention as fa
+    rec["offsets"] = dict(fa.OFFSETS)
     rec["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    if ctx is not None and ctx.attn_mode == "seq":
+        rec["flash_us"] = seq_flash_us(ctx)
     if ctx is not None:
         ctx.comm_timer = None
         rec["seam_bytes"] = ctx.seam_bytes
@@ -7005,6 +7222,36 @@ def tpt_run(mesh, label, sp, batches, accum=1, layers=None):
     del state, step, model
     free_card()
     return rec
+
+
+def seq_flash_us(ctx) -> tuple:
+    """This rank's flash forward and backward (dK/dV in f32, as sequence
+    mode runs it) in us at phase 30's sequence-mode shape (its rows of
+    the batch, H = K = 16, D = 64, its T/tp rows of T = 2048 over the
+    keys it reaches, at its q_offset), timed by events while every other
+    rank waits at a barrier (they share the card)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import flash_attention as fa
+    t = DP_SHAPE["t"]
+    lo, hi = ctx.own_rows(t)
+    out = None
+    for g in range(dist.get_world_size()):
+        if g == dist.get_rank():
+            q, k, v, do = flash_inputs(b=DP_SHAPE["b"] // ctx.dp_size,
+                                       h=16, kv=16, t=hi - lo, s=hi, d=64,
+                                       dtype=torch.bfloat16, seed=ctx.rank)
+            o, lse = fa._fwd_cuda(q, k, v, causal=True, sm_scale=None,
+                                  q_offset=lo)
+            out = (cuda_ms(lambda i: fa._fwd_cuda(
+                       q, k, v, causal=True, sm_scale=None, q_offset=lo),
+                       iters=10) * 1e3,
+                   cuda_ms(lambda i: fa._bwd_cuda(
+                       q, k, v, o, lse, do, causal=True, sm_scale=None,
+                       q_offset=lo, kv_f32=True), iters=10) * 1e3)
+            del q, k, v, do, o, lse
+        dist.barrier()
+    return out
 
 
 def tpt_rank_runs(mesh, runs):
@@ -7166,19 +7413,81 @@ def _tpt_line(what, rec, want, worst, f32_norm, card) -> str:
             f"{la['bwd_dq']}, RMSNorm {la['rmsnorm']}; {card}")
 
 
+def check_seq_ranks(recs, oracle, refs, n_layers, norms, total, card,
+                    run, ce=True) -> None:
+    """A sequence-mode run of phase 30 (``run`` names it; ``recs`` in
+    global rank order, model rank g % TPT_DEGREE) against its one-device
+    step at the same limits: each rank in sequence mode, the ranks'
+    losses alike, RMSNorm as one device launches it, and every flash
+    launch at the rank's own q_offset (its first row, r x T/2): two
+    forwards (the recomputation's) and one of each backward kernel an
+    attention layer a step, on all 16 heads (the attention leaves are
+    whole on every rank); one k/v gather a forward and one f32 sum of the
+    k/v cotangents a backward. Prints each rank's readings with its k/v
+    collectives and its flash us."""
+    t = DP_SHAPE["t"]
+    for g, rec in enumerate(recs):
+        r = g % TPT_DEGREE
+        what = f"{run}, rank {g}"
+        check(rec["mode"] == "seq", f"{what}: the context is in "
+              f"{rec['mode']} mode")
+        check(rec["loss"] == recs[0]["loss"],
+              f"{what}: losses differ between the ranks")
+        worst = tpt_check(what, rec, oracle, n_layers, refs["truth"], ce=ce)
+        check(rec["launches"]["rmsnorm"] == norms * TPT_STEPS,
+              f"{what}: RMSNorm launches {rec['launches']['rmsnorm']} != "
+              f"{norms} a step")
+        lo = r * t // TPT_DEGREE
+        n = n_layers * TPT_STEPS
+        want = {("fwd", lo): 2 * n, ("bwd_dq", lo): n, ("bwd_dkv", lo): n}
+        check(rec["offsets"] == want, f"{what}: flash launches by "
+              f"(kernel, q_offset) {rec['offsets']} != {want}")
+        steps = len(rec["ms"])
+        kn = [c[0] for c in rec["kv"]]
+        check(kn == [3 * n_layers] * steps, f"{what}: k/v collectives a "
+              f"step {kn} != {3 * n_layers}")
+        add_counts(total, rec["launches"])
+        for key, kernel in (("offset_fwd", "fwd"), ("offset_bwd", "bwd_dkv")):
+            total[key] = total.get(key, 0) + sum(
+                v for (k, o), v in rec["offsets"].items()
+                if k == kernel and o > 0)
+        ms = sum(rec["ms"][1:])
+        ks = sum(c[1] for c in rec["kv"][1:])
+        kc = sum(c[0] for c in rec["kv"][1:])
+        fwd_us, bwd_us = rec["flash_us"]
+        print(_tpt_line(what, rec, oracle, worst, refs["norm"], card)
+              + f"; k/v: {kc // max(steps - 1, 1)} collectives a step (a "
+              f"gather a forward, again in the recomputation, and an f32 "
+              f"sum of the cotangents a backward, an attention layer), "
+              f"{ks * 1e3 / max(kc, 1):.2f} ms each, "
+              f"{ks * 1e3 / max(ms, 1e-9) * 100:.1f}% of the step, "
+              f"host-staged (gloo); flash at q_offset {lo} over "
+              f"{lo + t // TPT_DEGREE} keys: fwd {fwd_us:.1f} us, bwd "
+              f"(f32 dK/dV) {bwd_us:.1f} us")
+    (f0, b0), (f1, b1) = recs[0]["flash_us"], recs[-1]["flash_us"]
+    print(f"[tp-train] sequence mode: the last rank's flash fwd+bwd "
+          f"{f1 + b1:.1f} us against rank 0's {f0 + b0:.1f} us "
+          f"({(f1 + b1) / (f0 + b0):.2f}x: causal work on a contiguous T "
+          f"split is uneven); {card}")
+
+
 def phase_tp_train() -> dict:
     """Phase 30: tensor-parallel training on card 0, ranks over gloo.
     (A) qwen1.5-0.5b at full width, F+R, 2 steps of 4 x 2048 at TP = 2,
-    sequence parallelism off then on, in one spawn, against the
+    sequence parallelism off then on, then the attention in sequence
+    (context-parallel) mode with sp off (:func:`check_seq_ranks`), in
+    one spawn, against the
     one-device F+R run on the same batches (this process) at the CPU
     cases' limits (beside them each run's distance from the f32 step's,
     and a control, one device at grad_accum 2: how far two one-device
-    bf16 steps lie apart); teacher forced, each mode's
+    bf16 steps lie apart); teacher forced, each head-mode run's
     step-1 loss must equal the one-device forward in TP = 2's order of
     sums bit for bit. (B) the
-    (2, 2) mesh, 4 ranks, F+R+Z3 with sequence parallelism, qwen cut to
-    4 of its 24 layers, against one device at grad_accum 2. Every rank
-    must launch the flash kernels (on its H/2 heads) twice and once an
+    (2, 2) mesh, 4 ranks, F+R+Z3 with sequence parallelism, in head mode
+    and then in sequence mode, qwen cut to TPT_MESH_LAYERS of its 24
+    layers, against one device at grad_accum 2. Every rank
+    must launch the flash kernels (in head mode on its H/2 heads, in
+    sequence mode on all H at its q_offset) twice and once an
     attention layer a step and RMSNorm as the one-device step does.
     Prints per rank peak memory and state at rest against one device,
     the seams' and the step's collectives a step, ms each and their share
@@ -7200,9 +7509,10 @@ def phase_tp_train() -> dict:
     print(tpt_control_line(oracle, accum2, truth, card))
     del accum2
     total = {}
+    runs = [("F+R", sp, batches) for sp in (False, True)]
+    runs.append(("F+R", False, batches, 1, None, "seq"))
     ranks = spawn_ranks(tpt_rank_runs, TPT_DEGREE, backend="gloo",
-                        args=([("F+R", sp, batches) for sp in (False,
-                                                               True)],))
+                        args=(runs,))
     norms = norms_per_train_step(cfg, DP_SHAPE["t"], remat=True)
     for i, sp in enumerate((False, True)):
         recs = [rr[i] for rr in ranks]
@@ -7224,6 +7534,10 @@ def phase_tp_train() -> dict:
             print(_tpt_line(what, rec, oracle, worst, refs["norm"], card) +
                   "; step-1 loss == the one-device forward in TP = 2's "
                   "order of sums bit for bit")
+    seq = [rr[2] for rr in ranks]
+    _tpt_wholes(seq)
+    check_seq_ranks(seq, oracle, refs, cfg.n_layers, norms, total, card,
+                    f"qwen1.5-0.5b F+R attn_mode=seq at TP = {TPT_DEGREE}")
     t1 = time.monotonic()
     small = dataclasses.replace(cfg, n_layers=TPT_MESH_LAYERS)
     refs_b = tpt_refs(batches, TPT_MESH_LAYERS, emulate=False)
@@ -7231,7 +7545,9 @@ def phase_tp_train() -> dict:
     _tpt_wholes([oracle_b])
     ranks = spawn_ranks(tpt_rank_runs, TPT_DEGREE, data=2, backend="gloo",
                         args=([("F+R+Z3", True, batches, 1,
-                                TPT_MESH_LAYERS)],))
+                                TPT_MESH_LAYERS),
+                               ("F+R+Z3", True, batches, 1,
+                                TPT_MESH_LAYERS, "seq")],))
     recs = [rr[0] for rr in ranks]
     _tpt_wholes(recs)
     norms = norms_per_train_step(small, DP_SHAPE["t"], remat=True)
@@ -7248,11 +7564,159 @@ def phase_tp_train() -> dict:
         add_counts(total, rec["launches"])
         print(_tpt_line(what, rec, oracle_b, worst, refs_b["norm"], card) +
               " (one device: grad_accum 2)")
+    seq = [rr[1] for rr in ranks]
+    _tpt_wholes(seq)
+    check_seq_ranks(seq, oracle_b, refs_b, TPT_MESH_LAYERS, norms, total,
+                    card, f"qwen1.5-0.5b ({TPT_MESH_LAYERS} of 24 layers) "
+                    f"F+R+Z3 +sp attn_mode=seq on the (2 data x 2 model) "
+                    f"mesh", ce=False)
     RMSNORM_RUNS["tensor-parallel ranks (phase 30)"] = total["rmsnorm"]
     print(f"[tp-train] phase 30 launches over the ranks' runs: " + ", ".join(
         f"{k} {v}" for k, v in total.items()) + f"; (A) took "
         f"{t1 - t0:.1f}s, (B) {time.monotonic() - t1:.1f}s; phase 30 took "
         f"{time.monotonic() - t0:.1f}s")
+    return total
+
+
+# phase 31: qwen1.5-0.5b's 24 layers as 2 pipeline stages of 12, forward
+# only, over 8 microbatches of 1 x 2048 tokens
+PIPE_STAGES = 2
+PIPE_MICRO = 8
+PIPE_T = 2048
+
+
+def pipe_setup(dev):
+    """Phase 31's model (qwen1.5-0.5b at full width, seeded, the flash
+    kernels: ``F``), its stacked layer params, its stage function (the
+    layers of a stage in turn, forward only) and the embedded
+    microbatches (PIPE_MICRO, 1, PIPE_T, d_model) of seeded tokens."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.config import technique_from_label
+    from repro_torch.launch.build import make_model
+    from repro_torch.models.params import tree_paths, tree_unstack
+    cfg = get_config("qwen1.5-0.5b")
+    model = make_model(cfg, technique_from_label("F"), device=dev)
+    params = model.init(0)
+    g = torch.Generator().manual_seed(31)
+    tokens = torch.randint(0, cfg.vocab_size, (PIPE_MICRO, 1, PIPE_T),
+                           generator=g).to(dev)
+    positions = torch.arange(PIPE_T, device=dev)[None, :]
+
+    def stage_fn(p, x):
+        n = tree_paths(p)[0][1].shape[0]
+        for lp in tree_unstack(p, n):
+            x, _ = model._layer(x, lp, positions, 0)
+        return x
+
+    with torch.no_grad():
+        x = torch.stack([model._embed_in(params, tokens[m], None)
+                         for m in range(PIPE_MICRO)])
+    return model, params["blocks"]["pos0"], stage_fn, x
+
+
+def _sha(t) -> str:
+    import hashlib
+    import torch
+    return hashlib.sha256(t.detach().contiguous().view(torch.int16).cpu()
+                          .numpy().tobytes()).hexdigest()
+
+
+def pipe_rank_run(mesh):
+    """Phase 31 on one rank: the GPipe forward over the model axis
+    (``parallel.pipeline``), its launches counted from 0, each stage run
+    ("tick") and ring shift ("shift") timed between two synchronizes.
+    Returns the outputs' digest, the launches, the flash launches by
+    q_offset, the timer's records, the forward's ms and peak memory."""
+    import torch
+    from repro_torch.core.perfscope import Timer
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.parallel import pipeline as PP
+    dev = mesh.device
+    model, stacked, stage_fn, x = pipe_setup(dev)
+    timer = Timer()
+    fwd = PP.pipeline_forward(mesh, "model", stage_fn, PIPE_MICRO,
+                              timer=timer)
+    stages = PP.split_stages(stacked, PIPE_STAGES)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    slice_counts(reset=True)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out = fwd(stages, x)
+    torch.cuda.synchronize(dev)
+    ms = (time.perf_counter() - t0) * 1e3
+    return {"sha": _sha(out), "launches": slice_counts(),
+            "offsets": dict(fa.OFFSETS), "records": dict(timer.records),
+            "ms": ms, "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+            "finite": bool(torch.isfinite(out).all()),
+            "shape": tuple(out.shape)}
+
+
+def phase_pipeline() -> dict:
+    """Phase 31: the GPipe pipeline (``parallel.pipeline``) on card 0,
+    two ranks over gloo, qwen1.5-0.5b's 24 layers at full width as 2
+    stages of 12, forward only, 8 microbatches of 1 x 2048: its outputs
+    on both ranks equal bit for bit the one-device forward of the same
+    24 layers on each microbatch (this process). Every rank runs its
+    stage each of the M + S - 1 ticks (the bubble's on zeros): flash
+    forward and 2 RMSNorms a layer a tick, at q_offset 0. Prints the
+    bubble fraction, ms a tick and a ring shift, and the forward's ms
+    against one device's. Returns the ranks' launches."""
+    import torch
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.parallel import pipeline as PP
+    t0 = time.monotonic()
+    card = card_line()
+    ranks = spawn_ranks(pipe_rank_run, PIPE_STAGES, backend="gloo")
+    model, stacked, stage_fn, x = pipe_setup("cuda")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with torch.no_grad():
+        want = torch.stack([stage_fn(stacked, x[m])
+                            for m in range(PIPE_MICRO)])
+    torch.cuda.synchronize()
+    one_ms = (time.perf_counter() - t1) * 1e3
+    want_sha = _sha(want)
+    check(bool(torch.isfinite(want).all()), "phase 31: the one-device "
+          "forward is not finite")
+    del model, stacked, x, want
+    free_card()
+    ticks = PIPE_MICRO + PIPE_STAGES - 1
+    per_stage = get_cfg_layers("qwen1.5-0.5b") // PIPE_STAGES
+    total = {}
+    for r, rec in enumerate(ranks):
+        what = f"phase 31 pipeline rank {r}"
+        check(rec["finite"] and rec["sha"] == want_sha,
+              f"{what}: outputs {rec['shape']} differ from the one-device "
+              f"forward of the same layers (digest {rec['sha'][:12]} vs "
+              f"{want_sha[:12]})")
+        la = rec["launches"]
+        check(la["fwd"] == per_stage * ticks and
+              la["bwd_dkv"] == la["bwd_dq"] == 0 and
+              rec["offsets"] == {("fwd", 0): per_stage * ticks},
+              f"{what}: flash launches {la} / {rec['offsets']} != "
+              f"{per_stage} a tick over {ticks} ticks at q_offset 0")
+        check(la["rmsnorm"] == 2 * per_stage * ticks,
+              f"{what}: RMSNorm launches {la['rmsnorm']} != "
+              f"{2 * per_stage * ticks}")
+        add_counts(total, la)
+        tick, shift = rec["records"]["tick"], rec["records"]["shift"]
+        print(f"[pipeline] rank {r} (stage {r}: layers "
+              f"{r * per_stage}-{(r + 1) * per_stage - 1}) on card 0: "
+              f"outputs == the one-device forward bit for bit; {ticks} "
+              f"ticks, {sum(tick) / len(tick) * 1e3:.2f} ms a tick (a "
+              f"stage's {per_stage} layers on 1 x {PIPE_T}), "
+              f"{len(shift)} ring shifts of {sum(shift) / len(shift) * 1e3:.2f} "
+              f"ms each (host-staged, gloo), the forward "
+              f"{rec['ms']:.1f} ms (one device {one_ms:.1f} ms for the "
+              f"{PIPE_MICRO} microbatches); peak {rec['peak_gib']:.2f} GiB; "
+              f"launches fwd {la['fwd']}, RMSNorm {la['rmsnorm']}; {card}")
+    RMSNORM_RUNS["pipeline ranks (phase 31)"] = total["rmsnorm"]
+    print(f"[pipeline] phase 31: bubble fraction "
+          f"{PP.bubble_fraction(PIPE_MICRO, PIPE_STAGES):.4f} "
+          f"(({PIPE_STAGES} - 1) / ({PIPE_MICRO} + {PIPE_STAGES} - 1)); "
+          f"took {time.monotonic() - t0:.1f}s")
     return total
 
 
@@ -7386,12 +7850,14 @@ def main() -> None:
     })
 
     phase_flash_vs_plain()
+    phase_flash_offset()
     mark("flash against plain")
     train_launches, _ = phase_train(get_config("qwen1.5-0.5b"))
     mark("qwen training")
     ft = phase_flash_timing()
     for name, sl in SLICE_FLASH:
         phase_flash_timing(name, sl)
+    fo = flash_offset_timing()
     flash_src = "src/repro_torch/kernels/csrc/flash_attention.cu"
     # bwd is the whole flash_attention_bwd (both kernels, one launch
     # each per call, so its launches are either kernel's count); no
@@ -7416,6 +7882,27 @@ def main() -> None:
             "bound_ms": ft["bounds"][name][0],
             "bound_by": ft["bounds"][name][1],
             "library_ms": lib,
+        })
+
+    # the q_offset forms at phase 30's last sequence-mode rank (q_offset
+    # 1024 over 2048 keys); their launches are the main path's at a
+    # q_offset above 0, counted after phase 30
+    for name, part in (("fwd", "fwd"), ("bwd", "bwd")):
+        o = fo[1]
+        record["kernels"].append({
+            "name": f"flash_attention_{name}_q_offset",
+            "route": "cuda",
+            "source": flash_src,
+            "replaces": f"src/repro/kernels/flash_attention.py:"
+                        f"{76 if name == 'fwd' else 203}",
+            "launches": 0,
+            "max_abs_err": max(o["errs"][e] for e in (
+                ("o", "lse") if name == "fwd" else ("dq", "dk", "dv"))),
+            "ms": o["ms"][part],
+            "plain_ms": o["plain"][part],
+            "bound_ms": o["bounds"][part][0],
+            "bound_by": o["bounds"][part][1],
+            "library_ms": o["lib_fwd"] if name == "fwd" else o["lib_bwd"],
         })
 
     phase_ssd_vs_plain()
@@ -7496,10 +7983,12 @@ def main() -> None:
     mark("phase 29 MoE over ranks")
     tpt = phase_tp_train()
     mark("phase 30 TP training")
+    pipe = phase_pipeline()
+    mark("phase 31 pipeline")
     fam = families["launches"]
     slice_launches = {
         "flash_attention_fwd": (trained["fwd"] + fam["fwd"] + dp["fwd"]
-                                + ep["fwd"] + tpt["fwd"]),
+                                + ep["fwd"] + tpt["fwd"] + pipe["fwd"]),
         "flash_attention_bwd_dkv": (trained["bwd_dkv"] + fam["bwd_dkv"]
                                     + dp["bwd_dkv"] + ep["bwd_dkv"]
                                     + tpt["bwd_dkv"]),
@@ -7518,6 +8007,10 @@ def main() -> None:
             entry["launches"] += (life["ssd"] + moe["ssd"] + ssm["ssd"]
                                   + tp["ssd"] + ep["ssd"])
         entry["launches"] += slice_launches.get(entry["name"], 0)
+        if entry["name"] == "flash_attention_fwd_q_offset":
+            entry["launches"] = tpt["offset_fwd"]
+        if entry["name"] == "flash_attention_bwd_q_offset":
+            entry["launches"] = tpt["offset_bwd"]
     print(f"[spec] RMSNorm launches per run: " + ", ".join(
         f"{k} {v}" for k, v in RMSNORM_RUNS.items()))
     train = rms_t["train"]

@@ -7,8 +7,13 @@
 //
 // What they compute. Layout q (B,H,T,D), k/v (B,K,S,D), H = K*G, query
 // head h reads K/V head h / G; bf16 or f32 in, f32 arithmetic inside.
-// Scores are (q*scale).k; causal masking is top-left aligned (row i sees
-// columns j <= i) and writes -1e30, never -inf.
+// Scores are (q*scale).k; causal masking writes -1e30, never -inf, and
+// takes a query offset q_offset >= 0: row i sits at position i + q_offset
+// and sees columns j <= i + q_offset (0 is top-left aligned; a rank that
+// holds rows [r*T/tp, (r+1)*T/tp) of a sequence split over tp ranks reads
+// the keys [0, (r+1)*T/tp) with q_offset = r*T/tp). Every row sees key 0,
+// so no row is empty; key tiles no row of a block reaches are skipped,
+// and keys no row reaches at all get dK = dV = 0.
 //   fwd:     online softmax over key tiles up to the diagonal; writes
 //            o = acc / max(l, 1e-30) in the input type and
 //            lse = m + log(max(l, 1e-30)) in f32.
@@ -16,7 +21,10 @@
 //            delta = rowsum(dO*O) computed by the caller; dV += p^T dO and
 //            dK += ds^T q, summed over the G query heads of the K/V head
 //            inside the block (the reference sums its per-head f32
-//            buffers outside), cast once to the input type.
+//            buffers outside), cast once to the input type, or on request
+//            left in f32 (the sums before that rounding: a rank of a
+//            sequence split adds its partials to the other ranks' in f32
+//            and rounds once).
 //   bwd_dq:  dQ += ds k over key tiles up to the diagonal.
 //
 // f32 inputs, or a head_dim other than 64 or 128 (the FMA body, forward
@@ -174,7 +182,7 @@ __global__ void __launch_bounds__(kThreads)
 fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
            const T* __restrict__ v, T* __restrict__ o,
            float* __restrict__ lse, int H, int KH, int Tn, int S, int D,
-           int causal, float scale) {
+           int causal, int q_off, float scale) {
   extern __shared__ float smem[];
   const int ld = D + 1;
   float* q_s = smem;                 // kTile x ld, pre-scaled
@@ -201,7 +209,7 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < DPT; ++c) acc[i][c] = 0.f;
   }
 
-  const int kend = causal ? min(S, q0 + kTile) : S;
+  const int kend = causal ? min(S, q0 + kTile + q_off) : S;
   for (int k0 = 0; k0 < kend; k0 += kTile) {
     __syncthreads();  // the previous tile is consumed
     stage(k_s, kp, k0, S, D, 1.f);
@@ -216,7 +224,7 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int c = k0 + tx + 16 * j;
-        if (c >= S || (causal && r < c)) s[i][j] = kNegInf;
+        if (c >= S || (causal && r + q_off < c)) s[i][j] = kNegInf;
         mx = fmaxf(mx, s[i][j]);
       }
       const float m_new = fmaxf(m[i], row_max(mx));
@@ -277,7 +285,8 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 __device__ __forceinline__ void p_ds_tile(
     const float* q_s, const float* do_s, const float* k_s, const float* v_s,
     const float* lse_s, const float* dl_s, float* p_s, float* ds_s, int q0,
-    int k0, int Tn, int S, int D, int causal, float scale, int ty, int tx) {
+    int k0, int Tn, int S, int D, int causal, int q_off, float scale, int ty,
+    int tx) {
   const int ld = D + 1;
   float s[4][4], dp[4][4];
 #pragma unroll
@@ -313,7 +322,7 @@ __device__ __forceinline__ void p_ds_tile(
     for (int j = 0; j < 4; ++j) {
       const int c = k0 + tx + 16 * j;
       float sv = s[i][j];
-      if (causal && r < c) sv = kNegInf;
+      if (causal && r + q_off < c) sv = kNegInf;
       const float p = (r < Tn && c < S) ? expf(sv - lse_s[rr]) : 0.f;
       const int at = rr * kPLd + tx + 16 * j;
       if (p_s != nullptr) p_s[at] = p;
@@ -328,8 +337,9 @@ bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, const T* __restrict__ dout,
                const float* __restrict__ lse,
                const float* __restrict__ delta, T* __restrict__ dk,
-               T* __restrict__ dv, int H, int KH, int Tn, int S, int D,
-               int causal, float scale) {
+               T* __restrict__ dv, float* __restrict__ dk32,
+               float* __restrict__ dv32, int H, int KH, int Tn, int S, int D,
+               int causal, int q_off, float scale) {
   extern __shared__ float smem[];
   const int ld = D + 1;
   float* k_s = smem;
@@ -358,7 +368,8 @@ bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int e = 0; e < DPT; ++e) dka[i][e] = dva[i][e] = 0.f;
 
   // causal: query tiles whose last row reaches this key tile's first key
-  const int qstart = causal ? (k0 / kTile) * kTile : 0;
+  // (row k0 - q_off is the first that sees key k0)
+  const int qstart = causal ? (max(k0 - q_off, 0) / kTile) * kTile : 0;
   for (int g = 0; g < G; ++g) {
     const int bh = b * H + kh * G + g;
     const size_t base = (size_t)bh * Tn;
@@ -370,7 +381,7 @@ bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       stage_vec(dl_s, delta + base, q0, Tn);
       __syncthreads();
       p_ds_tile(q_s, do_s, k_s, v_s, lse_s, dl_s, p_s, ds_s, q0, k0, Tn, S,
-                D, causal, scale, ty, tx);
+                D, causal, q_off, scale, ty, tx);
       __syncthreads();
 #pragma unroll 4
       for (int r = 0; r < kTile; ++r) {
@@ -405,7 +416,10 @@ bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < DPT; ++e) {
         const int d = tx + 16 * e;
-        if (d < D) {
+        if (d < D && dk32 != nullptr) {   // the f32 sums, unrounded
+          dk32[row * D + d] = dka[i][e];
+          dv32[row * D + d] = dva[i][e];
+        } else if (d < D) {
           dk[row * D + d] = from_f32<T>(dka[i][e]);
           dv[row * D + d] = from_f32<T>(dva[i][e]);
         }
@@ -420,7 +434,7 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const T* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
               T* __restrict__ dq, int H, int KH, int Tn, int S, int D,
-              int causal, float scale) {
+              int causal, int q_off, float scale) {
   extern __shared__ float smem[];
   const int ld = D + 1;
   float* q_s = smem;
@@ -451,14 +465,14 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < DPT; ++e) acc[i][e] = 0.f;
 
-  const int kend = causal ? min(S, q0 + kTile) : S;
+  const int kend = causal ? min(S, q0 + kTile + q_off) : S;
   for (int k0 = 0; k0 < kend; k0 += kTile) {
     __syncthreads();  // the previous tile is consumed
     stage(k_s, kp, k0, S, D, 1.f);
     stage(v_s, vp, k0, S, D, 1.f);
     __syncthreads();
     p_ds_tile(q_s, do_s, k_s, v_s, lse_s, dl_s, nullptr, ds_s, q0, k0, Tn,
-              S, D, causal, scale, ty, tx);
+              S, D, causal, q_off, scale, ty, tx);
     __syncthreads();
 #pragma unroll 4
     for (int c = 0; c < kTile; ++c) {
@@ -647,7 +661,9 @@ __device__ __forceinline__ void vec_async(float* dst, const float* src,
 // them into its own entries of the f32 scratch `acc` (2 x (B,K,S,D): dK
 // then dV) after each head but the last and restarts from zero; the last
 // head's sums are added to the scratch's as the result is written. No
-// two threads share an entry, so no atomics and no ordering.
+// two threads share an entry, so no atomics and no ordering. With f32_out
+// the result is written into the scratch itself (dK then dV, f32), the
+// sums before their one rounding, and dk/dv are not written.
 template <int D, int DT>
 __device__ __forceinline__ void dkv_flush(float (&dk_acc)[DT][4],
                                           float (&dv_acc)[DT][4],
@@ -691,7 +707,7 @@ bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
                    __nv_bfloat16* __restrict__ dk,
                    __nv_bfloat16* __restrict__ dv,
                    float* __restrict__ acc, int B, int H, int KH, int Tn,
-                   int S, int causal, float scale) {
+                   int S, int causal, int q_off, int f32_out, float scale) {
   constexpr int LD = D + 8;
   constexpr int NT = BR / 8;              // query n-tiles of S^T
   constexpr int DT = D / 8;               // n-tiles of a dK/dV row
@@ -712,9 +728,11 @@ bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
   tile_async<kBc, D>(k_s, k + (size_t)bkh * S * D, k0, S);
   tile_async<kBc, D>(v_s, v + (size_t)bkh * S * D, k0, S);
-  const int qt0 = causal ? k0 / BR : 0;   // first tile reaching key k0
-  const int n_qt = (Tn + BR - 1) / BR - qt0;
-  const int n_it = n_qt > 0 ? G * n_qt : 0;
+  // first tile reaching key k0 (row k0 - q_off is the first that sees it)
+  const int qt0 = causal ? max(k0 - q_off, 0) / BR : 0;
+  // query tiles from qt0 on (none where no row reaches this key tile)
+  const int n_qt = max((Tn + BR - 1) / BR - qt0, 0);
+  const int n_it = G * n_qt;
   auto stage = [&](int it, int st) {
     const size_t bh = (size_t)b * H + kh * G + it / n_qt;
     const int q0 = (qt0 + it % n_qt) * BR;
@@ -782,7 +800,7 @@ bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
         const int key = key_lo + (e >> 1) * 8;
         const int qc = j * 8 + 2 * (lane & 3) + (e & 1);
         const int qr = q0 + qc;
-        const bool live = qr < Tn && key < S && !(causal && qr < key);
+        const bool live = qr < Tn && key < S && !(causal && qr + q_off < key);
         const float p = live ? expf(sT[j][e] * scale - lss[qc]) : 0.f;
         sT[j][e] = p;
         dpT[j][e] = p * (dpT[j][e] - dls[qc]) * scale;
@@ -855,10 +873,15 @@ bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
           v0v = sv.x + v0v;
           v1v = sv.y + v1v;
         }
-        *reinterpret_cast<uint32_t*>(dk + at) =
-            as_u32(__floats2bfloat162_rn(k0v, k1v));
-        *reinterpret_cast<uint32_t*>(dv + at) =
-            as_u32(__floats2bfloat162_rn(v0v, v1v));
+        if (f32_out) {
+          *reinterpret_cast<float2*>(acc + at) = make_float2(k0v, k1v);
+          *reinterpret_cast<float2*>(acc + plane + at) = make_float2(v0v, v1v);
+        } else {
+          *reinterpret_cast<uint32_t*>(dk + at) =
+              as_u32(__floats2bfloat162_rn(k0v, k1v));
+          *reinterpret_cast<uint32_t*>(dv + at) =
+              as_u32(__floats2bfloat162_rn(v0v, v1v));
+        }
       }
     }
   }
@@ -878,7 +901,7 @@ bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ o,
                   const float* __restrict__ lse, float* __restrict__ delta,
                   __nv_bfloat16* __restrict__ dq, int H, int KH, int Tn,
-                  int S, int causal, float scale) {
+                  int S, int causal, int q_off, float scale) {
   constexpr int BR = 64;
   constexpr int LD = D + 8;
   constexpr int NT = kBc / 8;             // key n-tiles of S
@@ -900,7 +923,7 @@ bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
   tile_async<BR, D>(q_s, q + base * D, q0, Tn);
   tile_async<BR, D>(do_s, dout + base * D, q0, Tn);
-  const int kend = causal ? min(S, q0 + BR) : S;
+  const int kend = causal ? min(S, q0 + BR + q_off) : S;
   const int n_kt = (kend + kBc - 1) / kBc;
   if (n_kt > 0) {
     tile_async<kBc, D>(k_s, kp, 0, S);
@@ -1008,7 +1031,7 @@ bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
       for (int e = 0; e < 4; ++e) {
         const int r = r_lo + (e >> 1) * 8;
         const int key = k0 + j * 8 + 2 * (lane & 3) + (e & 1);
-        const bool live = r < Tn && key < S && !(causal && r < key);
+        const bool live = r < Tn && key < S && !(causal && r + q_off < key);
         const float p =
             live ? expf(sc[j][e] * scale - lse_r[e >> 1]) : 0.f;
         sc[j][e] = p * (dp[j][e] - dl_r[e >> 1]) * scale;
@@ -1070,7 +1093,8 @@ fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                const __nv_bfloat16* __restrict__ k,
                const __nv_bfloat16* __restrict__ v,
                __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-               int H, int KH, int Tn, int S, int causal, float scale) {
+               int H, int KH, int Tn, int S, int causal, int q_off,
+               float scale) {
   constexpr int BR = 64;
   constexpr int LD = D + 8;
   constexpr int NT = kBc / 8;             // key n-tiles of S
@@ -1089,7 +1113,7 @@ fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const size_t base = (size_t)bh * Tn;
   const __nv_bfloat16* kp = k + (size_t)(b * KH + kh) * S * D;
   const __nv_bfloat16* vp = v + (size_t)(b * KH + kh) * S * D;
-  const int kend = causal ? min(S, q0 + BR) : S;
+  const int kend = causal ? min(S, q0 + BR + q_off) : S;
   const int n_kt = (kend + kBc - 1) / kBc;
 
   tile_async<BR, D>(q_s, q + base * D, q0, Tn);
@@ -1150,7 +1174,7 @@ fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     }
     // scale; mask only a tile that holds keys past S or above a row's
     // diagonal (block-uniform)
-    const bool edge = k0 + kBc > S || (causal && k0 + kBc - 1 > q0);
+    const bool edge = k0 + kBc > S || (causal && k0 + kBc - 1 > q0 + q_off);
     float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
     for (int j = 0; j < NT; ++j)
@@ -1160,7 +1184,7 @@ fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
         if (edge) {
           const int r = r_lo + (e >> 1) * 8;
           const int key = k0 + j * 8 + 2 * (lane & 3) + (e & 1);
-          if (key >= S || (causal && r < key)) s = kNegInf;
+          if (key >= S || (causal && r + q_off < key)) s = kNegInf;
         }
         sc[j][e] = s;
         mx[e >> 1] = fmaxf(mx[e >> 1], s);
@@ -1270,7 +1294,7 @@ int n_tiles(int n) { return (n + kTile - 1) / kTile; }
 template <typename T, int DPT>
 int launch_fwd(const void* q, const void* k, const void* v, void* o,
                float* lse, int B, int H, int KH, int Tn, int S, int D,
-               int causal, float scale, cudaStream_t stream) {
+               int causal, int q_off, float scale, cudaStream_t stream) {
   const size_t smem = fwd_smem(D);
   int rc = prepare(fwd_kernel<T, DPT>, smem);
   if (rc) return rc;
@@ -1278,32 +1302,35 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o,
   fwd_kernel<T, DPT><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), lse, H, KH, Tn, S, D,
-      causal, scale);
+      causal, q_off, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int DPT>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const float* lse, const float* delta, void* dk, void* dv,
-               int B, int H, int KH, int Tn, int S, int D, int causal,
-               float scale, cudaStream_t stream) {
+               float* acc, int B, int H, int KH, int Tn, int S, int D,
+               int causal, int q_off, int f32_out, float scale,
+               cudaStream_t stream) {
   const size_t smem = dkv_smem(D);
   int rc = prepare(bwd_dkv_kernel<T, DPT>, smem);
   if (rc) return rc;
   const dim3 grid(B * KH, n_tiles(S));
+  float* dk32 = f32_out ? acc : nullptr;
+  float* dv32 = f32_out ? acc + (size_t)B * KH * S * D : nullptr;
   bwd_dkv_kernel<T, DPT><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dk), static_cast<T*>(dv), H, KH, Tn, S, D, causal,
-      scale);
+      static_cast<T*>(dk), static_cast<T*>(dv), dk32, dv32, H, KH, Tn, S, D,
+      causal, q_off, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int DPT>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* delta, void* dq, int B, int H,
-              int KH, int Tn, int S, int D, int causal, float scale,
-              cudaStream_t stream) {
+              int KH, int Tn, int S, int D, int causal, int q_off,
+              float scale, cudaStream_t stream) {
   const size_t smem = dq_smem(D);
   int rc = prepare(bwd_dq_kernel<T, DPT>, smem);
   if (rc) return rc;
@@ -1311,7 +1338,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   bwd_dq_kernel<T, DPT><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dq), H, KH, Tn, S, D, causal, scale);
+      static_cast<T*>(dq), H, KH, Tn, S, D, causal, q_off, scale);
   return (int)cudaGetLastError();
 }
 
@@ -1340,7 +1367,7 @@ size_t fwd_mma_smem() {
 template <int D>
 int launch_fwd_mma(const void* q, const void* k, const void* v, void* o,
                    float* lse, int B, int H, int KH, int Tn, int S,
-                   int causal, float scale, cudaStream_t stream) {
+                   int causal, int q_off, float scale, cudaStream_t stream) {
   const size_t smem = fwd_mma_smem<D>();
   int rc = prepare(fwd_mma_kernel<D>, smem);
   if (rc) return rc;
@@ -1349,7 +1376,7 @@ int launch_fwd_mma(const void* q, const void* k, const void* v, void* o,
   fwd_mma_kernel<D><<<grid, kMmaThreads, smem, stream>>>(
       static_cast<const bf*>(q), static_cast<const bf*>(k),
       static_cast<const bf*>(v), static_cast<bf*>(o), lse, H, KH, Tn, S,
-      causal, scale);
+      causal, q_off, scale);
   return (int)cudaGetLastError();
 }
 
@@ -1357,8 +1384,8 @@ template <int D>
 int launch_dkv_mma(const void* q, const void* k, const void* v,
                    const void* dout, const float* lse, const float* delta,
                    void* dk, void* dv, float* acc, int B, int H, int KH,
-                   int Tn, int S, int causal, float scale,
-                   cudaStream_t stream) {
+                   int Tn, int S, int causal, int q_off, int f32_out,
+                   float scale, cudaStream_t stream) {
   constexpr int BR = dkv_rows<D>();
   const size_t smem = dkv_mma_smem<D>();
   int rc = prepare(bwd_dkv_mma_kernel<D, BR>, smem);
@@ -1368,8 +1395,9 @@ int launch_dkv_mma(const void* q, const void* k, const void* v,
   bwd_dkv_mma_kernel<D, BR><<<grid, kMmaThreads, smem, stream>>>(
       static_cast<const bf*>(q), static_cast<const bf*>(k),
       static_cast<const bf*>(v), static_cast<const bf*>(dout), lse, delta,
-      static_cast<bf*>(dk), static_cast<bf*>(dv), H > KH ? acc : nullptr,
-      B, H, KH, Tn, S, causal, scale);
+      static_cast<bf*>(dk), static_cast<bf*>(dv),
+      H > KH || f32_out ? acc : nullptr, B, H, KH, Tn, S, causal, q_off,
+      f32_out, scale);
   return (int)cudaGetLastError();
 }
 
@@ -1377,7 +1405,8 @@ template <int D>
 int launch_dq_mma(const void* q, const void* k, const void* v,
                   const void* dout, const void* o, const float* lse,
                   float* delta, void* dq, int B, int H, int KH, int Tn,
-                  int S, int causal, float scale, cudaStream_t stream) {
+                  int S, int causal, int q_off, float scale,
+                  cudaStream_t stream) {
   const size_t smem = dq_mma_smem<D>();
   int rc = prepare(bwd_dq_mma_kernel<D>, smem);
   if (rc) return rc;
@@ -1387,7 +1416,7 @@ int launch_dq_mma(const void* q, const void* k, const void* v,
       static_cast<const bf*>(q), static_cast<const bf*>(k),
       static_cast<const bf*>(v), static_cast<const bf*>(dout),
       static_cast<const bf*>(o), lse, delta, static_cast<bf*>(dq), H, KH,
-      Tn, S, causal, scale);
+      Tn, S, causal, q_off, scale);
   return (int)cudaGetLastError();
 }
 
@@ -1428,22 +1457,26 @@ bool bad_dims(int B, int H, int KH, int Tn, int S, int D) {
 // tensor-core body only), the dQ kernel computes delta = rowsum(dO * O)
 // itself and writes it for the dK/dV kernel, launched after it; null, it
 // reads delta. The dK/dV entry takes acc, an f32 scratch of 2 x (B,K,S,D)
-// that the tensor-core body sums the G heads in when G > 1 (null
-// otherwise; the other bodies never read it).
+// that the tensor-core body sums the G heads in when G > 1; with f32_out
+// every body writes dK and dV there in f32 (its two planes), unrounded,
+// and leaves dk/dv alone (acc is null when neither holds; the FMA body
+// reads it only for f32_out). q_offset >= 0 is the causal mask's query
+// offset (row i sees keys j <= i + q_offset).
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, float* lse,
                                    int kind, int B, int H, int KH, int Tn,
-                                   int S, int D, int causal, float scale,
-                                   void* stream) {
-  if (bad_dims(B, H, KH, Tn, S, D)) return (int)cudaErrorInvalidValue;
+                                   int S, int D, int causal, int q_offset,
+                                   float scale, void* stream) {
+  if (bad_dims(B, H, KH, Tn, S, D) || q_offset < 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (mma_body(kind, D))
     return D == 64 ? launch_fwd_mma<64>(q, k, v, o, lse, B, H, KH, Tn, S,
-                                        causal, scale, st)
+                                        causal, q_offset, scale, st)
                    : launch_fwd_mma<128>(q, k, v, o, lse, B, H, KH, Tn, S,
-                                         causal, scale, st);
-  FA_DISPATCH(launch_fwd, q, k, v, o, lse, B, H, KH, Tn, S, D, causal, scale,
-              st);
+                                         causal, q_offset, scale, st);
+  FA_DISPATCH(launch_fwd, q, k, v, o, lse, B, H, KH, Tn, S, D, causal,
+              q_offset, scale, st);
 }
 
 extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
@@ -1452,20 +1485,23 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
                                        void* dk, void* dv, float* acc,
                                        int kind, int B, int H, int KH,
                                        int Tn, int S, int D, int causal,
+                                       int q_offset, int f32_out,
                                        float scale, void* stream) {
-  if (bad_dims(B, H, KH, Tn, S, D)) return (int)cudaErrorInvalidValue;
+  if (bad_dims(B, H, KH, Tn, S, D) || q_offset < 0 ||
+      (f32_out && acc == nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (mma_body(kind, D)) {
     if (H > KH && acc == nullptr) return (int)cudaErrorInvalidValue;
     return D == 64 ? launch_dkv_mma<64>(q, k, v, dout, lse, delta, dk, dv,
-                                        acc, B, H, KH, Tn, S, causal, scale,
-                                        st)
+                                        acc, B, H, KH, Tn, S, causal,
+                                        q_offset, f32_out, scale, st)
                    : launch_dkv_mma<128>(q, k, v, dout, lse, delta, dk, dv,
-                                         acc, B, H, KH, Tn, S, causal, scale,
-                                         st);
+                                         acc, B, H, KH, Tn, S, causal,
+                                         q_offset, f32_out, scale, st);
   }
-  FA_DISPATCH(launch_dkv, q, k, v, dout, lse, delta, dk, dv, B, H, KH, Tn, S,
-              D, causal, scale, st);
+  FA_DISPATCH(launch_dkv, q, k, v, dout, lse, delta, dk, dv, acc, B, H, KH,
+              Tn, S, D, causal, q_offset, f32_out, scale, st);
 }
 
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
@@ -1473,18 +1509,21 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                       const void* o, const float* lse,
                                       float* delta, void* dq, int kind,
                                       int B, int H, int KH, int Tn, int S,
-                                      int D, int causal, float scale,
-                                      void* stream) {
-  if (bad_dims(B, H, KH, Tn, S, D)) return (int)cudaErrorInvalidValue;
+                                      int D, int causal, int q_offset,
+                                      float scale, void* stream) {
+  if (bad_dims(B, H, KH, Tn, S, D) || q_offset < 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (mma_body(kind, D))
     return D == 64 ? launch_dq_mma<64>(q, k, v, dout, o, lse, delta, dq, B,
-                                       H, KH, Tn, S, causal, scale, st)
+                                       H, KH, Tn, S, causal, q_offset, scale,
+                                       st)
                    : launch_dq_mma<128>(q, k, v, dout, o, lse, delta, dq, B,
-                                        H, KH, Tn, S, causal, scale, st);
+                                        H, KH, Tn, S, causal, q_offset, scale,
+                                        st);
   if (o != nullptr) return (int)cudaErrorInvalidValue;
   FA_DISPATCH(launch_dq, q, k, v, dout, lse, delta, dq, B, H, KH, Tn, S, D,
-              causal, scale, st);
+              causal, q_offset, scale, st);
 }
 
 // 1 when the forward (the backward) of (kind, D) runs on the tensor cores,

@@ -7,7 +7,13 @@
 and back, and carries the gradient through :class:`_Flash`, the
 counterpart of the reference's ``custom_vjp`` (``ops.py:43-64``). The
 reference pads head_dim to 128 lanes for the TPU; the CUDA kernels take
-any head_dim up to 128 as it is.
+any head_dim up to 128 as it is. It takes the causal mask's query offset
+``q_offset`` (the reference's wrapper drops it, ``ops.py:71``; its
+oracle ``flash_attention_ref`` applies it, and the port is held to
+that). :func:`seq_flash_attention` is the sequence (context-parallel)
+split of it over a model axis: a rank's query rows against the keys
+gathered from every rank, its dK/dV partials summed over the ranks in
+f32 and rounded once (:class:`_SeqFlash`).
 
 :func:`ssd` takes the layout of ``models.ssd`` and prepares the SSD
 kernel's (``kernels/ssd.py``): f32 ``xdt = x·dt`` and ``a = dt·A`` with
@@ -55,11 +61,12 @@ class _Flash(torch.autograd.Function):
     (the dK/dV and dQ kernels on the card)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, sm_scale: float):
+    def forward(ctx, q, k, v, causal: bool, sm_scale: float,
+                q_offset: int):
         o, lse = fa.flash_attention_fwd(q, k, v, causal=causal,
-                                        sm_scale=sm_scale)
+                                        sm_scale=sm_scale, q_offset=q_offset)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.sm_scale = causal, sm_scale
+        ctx.causal, ctx.sm_scale, ctx.q_offset = causal, sm_scale, q_offset
         return o
 
     @staticmethod
@@ -67,26 +74,73 @@ class _Flash(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = fa.flash_attention_bwd(
             q, k, v, o, lse, do.contiguous(), causal=ctx.causal,
-            sm_scale=ctx.sm_scale)
-        return dq, dk, dv, None, None
+            sm_scale=ctx.sm_scale, q_offset=ctx.q_offset)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
                     kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """q (B,T,H,D); k, v (B,S,K,D) -> (B,T,H,D) in q's type.
+    """q (B,T,H,D); k, v (B,S,K,D) -> (B,T,H,D) in q's type; query row i
+    at position ``q_offset + i`` for the causal mask.
 
-    ``q_offset`` and ``kv_len`` are not supported: the reference's
-    ``flash_attention`` drops them silently, the port raises instead."""
-    if q_offset != 0 or kv_len is not None:
+    ``kv_len`` is not supported: the reference's ``flash_attention``
+    drops it silently, the port raises instead."""
+    if kv_len is not None:
         raise NotImplementedError(
-            "flash_attention takes no q_offset/kv_len (cached decode "
-            "reads go through kernels.flash_decode)")
+            "flash_attention takes no kv_len (cached decode reads go "
+            "through kernels.flash_decode)")
     d = q.shape[-1]
     qt = q.transpose(1, 2).contiguous()          # (B,H,T,D)
     kt = k.transpose(1, 2).contiguous()
     vt = v.transpose(1, 2).contiguous()
-    out = _Flash.apply(qt, kt, vt, causal, 1.0 / float(np.sqrt(d)))
+    out = _Flash.apply(qt, kt, vt, causal, 1.0 / float(np.sqrt(d)),
+                       int(q_offset))
     return out.transpose(1, 2)
+
+
+class _SeqFlash(torch.autograd.Function):
+    """Causal flash attention of this rank's query rows ``[lo, hi)`` of a
+    sequence split over a model axis (``ctx``, a ``parallel.sharding.
+    ShardCtx``): forward, k/v gathered from every rank, bit for bit
+    (``ShardCtx.seq_kv_gather``), the kernels run on the keys ``[0, hi)``
+    with ``q_offset = lo``; backward, dQ as it is and dK/dV over those
+    keys in f32 (``kv_f32``), summed over the ranks in f32 and cut to
+    this rank's rows (``ShardCtx.seq_kv_scatter``), rounded once."""
+
+    @staticmethod
+    def forward(fctx, q, k, v, ctx):
+        lo, hi = ctx.own_rows(q.shape[1] * ctx.size)
+        kg, vg = ctx.seq_kv_gather(k, v)
+        qt = q.transpose(1, 2).contiguous()
+        kt = kg[:, :hi].transpose(1, 2).contiguous()
+        vt = vg[:, :hi].transpose(1, 2).contiguous()
+        scale = 1.0 / float(np.sqrt(q.shape[-1]))
+        o, lse = fa.flash_attention_fwd(qt, kt, vt, causal=True,
+                                        sm_scale=scale, q_offset=lo)
+        fctx.save_for_backward(qt, kt, vt, o, lse)
+        fctx.ctx, fctx.lo, fctx.scale = ctx, lo, scale
+        fctx.dtypes = (k.dtype, v.dtype)
+        return o.transpose(1, 2)
+
+    @staticmethod
+    def backward(fctx, do):
+        qt, kt, vt, o, lse = fctx.saved_tensors
+        dq, dk, dv = fa.flash_attention_bwd(
+            qt, kt, vt, o, lse, do.transpose(1, 2).contiguous(),
+            causal=True, sm_scale=fctx.scale, q_offset=fctx.lo, kv_f32=True)
+        ctx = fctx.ctx
+        dk, dv = ctx.seq_kv_scatter(dk.transpose(1, 2), dv.transpose(1, 2),
+                                    qt.shape[2] * ctx.size)
+        return (dq.transpose(1, 2), dk.to(fctx.dtypes[0]),
+                dv.to(fctx.dtypes[1]), None)
+
+
+def seq_flash_attention(q, k, v, ctx) -> torch.Tensor:
+    """Causal flash attention of this rank's rows under a sequence split:
+    q (B, T/tp, H, D) and k, v (B, T/tp, K, D) this rank's rows ``[r·T/tp,
+    (r+1)·T/tp)`` of a model axis of ``tp`` ranks (``ctx``); returns the
+    rows' (B, T/tp, H, D) output, the whole-sequence attention's rows."""
+    return _SeqFlash.apply(q, k, v, ctx)
 
 
 def flash_decode(q, k, v, lengths) -> torch.Tensor:

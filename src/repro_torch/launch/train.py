@@ -19,7 +19,11 @@ mapping. ``--model-parallel N`` trains the dense family over a model
 axis of N ranks (Megatron-style tensor parallelism; ``--sp`` adds
 sequence parallelism), alone or beside ``--data-parallel
 M`` (a 2-D mesh of M x N ranks under any ZeRO stage); each rank prints
-its trainable count. ``Q``, ``Q8`` and LoRA refuse both axes. MoE archs
+its trainable count. ``--attn-mode`` picks the attention's split over
+that axis, the reference's flag of that name: ``head`` (the heads),
+``seq`` (context parallelism: each rank attends with its rows of T
+against the k/v of every rank) or ``auto`` (sequence mode where N does
+not divide the heads). ``Q``, ``Q8`` and LoRA refuse both axes. MoE archs
 (``--arch qwen3-moe-30b-a3b``, ``jamba-v0.1-52b``) train over it with
 one micro-batch a rank, routed with the global batch's statistics, order
 and capacity, as the reference's GSPMD step routes the global batch.
@@ -79,6 +83,12 @@ def main(argv=None):
                          "the dense family)")
     ap.add_argument("--sp", action="store_true",
                     help="sequence parallelism over the model axis")
+    ap.add_argument("--attn-mode", default="auto",
+                    choices=["auto", "head", "seq"],
+                    help="attention over the model axis: split the heads "
+                         "(head), the sequence (seq, context parallelism), "
+                         "or seq where the axis does not divide the heads "
+                         "(auto)")
     ap.add_argument("--dist-backend", default=None, choices=["gloo", "nccl"],
                     help="the ranks' backend: gloo (the CPU, or ranks "
                          "sharing a card) or nccl (one card per rank); "
@@ -116,7 +126,8 @@ def _train(mesh, args) -> List[str]:
     cfg = get_config(args.arch, reduced=args.reduced)
     shape = (SHAPES[args.shape] if args.shape
              else ShapeSpec("cli", args.seq, args.batch, "train"))
-    technique = technique_from_label(args.technique, sp=args.sp)
+    technique = technique_from_label(args.technique, sp=args.sp,
+                                     attn_mode=args.attn_mode)
     trainer = Trainer(cfg, shape, technique,
                       TrainerConfig(steps=args.steps,
                                     checkpoint_dir=args.checkpoint_dir,
@@ -138,7 +149,8 @@ def _train(mesh, args) -> List[str]:
         out.append(f"{args.technique}: {n} trainable on this rank (its "
                    f"model-axis pieces) of {total} parameters, "
                    f"{ctx.dp_size} data-parallel ranks x {ctx.size} "
-                   f"model-parallel, grad_accum "
+                   f"model-parallel (attention in {ctx.attn_mode} mode), "
+                   f"grad_accum "
                    f"{trainer.technique.grad_accum} a rank")
     if trainer.start_step:
         out.append(f"resumed at step {trainer.start_step}")

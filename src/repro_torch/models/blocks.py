@@ -25,7 +25,10 @@ The MoE FFN takes ``ctx`` too (:func:`moe_apply`): expert parallelism
 by ``ShardCtx.all_to_all``) where the degree divides the experts, else
 the one-device dispatch with the experts cut on their MLP width; over a
 data axis (training) the one-device dispatch routes with the global
-batch's statistics, order and capacity.
+batch's statistics, order and capacity. A training ``ctx`` in the
+reference's sequence mode (``attn_mode="seq"``) runs the attention block
+on the rank's rows of T with the whole attention leaves instead
+(:func:`_attn_seq`).
 
 Cache conventions (decode): attention ``{"k", "v"}`` as (B, S, K, hd)
 (bf16, or the reference's unscaled int8) with the global ``lengths``
@@ -136,7 +139,18 @@ def attn_apply(x, p, cfg: ArchConfig, *, positions, attn_impl: str = "naive",
     normed input enters the q/k/v projections through Megatron's f, or
     under sequence parallelism through the all-gather of T (x is then
     this rank's rows and so is the result; ``layers.dense_column``), and
-    ``wo``'s seam is g or the reduce-scatter (``ShardCtx.exit_block``)."""
+    ``wo``'s seam is g or the reduce-scatter (``ShardCtx.exit_block``).
+    A training ``ctx`` in sequence mode takes :func:`_attn_seq`."""
+    if ctx is not None and ctx.attn_mode == "seq":
+        if cache is not None or return_kv:
+            raise NotImplementedError(
+                "sequence (context-parallel) attention serves no cache: "
+                "model-level prefill and decode under attn_mode='seq' (the "
+                "reference's kv_cache split of T) are ROADMAP queue 1 item "
+                "7.13")
+        return _attn_seq(x, p, cfg, positions=positions,
+                         attn_impl=attn_impl, qmm_impl=qmm_impl,
+                         ctx=ctx), None
     h = L.rmsnorm(x, p["ln"], cfg.norm_eps)
     q, k, v = _qkv(h, p, cfg, positions, qmm_impl=qmm_impl, ctx=ctx)
     new_cache = None
@@ -159,6 +173,38 @@ def attn_apply(x, p, cfg: ArchConfig, *, positions, attn_impl: str = "naive",
     y = L.dense_row(out, p["wo"], tp_seam(ctx, cfg.n_heads), n_in=2,
                     qmm_impl=qmm_impl)
     return x + y, new_cache
+
+
+def _attn_seq(x, p, cfg: ArchConfig, *, positions, attn_impl: str,
+              qmm_impl: str, ctx) -> torch.Tensor:
+    """The causal self-attention block in the reference's sequence mode
+    (``attn_mode="seq"``: its ``act_q``/``act_kv`` split T over the model
+    axis, and every rank holds the whole attention leaves). Rank r of tp
+    takes its rows ``[lo, hi) = [r·T/tp, (r+1)·T/tp)``: under ``sp`` x is
+    those rows already, else it enters them (``ShardCtx.enter_rows``: the
+    cotangent gathered back whole); the norm, q/k/v with their biases,
+    norms and RoPE at positions ``lo + i``, and ``wo`` run on them with
+    the whole weights; attention reads the keys ``[0, hi)`` gathered from
+    every rank with ``q_offset = lo`` (``ShardCtx.seq_attention``: their
+    dK/dV summed over the ranks in f32, rounded once). Without ``sp`` the
+    output rows are gathered back to the whole sequence
+    (``ShardCtx.leave_rows``); with it they stay the rank's. Each rank
+    computes these leaves' gradients on its rows alone, so the step sums
+    them over the model axis (``LM.model_summed``). Where the axis does
+    not divide T (the reference's ``_mdl`` gives ``None``) every rank
+    attends the whole sequence, as one device does, and nothing is
+    summed."""
+    t = x.shape[1] * (ctx.size if ctx.sp else 1)
+    if not ctx.seq_splits(t):
+        return attn_apply(x, p, cfg, positions=positions,
+                          attn_impl=attn_impl, qmm_impl=qmm_impl)[0]
+    lo, hi = ctx.own_rows(t)
+    xr = x if ctx.sp else ctx.enter_rows(x)
+    h = L.rmsnorm(xr, p["ln"], cfg.norm_eps)
+    q, k, v = _qkv(h, p, cfg, positions[..., lo:hi], qmm_impl=qmm_impl)
+    out = ctx.seq_attention(q, k, v, attn_impl)
+    y = L.dense(out, p["wo"], n_in=2, qmm_impl=qmm_impl)
+    return x + (y if ctx.sp else ctx.leave_rows(y))
 
 
 def cache_cast(a: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

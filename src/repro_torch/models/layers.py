@@ -423,9 +423,9 @@ def attention(q, k, v, *, mode: str = "naive", causal: bool = True,
     the reference's mode of the same name), with ``q_offset``/``kv_len``.
     ``"flash"`` is the counterpart of the reference's ``"pallas"`` mode:
     the flash kernels through ``kernels.ops.flash_attention``, with their
-    gradient; it takes no ``q_offset``/``kv_len`` (cached decode reads go
-    through ``kernels.ops.flash_decode``). The reference's ``"chunked"``
-    XLA scan is not ported."""
+    gradient and the causal ``q_offset``; it takes no ``kv_len`` (cached
+    decode reads go through ``kernels.ops.flash_decode``). The
+    reference's ``"chunked"`` XLA scan is not ported."""
     if mode == "naive":
         return naive_attention(q, k, v, causal=causal, q_offset=q_offset,
                                kv_len=kv_len)

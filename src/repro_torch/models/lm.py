@@ -77,8 +77,10 @@ logits block holds its ``V/tp`` columns of the padded vocabulary (the
 untied ``head`` is cut so; the tied ``embed`` stays whole and is sliced
 at use, as the reference constrains ``w.T`` to ``"head"``), and the max,
 the sum of exponentials and the label's logit are summed over the axis
-in f32. Other families raise under a model axis (ROADMAP queue 1 item
-7.10).
+in f32. In sequence mode (``ShardCtx.attn_mode == "seq"``) the
+attention blocks run on the rank's rows of T with the whole attention
+leaves (``blocks._attn_seq``), which :meth:`LM.model_summed` then lists.
+Other families raise under a model axis (ROADMAP queue 1 item 7.10).
 
 **ZeRO-3.** Training over a data axis (``train.step``) passes ``loss``
 and ``backbone`` a tree whose leaves may be ``parallel.zero.Shard``s,
@@ -484,26 +486,35 @@ class LM:
         rank."""
         return self.ctx is not None and self.ctx.size > 1
 
-    def model_summed(self) -> List[str]:
+    def model_summed(self, t: int) -> List[str]:
         """Key paths (``tree_paths``' spelling) of the leaves each rank
         holds whole but whose gradient it computes only in part under a
-        model axis, so the step sums them over the axis: the embedding
-        (the rank's rows of the lookup, and for a tied table the rank's
-        vocab slice of the head), the block norms under sequence
-        parallelism (the rank's rows), and wk/wv and their biases where
-        the degree does not divide the KV heads (the heads its q heads
-        read). Empty without a model axis."""
+        model axis on sequences of ``t`` positions, so the step sums them
+        over the axis: the embedding (the rank's rows of the lookup, and
+        for a tied table the rank's vocab slice of the head), the block
+        norms under sequence parallelism (the rank's rows), in head mode
+        wk/wv and their biases where the degree does not divide the KV
+        heads (the heads its q heads read), and in sequence mode every
+        attention leaf where the axis splits T (the rank's rows; where
+        it does not, every rank attends the whole sequence). Empty
+        without a model axis."""
         if not self._tp():
             return []
         ctx, cfg = self.ctx, self.cfg
+        seq = ctx.attn_mode == "seq"
         out = ["embed"]
         for pos in range(self.period):
             blk = f"blocks/pos{pos}"
+            mix = self.param_specs()["blocks"][f"pos{pos}"]["mix"]
+            if seq and ctx.seq_splits(t):
+                out += [f"{blk}/mix/{w}" for w in mix]
+            elif ctx.sp:
+                out.append(f"{blk}/mix/ln")
             if ctx.sp:
-                out += [f"{blk}/mix/ln", f"{blk}/ffn/ln"]
-            if not ctx.splits(cfg.n_kv_heads):
+                out.append(f"{blk}/ffn/ln")
+            if not seq and not ctx.splits(cfg.n_kv_heads):
                 out += [f"{blk}/mix/{w}" for w in ("wk", "wv", "bk", "bv")
-                        if w in ("wk", "wv") or cfg.qkv_bias]
+                        if w in mix]
         return out
 
     def _split_rows(self, x: torch.Tensor) -> torch.Tensor:

@@ -27,11 +27,16 @@ here explicitly:
   all-reduce of which each rank keeps its slice), and the model axis's
   exchange of expert parallelism (``gather_bytes``, the model-axis
   counterpart of ``dp_gather_bytes``; ``all_to_all`` and ``gather_t``,
-  the token slices along ``t``, built on it).
+  the token slices along ``t``, built on it), and the attention mode
+  (``attn_mode``): ``"head"`` splits the heads over the model axis,
+  ``"seq"`` (context parallelism) the sequence, each rank attending
+  with its rows of T against the k/v gathered from every rank
+  (``seq_attention``, ``seq_kv_gather`` and ``seq_kv_scatter``, the f32
+  sum of the ranks' dK/dV partials).
 * :func:`make_shard_ctx` — the training context: the data axis, and a
   model axis that a technique without TP (or mamba2's ``dp_over_model``)
   folds into it; the data-axis collectives then run over the group of
-  every axis folded in.
+  every axis folded in; the attention mode as the reference picks it.
 * :func:`resolve_spec` — the reference's resolver: which dim of a leaf
   the model axis splits (``_tp_entry``, ``_TP_PRIORITY``; one entry per
   dim, ``None``, an axis name or a tuple of them, as a PartitionSpec's)
@@ -92,19 +97,24 @@ class ShardCtx:
     axis, and the ``comm_device`` host values travel on). ``dp_axes`` are
     the axes the batch and ZeRO state split over, ``model_axis`` the one
     TP uses (``None`` where the technique folds it into ``dp_axes``).
-    Attention is in head mode (the reference's sequence mode is ROADMAP
-    queue 1 item 7.3). ``comm_timer``, where set (a
+    ``attn_mode`` is the reference's: ``"head"`` (serving's, and
+    training's where the model axis divides the heads) or ``"seq"``
+    (training's sequence mode: the attention leaves stay whole on every
+    model rank and T splits, :meth:`seq_splits`). ``comm_timer``, where
+    set (a
     ``core.perfscope.Timer``), times each data-axis collective between two
     synchronizes as ``"collective"``, each model-axis exchange as
-    ``"exchange"`` and each training seam's collective as ``"seam"``;
-    ``exchange_bytes`` counts the bytes the exchanges' buffers carried
-    and ``seam_bytes`` those of the seams' buffers (read from shapes: no
-    sync)."""
+    ``"exchange"``, each training seam's collective as ``"seam"`` and
+    each gather of k/v and sum of their cotangents in sequence mode as
+    ``"kv"``; ``exchange_bytes`` counts the bytes the exchanges' buffers
+    carried and ``seam_bytes`` those of the seams' and the k/v buffers
+    (read from shapes: no sync)."""
     mesh: object
     cfg: Optional[ArchConfig] = None
     dp_axes: Tuple[str, ...] = ()
     model_axis: Optional[str] = MODEL
     technique: Technique = Technique()
+    attn_mode: str = "head"
     comm_timer: object = None
     exchange_bytes: int = 0
     seam_bytes: int = 0
@@ -224,11 +234,12 @@ class ShardCtx:
         """Sum ``t`` over the model axis, in place (a row-parallel
         seam's f32 partials, an f32 gradient); returns it. A no-op on one
         rank. Where ``region`` is given, ``comm_timer`` times the sum
-        under it (a training seam's, ``"seam"``, also counts its bytes in
-        ``seam_bytes``; the step's sums of gradients are
-        ``"collective"``); serving's seams are not timed."""
+        under it (a training seam's, ``"seam"``, and sequence mode's
+        k/v, ``"kv"``, also count their bytes in ``seam_bytes``; the
+        step's sums of gradients are ``"collective"``); serving's seams
+        are not timed."""
         if self.size > 1:
-            if region == "seam":
+            if region in ("seam", "kv"):
                 self.seam_bytes += t.numel() * t.element_size()
             with (self._timed(t, region) if region else
                   contextlib.nullcontext()):
@@ -447,6 +458,73 @@ class ShardCtx:
         lo, hi = self.own_rows(y.shape[1])
         return total[:, lo:hi].to(y.dtype)
 
+    # -- sequence (context-parallel) attention, attn_mode "seq" --
+    def seq_splits(self, t: int) -> bool:
+        """Whether attention splits a sequence of ``t`` positions over
+        the model axis: sequence mode, and the axis divides ``t`` (the
+        reference's ``act_q``/``act_kv`` ``_mdl(T)``; else every rank
+        attends the whole sequence, replicated)."""
+        return self.attn_mode == "seq" and self.splits(t)
+
+    def seq_kv_gather(self, k: torch.Tensor, v: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The whole (B, T, K, D) k and v from each rank's rows (B, T/tp,
+        K, D), bit for bit, in one exact gather of the two side by side
+        (timed as ``"kv"``); no gradient."""
+        d = k.shape[-1]
+        kv = self._gather_rows(torch.cat([k, v], -1),
+                               lambda b: self.all_reduce(b, "kv"))
+        return kv[..., :d], kv[..., d:]
+
+    def seq_kv_scatter(self, dk: torch.Tensor, dv: torch.Tensor, t: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """This rank's rows of a sequence of ``t`` positions of the sums
+        over the model axis of every rank's k/v cotangents ``dk``, ``dv``
+        (B, S, K, D) over the keys ``[0, S)`` it read, in f32 (unrounded):
+        the two side by side in a zero f32 buffer over the whole T (the
+        keys past S no query of this rank reads), one f32 all-reduce, and
+        a slice."""
+        b, s, n_kv, d = dk.shape
+        buf = dk.new_zeros((b, t, n_kv, 2 * d), dtype=torch.float32)
+        buf[:, :s, :, :d] = dk
+        buf[:, :s, :, d:] = dv
+        self.all_reduce(buf, "kv")
+        lo, hi = self.own_rows(t)
+        return buf[:, lo:hi, :, :d], buf[:, lo:hi, :, d:]
+
+    def enter_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of the whole sequence ``x`` (B, T, ...), which
+        every rank holds alike, entering a block that runs on them alone
+        (sequence-mode attention without ``sp``): backward, the
+        cotangent's rows gathered from every rank, bit for bit, so the
+        whole sequence's cotangent stays whole on every rank."""
+        return _SplitSeq.apply(x, self)
+
+    def leave_rows(self, y: torch.Tensor) -> torch.Tensor:
+        """The whole sequence from each rank's rows ``y`` of a block's
+        output, bit for bit (the reference's ``"hidden"`` constraint);
+        backward takes this rank's rows of the cotangent, whole on every
+        rank."""
+        return _GatherSeq.apply(y, self)
+
+    def seq_attention(self, q: torch.Tensor, k: torch.Tensor,
+                      v: torch.Tensor, mode: str) -> torch.Tensor:
+        """Causal attention of this rank's rows under a sequence split:
+        q (B, T/tp, H, D) and k, v (B, T/tp, K, D) its rows ``[lo, hi)``;
+        the keys ``[0, hi)`` come from every rank and the mask takes
+        ``q_offset = lo``. ``"flash"`` runs the flash kernels with their
+        f32 dK/dV (``kernels.ops.seq_flash_attention``); ``"naive"`` the
+        materialized scores on the gathered k/v (:class:`_SeqKV`), whose
+        cotangents arrive in k/v's type. Either way each rank's dK/dV
+        partials are summed over the ranks in f32 and rounded once."""
+        if mode == "flash":
+            from repro_torch.kernels import ops as kops
+            return kops.seq_flash_attention(q, k, v, self)
+        from repro_torch.models import layers as L
+        lo, _ = self.own_rows(q.shape[1] * self.size)
+        kg, vg = _SeqKV.apply(k, v, self)
+        return L.attention(q, kg, vg, mode=mode, causal=True, q_offset=lo)
+
 
 class _ReduceFromModel(torch.autograd.Function):
     """Megatron's g: forward, the partials summed over the model axis in
@@ -464,9 +542,10 @@ class _ReduceFromModel(torch.autograd.Function):
 
 
 class _GatherSeq(torch.autograd.Function):
-    """The whole T of the final hidden states from each rank's rows, bit
-    for bit; backward takes this rank's rows of the cotangent, which the
-    loss's column-parallel head has already summed over the axis."""
+    """The whole T from each rank's rows (the final hidden states under
+    sp, a sequence-mode attention block's output), bit for bit; backward
+    takes this rank's rows of the cotangent, whole on every rank (the
+    loss's column-parallel head has already summed it over the axis)."""
 
     @staticmethod
     def forward(fctx, x, ctx):
@@ -477,6 +556,41 @@ class _GatherSeq(torch.autograd.Function):
     def backward(fctx, g):
         lo, hi = fctx.ctx.own_rows(g.shape[1])
         return g[:, lo:hi].contiguous(), None
+
+
+class _SplitSeq(torch.autograd.Function):
+    """This rank's rows of a sequence every rank holds alike; backward,
+    the cotangent's rows gathered from every rank, bit for bit."""
+
+    @staticmethod
+    def forward(fctx, x, ctx):
+        fctx.ctx = ctx
+        lo, hi = ctx.own_rows(x.shape[1])
+        return x[:, lo:hi].contiguous()
+
+    @staticmethod
+    def backward(fctx, g):
+        return fctx.ctx.seq_gather(g.contiguous()), None
+
+
+class _SeqKV(torch.autograd.Function):
+    """k and v over the keys ``[0, hi)`` from each rank's rows (this
+    rank's ``[lo, hi)``), bit for bit; backward, every rank's cotangents
+    summed over the ranks in f32 and cut to this rank's rows
+    (``ShardCtx.seq_kv_scatter``), rounded once to k/v's type."""
+
+    @staticmethod
+    def forward(fctx, k, v, ctx):
+        t = k.shape[1] * ctx.size
+        _, hi = ctx.own_rows(t)
+        kg, vg = ctx.seq_kv_gather(k, v)
+        fctx.ctx, fctx.t, fctx.dtypes = ctx, t, (k.dtype, v.dtype)
+        return kg[:, :hi].contiguous(), vg[:, :hi].contiguous()
+
+    @staticmethod
+    def backward(fctx, gk, gv):
+        dk, dv = fctx.ctx.seq_kv_scatter(gk, gv, fctx.t)
+        return dk.to(fctx.dtypes[0]), dv.to(fctx.dtypes[1]), None
 
 
 class _ScatterSeq(torch.autograd.Function):
@@ -517,11 +631,10 @@ def make_shard_ctx(cfg: ArchConfig, technique: Technique, mesh
     """The training context of ``technique`` on ``mesh`` (the
     reference's): the data axes are ``pod`` and ``data`` where the mesh
     has them; a config with ``dp_over_model`` (mamba2), or a technique
-    without TP, folds the model axis into them. Where the model axis
-    stays and does not divide the heads, the reference turns to sequence
-    mode, as it does for ``attn_mode="seq"``; neither is ported: both
-    raise (ROADMAP queue 1 item 7.3). ``attn_mode="head"`` is the head
-    mode the port runs."""
+    without TP, folds the model axis into them. The attention mode is
+    ``technique.attn_mode`` where it is ``"head"`` or ``"seq"``; under
+    ``"auto"`` it is sequence mode where a model axis of more than one
+    rank does not divide the heads, else head mode."""
     if mesh is None:
         return ShardCtx(None, cfg, (), None, technique)
     names = list(mesh.axis_names)
@@ -531,13 +644,12 @@ def make_shard_ctx(cfg: ArchConfig, technique: Technique, mesh
         dp = dp + (model_axis,)             # fold the unused model axis
         model_axis = None
     msize = int(mesh.shape[model_axis]) if model_axis else 1
-    if technique.attn_mode == "seq" or cfg.n_heads % msize:
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.n_heads} heads over a model axis of {msize} "
-            f"(attn_mode={technique.attn_mode!r}) need the reference's "
-            f"sequence (context-parallel) attention mode, which is not "
-            f"ported: ROADMAP queue 1 item 7.3")
-    return ShardCtx(mesh, cfg, dp, model_axis, technique)
+    if technique.attn_mode != "auto":
+        mode = technique.attn_mode
+    else:
+        mode = "head" if (cfg.n_heads == 0 or msize <= 1
+                          or cfg.n_heads % msize == 0) else "seq"
+    return ShardCtx(mesh, cfg, dp, model_axis, technique, attn_mode=mode)
 
 
 def make_serving_ctx(cfg: ArchConfig, mesh) -> Optional[ShardCtx]:
@@ -582,10 +694,14 @@ def _tp_entry(ctx: ShardCtx, name: Optional[str], dim: int, path: str):
     if dim % msz:
         return None
     if name in _TP_AXES:
+        if name == "q_heads" and ctx.attn_mode == "seq":
+            return None  # sequence mode: every rank holds every head
         if name == "ssm_heads":
             return None  # small vectors (A, D, dt_bias): replicate
         return m
     if name in _TP_AXES_COND:
+        if ctx.attn_mode == "seq":
+            return None
         return m if (ctx.cfg and ctx.cfg.n_kv_heads % msz == 0) else None
     if name == "vocab" and "head" in path:
         return m

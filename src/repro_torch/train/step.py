@@ -46,8 +46,13 @@ ZeRO overlay's). The model runs the rank's heads and MLP columns (see
 (``LM.model_summed``) have their gradients summed over the model axis
 once a step, after the data axis's reduction; ``grad_norm`` sums the
 squares of cut leaves over both axes and counts each replicated leaf
-once. Quantized full training, LoRA and every family but the dense one
-raise under a model axis (ROADMAP queue 1 items 7.10, 7.11).
+once. In the reference's sequence (context-parallel) attention mode
+(``Technique.attn_mode="seq"``, or ``"auto"`` where the model axis does
+not divide the heads) the attention leaves are whole on every model
+rank, each rank attends with its rows of T, and where the axis splits
+T those leaves are summed over it too (``LM.model_summed`` takes the
+batch's T). Quantized full training, LoRA and every family but the
+dense one raise under a model axis (ROADMAP queue 1 items 7.10, 7.11).
 
 One step serves the float techniques on one device and over the mesh's
 axes (:func:`_float_step`; on one device it is the case ``dp = 1`` with
@@ -118,8 +123,8 @@ LORA_SEED_OFFSET = 7 << 32
 
 def check_technique(technique: Technique) -> None:
     """Raise on a technique the port cannot run yet. ``sp`` and
-    ``attn_mode="head"`` act over a model axis and are no-ops without
-    one, as in the reference."""
+    ``attn_mode`` act over a model axis and are no-ops without one, as
+    in the reference."""
     waiting = []
     base = technique.quant
     if technique.peft == "qlora" and base == "none":
@@ -129,10 +134,9 @@ def check_technique(technique: Technique) -> None:
                        f"reference's apply_lora misreads a stacked nf4 "
                        f"QTensor, repro/peft/lora.py:74-75; ROADMAP queue 1 "
                        f"item 5, queue 3)")
-    if technique.attn_mode not in ("auto", "head"):
-        waiting.append(f"attn_mode={technique.attn_mode!r} (the "
-                       f"reference's context-parallel attention, ROADMAP "
-                       f"queue 1 item 7.3)")
+    if technique.attn_mode not in ("auto", "head", "seq"):
+        raise ValueError(f"attn_mode {technique.attn_mode!r}: one of auto, "
+                         f"head, seq")
     if waiting:
         raise NotImplementedError(
             "not ported yet: " + "; ".join(waiting))
@@ -168,6 +172,13 @@ def check_dp(cfg: ArchConfig, technique: Technique, ctx) -> None:
                 f"dense family with its MLP width cut evenly; the other "
                 f"families (expert parallelism's backward first) are "
                 f"ROADMAP queue 1 item 7.10")
+        if ctx.attn_mode == "head" and cfg.n_heads % ctx.size:
+            raise NotImplementedError(
+                f"{cfg.name}: attn_mode='head' over a model axis of "
+                f"{ctx.size}, which does not divide its {cfg.n_heads} "
+                f"heads (the reference's GSPMD replicates them): take "
+                f"attn_mode 'seq' or 'auto'; head mode there is ROADMAP "
+                f"queue 1 item 7.13")
         if technique.quant != "none" or technique.peft != "none":
             raise NotImplementedError(
                 f"{technique.label()} over a model axis: quantized full "
@@ -198,8 +209,8 @@ class DPLayout:
     and, of that piece, the ZeRO cut of the param, of its gradient and of
     its optimizer state (moments and master weights), keyed by the leaf's
     key string, from the reference's resolver; whether ``+O`` puts the
-    params and the optimizer state in host memory; and ``summed``, the
-    leaves whose gradients the step sums over the model axis
+    params and the optimizer state in host memory; and :meth:`summed`,
+    the leaves whose gradients the step sums over the model axis
     (``LM.model_summed``)."""
 
     def __init__(self, model: LM, technique: Technique, ctx):
@@ -216,8 +227,7 @@ class DPLayout:
                    for p, pl in place["params"].items()}
         self.shapes = {p: Z.piece_shape(t.shape, self.tp[p])
                        for p, t in keystr_paths(tree)}
-        self.summed = ["".join(f"[{k!r}]" for k in path.split("/"))
-                       for path in model.model_summed()]
+        self.model = model
         self.param = {p: Z.dp_cut(ctx, pl.spec)
                       for p, pl in place["params"].items()}
         self.grad = {p: Z.dp_cut(ctx, pl.spec)
@@ -228,6 +238,12 @@ class DPLayout:
         self.opt_host = any(pl.host for pl in place["opt"].values())
         if technique.zero_stage >= 2:
             assert self.grad == self.opt, "grads and moments cut alike"
+
+    def summed(self, t: int):
+        """Key strings of the leaves whose gradients the step sums over
+        the model axis on sequences of ``t`` positions."""
+        return ["".join(f"[{k!r}]" for k in path.split("/"))
+                for path in self.model.model_summed(t)]
 
     def state_cut(self, path: str, tp: bool = False) -> Z.Cut:
         """The ZeRO cut of a leaf of the whole train state by its key
@@ -638,7 +654,8 @@ def _float_step(model: LM, technique: Technique, opt_cfg: AdamWConfig, ctx,
         if stage <= 1:                  # the update
             for a in acc.values():
                 ctx.dp_all_reduce(a)
-        for p in lay.summed:            # used in part on each model rank
+        # used in part on each model rank
+        for p in lay.summed(batch["tokens"].shape[1]):
             ctx.all_reduce(acc[p], "collective")
         for a in acc.values():
             a.div_(k)

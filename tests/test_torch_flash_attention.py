@@ -165,11 +165,100 @@ def test_flash_equals_naive_with_gradients():
 
 
 def test_flash_rejects_offsets_the_reference_ignores():
+    """The reference's ``ops.flash_attention`` drops ``q_offset`` and
+    ``kv_len``. The port still raises on ``kv_len``, and applies
+    ``q_offset`` as the reference's oracle does (f32, 2e-5)."""
     x = torch.zeros((1, 4, 2, 8))
-    with pytest.raises(NotImplementedError, match="q_offset"):
-        tops.flash_attention(x, x, x, q_offset=2)
     with pytest.raises(NotImplementedError, match="kv_len"):
         tops.flash_attention(x, x, x, kv_len=torch.tensor([3]))
+    rng = np.random.default_rng(8)
+    q = _rand(rng, (1, 4, 2, 8), "f32")
+    k, v = (_rand(rng, (1, 9, 2, 8), "f32") for _ in range(2))
+    got = tops.flash_attention(_torch(q), _torch(k), _torch(v), q_offset=2)
+    want = ref.flash_attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), q_offset=2)
+    np.testing.assert_allclose(_f32(got), _f32(want), **TOL["f32"])
+
+
+# (T, S, q_offset): an offset on the kernels' 64-row tile, one off it,
+# and keys past every row's reach (S > T + q_offset), which get zero dK/dV
+OFFSETS = [(16, 80, 64), (16, 60, 37), (16, 100, 20)]
+
+
+@pytest.mark.parametrize("t,s,off", OFFSETS,
+                         ids=["on-tile", "off-tile", "past-reach"])
+@pytest.mark.parametrize("g", [1, 2])
+def test_plain_q_offset_matches_reference_oracle(t, s, off, g):
+    """The plain forward and backward with a causal ``q_offset`` (model
+    layout, through the autograd wrapper) against the reference's oracle
+    ``flash_attention_ref(q_offset=)`` and its ``jax.vjp``, f32, within
+    rtol = atol = 2e-5."""
+    b, kv, d = 2, 2, 8
+    rng = np.random.default_rng(9)
+    q = _rand(rng, (b, t, kv * g, d), "f32")
+    k, v = (_rand(rng, (b, s, kv, d), "f32") for _ in range(2))
+    w = _rand(rng, (b, t, kv * g, d), "f32")
+    jout, vjp = jax.vjp(lambda q_, k_, v_: ref.flash_attention_ref(
+        q_, k_, v_, q_offset=off), jnp.asarray(q), jnp.asarray(k),
+        jnp.asarray(v))
+    jgrads = vjp(jnp.asarray(w))
+    tq, tk, tv = (_torch(a).requires_grad_(True) for a in (q, k, v))
+    out = tops.flash_attention(tq, tk, tv, q_offset=off)
+    tgrads = torch.autograd.grad(out, (tq, tk, tv), _torch(w))
+    np.testing.assert_allclose(_f32(out), _f32(jout), **TOL["f32"])
+    for name, a, c in zip(("dq", "dk", "dv"), tgrads, jgrads):
+        np.testing.assert_allclose(_f32(a), _f32(c), err_msg=name,
+                                   **TOL["f32"])
+    if s > t + off:               # keys no row reaches
+        assert not tgrads[1][:, t + off:].any()
+        assert not tgrads[2][:, t + off:].any()
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_rank_rows_equal_the_whole_sequence(tp):
+    """A sequence split over ``tp`` ranks: each rank's rows of the plain
+    versions, with its offset over the keys it reaches (those gathered
+    from every rank), give the whole sequence's o and lse rows bit for
+    bit, and its dq rows too; the ranks' dK/dV partials over those keys,
+    kept in f32 (``kv_f32``) and summed, give the whole run's dK/dV (f32,
+    2e-5)."""
+    b, h, kv, t, d = 1, 4, 2, 32, 8
+    rng = np.random.default_rng(10)
+    q, do = (_torch(_rand(rng, (b, h, t, d), "f32")) for _ in range(2))
+    k, v = (_torch(_rand(rng, (b, kv, t, d), "f32")) for _ in range(2))
+    o, lse = tfa._flash_fwd_torch(q, k, v)
+    dq, dk, dv = tfa._flash_bwd_torch(q, k, v, o, lse, do)
+    dk_sum, dv_sum = torch.zeros_like(dk), torch.zeros_like(dv)
+    for r in range(tp):
+        lo, hi = r * t // tp, (r + 1) * t // tp
+        qr, dor = q[:, :, lo:hi], do[:, :, lo:hi]
+        kr, vr = k[:, :, :hi], v[:, :, :hi]
+        o_r, lse_r = tfa._flash_fwd_torch(qr, kr, vr, q_offset=lo)
+        assert torch.equal(o_r, o[:, :, lo:hi])
+        assert torch.equal(lse_r, lse[:, :, lo:hi])
+        dq_r, dk_r, dv_r = tfa._flash_bwd_torch(qr, kr, vr, o_r, lse_r, dor,
+                                                q_offset=lo, kv_f32=True)
+        assert torch.equal(dq_r, dq[:, :, lo:hi])
+        dk_sum[:, :, :hi] += dk_r
+        dv_sum[:, :, :hi] += dv_r
+    torch.testing.assert_close(dk_sum, dk, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(dv_sum, dv, rtol=2e-5, atol=2e-5)
+
+
+def test_kv_f32_is_the_rounded_outputs_sums():
+    """The plain backward's f32 dK/dV (``kv_f32``), rounded, are its bf16
+    dK/dV bit for bit, and dq is unchanged (bf16, G = 2, an offset)."""
+    rng = np.random.default_rng(11)
+    q, do = (_torch(_rand(rng, (1, 4, 16, 8), "bf16")) for _ in range(2))
+    k, v = (_torch(_rand(rng, (1, 2, 40, 8), "bf16")) for _ in range(2))
+    o, lse = tfa._flash_fwd_torch(q, k, v, q_offset=9)
+    dq, dk, dv = tfa._flash_bwd_torch(q, k, v, o, lse, do, q_offset=9)
+    dq2, dk32, dv32 = tfa._flash_bwd_torch(q, k, v, o, lse, do, q_offset=9,
+                                           kv_f32=True)
+    assert dk32.dtype == dv32.dtype == torch.float32
+    assert torch.equal(dq2, dq)
+    assert torch.equal(dk32.to(torch.bfloat16), dk)
+    assert torch.equal(dv32.to(torch.bfloat16), dv)
 
 
 def test_cuda_path_raises_instead_of_falling_back(monkeypatch, tmp_path):

@@ -194,6 +194,47 @@ def test_flash_kernels_match_plain(cuda, case, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("t,s,off", [(256, 512, 256), (256, 512, 0),
+                                     (200, 460, 137)],
+                         ids=["rank1", "past-reach", "off-tile"])
+@pytest.mark.parametrize("h,kv,d", [(4, 4, 64), (8, 1, 128), (4, 2, 48)],
+                         ids=["g1-d64", "g8-d128", "g2-d48"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_flash_kernels_take_a_causal_q_offset(cuda, t, s, off, h, kv, d,
+                                              dtype):
+    """Every body with a causal ``q_offset`` (row i sees key j <= i +
+    q_offset) against its plain version, the offset counted by
+    ``OFFSETS``; the dK/dV kernel's f32 output rounded is its
+    bf16/f32 output bit for bit, and keys no row reaches get zero."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, do = _flash_case(cuda, 2, t, s, h, kv, d, dtype, seed=off)
+    before = dict(fa.OFFSETS)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=True, q_offset=off)
+    o_ref, lse_ref = fa._flash_fwd_torch(q, k, v, causal=True, q_offset=off)
+    _assert_flash_close(o, o_ref)
+    torch.testing.assert_close(lse, lse_ref, **TOL)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True,
+                                 q_offset=off)
+    want = fa._flash_bwd_torch(q, k, v, o, lse, do, causal=True,
+                               q_offset=off)
+    for a, b in zip(got, want):
+        _assert_flash_close(a, b)
+    dq, dk32, dv32 = fa.flash_attention_bwd(q, k, v, o, lse, do,
+                                            causal=True, q_offset=off,
+                                            kv_f32=True)
+    assert torch.equal(dq, got[0])
+    assert torch.equal(dk32.to(dtype), got[1])
+    assert torch.equal(dv32.to(dtype), got[2])
+    if t + off < s:
+        assert not dk32[:, :, t + off:].any()
+        assert not dv32[:, :, t + off:].any()
+    assert {n: fa.OFFSETS[(n, off)] - before.get((n, off), 0)
+            for n in ("fwd", "bwd_dkv", "bwd_dq")} == {
+        "fwd": 1, "bwd_dkv": 2, "bwd_dq": 2}
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "f32"])
 def test_flash_kernels_match_plain_at_training_shape(cuda, dtype):

@@ -16,7 +16,23 @@ of sums (``torch_tp_train_worker.tp_order``). Each mesh's ranks start
 once and run every case in turn (tests/torch_tp_train_worker.py, which
 imports no JAX), one intra-op thread each, two meshes' spawns at a
 time; the one-device oracles run inside global rank 0 under the same
-setting."""
+setting.
+
+Sequence (context-parallel) attention, ``attn_mode="seq"``, is held the
+same way: explicit at (1 x 2) with sp off and on (qwen, and chatglm3's
+grouped KV), ``"auto"`` turning to it at (1 x 4) on a six-head variant
+of the qwen smoke config (the naive attention route), a batch whose T
+the degree does not divide (the attention replicated, its gradients not
+summed), and Z3 + sp on the (2 x 2) mesh. The GPipe pipeline
+(``parallel.pipeline``) runs in the (1 x 2) spawn on the reference
+test's stage function and is held to the port's sequential loop bit for
+bit and to the reference's ``pipeline_forward`` (run in a subprocess on
+two host devices) within 1e-5."""
+import dataclasses
+import os
+import subprocess
+import sys
+import tempfile
 from concurrent.futures import ThreadPoolExecutor
 
 import jax
@@ -52,15 +68,17 @@ LOSS_ATOL = 2e-3            # test_torch_dp_train's, against the reference
 LATER = (1e-2, 0.03)        # its later steps' loss (abs) and grad_norm
 
 
-def _batches(seed: int):
+def _batches(seed: int, t: int = T):
     rng = np.random.default_rng(seed)
     vocab = get_config(QWEN, reduced=True).vocab_size
-    return [{"tokens": rng.integers(0, vocab, (B, T), dtype=np.int32),
-             "labels": rng.integers(0, vocab, (B, T), dtype=np.int32)}
+    return [{"tokens": rng.integers(0, vocab, (B, t), dtype=np.int32),
+             "labels": rng.integers(0, vocab, (B, t), dtype=np.int32)}
             for _ in range(STEPS)]
 
 
 BATCHES = _batches(1)
+ODD = _batches(2, t=30)     # T = 30: a model axis of 4 does not divide it
+SIX = 6                     # heads of the qwen smoke variant at tp 4
 
 
 @pytest.fixture(autouse=True)
@@ -73,8 +91,12 @@ def one_thread():
 
 
 def _case(name, arch, label, **kw):
-    return (name, "train", dict(arch=arch, label=label, batches=BATCHES,
-                                **kw))
+    kw.setdefault("batches", BATCHES)
+    return (name, "train", dict(arch=arch, label=label, **kw))
+
+
+def _seq(name, arch, label, **kw):
+    return _case(name, arch, label, attn_mode="seq", **kw)
 
 
 def _plans(start):
@@ -82,7 +104,8 @@ def _plans(start):
     mesh (qwen tied and MHA with sp off and on, llama2 untied, mamba2
     folding the model axis, the reference's bridged state), a (1 x 4)
     mesh (chatglm3 smoke, 2 KV heads) and a (2 x 2) mesh (qwen under Z2
-    and Z3 with sp)."""
+    and Z3 with sp); and sequence mode on each, and the pipeline on the
+    (1 x 2) mesh."""
     return {
         "tp2": ((2, 1), [
             _case("qwen/oracle", QWEN, "F+R", oracle=True),
@@ -102,15 +125,68 @@ def _plans(start):
             _case("mamba/oracle", MAMBA, "F+R", accum=2, oracle=True),
             _case("mamba/F+R+Z3", MAMBA, "F+R+Z3"),
             ("bridged", "train", dict(arch=QWEN, label="F+R", sp=True,
-                                      batches=BATCHES[:1], start=start))]),
+                                      batches=BATCHES[:1], start=start)),
+            _seq("qwen/F+R+seq", QWEN, "F+R"),
+            _seq("qwen/F+R+seq+sp", QWEN, "F+R", sp=True),
+            _case("glm/oracle", GLM, "F+R", oracle=True),
+            _seq("glm/F+R+seq", GLM, "F+R"),
+            _seq("glm/F+R+seq+sp", GLM, "F+R", sp=True),
+            _seq("bridged/seq", QWEN, "F+R", batches=BATCHES[:1],
+                 start=start),
+            ("pipeline", "pipeline", {})]),
         "tp4": ((4, 1), [_case("glm/oracle", GLM, "F+R", oracle=True),
-                         _case("glm/F+R+sp", GLM, "F+R", sp=True)]),
+                         _case("glm/F+R+sp", GLM, "F+R", sp=True),
+                         _case("six/oracle", QWEN, "R", heads=SIX,
+                               oracle=True),
+                         _case("six/R+auto", QWEN, "R", heads=SIX),
+                         _case("odd/oracle", QWEN, "F+R", batches=ODD,
+                               oracle=True),
+                         _seq("odd/F+R+seq", QWEN, "F+R", batches=ODD)]),
         "mesh22": ((2, 2), [
             _case("qwen/oracle", QWEN, "F+R", accum=2, oracle=True),
             _case("qwen/F+R+Z2", QWEN, "F+R+Z2", pieces=True),
             _case("qwen/F+R+Z3+sp", QWEN, "F+R+Z3", sp=True,
-                  pieces=True)]),
+                  pieces=True),
+            _seq("qwen/F+R+Z3+seq+sp", QWEN, "F+R+Z3", sp=True,
+                 pieces=True)]),
     }
+
+
+# the reference's pipeline on two host devices (its own test skips on
+# one): tests/test_substrate.py's stage function on the port's draws
+_REF_PIPE = """
+import sys
+import numpy as np
+import jax
+import jax.numpy as jnp
+from repro.parallel.pipeline import pipeline_forward, split_stages
+d = np.load(sys.argv[1])
+w, x = jnp.asarray(d["w"]), jnp.asarray(d["x"])
+mesh = jax.make_mesh((2,), ("pipe",))
+def stage_fn(p, c):
+    def body(h, wl):
+        return jnp.tanh(h @ wl), None
+    y, _ = jax.lax.scan(body, c, p)
+    return y
+fn = pipeline_forward(mesh, "pipe", stage_fn, n_micro=x.shape[0])
+with mesh:
+    out = jax.jit(fn)(split_stages(w, 2), x)
+np.save(sys.argv[2], np.asarray(out))
+"""
+
+
+def _ref_pipeline():
+    """The reference's ``pipeline_forward`` of the worker's pipeline case
+    in a subprocess with two host devices."""
+    w, x = worker.pipe_case()
+    with tempfile.TemporaryDirectory() as tmp:
+        src, dst = os.path.join(tmp, "in.npz"), os.path.join(tmp, "out.npy")
+        np.savez(src, w=w, x=x)
+        env = dict(os.environ, JAX_PLATFORMS="cpu",
+                   XLA_FLAGS="--xla_force_host_platform_device_count=2")
+        subprocess.run([sys.executable, "-c", _REF_PIPE, src, dst], env=env,
+                       check=True, capture_output=True, timeout=300)
+        return np.load(dst)
 
 
 @pytest.fixture(scope="module")
@@ -127,7 +203,8 @@ def runs():
     state, _ = jinit(jm, tech, jax.random.PRNGKey(0), jcfg)
     start = tree_map(lambda t: t.detach(), train_state_from_jax(
         jax.device_get(state), "cpu"))
-    with ThreadPoolExecutor(2) as ex:
+    with ThreadPoolExecutor(3) as ex:
+        pipe = ex.submit(_ref_pipeline)
         futures = {name: ex.submit(spawn_ranks, worker.run_all, model,
                                    data=data, backend="gloo", device="cpu",
                                    args=(plan,), threads=1)
@@ -135,6 +212,7 @@ def runs():
         step = jax.jit(jbuild(jm, tech, jctx(cfg, tech, None), jcfg))
         _, m = step(state, jax.tree_util.tree_map(jnp.asarray, BATCHES[0]))
         ref = {k: float(v) for k, v in m.items()}
+        ref["pipeline"] = pipe.result()
         return {name: f.result() for name, f in futures.items()}, ref
 
 
@@ -215,15 +293,21 @@ def _holds(got, want, start, what, ce=True):
             assert _cos(d[keep], upd[keep]) >= 0.9, (what, p)
 
 
-def _seams(cfg, sp: bool, remat: bool, chunks: int) -> int:
+def _seams(cfg, sp: bool, remat: bool, chunks: int, seq: str = "") -> int:
     """Model-axis seam collectives a step: a layer's two blocks each
     enter and leave once a forward and their backward runs the other
     halves; under R the recomputation runs the forward's again up to
     the last tensor the backward needs (torch's checkpoint stops there),
     so without the layer's last seam; a loss block sums its max and its
     partial sums (again in its recomputation) and runs its f once
-    backward; under sp the final hidden states are gathered once."""
+    backward; under sp the final hidden states are gathered once. In
+    sequence mode (``seq="split"``) the attention block's only seam is
+    the gather of its output rows without sp (none with it: the rows
+    stay the rank's), backward the gather of its input's cotangent;
+    where the attention is replicated (``seq="whole"``) it has none."""
     fwd = 4 if sp else 2
+    if seq:
+        fwd = 2 if seq == "split" else 1
     per_layer = 2 * fwd + ((fwd - 1) if remat else 0)
     return cfg.n_layers * per_layer + 5 * chunks + (1 if sp else 0)
 
@@ -348,3 +432,90 @@ def test_cli_model_parallel_runs_on_the_cpu(capsys):
     assert "1 data-parallel ranks x 2 model-parallel" in out
     assert "rank 1: F+R:" in out
     assert "step      2  loss" in out and "tokens/s" in out
+
+
+SEQ_CASES = [("tp2", "qwen/F+R+seq", "qwen/oracle"),
+             ("tp2", "qwen/F+R+seq+sp", "qwen/oracle"),
+             ("tp2", "glm/F+R+seq", "glm/oracle"),
+             ("tp2", "glm/F+R+seq+sp", "glm/oracle"),
+             ("tp4", "six/R+auto", "six/oracle"),
+             ("tp4", "odd/F+R+seq", "odd/oracle"),
+             ("mesh22", "qwen/F+R+Z3+seq+sp", "qwen/oracle")]
+
+
+@pytest.mark.parametrize("mesh,case,oracle", SEQ_CASES)
+def test_seq_step_holds_to_the_one_device_step(request, mesh, case, oracle):
+    """Sequence (context-parallel) attention against the one-device step
+    at the module's limits, every rank holding the same whole state:
+    explicit at (1 x 2) with sp off and on (qwen, chatglm3's grouped
+    KV), ``"auto"`` turning to it where 4 ranks do not divide six heads
+    (the naive route), Z3 + sp on the (2 x 2) mesh, and a T of 30 at tp
+    4, where the attention is replicated and its gradients are not
+    summed (no k/v collective). Every rank issues the seams its blocks
+    make and one k/v gather a forward (again in the recomputation) and
+    one f32 sum of the k/v cotangents a backward, an attention layer."""
+    ranks = request.getfixturevalue(mesh)
+    want = ranks[0][oracle]
+    cfg = get_config(ARCHS.get(case.split("/")[0], QWEN), reduced=True)
+    if case.startswith("six"):
+        cfg = dataclasses.replace(cfg, n_heads=SIX, n_kv_heads=SIX)
+    split = not case.startswith("odd")
+    remat = "R" in case.split("/")[1].split("+")
+    seams = _seams(cfg, "sp" in case, remat, chunks=1,
+                   seq="split" if split else "whole")
+    kv = cfg.n_layers * (3 if remat else 2) if split else 0
+    for r, out in enumerate(ranks):
+        got = out[case]
+        what = f"{case} rank {r}"
+        assert got["mode"] == "seq", what
+        for p in got["state"]:
+            assert np.array_equal(got["state"][p],
+                                  ranks[0][case]["state"][p]), (what, p)
+        assert got["seams"] == [seams] * STEPS, (what, got["seams"])
+        assert got["kv"] == [kv] * STEPS, (what, got["kv"])
+    _holds(ranks[0][case], want, _seed_params(cfg), case,
+           ce=mesh != "mesh22")
+
+
+def test_seq_rank0_matches_the_reference_step(tp2, reference):
+    """From the reference's bridged state, rank 0's F+R step at tp 2 in
+    sequence mode against the reference's one-device step on the same
+    batch: the loss within LOSS_ATOL and grad_norm within 1%."""
+    m = reference
+    got = tp2[0]["bridged/seq"]
+    assert abs(got["loss_f"][0] - m["loss"]) < LOSS_ATOL
+    assert got["grad_norm"][0] == pytest.approx(m["grad_norm"], rel=0.01)
+
+
+def test_cli_attn_mode_seq_runs_on_the_cpu(capsys):
+    """``--model-parallel 2 --attn-mode seq``: the ranks train in
+    sequence mode, and rank 0's lines say so."""
+    train_cli.main(["--reduced", "--device", "cpu", "--steps", "2",
+                    "--batch", "4", "--seq", "32", "--technique", "F+R",
+                    "--attn-mode", "seq", "--model-parallel", "2",
+                    "--dist-backend", "gloo"])
+    out = capsys.readouterr().out
+    assert "2 model-parallel (attention in seq mode)" in out
+    assert "rank 1: F+R:" in out
+    assert "step      2  loss" in out and "tokens/s" in out
+
+
+def test_pipeline_matches_sequential_and_reference(tp2, reference):
+    """tests/test_substrate.py:143 on the port: the GPipe forward over 2
+    stages of the model axis equals the port's sequential loop over the
+    same layers bit for bit on both ranks, and the reference's
+    ``pipeline_forward`` within 1e-5."""
+    for r, out in enumerate(tp2):
+        got = out["pipeline"]
+        assert np.array_equal(got["out"], got["seq"]), r
+        assert np.array_equal(got["out"], tp2[0]["pipeline"]["out"]), r
+        assert got["bubble"] == pytest.approx(1 / 7)
+    np.testing.assert_allclose(_float(tp2[0]["pipeline"]["out"]),
+                               reference["pipeline"], atol=1e-5, rtol=1e-5)
+
+
+def test_bubble_fraction():
+    """tests/test_substrate.py:175 on the port."""
+    from repro_torch.parallel.pipeline import bubble_fraction
+    assert bubble_fraction(1, 4) == pytest.approx(3 / 4)
+    assert bubble_fraction(32, 4) == pytest.approx(3 / 35)

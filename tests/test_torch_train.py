@@ -369,22 +369,24 @@ def test_loss_decreases_over_steps(label):
 
 
 def test_unported_techniques_raise():
-    """LoRA on an nf4 base and the reference's sequence (context-parallel)
-    attention mode still raise, naming their ROADMAP item; sequence
-    parallelism and head mode act over a model axis and, as in the
-    reference, are no-ops on one device (tests/test_torch_tp_train.py
-    holds them over one); quantized full training (``Q``) now builds its
+    """LoRA on an nf4 base still raises, naming its ROADMAP item;
+    sequence parallelism and both attention modes act over a model axis
+    and, as in the reference, are no-ops on one device
+    (tests/test_torch_tp_train.py holds them over one: the reference's
+    sequence, context-parallel, mode builds its state and step here as
+    it once refused to); quantized full training (``Q``) now builds its
     state and step (tests/test_torch_quant_train.py holds it), and
     gradient compression is inert, as in the reference's step
     (tests/test_torch_dp_train.py holds the step with it bit for bit to
     the step without it)."""
     model = LM(port_config(ARCH, reduced=True), device="cpu")
-    for tech in (technique_from_label("QL"), Technique(attn_mode="seq")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            init_train_state(model, tech)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_train_step(model, tech, topt.AdamWConfig())
-    for tech in (Technique(sp=True), Technique(attn_mode="head")):
+    tech = technique_from_label("QL")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        init_train_state(model, tech)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_train_step(model, tech, topt.AdamWConfig())
+    for tech in (Technique(sp=True), Technique(attn_mode="head"),
+                 Technique(attn_mode="seq")):
         _, opt = init_train_state(model, tech)
         build_train_step(model, tech, opt)
     state, opt = init_train_state(model, technique_from_label("Q"))

@@ -9,9 +9,10 @@ sharding's memory kind is pinned host memory. For every leaf of the
 train state of all 13 configs, smoke and full width (the reference's
 abstract state from ``jax.eval_shape``, the port's from its own specs),
 under Naive, Z1, Z2, Z3 and Z3+O, and Q8+Z3 and L+Z3 at smoke size, on
-the meshes (data, model) = (2, 1), (4, 1) and (2, 2), the port places
-params, gradients and optimizer state (spec and host flag) where the
-reference does. The reference's own ZeRO claim holds on the port, and
+the meshes (data, model) = (2, 1), (4, 1) and (2, 2), and in sequence
+mode (``attn_mode`` "seq", and "auto" where it turns to it) on (1, 2),
+(2, 2) and (2, 3), the port places params, gradients and optimizer state
+(spec and host flag) where the reference does. The reference's own ZeRO claim holds on the port, and
 the int8 compressor equals the reference's bit for bit."""
 import dataclasses
 import functools
@@ -46,6 +47,7 @@ from repro_torch.train.step import check_dp, init_train_state
 
 ARCHS = list_archs()
 MESHES = ((2, 1), (4, 1), (2, 2))
+SEQ_MESHES = ((1, 2), (2, 2), (2, 3))
 FLOAT = ("Naive", "Z1", "Z2", "Z3", "Z3+O")
 CASES = ([pytest.param(a, r, t, id=f"{a}-{'smoke' if r else 'full'}-{t}")
           for a in ARCHS for r in (True, False) for t in FLOAT]
@@ -115,11 +117,45 @@ def _port_flat(tree):
     return {p: (pl.spec, pl.host) for p, pl in keystr_paths(tree)}
 
 
+def _placed_alike(rcfg, rmodel, rstate, cfg, model, pstate, label, mesh,
+                  mode=None):
+    """Both packages' contexts of ``label`` (``attn_mode`` ``mode``
+    where given) on ``mesh`` (data, model): the same axes and attention
+    mode, and every leaf of params, grads and optimizer state placed
+    alike. Returns the port's placements."""
+    rtech, tech = jtech(label), technique_from_label(label)
+    if mode is not None:
+        rtech = dataclasses.replace(rtech, attn_mode=mode)
+        tech = dataclasses.replace(tech, attn_mode=mode)
+    rlogical = ref_sharding.logical_by_path_of(rmodel.param_specs())
+    logical = S.logical_by_keystr_of(model.param_specs())
+    rctx = ref_sharding.make_shard_ctx(rcfg, rtech, _mesh(*mesh))
+    ctx = S.make_shard_ctx(cfg, tech, _mesh(*mesh))
+    assert (ctx.dp_axes, ctx.model_axis, ctx.dp_size, ctx.attn_mode) \
+        == (rctx.dp_axes, rctx.model_axis, rctx.dp_size, rctx.attn_mode)
+    want = _ref_flat(ref_train_shardings(rstate, rmodel, rctx))
+    want.update({"grads" + p: v for p, v in _ref_flat(
+        ref_sharding.state_shardings(rctx, rstate["params"], rlogical,
+                                     component="grads")).items()})
+    got = _port_flat(S.train_state_shardings(pstate, model, ctx))
+    got.update({"grads" + p: v for p, v in _port_flat(
+        S.state_shardings(ctx, pstate["params"], logical,
+                          component="grads")).items()})
+    assert set(got) == set(want), (mesh, mode,
+                                   sorted(set(got) ^ set(want))[:4])
+    bad = {p: (got[p], want[p]) for p in want if got[p] != want[p]}
+    assert not bad, (mesh, mode, list(bad.items())[:3])
+    return got, ctx
+
+
 @pytest.mark.parametrize("arch,reduced,label", CASES)
 def test_zero_placements_match_reference(arch, reduced, label, bare_specs):
     """params, grads and optimizer state: every leaf's spec and host flag
     equal the reference's ``train_state_shardings`` /
-    ``state_shardings(component="grads")``, on each mesh."""
+    ``state_shardings(component="grads")``, on each mesh, and in
+    sequence mode (explicit, and "auto" where the reference turns to it)
+    on each of ``SEQ_MESHES``; the port picks the reference's attention
+    mode on each."""
     kind = label if label not in FLOAT else "float"
     rcfg, rmodel, rstate = _ref_state(arch, reduced, kind)
     cfg, model, pstate = _port_state(arch, reduced, label)
@@ -127,39 +163,33 @@ def test_zero_placements_match_reference(arch, reduced, label, bare_specs):
     logical = S.logical_by_keystr_of(model.param_specs())
     assert logical == rlogical
     for data, mdl in MESHES:
-        rtech, tech = jtech(label), technique_from_label(label)
-        rctx = ref_sharding.make_shard_ctx(rcfg, rtech, _mesh(data, mdl))
-        ctx = S.make_shard_ctx(cfg, tech, _mesh(data, mdl))
-        assert rctx.attn_mode == "head"
-        assert (ctx.dp_axes, ctx.model_axis, ctx.dp_size) \
-            == (rctx.dp_axes, rctx.model_axis, rctx.dp_size)
-        want = _ref_flat(ref_train_shardings(rstate, rmodel, rctx))
-        want.update({"grads" + p: v for p, v in _ref_flat(
-            ref_sharding.state_shardings(rctx, rstate["params"], rlogical,
-                                         component="grads")).items()})
-        got = _port_flat(S.train_state_shardings(pstate, model, ctx))
-        got.update({"grads" + p: v for p, v in _port_flat(
-            S.state_shardings(ctx, pstate["params"], logical,
-                              component="grads")).items()})
-        assert set(got) == set(want), (data, mdl,
-                                       sorted(set(got) ^ set(want))[:4])
-        bad = {p: (got[p], want[p]) for p in want if got[p] != want[p]}
-        assert not bad, (data, mdl, list(bad.items())[:3])
+        got, ctx = _placed_alike(rcfg, rmodel, rstate, cfg, model, pstate,
+                                 label, (data, mdl))
+        assert ctx.attn_mode == "head"
         if label in ("Z3", "Z3+O") and mdl == 1:
             # ZeRO-3 splits every leaf some dim of which the ranks divide
             assert any("data" in str(s) for s, _ in got.values())
+    for mesh in SEQ_MESHES:
+        for mode in ("seq", "auto"):
+            _placed_alike(rcfg, rmodel, rstate, cfg, model, pstate, label,
+                          mesh, mode)
 
 
 @pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "llama2-7b"])
-def test_sequence_mode_raises(arch):
-    """A model axis of 3 divides neither model's heads, where the
-    reference turns to sequence mode, which the port has not: the
-    context raises, naming its ROADMAP item."""
-    with pytest.raises(NotImplementedError, match="item 7.3"):
-        S.make_shard_ctx(get_config(arch), technique_from_label("Z3"),
-                         _mesh(2, 3))
-    assert ref_sharding.make_shard_ctx(ref_config(arch), jtech("Z3"),
-                                       _mesh(2, 3)).attn_mode == "seq"
+def test_sequence_mode_raises(arch, bare_specs):
+    """A model axis of 3 divides neither model's heads (16 and 32), where
+    the reference turns to sequence mode: the port's context, which once
+    raised here, now turns to it too, and under Z3 its placements equal
+    the reference's ``state_shardings`` for every leaf, the attention
+    leaves whole on the model axis (cut over the data axis only)."""
+    rcfg, rmodel, rstate = _ref_state(arch, False, "float")
+    cfg, model, pstate = _port_state(arch, False, "Z3")
+    got, ctx = _placed_alike(rcfg, rmodel, rstate, cfg, model, pstate, "Z3",
+                             (2, 3))
+    assert ctx.attn_mode == "seq"
+    for p, (spec, _) in got.items():
+        if any(w in p for w in ("['wq']", "['wk']", "['wv']", "['wo']")):
+            assert "model" not in spec, p
 
 
 def test_claim2_zero_stage_changes_param_sharding_on_the_port():

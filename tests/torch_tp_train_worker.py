@@ -7,7 +7,9 @@ of ranks, as ``torch_dp_worker.run_all`` does: a case is ``(name, kind,
 kwargs)``; a kwargs' ``oracle`` runs it on one device, on global rank 0
 alone. Each rank returns ``{name: result}``."""
 import contextlib
+import dataclasses
 
+import numpy as np
 import torch
 
 from repro_torch.configs import get_config
@@ -17,6 +19,7 @@ from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models import lm as LMmod
 from repro_torch.models.params import keystr_paths, tree_map
+from repro_torch.parallel import pipeline as PP
 from repro_torch.parallel.sharding import (MODEL, make_shard_ctx,
                                            train_state_shardings)
 from repro_torch.train.step import (DPLayout, build_train_step,
@@ -44,19 +47,23 @@ def logits_widths(out: list):
 
 
 def train(mesh, arch, label, batches, *, accum=1, start=None, sp=False,
-          pieces=False):
-    """Steps of ``label`` on the reduced ``arch`` over ``batches`` (whole
-    global batches as numpy): on one device when ``mesh`` is None (the
-    whole batch in ``accum`` micro-batches), else as this rank of the
-    mesh. The state starts from the seed, or from ``start`` (a whole
-    one-device state). Returns each step's loss (bits and float), ce,
-    grad_norm, the collectives and seams a step (``ShardCtx.comm_timer``),
-    the widths of the logits blocks, the whole state's bits after the
-    first step (``state1``) and after the last (``state``) and,
-    with ``pieces``, this rank's own pieces' bits and the cut each should
-    be of the whole by ``state_shardings``."""
+          pieces=False, attn_mode="auto", heads=None):
+    """Steps of ``label`` on the reduced ``arch`` (with ``heads`` query
+    and KV heads where given) over ``batches`` (whole global batches as
+    numpy): on one device when ``mesh`` is None (the whole batch in
+    ``accum`` micro-batches), else as this rank of the mesh with the
+    attention mode ``attn_mode``. The state starts from the seed, or
+    from ``start`` (a whole one-device state). Returns each step's loss
+    (bits and float), ce, grad_norm, the collectives, seams and k/v
+    collectives a step (``ShardCtx.comm_timer``), the context's
+    attention mode, the widths of the logits blocks, the whole state's
+    bits after the first step (``state1``) and after the last
+    (``state``) and, with ``pieces``, this rank's own pieces' bits and
+    the cut each should be of the whole by ``state_shardings``."""
     cfg = get_config(arch, reduced=True)
-    tech = technique(label, accum, sp=sp)
+    if heads:
+        cfg = dataclasses.replace(cfg, n_heads=heads, n_kv_heads=heads)
+    tech = technique(label, accum, sp=sp, attn_mode=attn_mode)
     ctx = make_shard_ctx(cfg, tech, mesh) if mesh is not None else None
     model = make_model(cfg, tech, device="cpu", ctx=ctx)
     if start is None:
@@ -67,7 +74,8 @@ def train(mesh, arch, label, batches, *, accum=1, start=None, sp=False,
     else:
         state = shard_train_state(start, model, tech, ctx)
     out = {"loss": [], "loss_f": [], "ce": [], "grad_norm": [],
-           "collectives": [], "seams": [], "widths": []}
+           "collectives": [], "seams": [], "kv": [], "widths": [],
+           "mode": ctx.attn_mode if ctx is not None else None}
     step = build_train_step(model, tech, OPT, ctx=ctx)
     timer = Timer()
     if ctx is not None:
@@ -78,12 +86,13 @@ def train(mesh, arch, label, batches, *, accum=1, start=None, sp=False,
         if ctx is not None:
             lo, hi = ctx.batch_sharding(batch["tokens"].shape[0])
             batch = {k: v[lo:hi] for k, v in batch.items()}
-        n0 = {k: len(timer.records[k]) for k in ("collective", "seam")}
+        n0 = {k: len(timer.records[k]) for k in ("collective", "seam", "kv")}
         with logits_widths(out["widths"]):
             state, met = step(state, batch)
         out["collectives"].append(len(timer.records["collective"])
                                   - n0["collective"])
         out["seams"].append(len(timer.records["seam"]) - n0["seam"])
+        out["kv"].append(len(timer.records["kv"]) - n0["kv"])
         out["loss"].append(int(host(met["loss"])))
         out["loss_f"].append(float(met["loss"]))
         out["ce"].append(float(met["ce"]))
@@ -224,7 +233,36 @@ def emulate(mesh, arch, label, batches, tp, sp=False):
         return int(host(model.loss(params, b)[0]))
 
 
-KINDS = {"train": train, "emulate": emulate}
+def pipe_case(seed: int = 0, layers: int = 4, d: int = 16, n_micro: int = 6,
+              mb: int = 8):
+    """tests/test_substrate.py's pipeline case: ``layers`` tanh(c @ w)
+    layers, w and the microbatches drawn from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    w = (rng.standard_normal((layers, d, d)) * 0.3).astype(np.float32)
+    x = rng.standard_normal((n_micro, mb, d)).astype(np.float32)
+    return w, x
+
+
+def _tanh_stage(p, x):
+    for wl in p.unbind(0):
+        x = torch.tanh(x @ wl)
+    return x
+
+
+def pipeline(mesh, stages: int = 2):
+    """The GPipe forward of :func:`pipe_case` over ``stages`` stages on
+    this mesh's model axis, its bubble fraction, and the port's
+    sequential loop over the same layers (one device)."""
+    w, x = pipe_case()
+    wt, xt = torch.from_numpy(w), torch.from_numpy(x)
+    fwd = PP.pipeline_forward(mesh, MODEL, _tanh_stage, n_micro=x.shape[0])
+    out = fwd(PP.split_stages(wt, stages), xt)
+    seq = torch.stack([_tanh_stage(wt, xt[m]) for m in range(x.shape[0])])
+    return {"out": host(out), "seq": host(seq),
+            "bubble": PP.bubble_fraction(x.shape[0], stages)}
+
+
+KINDS = {"train": train, "emulate": emulate, "pipeline": pipeline}
 
 
 def run_all(mesh, plan):
