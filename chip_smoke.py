@@ -476,6 +476,33 @@ imports nothing of the JAX package). Phases, one line each:
               forward (q_offset 0) and 2 RMSNorms a layer a tick over the
               9 ticks. Prints the bubble fraction, ms a tick and a ring
               shift, and the forward's ms against one device's.
+32. tp-families - tensor-parallel training of the MoE and hybrid
+              families on card 0, two ranks over gloo: (A)
+              qwen3-moe-30b-a3b at full width cut to 2 of its 48 layers,
+              F+R at TP = 2 (expert parallelism: 64 experts a rank), 2
+              steps of 4 x 2048, head mode with sp off, then on, then
+              sequence mode, in one spawn; (B) jamba-v0.1-52b at full
+              width cut to 2 layers (attention with its dense FFN, a
+              Mamba-2 layer with the 16-expert MoE FFN), F+R at TP = 2,
+              2 steps of 2 x 2048. Each rank's step against the
+              one-device F+R step on the same batches, which dispatches
+              each t-slice at its own capacity (training's multiplier)
+              as a rank does and whose routes the ranks take in step 1
+              (a near tie flips an expert where sums run in other
+              orders; at most 3% of a rank's tokens, each a near tie),
+              so both drop the same assignments there (counted): ce and
+              loss within 1e-5, aux (the t-slices' mean) within 5e-5
+              (a rank's own t-slice's lies beyond: checked), grad_norm
+              within 1e-3, the later step at phase 30's limits, the first
+              moments and params after step 1 at phase 30's limits
+              (sketched), beside each run's distance from the f32
+              step's. Each rank launches the flash forward twice and the
+              dK/dV and dQ kernels once an attention layer a step, the
+              split norm's two passes on each Mamba-2 layer (again in
+              the recomputation) and RMSNorm as one device.
+              Prints per-rank peak memory and state at rest against one
+              device, and the exchange's and the seams' ms and MiB a
+              step and share of the step.
 
 Any failed check raises. The last three lines of standard output are the
 kernels' JSON record, the card's name and power limit, and
@@ -485,8 +512,8 @@ two fine-tuning runs, the speculative engine runs, the nine
 lifecycle bursts, phase 23's eight runs, phase 24's training runs,
 phase 25's serving and training runs, phase 26's runs, phase 27's
 single-device runs and each rank's run, each of phase 28's runs on
-each rank and one device, each of phase 30's, and phase 31's on each
-rank) is driven with every launch
+each rank and one device, each of phase 30's, phase 31's on each
+rank, and each of phase 32's) is driven with every launch
 count set to 0 just before it (after the engine's warmup, and in phase
 22 (a)/(b) after the warming request) and read just after; so is each
 eager twin. Without
@@ -3745,7 +3772,7 @@ def phase_rmsnorm_split():
             return err
 
         worst["one"] = max(worst["one"], held(
-            rn.rmsnorm_split(p0, w0, n // parts, lambda t: t),
+            rn.rmsnorm_split(p0, w0, n // parts, lambda t: t)[0],
             rn.rmsnorm_plain(p0, w0), "on one part"))
         worst["whole"] = max(worst["whole"], held(
             rms_split_run(x, w, parts), rn.rmsnorm_plain(x, w),
@@ -5771,10 +5798,10 @@ def tp_serve(mesh, name, engine_kw, prompts, max_new, streams=None):
     if eng._ctx is not None:
         reduce = eng._ctx.all_reduce
 
-        def timed_reduce(t):
+        def timed_reduce(t, region=None):
             torch.cuda.synchronize(dev)
             t0 = time.perf_counter()
-            reduce(t)
+            reduce(t, region)
             torch.cuda.synchronize(dev)
             coll["s"] += time.perf_counter() - t0
             coll["n"] += 1
@@ -5991,13 +6018,14 @@ def dp_config(name):
                                                            cfg.n_layers))
 
 
-def dp_batches(cfg, steps: int):
-    """The global batches of ``steps`` steps (``SyntheticLM``, packed: every
-    row holds as many labels, so a rank's loss is its micro-batch mean)."""
+def dp_batches(cfg, steps: int, rows: int = DP_SHAPE["b"]):
+    """The global batches of ``steps`` steps, ``rows`` x 2048 each
+    (``SyntheticLM``, packed: every row holds as many labels, so a rank's
+    loss is its micro-batch mean)."""
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
                                   seq_len=DP_SHAPE["t"],
-                                  global_batch=DP_SHAPE["b"], seed=0))
+                                  global_batch=rows, seed=0))
     return [data.batch_at(i) for i in range(steps)]
 
 
@@ -6587,29 +6615,34 @@ def leaf_sketch(state, lay=None, ctx=None, device="cuda") -> dict:
     """``{path: (own, (SKETCH_K,) float64)}``: each leaf's values (as f32)
     projected onto SKETCH_K pseudo-random vectors whose entries are a
     hash of the element's flat index in the whole leaf (uniform in
-    [-0.5, 0.5)), on the card. Linear, so a sharded leaf's projection is
-    the sum over the ranks of each rank's over its piece (with ``lay``
-    and ``ctx``, a rank's ``DPLayout`` and context: its TP cut, then its
-    ZeRO cut) and no byte moves; ``own`` says whether this rank's piece
-    enters that sum (a piece an axis repeats is counted on that axis's
-    rank 0 only; one device: every leaf, own). The RMS of two runs'
+    [-0.5, 0.5): the top 24 bits of the index's splitmix64 hash times an
+    odd constant of the vector's own), on the card. Linear, so a sharded
+    leaf's projection is the sum over the ranks of each rank's over its
+    piece (with ``lay`` and ``ctx``, a rank's ``DPLayout`` and context:
+    its TP cut, then its ZeRO cut) and no byte moves; ``own`` says
+    whether this rank's piece enters that sum (a piece an axis repeats
+    is counted on that axis's rank 0 only; one device: every leaf, own). The RMS of two runs'
     projections' differences estimates the distance of the leaves
     (Johnson-Lindenstrauss) up to the same factor as their RMS estimates
     a leaf's norm."""
     import torch
     from repro_torch.models.params import keystr_paths
-    prime = 2 ** 31 - 1
-    seeds = torch.tensor([(0x9E3779B1 * (j + 1)) % prime
-                          for j in range(SKETCH_K)], dtype=torch.int64,
-                         device=device)
+    wrap = lambda c: c - (1 << 64) if c >= 1 << 63 else c   # as int64
+    golden = 0x9E3779B97F4A7C15
+    odds = torch.tensor([wrap(golden * (2 * j + 1) % (1 << 64))
+                         for j in range(SKETCH_K)], dtype=torch.int64,
+                        device=device)
 
-    def hashed(i):
-        h = (i + seeds) % prime
-        h = (h * 0x2545F491) % prime
-        h = h ^ (h >> 15)
-        h = (h * 0x5851F42D) % prime
-        return h ^ (h >> 13)
+    def srl(z, n):                        # logical shift right
+        return (z >> n) & ((1 << (64 - n)) - 1)
 
+    def hashed(i):                        # splitmix64's finaliser
+        z = i + wrap(golden)
+        z = (z ^ srl(z, 30)) * wrap(0xBF58476D1CE4E5B9)
+        z = (z ^ srl(z, 27)) * wrap(0x94D049BB133111EB)
+        return z ^ srl(z, 31)
+
+    from repro_torch.parallel import zero as Z
     out = {}
     for path, t in keystr_paths(state):
         if lay is None:
@@ -6619,20 +6652,46 @@ def leaf_sketch(state, lay=None, ctx=None, device="cuda") -> dict:
             cuts = tuple(c for c in (tc, zc) if c.dim is not None)
             own = ((tc.dim is not None or ctx.rank == 0) and
                    (zc.dim is not None or ctx.mesh.data_rank == 0))
-        shape = list(t.shape)
+        # each level's shape, the whole leaf's first
+        shapes = [tuple(t.shape)]
         for c in reversed(cuts):
-            shape[c.dim] *= c.parts
-        idx = torch.arange(math.prod(shape), device=device).view(shape)
-        for c in cuts:
-            lo, hi = c.bounds(idx.shape[c.dim])
-            idx = idx.narrow(c.dim, lo, hi - lo)
-        vals = t.detach().to(device).float().reshape(-1)
-        idx = idx.reshape(-1)
+            shapes.insert(0, Z.whole_shape(shapes[0], c))
+        # a fused SSM leaf's B and C runs: every model rank holds them
+        # whole, model rank 0 counts them
+        skip = (cuts[0].whole_runs() if cuts and cuts[0].segs
+                and ctx.rank != 0 else [])
+        whole_stride = torch.tensor(
+            [math.prod(shapes[0][d + 1:]) for d in range(t.ndim)],
+            dtype=torch.int64, device=device)
+        flat = t.detach().to(device).reshape(-1)
         acc = torch.zeros(SKETCH_K, dtype=torch.float64, device=device)
         step = 1 << 22
-        for c0 in range(0, vals.numel(), step):
-            r = hashed(idx[c0:c0 + step, None]).float() * 2.0 ** -31 - 0.5
-            acc += (vals[c0:c0 + step] @ r).double()
+        for c0 in range(0, flat.numel(), step):
+            q = torch.arange(c0, min(c0 + step, flat.numel()),
+                             device=device)
+            coords = []
+            for n in reversed(shapes[-1]):
+                coords.insert(0, q % n)
+                q = q // n
+            vals = flat[c0:c0 + step].float()
+            for level in range(len(cuts) - 1, -1, -1):
+                c = cuts[level]
+                x = coords[c.dim]
+                if level == 0 and skip:
+                    hit = torch.zeros_like(x, dtype=torch.bool)
+                    for at, n in skip:
+                        hit |= (x >= at) & (x < at + n)
+                    vals = torch.where(hit, torch.zeros_like(vals), vals)
+                runs = c.ranges(shapes[level][c.dim])
+                at = torch.tensor([r[2] for r in runs], device=device)
+                lo = torch.tensor([r[0] for r in runs], device=device)
+                k = torch.bucketize(x, at, right=True) - 1
+                coords[c.dim] = lo[k] + x - at[k]
+            idx = sum(cd * whole_stride[d] for d, cd in enumerate(coords)) \
+                if coords else torch.zeros_like(vals, dtype=torch.int64)
+            r = hashed(idx)[:, None] * odds
+            r >>= 40                      # in [-2^23, 2^23)
+            acc += (vals @ r.float()).double() * 2.0 ** -24
         out[path] = (own, acc.cpu().numpy())
     return out
 
@@ -6664,32 +6723,47 @@ def recorded_routes(calls: list):
 
 
 @contextlib.contextmanager
-def forced_routes(routes: list, flips: list):
-    """``blocks._route`` on one device taking the experts of ``routes``
-    (each MoE layer's (tokens, k) on the whole batch): each call takes
-    the layer route that agrees most with its own choice (the forward
-    and the recomputation call each layer), with its gates gathered at
-    those experts and renormalised and the load-balancing loss recomputed
-    from them; ``flips`` gains the tokens whose expert set it changed."""
+def forced_routes(routes: list, flips: list, gaps: list = None):
+    """``blocks._route`` on one device or a model rank taking the experts
+    of another run's calls (``routes``: arrays (tokens, k)): each call
+    takes the one of its shape that agrees most with its own choice (the
+    forward and the recomputation call each layer). Where that one
+    differs, its gates are gathered at those experts and renormalised,
+    and the program's own load-balancing loss gains what the changed
+    first choices change in it (nothing where no first choice changed);
+    ``flips`` gains the tokens whose expert set it changed and ``gaps``
+    the most by which a forced expert's gate fell short of the token's
+    own k-th, relative to it (a near tie: the two sides' products sum
+    in other orders)."""
     import torch
     from repro_torch.models import blocks as B
     from repro_torch.models import layers as L
     orig = B._route
 
-    def forced(h, w, cfg):
-        top_w, top_e, _ = orig(h, w, cfg)
+    def forced(h, w, cfg, ctx=None):
+        top_w, top_e, aux = (orig(h, w, cfg) if ctx is None else
+                             orig(h, w, cfg, ctx))
         e, k = cfg.n_experts, cfg.top_k
         own = top_e.reshape(-1, k)
-        cands = [torch.from_numpy(r).to(own.device) for r in routes]
+        cands = [torch.from_numpy(r).to(own.device) for r in routes
+                 if r.shape == tuple(own.shape)]
         want = max(cands, key=lambda c: int((c == own).all(-1).sum()))
-        flips.append(int((want.sort(-1)[0] != own.sort(-1)[0]).any(-1)
-                         .sum()))
+        changed = (want.sort(-1)[0] != own.sort(-1)[0]).any(-1)
+        flips.append(int(changed.sum()))
+        if torch.equal(want, own):
+            return top_w, top_e, aux
         gates = torch.softmax(L.dense(h.float(), w).float(), -1).reshape(
             -1, e)
         tw = gates.gather(-1, want)
+        if gaps is not None and flips[-1]:
+            kth = gates.gather(-1, own[:, -1:])[:, 0]
+            short = (kth - tw.min(-1).values) / kth
+            gaps.append(float(short[changed].max()))
         tw = tw / torch.clamp_min(tw.sum(-1, keepdim=True), 1e-9)
-        first = (want[:, :1] == torch.arange(e, device=want.device)).float()
-        aux = e * (gates.mean(0) * first.mean(0)).sum()
+        ids = torch.arange(e, device=want.device)
+        moved = ((want[:, :1] == ids).float().mean(0)
+                 - (own[:, :1] == ids).float().mean(0))
+        aux = aux + e * (gates.mean(0) * moved).sum()
         return tw.reshape(top_w.shape), want.reshape(top_e.shape), aux
 
     B._route = forced
@@ -7727,6 +7801,356 @@ LLAMA7_LAYERS = 16
 LLAMA13_LAYERS = 20
 
 
+# --------------------------------------------------------------------------
+# phase 32: tensor-parallel training of the MoE and hybrid families
+# (expert parallelism's backward, the Mamba-2 block's seams under autograd)
+# --------------------------------------------------------------------------
+
+TPF_DEGREE = 2
+TPF_STEPS = 2
+# (A) qwen3-moe-30b-a3b cut to 2 of its 48 layers on phase 28's 4 x 2048
+# global batch; (B) jamba-v0.1-52b cut to 2 layers (attention + its dense
+# FFN, Mamba-2 + the MoE FFN: widths untouched) on 2 x 2048
+TPF_RUNS = {"qwen3-moe-30b-a3b": dict(b=4, layers=dict(n_layers=2)),
+            "jamba-v0.1-52b": dict(b=2, layers=dict(
+                n_layers=2, attn_period=2, attn_offset=0, moe_every=2,
+                moe_offset=1))}
+# the load-balancing loss against the one device's t-slices' mean: each
+# is an f32 mean of softmax gates of a product of bf16 hidden states,
+# which TP rounds in other places. Readings (H100 80GB HBM3, 700 W):
+# 1.2e-5 (qwen3-moe), 5.6e-6 (jamba); what a rank reports without the
+# mean over the axis (its own t-slice's loss) lies 1.9% (qwen3-moe) and
+# 3.9% (jamba) from it, and the phase checks that it lies beyond
+TPF_AUX_RTOL = 5e-5
+# the ranks take the one device's experts in step 1 where a near tie
+# flips an expert set: at most this share of a rank's (token, call) pairs
+# (readings on that card: qwen3-moe 1.32% and 0.98%, 8 of 128 experts a
+# token; jamba 0.39% and 0.49%), and each forced expert's gate at most
+# this far below the token's own k-th gate, relative to it (readings:
+# up to 0.011)
+TPF_FLIP_SHARE = 0.03
+TPF_TIE_GAP = 0.03
+
+
+def tpf_config(name):
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(name), **TPF_RUNS[name]["layers"])
+
+
+@contextlib.contextmanager
+def tpf_counted(drops: list, parts: int = 0, slices: list = None):
+    """Every MoE call's dropped assignments added into ``drops`` (one
+    device tensor: no sync). With ``parts``, the one-device dispatch runs
+    as ``parts`` model ranks route (``blocks._moe_local`` on each t-slice
+    of the batch's rows at that slice's own capacity, the load-balancing
+    loss the slices' mean: the reference's per-shard expert-parallel
+    semantics), so the one device drops what the ranks drop; ``slices``
+    gains each call's slices' losses (a stacked device tensor)."""
+    import torch
+    from repro_torch.models import blocks as B
+    slots, local = B._slots, B._moe_local
+
+    def counted(top_e, e, cap, ctx=None):
+        slot, keep = (slots(top_e, e, cap) if ctx is None else
+                      slots(top_e, e, cap, ctx))
+        if not drops:
+            drops.append(torch.zeros((), dtype=torch.int64,
+                                     device=keep.device))
+        drops[0] += (~keep).sum()
+        return slot, keep
+
+    def sliced(h, p, cfg, capacity_mult, ctx=None):
+        w = h.shape[1] // parts
+        outs = [local(h[:, r * w:(r + 1) * w], p, cfg, capacity_mult)
+                for r in range(parts)]
+        if slices is not None:
+            slices.append(torch.stack([a.detach() for _, a in outs]))
+        return (torch.cat([o for o, _ in outs], 1),
+                sum(a for _, a in outs) / parts)
+
+    B._slots = counted
+    if parts:
+        B._moe_local = sliced
+    try:
+        yield
+    finally:
+        B._slots, B._moe_local = slots, local
+
+
+def tpf_run(mesh, name, sp, mode, batches, routes=None):
+    """One run of phase 32: ``name`` (:func:`tpf_config`) F+R seeded on
+    this rank's card (one device when ``mesh`` is None: its MoE dispatch
+    per t-slice as the ranks route, :func:`tpf_counted`, each step's
+    experts recorded), sequence parallelism ``sp``, attention mode
+    ``mode``, on a rank the first step routed as the one device routed
+    (``routes``: the one device's records, :func:`forced_routes`, as the
+    CPU tests force the first step only); the launch counts set to 0,
+    each step fenced, each exchange, seam and step collective timed
+    between two synchronizes. Returns the per-step loss, ce, aux,
+    grad_norm, ms and dropped assignments, the collectives' counts and
+    seconds by region, the exchange's bytes, the routes and each t-slice's
+    summed load-balancing loss of step 1 (one device) or the forced
+    tokens and their largest gate gap (a rank), the launches (the split
+    norm's partial-sum pass too), peak memory, the state at rest and the
+    sketches of the params before step 1 and of the params and first
+    moments after it."""
+    import dataclasses
+    import torch
+    from repro_torch.core.config import technique_from_label
+    from repro_torch.core.perfscope import Timer
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.launch.build import make_model
+    from repro_torch.parallel.sharding import make_shard_ctx
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.step import (DPLayout, build_train_step,
+                                        init_train_state)
+    cfg = tpf_config(name)
+    tech = dataclasses.replace(technique_from_label("F+R"), sp=sp,
+                               attn_mode=mode)
+    ctx = make_shard_ctx(cfg, tech, mesh) if mesh is not None else None
+    dev = mesh.device if mesh is not None else torch.device("cuda")
+    model = make_model(cfg, tech, device=dev, ctx=ctx)
+    opt = AdamWConfig(lr=DP_LR, warmup=0)
+    state, _ = init_train_state(model, tech, 0, opt, ctx=ctx)
+    lay = DPLayout(model, tech, ctx) if ctx is not None else None
+    regions = ("exchange", "seam", "collective", "kv")
+    rec = {k: [] for k in ("loss_f", "ce", "aux", "grad_norm", "ms",
+                           "xbytes", "routes", "flips", "gaps",
+                           "drops") + regions}
+    rec["mode"] = ctx.attn_mode if ctx is not None else None
+    rec["sk0"] = leaf_sketch({"params": state["params"]}, lay, ctx, dev)
+    step = build_train_step(model, tech, opt, ctx=ctx)
+    timer = Timer()
+    if ctx is not None:
+        ctx.comm_timer = timer
+    free_card()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    slice_counts(reset=True)
+    drops, slices = [], []
+    with tpf_counted(drops, TPF_DEGREE if ctx is None else 0, slices):
+        for i, b in enumerate(batches):
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+            n0 = {k: (len(timer.records[k]), sum(timer.records[k]))
+                  for k in regions}
+            x0 = ctx.exchange_bytes if ctx is not None else 0
+            calls, flips, gaps = [], [], []
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            with (recorded_routes(calls) if ctx is None else
+                  forced_routes(routes, flips, gaps) if i == 0 else
+                  contextlib.nullcontext()):
+                state, met = step(state, batch)
+            torch.cuda.synchronize(dev)
+            rec["ms"].append((time.perf_counter() - t0) * 1e3)
+            if i == 0 and ctx is None:
+                rec["routes"] = [c.cpu().numpy() for c in calls]
+                n_moe = cfg.ffn_kinds().count("moe")
+                rec["slice_aux"] = [float(a) for a in sum(slices[:n_moe])]
+            rec["flips"].append(sum(flips))
+            rec["gaps"].append(max(gaps, default=0.0))
+            rec["drops"].append(int(drops[0]) - sum(rec["drops"])
+                                if drops else 0)
+            for k in regions:
+                rec[k].append((len(timer.records[k]) - n0[k][0],
+                               sum(timer.records[k]) - n0[k][1]))
+            rec["xbytes"].append((ctx.exchange_bytes - x0) if ctx else 0)
+            for k in ("ce", "aux", "grad_norm"):
+                rec[k].append(float(met[k]))
+            rec["loss_f"].append(float(met["loss"]))
+            if i == 0:
+                rec["sk1"] = leaf_sketch({"params": state["params"],
+                                          "opt": {"m": state["opt"]["m"]}},
+                                         lay, ctx, dev)
+    rec["coll"] = rec["collective"]
+    rec["launches"] = slice_counts()
+    rec["launches"]["rmsnorm_sumsq"] = rn.LAUNCHES["rmsnorm_sumsq"]
+    for key, kernel in (("offset_fwd", "fwd"), ("offset_bwd", "bwd_dkv")):
+        rec["launches"][key] = sum(v for (k, o), v in fa.OFFSETS.items()
+                                   if k == kernel and o > 0)
+    rec["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    if ctx is not None:
+        ctx.comm_timer = None
+    buf = getattr(step, "grad_buffer", {})
+    rec["at_rest"] = state_bytes(state, buf.values())
+    rec["device"] = str(dev)
+    del state, step, model
+    free_card()
+    return rec
+
+
+def tpf_rank_runs(mesh, runs):
+    """Phase 32's runs of one part in turn on one set of ranks."""
+    return [tpf_run(mesh, *run) for run in runs]
+
+
+def tpf_truth(name, batches) -> dict:
+    """The f32 step's first moments of phase 32's ``name``: 0.1 x the
+    gradient of the seeded params taken in f32 on the first batch, the
+    MoE dispatch per t-slice (:func:`tpf_counted`), sketched
+    (``"truth"``), and that gradient's norm (``"norm"``)."""
+    import torch
+    from repro_torch.core.config import technique_from_label
+    from repro_torch.launch.build import make_model
+    from repro_torch.models.params import keystr_map, keystr_paths
+    cfg = tpf_config(name)
+    model = make_model(cfg, technique_from_label("F+R"), device="cuda")
+    params = keystr_map(lambda p, t: t.float().requires_grad_(True),
+                        model.init(0))
+    b = {k: torch.from_numpy(v).to("cuda") for k, v in batches[0].items()}
+    paths = keystr_paths(params)
+    with tpf_counted([], TPF_DEGREE):
+        loss, _ = model.loss(params, b)       # (the recomputation too)
+        grads = dict(zip([p for p, _ in paths], torch.autograd.grad(
+            loss, [t for _, t in paths])))
+    del loss
+    # the sketch is linear: 0.1 x the gradient's
+    out = {"truth": {p: 0.1 * v for p, (_, v) in leaf_sketch(
+               {"opt": {"m": keystr_map(lambda p, t: grads[p], params)}}
+           ).items()},
+           "norm": float(torch.sqrt(sum(torch.sum(torch.square(g))
+                                        for g in grads.values())))}
+    del params, grads, model
+    free_card()
+    return out
+
+
+def tpf_check(what, rec, want, cfg, truth, card, rows: int) -> dict:
+    """One rank's run of phase 32 against the one-device run: ce, loss
+    and aux, grad_norm, the later steps and, after step 1, the sketched
+    first moments and params (:func:`tpt_check`'s limits); the flash
+    launches (twice and once an attention layer a step), the split
+    norm's passes (the partial-sum pass twice a Mamba-2 layer a step,
+    the forward and its recomputation) and RMSNorm as one device; the
+    step-1 tokens forced to the one device's experts (``rows`` x 2048 a
+    step) few and each a near tie. Prints the readings; returns the
+    launches."""
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
+    for key, tol in (("ce", TPT_LOSS_RTOL), ("aux", TPF_AUX_RTOL)):
+        check(rel(rec[key][0], want[key][0]) <= tol,
+              f"{what}: step-1 {key} {rec[key][0]} vs one device "
+              f"{want[key][0]} beyond rtol {tol}")
+    pairs = (rows * DP_SHAPE["t"] // TPF_DEGREE * 2
+             * cfg.ffn_kinds().count("moe"))
+    check(rec["flips"][0] <= TPF_FLIP_SHARE * pairs and
+          rec["gaps"][0] <= TPF_TIE_GAP,
+          f"{what}: {rec['flips'][0]} of {pairs} (token, call) pairs routed "
+          f"to the one device's experts in step 1 (limit "
+          f"{TPF_FLIP_SHARE:.0%}), a forced gate up to {rec['gaps'][0]:.3g} "
+          f"below the token's own k-th (limit {TPF_TIE_GAP})")
+    n_attn = cfg.layer_kinds().count("attn")
+    n_ssm = cfg.layer_kinds().count("ssm")
+    worst = tpt_check(what, rec, want, n_attn, truth["truth"])
+    la, steps = rec["launches"], len(rec["ms"])
+    check(la["rmsnorm"] == want["launches"]["rmsnorm"],
+          f"{what}: RMSNorm launches {la['rmsnorm']} != one device's "
+          f"{want['launches']['rmsnorm']}")
+    check(la["rmsnorm_sumsq"] == 2 * n_ssm * steps,
+          f"{what}: split norm partial-sum passes {la['rmsnorm_sumsq']} != "
+          f"{2 * n_ssm} a step")
+    n1 = max(steps - 1, 1)
+    ms = sum(rec["ms"][1:])
+    parts = []
+    for k in ("exchange", "seam", "collective", "kv"):
+        cn = sum(c[0] for c in rec[k][1:])
+        cs = sum(c[1] for c in rec[k][1:])
+        if cn:
+            parts.append(f"{k} {cn / n1:.0f} a step, {cs * 1e3 / n1:.1f} ms "
+                         f"({cs * 1e3 / max(ms, 1e-9) * 100:.1f}%)")
+    print(_tpt_line(what, rec, want, worst, truth["norm"], card)
+          + f"; aux {rec['aux'][0]:.6f} (one device's t-slices "
+          f"{want['aux'][0]:.6f}), ce {rec['ce'][0]:.6f} (one device "
+          f"{want['ce'][0]:.6f}); collectives: " + "; ".join(parts)
+          + f"; the exchange carried "
+          f"{sum(rec['xbytes'][1:]) / n1 / 2 ** 20:.1f} MiB a step; "
+          f"split-norm partial-sum passes {la['rmsnorm_sumsq']}; "
+          f"assignments dropped by step {rec['drops']}; step 1 routed "
+          f"{rec['flips'][0]} of {pairs} (token, call) pairs "
+          f"({rec['flips'][0] / pairs:.2%}) to the one device's experts, a "
+          f"forced gate up to {rec['gaps'][0]:.3g} below the token's own "
+          f"k-th; step 2 unforced")
+    return la
+
+
+def phase_tp_families() -> dict:
+    """Phase 32: tensor-parallel training of the MoE and hybrid families on
+    card 0, ranks over gloo. (A) qwen3-moe-30b-a3b at full width cut to 2
+    of its 48 layers, F+R at TP = 2 (expert parallelism, 64 experts a
+    rank), 2 steps of 4 x 2048, head mode with sp off, then on, then
+    sequence mode, in one spawn. (B) jamba-v0.1-52b at full width cut to 2
+    layers (attention and its dense FFN, a Mamba-2 layer and the 16-expert
+    MoE FFN), F+R at TP = 2 (8 experts and 64 SSD heads a rank), 2 steps
+    of 2 x 2048. Each against the one-device F+R step on the same batches
+    (run first, in this process, and freed before the ranks start), which
+    dispatches each t-slice at its own capacity as a rank does (the
+    training multiplier, 1.0; :func:`tpf_counted`) and whose routes the
+    ranks take in step 1 (:func:`forced_routes`), so both drop the same
+    assignments there (:func:`tpf_check`). Returns the ranks' launches."""
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.models import lm
+    t0 = time.monotonic()
+    card = card_line()
+    total: dict = {}
+    spans = []
+    for name, run in TPF_RUNS.items():
+        t1 = time.monotonic()
+        cfg = tpf_config(name)
+        batches = dp_batches(cfg, TPF_STEPS, run["b"])
+        truth = tpf_truth(name, batches)
+        oracle = tpf_run(None, name, False, "auto", batches)
+        _tpt_wholes([oracle])
+        routes = oracle.pop("routes")
+        own_slice = max(abs(a - oracle["aux"][0]) for a in
+                        oracle["slice_aux"]) / oracle["aux"][0]
+        check(own_slice > TPF_AUX_RTOL, f"{name}: a rank's own t-slice "
+              f"load-balancing loss lies {own_slice:.3g} from the mean, "
+              f"within the limit {TPF_AUX_RTOL}")
+        modes = ([(False, "head"), (True, "head"), (False, "seq")]
+                 if name.startswith("qwen3") else [(False, "head")])
+        print(f"[tp-families] {name} ({cfg.n_layers} of "
+              f"{get_cfg_layers(name)} layers, full width) at TP = "
+              f"{TPF_DEGREE}, capacity multiplier "
+              f"{lm.CAPACITY_MULT['train']} (training's), each t-slice at "
+              f"its own capacity: one device dropped {oracle['drops']} "
+              f"assignments by step; its t-slices' load-balancing losses "
+              f"{', '.join(f'{a:.6f}' for a in oracle['slice_aux'])} "
+              f"(mean {oracle['aux'][0]:.6f}: a slice's own lies up to "
+              f"{own_slice:.3g} from it, limit {TPF_AUX_RTOL}); one device "
+              f"peak "
+              f"{oracle['peak_gib']:.2f} GiB, state at rest "
+              f"{oracle['at_rest']['card'] / 1e9:.3f} GB, "
+              f"{sum(oracle['ms'][1:]) / max(TPF_STEPS - 1, 1):.1f} ms a "
+              f"step after the first; {card}")
+        ranks = spawn_ranks(tpf_rank_runs, TPF_DEGREE, backend="gloo",
+                            args=([(name, sp, mode, batches, routes)
+                                   for sp, mode in modes],))
+        for i, (sp, mode) in enumerate(modes):
+            recs = [rr[i] for rr in ranks]
+            _tpt_wholes(recs)
+            check(sum(r["drops"][0] for r in recs) == oracle["drops"][0],
+                  f"{name} {mode}{' +sp' if sp else ''}: the ranks dropped "
+                  f"{[r['drops'][0] for r in recs]} assignments in step 1, "
+                  f"one device {oracle['drops'][0]}")
+            for r, rec in enumerate(recs):
+                what = (f"{name} F+R{' +sp' if sp else ''} attn_mode="
+                        f"{mode} at TP = {TPF_DEGREE}, rank {r}")
+                check(rec["mode"] == mode, f"{what}: the context is in "
+                      f"{rec['mode']} mode")
+                check(rec["loss_f"] == recs[0]["loss_f"],
+                      f"{what}: losses differ between the ranks")
+                add_counts(total, tpf_check(what, rec, oracle, cfg, truth,
+                                            card, run["b"]))
+        spans.append(f"{name} {time.monotonic() - t1:.1f}s")
+    RMSNORM_RUNS["tensor-parallel families (phase 32)"] = total["rmsnorm"]
+    print(f"[tp-families] phase 32 launches over the ranks' runs: "
+          + ", ".join(f"{k} {v}" for k, v in total.items()) + "; "
+          + ", ".join(spans) + f"; phase 32 took "
+          f"{time.monotonic() - t0:.1f}s")
+    return total
+
+
 def get_cfg_layers(name) -> int:
     from repro_torch.configs import get_config
     return get_config(name).n_layers
@@ -7985,19 +8409,22 @@ def main() -> None:
     mark("phase 30 TP training")
     pipe = phase_pipeline()
     mark("phase 31 pipeline")
+    tpf = phase_tp_families()
+    mark("phase 32 TP training of the MoE and hybrid families")
     fam = families["launches"]
     slice_launches = {
         "flash_attention_fwd": (trained["fwd"] + fam["fwd"] + dp["fwd"]
-                                + ep["fwd"] + tpt["fwd"] + pipe["fwd"]),
+                                + ep["fwd"] + tpt["fwd"] + pipe["fwd"]
+                                + tpf["fwd"]),
         "flash_attention_bwd_dkv": (trained["bwd_dkv"] + fam["bwd_dkv"]
                                     + dp["bwd_dkv"] + ep["bwd_dkv"]
-                                    + tpt["bwd_dkv"]),
+                                    + tpt["bwd_dkv"] + tpf["bwd_dkv"]),
         "flash_attention_bwd_dq": (trained["bwd_dq"] + fam["bwd_dq"]
                                    + dp["bwd_dq"] + ep["bwd_dq"]
-                                   + tpt["bwd_dq"]),
+                                   + tpt["bwd_dq"] + tpf["bwd_dq"]),
         "flash_attention_bwd": (trained["bwd_dkv"] + fam["bwd_dkv"]
                                 + dp["bwd_dkv"] + ep["bwd_dkv"]
-                                + tpt["bwd_dkv"]),
+                                + tpt["bwd_dkv"] + tpf["bwd_dkv"]),
         "int8_matmul": trained["int8_matmul"]}
     for entry in record["kernels"]:
         if entry["name"] == "paged_attention":
@@ -8008,9 +8435,9 @@ def main() -> None:
                                   + tp["ssd"] + ep["ssd"])
         entry["launches"] += slice_launches.get(entry["name"], 0)
         if entry["name"] == "flash_attention_fwd_q_offset":
-            entry["launches"] = tpt["offset_fwd"]
+            entry["launches"] = tpt["offset_fwd"] + tpf["offset_fwd"]
         if entry["name"] == "flash_attention_bwd_q_offset":
-            entry["launches"] = tpt["offset_bwd"]
+            entry["launches"] = tpt["offset_bwd"] + tpf["offset_bwd"]
     print(f"[spec] RMSNorm launches per run: " + ", ".join(
         f"{k} {v}" for k, v in RMSNORM_RUNS.items()))
     train = rms_t["train"]
@@ -8032,7 +8459,7 @@ def main() -> None:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
         "replaces": "src/repro/kernels/rmsnorm.py:24",
-        "launches": tp["sumsq"] + ep["sumsq"],
+        "launches": tp["sumsq"] + ep["sumsq"] + tpf["rmsnorm_sumsq"],
         "max_abs_err": rms_split["max_abs_err"],
         "ms": rms_split["ms"],
         "plain_ms": rms_split["plain_ms"],

@@ -40,6 +40,11 @@ step and is not done.
 analytic gradient in plain torch ops (the reference has no backward
 kernel: XLA differentiates its jnp form). On CPU tensors it is the plain
 version, differentiated by autograd through its ops.
+:func:`rmsnorm_split` is the norm of rows split over a model axis (the
+Mamba-2 gated norm under tensor parallelism) under autograd
+(:class:`_RMSNormSplit`): forward the kernel's two passes around the
+sum of the f32 sums of squares (their plain versions on the CPU),
+backward the analytic gradient with one more f32 sum over the axis.
 """
 from __future__ import annotations
 
@@ -183,6 +188,38 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor,
     if not x.is_cuda:
         return rn.rmsnorm_plain(x, w, eps)
     return _RMSNorm.apply(x.contiguous(), w.contiguous(), eps)
+
+
+class _RMSNormSplit(torch.autograd.Function):
+    """Forward: ``kernels.rmsnorm.rmsnorm_split``'s passes, the row sums
+    of squares summed over the model axis of ``ctx`` (``"seam"``).
+    Backward: ``rmsnorm_split_backward``, each row's ``Σ dy·w·x`` summed
+    the same way, ``dx`` and ``dw`` in f32, rounded once."""
+
+    @staticmethod
+    def forward(fctx, x, w, n: int, ctx, eps: float):
+        out, ss = rn.rmsnorm_split(
+            x, w, n, lambda t: ctx.all_reduce(t, "seam"), eps)
+        fctx.save_for_backward(x, w, ss)
+        fctx.n, fctx.ctx, fctx.eps = n, ctx, eps
+        return out
+
+    @staticmethod
+    def backward(fctx, dy):
+        x, w, ss = fctx.saved_tensors
+        ctx = fctx.ctx
+        dx, dw = rn.rmsnorm_split_backward(
+            x, w, ss, dy, fctx.n, lambda t: ctx.all_reduce(t, "seam"),
+            fctx.eps)
+        return dx, dw, None, None, None
+
+
+def rmsnorm_split(x: torch.Tensor, w: torch.Tensor, n: int, ctx,
+                  eps: float = 1e-5) -> torch.Tensor:
+    """RMSNorm of rows ``n`` wide split over the model axis of ``ctx`` (a
+    ``parallel.sharding.ShardCtx``): ``x (..., D)`` this rank's part,
+    ``w (D,)`` its part of the weight; differentiable in both."""
+    return _RMSNormSplit.apply(x.contiguous(), w.contiguous(), n, ctx, eps)
 
 
 def ssd_inputs(x, B, C, dt, A, chunk: int,

@@ -15,7 +15,10 @@ is also the kernel's oracle on the card. Every launch adds one to
 gated norm under tensor parallelism): the kernel's partial-sum pass
 (``LAUNCHES["rmsnorm_sumsq"]``), the caller's sum over the ranks, then
 the kernel's scale pass (counted as ``rmsnorm``), with the plain
-versions :func:`rmsnorm_sumsq_plain` and :func:`rmsnorm_scaled_plain`.
+versions :func:`rmsnorm_sumsq_plain` and :func:`rmsnorm_scaled_plain`;
+:func:`rmsnorm_split_backward` is its analytic gradient, whose one sum
+over the ranks is each row's ``Σ dy·w·x`` (``kernels.ops.rmsnorm_split``
+carries it under autograd).
 
 The JAX package has no backward kernel (XLA differentiates the jnp
 form); :func:`rmsnorm_backward` is the analytic gradient in plain torch
@@ -239,21 +242,43 @@ def _scaled_cuda(x: torch.Tensor, w: torch.Tensor, ss: torch.Tensor,
 
 
 def rmsnorm_split(x: torch.Tensor, w: torch.Tensor, n: int, all_reduce,
-                  eps: float = 1e-5) -> torch.Tensor:
+                  eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
     """RMSNorm of rows split over ranks: ``x (..., D)`` is this rank's part
     of rows ``n`` wide and ``w (D,)`` its part of the weight. The f32 row
     sums of squares of each part are summed over the ranks by
     ``all_reduce`` (in place), then each rank scales its part by the
     whole row's rsqrt. CUDA tensors launch the kernel's two passes; CPU
-    tensors run their plain versions."""
+    tensors run their plain versions. Returns the normed part and the
+    whole rows' f32 sums of squares ``(..., 1)`` it was scaled by."""
     # repro: allow[JIT-04] dispatch on where the tensor lives (host metadata): the card launches the kernel, host memory runs the plain version
     if x.is_cuda:
         ss = _sumsq_cuda(x)
         all_reduce(ss)
-        return _scaled_cuda(x, w, ss, n, eps)
+        return _scaled_cuda(x, w, ss, n, eps), ss
     ss = rmsnorm_sumsq_plain(x)
     all_reduce(ss)
-    return rmsnorm_scaled_plain(x, w, ss, n, eps)
+    return rmsnorm_scaled_plain(x, w, ss, n, eps), ss
+
+
+def rmsnorm_split_backward(x: torch.Tensor, w: torch.Tensor,
+                           ss: torch.Tensor, dy: torch.Tensor, n: int,
+                           all_reduce, eps: float = 1e-5
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(dx, dw)`` of :func:`rmsnorm_split` on this rank's part for the
+    output gradient ``dy``, from the whole rows' sums of squares ``ss``:
+    with ``r = rsqrt(ss/n + eps)`` and ``g = dy·w``, each row's ``Σ g·x``
+    over the whole row is this rank's f32 partial summed over the ranks
+    by ``all_reduce`` (in place); ``dx = r·g - x·r³·Σ/n`` and ``dw =
+    Σ_rows dy·x·r`` (this rank's channels), in f32, each rounded once to
+    its input's type."""
+    acc = _acc(x.dtype)
+    xf, g = x.to(acc), dy.to(acc)
+    rstd = torch.rsqrt(ss.to(acc) / n + eps)
+    gw = g * w.to(acc)
+    dot = all_reduce(torch.sum(gw * xf, dim=-1, keepdim=True))
+    dx = rstd * gw - xf * (rstd * rstd * rstd) * (dot / n)
+    dw = (g * (xf * rstd)).reshape(-1, x.shape[-1]).sum(dim=0)
+    return dx.to(x.dtype), dw.to(w.dtype)
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor,

@@ -15,18 +15,23 @@ latest committed step there.
 (``launch.mesh.spawn_ranks``; ZeRO stages and offload as the technique
 says), ``--dist-backend`` gloo (the CPU, or ranks sharing a card) or
 nccl (one card per rank); rank 0's lines are printed after the rank
-mapping. ``--model-parallel N`` trains the dense family over a model
-axis of N ranks (Megatron-style tensor parallelism; ``--sp`` adds
-sequence parallelism), alone or beside ``--data-parallel
-M`` (a 2-D mesh of M x N ranks under any ZeRO stage); each rank prints
-its trainable count. ``--attn-mode`` picks the attention's split over
-that axis, the reference's flag of that name: ``head`` (the heads),
-``seq`` (context parallelism: each rank attends with its rows of T
-against the k/v of every rank) or ``auto`` (sequence mode where N does
-not divide the heads). ``Q``, ``Q8`` and LoRA refuse both axes. MoE archs
-(``--arch qwen3-moe-30b-a3b``, ``jamba-v0.1-52b``) train over it with
-one micro-batch a rank, routed with the global batch's statistics, order
-and capacity, as the reference's GSPMD step routes the global batch.
+mapping. ``--model-parallel N`` trains over a model axis of N ranks
+(Megatron-style tensor parallelism; ``--sp`` adds sequence
+parallelism), alone or beside ``--data-parallel M`` (a 2-D mesh of M x
+N ranks under any ZeRO stage), every family but the encoder-decoder one:
+the MoE archs (``--arch qwen3-moe-30b-a3b``, ``dbrx-132b``) with their
+experts split over the axis where N divides them (expert parallelism,
+each rank routing its slice of T at its own capacity), jamba's Mamba-2
+layers on their SSD heads, internvl2's front end as on one device; each
+rank prints its trainable count. ``--attn-mode`` picks the attention's
+split over that axis, the reference's flag of that name: ``head`` (the
+heads), ``seq`` (context parallelism: each rank attends with its rows
+of T against the k/v of every rank) or ``auto`` (sequence mode where N
+does not divide the heads). ``Q``, ``Q8`` and LoRA refuse both axes. MoE archs
+(``--arch qwen3-moe-30b-a3b``, ``jamba-v0.1-52b``) train over a data
+axis with one micro-batch a rank, routed with the global batch's
+statistics, order and capacity, as the reference's GSPMD step routes the
+global batch (under expert parallelism on a 2-D mesh, each shard's own).
 """
 import argparse
 import math
@@ -79,8 +84,8 @@ def main(argv=None):
                     help="ranks on the data axis (ZeRO stages and offload "
                          "as --technique says)")
     ap.add_argument("--model-parallel", type=int, default=1,
-                    help="ranks on the model axis (tensor parallelism of "
-                         "the dense family)")
+                    help="ranks on the model axis (tensor parallelism; "
+                         "expert parallelism on MoE archs)")
     ap.add_argument("--sp", action="store_true",
                     help="sequence parallelism over the model axis")
     ap.add_argument("--attn-mode", default="auto",

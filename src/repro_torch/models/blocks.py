@@ -25,10 +25,16 @@ The MoE FFN takes ``ctx`` too (:func:`moe_apply`): expert parallelism
 by ``ShardCtx.all_to_all``) where the degree divides the experts, else
 the one-device dispatch with the experts cut on their MLP width; over a
 data axis (training) the one-device dispatch routes with the global
-batch's statistics, order and capacity. A training ``ctx`` in the
-reference's sequence mode (``attn_mode="seq"``) runs the attention block
-on the rank's rows of T with the whole attention leaves instead
-(:func:`_attn_seq`).
+batch's statistics, order and capacity, and expert parallelism each
+(data, model) shard's own rows at its own capacity. In training every
+block runs under autograd over a model axis: the exchange, the t-slice
+and its gather carry their cotangents back bit for bit, the experts'
+seams are f and g where they are cut on their MLP width, and the Mamba-2
+block's ``in_proj`` enters through f, its gated norm sums its row
+statistics under autograd and ``out_proj`` leaves through g. A training
+``ctx`` in the reference's sequence mode (``attn_mode="seq"``) runs the
+attention block on the rank's rows of T with the whole attention leaves
+instead (:func:`_attn_seq`).
 
 Cache conventions (decode): attention ``{"k", "v"}`` as (B, S, K, hd)
 (bf16, or the reference's unscaled int8) with the global ``lengths``
@@ -44,7 +50,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.config import ArchConfig
-from repro_torch.kernels import rmsnorm as rn
+from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
 from repro_torch.models.params import spec
 from repro_torch.quant.qtensor import QTensor
@@ -155,7 +161,6 @@ def attn_apply(x, p, cfg: ArchConfig, *, positions, attn_impl: str = "naive",
     q, k, v = _qkv(h, p, cfg, positions, qmm_impl=qmm_impl, ctx=ctx)
     new_cache = None
     if cache is not None:
-        from repro_torch.kernels import ops as kops
         kc, vc = cache["k"], cache["v"]
         slot = torch.clamp(lengths.long(), 0, kc.shape[1] - 1)
         rows = torch.arange(kc.shape[0], device=kc.device)
@@ -332,15 +337,20 @@ def _expert_ffn(xs, wg, wu, wd, ctx=None):
     over its C rows, each product batched over the experts
     (``layers.dense_batched``). The gate chain is real f32 into the down
     projection, rounded once at the end, as ``layers.swiglu``. Under
-    ``ctx`` the weights are this rank's part of the MLP width and the
-    down projection is a row-parallel seam (its f32 partials summed over
-    the model axis, then rounded once, as ``layers.dense_row``)."""
+    ``ctx`` the weights are this rank's part of the MLP width: the
+    dispatch buffer enters through Megatron's f (``ShardCtx.
+    copy_to_model``: in training its cotangent is summed over the model
+    axis) and the down projection is a row-parallel seam (its f32
+    partials summed over the model axis, then rounded once, as
+    ``layers.dense_row``; ``ShardCtx.exit_block``, g in training)."""
+    if ctx is not None:
+        xs = ctx.copy_to_model(xs)
     g = L.dense_batched(xs, wg, out_dtype=torch.float32)
     u = L.dense_batched(xs, wu, out_dtype=torch.float32)
     if ctx is None:
         return L.dense_batched(L.silu(g) * u, wd).to(xs.dtype)
     y = L.dense_batched(L.silu(g) * u, wd, out_dtype=torch.float32)
-    return ctx.all_reduce(y).to(xs.dtype)
+    return ctx.exit_block(y, rows=False).to(xs.dtype)
 
 
 def capacity(n: int, cfg: ArchConfig, capacity_mult: float) -> int:
@@ -460,15 +470,33 @@ def _moe_ep(h, p, cfg: ArchConfig, ctx, capacity_mult: float,
     rows back and combines in f32, rounded once, as the tail of
     :func:`_moe_local`; the ``t`` slices are gathered
     (``ShardCtx.gather_t``), so every rank holds the whole output. The
-    loss is averaged over the model axis (one more all-reduce), unless
-    ``with_aux`` is false (serving drops it)."""
+    loss is averaged over the model axis and the data axes (the
+    reference's ``pmean``, ``ShardCtx.mesh_mean``), unless ``with_aux``
+    is false (serving drops it).
+
+    In training every step of it is differentiable: the exchange's
+    backward is the reverse exchange, the t-slice's (``ShardCtx.
+    slice_t``) the gather of every rank's slice of the cotangent and
+    ``gather_t``'s the rank's rows of it, all bit for bit. Under sequence
+    parallelism ``h`` is already this rank's rows of T, the reference's
+    ``P(dp, model, None)`` slice: they are routed as they are and the
+    rows returned. A (data, model) shard routes its own rows at its own
+    capacity, as the reference's ``shard_map`` does. Training needs the
+    axis to divide T (the reference's replicated input would count each
+    token ``size`` times in the experts' gradients)."""
     wg, wu, wd = _expert_weights(p, h.dtype)
     d, e, k = cfg.d_model, cfg.n_experts, cfg.top_k
     m = ctx.size
     e_loc = e // m
-    t = h.shape[1]
+    rows = ctx.sp                     # h is this rank's rows of T already
+    t = h.shape[1] * (m if rows else 1)
     split_t = t % m == 0 and t > 1
-    hh = h.narrow(1, ctx.rank * (t // m), t // m) if split_t else h
+    # repro: allow[JIT-04] autograd's mode and requires_grad are host metadata of the tensor, not device values
+    if not split_t and torch.is_grad_enabled() and h.requires_grad:
+        raise NotImplementedError(
+            f"expert-parallel training over a model axis of {m} with T={t}, "
+            f"which it does not divide")
+    hh = ctx.slice_t(h) if split_t and not rows else h
     x = hh.reshape(-1, d)
     n = x.shape[0]
     top_w, top_e, aux = _route(x, p["router"], cfg)
@@ -484,10 +512,10 @@ def _moe_ep(h, p, cfg: ArchConfig, ctx, capacity_mult: float,
     back = ctx.all_to_all(ys)
     out = _combine(back.reshape(e * cap, d), slot, keep, top_w, n, k,
                    h.dtype).reshape(hh.shape)
-    if split_t:
+    if split_t and not rows:
         out = ctx.gather_t(out, t)
     if with_aux:
-        aux = ctx.all_reduce(aux.reshape(1).clone())[0] / m
+        aux = ctx.mesh_mean(aux)
     return out, aux
 
 
@@ -505,12 +533,23 @@ def moe_apply(x, p, cfg: ArchConfig, capacity_mult: float = 1.0, ctx=None,
     ``ctx`` divides the experts, else :func:`_moe_local` (on one device;
     under a model axis with the experts cut on their MLP width where the
     degree divides it, or whole; over a data axis on the global batch).
-    Returns (x + y, the load-balancing loss)."""
+    Returns (x + y, the load-balancing loss).
+
+    Under sequence parallelism (training) ``x`` is this rank's rows of
+    T and so is the result: the expert-parallel dispatch routes the rows
+    as they are; the one-device dispatch with the experts cut on their
+    MLP width routes the whole sequence, gathered from the ranks' normed
+    rows (``ShardCtx.leave_rows``), and returns this rank's rows
+    (``ShardCtx.enter_rows``), so the rows' cotangents are gathered
+    whole."""
     h = L.rmsnorm(x, p["ln"], cfg.norm_eps)
     if uses_ep(cfg, ctx):
         y, aux = _moe_ep(h, p, cfg, ctx, capacity_mult, with_aux)
     elif ctx is None:
         y, aux = _moe_local(h, p, cfg, capacity_mult)
+    elif ctx.sp:
+        y, aux = _moe_local(ctx.leave_rows(h), p, cfg, capacity_mult, ctx)
+        y = ctx.enter_rows(y)
     else:
         y, aux = _moe_local(h, p, cfg, capacity_mult, ctx)
     return x + y, aux
@@ -615,14 +654,15 @@ def _gated_norm(y, z, w, cfg: ArchConfig, ctx):
     """The gated RMSNorm ``rmsnorm(y · silu(z))`` over the whole
     ``d_inner``. Where the model axis splits the heads, each rank holds
     its channels: their f32 sum of squares is summed over the model axis
-    before the rsqrt (``kernels.rmsnorm.rmsnorm_split``: the kernel's two
-    passes on the card, their plain versions on the CPU)."""
+    before the rsqrt (``kernels.ops.rmsnorm_split``: the kernel's two
+    passes on the card, their plain versions on the CPU; under autograd
+    its backward sums each row's ``Σ dy·w·x`` over the axis the same
+    way)."""
     g = y * L.silu(z)
     seam = tp_seam(ctx, cfg.n_ssm_heads)
     if seam is None:
         return L.rmsnorm(g, w, cfg.norm_eps)
-    return rn.rmsnorm_split(g.contiguous(), w.contiguous(), cfg.d_inner,
-                            seam.all_reduce, cfg.norm_eps)
+    return kops.rmsnorm_split(g, w, cfg.d_inner, seam, cfg.norm_eps)
 
 
 def _ssm_pre(h, p, cfg: ArchConfig, conv_state=None, capture_tail=False,
@@ -639,15 +679,18 @@ def _ssm_pre(h, p, cfg: ArchConfig, conv_state=None, capture_tail=False,
     The whole pre-pipeline (in_proj output, conv, silu, splits) runs in
     real f32 with no rounding between ops, and the conv history is f32,
     as in the reference. Under ``ctx`` it runs on this rank's heads (its
-    ``in_proj`` columns are z | x | B | C | dt of them, B and C whole)."""
+    ``in_proj`` columns are z | x | B | C | dt of them, B and C whole),
+    the product column-parallel (``layers.dense_column``: in training
+    Megatron's f, or under sequence parallelism the all-gather of T)."""
     lo, hi = ssm_heads(cfg, ctx)
     nh = hi - lo
     di, g, ns = nh * cfg.ssm_headdim, cfg.ssm_ngroups, cfg.ssm_state
-    zxbcdt = L.dense(h, p["in_proj"], out_dtype=torch.float32)
+    zxbcdt, = L.dense_column(h, [p["in_proj"]], tp_seam(
+        ctx, cfg.n_ssm_heads), out_dtype=torch.float32)
     z = zxbcdt[..., :di]
     xbc = zxbcdt[..., di: di + di + 2 * g * ns]
     dt = zxbcdt[..., di + di + 2 * g * ns:]
-    t = h.shape[1]
+    t = zxbcdt.shape[1]
     new_conv_state = None
     if conv_state is not None and t == 1:            # decode: T == 1
         xbc, new_conv_state = _conv_step(conv_state, xbc, p)
@@ -690,7 +733,13 @@ def ssm_apply(x, p, cfg: ArchConfig, *, cache: Optional[Dict] = None,
     ``n_valid`` marking the valid prefix of a right-padded chunk.
     ``ssd_impl`` is ``models.ssd.ssd_chunked``'s ``impl``. Under ``ctx``
     the rank's heads (and its part of the cache) only; ``out_proj`` is
-    row-parallel."""
+    row-parallel. In training under a model axis ``in_proj`` enters
+    through Megatron's f (``layers.dense_column``), the gated norm sums
+    its row statistics over the axis under autograd, and ``out_proj``
+    leaves through g (``ShardCtx.exit_block``); under sequence
+    parallelism ``x`` and the result are this rank's rows of T, entered
+    by the all-gather and left by the reduce-scatter, and the scan runs
+    on the whole sequence."""
     h = L.rmsnorm(x, p["ln"], cfg.norm_eps)
     a_log, d_skip, _ = _head_vecs(p, cfg, ctx)
     a = -torch.exp(a_log.float())                              # (H,)
@@ -716,7 +765,7 @@ def ssm_apply(x, p, cfg: ArchConfig, *, cache: Optional[Dict] = None,
                                      chunk=cfg.ssm_chunk, impl=ssd_impl)
         new_cache = ({"conv": conv_tail, "state": final_state}
                      if return_state else None)
-    b, t = h.shape[0], h.shape[1]
+    b, t = z.shape[0], z.shape[1]
     y = _gated_norm(y.reshape(b, t, z.shape[-1]), z, p["norm"], cfg, ctx)
     # f32 all the way through out_proj, ONE rounding into the residual type
     out = L.dense_row(y, p["out_proj"],

@@ -60,18 +60,24 @@ are gathered, so every rank returns the whole logits. ``init_cache`` and
 Over a data axis (``ctx`` with ``dp_size > 1``) an MoE layer routes with
 the global batch's statistics, order and capacity.
 
-**Training over a model axis** (the dense family; Megatron-style, the
-reference's GSPMD program): ``loss`` and ``backbone`` run each layer on
-the rank's heads and MLP columns, entered through Megatron's f
-(``layers.dense_column``: the products' input cotangent summed over the
-axis in f32, rounded once) and left through g (``ShardCtx.exit_block``).
-Under sequence parallelism (``Technique.sp``) the residual stream holds
-this rank's rows of T (``ShardCtx.own_rows``): the norms run on them,
-each block gathers T on entry and reduce-scatters its row-parallel
-partials on exit.
-Without it the stream is whole on every rank, and only the rank's rows
-of the embedding output carry its gradient, so the ranks' embedding
-gradients add up to the whole (:meth:`LM.model_summed`). The loss is a
+**Training over a model axis** (Megatron-style, the reference's GSPMD
+program; every family but the encoder-decoder one): ``loss`` and
+``backbone`` run each layer on the rank's heads and MLP columns, entered
+through Megatron's f (``layers.dense_column``: the products' input
+cotangent summed over the axis in f32, rounded once) and left through g
+(``ShardCtx.exit_block``). Under sequence parallelism (``Technique.sp``)
+the residual stream holds this rank's rows of T (``ShardCtx.own_rows``):
+the norms run on them, each block gathers T on entry and reduce-scatters
+its row-parallel partials on exit. Without it the stream is whole on
+every rank, and only the rank's rows of the embedded sequence (a vlm's
+patches included) carry its gradient, so the ranks' embedding and
+``frontend_proj`` gradients add up to the whole
+(:meth:`LM.model_summed`). An MoE layer whose experts the axis divides
+runs expert parallelism under autograd (``blocks._moe_ep``: the rank's
+t-slice routed at its own capacity, the exchange's backward the reverse
+exchange); a Mamba-2 layer runs its SSD heads, its gated norm's row
+statistics summed over the axis under autograd
+(``kernels.ops.rmsnorm_split``). The loss is a
 vocab-parallel cross-entropy (:func:`vocab_parallel_ce`): each rank's
 logits block holds its ``V/tp`` columns of the padded vocabulary (the
 untied ``head`` is cut so; the tied ``embed`` stays whole and is sliced
@@ -80,7 +86,8 @@ the sum of exponentials and the label's logit are summed over the axis
 in f32. In sequence mode (``ShardCtx.attn_mode == "seq"``) the
 attention blocks run on the rank's rows of T with the whole attention
 leaves (``blocks._attn_seq``), which :meth:`LM.model_summed` then lists.
-Other families raise under a model axis (ROADMAP queue 1 item 7.10).
+The encoder-decoder family raises under a model axis (ROADMAP queue 1
+item 7.10).
 
 **ZeRO-3.** Training over a data axis (``train.step``) passes ``loss``
 and ``backbone`` a tree whose leaves may be ``parallel.zero.Shard``s,
@@ -490,31 +497,52 @@ class LM:
         """Key paths (``tree_paths``' spelling) of the leaves each rank
         holds whole but whose gradient it computes only in part under a
         model axis on sequences of ``t`` positions, so the step sums them
-        over the axis: the embedding (the rank's rows of the lookup, and
-        for a tied table the rank's vocab slice of the head), the block
-        norms under sequence parallelism (the rank's rows), in head mode
-        wk/wv and their biases where the degree does not divide the KV
-        heads (the heads its q heads read), and in sequence mode every
-        attention leaf where the axis splits T (the rank's rows; where
-        it does not, every rank attends the whole sequence). Empty
-        without a model axis."""
+        over the axis: the embedding and a vlm's ``frontend_proj`` (the
+        rank's rows of the embedded sequence, and for a tied table the
+        rank's vocab slice of the head), the block norms under sequence
+        parallelism (the rank's rows), in head mode wk/wv and their
+        biases where the degree does not divide the KV heads (the heads
+        its q heads read) and Qwen3's per-head q/k norms (applied to the
+        rank's heads), and in sequence mode every attention leaf
+        where the axis splits T (the rank's rows; where it does not,
+        every rank attends the whole sequence); an MoE FFN's ``router``
+        under expert parallelism (the rank's t-slice); a Mamba-2 block's
+        ``a_log``, ``d_skip`` and ``dt_bias`` (replicated, read at the
+        rank's heads) and the B and C runs of ``in_proj``, ``conv_w`` and
+        ``conv_b`` (whole on every rank, read by its heads; the step sums
+        those runs only). Empty without a model axis."""
         if not self._tp():
             return []
         ctx, cfg = self.ctx, self.cfg
         seq = ctx.attn_mode == "seq"
         out = ["embed"]
+        if cfg.frontend != "none":
+            out.append("frontend_proj")
+        blocks = self.param_specs()["blocks"]
         for pos in range(self.period):
             blk = f"blocks/pos{pos}"
-            mix = self.param_specs()["blocks"][f"pos{pos}"]["mix"]
-            if seq and ctx.seq_splits(t):
+            mix = blocks[f"pos{pos}"]["mix"]
+            if self.kinds[pos] == "ssm":
+                out += [f"{blk}/mix/{w}" for w in (
+                    "in_proj", "conv_w", "conv_b", "a_log", "d_skip",
+                    "dt_bias")]
+                if ctx.sp:
+                    out.append(f"{blk}/mix/ln")
+            elif seq and ctx.seq_splits(t):
                 out += [f"{blk}/mix/{w}" for w in mix]
-            elif ctx.sp:
-                out.append(f"{blk}/mix/ln")
+            else:
+                if ctx.sp:
+                    out.append(f"{blk}/mix/ln")
+                if not seq:
+                    out += [f"{blk}/mix/{w}" for w in ("q_norm", "k_norm")
+                            if w in mix]
+                if not seq and not ctx.splits(cfg.n_kv_heads):
+                    out += [f"{blk}/mix/{w}" for w in ("wk", "wv", "bk",
+                                                       "bv") if w in mix]
             if ctx.sp:
                 out.append(f"{blk}/ffn/ln")
-            if not seq and not ctx.splits(cfg.n_kv_heads):
-                out += [f"{blk}/mix/{w}" for w in ("wk", "wv", "bk", "bv")
-                        if w in mix]
+            if self.fkinds[pos] == "moe" and B.uses_ep(cfg, ctx):
+                out.append(f"{blk}/ffn/router")
         return out
 
     def _split_rows(self, x: torch.Tensor) -> torch.Tensor:
@@ -546,7 +574,8 @@ class LM:
                                 attn_impl=self.attn_impl,
                                 qmm_impl=self.qmm_impl, ctx=tp)
         else:
-            x, _ = B.ssm_apply(x, lp["mix"], cfg, ssd_impl=self.ssd_impl)
+            x, _ = B.ssm_apply(x, lp["mix"], cfg, ssd_impl=self.ssd_impl,
+                               ctx=tp)
         if "cross" in lp:
             ckv = B.cross_kv(enc_out, lp["cross"], cfg,
                              qmm_impl=self.qmm_impl)
@@ -563,11 +592,11 @@ class LM:
         the layers in f32, 0 without MoE layers). ``params``' top-level
         leaves are whole (``zero.gather_top``). Over a model axis under
         sequence parallelism the hidden states are this rank's rows."""
-        if self._tp() and self.cfg.family != "dense":
+        if self._tp() and self.cfg.n_enc_layers:
             raise NotImplementedError(
                 f"{self.cfg.name}: training the {self.cfg.family} family "
-                f"over a model axis (expert parallelism's backward first) "
-                f"is not ported: ROADMAP queue 1 item 7.10")
+                f"over a model axis (its cross-attention's seams) is not "
+                f"ported: ROADMAP queue 1 item 7.10")
         if "ssm" in self.kinds and self.ssd_impl != "ref":
             raise NotImplementedError(
                 f"training through ssd_impl={self.ssd_impl!r}: the SSD "

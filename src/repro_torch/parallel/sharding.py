@@ -26,8 +26,10 @@ here explicitly:
   gather of the bytes each rank holds, ``dp_reduce_scatter``, an f32
   all-reduce of which each rank keeps its slice), and the model axis's
   exchange of expert parallelism (``gather_bytes``, the model-axis
-  counterpart of ``dp_gather_bytes``; ``all_to_all`` and ``gather_t``,
-  the token slices along ``t``, built on it), and the attention mode
+  counterpart of ``dp_gather_bytes``; ``all_to_all``, and ``slice_t`` /
+  ``gather_t``, the token slices along ``t``, built on it: under
+  autograd each one's backward is its transpose, bit for bit; the
+  load-balancing loss's ``mesh_mean``), and the attention mode
   (``attn_mode``): ``"head"`` splits the heads over the model axis,
   ``"seq"`` (context parallelism) the sequence, each rank attending
   with its rows of T against the k/v gathered from every rank
@@ -80,6 +82,7 @@ import torch.distributed as dist
 from repro_torch.core.config import ArchConfig, Technique
 from repro_torch.models.params import (ParamSpec, keystr_map,
                                        tree_map_with_path, tree_paths)
+from repro_torch.parallel import zero as Z
 
 Entry = Union[None, str, Tuple[str, ...]]
 Spec = Tuple[Entry, ...]
@@ -290,10 +293,15 @@ class ShardCtx:
         words) buffer, :meth:`gather_bytes` sums the rows, and each rank
         reads its column. The buffer is ``size`` times ``send``: an
         all-to-all built from the one collective gloo offers on CUDA
-        tensors."""
-        m = self.size
-        if m == 1:
+        tensors. Under autograd its backward sends each block of the
+        cotangent back by the same exchange (:class:`_AllToAll`: the
+        exchange is its own transpose), bit for bit."""
+        if self.size == 1:
             return send
+        return _AllToAll.apply(send, self)
+
+    def _exchange(self, send: torch.Tensor) -> torch.Tensor:
+        m = self.size
         words = _words(send).view(m, -1)
         buf = words.new_zeros((m, m, words.shape[1]))
         buf[self.rank] = words
@@ -305,10 +313,36 @@ class ShardCtx:
         ...) of its second axis (rank ``r`` holds ``[r·t/size,
         (r+1)·t/size)``), bit for bit, through :meth:`gather_bytes`: the
         reference's ``_constrain(ctx, y, "hidden")`` after an
-        expert-parallel FFN whose tokens were split along ``t``."""
+        expert-parallel FFN whose tokens were split along ``t``. Under
+        autograd the backward takes this rank's rows of the cotangent,
+        which every rank holds alike (no sum)."""
         if self.size == 1:
             return y
-        return self._gather_rows(y, self.gather_bytes)
+        return _GatherSeq.apply(y, self, True)
+
+    def slice_t(self, h: torch.Tensor) -> torch.Tensor:
+        """This rank's slice ``[r·t/size, (r+1)·t/size)`` of the second
+        axis of ``h`` (B, t, ...), which every rank holds alike: the
+        token slice an expert-parallel FFN routes. Under autograd the
+        backward gathers every rank's slice of the cotangent, bit for bit
+        (through :meth:`gather_bytes`), so the cotangent of ``h`` is whole
+        and alike on every rank; the transpose of :meth:`gather_t`."""
+        if self.size == 1:
+            return h
+        return _SplitSeq.apply(h, self, True)
+
+    def mesh_mean(self, t: torch.Tensor) -> torch.Tensor:
+        """The mean of the scalar ``t`` over the model axis and the data
+        axes (the reference's ``pmean`` over both, of each shard's
+        load-balancing loss): its value on every rank, and as its
+        gradient the ``1/n`` share of this rank's own ``t`` (n ranks in
+        all), so the ranks' gradients sum to the mean's."""
+        n = self.size * self.dp_size
+        tot = t.detach().reshape(1).to(torch.float32, copy=True)
+        self.all_reduce(tot)
+        self.dp_all_reduce(tot)
+        part = t / n
+        return tot[0] / n + (part - part.detach())
 
     def _gather_rows(self, y: torch.Tensor, total) -> torch.Tensor:
         """The whole (B, T, ...) from each rank's rows ``y`` (B, T/size,
@@ -399,19 +433,32 @@ class ShardCtx:
         w = t // self.size
         return self.rank * w, (self.rank + 1) * w
 
-    def exit_block(self, y: torch.Tensor) -> torch.Tensor:
+    def exit_block(self, y: torch.Tensor, rows: bool = True
+                   ) -> torch.Tensor:
         """A row-parallel seam's f32 partials (B, T, ...) summed over the
-        model axis: under ``sp`` reduce-scattered to this rank's rows
-        (backward: the cotangents' all-gather); else Megatron's g under
-        autograd (all-reduce, backward: identity), and the serving
-        path's in-place all-reduce without it."""
+        model axis: under ``sp`` (and ``rows``: ``y``'s second axis is
+        the sequence) reduce-scattered to this rank's rows (backward: the
+        cotangents' all-gather); else Megatron's g under autograd
+        (all-reduce, backward: identity), and the serving path's in-place
+        all-reduce without it."""
         if self.size == 1:
             return y
-        if self.sp:
+        if self.sp and rows:
             return _ScatterSeq.apply(y, self)
+        # repro: allow[JIT-04] autograd's mode and requires_grad are host metadata of the tensor, not device values
         if torch.is_grad_enabled() and y.requires_grad:
             return _ReduceFromModel.apply(y, self)
         return self.all_reduce(y)
+
+    def copy_to_model(self, x: torch.Tensor) -> torch.Tensor:
+        """Megatron's f alone, for inputs that are not a sequence (the
+        experts' dispatch buffer where the model axis cuts their MLP
+        width): forward the identity; under autograd the backward sums
+        the cotangent's f32 partials over the model axis and rounds once
+        to ``x``'s type."""
+        if self.size == 1:
+            return x
+        return _CopyToModel.apply(x, self)
 
     def sum_column_grad(self, g: torch.Tensor, seq: bool) -> torch.Tensor:
         """The f32 partials ``g`` (B, T, ...) of a column-parallel
@@ -541,36 +588,77 @@ class _ReduceFromModel(torch.autograd.Function):
         return g, None
 
 
-class _GatherSeq(torch.autograd.Function):
-    """The whole T from each rank's rows (the final hidden states under
-    sp, a sequence-mode attention block's output), bit for bit; backward
-    takes this rank's rows of the cotangent, whole on every rank (the
-    loss's column-parallel head has already summed it over the axis)."""
+class _AllToAll(torch.autograd.Function):
+    """``ShardCtx.all_to_all`` under autograd: backward, the cotangent's
+    blocks sent back by the same exact exchange (block ``i`` of the
+    cotangent goes to rank ``i``, whose block it was)."""
+
+    @staticmethod
+    def forward(fctx, send, ctx):
+        fctx.ctx = ctx
+        return ctx._exchange(send)
+
+    @staticmethod
+    def backward(fctx, g):
+        return fctx.ctx._exchange(g.contiguous()), None
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Megatron's f: forward identity; backward the cotangent's f32
+    partials summed over the model axis (``"seam"``), rounded once."""
 
     @staticmethod
     def forward(fctx, x, ctx):
         fctx.ctx = ctx
-        return ctx.seq_gather(x)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(fctx, g):
+        return fctx.ctx.all_reduce(g.to(torch.float32, copy=True),
+                                   "seam").to(g.dtype), None
+
+
+def _rows_gather(ctx, y: torch.Tensor, exchange: bool) -> torch.Tensor:
+    """The whole T from each rank's rows ``y``, bit for bit: the
+    expert-parallel exchange's gather (``"exchange"``) or a seam's."""
+    if exchange:
+        return ctx._gather_rows(y, ctx.gather_bytes)
+    return ctx.seq_gather(y)
+
+
+class _GatherSeq(torch.autograd.Function):
+    """The whole T from each rank's rows (the final hidden states under
+    sp, a sequence-mode attention block's output, an expert-parallel
+    FFN's t-slices with ``exchange``), bit for bit; backward takes this
+    rank's rows of the cotangent, whole on every rank (the loss's
+    column-parallel head has already summed it over the axis)."""
+
+    @staticmethod
+    def forward(fctx, x, ctx, exchange=False):
+        fctx.ctx = ctx
+        return _rows_gather(ctx, x, exchange)
 
     @staticmethod
     def backward(fctx, g):
         lo, hi = fctx.ctx.own_rows(g.shape[1])
-        return g[:, lo:hi].contiguous(), None
+        return g[:, lo:hi].contiguous(), None, None
 
 
 class _SplitSeq(torch.autograd.Function):
     """This rank's rows of a sequence every rank holds alike; backward,
-    the cotangent's rows gathered from every rank, bit for bit."""
+    the cotangent's rows gathered from every rank, bit for bit (through
+    the exchange with ``exchange``: an expert-parallel FFN's t-slice)."""
 
     @staticmethod
-    def forward(fctx, x, ctx):
-        fctx.ctx = ctx
+    def forward(fctx, x, ctx, exchange=False):
+        fctx.ctx, fctx.exchange = ctx, exchange
         lo, hi = ctx.own_rows(x.shape[1])
         return x[:, lo:hi].contiguous()
 
     @staticmethod
     def backward(fctx, g):
-        return fctx.ctx.seq_gather(g.contiguous()), None
+        return _rows_gather(fctx.ctx, g.contiguous(), fctx.exchange), None, \
+            None
 
 
 class _SeqKV(torch.autograd.Function):
@@ -861,47 +949,46 @@ def fused_segments(name: str, cfg: ArchConfig, n: int
     return [(n, True)]
 
 
-def _ssm_plan_errors(ctx: ShardCtx, table: Dict[str, tuple],
-                     params) -> List[str]:
-    """SSM leaves whose resolved split disagrees with the head cut: a
-    rank computes z, x, dt, the conv and the norm on whole heads, so
-    each of them is split exactly when the SSD heads divide."""
+def ssm_plan_errors(ctx: ShardCtx) -> List[str]:
+    """SSM leaves of ``ctx.cfg`` whose resolved split disagrees with the
+    head cut: a rank computes z, x, dt, the conv and the norm on whole
+    heads, so each of them is split exactly when the SSD heads
+    divide."""
+    from repro_torch.models.lm import LM
     cfg = ctx.cfg
     heads = ctx._mdl(cfg.n_ssm_heads) is not None if cfg.n_ssm_heads else None
     bad = []
-    for path, leaf in tree_paths(params):
-        logical = table.get(path, ())
-        if "ssm_inner" not in logical:
+    for path, ps in tree_paths(LM(cfg, device="cpu").param_specs(),
+                               is_leaf=lambda x: isinstance(x, ParamSpec)):
+        if "ssm_inner" not in ps.logical:
             continue
-        split = MODEL in resolve_spec(ctx, path, tuple(leaf.shape),
-                                               logical)
+        split = MODEL in resolve_spec(ctx, path, tuple(ps.shape), ps.logical)
         if split != heads:
             bad.append(path)
     return bad
 
 
+def piece_cut(ctx: ShardCtx, path: str, shape, logical: tuple):
+    """The ``parallel.zero.Cut`` the model axis makes of the leaf at
+    ``path`` of ``shape`` (its logical axes ``logical``): along the dim
+    :func:`resolve_spec` names, component by component
+    (:func:`fused_segments`: a fused SSM leaf's B and C runs whole on
+    every rank); ``zero.WHOLE`` where the model axis does not split it."""
+    spec = resolve_spec(ctx, path, tuple(shape), logical)
+    if ctx.size == 1 or MODEL not in spec:
+        return Z.WHOLE
+    return Z.model_cut(ctx, spec, fused_segments(
+        path.rsplit("/", 1)[-1], ctx.cfg, shape[spec.index(MODEL)]))
+
+
 def param_piece(ctx: ShardCtx, path: str, leaf: torch.Tensor,
                 logical: tuple) -> torch.Tensor:
     """This rank's piece of the whole leaf ``leaf`` at ``path`` (its
-    logical axes ``logical``): cut along the dim :func:`resolve_spec`
-    names, component by component (:func:`fused_segments`); the leaf
-    itself where the model axis does not split it. ``leaf`` may be one
-    layer slice of a stacked leaf with its ``layers`` dim kept (size 1):
-    no dim of that axis is ever split."""
-    spec = resolve_spec(ctx, path, tuple(leaf.shape), logical)
-    if ctx.size == 1 or MODEL not in spec:
-        return leaf
-    dim = spec.index(MODEL)
-    pieces, start = [], 0
-    for n, is_cut in fused_segments(path.rsplit("/", 1)[-1], ctx.cfg,
-                                    leaf.shape[dim]):
-        seg = leaf.narrow(dim, start, n)
-        start += n
-        if is_cut:
-            lo, hi = ctx.part(n)
-            seg = seg.narrow(dim, lo, hi - lo)
-        pieces.append(seg)
-    return torch.cat(pieces, dim)
+    logical axes ``logical``), cut by :func:`piece_cut` and copied out;
+    the leaf itself where the model axis does not split it. ``leaf`` may
+    be one layer slice of a stacked leaf with its ``layers`` dim kept
+    (size 1): no dim of that axis is ever split."""
+    return Z.take(leaf, piece_cut(ctx, path, leaf.shape, logical))
 
 
 def shard_params(params, ctx: ShardCtx):
@@ -914,12 +1001,8 @@ def shard_params(params, ctx: ShardCtx):
     specs = dict(tree_paths(LM(ctx.cfg, device="cpu").param_specs(),
                             is_leaf=lambda x: isinstance(x, ParamSpec)))
     table = {p: ps.logical for p, ps in specs.items()}
-    full = tree_map_with_path(
-        lambda p, t: torch.empty(specs[p].shape, device="meta")
-        if isinstance(t, torch.Tensor) else t, params,
-        is_leaf=lambda t: not isinstance(t, dict))
-    bad = _ssm_plan_errors(ctx, table, full)
-    if bad and ctx.size > 1:
+    bad = ssm_plan_errors(ctx) if ctx.size > 1 else []
+    if bad:
         raise NotImplementedError(
             f"{ctx.cfg.name} at tp={ctx.size}: the resolver's split of "
             f"{bad} disagrees with the cut of {ctx.cfg.n_ssm_heads} SSD "

@@ -7,9 +7,12 @@ leaf that the data axes split (:func:`dp_cut`); a rank holds the
 contiguous ``1/parts`` of that dim at its index (:func:`take`), the
 whole leaf where no dim is split. Under a model axis the "leaf" is the
 rank's TP piece (:func:`model_cut`, cut along another dim): the data
-axis's gathers, reductions and ``+O`` act on that piece only. Every piece is a plain tensor of the
-leaf's rank (cut along a dim, never flattened, so weight decay's
-``ndim >= 2`` test reads the leaf's rank).
+axis's gathers, reductions and ``+O`` act on that piece only. A fused
+SSM leaf's TP piece (``in_proj``, ``conv_w``, ``conv_b``:
+``sharding.fused_segments``) is cut segment by segment, its B and C
+segments whole on every rank (``Cut.segs``). Every piece is a plain
+tensor of the leaf's rank (cut along a dim, never flattened, so weight
+decay's ``ndim >= 2`` test reads the leaf's rank).
 
 **Exact gathers.** gloo offers only ``all_reduce`` and ``broadcast`` on
 CUDA tensors, so a gather is an all-reduce: every rank writes the bytes
@@ -58,15 +61,42 @@ class Cut:
     the one that writes it into an exact gather's buffer and counts it in
     a sum over the ranks (where the data axes hold a model axis folded
     in, a dim the model axis does not divide is cut over the data axis
-    alone, and each data column's model ranks hold the same piece)."""
+    alone, and each data column's model ranks hold the same piece).
+    ``segs``: a model cut of a fused axis, its components ``(length,
+    cut)`` in order; each cut one is split ``parts`` ways, each other
+    one whole in every piece (empty: the dim is one cut component)."""
     dim: Optional[int]
     parts: int = 1
     idx: int = 0
     writes: bool = True
+    segs: Tuple[Tuple[int, bool], ...] = ()
 
     def bounds(self, n: int) -> Tuple[int, int]:
         w = n // self.parts
         return self.idx * w, (self.idx + 1) * w
+
+    def ranges(self, n: int) -> List[Tuple[int, int, int, bool]]:
+        """This piece's runs along ``dim`` of a whole of ``n``: ``(lo,
+        hi)`` in the whole, where the run starts in the piece, and
+        whether the run is cut (held by this rank alone) or whole."""
+        if not self.segs:
+            lo, hi = self.bounds(n)
+            return [(lo, hi, 0, True)]
+        out, start, at = [], 0, 0
+        for length, is_cut in self.segs:
+            lo, hi = start, start + length
+            if is_cut:
+                w = length // self.parts
+                lo, hi = start + self.idx * w, start + (self.idx + 1) * w
+            out.append((lo, hi, at, is_cut))
+            start, at = start + length, at + hi - lo
+        return out
+
+    def whole_runs(self) -> List[Tuple[int, int]]:
+        """``(start, length)`` in the piece of the runs every rank holds
+        whole (a fused leaf's B and C segments)."""
+        return [(at, hi - lo) for lo, hi, at, is_cut in
+                self.ranges(sum(n for n, _ in self.segs)) if not is_cut]
 
 
 WHOLE = Cut(None)
@@ -91,13 +121,15 @@ def dp_cut(ctx, spec) -> Cut:
     return cut if writes else dataclasses.replace(cut, writes=False)
 
 
-def model_cut(ctx, spec) -> Cut:
+def model_cut(ctx, spec, segs=()) -> Cut:
     """The :class:`Cut` the model axis makes of a leaf whose spec is
-    ``spec`` (its TP piece: the ZeRO cuts act on that piece); whole
-    without a model axis of more than one rank."""
+    ``spec`` (its TP piece: the ZeRO cuts act on that piece), with the
+    fused components ``segs`` of the cut dim where it has more than one;
+    whole without a model axis of more than one rank."""
     if ctx.model_axis is None or ctx.size == 1 or ctx.model_axis not in spec:
         return WHOLE
-    return Cut(spec.index(ctx.model_axis), ctx.size, ctx.rank)
+    return Cut(spec.index(ctx.model_axis), ctx.size, ctx.rank,
+               segs=tuple(segs) if len(segs) > 1 else ())
 
 
 def take(t: torch.Tensor, cut: Cut) -> torch.Tensor:
@@ -105,14 +137,20 @@ def take(t: torch.Tensor, cut: Cut) -> torch.Tensor:
     (so the whole can be freed)."""
     if cut.dim is None:
         return t
+    if cut.segs:
+        return piece_view(t, cut)
     lo, hi = cut.bounds(t.shape[cut.dim])
     return t.narrow(cut.dim, lo, hi - lo).clone()
 
 
 def piece_view(t: torch.Tensor, cut: Cut) -> torch.Tensor:
-    """The view of this rank's piece of the whole leaf ``t``."""
+    """The view of this rank's piece of the whole leaf ``t`` (a copy,
+    the runs concatenated, where the cut has fused segments)."""
     if cut.dim is None:
         return t
+    if cut.segs:
+        return torch.cat([t.narrow(cut.dim, lo, hi - lo) for lo, hi, _, _
+                          in cut.ranges(t.shape[cut.dim])], cut.dim)
     lo, hi = cut.bounds(t.shape[cut.dim])
     return t.narrow(cut.dim, lo, hi - lo)
 
@@ -121,7 +159,21 @@ def piece_shape(shape, cut: Cut) -> Tuple[int, ...]:
     if cut.dim is None:
         return tuple(shape)
     out = list(shape)
-    out[cut.dim] //= cut.parts
+    if cut.segs:
+        out[cut.dim] = sum(hi - lo for lo, hi, _, _ in
+                           cut.ranges(shape[cut.dim]))
+    else:
+        out[cut.dim] //= cut.parts
+    return tuple(out)
+
+
+def whole_shape(shape, cut: Cut) -> Tuple[int, ...]:
+    """The whole leaf's shape from a piece's ``shape`` under ``cut``."""
+    if cut.dim is None:
+        return tuple(shape)
+    out = list(shape)
+    out[cut.dim] = (sum(n for n, _ in cut.segs) if cut.segs
+                    else out[cut.dim] * cut.parts)
     return tuple(out)
 
 
@@ -149,10 +201,24 @@ def gather_pieces(ctx, items, device, sum_bytes=None) -> List[torch.Tensor]:
         n = math.prod(shape) * _itemsize(dtype)
         whole = raw[off:off + n].view(dtype).view(shape)
         if writes and cut.writes:
-            piece_view(whole, cut).copy_(piece)
+            _write_piece(whole, piece, cut)
         out.append(whole)
     (sum_bytes or ctx.dp_gather_bytes)(buf)
     return out
+
+
+def _write_piece(whole: torch.Tensor, piece: torch.Tensor, cut: Cut) -> None:
+    """Write this rank's ``piece`` into its place in the zero buffer
+    ``whole``: of a fused cut its own runs, and the whole runs on the
+    axis's first rank alone (every rank holds them alike, and the gather
+    sums the buffer)."""
+    if cut.dim is None or not cut.segs:
+        piece_view(whole, cut).copy_(piece)
+        return
+    for lo, hi, at, is_cut in cut.ranges(whole.shape[cut.dim]):
+        if is_cut or cut.idx == 0:
+            whole.narrow(cut.dim, lo, hi - lo).copy_(
+                piece.narrow(cut.dim, at, hi - lo))
 
 
 def _itemsize(dtype: torch.dtype) -> int:

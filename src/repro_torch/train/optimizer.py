@@ -131,22 +131,52 @@ def adamw_apply(cfg: AdamWConfig, grads, opt_state, trainable) -> None:
     for path, g in flat_g:
         m, v, p = flat_m[path], flat_v[path], flat_p[path]
         mw = flat_mw.get(path)
-        gf = g.to(torch.float32)
-        mf = b1 * (_o8_decode(m) if is8(m) else m) + (1 - b1) * gf
-        vf = b2 * (_o8_decode(v) if is8(v) else v) + (1 - b2) * gf * gf
-        for state, new in ((m, mf), (v, vf)):
-            if is8(state):
-                enc = _o8_encode(new)
-                state.q.copy_(enc.q)
-                state.scale.copy_(enc.scale)
-            else:
-                state.copy_(new)
-        mhat = mf / bc1
-        vhat = vf / bc2
-        base = (mw if mw is not None else p).to(torch.float32)
         decay = cfg.weight_decay if p.ndim >= 2 else 0.0
-        new = base - lr * (mhat / (torch.sqrt(vhat) + cfg.eps)
-                           + decay * base)
-        if mw is not None:
-            mw.copy_(new)
-        p.copy_(new.to(p.dtype))
+        for part in _parts((g, m, v, p, mw), is8(m) or is8(v)):
+            _update(*part, b1=b1, b2=b2, bc1=bc1, bc2=bc2, lr=lr,
+                    eps=cfg.eps, decay=decay)
+
+
+# elements a slice of a leaf's update holds at most: the update's f32
+# temporaries then stay small beside the state (an expert stack's leaf
+# of 940M elements would take several 3.8 GB temporaries at once)
+_CHUNK = 1 << 26
+
+
+def _parts(leaves, whole: bool):
+    """``leaves`` (gradient, moments, param, master weights or None, one
+    shape), or slices of them along the first dim longer than 1 with at
+    most ``_CHUNK`` elements each: the update is elementwise, so a slice's
+    is the whole's. 8-bit moments (blocks over the flattened leaf) are
+    updated whole."""
+    g = leaves[0]
+    dims = [i for i, n in enumerate(g.shape) if n > 1]
+    if whole or g.numel() <= _CHUNK or not dims:
+        return [leaves]
+    dim = dims[0]
+    step = max(1, g.shape[dim] * _CHUNK // g.numel())
+    return [tuple(None if t is None else t.narrow(dim, lo, min(
+        step, g.shape[dim] - lo)) for t in leaves)
+        for lo in range(0, g.shape[dim], step)]
+
+
+def _update(g, m, v, p, mw, *, b1, b2, bc1, bc2, lr, eps, decay) -> None:
+    """The AdamW update of one leaf (or slice), in place."""
+    is8 = lambda x: isinstance(x, Opt8)                 # noqa: E731
+    gf = g.to(torch.float32)
+    mf = b1 * (_o8_decode(m) if is8(m) else m) + (1 - b1) * gf
+    vf = b2 * (_o8_decode(v) if is8(v) else v) + (1 - b2) * gf * gf
+    for state, new in ((m, mf), (v, vf)):
+        if is8(state):
+            enc = _o8_encode(new)
+            state.q.copy_(enc.q)
+            state.scale.copy_(enc.scale)
+        else:
+            state.copy_(new)
+    mhat = mf / bc1
+    vhat = vf / bc2
+    base = (mw if mw is not None else p).to(torch.float32)
+    new = base - lr * (mhat / (torch.sqrt(vhat) + eps) + decay * base)
+    if mw is not None:
+        mw.copy_(new)
+    p.copy_(new.to(p.dtype))

@@ -36,23 +36,30 @@ the one-device state's slice. The stages (``build_train_step``):
 * ``+O`` — the sharded moments (and under Z3 the params) live in pinned
   host memory, copied to the card for the step or the update and back.
 
-**Over a model axis** (the dense family: Megatron-style tensor
-parallelism, with ``Technique.sp`` sequence parallelism; alone or beside
-a data axis, a 2-D ``data x model`` mesh) each rank holds its TP piece
-of every leaf the resolver cuts on the model axis, and ZeRO cuts that
-piece over the data axis (:class:`DPLayout`: the TP cut first, then the
-ZeRO overlay's). The model runs the rank's heads and MLP columns (see
-``models.lm``); the leaves each rank holds whole but uses in part
-(``LM.model_summed``) have their gradients summed over the model axis
-once a step, after the data axis's reduction; ``grad_norm`` sums the
-squares of cut leaves over both axes and counts each replicated leaf
-once. In the reference's sequence (context-parallel) attention mode
+**Over a model axis** (Megatron-style tensor parallelism, with
+``Technique.sp`` sequence parallelism; alone or beside a data axis, a
+2-D ``data x model`` mesh; every family but the encoder-decoder one)
+each rank holds its TP piece of every leaf the resolver cuts on the
+model axis (a fused SSM leaf's piece segment by segment, its B and C
+runs whole: ``zero.Cut.segs``), and ZeRO cuts that piece over the data
+axis (:class:`DPLayout`: the TP cut first, then the ZeRO overlay's). The
+model runs the rank's heads, MLP columns, experts (expert parallelism)
+and SSD heads (see ``models.lm``); the leaves each rank holds whole but
+uses in part (``LM.model_summed``; of a fused leaf its whole runs) have
+their gradients summed over the model axis once a step, after the data
+axis's reduction; ``grad_norm`` sums the squares of cut leaves over
+both axes and counts each replicated leaf (and whole run) once. In the
+reference's sequence (context-parallel) attention mode
 (``Technique.attn_mode="seq"``, or ``"auto"`` where the model axis does
 not divide the heads) the attention leaves are whole on every model
 rank, each rank attends with its rows of T, and where the axis splits
 T those leaves are summed over it too (``LM.model_summed`` takes the
-batch's T). Quantized full training, LoRA and every family but the
-dense one raise under a model axis (ROADMAP queue 1 items 7.10, 7.11).
+batch's T). Quantized full training, LoRA and the encoder-decoder
+family raise under a model axis (ROADMAP queue 1 items 7.11, 7.10).
+Under expert parallelism each (data, model) shard routes its own rows
+at its own capacity and the load-balancing loss is the mean of the
+shards' (the reference's ``pmean``), whose gradient
+``LM.loss(aux_grad_scale=dp)`` brings to the global loss's.
 
 One step serves the float techniques on one device and over the mesh's
 axes (:func:`_float_step`; on one device it is the case ``dp = 1`` with
@@ -109,7 +116,8 @@ from repro_torch.models.params import (ParamSpec, keystr_map, keystr_paths,
                                        set_path, tree_map, tree_paths)
 from repro_torch.parallel import zero as Z
 from repro_torch.parallel.sharding import (logical_by_keystr_of,
-                                           make_shard_ctx, state_shardings)
+                                           make_shard_ctx, piece_cut,
+                                           ssm_plan_errors, state_shardings)
 from repro_torch.peft.lora import apply_lora, split_trainable
 from repro_torch.quant.qtensor import (QTensor, quantize_int8,
                                        quantize_nf4, quantize_tree)
@@ -158,20 +166,30 @@ def distributed(ctx) -> bool:
 def check_dp(cfg: ArchConfig, technique: Technique, ctx) -> None:
     """Raise where ``ctx``'s mesh asks for what training across ranks
     cannot do yet, naming the ROADMAP item: under a model axis (the
-    context's, after the folding of ``make_shard_ctx``) every family but
-    the dense one, an MLP width the degree does not divide, quantized
-    full training and LoRA; under a data axis quantized full training,
-    LoRA, and MoE archs with more than one micro-batch."""
+    context's, after the folding of ``make_shard_ctx``) the
+    encoder-decoder family, a dense FFN whose width the degree does not
+    divide, SSM leaves the degree splits otherwise than the SSD heads,
+    quantized full training and LoRA; under a data axis quantized full
+    training, LoRA, and MoE archs with more than one micro-batch."""
     if ctx is None or ctx.mesh is None:
         return
     if ctx.size > 1:
-        if cfg.family != "dense" or cfg.d_ff % ctx.size:
+        if cfg.n_enc_layers:
             raise NotImplementedError(
-                f"{cfg.name} ({cfg.family}, d_ff {cfg.d_ff}) over a model "
-                f"axis of {ctx.size}: tensor-parallel training runs the "
-                f"dense family with its MLP width cut evenly; the other "
-                f"families (expert parallelism's backward first) are "
-                f"ROADMAP queue 1 item 7.10")
+                f"{cfg.name} ({cfg.family}) over a model axis of "
+                f"{ctx.size}: the encoder-decoder family's cross-attention "
+                f"takes no model axis: ROADMAP queue 1 item 7.10")
+        if "dense" in cfg.ffn_kinds() and cfg.d_ff % ctx.size:
+            raise NotImplementedError(
+                f"{cfg.name}: a dense FFN of width {cfg.d_ff} over a model "
+                f"axis of {ctx.size}, which does not divide it (the "
+                f"reference's GSPMD replicates it): ROADMAP queue 1 item "
+                f"7.10")
+        if "ssm" in cfg.layer_kinds() and ssm_plan_errors(ctx):
+            raise NotImplementedError(
+                f"{cfg.name}: the model axis of {ctx.size} splits the SSM "
+                f"leaves {ssm_plan_errors(ctx)} otherwise than its "
+                f"{cfg.n_ssm_heads} SSD heads: ROADMAP queue 1 item 7.10")
         if ctx.attn_mode == "head" and cfg.n_heads % ctx.size:
             raise NotImplementedError(
                 f"{cfg.name}: attn_mode='head' over a model axis of "
@@ -223,8 +241,10 @@ class DPLayout:
         place = {c: dict(keystr_paths(state_shardings(
             ctx, tree, logical, component=c)))
             for c in ("params", "grads", "opt")}
-        self.tp = {p: Z.model_cut(ctx, pl.spec)
-                   for p, pl in place["params"].items()}
+        self.tp = {_keystr(path): piece_cut(ctx, path, ps.shape, ps.logical)
+                   for path, ps in tree_paths(
+                       model.param_specs(),
+                       is_leaf=lambda x: isinstance(x, ParamSpec))}
         self.shapes = {p: Z.piece_shape(t.shape, self.tp[p])
                        for p, t in keystr_paths(tree)}
         self.model = model
@@ -241,9 +261,9 @@ class DPLayout:
 
     def summed(self, t: int):
         """Key strings of the leaves whose gradients the step sums over
-        the model axis on sequences of ``t`` positions."""
-        return ["".join(f"[{k!r}]" for k in path.split("/"))
-                for path in self.model.model_summed(t)]
+        the model axis on sequences of ``t`` positions (of a fused SSM
+        leaf, the runs its TP cut keeps whole: ``Cut.whole_runs``)."""
+        return [_keystr(path) for path in self.model.model_summed(t)]
 
     def state_cut(self, path: str, tp: bool = False) -> Z.Cut:
         """The ZeRO cut of a leaf of the whole train state by its key
@@ -265,6 +285,12 @@ class DPLayout:
         return t.clone() if cut.dim is None else Z.take(t, cut)
 
 
+def _keystr(path: str) -> str:
+    """The key string of the leaf at ``path`` (``blocks/pos0/mix/wq`` ->
+    ``['blocks']['pos0']['mix']['wq']``)."""
+    return "".join(f"[{k!r}]" for k in path.split("/"))
+
+
 def logical_train_state(state, lay: DPLayout, ctx, device):
     """The whole (logical) train state from every rank's part, as host
     tensors: each sharded leaf gathered exactly (collectives every rank
@@ -275,15 +301,12 @@ def logical_train_state(state, lay: DPLayout, ctx, device):
         t = t.detach()
         cut = lay.state_cut(path)
         if cut.dim is not None:
-            shape = list(t.shape)
-            shape[cut.dim] *= cut.parts
-            t = Z.gather_leaf(ctx, t.to(device), shape, cut)
+            t = Z.gather_leaf(ctx, t.to(device), Z.whole_shape(t.shape, cut),
+                              cut)
         tc = lay.state_cut(path, tp=True)
         if tc.dim is not None:
-            shape = list(t.shape)
-            shape[tc.dim] *= tc.parts
-            t = Z.gather_leaf(ctx, t.to(device), shape, tc,
-                              sum_bytes=ctx.gather_bytes)
+            t = Z.gather_leaf(ctx, t.to(device), Z.whole_shape(t.shape, tc),
+                              tc, sum_bytes=ctx.gather_bytes)
         return t.cpu().clone()
 
     return keystr_map(whole, state)
@@ -656,7 +679,7 @@ def _float_step(model: LM, technique: Technique, opt_cfg: AdamWConfig, ctx,
                 ctx.dp_all_reduce(a)
         # used in part on each model rank
         for p in lay.summed(batch["tokens"].shape[1]):
-            ctx.all_reduce(acc[p], "collective")
+            _model_sum(ctx, acc[p], lay.tp[p])
         for a in acc.values():
             a.div_(k)
         norm_sq = torch.zeros((), dtype=f32, device=dev)
@@ -664,7 +687,7 @@ def _float_step(model: LM, technique: Technique, opt_cfg: AdamWConfig, ctx,
             if (stage <= 1 or lay.grad[p].writes) and (
                     ctx.size == 1 or lay.tp[p].dim is not None or
                     ctx.rank == 0):
-                norm_sq = norm_sq + torch.sum(torch.square(a))
+                norm_sq = norm_sq + _sum_sq(a, lay.tp[p], ctx.rank)
         if stage >= 2:
             ctx.dp_all_reduce(norm_sq.reshape(1))
         if ctx.size > 1:
@@ -702,3 +725,26 @@ def _float_step(model: LM, technique: Technique, opt_cfg: AdamWConfig, ctx,
 
     train_step.grad_buffer = acc       # over a data axis, state at rest
     return train_step
+
+
+def _model_sum(ctx, g: torch.Tensor, cut: Z.Cut) -> None:
+    """Sum the gradient piece ``g`` over the model axis in place: all of
+    it, or of a fused SSM leaf the runs its TP ``cut`` keeps whole on
+    every rank."""
+    if not cut.segs:
+        ctx.all_reduce(g, "collective")
+        return
+    for at, n in cut.whole_runs():
+        run = g.narrow(cut.dim, at, n)
+        run.copy_(ctx.all_reduce(run.contiguous(), "collective"))
+
+
+def _sum_sq(g: torch.Tensor, cut: Z.Cut, rank: int) -> torch.Tensor:
+    """The squares of ``g`` this model rank counts in ``grad_norm``: of
+    a fused SSM leaf's piece the runs every rank holds whole on the first
+    rank alone."""
+    if not cut.segs or rank == 0:
+        return torch.sum(torch.square(g))
+    return sum(torch.sum(torch.square(g.narrow(cut.dim, at, hi - lo)))
+               for lo, hi, at, is_cut in cut.ranges(
+                   sum(n for n, _ in cut.segs)) if is_cut)

@@ -649,16 +649,17 @@ def _stand_in(data, model):
     ("qwen1.5-0.5b", "Q8+F+R", (2, 1), "7.8"),
     ("qwen1.5-0.5b", "Q", (2, 1), "7.8"),
     ("qwen1.5-0.5b", "L+F+R", (2, 1), "7.8"),
-    ("qwen3-moe-30b-a3b", "F+R+Z3", (2, 2), "7.10"),
+    ("seamless-m4t-large-v2", "F+R+Z3", (2, 2), "7.10"),
     ("qwen3-moe-30b-a3b", "F+R+Z3:accum2", (2, 1), "7.9"),
     ("qwen1.5-0.5b", "Q8+F+R+Z3", (2, 2), "7.11"),
-    ("jamba-v0.1-52b", "F+R", (1, 2), "7.10"),
+    ("jamba-v0.1-52b", "L+F+R", (1, 2), "7.11"),
 ])
 def test_refusals_name_their_roadmap_items(arch, label, mesh, item):
     """What a data axis cannot train yet raises, naming its item (an MoE
     arch with more than one micro-batch a rank: item 7.9); so does what a
-    model axis cannot (tensor-parallel training runs the dense family in
-    float: other families, item 7.10; quantized weights, item 7.11)."""
+    model axis cannot (tensor-parallel training runs every family but
+    the encoder-decoder one, in float: the encoder-decoder family, item
+    7.10; quantized weights, item 7.11)."""
     label, _, accum = label.partition(":accum")
     tech = dataclasses.replace(technique_from_label(label),
                                grad_accum=int(accum or 1))

@@ -254,8 +254,9 @@ def test_pick_grad_accum_divides_a_ranks_rows():
 def test_mesh_layout_and_two_axes_refused():
     """Global rank d * model + m, as jax.make_mesh((data, model)) lays
     devices out (each model row and data column a group of the mesh).
-    Both axes above 1 now train the dense family (tests/
-    test_torch_tp_train.py); on such a mesh the context keeps the model
+    Both axes above 1 now train every family but the encoder-decoder
+    one (tests/test_torch_tp_train.py, tests/
+    test_torch_tp_train_families.py); on such a mesh the context keeps the model
     axis for TP and the data axis for ZeRO, folds the model axis into the
     data axes without TP (their collectives over every rank), and the
     families and techniques TP training has not reached refuse, naming
@@ -276,8 +277,8 @@ def test_mesh_layout_and_two_axes_refused():
         fold = S.make_shard_ctx(get_config(arch), tech, mesh)
         assert (fold.dp_axes, fold.model_axis, fold.size,
                 fold.dp_size) == (("data", "model"), None, 1, 4)
-    for arch, label, item in (("qwen3-moe-30b-a3b", "F+R", "7.10"),
-                              ("jamba-v0.1-52b", "F+R+Z2", "7.10"),
+    for arch, label, item in (("seamless-m4t-large-v2", "F+R", "7.10"),
+                              ("jamba-v0.1-52b", "Q8+F+R+Z2", "7.11"),
                               ("qwen1.5-0.5b", "L+F+R", "7.11")):
         cfg = get_config(arch)
         tech = technique_from_label(label)
